@@ -1,0 +1,24 @@
+"""xrspatial_torch: the PyTorch / CUDA port of xrspatial_tpu.
+
+The same public functions, DataArray-in and DataArray-out, with the same
+NaN and border rules.  A raster whose tensor lies on an NVIDIA card runs
+through hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at the
+first call; a raster on the CPU runs through the plain torch twins.  The
+package imports torch and never jax.
+
+Only what is ported is exported; ROADMAP.md lists the rest in order.
+"""
+
+from .analytics import summarize_terrain, terrain_pipeline
+from .aspect import aspect
+from .curvature import curvature
+from .focal import focal_stats
+from .hillshade import hillshade
+from .slope import slope
+from .xrlib import DataArray, Dataset
+
+__all__ = ["DataArray", "Dataset", "slope", "aspect", "curvature",
+           "hillshade", "focal_stats", "terrain_pipeline",
+           "summarize_terrain"]
+
+__version__ = "0.1.0"

@@ -1,0 +1,108 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Counterpart of ``xrspatial_tpu/native/__init__.py`` (on-demand g++ +
+ctypes), with no fallback: if ``nvcc`` is missing, or the build or the
+load fails, the caller gets the error.
+
+``csrc/*.cu`` compile with one ``nvcc`` call into one shared library with
+a plain C interface, under ``csrc/_build/`` at the first CUDA call.  The
+library's name carries a hash of the sources and flags, so an edited
+source is rebuilt and a current library is reused.  Several processes may
+build at once (pytest-xdist workers): each writes a temporary file and
+renames it into place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["build", "library", "check", "stream_of"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "_build"
+# no --use_fast_math / -ftz: flushing subnormal gradients and approximate
+# sqrt/division would move the kernels off their torch twins
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home:
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libxrspatial_torch-{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple:
+    """Compile ``csrc/*.cu`` unless a current library exists.
+
+    Returns ``(path, log)``: the library's path and the compiler's output
+    (``-Xptxas -v`` register and spill lines), empty when nothing was
+    compiled.  Raises ``RuntimeError`` if ``nvcc`` fails.
+    """
+    out = _library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+    # every pointer and the stream as c_void_p: without argtypes ctypes
+    # would pass a Python int as a 32-bit int and cut the pointer
+    lib.surface_launch.argtypes = [p, p, p, p, p, i64, i64, i32,
+                                   f32, f32, f32, f32, f32, f32, p]
+    lib.surface_launch.restype = i32
+    lib.focal_launch.argtypes = [p, p, i32, ctypes.POINTER(i32), p,
+                                 i64, i64, p]
+    lib.focal_launch.restype = i32
+    lib.xrt_error_string.argtypes = [i32]
+    lib.xrt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch entry point returned a CUDA error code."""
+    if err != 0:
+        msg = library().xrt_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def stream_of(device) -> int:
+    """Raw handle of PyTorch's current stream on `device`."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,222 @@
+"""3x3 surface stencils: slope / aspect / curvature / hillshade.
+
+Counterpart of ``xrspatial_tpu/kernels/surface.py``.  The functions here
+are the torch twins, the plain versions of the CUDA kernel in
+``cuda_surface.py``: one shared neighbourhood gather feeds per-product
+epilogues, in the same float32 operation order as the JAX package.
+
+Dispatch (``surface_kernels``, ``run_surface_op``): a tensor on the CPU
+goes to the twins, a tensor on the card to the CUDA kernel, at every size.
+The twins are reached on the card only by calling them by name.
+
+Numerical contracts (all float32):
+- slope:   Horn 3x3 gradient, ``atan(|grad z|)*57.29578``;
+- aspect:  compass direction, flat -> -1;
+- curvature: ``-2*(d+e)*100/cellsize^2`` plus-shaped stencil;
+- hillshade: np.gradient-based illumination, ``(shaded+1)/2``, rsqrt form;
+- all products: 1-cell NaN border.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+DEG = 57.29578  # the reference's degree conversion constant
+
+PRODUCTS = ("slope", "aspect", "curvature", "hillshade")
+
+__all__ = [
+    "neighborhood", "slope_from_neighbors", "aspect_from_neighbors",
+    "curvature_from_center", "hillshade_from_gradient", "sun_scalars",
+    "slope", "aspect", "curvature", "hillshade", "surface_multi",
+    "surface_kernels", "run_surface_op", "PRODUCTS",
+]
+
+
+def _f32(value, device) -> torch.Tensor:
+    """A float32 0-d tensor on `device` (the twins' scalar parameters)."""
+    return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
+def neighborhood(data: torch.Tensor):
+    """Return the 9 shifted neighbour views of a 2D tensor.
+
+    Layout: ``a b c`` = row above (y-1), ``d e f`` = center row, ``g h i``
+    = row below (y+1).  Borders are NaN-padded; callers NaN the border ring
+    anyway.
+    """
+    p = F.pad(data, (1, 1, 1, 1), value=math.nan)
+    a = p[:-2, :-2]
+    b = p[:-2, 1:-1]
+    c = p[:-2, 2:]
+    d = p[1:-1, :-2]
+    e = p[1:-1, 1:-1]
+    f = p[1:-1, 2:]
+    g = p[2:, :-2]
+    h = p[2:, 1:-1]
+    i = p[2:, 2:]
+    return a, b, c, d, e, f, g, h, i
+
+
+def _nan_border(out: torch.Tensor) -> torch.Tensor:
+    """NaN the 1-cell ring of a freshly computed output, in place."""
+    out[0, :] = math.nan
+    out[-1, :] = math.nan
+    out[:, 0] = math.nan
+    out[:, -1] = math.nan
+    return out
+
+
+def slope_from_neighbors(nb, cellsize_x, cellsize_y):
+    a, b, c, d, e, f, g, h, i = nb
+    # Horn gradient; dz_dy sign is irrelevant to the magnitude
+    dz_dx = ((c + 2.0 * f + i) - (a + 2.0 * d + g)) / (8.0 * cellsize_x)
+    dz_dy = ((g + 2.0 * h + i) - (a + 2.0 * b + c)) / (8.0 * cellsize_y)
+    p = torch.sqrt(dz_dx * dz_dx + dz_dy * dz_dy)
+    return torch.atan(p) * DEG
+
+
+def aspect_from_neighbors(nb):
+    a, b, c, d, e, f, g, h, i = nb
+    dz_dx = ((c + 2.0 * f + i) - (a + 2.0 * d + g)) / 8.0
+    dz_dy = ((g + 2.0 * h + i) - (a + 2.0 * b + c)) / 8.0
+    angle = torch.atan2(dz_dy, -dz_dx) * (180.0 / math.pi)
+    # convert math angle -> compass direction (0-360, 0 = north)
+    compass = torch.where(angle < 0.0, 90.0 - angle,
+                          torch.where(angle > 90.0, 450.0 - angle,
+                                      90.0 - angle))
+    flat = (dz_dx == 0.0) & (dz_dy == 0.0)
+    return torch.where(flat, -1.0, compass)
+
+
+def curvature_from_center(nb, cellsize):
+    a, b, c, d, e, f, g, h, i = nb
+    dd = (h + b) * 0.5 - e
+    ee = (f + d) * 0.5 - e
+    return -2.0 * (dd + ee) * 100.0 / (cellsize * cellsize)
+
+
+def sun_scalars(azimuth, angle_altitude):
+    """(sin_a, cos_a, sin_p, cos_p) of the sun, from float32 0-d tensors,
+    in the order of the JAX package's ``hillshade_from_gradient``."""
+    azrad = (360.0 - azimuth) * (math.pi / 180.0)
+    altrad = angle_altitude * (math.pi / 180.0)
+    phi = azrad - math.pi / 2.0
+    return torch.sin(altrad), torch.cos(altrad), torch.sin(phi), torch.cos(phi)
+
+
+def hillshade_from_gradient(nb, azimuth, angle_altitude):
+    """The np.gradient formulation, simplified to one rsqrt per cell.
+
+    With L = |grad| and aspect = atan2(-gx, gy):
+      sin(pi/2 - atan L) = 1/sqrt(1+L^2),  cos(pi/2 - atan L) = L/sqrt(1+L^2)
+      cos(phi - aspect)  = (cos(phi)*gy - sin(phi)*gx) / L
+    so  shaded = (sinA + cosA*(cos(phi)*gy - sin(phi)*gx)) * rsqrt(1+L^2).
+    """
+    a, b, c, d, e, f, g, h, i = nb
+    gx = (h - b) * 0.5  # gradient along axis 0 (rows)
+    gy = (f - d) * 0.5  # gradient along axis 1 (cols)
+    sin_a, cos_a, sin_p, cos_p = sun_scalars(azimuth, angle_altitude)
+    shaded = ((sin_a + cos_a * (cos_p * gy - sin_p * gx))
+              * torch.rsqrt(1.0 + gx * gx + gy * gy))
+    return (shaded + 1.0) / 2.0
+
+
+# ---------------------------------------------------------------------------
+# single-product twins (the JAX package's slope_jit ... hillshade_jit)
+# ---------------------------------------------------------------------------
+
+def slope(data, cellsize_x, cellsize_y):
+    data = data.to(torch.float32)
+    out = slope_from_neighbors(neighborhood(data),
+                               _f32(cellsize_x, data.device),
+                               _f32(cellsize_y, data.device))
+    return _nan_border(out)
+
+
+def aspect(data):
+    data = data.to(torch.float32)
+    return _nan_border(aspect_from_neighbors(neighborhood(data)))
+
+
+def curvature(data, cellsize):
+    data = data.to(torch.float32)
+    out = curvature_from_center(neighborhood(data),
+                                _f32(cellsize, data.device))
+    return _nan_border(out)
+
+
+def hillshade(data, azimuth, angle_altitude):
+    data = data.to(torch.float32)
+    out = hillshade_from_gradient(neighborhood(data),
+                                  _f32(azimuth, data.device),
+                                  _f32(angle_altitude, data.device))
+    return _nan_border(out)
+
+
+def surface_multi(data, cellsize_x, cellsize_y, azimuth, angle_altitude,
+                  which=PRODUCTS):
+    """Compute several surface products from one neighbourhood gather."""
+    data = data.to(torch.float32)
+    dev = data.device
+    nb = neighborhood(data)
+    csx = _f32(cellsize_x, dev)
+    csy = _f32(cellsize_y, dev)
+    outs = {}
+    if "slope" in which:
+        outs["slope"] = _nan_border(slope_from_neighbors(nb, csx, csy))
+    if "aspect" in which:
+        outs["aspect"] = _nan_border(aspect_from_neighbors(nb))
+    if "curvature" in which:
+        outs["curvature"] = _nan_border(
+            curvature_from_center(nb, (csx + csy) * 0.5))
+    if "hillshade" in which:
+        outs["hillshade"] = _nan_border(hillshade_from_gradient(
+            nb, _f32(azimuth, dev), _f32(angle_altitude, dev)))
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# dispatch: CPU tensor -> twins, CUDA tensor -> kernel
+# ---------------------------------------------------------------------------
+
+def surface_kernels(data, which, cellsize_x=1.0, cellsize_y=1.0,
+                    azimuth=225.0, angle_altitude=25.0):
+    """The requested surface products as a dict of (H, W) tensors.
+
+    Curvature uses the mean of the two cell sizes, as ``surface_multi``
+    does.
+    """
+    if data.device.type == "cpu":
+        return surface_multi(data, cellsize_x, cellsize_y, azimuth,
+                             angle_altitude, tuple(which))
+    from .cuda_surface import surface_cuda
+    outs = surface_cuda(data, tuple(which), cellsize_x, cellsize_y,
+                        azimuth, angle_altitude)
+    return dict(zip(which, outs))
+
+
+def run_surface_op(name, data, cellsize_x=1.0, cellsize_y=1.0,
+                   azimuth=225.0, angle_altitude=25.0):
+    """Single-product dispatch shared by slope/aspect/curvature/hillshade.
+
+    Curvature uses ``cellsize_x`` alone, as the JAX package's
+    ``curvature_jit`` does.
+    """
+    if name not in PRODUCTS:
+        raise ValueError(f"unknown surface op {name!r}")
+    if data.device.type == "cpu":
+        if name == "slope":
+            return slope(data, cellsize_x, cellsize_y)
+        if name == "aspect":
+            return aspect(data)
+        if name == "curvature":
+            return curvature(data, cellsize_x)
+        return hillshade(data, azimuth, angle_altitude)
+    if name == "curvature":
+        cellsize_y = cellsize_x
+    return surface_kernels(data, (name,), cellsize_x, cellsize_y, azimuth,
+                           angle_altitude)[name]

@@ -14,7 +14,18 @@ Phases, each fatal on failure:
    the call users make; one launch of each kernel, outputs on the card,
    exact NaN ring, full-size agreement with the twins;
 5. timing (informational): warm ``terrain_pipeline`` and each kernel
-   against its twin, from CUDA events.
+   against its twin, from CUDA events;
+6. jump-flood rounds: the CUDA round kernel against its twins over whole
+   stride schedules, at small and ragged shapes, for each state form and
+   metric, with and without a value channel, including a raster with no
+   target: bit for bit, great circle within rtol 1e-4;
+7. proximity path: ``proximity``, ``allocation`` and ``direction`` on the
+   16384^2 DEM's targets (``dem > 900``, about 2% of the cells), the calls
+   users make; exactly 16 round launches per call and no twin call, full-
+   size agreement with the twin path, and exhaustive search on 1024
+   sampled cells;
+8. timing (informational): warm proximity, allocation and direction, and
+   the round kernel's schedule against its twin's, from CUDA events.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -23,6 +34,7 @@ script exits 1 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -37,6 +49,12 @@ FOCAL_TOL = dict(rtol=1e-5, atol=1e-5)
 ALL_STATS = ("mean", "max", "min", "range", "std", "var", "sum")
 PIPELINE_STATS = ("mean", "max", "min", "std")
 PIPELINE_SURFACE = ("slope", "hillshade")
+JFA_SHAPES = ((70, 300), (2, 5), (1025, 2049), (2048, 2048), (1, 1000))
+GC_RTOL = 1e-4      # great circle: libdevice and torch trig differ by ulps
+PROX_TOL = dict(rtol=1e-5, atol=1e-5)
+ROUNDS_AT_N = 16    # 8192 ... 1, then the JFA+2 rounds 2, 1
+BRUTE_CELLS = 1024
+FUNCS = ("proximity", "allocation", "direction")
 
 
 class SmokeFailure(Exception):
@@ -123,6 +141,312 @@ def paired_ms(kernel_fn, plain_fn, reps_kernel, reps_plain):
             cuda_time_ms(kernel_fn, reps_kernel)]
     plain.append(cuda_time_ms(plain_fn, reps_plain))
     return sum(kern) / 2, sum(plain) / 2
+
+
+# -- the jump-flood phases ---------------------------------------------------
+
+def jfa_axes(kind, h, w, rng):
+    """(ys, xs) float32 coordinate vectors of one kind, on the host."""
+    if kind == "affine":          # packed state where both dims exceed 1
+        ys, xs = np.arange(h)[::-1] * 0.5, np.arange(w) * 0.5
+    elif kind == "nonaffine":     # monotone, not affine: coordinate state
+        ys = np.sort(rng.uniform(-50, 50, h))[::-1]
+        xs = np.sort(rng.uniform(-50, 50, w))
+    else:                         # lon/lat, as bench.py's great-circle grid
+        ys, xs = np.linspace(75, -75, h), np.linspace(-170, 170, w)
+    return (np.ascontiguousarray(ys, dtype=np.float32),
+            np.ascontiguousarray(xs, dtype=np.float32))
+
+
+def jfa_initial(form, mask, values, xs, ys):
+    """The round-0 state jump_flood builds, as a list of planes."""
+    import torch
+    from xrspatial_torch.kernels.jfa_rounds import PACK_BITS
+    h, w = mask.shape
+    val = None if values is None else torch.where(mask, values, 0.0)
+    if form == "packed":
+        iy = torch.arange(h, dtype=torch.int32, device=mask.device)[:, None]
+        ix = torch.arange(w, dtype=torch.int32, device=mask.device)[None, :]
+        return [torch.where(mask, (iy << PACK_BITS) | ix, -1), val]
+    return [torch.where(mask, xs[None, :], np.inf),
+            torch.where(mask, ys[:, None], np.inf), val]
+
+
+def jfa_schedule(use_kernel, form, init, xs, ys, metric, steps):
+    """Run jump_flood's whole stride schedule through the round kernel or
+    through its twins; returns the final planes and each cell's key."""
+    from xrspatial_torch.kernels import cuda_jfa, jfa_rounds
+    from xrspatial_torch.kernels.jfa import _stride_schedule
+    h, w = init[0].shape
+    strides = [int(k) for k in _stride_schedule(max(h, w))]
+    if form == "packed":
+        state, val = init
+        best = None
+        for n, k in enumerate(strides):
+            if use_kernel:
+                state, val, best = cuda_jfa.round_packed_cuda(
+                    state, val, k, metric, steps,
+                    emit_best=n == len(strides) - 1)
+            else:
+                state, val, best = jfa_rounds.round_packed(
+                    state, val, k, metric, steps)
+        return {"state": state, "value": val, "best": best}
+    tx, ty, val = init
+    for k in strides:
+        fn = cuda_jfa.round_coords_cuda if use_kernel \
+            else jfa_rounds.round_coords
+        tx, ty, val = fn(tx, ty, val, xs, ys, k, metric)
+    best = jfa_rounds.coords_key(xs[None, :], ys[:, None], tx, ty, metric)
+    return {"tx": tx, "ty": ty, "value": val, "best": best}
+
+
+# (label, metric, axes, value channel): 0 euclidean, 1 great circle,
+# 2 manhattan
+JFA_MODES = (("euclidean", 0, "affine", False),
+             ("euclidean non-affine +values", 0, "nonaffine", True),
+             ("manhattan", 2, "affine", False),
+             ("great circle", 1, "lonlat", False),
+             ("allocation +values", 0, "affine", True))
+
+
+def check_jfa_rounds(dev):
+    """Phase 6: the round kernel against its twins, whole schedules."""
+    import torch
+    from xrspatial_torch.kernels.jfa import _metric_finalize, packed_state_plan
+    print("== jump-flood round kernel vs twins on the card")
+    for si, shape in enumerate(JFA_SHAPES):
+        for layout in (("targets", "none") if si == 0 else ("targets",)):
+            rng = np.random.default_rng(200 + si)
+            mask_np = rng.random(shape) < 0.01
+            mask_np[rng.integers(shape[0]), rng.integers(shape[1])] = True
+            if layout == "none":
+                mask_np[:] = False
+            mask = torch.from_numpy(mask_np).to(dev)
+            values = torch.from_numpy(
+                rng.uniform(1, 9, shape).astype(np.float32)).to(dev)
+            for label, metric, kind, with_val in JFA_MODES:
+                ys_np, xs_np = jfa_axes(kind, *shape, rng)
+                plan = packed_state_plan(xs_np, ys_np, metric)
+                form = "packed" if plan is not None else "coords"
+                xs = torch.from_numpy(xs_np).to(dev)
+                ys = torch.from_numpy(ys_np).to(dev)
+                init = jfa_initial(form, mask, values if with_val else None,
+                                   xs, ys)
+                steps = plan[0] if plan is not None else None
+                got = jfa_schedule(True, form, init, xs, ys, metric, steps)
+                ref = jfa_schedule(False, form, init, xs, ys, metric, steps)
+                torch.cuda.synchronize()
+                name = f"jfa {shape} {layout} {label} ({form})"
+                if metric == 1:
+                    moved = int(((got["tx"] != ref["tx"])
+                                 | (got["ty"] != ref["ty"])).sum())
+                    gd = _metric_finalize(got["best"], metric)
+                    rd = _metric_finalize(ref["best"], metric)
+                    check(f"{name} distance, {moved} cells chose another "
+                          f"target", gd, rd, dict(rtol=GC_RTOL, atol=0.0))
+                    continue
+                for plane, g in got.items():
+                    r = ref[plane]
+                    if (g is None) != (r is None):
+                        raise SmokeFailure(f"{name} {plane}: one side has no "
+                                           f"plane")
+                    if g is not None and not torch.equal(g, r):
+                        n_bad = int((g != r).sum())
+                        raise SmokeFailure(f"{name} {plane}: {n_bad} cells "
+                                           f"differ from the twin")
+                print(f"  {name}: bit for bit")
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def rounds_on(route):
+    """Swap the rounds jump_flood runs for a CUDA tensor: "twin" sends them
+    to the twins (counted in the returned dict), "kernel" leaves them on
+    the kernel and makes any twin call fail."""
+    from xrspatial_torch.kernels import jfa, jfa_rounds
+    saved = (jfa._round_packed, jfa._round_coords, jfa_rounds.round_packed,
+             jfa_rounds.round_coords)
+    calls = {"twin": 0}
+
+    def twin_packed(state, value, k, metric, steps, emit_best):
+        calls["twin"] += 1
+        s, v, best = saved[2](state, value, k, metric, steps)
+        return s, v, best if emit_best else None
+
+    def twin_coords(*args):
+        calls["twin"] += 1
+        return saved[3](*args)
+
+    def refuse(*args, **kwargs):
+        raise SmokeFailure("a twin ran on the kernel path")
+
+    if route == "twin":
+        jfa._round_packed, jfa._round_coords = twin_packed, twin_coords
+    else:
+        jfa_rounds.round_packed = jfa_rounds.round_coords = refuse
+    try:
+        yield calls
+    finally:
+        (jfa._round_packed, jfa._round_coords, jfa_rounds.round_packed,
+         jfa_rounds.round_coords) = saved
+
+
+def brute_force_check(outs, dem, cells, ys, xs):
+    """Exhaustive search on sampled cells, chunked over every target: the
+    distance is the least one within 1e-5, and the allocated value and
+    the direction are those of a target at that distance."""
+    import torch
+    from xrspatial_torch.proximity import _compass_direction
+    tgt = dem > 900
+    t_iy, t_ix = torch.nonzero(tgt, as_tuple=True)
+    t_val = dem[t_iy, t_ix]
+    t_y, t_x = ys[t_iy], xs[t_ix]
+    c_iy, c_ix = cells
+    py, px = ys[c_iy][:, None], xs[c_ix][:, None]
+    n = c_iy.numel()
+    chunk = 1 << 18
+    best = torch.full((n,), np.inf, device=dem.device)
+    for a in range(0, t_y.numel(), chunk):
+        dx = px - t_x[None, a:a + chunk]
+        dy = py - t_y[None, a:a + chunk]
+        best = torch.minimum(best, (dx * dx + dy * dy).min(dim=1).values)
+    prox = outs["proximity"][c_iy, c_ix]
+    err = (prox - torch.sqrt(best)).abs()
+    bad = int((err > PROX_TOL["atol"] + PROX_TOL["rtol"] * prox).sum())
+    print(f"  brute force, {n} cells x {t_y.numel()} targets: proximity "
+          f"max_abs_diff={float(err.max()):.3e} bad_cells={bad}")
+    if bad:
+        raise SmokeFailure(f"proximity differs from exhaustive search at "
+                           f"{bad} sampled cells")
+    # targets within the tolerance of the least distance
+    thr = (torch.sqrt(best) * (1 + PROX_TOL["rtol"]) + PROX_TOL["atol"]) ** 2
+    alloc_ok = torch.zeros(n, dtype=torch.bool, device=dem.device)
+    dir_ok = torch.zeros_like(alloc_ok)
+    alloc = outs["allocation"][c_iy, c_ix]
+    direc = outs["direction"][c_iy, c_ix]
+    for a in range(0, t_y.numel(), chunk):
+        dx = px - t_x[None, a:a + chunk]
+        dy = py - t_y[None, a:a + chunk]
+        ci, tj = torch.nonzero(dx * dx + dy * dy <= thr[:, None],
+                               as_tuple=True)
+        tj = tj + a
+        alloc_ok[ci[t_val[tj] == alloc[ci]]] = True
+        d = _compass_direction(px[ci, 0].double(), t_x[tj].double(),
+                               py[ci, 0].double(), t_y[tj].double())
+        dir_ok[ci[(d - direc[ci]).abs() <= 1e-5 * direc[ci].abs()]] = True
+    for label, ok in (("allocation", alloc_ok), ("direction", dir_ok)):
+        n_bad = int((~ok).sum())
+        print(f"  brute force: {label} bad_cells={n_bad}")
+        if n_bad:
+            raise SmokeFailure(f"{label}: {n_bad} sampled cells hold no "
+                               f"nearest target's value")
+
+
+def proximity_path(dem, dev, card):
+    """Phases 7 and 8: the proximity family at N^2 on the card."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch.kernels import cuda_jfa
+    from xrspatial_torch.kernels.jfa import _stride_schedule, packed_state_plan
+    print(f"== proximity path: {N}x{N}, targets dem > 900")
+    ys_np = np.arange(N, dtype=float)[::-1].copy()
+    xs_np = np.arange(N, dtype=float)
+    coords = {"y": ys_np, "x": xs_np}
+    tgt = (dem > 900).to(torch.float32)
+    inputs = {"proximity": tgt, "allocation": torch.where(dem > 900, dem, 0.0),
+              "direction": tgt}
+    print(f"  {int(tgt.sum())} target cells "
+          f"({float(tgt.mean()) * 100:.2f}%)")
+    aggs = {f: xt.DataArray(v, dims=("y", "x"), coords=coords)
+            for f, v in inputs.items()}
+    outs, launches, first_ms = {}, {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with rounds_on("kernel"):
+        for f, agg in aggs.items():
+            cuda_jfa.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = getattr(xt, f)(agg).data
+            torch.cuda.synchronize()
+            first_ms[f] = (time.perf_counter() - t0) * 1e3
+            launches[f] = cuda_jfa.LAUNCHES
+            if out.device.type != "cuda" or tuple(out.shape) != (N, N) \
+                    or out.dtype != torch.float32:
+                raise SmokeFailure(f"{f}: {tuple(out.shape)} {out.dtype} on "
+                                   f"{out.device}")
+            outs[f] = out
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  launches {launches}, first calls (host clock, ms) "
+          f"{ {k: round(v, 1) for k, v in first_ms.items()} }, peak "
+          f"allocated {peak_gib:.2f} GiB")
+    if any(n != ROUNDS_AT_N for n in launches.values()):
+        raise SmokeFailure(f"expected {ROUNDS_AT_N} round launches per call, "
+                           f"got {launches}")
+    prox, alloc, direc = (outs[f] for f in FUNCS)
+    on_target = tgt != 0
+    if not (bool(torch.isfinite(prox).all()) and bool((prox >= 0).all())
+            and bool((prox[on_target] == 0).all())
+            and bool((prox[~on_target] > 0).all())):
+        raise SmokeFailure("proximity: not finite, negative, or not 0 "
+                           "exactly at the targets")
+    if not (bool((alloc > 900).all()) and bool((alloc <= 1021).all())):
+        raise SmokeFailure("allocation: values outside the targets' range")
+    if not (bool((direc >= 0).all()) and bool((direc <= 360).all())
+            and bool((direc[on_target] == 0).all())):
+        raise SmokeFailure("direction: outside [0, 360] or not 0 at the "
+                           "targets")
+
+    print("  full-size agreement with the twin path")
+    max_err = 0.0
+    with rounds_on("twin") as calls:
+        for f, agg in aggs.items():
+            ref = getattr(xt, f)(agg).data
+            max_err = max(max_err, check(f"{f} kernel vs twin", outs[f], ref,
+                                         dict(rtol=0.0, atol=0.0)))
+            del ref
+    if calls["twin"] != 3 * ROUNDS_AT_N:
+        raise SmokeFailure(f"the twin path ran {calls['twin']} rounds")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    c_iy = torch.randint(0, N, (BRUTE_CELLS,), generator=gen, device=dev)
+    c_ix = torch.randint(0, N, (BRUTE_CELLS,), generator=gen, device=dev)
+    c_iy[:4] = torch.tensor([0, 0, N - 1, N - 1], device=dev)
+    c_ix[:4] = torch.tensor([0, N - 1, 0, N - 1], device=dev)
+    brute_force_check(outs, dem, (c_iy, c_ix),
+                      torch.from_numpy(ys_np.astype(np.float32)).to(dev),
+                      torch.from_numpy(xs_np.astype(np.float32)).to(dev))
+    del outs, prox, alloc, direc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    print(f"== timing: proximity path at {N}x{N} on {card}")
+    ms = {}
+    for f, reps in (("proximity", 5), ("allocation", 3), ("direction", 3)):
+        ms[f] = cuda_time_ms(lambda f=f: getattr(xt, f)(aggs[f]), reps)
+        print(f"  {f} warm: {ms[f]:.3f} ms ({N * N / 1e3 / ms[f]:.1f} "
+              f"Mpix/s), {card}")
+    plan = packed_state_plan(xs_np, ys_np, 0)
+    xs = torch.from_numpy(xs_np.astype(np.float32)).to(dev)
+    ys = torch.from_numpy(ys_np.astype(np.float32)).to(dev)
+    init = jfa_initial("packed", tgt != 0, None, xs, ys)
+    rounds = paired_ms(
+        lambda: jfa_schedule(True, "packed", init, xs, ys, 0, plan[0]),
+        lambda: jfa_schedule(False, "packed", init, xs, ys, 0, plan[0]),
+        5, 1)
+    print(f"  jfa_round, {ROUNDS_AT_N} rounds of one proximity call: kernel "
+          f"{rounds[0]:.3f} ms ({rounds[0] / ROUNDS_AT_N:.3f} ms a round), "
+          f"twin {rounds[1]:.3f} ms, {card}")
+    state = init[0]
+    per_k = []
+    for k in _stride_schedule(N):
+        per_k.append((int(k), cuda_time_ms(
+            lambda k=k: cuda_jfa.round_packed_cuda(state, None, int(k), 0,
+                                                   plan[0]), 3)))
+    print("  jfa_round by stride (ms): "
+          + ", ".join(f"k={k} {t:.3f}" for k, t in per_k) + f", {card}")
+    del init, state, aggs, inputs, tgt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches["proximity"], max_err, rounds
 
 
 def main() -> int:
@@ -274,13 +598,23 @@ def main() -> int:
               f"{card}")
     print(f"  peak allocated by the main-path call: {peak_gib:.2f} GiB, "
           f"{card}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- the proximity family ------------------------------------------------
+    check_jfa_rounds(dev)
+    launches["jfa_round"], max_err["jfa_round"], ms["jfa_round"] = \
+        proximity_path(dem, dev, card)
 
     sources = {"surface_kernel": (
         "xrspatial_torch/csrc/surface.cu",
         "xrspatial_tpu/kernels/pallas_surface2.py:178"),
         "focal_kernel": (
         "xrspatial_torch/csrc/focal.cu",
-        "xrspatial_tpu/kernels/pallas_window2.py:160")}
+        "xrspatial_tpu/kernels/pallas_window2.py:160"),
+        "jfa_round": (
+        "xrspatial_torch/csrc/jfa.cu",
+        "xrspatial_tpu/kernels/pallas_jfa.py:194")}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k],

@@ -10,7 +10,10 @@ the same tests.  On a machine with a card and without jax, run them with
 file imports neither jax nor the JAX package.
 
 Tolerances: surface products rtol 1e-4 / atol 5e-5, focal stats
-rtol 1e-5 / atol 1e-5, NaN masks equal.
+rtol 1e-5 / atol 1e-5, NaN masks equal.  The jump-flood round kernel equals
+its twins bit for bit in every state plane for EUCLIDEAN and MANHATTAN;
+great-circle distances agree within rtol 1e-4 (libdevice and torch trig
+differ by ulps, which may turn a near-tie).
 """
 
 import numpy as np
@@ -19,7 +22,8 @@ import torch
 
 import xrspatial_torch as xt
 from xrspatial_torch.convolution import circle_kernel
-from xrspatial_torch.kernels import cuda_surface, cuda_window
+from xrspatial_torch.kernels import cuda_jfa, cuda_surface, cuda_window, jfa
+from xrspatial_torch.kernels import jfa_rounds
 from xrspatial_torch.kernels.surface import PRODUCTS, surface_multi
 from xrspatial_torch.kernels.window import kernel_offsets, window_stats
 
@@ -145,14 +149,136 @@ def test_public_op_runs_the_kernel(cuda, op):
     assert_matches(got.data, ref.data, SURFACE_TOL, op)
 
 
+# (metric, axes, value channel): 0 euclidean, 1 great circle, 2 manhattan
+JFA_MODES = {
+    "euclidean": (0, "affine", False),
+    "euclidean_nonaffine_values": (0, "nonaffine", True),
+    "manhattan": (2, "affine", False),
+    "great_circle": (1, "lonlat", False),
+    "allocation_values": (0, "affine", True),
+}
+
+
+def jfa_axes(kind, h, w):
+    """(ys, xs) float32 coordinate vectors of one kind."""
+    rng = np.random.default_rng(3)
+    if kind == "affine":
+        ys, xs = np.arange(h)[::-1] * 0.5, np.arange(w) * 0.5
+    elif kind == "nonaffine":
+        ys = np.sort(rng.uniform(-50, 50, h))[::-1]
+        xs = np.sort(rng.uniform(-50, 50, w))
+    else:
+        ys, xs = np.linspace(75, -75, h), np.linspace(-170, 170, w)
+    return (np.ascontiguousarray(ys, dtype=np.float32),
+            np.ascontiguousarray(xs, dtype=np.float32))
+
+
+def jfa_run(rounds_packed, rounds_coords, mask, values, xs, ys, metric):
+    """jump_flood's whole stride schedule, run with the given round
+    functions; returns the final planes and each cell's key."""
+    h, w = mask.shape
+    strides = [int(k) for k in jfa._stride_schedule(max(h, w))]
+    plan = jfa.packed_state_plan(xs.cpu().numpy(), ys.cpu().numpy(), metric)
+    val = None if values is None else torch.where(mask, values, 0.0)
+    if plan is not None:
+        iy = torch.arange(h, dtype=torch.int32, device=mask.device)[:, None]
+        ix = torch.arange(w, dtype=torch.int32, device=mask.device)[None, :]
+        state = torch.where(mask, (iy << 15) | ix, -1)
+        for k in strides:
+            state, val, best = rounds_packed(state, val, k, metric, plan[0])
+        return {"state": state, "value": val, "best": best}
+    tx = torch.where(mask, xs[None, :], np.inf)
+    ty = torch.where(mask, ys[:, None], np.inf)
+    for k in strides:
+        tx, ty, val = rounds_coords(tx, ty, val, xs, ys, k, metric)
+    best = jfa_rounds.coords_key(xs[None, :], ys[:, None], tx, ty, metric)
+    return {"tx": tx, "ty": ty, "value": val, "best": best}
+
+
+def kernel_packed(state, val, k, metric, steps):
+    return cuda_jfa.round_packed_cuda(state, val, k, metric, steps,
+                                      emit_best=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(70, 300), (1, 257), (33, 47), (2, 5)])
+@pytest.mark.parametrize("mode", list(JFA_MODES))
+def test_jfa_round_kernel_matches_twin(cuda, mode, shape):
+    metric, kind, with_val = JFA_MODES[mode]
+    rng = np.random.default_rng(11)
+    mask_np = rng.random(shape) < 0.02
+    mask_np[0, shape[1] // 2] = True
+    mask = torch.from_numpy(mask_np).to(cuda)
+    values = torch.from_numpy(
+        rng.uniform(1, 9, shape).astype(np.float32)).to(cuda)
+    ys, xs = (torch.from_numpy(a).to(cuda) for a in jfa_axes(kind, *shape))
+    args = (mask, values if with_val else None, xs, ys, metric)
+    before = cuda_jfa.LAUNCHES
+    got = jfa_run(kernel_packed, cuda_jfa.round_coords_cuda, *args)
+    torch.cuda.synchronize()
+    assert cuda_jfa.LAUNCHES == before + len(jfa._stride_schedule(max(shape)))
+    ref = jfa_run(jfa_rounds.round_packed, jfa_rounds.round_coords, *args)
+    assert set(got) == set(ref)
+    if metric == 1:
+        d_got = jfa._metric_finalize(got["best"], metric).cpu().numpy()
+        d_ref = jfa._metric_finalize(ref["best"], metric).cpu().numpy()
+        np.testing.assert_allclose(d_got, d_ref, rtol=1e-4)
+        return
+    for plane, g in got.items():
+        r = ref[plane]
+        assert (g is None) == (r is None), plane
+        if g is not None:
+            assert torch.equal(g, r), plane
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("func,metric", [
+    ("proximity", "EUCLIDEAN"), ("allocation", "EUCLIDEAN"),
+    ("direction", "EUCLIDEAN"), ("proximity", "MANHATTAN"),
+    ("allocation", "MANHATTAN"), ("direction", "MANHATTAN"),
+    ("proximity", "GREAT_CIRCLE")])
+def test_proximity_family_runs_the_kernel(cuda, func, metric):
+    """The public functions on a raster on the card: every round on the
+    kernel (MANHATTAN on monotone axes takes the scans instead), results
+    equal to the same call on the CPU up to the last ulp of sqrt and
+    atan2, which the CPU does not round correctly.  Great-circle targets
+    may differ at near-ties, so only its distances are compared."""
+    rng = np.random.default_rng(12)
+    data = np.where(rng.random((50, 70)) < 0.03,
+                    rng.integers(1, 9, (50, 70)), 0).astype(np.float32)
+    ys, xs = jfa_axes("lonlat" if metric == "GREAT_CIRCLE" else "affine",
+                      50, 70)
+    coords = {"y": ys, "x": xs}
+    on_card = xt.DataArray(torch.from_numpy(data).to(cuda), dims=("y", "x"),
+                           coords=coords)
+    on_host = xt.DataArray(data, dims=("y", "x"), coords=coords)
+    before = cuda_jfa.LAUNCHES
+    got = getattr(xt, func)(on_card, distance_metric=metric)
+    torch.cuda.synchronize()
+    rounds = 0 if metric == "MANHATTAN" else len(jfa._stride_schedule(70))
+    assert cuda_jfa.LAUNCHES == before + rounds
+    assert got.data.device.type == "cuda"
+    ref = getattr(xt, func)(on_host, distance_metric=metric)
+    tol = dict(rtol=1e-4) if metric == "GREAT_CIRCLE" else \
+        dict(rtol=1e-6, atol=0)
+    if func == "allocation":
+        tol = dict(rtol=0, atol=0)
+    assert_matches(got.data, ref.data, tol, func)
+
+
 @pytest.mark.parametrize("call", [
     lambda x: cuda_surface.surface_cuda(x, ("slope",)),
     lambda x: cuda_window.focal_stats_cuda(x, ((0, 0), (0, 1)), ("mean",)),
-], ids=["surface_cuda", "focal_stats_cuda"])
+    lambda x: cuda_jfa.round_packed_cuda(x.to(torch.int32), None, 1, 0,
+                                         (1.0, 1.0)),
+    lambda x: cuda_jfa.round_coords_cuda(x, x, None, x[0], x[:, 0], 1, 0),
+], ids=["surface_cuda", "focal_stats_cuda", "round_packed_cuda",
+        "round_coords_cuda"])
 def test_raw_wrappers_refuse_a_cpu_tensor(call):
     """The kernel wrappers never run the twin: a CPU tensor is refused
     before anything is built or launched."""
-    before = (cuda_surface.LAUNCHES, cuda_window.LAUNCHES)
+    before = (cuda_surface.LAUNCHES, cuda_window.LAUNCHES, cuda_jfa.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(torch.ones((4, 5)))
-    assert (cuda_surface.LAUNCHES, cuda_window.LAUNCHES) == before
+    assert (cuda_surface.LAUNCHES, cuda_window.LAUNCHES,
+            cuda_jfa.LAUNCHES) == before

@@ -14,11 +14,13 @@ from .aspect import aspect
 from .curvature import curvature
 from .focal import focal_stats
 from .hillshade import hillshade
+from .proximity import DISTANCE_METRICS, allocation, direction, proximity
 from .slope import slope
 from .xrlib import DataArray, Dataset
 
 __all__ = ["DataArray", "Dataset", "slope", "aspect", "curvature",
            "hillshade", "focal_stats", "terrain_pipeline",
-           "summarize_terrain"]
+           "summarize_terrain", "proximity", "allocation", "direction",
+           "DISTANCE_METRICS"]
 
 __version__ = "0.1.0"

@@ -91,6 +91,12 @@ def library() -> ctypes.CDLL:
     lib.focal_launch.argtypes = [p, p, i32, ctypes.POINTER(i32), p,
                                  i64, i64, p]
     lib.focal_launch.restype = i32
+    lib.jfa_round_packed.argtypes = [p, p, p, p, p, i64, i64, i64, f32, f32,
+                                     i32, p]
+    lib.jfa_round_packed.restype = i32
+    lib.jfa_round_coords.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64,
+                                     i32, p]
+    lib.jfa_round_coords.restype = i32
     lib.xrt_error_string.argtypes = [i32]
     lib.xrt_error_string.restype = ctypes.c_char_p
     return lib

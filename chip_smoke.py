@@ -25,7 +25,21 @@ Phases, each fatal on failure:
    size agreement with the twin path, and exhaustive search on 1024
    sampled cells;
 8. timing (informational): warm proximity, allocation and direction, and
-   the round kernel's schedule against its twin's, from CUDA events.
+   the round kernel's schedule against its twin's, from CUDA events;
+9. halo and pipeline kernels vs twins: the large-footprint focal kernel
+   against ``window_stats`` (annulus 40/38, 1x601, 67x1 and an irregular
+   mask) and the fused pipeline kernel against the split kernels (equal
+   bit for bit) and its twin, at the small shapes and a thin 300x70;
+10. fused path: ``terrain_pipeline`` with ``XRSPATIAL_FUSED_PIPELINE=1``
+   at 16384^2: one pipeline launch and no other, exact NaN ring, equal to
+   the split path at every cell; fused and split timed in turns;
+11. annulus focal path: ``focal_stats`` over the 512-offset annulus at
+   16384^2: one halo launch and no other, agreement with the twin path;
+   the halo kernel, the tiled kernel on the same footprint and the twin
+   timed in turns;
+12. torch-op paths under PyTorch's default TF32 flags: the conv path
+   (1257 offsets), ``convolution_2d``, ``hotspots`` and 2-pass ``mean``
+   on the card against the CPU at 1024^2; the conv path timed at 16384^2.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -55,6 +69,10 @@ PROX_TOL = dict(rtol=1e-5, atol=1e-5)
 ROUNDS_AT_N = 16    # 8192 ... 1, then the JFA+2 rounds 2, 1
 BRUTE_CELLS = 1024
 FUNCS = ("proximity", "allocation", "direction")
+HALO_SHAPES = SMALL_SHAPES + ((300, 70),)
+OPS_N = 1024            # the torch-op paths against the CPU
+OPS_TOL = dict(rtol=1e-5, atol=1e-5)
+Z_THRESHOLDS = (1.65, 1.96, 2.58)
 
 
 class SmokeFailure(Exception):
@@ -103,8 +121,9 @@ def check(name, got, ref, tol, circular=None):
     note = f" wrapped_cells={wrapped}" if circular is not None else ""
     print(f"  {name}: max_abs_diff={err:.3e} bad_cells={n_bad}{note}")
     if n_bad:
+        atol = tol["atol"] if isinstance(tol["atol"], float) else "per cell"
         raise SmokeFailure(f"{name}: {n_bad} cells outside rtol "
-                           f"{tol['rtol']} / atol {tol['atol']}")
+                           f"{tol['rtol']} / atol {atol}")
     return err
 
 
@@ -449,6 +468,364 @@ def proximity_path(dem, dev, card):
     return launches["proximity"], max_err, rounds
 
 
+# -- the halo and pipeline kernels, the fused and annulus paths --------------
+
+def halo_footprints():
+    """The footprints focal_stats sends to the halo kernel on the card."""
+    from xrspatial_torch.convolution import annulus_kernel
+    rng = np.random.default_rng(300)
+    irregular = (rng.random((81, 61)) < 0.15).astype(float)  # ~740 ones
+    irregular[0, 7] = 1                                       # ry = 40
+    return {"annulus_40_38": annulus_kernel(1, 1, 40, 38),
+            "row_1x601": np.ones((1, 601)), "col_67x1": np.ones((67, 1)),
+            "irregular_81x61": irregular}
+
+
+def check_halo_and_pipeline(dev):
+    """Phase 9: the halo kernel and the pipeline kernel against their
+    twins; the pipeline kernel also against the split kernels."""
+    import torch
+    from xrspatial_torch.convolution import circle_kernel
+    from xrspatial_torch.focal import _route
+    from xrspatial_torch.kernels import cuda_pipeline, cuda_surface
+    from xrspatial_torch.kernels import cuda_window
+    from xrspatial_torch.kernels.pipeline import pipeline_multi
+    from xrspatial_torch.kernels.surface import PRODUCTS
+    from xrspatial_torch.kernels.window import kernel_offsets, window_stats
+    print("== halo focal kernel vs twin on the card")
+    feet = {k: kernel_offsets(v) for k, v in halo_footprints().items()}
+    for kname, offsets in feet.items():
+        if len(offsets) > 1024 or _route(offsets) != "halo":
+            raise SmokeFailure(f"{kname}: not a halo-kernel footprint")
+    err = 0.0
+    for k, shape in enumerate(HALO_SHAPES):
+        host = test_raster(shape, seed=400 + k)
+        host[shape[0] // 2, shape[1] // 2] = np.inf
+        host[0, shape[1] - 1] = -np.inf
+        x = torch.from_numpy(host).to(dev)
+        for kname, offsets in feet.items():
+            got = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS)
+            ref = window_stats(x, offsets, ALL_STATS)
+            err = max(err, *(check(f"halo {shape} {kname} {s}", got[i],
+                                   ref[s], FOCAL_TOL)
+                             for i, s in enumerate(ALL_STATS)))
+            del got, ref
+        torch.cuda.synchronize()
+    print("== pipeline kernel vs split kernels and twin on the card")
+    cases = (("slope", "hillshade"), PRODUCTS)
+    split_diff = 0.0
+    for k, shape in enumerate(HALO_SHAPES):
+        x = torch.from_numpy(test_raster(shape, seed=500 + k)).to(dev)
+        for radius in (1.5, 2.5):
+            offsets = kernel_offsets(circle_kernel(1, 1, radius))
+            for which in cases:
+                stats = PIPELINE_STATS if len(which) == 2 else ALL_STATS
+                args = (2.0, 3.0, 225.0, 25.0)
+                got = cuda_pipeline.pipeline_cuda(x, offsets, stats, which,
+                                                  *args)
+                split = (*cuda_surface.surface_cuda(x, which, *args),
+                         cuda_window.focal_stats_cuda(x, offsets, stats))
+                twin = pipeline_multi(x, offsets, stats, which, *args)
+                tag = f"pipeline {shape} r{radius} {len(which)} products"
+                for j, (g, sp, t) in enumerate(zip(got, split, twin)):
+                    label = which[j] if j < len(which) else "focal"
+                    split_diff = max(split_diff, check(
+                        f"{tag} {label} vs split", g, sp,
+                        dict(rtol=0.0, atol=0.0)))
+                    check(f"{tag} {label} vs twin", g, t,
+                          FOCAL_TOL if label == "focal" else SURFACE_TOL,
+                          circular=360.0 if label == "aspect" else None)
+        torch.cuda.synchronize()
+    print(f"  pipeline kernel vs split kernels: largest difference "
+          f"{split_diff:.3e} over every shape and case")
+    return err
+
+
+@contextlib.contextmanager
+def fused_pipeline(on: bool):
+    """XRSPATIAL_FUSED_PIPELINE set to "1" or "0" inside the block."""
+    import os
+    saved = os.environ.get("XRSPATIAL_FUSED_PIPELINE")
+    os.environ["XRSPATIAL_FUSED_PIPELINE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["XRSPATIAL_FUSED_PIPELINE"]
+        else:
+            os.environ["XRSPATIAL_FUSED_PIPELINE"] = saved
+
+
+def reset_launches():
+    from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline
+    from xrspatial_torch.kernels import cuda_surface, cuda_window
+    cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
+    cuda_window.HALO_LAUNCHES = cuda_pipeline.LAUNCHES = 0
+    cuda_jfa.LAUNCHES = 0
+
+
+def read_launches():
+    from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline
+    from xrspatial_torch.kernels import cuda_surface, cuda_window
+    return {"surface_kernel": cuda_surface.LAUNCHES,
+            "focal_kernel": cuda_window.LAUNCHES,
+            "focal_halo_kernel": cuda_window.HALO_LAUNCHES,
+            "pipeline_kernel": cuda_pipeline.LAUNCHES,
+            "jfa_round": cuda_jfa.LAUNCHES}
+
+
+def fused_path(dem, agg, card):
+    """Phase 10: terrain_pipeline's fused branch at N^2 on the card."""
+    import torch
+    from xrspatial_torch import terrain_pipeline
+    from xrspatial_torch.convolution import circle_kernel
+    from xrspatial_torch.kernels.cuda_pipeline import pipeline_cuda
+    from xrspatial_torch.kernels.pipeline import pipeline_multi
+    from xrspatial_torch.kernels.window import kernel_offsets
+    print(f"== fused path: terrain_pipeline with XRSPATIAL_FUSED_PIPELINE=1, "
+          f"{N}x{N}")
+    kw = dict(surface=PIPELINE_SURFACE, stats_funcs=PIPELINE_STATS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with fused_pipeline(True):
+        reset_launches()
+        t0 = time.perf_counter()
+        ds = terrain_pipeline(agg, **kw)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  first call {first_ms:.1f} ms (host clock), launches "
+          f"{launches}, peak allocated {peak_gib:.2f} GiB")
+    if launches != {"surface_kernel": 0, "focal_kernel": 0,
+                    "focal_halo_kernel": 0, "pipeline_kernel": 1,
+                    "jfa_round": 0}:
+        raise SmokeFailure(f"fused path: expected one pipeline launch and "
+                           f"no other, got {launches}")
+    ring = torch.ones((N, N), dtype=torch.bool, device=dem.device)
+    ring[1:-1, 1:-1] = False
+    for p in PIPELINE_SURFACE:
+        t = ds[f"dem-{p}"].data
+        if t.device.type != "cuda" or tuple(t.shape) != (N, N):
+            raise SmokeFailure(f"fused {p}: {tuple(t.shape)} on {t.device}")
+        if not torch.equal(torch.isnan(t), ring):
+            raise SmokeFailure(f"fused {p}: NaN cells are not exactly the "
+                               f"1-cell ring")
+    fs = ds["focal_stats"].data
+    if tuple(fs.shape) != (len(PIPELINE_STATS), N, N) \
+            or not bool(torch.isfinite(fs).all()):
+        raise SmokeFailure(f"fused focal_stats: {tuple(fs.shape)}, or "
+                           f"non-finite values on a finite DEM")
+    del ring
+    print("  full-size agreement with the split path (equality expected)")
+    with fused_pipeline(False):
+        split = terrain_pipeline(agg, **kw)
+    diff = max(check(f"fused vs split {k}", ds[k].data, split[k].data,
+                     SURFACE_TOL if k != "focal_stats" else FOCAL_TOL)
+               for k in (*(f"dem-{p}" for p in PIPELINE_SURFACE),
+                         "focal_stats"))
+    print(f"  fused vs split: largest difference {diff:.3e}"
+          + (" (equal)" if diff == 0.0 else ""))
+    del split
+    print("  full-size agreement with the fused twin")
+    offsets = kernel_offsets(circle_kernel(1, 1, 1.5))
+    twin = pipeline_multi(dem, offsets, PIPELINE_STATS, PIPELINE_SURFACE)
+    max_err = max(check(f"pipeline kernel vs twin {label}", got, ref,
+                        FOCAL_TOL if label == "focal" else SURFACE_TOL)
+                  for label, got, ref in zip(
+                      (*PIPELINE_SURFACE, "focal"),
+                      (*(ds[f"dem-{p}"].data for p in PIPELINE_SURFACE), fs),
+                      twin))
+    del twin, ds, fs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    print(f"== timing: fused path at {N}x{N} on {card}")
+
+    def run(on):
+        with fused_pipeline(on):
+            terrain_pipeline(agg, **kw)
+
+    fused_ms, split_ms = paired_ms(lambda: run(True), lambda: run(False),
+                                   10, 10)
+    print(f"  terrain_pipeline warm, in turns: fused {fused_ms:.3f} ms "
+          f"({N * N / 1e3 / fused_ms:.1f} Mpix/s), split {split_ms:.3f} ms "
+          f"({N * N / 1e3 / split_ms:.1f} Mpix/s), {card}")
+    ms = paired_ms(
+        lambda: pipeline_cuda(dem, offsets, PIPELINE_STATS, PIPELINE_SURFACE),
+        lambda: pipeline_multi(dem, offsets, PIPELINE_STATS,
+                               PIPELINE_SURFACE), 20, 5)
+    print(f"  pipeline_kernel: kernel {ms[0]:.3f} ms, twin {ms[1]:.3f} ms, "
+          f"{card}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches["pipeline_kernel"], max_err, ms
+
+
+def annulus_path(dem, agg, card):
+    """Phase 11: focal_stats over the 512-offset annulus at N^2."""
+    import torch
+    from xrspatial_torch import focal_stats
+    from xrspatial_torch.kernels import cuda_window
+    from xrspatial_torch.kernels.window import kernel_offsets, window_stats
+    kernel = halo_footprints()["annulus_40_38"]
+    offsets = kernel_offsets(kernel)
+    print(f"== annulus focal path: focal_stats, annulus_kernel(1, 1, 40, 38) "
+          f"({len(offsets)} offsets), {N}x{N}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = focal_stats(agg, kernel, list(PIPELINE_STATS)).data
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  first call {first_ms:.1f} ms (host clock), launches "
+          f"{launches}, peak allocated {peak_gib:.2f} GiB")
+    if launches != {"surface_kernel": 0, "focal_kernel": 0,
+                    "focal_halo_kernel": 1, "pipeline_kernel": 0,
+                    "jfa_round": 0}:
+        raise SmokeFailure(f"annulus path: expected one halo launch and no "
+                           f"other, got {launches}")
+    if out.device.type != "cuda" or tuple(out.shape) != (
+            len(PIPELINE_STATS), N, N) or not bool(torch.isfinite(out).all()):
+        raise SmokeFailure(f"annulus focal_stats: {tuple(out.shape)} on "
+                           f"{out.device}, or non-finite values")
+    mean, smax, smin, std = out
+    if not (bool((smin <= mean + 1e-3).all())
+            and bool((mean <= smax + 1e-3).all()) and bool((std >= 0).all())):
+        raise SmokeFailure("annulus stats out of order")
+    del mean, smax, smin, std
+    print("  full-size agreement with the twin path")
+    ref = window_stats(dem, offsets, PIPELINE_STATS)
+    max_err = max(check(f"annulus {s}", out[i], ref[s], FOCAL_TOL)
+                  for i, s in enumerate(PIPELINE_STATS))
+    del ref, out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"== timing: annulus focal path at {N}x{N} on {card}")
+    ms = paired_ms(
+        lambda: cuda_window.focal_stats_halo_cuda(dem, offsets,
+                                                  PIPELINE_STATS),
+        lambda: window_stats(dem, offsets, PIPELINE_STATS), 5, 1)
+    tiled_ms = cuda_time_ms(
+        lambda: cuda_window.focal_stats_cuda(dem, offsets, PIPELINE_STATS), 3)
+    halo_again = cuda_time_ms(
+        lambda: cuda_window.focal_stats_halo_cuda(dem, offsets,
+                                                  PIPELINE_STATS), 5)
+    print(f"  focal_halo_kernel: kernel {ms[0]:.3f} ms (again after the "
+          f"tiled kernel: {halo_again:.3f} ms), tiled focal_kernel by name "
+          f"on the same footprint {tiled_ms:.3f} ms, twin {ms[1]:.3f} ms, "
+          f"{card}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches["focal_halo_kernel"], max_err, ms
+
+
+def torch_op_paths(dev, card):
+    """Phase 12: the torch-op paths on the card against the CPU, under
+    PyTorch's default TF32 flags; the conv path timed at N^2."""
+    import torch
+    import torch.nn.functional as F
+    import xrspatial_torch as xt
+    from xrspatial_torch import focal
+    from xrspatial_torch.convolution import (circle_kernel, convolution_2d,
+                                             convolve_2d)
+    from xrspatial_torch.kernels import window
+    from xrspatial_torch.kernels.window import _conv2d, kernel_offsets
+    cudnn = torch.backends.cudnn
+    flags = (f"cudnn.conv.fp32_precision={cudnn.conv.fp32_precision}"
+             if hasattr(cudnn, "conv") and hasattr(cudnn.conv,
+                                                    "fp32_precision")
+             else f"cudnn.allow_tf32={cudnn.allow_tf32}")
+    print(f"== torch-op paths, card vs CPU at {OPS_N}x{OPS_N}, PyTorch's "
+          f"flags as they are: cudnn.enabled={cudnn.enabled}, {flags}")
+    dem = gaussian_bump(OPS_N, OPS_N, "cpu")
+    dem[100:140, 300:360] = np.nan
+    host = xt.DataArray(dem, dims=("y", "x"), attrs={"res": (1.0, 1.0)})
+    card_agg = xt.DataArray(dem.to(dev), dims=("y", "x"),
+                            attrs={"res": (1.0, 1.0)})
+    big = circle_kernel(1, 1, 20)
+    n_big = len(kernel_offsets(big))
+    stats = ["mean", "sum", "max", "min", "std", "var"]
+    got = xt.focal_stats(card_agg, big, stats).data
+    ref = xt.focal_stats(host, big, stats).data.to(dev)
+    # The conv path centres on c, the raster's nanmean: mean = S/n + c and
+    # sum = S + n*c cancel where a window's mean is near 0, so their rtol
+    # 1e-5 also applies to |c| (and n*|c|); var = Q/n - (S/n)^2 cancels
+    # where the window's mean is far from c, so its rtol 1e-5 applies to
+    # Q/n = (mean - c)^2 + var, and std's to the root of that
+    # (|sqrt(a) - sqrt(b)| <= sqrt(|a - b|)).  S and Q are the centred sum
+    # and sum of squares; min and max are exact.
+    c = float(torch.nanmean(dem))
+    q = (ref[stats.index("mean")] - c) ** 2 + ref[stats.index("var")]
+    tols = {"mean": dict(rtol=1e-5, atol=1e-5 * abs(c)),
+            "sum": dict(rtol=1e-5, atol=1e-5 * abs(c) * n_big),
+            "max": OPS_TOL, "min": OPS_TOL,
+            "var": dict(rtol=1e-5, atol=1e-5 * q),
+            "std": dict(rtol=1e-5, atol=torch.sqrt(1e-5 * q))}
+    print(f"  conv path: global mean c = {c:.3f}")
+    for i, s in enumerate(stats):
+        check(f"conv path ({n_big} offsets) {s}", got[i], ref[i], tols[s])
+    # control: the same check with the port's float32 scope taken out, so
+    # that cuDNN runs under PyTorch's default flags (informational)
+    saved = window._cudnn_full_fp32
+    window._cudnn_full_fp32 = contextlib.nullcontext
+    try:
+        loose = xt.focal_stats(card_agg, big, stats).data
+    finally:
+        window._cudnn_full_fp32 = saved
+    misses = {s: compare(loose[i], ref[i], **tols[s])[0]
+              for i, s in enumerate(stats)}
+    print(f"  control, the port's float32 scope taken out: cells outside the "
+          f"same tolerances {misses} (informational)")
+    del loose
+    weighted = np.outer([1, 4, 6, 4, 1], [1, 4, 6, 4, 1]) / 256.0
+    check("convolution_2d 5x5 weighted", convolution_2d(card_agg,
+                                                         weighted).data,
+          convolution_2d(host, weighted).data.to(dev), OPS_TOL)
+    check("mean, 2 passes", xt.mean(card_agg, passes=2).data,
+          xt.mean(host, passes=2).data.to(dev), OPS_TOL)
+    k1 = circle_kernel(1, 1, 1.5)
+    hot = focal.hotspots(card_agg, k1).data
+    hot_ref = focal.hotspots(host, k1).data
+    # z on the CPU; classes may differ only within 1e-5 of a threshold
+    d = dem.double()
+    conv = convolve_2d(dem, k1 / k1.sum()).double()
+    m = torch.nanmean(d)
+    z = ((conv - m) / torch.sqrt(torch.nanmean((d - m) ** 2))).abs()
+    near = torch.zeros_like(z, dtype=torch.bool)
+    for t in Z_THRESHOLDS:
+        near |= (z - t).abs() <= 1e-5
+    differ = hot.cpu() != hot_ref
+    n_bad = int((differ & ~near).sum())
+    print(f"  hotspots: {int(differ.sum())} cells differ, {int(near.sum())} "
+          f"cells within 1e-5 of a threshold, bad_cells={n_bad}; classes "
+          f"{sorted(int(v) for v in torch.unique(hot_ref))}")
+    if hot.dtype != torch.int8 or n_bad:
+        raise SmokeFailure(f"hotspots: {n_bad} cells in another class than "
+                           f"on the CPU")
+    del got, ref, hot, hot_ref
+    print(f"== timing: conv path at {N}x{N} on {card}")
+    dem_n = gaussian_bump(N, N, dev)
+    agg_n = xt.DataArray(dem_n, dims=("y", "x"), attrs={"res": (1.0, 1.0)})
+    conv_ms = cuda_time_ms(
+        lambda: xt.focal_stats(agg_n, big, list(PIPELINE_STATS)), 2)
+    mask = torch.from_numpy((big == 1).astype(np.float32)).to(dev)
+    padded = F.pad(dem_n, (20, 20, 20, 20))
+    one_conv = cuda_time_ms(lambda: _conv2d(padded, mask), 2)
+    one_pool = cuda_time_ms(lambda: F.max_pool2d(padded[None, None], (1, 41),
+                                                 stride=1), 2)
+    print(f"  focal_stats over circle_kernel(1, 1, 20) ({n_big} offsets, "
+          f"the conv path): {conv_ms:.3f} ms; one 41x41 float32 cuDNN "
+          f"convolution {one_conv:.3f} ms (3 a call), one (1, 41) max pool "
+          f"{one_pool:.3f} ms (82 a call), {card}")
+    del dem_n, agg_n, padded
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -472,8 +849,6 @@ def main() -> int:
     print(f"== device: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{name}, {torch.cuda.device_count()} visible")
     print(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     # -- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -517,8 +892,9 @@ def main() -> int:
     cuda_surface.LAUNCHES = 0
     cuda_window.LAUNCHES = 0
     t0 = time.perf_counter()
-    ds = terrain_pipeline(agg, surface=PIPELINE_SURFACE,
-                          stats_funcs=PIPELINE_STATS)
+    with fused_pipeline(False):
+        ds = terrain_pipeline(agg, surface=PIPELINE_SURFACE,
+                              stats_funcs=PIPELINE_STATS)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {"surface_kernel": cuda_surface.LAUNCHES,
@@ -579,8 +955,9 @@ def main() -> int:
     print(f"== timing at {N}x{N} on {card}")
 
     def pipeline():
-        terrain_pipeline(agg, surface=PIPELINE_SURFACE,
-                         stats_funcs=PIPELINE_STATS)
+        with fused_pipeline(False):
+            terrain_pipeline(agg, surface=PIPELINE_SURFACE,
+                             stats_funcs=PIPELINE_STATS)
 
     pipe_ms = cuda_time_ms(pipeline, 10)
     print(f"  terrain_pipeline warm: {pipe_ms:.3f} ms "
@@ -606,6 +983,16 @@ def main() -> int:
     launches["jfa_round"], max_err["jfa_round"], ms["jfa_round"] = \
         proximity_path(dem, dev, card)
 
+    # -- the halo and pipeline kernels, the fused and annulus paths ----------
+    halo_small_err = check_halo_and_pipeline(dev)
+    launches["pipeline_kernel"], max_err["pipeline_kernel"], \
+        ms["pipeline_kernel"] = fused_path(dem, agg, card)
+    launches["focal_halo_kernel"], max_err["focal_halo_kernel"], \
+        ms["focal_halo_kernel"] = annulus_path(dem, agg, card)
+    max_err["focal_halo_kernel"] = max(max_err["focal_halo_kernel"],
+                                       halo_small_err)
+    torch_op_paths(dev, card)
+
     sources = {"surface_kernel": (
         "xrspatial_torch/csrc/surface.cu",
         "xrspatial_tpu/kernels/pallas_surface2.py:178"),
@@ -614,7 +1001,13 @@ def main() -> int:
         "xrspatial_tpu/kernels/pallas_window2.py:160"),
         "jfa_round": (
         "xrspatial_torch/csrc/jfa.cu",
-        "xrspatial_tpu/kernels/pallas_jfa.py:194")}
+        "xrspatial_tpu/kernels/pallas_jfa.py:194"),
+        "focal_halo_kernel": (
+        "xrspatial_torch/csrc/focal_halo.cu",
+        "xrspatial_tpu/kernels/pallas_window.py:110"),
+        "pipeline_kernel": (
+        "xrspatial_torch/csrc/pipeline.cu",
+        "xrspatial_tpu/kernels/pallas_pipeline.py:82")}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k],

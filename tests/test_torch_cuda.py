@@ -10,7 +10,11 @@ the same tests.  On a machine with a card and without jax, run them with
 file imports neither jax nor the JAX package.
 
 Tolerances: surface products rtol 1e-4 / atol 5e-5, focal stats
-rtol 1e-5 / atol 1e-5, NaN masks equal.  The jump-flood round kernel equals
+rtol 1e-5 / atol 1e-5, NaN masks equal; the fused pipeline kernel equals
+the split kernels bit for bit (the same device code).  The torch-op paths
+(conv-path focal statistics, convolution, mean, hotspots) on the card
+against the same call on the CPU: rtol 1e-5, which a TF32 convolution
+would miss by orders of magnitude.  The jump-flood round kernel equals
 its twins bit for bit in every state plane for EUCLIDEAN and MANHATTAN;
 great-circle distances agree within rtol 1e-4 (libdevice and torch trig
 differ by ulps, which may turn a near-tie).
@@ -21,9 +25,13 @@ import pytest
 import torch
 
 import xrspatial_torch as xt
-from xrspatial_torch.convolution import circle_kernel
-from xrspatial_torch.kernels import cuda_jfa, cuda_surface, cuda_window, jfa
+from xrspatial_torch import focal
+from xrspatial_torch.convolution import (annulus_kernel, circle_kernel,
+                                         convolution_2d)
+from xrspatial_torch.kernels import _cuda, cuda_jfa, cuda_pipeline
+from xrspatial_torch.kernels import cuda_surface, cuda_window, jfa
 from xrspatial_torch.kernels import jfa_rounds
+from xrspatial_torch.kernels.pipeline import pipeline_multi
 from xrspatial_torch.kernels.surface import PRODUCTS, surface_multi
 from xrspatial_torch.kernels.window import kernel_offsets, window_stats
 
@@ -266,19 +274,211 @@ def test_proximity_family_runs_the_kernel(cuda, func, metric):
     assert_matches(got.data, ref.data, tol, func)
 
 
+def halo_footprint(name):
+    """The footprints focal_stats sends to the halo kernel on the card."""
+    if name == "annulus_40_38":
+        return annulus_kernel(1, 1, 40, 38)     # 512 offsets, ry = 40
+    if name == "row_601":
+        return np.ones((1, 601))                # rx = 300
+    if name == "col_67":
+        return np.ones((67, 1))                 # ry = 33
+    if name == "ends_1x1025":                   # rx = 512: read from global
+        k = np.zeros((1, 1025))
+        k[0, [0, 300, 512, 1024]] = 1
+        return k
+    rng = np.random.default_rng(5)              # irregular, ry = 40
+    k = (rng.random((81, 61)) < 0.15).astype(float)
+    k[0, 7] = 1
+    return k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(90, 700), (2, 5), (1, 1000), (300, 70)])
+@pytest.mark.parametrize("kname", ["annulus_40_38", "row_601", "col_67",
+                                   "irregular", "ends_1x1025"])
+def test_focal_halo_kernel_matches_twin(cuda, kname, shape):
+    rng = np.random.default_rng(23)
+    data = (rng.random(shape) * 50).astype(np.float32)
+    data[shape[0] // 3:shape[0] // 2 + 1, shape[1] // 4:shape[1] // 3] = np.nan
+    data[-1, -1] = np.inf
+    data[0, shape[1] // 2] = -np.inf
+    x = torch.from_numpy(data).to(cuda)
+    offsets = kernel_offsets(halo_footprint(kname))
+    assert len(offsets) <= 1024 and focal._route(offsets) == "halo"
+    before = cuda_window.HALO_LAUNCHES
+    got = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS)
+    torch.cuda.synchronize()
+    assert cuda_window.HALO_LAUNCHES == before + 1
+    ref = window_stats(x, offsets, ALL_STATS)
+    for i, s in enumerate(ALL_STATS):
+        assert_matches(got[i], ref[s], FOCAL_TOL, s)
+
+
+@pytest.mark.gpu
+def test_focal_halo_kernel_opts_in_to_more_shared_memory(cuda):
+    """Called by name on a 1x2001 row (2001 offsets, rx = 1000): the offset
+    table and the ring need 49.7 KB of shared memory, past the default
+    48 KB.  Compared with the unrolled twin, which window_stats would not
+    take above 1024 offsets."""
+    from xrspatial_torch.kernels.window import _window_stats_unrolled
+    rng = np.random.default_rng(31)
+    data = (rng.random((9, 2500)) * 50).astype(np.float32)
+    data[3, 100:400] = np.nan
+    x = torch.from_numpy(data).to(cuda)
+    offsets = kernel_offsets(np.ones((1, 2001)))
+    got = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS)
+    torch.cuda.synchronize()
+    ref = _window_stats_unrolled(x, offsets, ALL_STATS)
+    for i, s in enumerate(ALL_STATS):
+        assert_matches(got[i], ref[s], FOCAL_TOL, s)
+
+
+@pytest.mark.gpu
+def test_focal_stats_sends_the_annulus_to_the_halo_kernel(cuda):
+    data = focal_raster(with_inf=True)
+    kernel = halo_footprint("annulus_40_38")
+    stats = ["mean", "max", "min", "std"]
+    on_card = xt.DataArray(torch.from_numpy(data).to(cuda), dims=("y", "x"))
+    before = (cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES)
+    got = xt.focal_stats(on_card, kernel, stats)
+    torch.cuda.synchronize()
+    assert (cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES) == (
+        before[0], before[1] + 1)
+    ref = xt.focal_stats(xt.DataArray(data, dims=("y", "x")), kernel, stats)
+    assert_matches(got.data, ref.data, FOCAL_TOL)
+
+
+PIPELINE_CASES = {
+    "main_path": (("slope", "hillshade"), ("mean", "max", "min", "std"), 1.5),
+    "all_r2": (PRODUCTS, ALL_STATS, 2.5),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(PIPELINE_CASES))
+@pytest.mark.parametrize("shape", [(70, 300), (2, 5), (1, 1000), (257, 389)])
+def test_pipeline_kernel_matches_split_kernels_and_twin(cuda, shape, case):
+    which, stats, radius = PIPELINE_CASES[case]
+    rng = np.random.default_rng(29)
+    data = (rng.random(shape) * 100).astype(np.float32)
+    data[shape[0] // 2, :shape[1] // 3] = np.nan
+    x = torch.from_numpy(data).to(cuda)
+    offsets = kernel_offsets(circle_kernel(1, 1, radius))
+    args = (2.0, 3.0, 300.0, 40.0)
+    before = cuda_pipeline.LAUNCHES
+    got = cuda_pipeline.pipeline_cuda(x, offsets, stats, which, *args)
+    torch.cuda.synchronize()
+    assert cuda_pipeline.LAUNCHES == before + 1
+    split = (*cuda_surface.surface_cuda(x, which, *args),
+             cuda_window.focal_stats_cuda(x, offsets, stats))
+    twin = pipeline_multi(x, offsets, stats, which, *args)
+    assert len(got) == len(split) == len(twin) == len(which) + 1
+    for k, (g, s, t) in enumerate(zip(got, split, twin)):
+        assert torch.equal(torch.isnan(g), torch.isnan(s))
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(s)), k
+        tol = FOCAL_TOL if k == len(which) else SURFACE_TOL
+        assert_matches(g, t, tol, str(k))
+
+
+@pytest.mark.gpu
+def test_fused_terrain_pipeline_launches_only_the_pipeline_kernel(
+        cuda, monkeypatch):
+    monkeypatch.setenv("XRSPATIAL_FUSED_PIPELINE", "1")
+    data, _ = surface_case("patches_70x300")
+    attrs = {"res": (2.0, 3.0)}
+    on_card = xt.DataArray(torch.from_numpy(data).to(cuda), dims=("y", "x"),
+                           name="dem", attrs=attrs)
+    before = (cuda_pipeline.LAUNCHES, cuda_surface.LAUNCHES,
+              cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES)
+    got = xt.terrain_pipeline(on_card)
+    torch.cuda.synchronize()
+    assert (cuda_pipeline.LAUNCHES, cuda_surface.LAUNCHES,
+            cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES) == (
+        before[0] + 1, *before[1:])
+    monkeypatch.setenv("XRSPATIAL_FUSED_PIPELINE", "0")
+    split = xt.terrain_pipeline(on_card)
+    assert list(got.data_vars) == list(split.data_vars)
+    for k in ("dem-slope", "dem-hillshade", "focal_stats"):
+        assert got[k].data.device.type == "cuda", k
+        assert torch.equal(torch.nan_to_num(got[k].data),
+                           torch.nan_to_num(split[k].data)), k
+
+
+def host_and_card(data, cuda):
+    return (xt.DataArray(data, dims=("y", "x"), attrs={"res": (1.0, 1.0)}),
+            xt.DataArray(torch.from_numpy(data).to(cuda), dims=("y", "x"),
+                         attrs={"res": (1.0, 1.0)}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["conv_path", "convolution_2d", "mean",
+                                "hotspots"])
+def test_torch_op_paths_on_the_card_match_the_cpu(cuda, op):
+    """PyTorch's default TF32 flags stay as they are: the port's own scope
+    keeps cuDNN convolutions in float32."""
+    rng = np.random.default_rng(37)
+    data = (rng.random((96, 128)) * 100).astype(np.float32)
+    data[40:44, 60:70] = np.nan
+    host, card = host_and_card(data, cuda)
+    if op == "conv_path":
+        kernel = circle_kernel(1, 1, 20)
+        stats = ["mean", "sum", "max", "min"]
+        got = xt.focal_stats(card, kernel, stats).data
+        ref = xt.focal_stats(host, kernel, stats).data
+        assert_matches(got, ref, dict(rtol=1e-5, atol=1e-4))
+    elif op == "convolution_2d":
+        kernel = np.outer([1, 4, 6, 4, 1], [1, 4, 6, 4, 1]) / 256.0
+        assert_matches(convolution_2d(card, kernel).data,
+                       convolution_2d(host, kernel).data,
+                       dict(rtol=1e-5, atol=1e-5))
+    elif op == "mean":
+        assert_matches(xt.mean(card, passes=2).data,
+                       xt.mean(host, passes=2).data,
+                       dict(rtol=1e-12, atol=0))
+    else:
+        got = focal.hotspots(card, circle_kernel(1, 1, 1.5)).data
+        ref = focal.hotspots(host, circle_kernel(1, 1, 1.5)).data
+        assert got.dtype == torch.int8 and got.device.type == "cuda"
+        assert torch.equal(got.cpu(), ref)
+
+
+def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
+    """Editing a csrc/*.cuh header, which the kernels share, renames the
+    library, so a stale build is never loaded."""
+    for src in list(_cuda.CSRC.glob("*.cu")) + list(_cuda.CSRC.glob("*.cuh")):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    first = _cuda._library_path()
+    assert first.name.startswith("libxrspatial_torch-")
+    assert _cuda._library_path() == first
+    header = tmp_path / "focal_cell.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _cuda._library_path() != first
+    assert [p.name for p in _cuda._sources()] == sorted(
+        p.name for p in tmp_path.glob("*.cu"))
+
+
 @pytest.mark.parametrize("call", [
     lambda x: cuda_surface.surface_cuda(x, ("slope",)),
     lambda x: cuda_window.focal_stats_cuda(x, ((0, 0), (0, 1)), ("mean",)),
+    lambda x: cuda_window.focal_stats_halo_cuda(x, ((0, 0), (0, 300)),
+                                                ("mean",)),
+    lambda x: cuda_pipeline.pipeline_cuda(x, ((0, 0),), ("mean",),
+                                          ("slope",)),
     lambda x: cuda_jfa.round_packed_cuda(x.to(torch.int32), None, 1, 0,
                                          (1.0, 1.0)),
     lambda x: cuda_jfa.round_coords_cuda(x, x, None, x[0], x[:, 0], 1, 0),
 ], ids=["surface_cuda", "focal_stats_cuda", "round_packed_cuda",
-        "round_coords_cuda"])
+        "round_coords_cuda", "focal_stats_halo_cuda", "pipeline_cuda"])
 def test_raw_wrappers_refuse_a_cpu_tensor(call):
     """The kernel wrappers never run the twin: a CPU tensor is refused
     before anything is built or launched."""
-    before = (cuda_surface.LAUNCHES, cuda_window.LAUNCHES, cuda_jfa.LAUNCHES)
+    def counts():
+        return (cuda_surface.LAUNCHES, cuda_window.LAUNCHES,
+                cuda_window.HALO_LAUNCHES, cuda_pipeline.LAUNCHES,
+                cuda_jfa.LAUNCHES)
+
+    before = counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(torch.ones((4, 5)))
-    assert (cuda_surface.LAUNCHES, cuda_window.LAUNCHES,
-            cuda_jfa.LAUNCHES) == before
+    assert counts() == before

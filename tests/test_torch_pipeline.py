@@ -3,8 +3,10 @@
 ``terrain_pipeline`` and ``summarize_terrain`` on one numpy DEM through
 both packages: the same variables, dims, coords, attrs and values (surface
 products at rtol 1e-4 / atol 5e-5, focal stats at rtol 1e-5 / atol 1e-5,
-NaN masks equal).  Also the data model the slice rests on, and the rule
-that the port never imports jax or the JAX package.
+NaN masks equal).  The fused branch (``XRSPATIAL_FUSED_PIPELINE=1``) is
+held to the JAX package's fused kernel ``pipeline_tiled``, run in
+interpret mode, at the same tolerances.  Also the data model the slice
+rests on, and the rule that the port never imports jax or the JAX package.
 """
 
 import ast
@@ -16,6 +18,9 @@ import torch
 
 import xrspatial_torch as xt
 import xrspatial_tpu.analytics as janalytics
+from xrspatial_torch.convolution import circle_kernel
+from xrspatial_torch.kernels import pipeline as tpipeline
+from xrspatial_torch.kernels.window import kernel_offsets
 from xrspatial_torch.utils import dataarray_from, to_torch
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
 
@@ -118,6 +123,110 @@ def test_argument_errors_match_jax(dem, call):
     with pytest.raises(type(ref.value)) as got:
         call(xt, ta)
     assert str(got.value) == str(ref.value)
+
+
+# -- the fused branch (XRSPATIAL_FUSED_PIPELINE=1) -----------------------------
+
+_twin = tpipeline.pipeline_multi
+
+
+def _refuse(*args):
+    raise AssertionError("the fused twin ran")
+
+
+def fused_raster():
+    """The 70x300 NaN-patch raster of the JAX package's fused-kernel test."""
+    rng = np.random.default_rng(11)
+    data = rng.random((70, 300)).astype(np.float32) * 100
+    data[20:23, 120:140] = np.nan
+    data[31:33, 40] = np.nan  # on the th=32 seam
+    return data
+
+
+@pytest.mark.parametrize("which,stats,radius", [
+    (("slope", "hillshade"), ("mean", "max", "min", "std"), 1.5),
+    (("slope", "aspect", "curvature", "hillshade"),
+     ("mean", "max", "min", "range", "std", "var", "sum"), 2.5),
+], ids=["main_path", "all_products_r2"])
+def test_fused_branch_matches_jax_pipeline_tiled(monkeypatch, which, stats,
+                                                 radius):
+    import jax.numpy as jnp
+    from xrspatial_tpu.kernels.pallas_pipeline import pipeline_tiled
+    monkeypatch.setenv("XRSPATIAL_FUSED_PIPELINE", "1")
+    data = fused_raster()
+    kernel = circle_kernel(1, 1, radius)
+    f32 = jnp.float32
+    ref = pipeline_tiled(jnp.asarray(data), f32(2.0), f32(3.0), f32(300.0),
+                         f32(40.0), kernel_offsets(kernel), stats,
+                         which=which, th=32, tw=128, interpret=True)
+    calls = []
+
+    def counting(*args):
+        calls.append(1)
+        return _twin(*args)
+
+    monkeypatch.setattr(tpipeline, "pipeline_multi", counting)
+    ds = xt.terrain_pipeline(
+        xt.DataArray(data, dims=("y", "x"), name="dem",
+                     attrs={"res": (2.0, 3.0)}),
+        surface=which, kernel=kernel, stats_funcs=stats, azimuth=300.0,
+        angle_altitude=40.0)
+    assert calls == [1]
+    assert list(ds.data_vars) == ["dem", *(f"dem-{p}" for p in which),
+                                  "focal_stats"]
+    for p, r in zip(which, ref):
+        assert_matches(ds[f"dem-{p}"].values, np.asarray(r), SURFACE_TOL, p)
+    fs = ds["focal_stats"]
+    assert fs.dims == ("stats", "y", "x") and fs.name == "focal_stats"
+    assert list(fs.coords["stats"].values) == list(stats)
+    assert_matches(fs.values, np.asarray(ref[-1]), FOCAL_TOL, "focal")
+
+
+def test_fused_branch_equals_the_split_path(dem, monkeypatch):
+    _, ta = dem
+    kwargs = dict(surface=("slope", "aspect", "curvature", "hillshade"),
+                  stats_funcs=("mean", "max", "min", "range", "std", "var",
+                               "sum"))
+    split = xt.terrain_pipeline(ta, **kwargs)
+    monkeypatch.setenv("XRSPATIAL_FUSED_PIPELINE", "1")
+    fused = xt.terrain_pipeline(ta, **kwargs)
+    assert list(fused.data_vars) == list(split.data_vars)
+    for k in split.data_vars:
+        assert fused[k].dims == split[k].dims and fused[k].name == k
+        assert fused[k].attrs == split[k].attrs
+        assert list(fused[k].coords) == list(split[k].coords)
+        np.testing.assert_array_equal(fused[k].values, split[k].values)
+
+
+@pytest.mark.parametrize("env,kernel", [
+    ("1", np.ones((1, 131))),     # rx = 65: 2*rx > 128
+    ("1", np.ones((67, 1))),      # ry = 33
+    ("0", None),
+    ("", None),
+], ids=["rx65_refused", "ry33_refused", "env_0", "env_empty"])
+def test_split_path_runs_unless_fused_is_on_and_accepted(dem, monkeypatch,
+                                                         env, kernel):
+    """As in the JAX package, the variable must be "1" and the footprint
+    must pass pipeline_supported; otherwise the split path runs."""
+    _, ta = dem
+    monkeypatch.setenv("XRSPATIAL_FUSED_PIPELINE", env)
+    monkeypatch.setattr(tpipeline, "pipeline_multi", _refuse)
+    offsets = kernel_offsets(kernel if kernel is not None
+                             else circle_kernel(1, 1, 1.5))
+    assert tpipeline.pipeline_supported(offsets) == (kernel is None)
+    got = xt.terrain_pipeline(ta, kernel=kernel)
+    assert list(got.data_vars) == ["dem", "dem-slope", "dem-hillshade",
+                                   "focal_stats"]
+
+
+@pytest.mark.parametrize("kernel", [
+    np.ones((3, 3)), np.ones((1, 129)), np.ones((1, 131)), np.ones((65, 1)),
+    np.ones((67, 1)), circle_kernel(1, 1, 20), np.ones((1, 1))])
+def test_pipeline_supported_matches_jax(kernel):
+    from xrspatial_tpu.kernels.pallas_pipeline import pipeline_supported
+    offsets = kernel_offsets(kernel)
+    assert tpipeline.pipeline_supported(offsets) == pipeline_supported(
+        offsets)
 
 
 def test_dataarray_from_round_trips_a_jax_dataarray(dem):

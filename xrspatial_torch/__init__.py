@@ -12,14 +12,14 @@ Only what is ported is exported; ROADMAP.md lists the rest in order.
 from .analytics import summarize_terrain, terrain_pipeline
 from .aspect import aspect
 from .curvature import curvature
-from .focal import focal_stats
+from .focal import focal_stats, mean
 from .hillshade import hillshade
 from .proximity import DISTANCE_METRICS, allocation, direction, proximity
 from .slope import slope
 from .xrlib import DataArray, Dataset
 
 __all__ = ["DataArray", "Dataset", "slope", "aspect", "curvature",
-           "hillshade", "focal_stats", "terrain_pipeline",
+           "hillshade", "focal_stats", "mean", "terrain_pipeline",
            "summarize_terrain", "proximity", "allocation", "direction",
            "DISTANCE_METRICS"]
 

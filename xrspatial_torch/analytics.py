@@ -2,24 +2,40 @@
 
 Counterpart of ``xrspatial_tpu/analytics.py``.  ``summarize_terrain``
 computes slope, aspect and curvature from one read of the DEM;
-``terrain_pipeline`` is the split path: one surface pass for all requested
-products, then one focal pass.  On the card that is exactly one launch of
-the surface kernel and one of the focal kernel.  The fused single-pass
-branch (TPU kernel ``pallas_pipeline.py::pipeline_tiled``) waits for
-ROADMAP B4; the mesh-sharded branch for ROADMAP A13.
+``terrain_pipeline`` runs by default the split path: one surface pass for
+all requested products, then one focal pass; on the card, for footprints
+the tiled focal kernel takes, exactly one launch of the surface kernel and
+one of the focal kernel.  With ``XRSPATIAL_FUSED_PIPELINE=1``, the JAX
+package's opt-in, and a footprint its gate accepts (``pipeline_supported``)
+it runs the fused branch instead: one launch of the pipeline kernel on the
+card, the same twins on the CPU.  The mesh-sharded branch waits for
+ROADMAP A13.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from .convolution import circle_kernel, custom_kernel
-from .focal import _STAT_NAMES, focal_stats
+from .focal import _STAT_NAMES, focal_stats, stats_dataarray
+from .kernels.pipeline import pipeline_kernels, pipeline_supported
 from .kernels.surface import PRODUCTS, surface_kernels
+from .kernels.window import kernel_offsets
 from .utils import get_dataarray_resolution, to_torch, wrap_like
 from .xrlib import DataArray, Dataset
 
 __all__ = ["summarize_terrain", "terrain_pipeline"]
+
+
+def _use_fused_pipeline(offsets) -> bool:
+    """The JAX package's opt-in, read at call time: the fused branch runs
+    when XRSPATIAL_FUSED_PIPELINE is "1" and the footprint passes
+    ``pipeline_supported``."""
+    if os.environ.get("XRSPATIAL_FUSED_PIPELINE") != "1":
+        return False
+    return pipeline_supported(offsets)
 
 
 def summarize_terrain(terrain: DataArray) -> Dataset:
@@ -55,7 +71,8 @@ def terrain_pipeline(agg: DataArray,
     ``hillshade`` and ``focal_stats`` separately, except that curvature
     uses the mean of the two cell sizes.  Returns a Dataset with one
     variable per surface product plus ``focal_stats`` as a (stats, y, x)
-    stack (same layout as ``focal.focal_stats``).
+    stack (same layout as ``focal.focal_stats``).  Both branches, split
+    and fused (see the module's docstring), give this layout.
     """
     if agg.ndim != 2:
         raise ValueError("`agg` must be 2D")
@@ -70,11 +87,23 @@ def terrain_pipeline(agg: DataArray,
         kernel = circle_kernel(1, 1, 1.5)
     kernel = custom_kernel(np.asarray(kernel))
     cellsize_x, cellsize_y = get_dataarray_resolution(agg)
-    surf_outs = surface_kernels(to_torch(agg), tuple(surface), cellsize_x,
-                                cellsize_y, azimuth, angle_altitude)
-
+    data = to_torch(agg)
     name = agg.name or "terrain"
     ds = agg.to_dataset(name=name)
+
+    offsets = kernel_offsets(kernel)
+    if _use_fused_pipeline(offsets):
+        outs = pipeline_kernels(data, offsets, tuple(stats_funcs),
+                                tuple(surface), cellsize_x, cellsize_y,
+                                azimuth, angle_altitude)
+        for p, out in zip(surface, outs):
+            ds[f'{name}-{p}'] = wrap_like(agg, out, f'{name}-{p}')
+        ds["focal_stats"] = stats_dataarray(agg, outs[-1], stats_funcs,
+                                            "focal_stats")
+        return ds
+
+    surf_outs = surface_kernels(data, tuple(surface), cellsize_x,
+                                cellsize_y, azimuth, angle_altitude)
     for p in surface:
         ds[f'{name}-{p}'] = wrap_like(agg, surf_outs[p], f'{name}-{p}')
     ds["focal_stats"] = focal_stats(

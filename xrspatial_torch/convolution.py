@@ -3,7 +3,9 @@
 Counterpart of ``xrspatial_tpu/convolution.py``: distance-string parsing,
 cellsize-in-meters and the circle/annulus/custom kernel builders are host
 code and return the same numpy arrays as the JAX package.  The direct
-convolution (``convolve_2d``, ``convolution_2d``) waits for ROADMAP A3.
+convolution (``convolve_2d``, ``convolution_2d``) is a cuDNN / CPU
+cross-correlation in full float32 (``kernels/window.py::convolve2d``), as
+the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ import re
 
 import numpy as np
 
-from .utils import get_dataarray_resolution
+from .kernels.window import convolve2d
+from .utils import get_dataarray_resolution, to_torch, wrap_like
 
 __all__ = [
     "convolve_2d", "convolution_2d", "circle_kernel", "annulus_kernel",
@@ -117,10 +120,25 @@ def custom_kernel(kernel) -> np.ndarray:
 
 
 def convolve_2d(data, kernel):
-    raise NotImplementedError(
-        "convolve_2d is not ported to xrspatial_torch yet (ROADMAP A3)")
+    """Raw array-in/array-out 2D convolution (NaN ring of kernel radius).
+
+    `data` is a tensor (any device) or an array; the result is a float32
+    tensor on `data`'s device.
+    """
+    return convolve2d(to_torch(data), np.asarray(kernel))
 
 
 def convolution_2d(agg, kernel, name='convolution_2d'):
-    raise NotImplementedError(
-        "convolution_2d is not ported to xrspatial_torch yet (ROADMAP A3)")
+    """2D convolution of each inner cell; edges are NaN-filled.
+
+    Parameters
+    ----------
+    agg : DataArray
+        2D input raster.
+    kernel : array-like
+        Impulse kernel (weights applied un-flipped, i.e. correlation,
+        matching the reference kernels).
+    """
+    kernel = custom_kernel(np.asarray(kernel))
+    out = convolve_2d(to_torch(agg), kernel)
+    return wrap_like(agg, out, name)

@@ -1,53 +1,163 @@
-"""Focal statistics.
+"""Focal statistics: mean filter, masked-window apply, focal_stats, hotspots.
 
-Counterpart of ``xrspatial_tpu/focal.py``.  ``focal_stats`` keeps the JAX
-package's validation and its (stats, y, x) output; the statistics come
-from one pass over the kernel footprint: the CUDA kernel
-(``kernels/cuda_window.py``) for a tensor on the card, at every size, and
-the torch twin (``kernels/window.py``) for a tensor on the CPU.
-
-``mean``, ``apply`` (with its host escape hatch ``_apply_host``) and
-``hotspots`` wait for ROADMAP A3.
+Counterpart of ``xrspatial_tpu/focal.py``, with its validation, output
+layouts and named stat callables.  The window statistics follow the JAX
+package's routing (``_stats_kernel_pallas``) without its TPU-only size
+gates (``_route``): footprints of more than 1024 offsets take the
+convolution path (torch ops, any device); a raster on the CPU takes the
+torch twin; a raster on the card takes the tiled CUDA kernel when the
+footprint's radii fit it, and the halo kernel otherwise, at every raster
+size.  ``mean``, the convolution of ``hotspots`` and the z-score classes
+are torch ops on any device, as they are XLA in the JAX package;
+``apply`` with an arbitrary Python callable is a host round trip.
 """
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
-from .convolution import custom_kernel
-from .kernels.window import kernel_offsets, window_stats
-from .utils import to_torch
+from .convolution import convolve_2d, custom_kernel
+from .dataset_support import supports_dataset
+from .kernels.window import (UNROLL_MAX_OFFSETS, focal_mean_pass,
+                             hotspots_classify, kernel_offsets,
+                             tiled_radius_supported, window_stats)
+from .utils import to_torch, wrap_like
 from .xrlib import DataArray
 
-__all__ = ["focal_stats"]
+__all__ = ["mean", "apply", "focal_stats", "hotspots"]
 
 _STAT_NAMES = ("mean", "max", "min", "range", "std", "var", "sum")
+
+
+# Named stat functions, usable as `func=` for apply(); each also works as a
+# plain numpy callable on a window buffer.
+
+def _tag(fn, name):
+    fn._stat = name
+    return fn
+
+
+_calc_mean = _tag(lambda a: np.nanmean(a), "mean")
+_calc_sum = _tag(lambda a: np.nansum(a), "sum")
+_calc_min = _tag(lambda a: np.nanmin(a), "min")
+_calc_max = _tag(lambda a: np.nanmax(a), "max")
+_calc_std = _tag(lambda a: np.nanstd(a), "std")
+_calc_var = _tag(lambda a: np.nanvar(a), "var")
+_calc_range = _tag(lambda a: np.nanmax(a) - np.nanmin(a), "range")
+
+
+@supports_dataset
+def mean(agg, passes: int = 1, excludes=[np.nan], name: str = 'mean'):
+    """3x3 NaN-excluding mean filter, run `passes` times.
+
+    Cells whose value equals any entry of `excludes` (NaN-aware equality)
+    are left unchanged; all others become the nanmean of their clipped
+    3x3 neighborhood.  Computed in float64 and written back in the INPUT
+    dtype, so integer rasters get truncated means.
+    """
+    data = to_torch(agg, dtype=None)
+    out = data.to(torch.float64)
+    for _ in range(passes):
+        out = focal_mean_pass(out, excludes)
+    return wrap_like(agg, out.to(data.dtype), name)
+
+
+def _route(offsets) -> str:
+    """Which path computes the statistics of a footprint on the card:
+    "conv" (more than 1024 offsets), "tiled" (``focal_stats_cuda``) or
+    "halo" (``focal_stats_halo_cuda``)."""
+    if len(offsets) > UNROLL_MAX_OFFSETS:
+        return "conv"
+    ry = max(abs(dy) for dy, _ in offsets)
+    rx = max(abs(dx) for _, dx in offsets)
+    return "tiled" if tiled_radius_supported(ry, rx) else "halo"
 
 
 def _window_stats(data: torch.Tensor, kernel: np.ndarray,
                   stats: tuple) -> torch.Tensor:
     """(S, H, W) statistics over the kernel footprint, stacked in `stats`
-    order: the twin for a CPU tensor, the CUDA kernel otherwise."""
+    order: the torch ops for a CPU tensor or a conv-path footprint, a CUDA
+    kernel otherwise."""
     offsets = kernel_offsets(kernel)
-    if data.device.type == "cpu":
+    route = _route(offsets)
+    if data.device.type == "cpu" or route == "conv":
         outs = window_stats(data, offsets, stats)
         return torch.stack([outs[s] for s in stats])
-    from .kernels.cuda_window import focal_stats_cuda
-    return focal_stats_cuda(data, offsets, stats)
+    from .kernels.cuda_window import focal_stats_cuda, focal_stats_halo_cuda
+    if route == "tiled":
+        return focal_stats_cuda(data, offsets, stats)
+    return focal_stats_halo_cuda(data, offsets, stats)
 
 
-def _not_ported(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"focal.{name} is not ported to xrspatial_torch yet (ROADMAP A3)")
-    fn.__name__ = name
-    return fn
+def apply(raster, kernel, func=_calc_mean, name: str = 'focal_apply'):
+    """Apply a function over a masked kernel window at every pixel.
+
+    `func` may be one of the named stat functions in this module (the
+    focal-statistics path, on the raster's device) or any Python callable
+    taking the (Kh, Kw) window buffer (NaN outside the kernel/raster).  A
+    callable runs on the host (``_apply_host``): the raster is copied to
+    the host, the callable runs once per cell, and the result is copied
+    back to the raster's device.
+    """
+    if not isinstance(raster, DataArray):
+        raise TypeError("`raster` must be instance of DataArray")
+    if raster.ndim != 2:
+        raise ValueError("`raster` must be 2D")
+    kernel = custom_kernel(np.asarray(kernel))
+
+    data = to_torch(raster)
+    stat = getattr(func, "_stat", None)
+    if stat in _STAT_NAMES:
+        out = _window_stats(data, kernel, (stat,))[0]
+    else:
+        out = torch.from_numpy(_apply_host(data.cpu().numpy(), kernel,
+                                           func)).to(data.device)
+    return wrap_like(raster, out, name)
 
 
-mean = _not_ported("mean")
-apply = _not_ported("apply")
-hotspots = _not_ported("hotspots")
+def _apply_host(data: np.ndarray, kernel: np.ndarray, func) -> np.ndarray:
+    """Host path for arbitrary Python window functions.
+
+    The window gather and kernel masking are vectorized
+    (``sliding_window_view`` + one batched ``np.where`` per row chunk,
+    bounded to ~160 MB of transient windows); only the user callable runs
+    per pixel.  func sees a (Kh, Kw) buffer, NaN outside the kernel
+    footprint and the raster.
+    """
+    from numpy.lib.stride_tricks import sliding_window_view
+    rows, cols = data.shape
+    krows, kcols = kernel.shape
+    hr, hc = krows // 2, kcols // 2
+    padded = np.full((rows + 2 * hr, cols + 2 * hc), np.nan, dtype=data.dtype)
+    padded[hr:hr + rows, hc:hc + cols] = data
+    kmask = kernel == 1
+    out = np.empty_like(data)
+    oflat = out.reshape(-1)
+    wins = sliding_window_view(padded, (krows, kcols))  # (rows, cols, Kh, Kw)
+    rows_per_chunk = max(1, int(4e7 // max(cols * krows * kcols, 1)))
+    for y0 in range(0, rows, rows_per_chunk):
+        m = np.where(kmask, wins[y0:y0 + rows_per_chunk], np.nan)
+        mflat = m.reshape(-1, krows, kcols)
+        base = y0 * cols
+        for i in range(mflat.shape[0]):
+            oflat[base + i] = func(mflat[i])
+    return out
+
+
+def stats_dataarray(agg, stacked: torch.Tensor, stats_funcs,
+                    name: str) -> DataArray:
+    """A (stats, y, x) DataArray holding `stacked`, with `agg`'s coords and
+    attrs and a ``stats`` coordinate naming each plane."""
+    out = DataArray(stacked, dims=("stats",) + tuple(agg.dims), name=name,
+                    attrs=dict(agg.attrs))
+    for cname, cval in agg.coords.items():
+        out.coords[cname] = cval
+    out.coords["stats"] = DataArray(np.asarray(list(stats_funcs)),
+                                    dims=("stats",), name="stats")
+    return out
 
 
 def focal_stats(agg, kernel,
@@ -56,7 +166,9 @@ def focal_stats(agg, kernel,
     """Focal statistics over a kernel neighborhood for every pixel.
 
     Returns a 3D (stats, y, x) DataArray.  All statistics are computed in
-    one pass over the kernel footprint.
+    one pass over the kernel footprint.  Footprints of more than 1024
+    cells take the convolution path, whose std/var use a centred sum of
+    squares around the raster's global mean, as in the JAX package.
     """
     if not isinstance(agg, DataArray):
         raise TypeError("`agg` must be instance of DataArray")
@@ -68,10 +180,41 @@ def focal_stats(agg, kernel,
             raise ValueError(f"unknown stat {s!r}; supported: {_STAT_NAMES}")
 
     stacked = _window_stats(to_torch(agg), kernel, tuple(stats_funcs))
-    out = DataArray(stacked, dims=("stats",) + tuple(agg.dims),
-                    name="focal_apply", attrs=dict(agg.attrs))
-    for cname, cval in agg.coords.items():
-        out.coords[cname] = cval
-    out.coords["stats"] = DataArray(np.asarray(list(stats_funcs)),
-                                    dims=("stats",), name="stats")
-    return out
+    return stats_dataarray(agg, stacked, stats_funcs, "focal_apply")
+
+
+def hotspots(raster, kernel) -> DataArray:
+    """Statistically significant hot/cold spots (Getis-Ord style).
+
+    Output int8 values in {0, +-90, +-95, +-99} (confidence levels): the
+    kernel-mean convolution's z-score against the raster's global mean and
+    population std.
+    """
+    if not isinstance(raster, DataArray):
+        raise TypeError("`raster` must be instance of DataArray")
+    if raster.ndim != 2:
+        raise ValueError("`raster` must be 2D")
+    dtype = to_torch(raster, dtype=None).dtype
+    if dtype == torch.bool or dtype.is_complex:
+        raise ValueError("data type must be integer or float")
+
+    kernel = custom_kernel(np.asarray(kernel))
+    data = to_torch(raster)
+
+    global_mean = torch.nanmean(data)
+    # jnp.nanstd: the root of the mean squared deviation of the non-NaN
+    # cells (torch has no nanstd)
+    dev = data - global_mean
+    global_std = torch.sqrt(torch.nanmean(dev * dev))
+    if float(global_std) == 0:
+        raise ZeroDivisionError(
+            "Standard deviation of the input raster values is 0.")
+
+    conv = convolve_2d(data, kernel / kernel.sum())
+    out = hotspots_classify((conv - global_mean) / global_std)
+
+    attrs = copy.deepcopy(dict(raster.attrs))
+    attrs['unit'] = '%'
+    result = wrap_like(raster, out, None)
+    result.attrs = attrs
+    return result

@@ -4,12 +4,13 @@ Counterpart of ``xrspatial_tpu/native/__init__.py`` (on-demand g++ +
 ctypes), with no fallback: if ``nvcc`` is missing, or the build or the
 load fails, the caller gets the error.
 
-``csrc/*.cu`` compile with one ``nvcc`` call into one shared library with
-a plain C interface, under ``csrc/_build/`` at the first CUDA call.  The
-library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and a current library is reused.  Several processes may
-build at once (pytest-xdist workers): each writes a temporary file and
-renames it into place.
+``csrc/*.cu`` compile into one shared library with a plain C interface,
+under ``csrc/_build/`` at the first CUDA call: one ``nvcc`` process per
+source, all started together, then one link.  The library's name carries a
+hash of the flags and of every source and header (``csrc/*.cu``,
+``csrc/*.cuh``), so an edited source or header is rebuilt and a current
+library is reused.  Several processes may build at once (pytest-xdist
+workers): each writes temporary files and renames the library into place.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ BUILD_DIR = CSRC / "_build"
 # no --use_fast_math / -ftz: flushing subnormal gradients and approximate
 # sqrt/division would move the kernels off their torch twins
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 
 def _nvcc() -> str:
@@ -46,8 +48,8 @@ def _sources() -> list:
 
 
 def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libxrspatial_torch-{h.hexdigest()[:16]}.so"
@@ -65,15 +67,31 @@ def build() -> tuple:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    link = [_nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+    compiles = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        # wait for every compiler, so none outlives a failed build
+        outputs = [proc.communicate()[0] for proc in procs]
+        steps = list(zip(compiles, [p.returncode for p in procs], outputs))
+        if all(rc == 0 for _, rc, _ in steps):
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            steps.append((link, proc.returncode, proc.stdout))
+        for cmd, rc, output in steps:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                                   f"{output}")
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    log = "".join(output for *_, output in steps)
+    return out, log
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,6 +109,13 @@ def library() -> ctypes.CDLL:
     lib.focal_launch.argtypes = [p, p, i32, ctypes.POINTER(i32), p,
                                  i64, i64, p]
     lib.focal_launch.restype = i32
+    lib.focal_halo_launch.argtypes = [p, p, i32, ctypes.POINTER(i32), p,
+                                      i64, i64, i32, p]
+    lib.focal_halo_launch.restype = i32
+    lib.pipeline_launch.argtypes = [p, p, p, p, p, i32, f32, f32, f32, f32,
+                                    f32, f32, p, i32, ctypes.POINTER(i32), p,
+                                    i64, i64, p]
+    lib.pipeline_launch.restype = i32
     lib.jfa_round_packed.argtypes = [p, p, p, p, p, i64, i64, i64, f32, f32,
                                      i32, p]
     lib.jfa_round_packed.restype = i32

@@ -20,6 +20,27 @@ __all__ = ["surface_cuda", "LAUNCHES"]
 LAUNCHES = 0
 
 
+def surface_args(x: torch.Tensor, which, cellsize_x, cellsize_y, azimuth,
+                 angle_altitude) -> tuple:
+    """The surface half of a launch: ``(outs, ptrs, mask, scalars)``, the
+    (H, W) float32 planes of `which` (allocated), the four product
+    pointers in the kernel's order (None where not requested), the product
+    mask, and csx, csy and the sun's four scalars in float32."""
+    unknown = [p for p in which if p not in PRODUCTS]
+    if unknown or len(set(which)) != len(which):
+        raise ValueError(f"products must be distinct names from {PRODUCTS}, "
+                         f"got {which!r}")
+    outs = {p: torch.empty(x.shape, dtype=torch.float32, device=x.device)
+            for p in which}
+    mask = sum(1 << PRODUCTS.index(p) for p in which)
+    ptrs = [outs[p].data_ptr() if p in outs else None for p in PRODUCTS]
+    # the scalars in float32, on the host (no device sync)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    sun = [float(s) for s in sun_scalars(f32(azimuth), f32(angle_altitude))]
+    return outs, ptrs, mask, (float(f32(cellsize_x)), float(f32(cellsize_y)),
+                              *sun)
+
+
 def surface_cuda(data: torch.Tensor, which, cellsize_x=1.0, cellsize_y=1.0,
                  azimuth=225.0, angle_altitude=25.0) -> tuple:
     """Tuple of (H, W) float32 products, in `which` order, 1-cell NaN ring."""
@@ -29,24 +50,17 @@ def surface_cuda(data: torch.Tensor, which, cellsize_x=1.0, cellsize_y=1.0,
             f"surface_cuda takes a CUDA tensor, got one on {data.device}")
     if data.ndim != 2:
         raise ValueError(f"surface_cuda takes a 2D tensor, got {data.ndim}D")
-    unknown = [p for p in which if p not in PRODUCTS]
-    if unknown or not which or len(set(which)) != len(which):
+    if not which:
         raise ValueError(f"products must be distinct names from {PRODUCTS}, "
                          f"got {which!r}")
     x = data.to(torch.float32).contiguous()
     h, w = x.shape
-    outs = {p: torch.empty((h, w), dtype=torch.float32, device=x.device)
-            for p in which}
-    mask = sum(1 << PRODUCTS.index(p) for p in which)
-    ptrs = [outs[p].data_ptr() if p in outs else None for p in PRODUCTS]
-    # the sun's scalars in float32, on the host (no device sync)
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
-    sun = [float(s) for s in sun_scalars(f32(azimuth), f32(angle_altitude))]
+    outs, ptrs, mask, scalars = surface_args(
+        x, which, cellsize_x, cellsize_y, azimuth, angle_altitude)
     lib = _cuda.library()
     with torch.cuda.device(x.device):
-        err = lib.surface_launch(
-            x.data_ptr(), *ptrs, h, w, mask, float(f32(cellsize_x)),
-            float(f32(cellsize_y)), *sun, _cuda.stream_of(x.device))
+        err = lib.surface_launch(x.data_ptr(), *ptrs, h, w, mask, *scalars,
+                                 _cuda.stream_of(x.device))
     _cuda.check(err, "surface_kernel")
     LAUNCHES += 1
     return tuple(outs[p] for p in which)

@@ -1,12 +1,16 @@
-"""Wrapper of the CUDA focal-statistics kernel (``csrc/focal.cu``).
+"""Wrappers of the CUDA focal-statistics kernels.
 
-Replaces ``xrspatial_tpu/kernels/pallas_window2.py::focal_stats_tiled``
-(and, for the shapes the JAX package sends elsewhere,
-``pallas_window.py::focal_stats_pallas``).  The wrapper takes only a
-tensor on the card: it builds the kernel library at the first call,
-allocates the stacked output, launches on PyTorch's current stream and
-raises if the launch fails.  Its plain version is
-``kernels/window.py::window_stats``.
+- ``focal_stats_cuda``: ``csrc/focal.cu``, replaces
+  ``xrspatial_tpu/kernels/pallas_window2.py::focal_stats_tiled``;
+- ``focal_stats_halo_cuda``: ``csrc/focal_halo.cu``, replaces
+  ``xrspatial_tpu/kernels/pallas_window.py::focal_stats_pallas``, for the
+  footprints beyond the tiled kernel's radius.
+
+Both take any raster shape and footprint.  A wrapper takes only a tensor
+on the card: it builds the kernel library at the first call, allocates the
+stacked output, launches on PyTorch's current stream and raises if the
+launch fails.  Their plain version is ``kernels/window.py::window_stats``;
+``focal.py::_window_stats`` chooses between them as the JAX package does.
 """
 
 from __future__ import annotations
@@ -17,14 +21,15 @@ import functools
 import torch
 
 from . import _cuda
-from .window import check_offsets
 
-__all__ = ["focal_stats_cuda", "LAUNCHES"]
+__all__ = ["focal_stats_cuda", "focal_stats_halo_cuda", "LAUNCHES",
+           "HALO_LAUNCHES"]
 
-# launches of the kernel in this process, for checks that a path ran on it
-LAUNCHES = 0
+# launches of each kernel in this process, for checks that a path ran on it
+LAUNCHES = 0        # focal_kernel
+HALO_LAUNCHES = 0   # focal_halo_kernel
 
-# the kernel's stat slots, in csrc/focal.cu's order
+# the kernels' stat slots, in csrc/focal_cell.cuh's order
 _SLOT_ORDER = ("mean", "sum", "min", "max", "range", "var", "std")
 
 
@@ -34,31 +39,39 @@ def _device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
-def focal_stats_cuda(data: torch.Tensor, offsets, stats) -> torch.Tensor:
-    """(S, H, W) float32 focal statistics, stacked in `stats` order."""
-    global LAUNCHES
+def focal_args(data: torch.Tensor, offsets, stats, who: str) -> tuple:
+    """Check a focal kernel's inputs; returns ``(x, offsets, offs, slots,
+    out)``: the float32 contiguous input, the offsets as a tuple of int
+    pairs and as an int32 table on the card, the stat slots as a C array,
+    and the (S, H, W) output, allocated."""
     if data.device.type != "cuda":
-        raise ValueError(
-            f"focal_stats_cuda takes a CUDA tensor, got one on {data.device}")
+        raise ValueError(f"{who} takes a CUDA tensor, got one on "
+                         f"{data.device}")
     if data.ndim != 2:
-        raise ValueError(
-            f"focal_stats_cuda takes a 2D tensor, got {data.ndim}D")
+        raise ValueError(f"{who} takes a 2D tensor, got {data.ndim}D")
     offsets = tuple((int(dy), int(dx)) for dy, dx in offsets)
     if not offsets:
-        raise ValueError("focal_stats_cuda needs at least one offset")
-    check_offsets(offsets)
+        raise ValueError(f"{who} needs at least one offset")
     stats = tuple(stats)
     unknown = [s for s in stats if s not in _SLOT_ORDER]
     if unknown or not stats or len(set(stats)) != len(stats):
         raise ValueError(f"stats must be distinct names from {_SLOT_ORDER}, "
                          f"got {stats!r}")
     x = data.to(torch.float32).contiguous()
-    h, w = x.shape
-    out = torch.empty((len(stats), h, w), dtype=torch.float32,
+    out = torch.empty((len(stats),) + tuple(x.shape), dtype=torch.float32,
                       device=x.device)
     slots = (ctypes.c_int * len(_SLOT_ORDER))(
         *(stats.index(s) if s in stats else -1 for s in _SLOT_ORDER))
-    offs = _device_offsets(offsets, x.device)
+    return x, offsets, _device_offsets(offsets, x.device), slots, out
+
+
+def focal_stats_cuda(data: torch.Tensor, offsets, stats) -> torch.Tensor:
+    """(S, H, W) float32 focal statistics, stacked in `stats` order; every
+    neighbour read from device memory with bounds checks."""
+    global LAUNCHES
+    x, offsets, offs, slots, out = focal_args(data, offsets, stats,
+                                              "focal_stats_cuda")
+    h, w = x.shape
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         err = lib.focal_launch(x.data_ptr(), offs.data_ptr(), len(offsets),
@@ -66,4 +79,23 @@ def focal_stats_cuda(data: torch.Tensor, offsets, stats) -> torch.Tensor:
                                _cuda.stream_of(x.device))
     _cuda.check(err, "focal_kernel")
     LAUNCHES += 1
+    return out
+
+
+def focal_stats_halo_cuda(data: torch.Tensor, offsets,
+                          stats) -> torch.Tensor:
+    """(S, H, W) float32 focal statistics, stacked in `stats` order; input
+    rows staged in shared memory, for footprints of large radius."""
+    global HALO_LAUNCHES
+    x, offsets, offs, slots, out = focal_args(data, offsets, stats,
+                                              "focal_stats_halo_cuda")
+    h, w = x.shape
+    rx = max(abs(dx) for _, dx in offsets)
+    lib = _cuda.library()
+    with torch.cuda.device(x.device):
+        err = lib.focal_halo_launch(x.data_ptr(), offs.data_ptr(),
+                                    len(offsets), slots, out.data_ptr(), h,
+                                    w, rx, _cuda.stream_of(x.device))
+    _cuda.check(err, "focal_halo_kernel")
+    HALO_LAUNCHES += 1
     return out

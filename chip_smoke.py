@@ -39,11 +39,26 @@ Phases, each fatal on failure:
    timed in turns;
 12. torch-op paths under PyTorch's default TF32 flags: the conv path
    (1257 offsets), ``convolution_2d``, ``hotspots`` and 2-pass ``mean``
-   on the card against the CPU at 1024^2; the conv path timed at 16384^2.
+   on the card against the CPU at 1024^2; the conv path timed at 16384^2;
+13. interval-screen kernel vs twin: the exact viewshed's pair evaluation,
+   float32 level 1 and float64 level 2, on the same expanded stacks, bit
+   for bit in hi and lo, at 48x64, a corner 64x48, 96x112 with NaN cells,
+   300x70, a ragged 257x1025 and the 1024^2 plan of the next phase;
+14. exact viewshed path: ``viewshed`` on ``gaussian_bump(1024, 1024)`` at
+   the JAX bench's viewpoint, the call users make; one float32 screen
+   launch, one float64 launch per level-2 slab and no twin call; equal at
+   every cell to the float64-only route, and on a 256^2 crop to the
+   pairwise oracle;
+15. timing (informational): the viewshed's warm wall time and phases, the
+   screen kernel against its twin at the 1024^2 plan, and every
+   re-evaluation route forced through the module's thresholds.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script exits 1 before printing any result.
+The line before the last is a JSON object describing each kernel, with the
+least time the card could take for the same work (``bound_ms``: the larger
+of the bytes over 3.35 TB/s and the float operations, counted from the
+sources, over 67 TFLOP/s); the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device the script exits 1 before printing any
+result.
 """
 
 from __future__ import annotations
@@ -73,6 +88,9 @@ HALO_SHAPES = SMALL_SHAPES + ((300, 70),)
 OPS_N = 1024            # the torch-op paths against the CPU
 OPS_TOL = dict(rtol=1e-5, atol=1e-5)
 Z_THRESHOLDS = (1.65, 1.96, 2.58)
+VS_N = 1024             # the exact viewshed's raster edge (bench.py:398-417)
+VS_VIEW = (505, 515, 2.0)   # its x, y and observer_elev
+VS_CROP = 256           # the crop held against the pairwise oracle
 
 
 class SmokeFailure(Exception):
@@ -557,21 +575,23 @@ def fused_pipeline(on: bool):
 
 
 def reset_launches():
-    from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline
+    from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
     from xrspatial_torch.kernels import cuda_surface, cuda_window
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
     cuda_window.HALO_LAUNCHES = cuda_pipeline.LAUNCHES = 0
     cuda_jfa.LAUNCHES = 0
+    cuda_screen.LAUNCHES = cuda_screen.F64_LAUNCHES = 0
 
 
 def read_launches():
-    from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline
+    from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
     from xrspatial_torch.kernels import cuda_surface, cuda_window
     return {"surface_kernel": cuda_surface.LAUNCHES,
             "focal_kernel": cuda_window.LAUNCHES,
             "focal_halo_kernel": cuda_window.HALO_LAUNCHES,
             "pipeline_kernel": cuda_pipeline.LAUNCHES,
-            "jfa_round": cuda_jfa.LAUNCHES}
+            "jfa_round": cuda_jfa.LAUNCHES,
+            "screen_hilo": cuda_screen.LAUNCHES}
 
 
 def fused_path(dem, agg, card):
@@ -599,7 +619,7 @@ def fused_path(dem, agg, card):
           f"{launches}, peak allocated {peak_gib:.2f} GiB")
     if launches != {"surface_kernel": 0, "focal_kernel": 0,
                     "focal_halo_kernel": 0, "pipeline_kernel": 1,
-                    "jfa_round": 0}:
+                    "jfa_round": 0, "screen_hilo": 0}:
         raise SmokeFailure(f"fused path: expected one pipeline launch and "
                            f"no other, got {launches}")
     ring = torch.ones((N, N), dtype=torch.bool, device=dem.device)
@@ -685,7 +705,7 @@ def annulus_path(dem, agg, card):
           f"{launches}, peak allocated {peak_gib:.2f} GiB")
     if launches != {"surface_kernel": 0, "focal_kernel": 0,
                     "focal_halo_kernel": 1, "pipeline_kernel": 0,
-                    "jfa_round": 0}:
+                    "jfa_round": 0, "screen_hilo": 0}:
         raise SmokeFailure(f"annulus path: expected one halo launch and no "
                            f"other, got {launches}")
     if out.device.type != "cuda" or tuple(out.shape) != (
@@ -824,6 +844,362 @@ def torch_op_paths(dev, card):
     del dem_n, agg_n, padded
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+# -- the exact viewshed --------------------------------------------------------
+
+def vs_cases(dev):
+    """The screen-check shapes: label -> (float64 host raster, (row, col),
+    observer_elev, target_elev, ew_res, ns_res).  The last is the plan of
+    the main path's call."""
+    import torch
+
+    def ridge(shape, seed, n_nan):
+        rng = np.random.default_rng(seed)
+        data = rng.random(shape) * 60.0
+        data[shape[0] // 3, :] += 100.0
+        data[np.unravel_index(rng.integers(0, data.size, n_nan), shape)] = \
+            np.nan
+        return data
+
+    bench = gaussian_bump(VS_N, VS_N, dev).to("cpu", torch.float64).numpy()
+    x, y, oe = VS_VIEW
+    return {"48x64": (ridge((48, 64), 601, 20), (10, 10), 3.0, 0.5, 1.5,
+                      -1.0),
+            "64x48 corner": (ridge((64, 48), 602, 20), (0, 0), 3.0, 0.5, 1.5,
+                             -1.0),
+            "96x112 NaN cells": (ridge((96, 112), 603, 200), (50, 30), 3.0,
+                                 0.5, 1.0, -1.0),
+            "300x70": (ridge((300, 70), 604, 20), (200, 60), 2.0, 0.0, 1.0,
+                       -1.0),
+            "257x1025": (ridge((257, 1025), 605, 50), (100, 700), 2.0, 0.0,
+                         1.0, -1.0),
+            f"{VS_N}x{VS_N} bench plan": (bench, (VS_N - 1 - y, x), oe, 0.0,
+                                          1.0, -1.0)}
+
+
+def check_screen(dev):
+    """Phase 13: the interval-screen kernel against its twin, on the same
+    expanded stacks, at both levels: bit for bit in hi and lo."""
+    import torch
+    from xrspatial_torch.kernels import cuda_screen, screen
+    from xrspatial_torch.kernels import viewshed_exact as ve
+    print("== interval-screen kernel vs twin on the card (float32 level 1, "
+          "float64 level 2)")
+    err = 0.0
+    for label, (data, (vr, vc), oe, te, ew, ns) in vs_cases(dev).items():
+        for level in (1, 2):
+            args = ve.screen_inputs(data, vr, vc, oe, te, ew, ns, level=level,
+                                    device=dev)
+            got = cuda_screen.screen_hilo_cuda(*args)
+            ref = screen.screen_hilo(*args)
+            torch.cuda.synchronize()
+            for name, g, r in zip(("hi", "lo"), got, ref):
+                if g.dtype != r.dtype or not torch.equal(g, r):
+                    n_bad = int((g != r).sum())
+                    raise SmokeFailure(f"screen {label} level {level} {name}: "
+                                       f"{n_bad} targets differ from the twin")
+                fin = torch.isfinite(r)
+                if bool(fin.any()):
+                    err = max(err, float((g - r)[fin].abs().max()))
+            A, C, Es, NBs, B = args[7:]
+            print(f"  screen {label} level {level} ({got[0].dtype}): A={A} "
+                  f"C={C} B={B} Lg={args[0][1].shape[0]} E={Es} NB={NBs}: "
+                  f"bit for bit")
+            del args, got, ref
+        torch.cuda.synchronize()
+    return err
+
+
+@contextlib.contextmanager
+def screen_on_kernel():
+    """Make any call of the screen's twin fail inside the block."""
+    from xrspatial_torch.kernels import screen
+    saved = screen.screen_hilo
+
+    def refuse(*args, **kwargs):
+        raise SmokeFailure("the screen's twin ran on the kernel path")
+
+    screen.screen_hilo = refuse
+    try:
+        yield
+    finally:
+        screen.screen_hilo = saved
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set inside the block."""
+    import os
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def vs_raster(dev):
+    """The JAX bench's exact-viewshed raster, on the card."""
+    import xrspatial_torch as xt
+    coords = {"y": np.arange(VS_N, dtype=float)[::-1].copy(),
+              "x": np.arange(VS_N, dtype=float)}
+    return xt.DataArray(gaussian_bump(VS_N, VS_N, dev), dims=("y", "x"),
+                        coords=coords, attrs={"res": (1.0, 1.0)}, name="deme")
+
+
+def viewshed_path(dev):
+    """Phase 14: the exact viewshed at VS_N^2 on the card, the call the JAX
+    package's bench makes; one float32 screen launch, one float64 launch per
+    level-2 slab, no twin call; equal to the float64-only route at every
+    cell, and the pairwise oracle on a 256^2 crop."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch.kernels import cuda_screen
+    from xrspatial_torch.kernels import viewshed as kv
+    from xrspatial_torch.kernels import viewshed_exact as ve
+    x, y, oe = VS_VIEW
+    vr, vc = VS_N - 1 - y, x
+    print(f"== exact viewshed path: viewshed on gaussian_bump({VS_N}, {VS_N}), "
+          f"x={x}, y={y} (row {vr}, col {vc}), observer_elev={oe}, default "
+          f"exact")
+    agg = vs_raster(dev)
+    torch.cuda.synchronize()
+    with screen_on_kernel():
+        reset_launches()
+        t0 = time.perf_counter()
+        out = xt.viewshed(agg, x=x, y=y, observer_elev=oe).data
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+        f64 = cuda_screen.F64_LAUNCHES
+    call = dict(ve.LAST_CALL)
+    print(f"  first call {first_s:.3f} s (host clock), launches {launches} "
+          f"({f64} float64), level-1 ambiguous {call['amb1']}, level-2 "
+          f"ambiguous {call['amb2']}, route {call['route']}, level-2 slabs "
+          f"{call['slabs']}")
+    expected = {k: 0 for k in launches}
+    expected["screen_hilo"] = 1 + call["slabs"]
+    if launches != expected or f64 != call["slabs"]:
+        raise SmokeFailure(f"viewshed: expected one float32 screen launch and "
+                           f"{call['slabs']} float64 ones, got {launches} "
+                           f"({f64} float64)")
+    if out.device.type != "cuda" or out.dtype != torch.float64 \
+            or tuple(out.shape) != (VS_N, VS_N):
+        raise SmokeFailure(f"viewshed: {tuple(out.shape)} {out.dtype} on "
+                           f"{out.device}")
+    if float(out[vr, vc]) != 180.0:
+        raise SmokeFailure(f"viewshed: {float(out[vr, vc])} at the viewpoint")
+    if not bool(((out == -1) | ((out >= 0) & (out <= 180))).all()):
+        raise SmokeFailure("viewshed: values outside -1 and [0, 180]")
+    print(f"  {int((out > -1).sum())} of {VS_N * VS_N} cells visible")
+    with env_set(XRSPATIAL_VS_NO_SCREEN="1"):
+        t0 = time.perf_counter()
+        ref = xt.viewshed(agg, x=x, y=y, observer_elev=oe).data
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    if not torch.equal(out, ref):
+        raise SmokeFailure(f"viewshed: {int((out != ref).sum())} cells differ "
+                           f"from the float64-only route")
+    print(f"  equal at every cell to the float64-only route "
+          f"(XRSPATIAL_VS_NO_SCREEN=1, {ref_s:.3f} s)")
+    del ref
+    r0, c0 = vr - VS_CROP // 2, vc - VS_CROP // 2
+    crop = agg.data[r0:r0 + VS_CROP, c0:c0 + VS_CROP].contiguous()
+    cagg = xt.DataArray(crop, dims=("y", "x"), coords={
+        "y": np.arange(VS_CROP, dtype=float)[::-1].copy(),
+        "x": np.arange(VS_CROP, dtype=float)})
+    cr, cc = VS_CROP // 2 - 28, VS_CROP // 2 + 22   # its own viewpoint
+    got = xt.viewshed(cagg, x=cc, y=VS_CROP - 1 - cr, observer_elev=oe).data
+    t0 = time.perf_counter()
+    pw = kv.viewshed_grid(crop, cr, cc, oe, 0.0, 1.0, -1.0)
+    torch.cuda.synchronize()
+    pw_s = time.perf_counter() - t0
+    if pw.device.type != "cuda" or not torch.equal(got, pw):
+        raise SmokeFailure(f"viewshed {VS_CROP}^2 crop: differs from the "
+                           f"pairwise oracle on {pw.device}")
+    print(f"  {VS_CROP}x{VS_CROP} crop (rows {r0}.., cols {c0}.., viewpoint "
+          f"{cr}, {cc}): equal at every cell to the pairwise oracle "
+          f"viewshed_grid on the card ({pw_s:.3f} s)")
+    del crop, got, pw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches["screen_hilo"], call, out
+
+
+def screen_pair_counts(args):
+    """(pairs the screen evaluates, pairs that pass its maybe or sure test)
+    for screen inputs `args`, over the twin's windows."""
+    import torch
+    from xrspatial_torch.kernels.screen import F13
+    glob, stacks, al, klo, khi, it, rows, A, C, Es, NBs, B = args
+    G, T = A // B, B * C
+    f = {k: i for i, k in enumerate(F13)}
+    starts = rows.tolist()
+    total = covered = 0
+    for g in range(G):
+        sl = slice(g * T, (g + 1) * T)
+        a, kl, kh, i = (v[sl, None] for v in (al, klo, khi, it))
+        segs = [glob]
+        for t, ((stk, idx), E, NB) in enumerate(zip(stacks, Es, NBs)):
+            nb = min(NB, idx.shape[0])
+            r = max(0, min(starts[g][t], idx.shape[0] - nb))
+            segs.append((stk[r:r + nb].transpose(0, 1).reshape(len(F13), -1),
+                         idx[r:r + nb].reshape(-1)))
+        for fld, idx in segs:
+            other = idx[None] != i
+            maybe = ((a > fld[f["a0w"]]) & (a < fld[f["a2w"]])
+                     & (fld[f["key"]] < kh) & other)
+            sure = ((a > fld[f["a0n"]]) & (a < fld[f["a2n"]])
+                    & (fld[f["key"]] < kl) & other)
+            covered += int((maybe | sure).sum())
+            total += T * idx.numel()
+    return total, covered
+
+
+def screen_bytes(args):
+    """Bytes the screen must move: every input read once (targets, rows,
+    the whole tables), the two outputs written once."""
+    glob, stacks, al, klo, khi, it, rows, *_ = args
+    tensors = [al, klo, khi, it, rows, *glob] + [t for st in stacks
+                                                 for t in st]
+    return (sum(t.numel() * t.element_size() for t in tensors)
+            + 2 * al.numel() * al.element_size())
+
+
+def viewshed_timing(dev, card, out):
+    """Phase 15: the exact viewshed's warm wall time and phases, the screen
+    kernel against its twin at the main path's plan, and every re-evaluation
+    route forced through the module's thresholds."""
+    import io
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch.kernels import cuda_screen, screen
+    from xrspatial_torch.kernels import viewshed_exact as ve
+    x, y, oe = VS_VIEW
+    print(f"== timing: exact viewshed at {VS_N}x{VS_N} on {card}")
+    agg = vs_raster(dev)
+
+    def call():
+        o = xt.viewshed(agg, x=x, y=y, observer_elev=oe).data
+        torch.cuda.synchronize()
+        return o
+
+    call()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"  viewshed warm (host clock around a synchronised call, 3 calls): "
+          f"mean {sum(walls) / 3:.3f} ms, each "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms, {card}")
+    err = io.StringIO()
+    with env_set(XRSPATIAL_VS_TIMING="1"), contextlib.redirect_stderr(err):
+        call()
+    print("  phases (XRSPATIAL_VS_TIMING=1, the device synchronised at each "
+          "mark):")
+    for line in err.getvalue().splitlines():
+        print("   ", line.removeprefix("# vs_exact "))
+    vr, vc = VS_N - 1 - y, x
+    data = agg.data.to(torch.float64).cpu().numpy()
+    args = ve.screen_inputs(data, vr, vc, oe, 0.0, 1.0, -1.0, level=1,
+                            device=dev)
+    ms = paired_ms(lambda: cuda_screen.screen_hilo_cuda(*args),
+                   lambda: screen.screen_hilo(*args), 10, 1)
+    pairs, covered = screen_pair_counts(args)
+    nbytes = screen_bytes(args)
+    print(f"  screen_hilo at the {VS_N}^2 plan (float32): kernel "
+          f"{ms[0]:.3f} ms, twin {ms[1]:.3f} ms, {card}; {pairs} pairs "
+          f"({pairs / ms[0] / 1e6:.1f} Gpairs/s), {covered} pass the maybe or "
+          f"sure test, {nbytes} bytes of inputs and outputs")
+    del args
+    routes = (("default", {}),
+              ("level-2 re-screen", {"_L2_MIN_AMB": 0}),
+              ("level-2 re-screen in slabs of 2", {"_L2_MIN_AMB": 0,
+                                                   "_L2_SLAB": 2}),
+              ("safety valve", {"_VALVE_MIN_AMB": 0, "_VALVE_FRAC": 0.0}))
+    for label, patch in routes:
+        saved = {k: getattr(ve, k) for k in patch}
+        for k, v in patch.items():
+            setattr(ve, k, v)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            o = call()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()["screen_hilo"]
+            f64 = cuda_screen.F64_LAUNCHES
+        finally:
+            for k, v in saved.items():
+                setattr(ve, k, v)
+        if not torch.equal(o, out):
+            raise SmokeFailure(f"viewshed, route {label}: differs from the "
+                               f"default route")
+        print(f"  route {label} {patch}: {wall:.3f} ms (host clock), "
+              f"{ve.LAST_CALL}, screen launches {launches} ({f64} float64), "
+              f"equal to the default at every cell, {card}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ms, pairs, covered, nbytes
+
+
+# -- the least time of each kernel ------------------------------------------
+
+HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
+F32_FLOP_S = 67e12         # H100 SXM float32 outside the tensor cores
+# float operations per cell, counted from the CUDA sources: the main
+# path's slope + hillshade (surface_cell.cuh: 2 x 7 for the Sobel sums, 10
+# for slope, 17 for hillshade); per footprint offset 5 in the first focal
+# pass and 4 in the second, 9 in the epilogue (focal_cell.cuh); per
+# candidate of a jump-flood round 8 (two conversions, four products, a sum
+# and the comparison; jfa.cu), 9 candidates a round
+SURFACE_OPS = 41
+FOCAL_OPS_PER_OFFSET, FOCAL_OPS = 9, 9
+JFA_OPS_PER_CANDIDATE, JFA_CANDIDATES = 8, 9
+# per screen pair: the 6 float comparisons of the cover and key tests; per
+# pair that passes one, 11 more (the subtract, the sign test, the product
+# and sum, the clip, each band and its max; screen.cu)
+SCREEN_OPS, SCREEN_OPS_COVERED = 6, 11
+
+
+def bound(nbytes, ops):
+    """(least ms, "bytes" or "operations") for work of `nbytes` bytes and
+    `ops` float32 operations on an H100 SXM."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bounds(n_offsets_main, n_offsets_annulus, screen_counts):
+    """The bound of each kernel at the work its timing measured."""
+    cells = N * N
+    plane = 4 * cells                      # one float32 or int32 plane
+    focal = FOCAL_OPS_PER_OFFSET * n_offsets_main + FOCAL_OPS
+    pairs, covered, screen_nbytes = screen_counts
+    return {
+        # 1 read, slope and hillshade written
+        "surface_kernel": bound(3 * plane, SURFACE_OPS * cells),
+        # 1 read, 4 stats written
+        "focal_kernel": bound(5 * plane, focal * cells),
+        # 1 read, 2 products and 4 stats written
+        "pipeline_kernel": bound(7 * plane, (SURFACE_OPS + focal) * cells),
+        "focal_halo_kernel": bound(
+            5 * plane,
+            (FOCAL_OPS_PER_OFFSET * n_offsets_annulus + FOCAL_OPS) * cells),
+        # 16 rounds, each reading its state and writing the next; the last
+        # also writes the best key
+        "jfa_round": bound(
+            ROUNDS_AT_N * 2 * plane + plane,
+            ROUNDS_AT_N * JFA_CANDIDATES * JFA_OPS_PER_CANDIDATE * cells),
+        "screen_hilo": bound(screen_nbytes,
+                             SCREEN_OPS * pairs + SCREEN_OPS_COVERED * covered),
+    }
+
 
 
 def main() -> int:
@@ -993,6 +1369,16 @@ def main() -> int:
                                        halo_small_err)
     torch_op_paths(dev, card)
 
+    # -- the exact viewshed ----------------------------------------------------
+    screen_err = check_screen(dev)
+    launches["screen_hilo"], _, vs_out = viewshed_path(dev)
+    ms["screen_hilo"], *screen_counts = viewshed_timing(dev, card, vs_out)
+    max_err["screen_hilo"] = screen_err
+    del vs_out
+
+    bounds = kernel_bounds(
+        len(offsets), len(kernel_offsets(halo_footprints()["annulus_40_38"])),
+        screen_counts)
     sources = {"surface_kernel": (
         "xrspatial_torch/csrc/surface.cu",
         "xrspatial_tpu/kernels/pallas_surface2.py:178"),
@@ -1007,11 +1393,16 @@ def main() -> int:
         "xrspatial_tpu/kernels/pallas_window.py:110"),
         "pipeline_kernel": (
         "xrspatial_torch/csrc/pipeline.cu",
-        "xrspatial_tpu/kernels/pallas_pipeline.py:82")}
+        "xrspatial_tpu/kernels/pallas_pipeline.py:82"),
+        "screen_hilo": (
+        "xrspatial_torch/csrc/screen.cu",
+        "xrspatial_tpu/kernels/pallas_screen.py:99")}
+    # no single PyTorch call computes any of these functions
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k],
-         "ms": ms[k][0], "plain_ms": ms[k][1]}
+         "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": None}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -17,7 +17,10 @@ against the same call on the CPU: rtol 1e-5, which a TF32 convolution
 would miss by orders of magnitude.  The jump-flood round kernel equals
 its twins bit for bit in every state plane for EUCLIDEAN and MANHATTAN;
 great-circle distances agree within rtol 1e-4 (libdevice and torch trig
-differ by ulps, which may turn a near-tie).
+differ by ulps, which may turn a near-tie).  The exact viewshed's
+interval-screen kernel equals its twin bit for bit in hi and lo, float32
+and float64; ``viewshed`` on the card gives the CPU's visibility at every
+cell and its angles within rtol 1e-12 (float64 atan ulps).
 """
 
 import numpy as np
@@ -29,8 +32,8 @@ from xrspatial_torch import focal
 from xrspatial_torch.convolution import (annulus_kernel, circle_kernel,
                                          convolution_2d)
 from xrspatial_torch.kernels import _cuda, cuda_jfa, cuda_pipeline
-from xrspatial_torch.kernels import cuda_surface, cuda_window, jfa
-from xrspatial_torch.kernels import jfa_rounds
+from xrspatial_torch.kernels import cuda_screen, cuda_surface, cuda_window
+from xrspatial_torch.kernels import jfa, jfa_rounds, screen, viewshed_exact
 from xrspatial_torch.kernels.pipeline import pipeline_multi
 from xrspatial_torch.kernels.surface import PRODUCTS, surface_multi
 from xrspatial_torch.kernels.window import kernel_offsets, window_stats
@@ -482,3 +485,55 @@ def test_raw_wrappers_refuse_a_cpu_tensor(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(torch.ones((4, 5)))
     assert counts() == before
+
+
+# -- the exact viewshed ---------------------------------------------------------
+
+def vs_ridge(shape, seed):
+    """A random ridge raster with NaN cells, as tests/test_torch_viewshed.py
+    makes them."""
+    rng = np.random.default_rng(seed)
+    data = rng.random(shape) * 60.0
+    data[shape[0] // 3, :] += 100.0
+    data[np.unravel_index(rng.integers(0, data.size, 20), shape)] = np.nan
+    return data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("shape,vp", [((48, 64), (10, 10)),
+                                      ((64, 48), (0, 0)),
+                                      ((300, 70), (200, 60))])
+def test_screen_kernel_matches_twin(cuda, shape, vp, level):
+    args = viewshed_exact.screen_inputs(vs_ridge(shape, 7), vp[0], vp[1],
+                                        3.0, 0.5, 1.5, -1.0, level=level,
+                                        device=cuda)
+    before = cuda_screen.LAUNCHES
+    hi, lo = cuda_screen.screen_hilo_cuda(*args)
+    ref_hi, ref_lo = screen.screen_hilo(*args)
+    torch.cuda.synchronize()
+    assert cuda_screen.LAUNCHES == before + 1
+    assert hi.dtype == (torch.float64 if level == 2 else torch.float32)
+    assert torch.equal(hi, ref_hi) and torch.equal(lo, ref_lo)
+
+
+@pytest.mark.gpu
+def test_viewshed_on_the_card_matches_the_cpu(cuda):
+    data = vs_ridge((96, 112), 9)
+    coords = {"y": np.arange(96, dtype=float)[::-1].copy(),
+              "x": np.arange(112, dtype=float)}
+
+    def run(t):
+        agg = xt.DataArray(t, dims=("y", "x"), coords=coords)
+        return xt.viewshed(agg, x=30, y=45, observer_elev=3.0,
+                           target_elev=0.5).data
+
+    host = run(torch.from_numpy(data))
+    before = cuda_screen.LAUNCHES
+    card = run(torch.from_numpy(data).to(cuda))
+    torch.cuda.synchronize()
+    assert cuda_screen.LAUNCHES > before
+    assert card.device.type == "cuda" and card.dtype == torch.float64
+    assert torch.equal(card.cpu() == -1, host == -1)
+    np.testing.assert_allclose(card.cpu().numpy(), host.numpy(), rtol=1e-12,
+                               atol=0)

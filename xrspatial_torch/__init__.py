@@ -16,11 +16,12 @@ from .focal import focal_stats, mean
 from .hillshade import hillshade
 from .proximity import DISTANCE_METRICS, allocation, direction, proximity
 from .slope import slope
+from .viewshed import viewshed
 from .xrlib import DataArray, Dataset
 
 __all__ = ["DataArray", "Dataset", "slope", "aspect", "curvature",
            "hillshade", "focal_stats", "mean", "terrain_pipeline",
            "summarize_terrain", "proximity", "allocation", "direction",
-           "DISTANCE_METRICS"]
+           "DISTANCE_METRICS", "viewshed"]
 
 __version__ = "0.1.0"

@@ -122,6 +122,12 @@ def library() -> ctypes.CDLL:
     lib.jfa_round_coords.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64,
                                      i32, p]
     lib.jfa_round_coords.restype = i32
+    for fn in (lib.screen_hilo_f32, lib.screen_hilo_f64):
+        fn.argtypes = [p, p, p, p, p, p, i32, i32, ctypes.POINTER(p),
+                       ctypes.POINTER(p), ctypes.POINTER(i32),
+                       ctypes.POINTER(i32), ctypes.POINTER(i32), p, i32, i32,
+                       p, p, p]
+        fn.restype = i32
     lib.xrt_error_string.argtypes = [i32]
     lib.xrt_error_string.restype = ctypes.c_char_p
     return lib

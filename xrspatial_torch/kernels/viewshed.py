@@ -1,0 +1,579 @@
+"""Viewshed: GRASS r.viewshed semantics, reformulated data-parallel.
+
+Counterpart of the exact half of ``xrspatial_tpu/kernels/viewshed.py``.  A
+cell C is visible iff no cell B that is closer to the viewpoint and whose
+angular span (enter/exit corner angles) covers C's center angle has an
+interpolated gradient (piecewise-linear between enter/center/exit
+gradients) above C's gradient: the predicate the reference's radial sweep
+evaluates at every CENTER event, without the tree.
+
+Two halves:
+- host code in numpy float64 (``cell_attrs_host``, ``cell_attrs_subset``
+  and their helpers), copied from the JAX package as it is: it is the
+  single source of the predicate attributes, so both packages' attributes
+  are equal bit for bit;
+- device code as torch float64 ops on the raster's device: the shared
+  predicate ``_interp_blocked_max``, the pairwise oracle
+  ``_pairwise_visibility`` / ``viewshed_grid`` (O(N^2), the reference the
+  bucket path in ``viewshed_exact.py`` is held against) and the vertical-
+  angle epilogue.
+
+The XDraw approximation of the JAX module is not ported (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+from math import pi as PI
+
+import numpy as np
+import torch
+
+__all__ = ["viewshed_grid", "cell_attrs_host", "cell_attrs_subset",
+           "INVISIBLE"]
+
+INVISIBLE = -1
+
+
+def _calculate_angle(ex, ey, vx, vy, xp=torch):
+    """Vectorized angle of (ex, ey) seen from (vx, vy), in [0, 2pi).
+
+    `xp` selects the array module: numpy for the host attributes, torch for
+    the device expansion of the interval screen.
+    """
+    ang = xp.arctan(xp.abs(ey - vy) / xp.where(ex == vx, 1.0,
+                                               xp.abs(ex - vx)))
+    q1 = (ex > vx) & (ey < vy)
+    q2 = (vx > ex) & (vy > ey)
+    q3 = (vx > ex) & (vy < ey)
+    q4 = (vx < ex) & (vy < ey)
+    out = xp.where(q1, ang,
+          xp.where(q2, PI - ang,
+          xp.where(q3, PI + ang,
+          xp.where(q4, 2.0 * PI - ang, 0.0))))
+    out = xp.where((vx == ex) & (vy > ey), PI / 2.0, out)
+    out = xp.where((vx == ex) & (vy < ey), 3.0 * PI / 2.0, out)
+    out = xp.where((vy == ey) & (ex > vx), 0.0, out)
+    out = xp.where((vy == ey) & (vx > ex), PI, out)
+    out = xp.where((ex == vx) & (ey == vy), 0.0, out)
+    return out
+
+
+def _corner_offsets(rows, cols, vp_row, vp_col, xp=torch):
+    """(enter_dy, enter_dx, exit_dy, exit_dx) per cell: the reference's
+    quadrant table, vectorized.  The offsets are 0 or +-0.5, exact in any
+    float type."""
+    north = rows < vp_row
+    south = rows > vp_row
+    west = cols < vp_col
+    east = cols > vp_col
+    same_row = rows == vp_row
+    same_col = cols == vp_col
+
+    # enter corner
+    e_dy = xp.where(north & west, -0.5,
+            xp.where(north & same_col, 0.5,
+            xp.where(north & east, 0.5,
+            xp.where(same_row & east, 0.5,
+            xp.where(south & east, 0.5,
+            xp.where(south & same_col, -0.5,
+            xp.where(south & west, -0.5,
+            xp.where(same_row & west, -0.5, 0.0))))))))
+    e_dx = xp.where(north & west, 0.5,
+            xp.where(north & same_col, 0.5,
+            xp.where(north & east, 0.5,
+            xp.where(same_row & east, -0.5,
+            xp.where(south & east, -0.5,
+            xp.where(south & same_col, -0.5,
+            xp.where(south & west, -0.5,
+            xp.where(same_row & west, 0.5, 0.0))))))))
+    # exit corner
+    x_dy = xp.where(north & west, 0.5,
+            xp.where(north & same_col, 0.5,
+            xp.where(north & east, -0.5,
+            xp.where(same_row & east, -0.5,
+            xp.where(south & east, -0.5,
+            xp.where(south & same_col, -0.5,
+            xp.where(south & west, 0.5,
+            xp.where(same_row & west, 0.5, 0.0))))))))
+    x_dx = xp.where(north & west, -0.5,
+            xp.where(north & same_col, -0.5,
+            xp.where(north & east, -0.5,
+            xp.where(same_row & east, -0.5,
+            xp.where(south & east, 0.5,
+            xp.where(south & same_col, 0.5,
+            xp.where(south & west, 0.5,
+            xp.where(same_row & west, 0.5, 0.0))))))))
+    return e_dy, e_dx, x_dy, x_dx
+
+
+def _np_rects(h, w, vp_row, vp_col):
+    """The 3x3 rectangle partition of the grid around the viewpoint:
+    row bands [0, vp), [vp, vp+1), (vp, h) x same for columns.  Every
+    quadrant mask in the attrs helpers is a union of these rectangles,
+    so the host fast paths below replace full-array `where` chains with
+    slab writes, bit-identically."""
+    r = (slice(0, vp_row), slice(vp_row, vp_row + 1), slice(vp_row + 1, h))
+    c = (slice(0, vp_col), slice(vp_col, vp_col + 1), slice(vp_col + 1, w))
+    return r, c
+
+
+def _calculate_angle_np(drows, dcols):
+    """Host fast path of `_calculate_angle`: identical values, masked
+    writes instead of the 9-deep where chain.  ``drows``/``dcols`` are
+    ey - vy and ex - vx; all quantities are exact half-integers in f64
+    so the pre-subtraction loses nothing."""
+    h, w = drows.shape
+    ex_eq = dcols == 0.0
+    ang = np.arctan(np.abs(drows) / np.where(ex_eq, 1.0, np.abs(dcols)))
+
+    out = np.zeros((h, w), dtype=np.float64)
+    q1 = (dcols > 0) & (drows < 0)
+    q2 = (dcols < 0) & (drows < 0)
+    q3 = (dcols < 0) & (drows > 0)
+    q4 = (dcols > 0) & (drows > 0)
+    out[q1] = ang[q1]
+    out[q2] = PI - ang[q2]
+    out[q3] = PI + ang[q3]
+    out[q4] = 2.0 * PI - ang[q4]
+    out[ex_eq & (drows < 0)] = PI / 2.0
+    out[ex_eq & (drows > 0)] = 3.0 * PI / 2.0
+    ey_eq = drows == 0.0
+    out[ey_eq & (dcols > 0)] = 0.0
+    out[ey_eq & (dcols < 0)] = PI
+    out[ex_eq & ey_eq] = 0.0
+    return out
+
+
+def _corner_offsets_np(h, w, vp_row, vp_col):
+    """Host fast path of `_corner_offsets`: the quadrant table written
+    as 9 rectangle slabs per plane (bit-identical constants)."""
+    r, c = _np_rects(h, w, vp_row, vp_col)
+    planes = []
+    # per-plane constants in (north, same_row, south) x (west, same_col,
+    # east) order, transcribed from the generic where chain
+    tables = (
+        ((-0.5, 0.5, 0.5), (-0.5, 0.0, 0.5), (-0.5, -0.5, 0.5)),   # e_dy
+        ((0.5, 0.5, 0.5), (0.5, 0.0, -0.5), (-0.5, -0.5, -0.5)),   # e_dx
+        ((0.5, 0.5, -0.5), (0.5, 0.0, -0.5), (0.5, -0.5, -0.5)),   # x_dy
+        ((-0.5, -0.5, -0.5), (0.5, 0.0, -0.5), (0.5, 0.5, 0.5)),   # x_dx
+    )
+    for tab in tables:
+        plane = np.empty((h, w), dtype=np.float64)
+        for i in range(3):
+            for j in range(3):
+                plane[r[i], c[j]] = tab[i][j]
+        planes.append(plane)
+    return tuple(planes)
+
+
+def _corner_elev_np(data, vp_row, vp_col, enter, pad=None):
+    """Host fast path of `_corner_elev`: the (sy, sx) selection masks
+    are a 4-rectangle pinwheel around the viewpoint, so the 4-neighbor
+    corner average is computed once per cell on its own slab.
+    ``enter`` picks the enter- vs exit-corner pinwheel orientation;
+    ``pad`` optionally supplies the NaN-padded plane."""
+    h, w = data.shape
+    p = np.pad(data, 1, constant_values=np.nan) if pad is None else pad
+    out = data.copy()  # covers the viewpoint cell (zero offsets)
+    vr, vc = vp_row, vp_col
+    if enter:
+        # (sy,sx) -> rect: NW+W, N+NE, E+SE, S+SW
+        rects = (((-1, 1), (0, vr + 1, 0, vc)),
+                 ((1, 1), (0, vr, vc, w)),
+                 ((1, -1), (vr, h, vc + 1, w)),
+                 ((-1, -1), (vr + 1, h, 0, vc + 1)))
+    else:
+        # exit corner: NW+N, NE+E, SE+S, SW+W
+        rects = (((1, -1), (0, vr, 0, vc + 1)),
+                 ((-1, -1), (0, vr + 1, vc + 1, w)),
+                 ((-1, 1), (vr + 1, h, vc, w)),
+                 ((1, 1), (vr, h, 0, vc)))
+    for (sy, sx), (r0, r1, c0, c1) in rects:
+        if r0 >= r1 or c0 >= c1:
+            continue
+        center = data[r0:r1, c0:c1]
+        diag = p[1 + sy + r0:1 + sy + r1, 1 + sx + c0:1 + sx + c1]
+        vert = p[1 + sy + r0:1 + sy + r1, 1 + c0:1 + c1]
+        horiz = p[1 + r0:1 + r1, 1 + sx + c0:1 + sx + c1]
+        avg = (diag + vert + horiz + center) / 4.0
+        out[r0:r1, c0:c1] = np.where(np.isnan(avg), center, avg)
+    return out
+
+
+def _corner_diffs_np(d2, vp_row, vp_col, enter=True, pad=None):
+    """`_corner_elev_np` evaluated on a difference plane (elev -
+    vp_elev): same pinwheel rectangles and (diag+vert+horiz+center)/4
+    association, but averaging DIFFS, equal to avg-then-subtract up to
+    f64 association ulps.  Only the interval screen consumes this (its
+    tolerance bands dominate the drift by >10^4); the exact f64 oracle
+    paths keep `_corner_elev_np` on raw elevations."""
+    return _corner_elev_np(d2, vp_row, vp_col, enter=enter, pad=pad)
+
+
+def _gradient_np(dy_px, dx_px, elev, vp_elev, ew_res, ns_res, vp_cell):
+    """Host fast path of `_gradient`: same formula evaluated with
+    in-place ufuncs, the d2 == 0 guard applied as a scalar fix at
+    ``vp_cell``: for every caller the pixel offsets are zero ONLY at
+    the viewpoint (corner offsets are +-0.5 everywhere else)."""
+    diff = elev - vp_elev
+    d2 = dx_px * ew_res
+    d2 *= d2
+    t = dy_px * ns_res
+    t *= t
+    d2 += t
+    r, c = vp_cell
+    d2[r, c] = 1.0
+    np.sqrt(d2, out=d2)
+    np.divide(diff, d2, out=d2)
+    grad = np.arctan(d2, out=d2)
+    grad[r, c] = np.sign(diff[r, c]) * (PI / 2.0)
+    return grad
+
+
+def _corner_elev(data, dy_sign, dx_sign):
+    """Mean of the 4 cells sharing the corner at (row+dy, col+dx); falls
+    back to the cell's own value when any of the 4 is OOB/NaN.  The
+    generic numpy form of `_corner_elev_np`, which the tests hold it to."""
+    h, w = data.shape
+    p = np.pad(data, 1, constant_values=np.nan)
+    center = data
+
+    def nb(dy, dx):
+        return p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+    out = np.full((h, w), np.nan)
+    for sy in (-1, 1):
+        for sx in (-1, 1):
+            diag = nb(sy, sx)
+            vert = nb(sy, 0)
+            horiz = nb(0, sx)
+            avg = (diag + vert + horiz + center) / 4.0
+            avg = np.where(np.isnan(avg), center, avg)
+            sel = (dy_sign == sy * 0.5) & (dx_sign == sx * 0.5)
+            out = np.where(sel, avg, out)
+    return np.where((dy_sign == 0.0) & (dx_sign == 0.0), center, out)
+
+
+def _gradient(dy_px, dx_px, elev, vp_elev, ew_res, ns_res):
+    """atan((elev - vp_elev)/dist); +-pi/2 at the viewpoint.  The generic
+    numpy form of `_gradient_np`, which the tests hold it to."""
+    diff = elev - vp_elev
+    d2 = (dx_px * ew_res) ** 2 + (dy_px * ns_res) ** 2
+    grad = np.arctan(diff / np.sqrt(np.where(d2 == 0, 1.0, d2)))
+    at_vp = d2 == 0
+    return np.where(at_vp, np.sign(diff) * PI / 2.0, grad)
+
+
+def _interp_blocked_max(al, key_t, idx_t, key_b, a0, a1, a2, g0, g1, g2,
+                        valid_b, idx_b):
+    """Max interpolated blocker gradient per target: the GRASS status-
+    structure query, evaluated for a (C, 1) column of targets against a
+    (1, E) row of candidate blockers (or with a leading batch axis).
+    Shared by the pairwise oracle and the exact bucket path so both
+    compute bit-identical results: the candidate SET may differ (the
+    bucket path evaluates a superset of the covering cells) but inactive
+    candidates contribute -inf and the float max is order-independent.
+    No multiply feeds an add, so no fma can be contracted."""
+    two_pi = 2.0 * PI
+    crossing = a0 > a2
+    cover = torch.where(crossing,
+                        (al > a0) | (al < a2),
+                        (al > a0) & (al < a2))
+    closer = key_b < key_t
+    not_self = idx_b != idx_t
+    active = cover & closer & not_self & valid_b
+
+    # interpolation in unwrapped angle coordinates
+    a1e = torch.where(crossing & (a1 < a0), a1 + two_pi, a1)
+    a2e = torch.where(crossing & (a2 < a0), a2 + two_pi, a2)
+    ale = torch.where(crossing & (al < a0), al + two_pi, al)
+
+    seg1 = ale < a1e
+    seg2 = ale > a1e
+    d10 = torch.where(a1e != a0, a1e - a0, 1.0)
+    d21 = torch.where(a2e != a1e, a2e - a1e, 1.0)
+    gi = torch.where(
+        seg1, g1 + (g0 - g1) * (a1e - ale) / d10,
+        torch.where(seg2,
+                    g1 + (g2 - g1) * (ale - a1e) / d21,
+                    g1))
+    gi = torch.where(active, gi, -torch.inf)
+    return torch.amax(gi, dim=-1)
+
+
+def _pairwise_visibility(key, a0, a1, a2, g0, g1, g2, grad_t, is_vp,
+                         chunk=256):
+    """Max blocked gradient per cell -> visibility comparison.
+
+    All inputs flat (N,) float64 on one device; evaluated in chunks of
+    targets against every potential blocker.
+    """
+    n = key.shape[0]
+    # blocker invalid if its gradients are NaN (NODATA never blocks)
+    valid_b = torch.isfinite(g1) & ~is_vp
+    idx = torch.arange(n, device=key.device)
+    blocked = torch.empty(n, dtype=key.dtype, device=key.device)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        blocked[s:e] = _interp_blocked_max(
+            a1[s:e, None], key[s:e, None], idx[s:e, None],
+            key[None], a0[None], a1[None], a2[None],
+            g0[None], g1[None], g2[None], valid_b[None], idx[None])
+    return blocked <= grad_t
+
+
+def cell_attrs_host(data_np, vp_row: int, vp_col: int, observer_elev: float,
+                    target_elev: float, ew_res: float, ns_res: float):
+    """All per-cell predicate attributes, computed ONCE on the host in
+    numpy float64: the single source both exact paths consume.
+
+    Returns a dict of flat (N,) float64 arrays: key (squared weighted
+    distance), a0/a1/a2 (enter/center/exit angles), g0/g1/g2 (gradients),
+    grad_t (target gradient), plus is_vp / valid_b masks.
+    """
+    data = np.asarray(data_np, dtype=np.float64)
+    h, w = data.shape
+    vp_elev = data[vp_row, vp_col] + observer_elev
+
+    # every coordinate below is an exact half-integer in f64, so the
+    # slab-written fast paths (_*_np) produce bit-identical values to
+    # the generic xp= helpers regardless of association order
+    dr = np.arange(h, dtype=np.float64) - np.float64(vp_row)
+    dc = np.arange(w, dtype=np.float64) - np.float64(vp_col)
+    drow = np.broadcast_to(dr[:, None], (h, w))
+    dcol = np.broadcast_to(dc[None, :], (h, w))
+
+    e_dy, e_dx, x_dy, x_dx = _corner_offsets_np(h, w, vp_row, vp_col)
+    enter_elev = _corner_elev_np(data, vp_row, vp_col, enter=True)
+    exit_elev = _corner_elev_np(data, vp_row, vp_col, enter=False)
+    # corner-relative coordinate grids (reuse the offset buffers)
+    e_dy += dr[:, None]
+    e_dx += dc[None, :]
+    x_dy += dr[:, None]
+    x_dx += dc[None, :]
+
+    # angles: _calculate_angle takes (x, y) with y as ROW index and
+    # "north" = smaller row
+    with np.errstate(invalid="ignore"):
+        a0 = _calculate_angle_np(e_dy, e_dx)
+        a1 = _calculate_angle_np(drow, dcol)
+        a2 = _calculate_angle_np(x_dy, x_dx)
+
+        vp_cell = (vp_row, vp_col)
+        g0 = _gradient_np(e_dy, e_dx, enter_elev, vp_elev, ew_res, ns_res,
+                          vp_cell)
+        g1 = _gradient_np(drow, dcol, data, vp_elev, ew_res, ns_res,
+                          vp_cell)
+        g2 = _gradient_np(x_dy, x_dx, exit_elev, vp_elev, ew_res, ns_res,
+                          vp_cell)
+        grad_t = _gradient_np(drow, dcol, data + target_elev,
+                              vp_elev, ew_res, ns_res, vp_cell)
+
+    key = (dc * ew_res) ** 2 + ((dr * ns_res) ** 2)[:, None]
+    is_vp = np.zeros((h, w), dtype=bool)
+    is_vp[vp_row, vp_col] = True
+    valid_b = np.isfinite(g1)
+    valid_b[vp_row, vp_col] = False
+    return {
+        "key": key.ravel(), "a0": a0.ravel(), "a1": a1.ravel(),
+        "a2": a2.ravel(), "g0": g0.ravel(), "g1": g1.ravel(),
+        "g2": g2.ravel(), "grad_t": grad_t.ravel(),
+        "is_vp": is_vp.ravel(), "valid_b": valid_b.ravel(),
+        "vp_elev": vp_elev, "shape": (h, w),
+    }
+
+
+def cell_attrs_subset(data_np, flat_idx, vp_row: int, vp_col: int,
+                      observer_elev: float, target_elev: float,
+                      ew_res: float, ns_res: float):
+    """f64 predicate attributes at SCATTERED flat indices: bit-identical
+    per element to `cell_attrs_host`, at O(|subset|) cost.  The f64
+    re-evaluation of screen-ambiguous targets only needs attrs at its
+    gathered candidate/target positions."""
+    return cell_attrs_subset_fn(data_np, vp_row, vp_col, observer_elev,
+                                target_elev, ew_res, ns_res)(flat_idx)
+
+
+def cell_attrs_subset_fn(data_np, vp_row: int, vp_col: int,
+                         observer_elev: float, target_elev: float,
+                         ew_res: float, ns_res: float):
+    """Factory form of `cell_attrs_subset`: pads the elevation grid once
+    and returns ``fn(flat_idx) -> attrs dict`` for repeated gathered
+    lookups (one per candidate tier plus the target side)."""
+    data = np.asarray(data_np, dtype=np.float64)
+    p = np.pad(data, 1, constant_values=np.nan)
+    vp_elev = data[vp_row, vp_col] + observer_elev
+
+    def fn(flat_idx):
+        return _cell_attrs_at(data, p, flat_idx, vp_row, vp_col, vp_elev,
+                              target_elev, ew_res, ns_res)
+
+    return fn
+
+
+def _cell_attrs_at(data, p, flat_idx, vp_row, vp_col, vp_elev,
+                   target_elev, ew_res, ns_res):
+    h, w = data.shape
+    idx = np.asarray(flat_idx, dtype=np.int64)
+    rows, cols = np.divmod(idx, w)
+
+    dr = rows.astype(np.float64) - np.float64(vp_row)
+    dc = cols.astype(np.float64) - np.float64(vp_col)
+
+    # corner offsets via the same 3x3 quadrant tables as
+    # _corner_offsets_np (band index 0/1/2 = north/same/south etc.)
+    bi = (rows >= vp_row).astype(np.int64) + (rows > vp_row)
+    bj = (cols >= vp_col).astype(np.int64) + (cols > vp_col)
+    tables = (
+        ((-0.5, 0.5, 0.5), (-0.5, 0.0, 0.5), (-0.5, -0.5, 0.5)),   # e_dy
+        ((0.5, 0.5, 0.5), (0.5, 0.0, -0.5), (-0.5, -0.5, -0.5)),   # e_dx
+        ((0.5, 0.5, -0.5), (0.5, 0.0, -0.5), (0.5, -0.5, -0.5)),   # x_dy
+        ((-0.5, -0.5, -0.5), (0.5, 0.0, -0.5), (0.5, 0.5, 0.5)),   # x_dx
+    )
+    e_dy, e_dx, x_dy, x_dx = (np.asarray(t, dtype=np.float64)[bi, bj]
+                              for t in tables)
+    e_dy = e_dy + dr
+    e_dx = e_dx + dc
+    x_dy = x_dy + dr
+    x_dx = x_dx + dc
+
+    # enter/exit corner elevations: the pinwheel (sy, sx) selection of
+    # _corner_elev_np, evaluated per element with the identical
+    # (diag + vert + horiz + center) / 4 association
+    center = data[rows, cols]
+
+    def corner(enter):
+        if enter:
+            sy = np.where(rows <= vp_row,
+                          np.where(cols < vp_col, -1,
+                                   np.where(rows < vp_row, 1,
+                                            np.where(cols >= vp_col + 1,
+                                                     1, -1))),
+                          np.where(cols >= vp_col + 1, 1, -1))
+            sx = np.where((rows <= vp_row) & (cols < vp_col), 1,
+                          np.where((rows < vp_row) & (cols >= vp_col), 1,
+                                   -1))
+        else:
+            sy = np.where((rows < vp_row) & (cols <= vp_col), 1,
+                          np.where((rows <= vp_row) & (cols > vp_col), -1,
+                                   np.where((rows > vp_row)
+                                            & (cols >= vp_col), -1, 1)))
+            sx = np.where((rows < vp_row) & (cols <= vp_col), -1,
+                          np.where((rows <= vp_row) & (cols > vp_col), -1,
+                                   np.where((rows > vp_row)
+                                            & (cols >= vp_col), 1, 1)))
+        diag = p[1 + rows + sy, 1 + cols + sx]
+        vert = p[1 + rows + sy, 1 + cols]
+        horiz = p[1 + rows, 1 + cols + sx]
+        avg = (diag + vert + horiz + center) / 4.0
+        out = np.where(np.isnan(avg), center, avg)
+        return np.where((rows == vp_row) & (cols == vp_col), center, out)
+
+    enter_elev = corner(True)
+    exit_elev = corner(False)
+
+    def angle(drows, dcols):
+        ex_eq = dcols == 0.0
+        ang = np.arctan(np.abs(drows) / np.where(ex_eq, 1.0,
+                                                 np.abs(dcols)))
+        out = np.zeros(idx.shape, dtype=np.float64)
+        out[(dcols > 0) & (drows < 0)] = ang[(dcols > 0) & (drows < 0)]
+        q2 = (dcols < 0) & (drows < 0)
+        q3 = (dcols < 0) & (drows > 0)
+        q4 = (dcols > 0) & (drows > 0)
+        out[q2] = PI - ang[q2]
+        out[q3] = PI + ang[q3]
+        out[q4] = 2.0 * PI - ang[q4]
+        out[ex_eq & (drows < 0)] = PI / 2.0
+        out[ex_eq & (drows > 0)] = 3.0 * PI / 2.0
+        ey_eq = drows == 0.0
+        out[ey_eq & (dcols > 0)] = 0.0
+        out[ey_eq & (dcols < 0)] = PI
+        out[ex_eq & ey_eq] = 0.0
+        return out
+
+    at_vp = (rows == vp_row) & (cols == vp_col)
+
+    def gradient(dy_px, dx_px, elev):
+        diff = elev - vp_elev
+        d2 = dx_px * ew_res
+        d2 = d2 * d2
+        t = dy_px * ns_res
+        t = t * t
+        d2 = d2 + t
+        d2 = np.where(at_vp, 1.0, d2)
+        grad = np.arctan(diff / np.sqrt(d2))
+        return np.where(at_vp, np.sign(diff) * (PI / 2.0), grad)
+
+    with np.errstate(invalid="ignore"):
+        a0 = angle(e_dy, e_dx)
+        a1 = angle(dr, dc)
+        a2 = angle(x_dy, x_dx)
+        g0 = gradient(e_dy, e_dx, enter_elev)
+        g1 = gradient(dr, dc, center)
+        g2 = gradient(x_dy, x_dx, exit_elev)
+        grad_t = gradient(dr, dc, center + target_elev)
+
+    key = (dc * ew_res) ** 2 + (dr * ns_res) ** 2
+    valid_b = np.isfinite(g1)
+    valid_b[at_vp] = False
+    return {
+        "key": key, "a0": a0, "a1": a1, "a2": a2,
+        "g0": g0, "g1": g1, "g2": g2, "grad_t": grad_t,
+        "is_vp": at_vp, "valid_b": valid_b,
+        "vp_elev": vp_elev, "shape": (h, w),
+    }
+
+
+def _visibility_epilogue(data, visible, vp_elev, vp_row, vp_col,
+                         target_elev, ew_res, ns_res):
+    """Vertical angle for visible cells, float64 on `data`'s device: 0 =
+    straight up, 90 = level, 180 = the viewpoint, INVISIBLE elsewhere."""
+    h, w = data.shape
+    dev = data.device
+    f64 = torch.float64
+    rows = torch.arange(h, dtype=torch.int32, device=dev).to(f64)[:, None]
+    cols = torch.arange(w, dtype=torch.int32, device=dev).to(f64)[None, :]
+    vp_r = float(vp_row)
+    vp_c = float(vp_col)
+    key = ((cols - vp_c) * ew_res) ** 2 + ((rows - vp_r) * ns_res) ** 2
+    is_vp = (rows == vp_r) & (cols == vp_c)
+
+    diff = float(vp_elev) - (data + float(target_elev))
+    dist = torch.sqrt(torch.where(key == 0, 1.0, key))
+    vert = torch.where(
+        diff == 0.0, 90.0,
+        torch.where(diff > 0,
+                    torch.arctan(dist / torch.where(diff == 0, 1.0, diff))
+                    * 180.0 / PI,
+                    torch.arctan(torch.abs(diff) / dist) * 180.0 / PI
+                    + 90.0))
+    out = torch.where(visible, vert, float(INVISIBLE))
+    return torch.where(is_vp, 180.0, out)
+
+
+def viewshed_grid(data, vp_row: int, vp_col: int, observer_elev: float,
+                  target_elev: float, ew_res: float, ns_res: float):
+    """Visibility grid (vertical angles, INVISIBLE=-1, viewpoint=180).
+
+    Exact GRASS predicate, evaluated PAIRWISE (every target against all
+    cells) on `data`'s device: the O(N^2) oracle the bucket path in
+    viewshed_exact.py equals bit for bit.  `data` is a 2-D tensor; its
+    float64 copy on the host feeds the attributes.
+    """
+    data = torch.as_tensor(data)
+    data_np = data.detach().to("cpu", torch.float64).numpy()
+    at = cell_attrs_host(data_np, vp_row, vp_col, observer_elev,
+                         target_elev, ew_res, ns_res)
+    h, w = at["shape"]
+    dev = data.device
+
+    def up(f):
+        return torch.from_numpy(np.ascontiguousarray(at[f])).to(dev)
+
+    visible = _pairwise_visibility(
+        up("key"), up("a0"), up("a1"), up("a2"), up("g0"), up("g1"),
+        up("g2"), up("grad_t"), up("is_vp")).reshape(h, w)
+    return _visibility_epilogue(data.to(torch.float64), visible,
+                                at["vp_elev"], vp_row, vp_col, target_elev,
+                                ew_res, ns_res)

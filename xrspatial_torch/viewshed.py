@@ -1,0 +1,92 @@
+"""Viewshed: visible cells from an observer location.
+
+Counterpart of ``xrspatial_tpu/viewshed.py``.  Rasters up to
+``_EXACT_MAX_CELLS`` (1024x1024) evaluate the exact GRASS r.viewshed
+visibility predicate by angle-sorted bucket evaluation
+(``kernels/viewshed_exact.py``, float64 decisions behind a sound interval
+screen, equal bit for bit to the pairwise oracle in ``kernels/viewshed.py``).
+On a raster on the card the screen's pair evaluation runs in the CUDA
+kernel ``csrc/screen.cu``; on a raster on the CPU in its torch twin.
+Output: vertical angle in degrees [0, 180] for visible cells (0 = straight
+up, 90 = level, 180 = the viewpoint itself), -1 for invisible cells,
+float64 on the raster's device.
+
+Not ported yet: the XDraw approximation, which the JAX package takes for
+``exact=False`` and by default above the ceiling, and its mesh branches.
+Those calls raise ``NotImplementedError`` (ROADMAP A11, A13).
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import numpy as np
+
+from .kernels.viewshed_exact import viewshed_grid_exact
+from .utils import to_torch, wrap_like
+from .xrlib import DataArray
+
+__all__ = ["viewshed"]
+
+OBS_ELEV = 0
+TARGET_ELEV = 0
+
+# above this cell count the JAX package's default switches from the exact
+# bucket evaluation to the XDraw approximation; the ceiling decides which
+# output the default call returns, so it is kept as it is
+_EXACT_MAX_CELLS = 1024 * 1024
+
+_XDRAW_LATER = ("the XDraw viewshed approximation is not ported to "
+                "xrspatial_torch yet (ROADMAP A11); pass exact=True for the "
+                "exact predicate at any size")
+
+
+def viewshed(raster: DataArray,
+             x: Union[int, float],
+             y: Union[int, float],
+             observer_elev: float = OBS_ELEV,
+             target_elev: float = TARGET_ELEV,
+             exact: Union[bool, None] = None) -> DataArray:
+    """Calculate the viewshed of `raster` for an observer at (x, y).
+
+    Parameters
+    ----------
+    raster : DataArray
+        2D elevation raster with 'x' and 'y' coordinates; its payload may
+        be a tensor on the card or on the CPU, or a numpy array (taken as
+        a CPU tensor).
+    x, y : observer location in coordinate space (snapped to the nearest
+        cell).
+    observer_elev : float
+        Height of the observer above the terrain.
+    target_elev : float
+        Height of hypothetical targets above the terrain; a cell is
+        visible if a target at that height above it can be seen.
+    exact : bool, optional
+        ``True`` forces the exact GRASS predicate at any size; ``None``
+        (default) takes it up to 1024x1024 cells.  ``False``, and the
+        default above the ceiling, select the XDraw approximation, which
+        is not ported yet and raises ``NotImplementedError``.
+    """
+    y_coords = np.asarray(raster['y'].data)
+    x_coords = np.asarray(raster['x'].data)
+
+    if not (x_coords.min() <= x <= x_coords.max()):
+        raise ValueError("x argument outside of raster x_range")
+    if not (y_coords.min() <= y <= y_coords.max()):
+        raise ValueError("y argument outside of raster y_range")
+
+    height, width = raster.shape
+    y_view = int(np.argmin(np.abs(y_coords - y)))
+    x_view = int(np.argmin(np.abs(x_coords - x)))
+
+    ew_res = (x_coords[-1] - x_coords[0]) / (width - 1)
+    ns_res = (y_coords[-1] - y_coords[0]) / (height - 1)
+
+    use_exact = (height * width <= _EXACT_MAX_CELLS
+                 if exact is None else bool(exact))
+    if not use_exact:
+        raise NotImplementedError(_XDRAW_LATER)
+    out = viewshed_grid_exact(to_torch(raster, dtype=None), y_view, x_view,
+                              observer_elev, target_elev, ew_res, ns_res)
+    return wrap_like(raster, out, raster.name)

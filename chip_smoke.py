@@ -51,14 +51,40 @@ Phases, each fatal on failure:
    pairwise oracle;
 15. timing (informational): the viewshed's warm wall time and phases, the
    screen kernel against its twin at the 1024^2 plan, and every
-   re-evaluation route forced through the module's thresholds.
+   re-evaluation route forced through the module's thresholds;
+16. stacked surface kernel vs twin and vs the surface kernel: plane k =
+   ``which[k]`` for all four products, ("hillshade", "slope") and one
+   product with and without squeeze, at the small shapes: equal to the
+   surface kernel bit for bit, within the surface tolerance of the twin;
+17. surface family path: ``surface_stacked`` with all four products on
+   the 16384^2 DEM, the stacked entry users call: one stacked launch and
+   no other, equal to the surface kernel at every cell and within the
+   twin's tolerance; a numpy DEM given to ``slope`` with no device set
+   runs on the card; the stacked and surface kernels and the twin timed
+   in turns;
+18. stream probes: the copy and add kernels against their twins, bit for
+   bit (aligned and unaligned); then ``measure_stream`` at 16384^2, the
+   tool users run: kernel, twin and library times, GB/s and the measured
+   stream roof;
+19. geodesic slope and aspect on a 3601^2 SRTM 1-arc-second tile (45-46 N,
+   7-8 E, 1/3600 degree spacing, float32 elevations) on the card: NaN
+   ring, ranges, a 512^2 crop against the CPU (NaN masks equal, rtol
+   1e-6; aspect also within the bearing error that 1e-9 of float64
+   gradient noise makes, which matters only near the summit), warm times
+   and peak memory;
+20. cast shadows: ``hillshade(shadows=True)`` at SHADOW_N^2 (1024 steps,
+   sun at azimuth 225, altitude 10), one warm-up and two timed calls; a
+   1024^2 crop north-east of the summit (about half in shadow) on the card
+   against the CPU: lit mask equal at every cell, shade within rtol 1e-6 /
+   atol 1e-6.
 
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
 of the bytes over 3.35 TB/s and the float operations, counted from the
-sources, over 67 TFLOP/s); the last line is ``{"ok": true, "device":
-{...}}``.  Without a CUDA device the script exits 1 before printing any
-result.
+sources, over 67 TFLOP/s) and the same bound at the stream roof measured
+in phase 18 (``measured_roof_bound_ms``, and its share of ``ms``); the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+the script exits 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -91,6 +117,18 @@ Z_THRESHOLDS = (1.65, 1.96, 2.58)
 VS_N = 1024             # the exact viewshed's raster edge (bench.py:398-417)
 VS_VIEW = (505, 515, 2.0)   # its x, y and observer_elev
 VS_CROP = 256           # the crop held against the pairwise oracle
+STACK_ORDERS = (("slope", "aspect", "curvature", "hillshade"),
+                ("hillshade", "slope"), ("slope",))
+GEO_N = 3601            # one SRTM 1-arc-second tile, 1/3600 degree apart
+GEO_LAT, GEO_LON = 45.0, 7.0    # its south-west corner
+GEO_CROP = 512          # the crop held against the CPU
+GEO_RTOL = 1e-6
+GEO_GRAD_NOISE = 1e-9   # float64 noise of the fitted gradient (m per m)
+SHADOW_N = N            # cast shadows' raster edge (1024 steps)
+SHADOW_SUN = (225, 10)  # azimuth, altitude: the bump's lee side is steeper
+SHADOW_CROP = 1024      # the crop held against the CPU, north-east of the
+                        # summit: about half of it in shadow
+SHADOW_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
 class SmokeFailure(Exception):
@@ -576,22 +614,32 @@ def fused_pipeline(on: bool):
 
 def reset_launches():
     from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
-    from xrspatial_torch.kernels import cuda_surface, cuda_window
+    from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
     cuda_window.HALO_LAUNCHES = cuda_pipeline.LAUNCHES = 0
     cuda_jfa.LAUNCHES = 0
     cuda_screen.LAUNCHES = cuda_screen.F64_LAUNCHES = 0
+    cuda_surface.STACKED_LAUNCHES = 0
+    cuda_stream.COPY_LAUNCHES = cuda_stream.ADD_LAUNCHES = 0
 
 
 def read_launches():
     from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
-    from xrspatial_torch.kernels import cuda_surface, cuda_window
+    from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     return {"surface_kernel": cuda_surface.LAUNCHES,
             "focal_kernel": cuda_window.LAUNCHES,
             "focal_halo_kernel": cuda_window.HALO_LAUNCHES,
             "pipeline_kernel": cuda_pipeline.LAUNCHES,
             "jfa_round": cuda_jfa.LAUNCHES,
-            "screen_hilo": cuda_screen.LAUNCHES}
+            "screen_hilo": cuda_screen.LAUNCHES,
+            "surface_stacked_kernel": cuda_surface.STACKED_LAUNCHES,
+            "stream_copy": cuda_stream.COPY_LAUNCHES,
+            "stream_add": cuda_stream.ADD_LAUNCHES}
+
+
+def only(launches, name, n=1):
+    """Whether `launches` counts `n` launches of `name` and no other."""
+    return launches == {k: n if k == name else 0 for k in launches}
 
 
 def fused_path(dem, agg, card):
@@ -617,9 +665,7 @@ def fused_path(dem, agg, card):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  first call {first_ms:.1f} ms (host clock), launches "
           f"{launches}, peak allocated {peak_gib:.2f} GiB")
-    if launches != {"surface_kernel": 0, "focal_kernel": 0,
-                    "focal_halo_kernel": 0, "pipeline_kernel": 1,
-                    "jfa_round": 0, "screen_hilo": 0}:
+    if not only(launches, "pipeline_kernel"):
         raise SmokeFailure(f"fused path: expected one pipeline launch and "
                            f"no other, got {launches}")
     ring = torch.ones((N, N), dtype=torch.bool, device=dem.device)
@@ -703,9 +749,7 @@ def annulus_path(dem, agg, card):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  first call {first_ms:.1f} ms (host clock), launches "
           f"{launches}, peak allocated {peak_gib:.2f} GiB")
-    if launches != {"surface_kernel": 0, "focal_kernel": 0,
-                    "focal_halo_kernel": 1, "pipeline_kernel": 0,
-                    "jfa_round": 0, "screen_hilo": 0}:
+    if not only(launches, "focal_halo_kernel"):
         raise SmokeFailure(f"annulus path: expected one halo launch and no "
                            f"other, got {launches}")
     if out.device.type != "cuda" or tuple(out.shape) != (
@@ -982,9 +1026,8 @@ def viewshed_path(dev):
           f"({f64} float64), level-1 ambiguous {call['amb1']}, level-2 "
           f"ambiguous {call['amb2']}, route {call['route']}, level-2 slabs "
           f"{call['slabs']}")
-    expected = {k: 0 for k in launches}
-    expected["screen_hilo"] = 1 + call["slabs"]
-    if launches != expected or f64 != call["slabs"]:
+    if not only(launches, "screen_hilo", 1 + call["slabs"]) \
+            or f64 != call["slabs"]:
         raise SmokeFailure(f"viewshed: expected one float32 screen launch and "
                            f"{call['slabs']} float64 ones, got {launches} "
                            f"({f64} float64)")
@@ -1148,17 +1191,348 @@ def viewshed_timing(dev, card, out):
     return ms, pairs, covered, nbytes
 
 
+# -- the surface family: stacked kernel, stream probes, geodesic, shadows ----
+
+def check_stacked(dev):
+    """Phase 16: the stacked surface kernel against its twin and against
+    the surface kernel, at the small shapes and in several orders."""
+    import torch
+    from xrspatial_torch.kernels import cuda_surface
+    from xrspatial_torch.kernels.surface import surface_multi_stacked
+    print("== stacked surface kernel vs twin and surface kernel on the card")
+    err = 0.0
+    cases = [(w, False) for w in STACK_ORDERS] + [(("slope",), True)]
+    for k, shape in enumerate(SMALL_SHAPES):
+        x = torch.from_numpy(test_raster(shape, seed=700 + k)).to(dev)
+        for which, squeeze in cases:
+            args = (2.0, 3.0, 300.0, 40.0)
+            got = cuda_surface.surface_stacked_cuda(x, which, *args,
+                                                    squeeze=squeeze)
+            twin = surface_multi_stacked(x, *args, which=which,
+                                         squeeze=squeeze)
+            split = cuda_surface.surface_cuda(x, which, *args)
+            want = shape if squeeze else (len(which), *shape)
+            if tuple(got.shape) != want or got.shape != twin.shape:
+                raise SmokeFailure(f"stacked {shape} {which}: shape "
+                                   f"{tuple(got.shape)}, expected {want}")
+            planes = got[None] if squeeze else got
+            tplanes = twin[None] if squeeze else twin
+            tag = f"stacked {shape} {'+'.join(which)}" + (
+                " squeezed" if squeeze else "")
+            for j, p in enumerate(which):
+                if not torch.equal(torch.isnan(planes[j]),
+                                   torch.isnan(split[j])) or not torch.equal(
+                        torch.nan_to_num(planes[j]),
+                        torch.nan_to_num(split[j])):
+                    raise SmokeFailure(f"{tag} {p}: differs from the surface "
+                                       f"kernel")
+                err = max(err, check(f"{tag} {p} (= surface kernel)",
+                                     planes[j], tplanes[j], SURFACE_TOL,
+                                     circular=360.0 if p == "aspect"
+                                     else None))
+        torch.cuda.synchronize()
+    return err
+
+
+def surface_family_path(dem, card):
+    """Phase 17: ``surface_stacked`` on the N^2 DEM on the card; a numpy
+    DEM through ``slope`` with no device set; timings."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch.kernels import cuda_surface
+    from xrspatial_torch.kernels.surface import (PRODUCTS, surface_multi,
+                                                 surface_multi_stacked,
+                                                 surface_stacked)
+    print(f"== surface family path: surface_stacked, all four products, "
+          f"{N}x{N}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = surface_stacked(dem, 1.0, 1.0, 225.0, 25.0, which=PRODUCTS)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  first call {first_ms:.1f} ms (host clock), launches "
+          f"{launches}, peak allocated {peak_gib:.2f} GiB")
+    if not only(launches, "surface_stacked_kernel"):
+        raise SmokeFailure(f"surface_stacked: expected one stacked launch and "
+                           f"no other, got {launches}")
+    if out.device.type != "cuda" or tuple(out.shape) != (4, N, N):
+        raise SmokeFailure(f"surface_stacked: {tuple(out.shape)} on "
+                           f"{out.device}")
+    ring = torch.ones((N, N), dtype=torch.bool, device=dem.device)
+    ring[1:-1, 1:-1] = False
+    for k, p in enumerate(PRODUCTS):
+        if not torch.equal(torch.isnan(out[k]), ring):
+            raise SmokeFailure(f"stacked {p}: NaN cells are not exactly the "
+                               f"1-cell ring")
+    del ring
+    split = cuda_surface.surface_cuda(dem, PRODUCTS)
+    for k, p in enumerate(PRODUCTS):
+        if not torch.equal(torch.nan_to_num(out[k]),
+                           torch.nan_to_num(split[k])):
+            raise SmokeFailure(f"stacked {p}: differs from the surface "
+                               f"kernel at {N}x{N}")
+    del split
+    print("  equal at every cell to the surface kernel on the same products")
+    twin = surface_multi(dem, 1.0, 1.0, 225.0, 25.0, PRODUCTS)
+    max_err = max(check(f"stacked {p} vs twin", out[k], twin[p], SURFACE_TOL,
+                        circular=360.0 if p == "aspect" else None)
+                  for k, p in enumerate(PRODUCTS))
+    del twin, out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    host = gaussian_bump(2048, 2048, "cpu").numpy()
+    before = cuda_surface.LAUNCHES
+    got = xt.slope(xt.DataArray(host, dims=("y", "x"),
+                                attrs={"res": (1.0, 1.0)})).data
+    torch.cuda.synchronize()
+    if got.device.type != "cuda" or cuda_surface.LAUNCHES != before + 1:
+        raise SmokeFailure(f"slope of a numpy DEM ran on {got.device} with "
+                           f"{cuda_surface.LAUNCHES - before} launches")
+    print(f"  slope of a 2048x2048 numpy DEM, no device set "
+          f"(default_device() = {xt.default_device()}): ran on {got.device}, "
+          f"one surface kernel launch")
+    del got
+
+    print(f"== timing: surface family at {N}x{N} on {card}")
+    ms = paired_ms(
+        lambda: cuda_surface.surface_stacked_cuda(dem, PRODUCTS),
+        lambda: surface_multi_stacked(dem, 1.0, 1.0, 225.0, 25.0,
+                                      which=PRODUCTS), 20, 3)
+    split_ms = paired_ms(lambda: cuda_surface.surface_cuda(dem, PRODUCTS),
+                         lambda: cuda_surface.surface_stacked_cuda(dem,
+                                                                   PRODUCTS),
+                         20, 20)
+    # the stacked planes lie 2^30 bytes apart at N^2; at (N-1)^2 they do not
+    odd = dem[:N - 1, :N - 1].contiguous()
+    odd_ms = paired_ms(lambda: cuda_surface.surface_cuda(odd, PRODUCTS),
+                       lambda: cuda_surface.surface_stacked_cuda(odd,
+                                                                 PRODUCTS),
+                       20, 20)
+    del odd
+    print(f"  surface_stacked_kernel, 4 products: kernel {ms[0]:.3f} ms, twin "
+          f"{ms[1]:.3f} ms; in turns with surface_kernel on the same "
+          f"products: surface_kernel {split_ms[0]:.3f} ms, stacked "
+          f"{split_ms[1]:.3f} ms; at {N - 1}x{N - 1}: surface_kernel "
+          f"{odd_ms[0]:.3f} ms, stacked {odd_ms[1]:.3f} ms, {card}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches["surface_stacked_kernel"], max_err, ms
+
+
+def check_stream(dev):
+    """Phase 18a: the stream kernels against their twins, bit for bit,
+    on aligned and unaligned (scalar path) buffers."""
+    import torch
+    from xrspatial_torch.kernels import cuda_stream, stream
+    print("== stream probes vs twins on the card")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for n in (1, 3, 1000, 4096 * 257 + 3, N * 64):
+        base = torch.randn(n + 1, generator=gen, device=dev) * 1e3
+        other = torch.randn(n + 1, generator=gen, device=dev)
+        base[n // 2] = np.nan
+        other[0] = -np.inf
+        for label, x, y in (("aligned", base[:n], other[:n]),
+                            ("unaligned", base[1:], other[1:])):
+            bits = lambda t: t.view(torch.int32)  # noqa: E731
+            if not (torch.equal(bits(cuda_stream.stream_copy_cuda(x)),
+                                bits(stream.stream_copy(x)))
+                    and torch.equal(bits(cuda_stream.stream_add_cuda(x, y)),
+                                    bits(stream.stream_add(x, y)))):
+                raise SmokeFailure(f"stream {n} {label}: differs from the "
+                                   f"twin")
+        print(f"  n={n}: copy and add equal to the twins bit for bit, "
+              f"aligned and unaligned")
+    torch.cuda.synchronize()
+
+
+def stream_path(card):
+    """Phase 18b: ``measure_stream`` at N^2, the tool users run."""
+    import io
+    import torch
+    from xrspatial_torch.tools import measure_stream
+    print(f"== stream probes: python -m xrspatial_torch.tools.measure_stream "
+          f"{N}")
+    torch.cuda.synchronize()
+    reset_launches()
+    buf = io.StringIO()
+    res = measure_stream.measure(N, out=buf)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for line in buf.getvalue().splitlines():
+        print("  " + line)
+    if not launches["stream_copy"] or not launches["stream_add"] or any(
+            v for k, v in launches.items()
+            if k not in ("stream_copy", "stream_add")):
+        raise SmokeFailure(f"measure_stream: launches {launches}")
+    print(f"  launches {launches}")
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def geodesic_tile(dev):
+    """An SRTM 1-arc-second tile's shape and coordinates (rows north to
+    south), with gaussian_bump elevations on the card."""
+    import xrspatial_torch as xt
+    lat = GEO_LAT + 1.0 - np.arange(GEO_N) / 3600.0
+    lon = GEO_LON + np.arange(GEO_N) / 3600.0
+    return xt.DataArray(gaussian_bump(GEO_N, GEO_N, dev), dims=("y", "x"),
+                        coords={"y": lat, "x": lon}, name="srtm")
+
+
+def geodesic_path(dev, card):
+    """Phase 19: geodesic slope and aspect on one SRTM tile on the card."""
+    import torch
+    import xrspatial_torch as xt
+    print(f"== geodesic path: slope and aspect, method='geodesic', "
+          f"{GEO_N}x{GEO_N} (lat {GEO_LAT}-{GEO_LAT + 1} N, lon "
+          f"{GEO_LON}-{GEO_LON + 1} E, 1/3600 degree)")
+    agg = geodesic_tile(dev)
+    ring = torch.ones((GEO_N, GEO_N), dtype=torch.bool, device=dev)
+    ring[1:-1, 1:-1] = False
+    peaks, ms = {}, {}
+    for op in ("slope", "aspect"):
+        fn = getattr(xt, op)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = fn(agg, method="geodesic").data
+        torch.cuda.synchronize()
+        peaks[op] = torch.cuda.max_memory_allocated() / 2**30
+        if any(read_launches().values()):
+            raise SmokeFailure(f"geodesic {op}: launched a kernel")
+        if out.device.type != "cuda" or out.dtype != torch.float32 \
+                or tuple(out.shape) != (GEO_N, GEO_N):
+            raise SmokeFailure(f"geodesic {op}: {tuple(out.shape)} "
+                               f"{out.dtype} on {out.device}")
+        if not torch.equal(torch.isnan(out), ring):
+            raise SmokeFailure(f"geodesic {op}: NaN cells are not exactly "
+                               f"the 1-cell ring")
+        inner = out[1:-1, 1:-1]
+        # a float64 bearing just below 360 rounds to 360.0 in float32
+        ok = ((inner >= 0) & (inner < 90)) if op == "slope" else (
+            (inner == -1) | ((inner >= 0) & (inner <= 360)))
+        if not bool(ok.all()):
+            raise SmokeFailure(f"geodesic {op}: values outside its range")
+        print(f"  {op}: range [{float(inner.min()):.4f}, "
+              f"{float(inner.max()):.4f}], peak allocated "
+              f"{peaks[op]:.2f} GiB")
+        del out, inner
+        ms[op] = cuda_time_ms(lambda fn=fn: fn(agg, method="geodesic"), 3)
+    del ring
+    r0 = c0 = (GEO_N - GEO_CROP) // 2
+    crop = agg.data[r0:r0 + GEO_CROP, c0:c0 + GEO_CROP].contiguous()
+    coords = {"y": agg["y"].data[r0:r0 + GEO_CROP],
+              "x": agg["x"].data[c0:c0 + GEO_CROP]}
+    tol = dict(rtol=GEO_RTOL, atol=0.0)
+    for op in ("slope", "aspect"):
+        fn = getattr(xt, op)
+        card_out = fn(xt.DataArray(crop, dims=("y", "x"), coords=coords),
+                      method="geodesic").data
+        cpu_out = fn(xt.DataArray(crop.cpu(), dims=("y", "x"),
+                                  coords=coords), method="geodesic").data
+        check(f"geodesic {op} {GEO_CROP}^2 crop, card vs CPU", card_out,
+              cpu_out.to(dev), tol,
+              circular=360.0 if op == "aspect" else None)
+        if op == "slope":
+            # the bearing of a gradient g moves by up to noise / |g| radians
+            # when the fit's gradient moves by its float64 noise: near a
+            # summit the card's and the CPU's float64 trig part by more
+            # than rtol
+            grad = torch.tan(torch.deg2rad(cpu_out.double()))
+            tol = dict(rtol=GEO_RTOL, atol=torch.nan_to_num(
+                np.degrees(GEO_GRAD_NOISE) / grad, nan=0.0).float().to(dev))
+    print(f"== timing: geodesic at {GEO_N}x{GEO_N} on {card}")
+    print(f"  warm (3 calls): slope {ms['slope']:.3f} ms, aspect "
+          f"{ms['aspect']:.3f} ms ({GEO_N * GEO_N / 1e3 / ms['slope']:.1f} "
+          f"Mpix/s slope); peak allocated slope {peaks['slope']:.2f} GiB, "
+          f"aspect {peaks['aspect']:.2f} GiB, {card}")
+    del agg, crop
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def shadows_path(dev, card):
+    """Phase 20: hillshade with cast shadows at SHADOW_N^2 on the card."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch.kernels import shadows
+    az, alt = SHADOW_SUN
+    print(f"== shadows path: hillshade(shadows=True), {SHADOW_N}x{SHADOW_N}, "
+          f"azimuth {az}, altitude {alt}")
+    dem = gaussian_bump(SHADOW_N, SHADOW_N, dev)
+    agg = xt.DataArray(dem, dims=("y", "x"), attrs={"res": (1.0, 1.0)})
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = xt.hillshade(agg, az, alt, shadows=True).data
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if any(read_launches().values()):
+        raise SmokeFailure("shadows: launched a kernel")
+    if out.device.type != "cuda" or tuple(out.shape) != (SHADOW_N, SHADOW_N) \
+            or not bool(torch.isfinite(out).all()) \
+            or not bool(((out >= 0) & (out <= 1)).all()):
+        raise SmokeFailure(f"shadows: {tuple(out.shape)} on {out.device}, or "
+                           f"values outside [0, 1]")
+    print(f"  peak allocated {peak_gib:.2f} GiB")
+    del out
+    r0 = SHADOW_N // 2 - SHADOW_N // 16 - SHADOW_CROP // 2
+    c0 = SHADOW_N // 2 + SHADOW_N // 16 - SHADOW_CROP // 2
+    crop = dem[r0:r0 + SHADOW_CROP, c0:c0 + SHADOW_CROP].contiguous()
+    t0 = time.perf_counter()
+    lit_cpu = shadows.shadow_mask(crop.cpu(), az, alt, 1.0, 1.0)
+    shade_cpu = xt.hillshade(xt.DataArray(crop.cpu(), dims=("y", "x"),
+                                          attrs={"res": (1.0, 1.0)}),
+                             az, alt, shadows=True).data
+    cpu_s = time.perf_counter() - t0
+    lit_card = shadows.shadow_mask(crop, az, alt, 1.0, 1.0)
+    shade_card = xt.hillshade(xt.DataArray(crop, dims=("y", "x"),
+                                           attrs={"res": (1.0, 1.0)}),
+                              az, alt, shadows=True).data
+    n_diff = int((lit_card.cpu() != lit_cpu).sum())
+    print(f"  {SHADOW_CROP}^2 crop: {int((~lit_cpu).sum())} cells in shadow "
+          f"on the CPU, lit mask differs at {n_diff} cells (CPU "
+          f"{cpu_s:.1f} s)")
+    if n_diff:
+        raise SmokeFailure(f"shadows crop: the lit mask differs from the CPU "
+                           f"at {n_diff} cells")
+    check("shadows crop shade, card vs CPU", shade_card, shade_cpu.to(dev),
+          SHADOW_TOL)
+    phase_s = time.perf_counter() - t_phase
+    print(f"== timing: shadows at {SHADOW_N}x{SHADOW_N} on {card}")
+    print(f"  hillshade(shadows=True) (host clock around a synchronised "
+          f"call): warm-up {walls[0]:.3f} s, then {walls[1]:.3f} s and "
+          f"{walls[2]:.3f} s; the phase {phase_s:.1f} s, {card}")
+    del dem, agg, crop
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 # -- the least time of each kernel ------------------------------------------
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM float32 outside the tensor cores
 # float operations per cell, counted from the CUDA sources: the main
 # path's slope + hillshade (surface_cell.cuh: 2 x 7 for the Sobel sums, 10
-# for slope, 17 for hillshade); per footprint offset 5 in the first focal
-# pass and 4 in the second, 9 in the epilogue (focal_cell.cuh); per
-# candidate of a jump-flood round 8 (two conversions, four products, a sum
-# and the comparison; jfa.cu), 9 candidates a round
+# for slope, 17 for hillshade); all four products add 9 for aspect and 13
+# for curvature; per footprint offset 5 in the first focal pass and 4 in
+# the second, 9 in the epilogue (focal_cell.cuh); per candidate of a
+# jump-flood round 8 (two conversions, four products, a sum and the
+# comparison; jfa.cu), 9 candidates a round; one add per value of the
+# stream add (stream.cu)
 SURFACE_OPS = 41
+SURFACE_ALL_OPS = 63
 FOCAL_OPS_PER_OFFSET, FOCAL_OPS = 9, 9
 JFA_OPS_PER_CANDIDATE, JFA_CANDIDATES = 8, 9
 # per screen pair: the 6 float comparisons of the cover and key tests; per
@@ -1167,39 +1541,51 @@ JFA_OPS_PER_CANDIDATE, JFA_CANDIDATES = 8, 9
 SCREEN_OPS, SCREEN_OPS_COVERED = 6, 11
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, bytes_s=HBM_BYTES_S):
     """(least ms, "bytes" or "operations") for work of `nbytes` bytes and
-    `ops` float32 operations on an H100 SXM."""
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    `ops` float32 operations on an H100 SXM moving `bytes_s` bytes a
+    second."""
+    t_bytes = nbytes / bytes_s * 1e3
     t_ops = ops / F32_FLOP_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_bounds(n_offsets_main, n_offsets_annulus, screen_counts):
-    """The bound of each kernel at the work its timing measured."""
+def kernel_work(n_offsets_main, n_offsets_annulus, screen_counts):
+    """(bytes, float operations) of each kernel at the work its timing
+    measured."""
     cells = N * N
     plane = 4 * cells                      # one float32 or int32 plane
     focal = FOCAL_OPS_PER_OFFSET * n_offsets_main + FOCAL_OPS
     pairs, covered, screen_nbytes = screen_counts
     return {
         # 1 read, slope and hillshade written
-        "surface_kernel": bound(3 * plane, SURFACE_OPS * cells),
+        "surface_kernel": (3 * plane, SURFACE_OPS * cells),
         # 1 read, 4 stats written
-        "focal_kernel": bound(5 * plane, focal * cells),
+        "focal_kernel": (5 * plane, focal * cells),
         # 1 read, 2 products and 4 stats written
-        "pipeline_kernel": bound(7 * plane, (SURFACE_OPS + focal) * cells),
-        "focal_halo_kernel": bound(
+        "pipeline_kernel": (7 * plane, (SURFACE_OPS + focal) * cells),
+        "focal_halo_kernel": (
             5 * plane,
             (FOCAL_OPS_PER_OFFSET * n_offsets_annulus + FOCAL_OPS) * cells),
         # 16 rounds, each reading its state and writing the next; the last
         # also writes the best key
-        "jfa_round": bound(
+        "jfa_round": (
             ROUNDS_AT_N * 2 * plane + plane,
             ROUNDS_AT_N * JFA_CANDIDATES * JFA_OPS_PER_CANDIDATE * cells),
-        "screen_hilo": bound(screen_nbytes,
-                             SCREEN_OPS * pairs + SCREEN_OPS_COVERED * covered),
+        "screen_hilo": (screen_nbytes,
+                        SCREEN_OPS * pairs + SCREEN_OPS_COVERED * covered),
+        # 1 read, all four products written
+        "surface_stacked_kernel": (5 * plane, SURFACE_ALL_OPS * cells),
+        "stream_copy": (2 * plane, 0),
+        "stream_add": (3 * plane, cells),
     }
 
+
+def kernel_bounds(work, roof_bytes_s):
+    """Each kernel's bound at the nominal rate and at the measured stream
+    roof: {name: ((ms, by), (ms, by))}."""
+    return {k: (bound(b, ops), bound(b, ops, roof_bytes_s))
+            for k, (b, ops) in work.items()}
 
 
 def main() -> int:
@@ -1216,14 +1602,14 @@ def main() -> int:
     from xrspatial_torch.kernels.window import kernel_offsets, window_stats
 
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip()
     print(f"== device: torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{name}, {torch.cuda.device_count()} visible")
+          f"{kind}, {torch.cuda.device_count()} visible")
     print(card)
 
     # -- build -------------------------------------------------------------
@@ -1376,9 +1762,40 @@ def main() -> int:
     max_err["screen_hilo"] = screen_err
     del vs_out
 
-    bounds = kernel_bounds(
+    # -- the surface family ---------------------------------------------------
+    stacked_err = check_stacked(dev)
+    launches["surface_stacked_kernel"], max_err["surface_stacked_kernel"], \
+        ms["surface_stacked_kernel"] = surface_family_path(dem, card)
+    max_err["surface_stacked_kernel"] = max(
+        max_err["surface_stacked_kernel"], stacked_err)
+    del dem, agg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check_stream(dev)
+    probes, stream_launches = stream_path(card)
+    library_ms = {}
+    for k, probe in (("stream_copy", "copy"), ("stream_add", "add")):
+        row = probes[probe]
+        launches[k] = stream_launches[k]
+        max_err[k] = 0.0                   # equal to the twin bit for bit
+        ms[k] = (row["kernel"]["ms"], row["twin"]["ms"])
+        library_ms[k] = row["library"]["ms"]
+    geodesic_path(dev, card)
+    shadows_path(dev, card)
+
+    work = kernel_work(
         len(offsets), len(kernel_offsets(halo_footprints()["annulus_40_38"])),
         screen_counts)
+    roof = probes["roof_gb_s"] * 1e9
+    bounds = kernel_bounds(work, roof)
+    print(f"== bounds: nominal {HBM_BYTES_S / 1e12:.2f} TB/s, measured stream "
+          f"roof {roof / 1e12:.4f} TB/s ({roof / HBM_BYTES_S * 100:.1f}%), "
+          f"{card}")
+    for k, ((b_ms, b_by), (r_ms, r_by)) in bounds.items():
+        print(f"  {k}: {work[k][0] / 1e9:.3f} GB, kernel {ms[k][0]:.3f} ms; "
+              f"bound {b_ms:.3f} ms ({b_by}, {b_ms / ms[k][0] * 100:.1f}% "
+              f"of it), at the measured roof {r_ms:.3f} ms ({r_by}, "
+              f"{r_ms / ms[k][0] * 100:.1f}%)")
     sources = {"surface_kernel": (
         "xrspatial_torch/csrc/surface.cu",
         "xrspatial_tpu/kernels/pallas_surface2.py:178"),
@@ -1396,16 +1813,28 @@ def main() -> int:
         "xrspatial_tpu/kernels/pallas_pipeline.py:82"),
         "screen_hilo": (
         "xrspatial_torch/csrc/screen.cu",
-        "xrspatial_tpu/kernels/pallas_screen.py:99")}
-    # no single PyTorch call computes any of these functions
+        "xrspatial_tpu/kernels/pallas_screen.py:99"),
+        "surface_stacked_kernel": (
+        "xrspatial_torch/csrc/surface.cu",
+        "xrspatial_tpu/kernels/pallas_surface.py:200"),
+        "stream_copy": (
+        "xrspatial_torch/csrc/stream.cu",
+        "tools/measure_stream.py:42"),
+        "stream_add": (
+        "xrspatial_torch/csrc/stream.cu",
+        "tools/measure_stream.py:59")}
+    # Tensor.copy_ and torch.add compute the stream probes' functions; no
+    # single PyTorch call computes any of the others
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k],
-         "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": None}
+         "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0][0],
+         "bound_by": bounds[k][0][1], "library_ms": library_ms.get(k),
+         "measured_roof_bound_ms": bounds[k][1][0],
+         "measured_roof_share": bounds[k][1][0] / ms[k][0]}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

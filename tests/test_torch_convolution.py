@@ -17,6 +17,16 @@ import xrspatial_tpu.convolution as jconv
 from xrspatial_torch import convolution as tconv
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
 
+
+@pytest.fixture(autouse=True)
+def numpy_rasters_on_the_cpu():
+    """These tests give numpy rasters and compare on the CPU."""
+    saved = xt.default_device()
+    xt.set_default_device("cpu")
+    yield
+    xt.set_default_device(saved)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 KERNELS = {

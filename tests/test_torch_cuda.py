@@ -20,7 +20,13 @@ great-circle distances agree within rtol 1e-4 (libdevice and torch trig
 differ by ulps, which may turn a near-tie).  The exact viewshed's
 interval-screen kernel equals its twin bit for bit in hi and lo, float32
 and float64; ``viewshed`` on the card gives the CPU's visibility at every
-cell and its angles within rtol 1e-12 (float64 atan ulps).
+cell and its angles within rtol 1e-12 (float64 atan ulps).  The stacked
+surface kernel equals the surface kernel bit for bit (the same cell code)
+and its twin within the surface tolerance; the stream kernels equal
+``x.clone()`` and ``x + y`` bit for bit.  Geodesic slope/aspect on the card
+match the CPU within rtol 1e-6 (float64 trig ulps); cast shadows give the
+CPU's lit mask at every cell and its shade within rtol 1e-6 / atol 1e-6.
+A numpy raster, with no device set, runs on the card.
 """
 
 import numpy as np
@@ -32,8 +38,9 @@ from xrspatial_torch import focal
 from xrspatial_torch.convolution import (annulus_kernel, circle_kernel,
                                          convolution_2d)
 from xrspatial_torch.kernels import _cuda, cuda_jfa, cuda_pipeline
-from xrspatial_torch.kernels import cuda_screen, cuda_surface, cuda_window
-from xrspatial_torch.kernels import jfa, jfa_rounds, screen, viewshed_exact
+from xrspatial_torch.kernels import cuda_screen, cuda_stream, cuda_surface
+from xrspatial_torch.kernels import cuda_window, jfa, jfa_rounds, screen
+from xrspatial_torch.kernels import shadows, stream, surface, viewshed_exact
 from xrspatial_torch.kernels.pipeline import pipeline_multi
 from xrspatial_torch.kernels.surface import PRODUCTS, surface_multi
 from xrspatial_torch.kernels.window import kernel_offsets, window_stats
@@ -131,7 +138,8 @@ def test_terrain_pipeline_launches_each_kernel_once(cuda):
     attrs = {"res": (2.0, 3.0)}
     on_card = xt.DataArray(torch.from_numpy(data).to(cuda), dims=("y", "x"),
                            name="dem", attrs=attrs)
-    on_host = xt.DataArray(data, dims=("y", "x"), name="dem", attrs=attrs)
+    on_host = xt.DataArray(torch.from_numpy(data), dims=("y", "x"),
+                           name="dem", attrs=attrs)
     before = (cuda_surface.LAUNCHES, cuda_window.LAUNCHES)
     got = xt.terrain_pipeline(on_card)
     torch.cuda.synchronize()
@@ -156,7 +164,8 @@ def test_public_op_runs_the_kernel(cuda, op):
     got = getattr(xt, op)(on_card)
     torch.cuda.synchronize()
     assert cuda_surface.LAUNCHES == before + 1
-    ref = getattr(xt, op)(xt.DataArray(data, dims=("y", "x"), attrs=attrs))
+    ref = getattr(xt, op)(xt.DataArray(torch.from_numpy(data),
+                                       dims=("y", "x"), attrs=attrs))
     assert_matches(got.data, ref.data, SURFACE_TOL, op)
 
 
@@ -262,7 +271,8 @@ def test_proximity_family_runs_the_kernel(cuda, func, metric):
     coords = {"y": ys, "x": xs}
     on_card = xt.DataArray(torch.from_numpy(data).to(cuda), dims=("y", "x"),
                            coords=coords)
-    on_host = xt.DataArray(data, dims=("y", "x"), coords=coords)
+    on_host = xt.DataArray(torch.from_numpy(data), dims=("y", "x"),
+                           coords=coords)
     before = cuda_jfa.LAUNCHES
     got = getattr(xt, func)(on_card, distance_metric=metric)
     torch.cuda.synchronize()
@@ -347,7 +357,8 @@ def test_focal_stats_sends_the_annulus_to_the_halo_kernel(cuda):
     torch.cuda.synchronize()
     assert (cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES) == (
         before[0], before[1] + 1)
-    ref = xt.focal_stats(xt.DataArray(data, dims=("y", "x")), kernel, stats)
+    ref = xt.focal_stats(xt.DataArray(torch.from_numpy(data),
+                                      dims=("y", "x")), kernel, stats)
     assert_matches(got.data, ref.data, FOCAL_TOL)
 
 
@@ -408,7 +419,8 @@ def test_fused_terrain_pipeline_launches_only_the_pipeline_kernel(
 
 
 def host_and_card(data, cuda):
-    return (xt.DataArray(data, dims=("y", "x"), attrs={"res": (1.0, 1.0)}),
+    return (xt.DataArray(torch.from_numpy(data), dims=("y", "x"),
+                         attrs={"res": (1.0, 1.0)}),
             xt.DataArray(torch.from_numpy(data).to(cuda), dims=("y", "x"),
                          attrs={"res": (1.0, 1.0)}))
 
@@ -537,3 +549,126 @@ def test_viewshed_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(card.cpu() == -1, host == -1)
     np.testing.assert_allclose(card.cpu().numpy(), host.numpy(), rtol=1e-12,
                                atol=0)
+
+
+STACK_ORDERS = {"all": PRODUCTS, "hillshade_slope": ("hillshade", "slope"),
+                "curvature": ("curvature",)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("squeeze", [False, True])
+@pytest.mark.parametrize("order", list(STACK_ORDERS))
+@pytest.mark.parametrize("name", ["patches_70x300", "row_1x257", "col_300x2",
+                                  "elevation_8x6"])
+def test_stacked_kernel_matches_surface_kernel_and_twin(cuda, name, order,
+                                                         squeeze):
+    data, (csx, csy) = surface_case(name)
+    which = STACK_ORDERS[order]
+    x = torch.from_numpy(data).to(cuda)
+    args = (csx, csy, 300.0, 40.0)
+    before = (cuda_surface.STACKED_LAUNCHES, cuda_surface.LAUNCHES)
+    got = cuda_surface.surface_stacked_cuda(x, which, *args, squeeze=squeeze)
+    torch.cuda.synchronize()
+    assert cuda_surface.STACKED_LAUNCHES == before[0] + 1
+    assert cuda_surface.LAUNCHES == before[1]
+    twin = surface.surface_multi_stacked(x, *args, which=which,
+                                         squeeze=squeeze)
+    assert got.shape == twin.shape and got.device == x.device
+    split = cuda_surface.surface_cuda(x, which, *args)
+    planes = got[None] if got.ndim == 2 else got
+    for k, p in enumerate(which):
+        assert torch.equal(torch.isnan(planes[k]), torch.isnan(split[k]))
+        assert torch.equal(torch.nan_to_num(planes[k]),
+                           torch.nan_to_num(split[k])), p
+    assert_matches(got, twin, SURFACE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5, 1023, 4096 * 33 + 3])
+def test_stream_kernels_match_twins(cuda, n):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    base = torch.randn(n + 1, generator=gen, device=cuda) * 100
+    other = torch.randn(n + 1, generator=gen, device=cuda)
+    # aligned (the float4 path) and offset by one value (the scalar path)
+    for x, y in ((base[:n], other[:n]), (base[1:], other[1:])):
+        before = (cuda_stream.COPY_LAUNCHES, cuda_stream.ADD_LAUNCHES)
+        c = cuda_stream.stream_copy_cuda(x)
+        a = cuda_stream.stream_add_cuda(x, y)
+        torch.cuda.synchronize()
+        assert (cuda_stream.COPY_LAUNCHES, cuda_stream.ADD_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(c, stream.stream_copy(x))
+        assert torch.equal(a, stream.stream_add(x, y))
+
+
+@pytest.mark.gpu
+def test_a_cuda_tensor_never_reaches_a_twin(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a twin ran on a CUDA tensor")
+
+    for mod, name in ((surface, "surface_multi_stacked"),
+                      (surface, "surface_multi"), (stream, "stream_copy"),
+                      (stream, "stream_add")):
+        monkeypatch.setattr(mod, name, refuse)
+    x = torch.from_numpy(surface_case("patches_70x300")[0]).to(cuda)
+    before = (cuda_surface.STACKED_LAUNCHES, cuda_surface.LAUNCHES,
+              cuda_stream.COPY_LAUNCHES, cuda_stream.ADD_LAUNCHES)
+    surface.surface_stacked(x, which=PRODUCTS)
+    surface.surface_kernels(x, ("slope",))
+    stream.copy(x)
+    stream.add(x, x)
+    torch.cuda.synchronize()
+    assert (cuda_surface.STACKED_LAUNCHES, cuda_surface.LAUNCHES,
+            cuda_stream.COPY_LAUNCHES, cuda_stream.ADD_LAUNCHES) == tuple(
+        b + 1 for b in before)
+
+
+@pytest.mark.gpu
+def test_numpy_raster_runs_on_the_card(cuda):
+    saved = xt.default_device()
+    xt.set_default_device("cuda")
+    try:
+        data, res = surface_case("patches_70x300")
+        before = cuda_surface.LAUNCHES
+        out = xt.slope(xt.DataArray(data, dims=("y", "x"),
+                                    attrs={"res": res})).data
+        torch.cuda.synchronize()
+    finally:
+        xt.set_default_device(saved)
+    assert out.device.type == "cuda"
+    assert cuda_surface.LAUNCHES == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["slope", "aspect"])
+def test_geodesic_on_the_card_matches_the_cpu(cuda, op):
+    rng = np.random.default_rng(21)
+    data = (rng.random((61, 47)) * 800).astype(np.float32)
+    data[20:24, 10:15] = np.nan
+    coords = {"y": 46.0 - np.arange(61) / 3600.0,
+              "x": 7.0 + np.arange(47) / 3600.0}
+
+    def run(t):
+        agg = xt.DataArray(t, dims=("y", "x"), coords=coords)
+        return getattr(xt, op)(agg, method="geodesic").data
+
+    got = run(torch.from_numpy(data).to(cuda))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert_matches(got, run(torch.from_numpy(data)),
+                   dict(rtol=1e-6, atol=1e-8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("azimuth", [0, 90, 225, 315])
+def test_shadows_on_the_card_match_the_cpu(cuda, azimuth):
+    iy, ix = np.mgrid[0:83, 0:117].astype(np.float32)
+    data = (400 * np.exp(-((iy - 40) ** 2 + (ix - 60) ** 2) / 900)
+            + 15 * np.sin(ix / 5) * np.cos(iy / 7)).astype(np.float32)
+    data[30:36, 70:80] = np.nan
+    host = torch.from_numpy(data)
+    lit = shadows.shadow_mask(host.to(cuda), azimuth, 10, 30.0, 30.0)
+    assert torch.equal(lit.cpu(), shadows.shadow_mask(host, azimuth, 10,
+                                                      30.0, 30.0))
+    got = shadows.hillshade_shadows(host.to(cuda), azimuth, 10, 30.0, 30.0)
+    ref = shadows.hillshade_shadows(host, azimuth, 10, 30.0, 30.0)
+    assert_matches(got, ref, dict(rtol=1e-6, atol=1e-6))

@@ -27,6 +27,16 @@ from xrspatial_tpu.kernels.pallas_window2 import tiled_radius_supported
 from xrspatial_tpu.kernels.window import window_stats as jax_window_stats
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
 
+
+@pytest.fixture(autouse=True)
+def numpy_rasters_on_the_cpu():
+    """These tests give numpy rasters and compare on the CPU."""
+    saved = xt.default_device()
+    xt.set_default_device("cpu")
+    yield
+    xt.set_default_device(saved)
+
+
 RTOL, ATOL = 1e-5, 1e-5
 ALL_STATS = ("mean", "max", "min", "range", "std", "var", "sum")
 KERNELS = {

@@ -24,6 +24,16 @@ from xrspatial_torch.kernels.window import kernel_offsets
 from xrspatial_torch.utils import dataarray_from, to_torch
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
 
+
+@pytest.fixture(autouse=True)
+def numpy_rasters_on_the_cpu():
+    """These tests give numpy rasters and compare on the CPU."""
+    saved = xt.default_device()
+    xt.set_default_device("cpu")
+    yield
+    xt.set_default_device(saved)
+
+
 SURFACE_TOL = dict(rtol=1e-4, atol=5e-5)
 FOCAL_TOL = dict(rtol=1e-5, atol=1e-5)
 PORT_DIR = pathlib.Path(xt.__file__).resolve().parent

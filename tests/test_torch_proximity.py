@@ -30,6 +30,16 @@ from xrspatial_tpu.kernels import jfa as jjfa
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
 from xrspatial_tpu.xrlib import Dataset as JaxDataset
 
+
+@pytest.fixture(autouse=True)
+def numpy_rasters_on_the_cpu():
+    """These tests give numpy rasters and compare on the CPU."""
+    saved = xt.default_device()
+    xt.set_default_device("cpu")
+    yield
+    xt.set_default_device(saved)
+
+
 # the modules, not the functions of the same name the packages export
 jprox = importlib.import_module("xrspatial_tpu.proximity")
 tprox = importlib.import_module("xrspatial_torch.proximity")

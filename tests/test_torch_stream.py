@@ -1,0 +1,58 @@
+"""The stream probes' plain versions on the CPU.
+
+``kernels/stream.py`` holds the twins of the CUDA stream probes (the JAX
+package's ``tools/measure_stream.py`` probes copy and add): ``x.clone()``
+and ``x + y``, which must equal numpy's copy and float32 sum, and the JAX
+package's ``x + 0.0`` and ``x + y``, bit for bit.  On a CPU tensor the
+dispatchers ``copy`` and ``add`` take the twins.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xrspatial_torch.kernels import stream
+
+SHAPES = [(1,), (7,), (33, 65), (256, 1027)]
+
+
+def pair(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * 1e3).astype(np.float32)
+    y = (rng.standard_normal(shape) * 1e-3).astype(np.float32)
+    x.flat[0] = np.nan
+    y.flat[-1] = -np.inf
+    return x, y
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_copy_twin_and_dispatch_equal_the_input(shape):
+    x, _ = pair(shape)
+    t = torch.from_numpy(x)
+    for fn in (stream.stream_copy, stream.copy):
+        out = fn(t)
+        assert out.data_ptr() != t.data_ptr()
+        assert np.array_equal(out.numpy().view(np.int32), x.view(np.int32))
+        jax_copy = np.asarray(jnp.asarray(x) + jnp.float32(0.0))
+        assert np.array_equal(out.numpy(), jax_copy, equal_nan=True)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_add_twin_and_dispatch_equal_numpy_and_jax(shape):
+    x, y = pair(shape, seed=1)
+    ref = x + y
+    jax_ref = np.asarray(jnp.asarray(x) + jnp.asarray(y))
+    for fn in (stream.stream_add, stream.add):
+        out = fn(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+        assert out.dtype == np.float32
+        assert np.array_equal(out.view(np.int32), ref.view(np.int32))
+        assert np.array_equal(out.view(np.int32), jax_ref.view(np.int32))
+
+
+def test_measure_stream_refuses_without_a_card(monkeypatch):
+    from xrspatial_torch.tools import measure_stream
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert measure_stream.main([]) == 1
+    with pytest.raises(RuntimeError, match="needs an NVIDIA card"):
+        measure_stream.measure(64)

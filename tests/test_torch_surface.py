@@ -14,8 +14,19 @@ import xrspatial_torch as xt
 import xrspatial_tpu as xj
 from xrspatial_torch.kernels.surface import PRODUCTS
 from xrspatial_torch.kernels.surface import surface_multi as torch_multi
+from xrspatial_torch.kernels.surface import surface_stacked
 from xrspatial_tpu.kernels.surface import surface_multi as jax_multi
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
+
+
+@pytest.fixture(autouse=True)
+def numpy_rasters_on_the_cpu():
+    """These tests give numpy rasters and compare on the CPU."""
+    saved = xt.default_device()
+    xt.set_default_device("cpu")
+    yield
+    xt.set_default_device(saved)
+
 
 RTOL, ATOL = 1e-4, 5e-5
 CASES = ("patches_70x300", "row_1x257", "col_300x2", "elevation_raster")
@@ -115,15 +126,79 @@ def test_dataset_input_maps_each_variable():
 
 
 @pytest.mark.parametrize("call", [
-    lambda a: xt.slope(a, method="geodesic"),
-    lambda a: xt.aspect(a, method="geodesic"),
-    lambda a: xt.hillshade(a, shadows=True),
+    lambda m, a: m.slope(a, method="geodesic"),
+    lambda m, a: m.aspect(a, method="geodesic"),
+    lambda m, a: m.hillshade(a, shadows=True),
 ], ids=["slope_geodesic", "aspect_geodesic", "hillshade_shadows"])
 def test_unported_options_raise(call):
-    a = xt.DataArray(np.ones((5, 5), np.float32), dims=("y", "x"),
-                     attrs={"res": (1.0, 1.0)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        call(a)
+    """The options that raised NotImplementedError until ROADMAP A10 was
+    ported now run, and match the JAX package (the geodesic fit within a
+    float32 ulp, tests/test_torch_geodesic.py; the shadows' lit mask at
+    every cell, tests/test_torch_shadows.py)."""
+    rng = np.random.default_rng(11)
+    data = (rng.random((9, 12)) * 40).astype(np.float32)
+    data[4, 5] = np.nan
+    coords = {"y": np.linspace(45.01, 45.0, 9), "x": np.linspace(7.0, 7.01,
+                                                                   12)}
+    ja, ta = both_arrays(data, (1.0, 1.0))
+    for k, v in coords.items():
+        ja[k] = v
+        ta[k] = v
+    ref = np.asarray(call(xj, ja).data)
+    got = call(xt, ta).values
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
+
+
+STACK_ORDERS = {
+    "all": PRODUCTS,
+    "hillshade_slope": ("hillshade", "slope"),
+    "curvature_aspect_slope": ("curvature", "aspect", "slope"),
+    "aspect": ("aspect",),
+}
+
+
+@pytest.mark.parametrize("squeeze", [False, True])
+@pytest.mark.parametrize("order", list(STACK_ORDERS))
+def test_surface_stacked_matches_jax(case, order, squeeze):
+    """The stacked entry (B0's plain version on the CPU) against the JAX
+    package's ``surface_multi`` stacked in `which` order: the JAX
+    ``surface_pallas`` itself has no interpret mode on the CPU."""
+    data, (csx, csy) = case
+    which = STACK_ORDERS[order]
+    f32 = jnp.float32
+    ref = jax_multi(jnp.asarray(data), f32(csx), f32(csy), f32(300.0),
+                    f32(40.0), which)
+    ref = np.stack([np.asarray(ref[p]) for p in which])
+    got = surface_stacked(torch.from_numpy(data), csx, csy, 300.0, 40.0,
+                          which=which, squeeze=squeeze)
+    assert got.dtype == torch.float32
+    if squeeze and len(which) == 1:
+        assert tuple(got.shape) == data.shape
+        got = got[None]
+    assert tuple(got.shape) == (len(which),) + data.shape
+    for k, p in enumerate(which):
+        assert_matches(got[k].numpy(), ref[k], p)
+
+
+def test_surface_stacked_planes_equal_surface_multi(case):
+    data, (csx, csy) = case
+    x = torch.from_numpy(data)
+    which = ("hillshade", "curvature", "slope", "aspect")
+    got = surface_stacked(x, csx, csy, 225.0, 25.0, which=which)
+    ref = torch_multi(x, csx, csy, 225.0, 25.0, which)
+    for k, p in enumerate(which):
+        assert torch.equal(torch.isnan(got[k]), torch.isnan(ref[p]))
+        assert torch.equal(torch.nan_to_num(got[k]),
+                           torch.nan_to_num(ref[p])), p
+
+
+@pytest.mark.parametrize("which", [(), ("slope", "slope"), ("relief",)],
+                         ids=["empty", "repeated", "unknown"])
+def test_surface_stacked_rejects_bad_products(which):
+    with pytest.raises(ValueError, match="distinct names"):
+        surface_stacked(torch.ones((4, 4)), which=which)
 
 
 def test_unknown_method_raises_like_jax():

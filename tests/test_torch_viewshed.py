@@ -40,6 +40,16 @@ from xrspatial_tpu.kernels import viewshed_exact as JE
 from xrspatial_tpu.utils import x64
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
 
+
+@pytest.fixture(autouse=True)
+def numpy_rasters_on_the_cpu():
+    """These tests give numpy rasters and compare on the CPU."""
+    saved = xt.default_device()
+    xt.set_default_device("cpu")
+    yield
+    xt.set_default_device(saved)
+
+
 # the modules, not the functions of the same name the packages export
 jvs = importlib.import_module("xrspatial_tpu.viewshed")
 tvs = importlib.import_module("xrspatial_torch.viewshed")

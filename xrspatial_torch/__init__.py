@@ -3,8 +3,10 @@
 The same public functions, DataArray-in and DataArray-out, with the same
 NaN and border rules.  A raster whose tensor lies on an NVIDIA card runs
 through hand-written CUDA kernels (``csrc/``), built with ``nvcc`` at the
-first call; a raster on the CPU runs through the plain torch twins.  The
-package imports torch and never jax.
+first call; a raster on the CPU runs through the plain torch twins.  A
+raster given as a numpy array goes to the card, unless
+``set_default_device("cpu")`` was called.  The package imports torch and
+never jax.
 
 Only what is ported is exported; ROADMAP.md lists the rest in order.
 """
@@ -16,12 +18,14 @@ from .focal import focal_stats, mean
 from .hillshade import hillshade
 from .proximity import DISTANCE_METRICS, allocation, direction, proximity
 from .slope import slope
+from .utils import default_device, set_default_device
 from .viewshed import viewshed
 from .xrlib import DataArray, Dataset
 
 __all__ = ["DataArray", "Dataset", "slope", "aspect", "curvature",
            "hillshade", "focal_stats", "mean", "terrain_pipeline",
            "summarize_terrain", "proximity", "allocation", "direction",
-           "DISTANCE_METRICS", "viewshed"]
+           "DISTANCE_METRICS", "viewshed", "set_default_device",
+           "default_device"]
 
 __version__ = "0.1.0"

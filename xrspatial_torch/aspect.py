@@ -1,14 +1,18 @@
 """Aspect: downslope compass direction (planar 3x3).
 
 Counterpart of ``xrspatial_tpu/aspect.py``; flat cells are -1.
-``method='geodesic'`` waits for ROADMAP A10.
+``method='geodesic'`` is the float64 ECEF plane fit of
+``kernels/geodesic.py`` (torch ops, on the raster's device).
 """
 
 from __future__ import annotations
 
+import torch
+
 from .dataset_support import supports_dataset
+from .kernels.geodesic import WGS84_A2, WGS84_B2, geodesic_aspect
 from .kernels.surface import run_surface_op
-from .utils import to_torch, wrap_like
+from .utils import Z_UNITS, _extract_latlon_coords, to_torch, wrap_like
 from .xrlib import DataArray
 
 __all__ = ["aspect"]
@@ -29,15 +33,22 @@ def aspect(agg: DataArray,
     agg : DataArray or Dataset
         2D elevation array.
     name : str, default='aspect'
-    method : 'planar' ('geodesic' is not ported yet)
+    method : 'planar' | 'geodesic'
     z_unit : str, default='meter' (geodesic only)
     """
     if method not in ('planar', 'geodesic'):
         raise ValueError(
             f"method must be 'planar' or 'geodesic', got {method!r}")
-    if method == 'geodesic':
-        raise NotImplementedError(
-            "aspect(method='geodesic') is not ported to xrspatial_torch yet "
-            "(ROADMAP A10)")
-    out = run_surface_op("aspect", to_torch(agg))
+    if method == 'planar':
+        out = run_surface_op("aspect", to_torch(agg))
+    else:
+        if z_unit not in Z_UNITS:
+            raise ValueError(
+                f"z_unit must be one of "
+                f"{sorted(Z_UNITS)}, got {z_unit!r}")
+        lat_2d, lon_2d = _extract_latlon_coords(agg)
+        elev = to_torch(agg, torch.float64)
+        out = geodesic_aspect(elev, torch.from_numpy(lat_2d),
+                              torch.from_numpy(lon_2d), WGS84_A2, WGS84_B2,
+                              Z_UNITS[z_unit])
     return wrap_like(agg, out, name)

@@ -18,6 +18,15 @@
 // left to L1/L2).  Shared-memory halo tiles, cp.async or TMA are later
 // work.  The per-cell code is surface_cell.cuh, shared with the fused
 // pipeline kernel (pipeline.cu).
+//
+// surface_stacked_kernel: the same products written as the planes of one
+// (K, H, W) float32 buffer, plane k = which[k] in any order.  Replaces the
+// TPU kernel xrspatial_tpu/kernels/pallas_surface.py::surface_pallas (its
+// emit_pipeline body), with the same libdevice atanf/atan2f in place of
+// that file's polynomial atan.  The TPU kernel's tile padding and ragged
+// NaN pad have no counterpart.  It runs surface_cell on plane pointers
+// taken from the product -> plane map, so each plane equals
+// surface_kernel's product bit for bit.  Same bound: 1 read + K writes.
 
 #include "surface_cell.cuh"
 
@@ -36,6 +45,42 @@ __global__ void surface_kernel(const float* __restrict__ x,
     xrt::surface_cell(x, h, w, row, col, args);
 }
 
+// Plane of each product in the stacked buffer, in the order slope,
+// aspect, curvature, hillshade; -1 where the product is not computed.
+struct PlaneMap {
+  int plane[4];
+};
+
+__global__ void surface_stacked_kernel(const float* __restrict__ x,
+                                       float* __restrict__ out,
+                                       PlaneMap map, float csx, float csy,
+                                       float sin_a, float cos_a, float sin_p,
+                                       float cos_p, long long h,
+                                       long long w) {
+  const long long col = (long long)blockIdx.x * kBlockX + threadIdx.x;
+  if (col >= w) return;
+  float* planes[4];
+  int mask = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    planes[j] = map.plane[j] >= 0 ? out + map.plane[j] * h * w : nullptr;
+    if (map.plane[j] >= 0) mask |= 1 << j;  // xrt::kSlope ... kHillshade
+  }
+  const xrt::SurfaceArgs args{planes[0], planes[1], planes[2], planes[3],
+                              mask,      csx,       csy,       sin_a,
+                              cos_a,     sin_p,     cos_p};
+  const long long row_step = (long long)gridDim.y * kBlockY;
+  for (long long row = (long long)blockIdx.y * kBlockY + threadIdx.y;
+       row < h; row += row_step)
+    xrt::surface_cell(x, h, w, row, col, args);
+}
+
+dim3 surface_grid(long long h, long long w) {
+  const long long blocks_y = (h + kBlockY - 1) / kBlockY;
+  return dim3((unsigned)((w + kBlockX - 1) / kBlockX),
+              (unsigned)(blocks_y < 65535 ? blocks_y : 65535));
+}
+
 }  // namespace
 
 extern "C" {
@@ -51,11 +96,24 @@ int surface_launch(const float* x, float* slope, float* aspect, float* curv,
   if (h <= 0 || w <= 0) return 0;
   const xrt::SurfaceArgs args{slope, aspect, curv,  hill,  mask, csx,
                               csy,   sin_a,  cos_a, sin_p, cos_p};
-  const long long blocks_y = (h + kBlockY - 1) / kBlockY;
-  dim3 block(kBlockX, kBlockY);
-  dim3 grid((unsigned)((w + kBlockX - 1) / kBlockX),
-            (unsigned)(blocks_y < 65535 ? blocks_y : 65535));
-  surface_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, args, h, w);
+  surface_kernel<<<surface_grid(h, w), dim3(kBlockX, kBlockY), 0,
+                   (cudaStream_t)stream>>>(x, args, h, w);
+  return (int)cudaGetLastError();
+}
+
+// Launches surface_stacked_kernel on `stream`: plane p_slope ... p_hill of
+// the (K, h, w) buffer `out` receives that product; a product whose plane
+// is -1 is not computed.  Returns cudaGetLastError() after the launch.
+int surface_stacked_launch(const float* x, float* out, long long h,
+                           long long w, int p_slope, int p_aspect,
+                           int p_curv, int p_hill, float csx, float csy,
+                           float sin_a, float cos_a, float sin_p, float cos_p,
+                           void* stream) {
+  if (h <= 0 || w <= 0) return 0;
+  const PlaneMap map{{p_slope, p_aspect, p_curv, p_hill}};
+  surface_stacked_kernel<<<surface_grid(h, w), dim3(kBlockX, kBlockY), 0,
+                           (cudaStream_t)stream>>>(
+      x, out, map, csx, csy, sin_a, cos_a, sin_p, cos_p, h, w);
   return (int)cudaGetLastError();
 }
 

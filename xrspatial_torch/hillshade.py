@@ -1,8 +1,9 @@
 """Hillshade: illumination of a surface from a given sun azimuth/altitude.
 
 Counterpart of ``xrspatial_tpu/hillshade.py``: the np.gradient-based
-formulation in its one-rsqrt form.  ``shadows=True`` (the ray-marched cast
-shadows) waits for ROADMAP A10.
+formulation in its one-rsqrt form.  ``shadows=True`` is the ray march
+toward the sun of ``kernels/shadows.py`` (torch ops, on the raster's
+device).
 """
 
 from __future__ import annotations
@@ -10,8 +11,9 @@ from __future__ import annotations
 from typing import Optional
 
 from .dataset_support import supports_dataset
+from .kernels.shadows import hillshade_shadows
 from .kernels.surface import run_surface_op
-from .utils import to_torch, wrap_like
+from .utils import get_dataarray_resolution, to_torch, wrap_like
 from .xrlib import DataArray
 
 __all__ = ["hillshade"]
@@ -35,12 +37,15 @@ def hillshade(agg: DataArray,
         Sun azimuth (angle from north) in degrees.
     name : str, default='hillshade'
     shadows : bool, default=False
-        Cast shadows are not ported yet.
+        Also compute cast shadows by ray-marching each cell toward the sun:
+        Lambert shading, halved in shadow.
     """
+    data = to_torch(agg)
     if shadows:
-        raise NotImplementedError(
-            "hillshade(shadows=True) is not ported to xrspatial_torch yet "
-            "(ROADMAP A10)")
-    out = run_surface_op("hillshade", to_torch(agg), azimuth=azimuth,
-                         angle_altitude=angle_altitude)
+        cellsize_x, cellsize_y = get_dataarray_resolution(agg)
+        out = hillshade_shadows(data, azimuth, angle_altitude, cellsize_x,
+                                abs(cellsize_y))
+    else:
+        out = run_surface_op("hillshade", data, azimuth=azimuth,
+                             angle_altitude=angle_altitude)
     return wrap_like(agg, out, name)

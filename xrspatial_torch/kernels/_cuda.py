@@ -106,6 +106,13 @@ def library() -> ctypes.CDLL:
     lib.surface_launch.argtypes = [p, p, p, p, p, i64, i64, i32,
                                    f32, f32, f32, f32, f32, f32, p]
     lib.surface_launch.restype = i32
+    lib.surface_stacked_launch.argtypes = [p, p, i64, i64, i32, i32, i32, i32,
+                                           f32, f32, f32, f32, f32, f32, p]
+    lib.surface_stacked_launch.restype = i32
+    for fn in (lib.stream_copy_launch, lib.stream_add_launch):
+        fn.restype = i32
+    lib.stream_copy_launch.argtypes = [p, p, i64, p]
+    lib.stream_add_launch.argtypes = [p, p, p, i64, p]
     lib.focal_launch.argtypes = [p, p, i32, ctypes.POINTER(i32), p,
                                  i64, i64, p]
     lib.focal_launch.restype = i32

@@ -1,10 +1,14 @@
-"""Wrapper of the CUDA surface kernel (``csrc/surface.cu``).
+"""Wrappers of the CUDA surface kernels (``csrc/surface.cu``).
 
-Replaces ``xrspatial_tpu/kernels/pallas_surface2.py::surface_tiled``.  The
-wrapper takes only a tensor on the card: it builds the kernel library at
-the first call, allocates the outputs, launches on PyTorch's current
-stream and raises if the launch fails.  Its plain version is
-``kernels/surface.py::surface_multi``.
+``surface_cuda`` (``surface_kernel``) replaces
+``xrspatial_tpu/kernels/pallas_surface2.py::surface_tiled``; its plain
+version is ``kernels/surface.py::surface_multi``.
+``surface_stacked_cuda`` (``surface_stacked_kernel``) replaces
+``xrspatial_tpu/kernels/pallas_surface.py::surface_pallas``; its plain
+version is ``kernels/surface.py::surface_multi_stacked``.  Each wrapper
+takes only a tensor on the card: it builds the kernel library at the
+first call, allocates the outputs, launches on PyTorch's current stream
+and raises if the launch fails.
 """
 
 from __future__ import annotations
@@ -12,12 +16,33 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .surface import PRODUCTS, sun_scalars
+from .surface import PRODUCTS, check_products, sun_scalars
 
-__all__ = ["surface_cuda", "LAUNCHES"]
+__all__ = ["surface_cuda", "surface_stacked_cuda", "LAUNCHES",
+           "STACKED_LAUNCHES"]
 
-# launches of the kernel in this process, for checks that a path ran on it
-LAUNCHES = 0
+# launches of each kernel in this process, for checks that a path ran on it
+LAUNCHES = 0            # surface_kernel
+STACKED_LAUNCHES = 0    # surface_stacked_kernel
+
+
+def _scalars(cellsize_x, cellsize_y, azimuth, angle_altitude) -> tuple:
+    """csx, csy and the sun's four scalars in float32, on the host (no
+    device sync)."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    sun = [float(s) for s in sun_scalars(f32(azimuth), f32(angle_altitude))]
+    return (float(f32(cellsize_x)), float(f32(cellsize_y)), *sun)
+
+
+def _card_raster(data: torch.Tensor, who: str) -> torch.Tensor:
+    """`data` as a contiguous float32 tensor; raises unless it is a 2D
+    tensor on the card."""
+    if data.device.type != "cuda":
+        raise ValueError(f"{who} takes a CUDA tensor, got one on "
+                         f"{data.device}")
+    if data.ndim != 2:
+        raise ValueError(f"{who} takes a 2D tensor, got {data.ndim}D")
+    return data.to(torch.float32).contiguous()
 
 
 def surface_args(x: torch.Tensor, which, cellsize_x, cellsize_y, azimuth,
@@ -26,34 +51,21 @@ def surface_args(x: torch.Tensor, which, cellsize_x, cellsize_y, azimuth,
     (H, W) float32 planes of `which` (allocated), the four product
     pointers in the kernel's order (None where not requested), the product
     mask, and csx, csy and the sun's four scalars in float32."""
-    unknown = [p for p in which if p not in PRODUCTS]
-    if unknown or len(set(which)) != len(which):
-        raise ValueError(f"products must be distinct names from {PRODUCTS}, "
-                         f"got {which!r}")
+    check_products(which)
     outs = {p: torch.empty(x.shape, dtype=torch.float32, device=x.device)
             for p in which}
     mask = sum(1 << PRODUCTS.index(p) for p in which)
     ptrs = [outs[p].data_ptr() if p in outs else None for p in PRODUCTS]
-    # the scalars in float32, on the host (no device sync)
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
-    sun = [float(s) for s in sun_scalars(f32(azimuth), f32(angle_altitude))]
-    return outs, ptrs, mask, (float(f32(cellsize_x)), float(f32(cellsize_y)),
-                              *sun)
+    return outs, ptrs, mask, _scalars(cellsize_x, cellsize_y, azimuth,
+                                      angle_altitude)
 
 
 def surface_cuda(data: torch.Tensor, which, cellsize_x=1.0, cellsize_y=1.0,
                  azimuth=225.0, angle_altitude=25.0) -> tuple:
     """Tuple of (H, W) float32 products, in `which` order, 1-cell NaN ring."""
     global LAUNCHES
-    if data.device.type != "cuda":
-        raise ValueError(
-            f"surface_cuda takes a CUDA tensor, got one on {data.device}")
-    if data.ndim != 2:
-        raise ValueError(f"surface_cuda takes a 2D tensor, got {data.ndim}D")
-    if not which:
-        raise ValueError(f"products must be distinct names from {PRODUCTS}, "
-                         f"got {which!r}")
-    x = data.to(torch.float32).contiguous()
+    x = _card_raster(data, "surface_cuda")
+    check_products(which, allow_empty=False)
     h, w = x.shape
     outs, ptrs, mask, scalars = surface_args(
         x, which, cellsize_x, cellsize_y, azimuth, angle_altitude)
@@ -64,3 +76,26 @@ def surface_cuda(data: torch.Tensor, which, cellsize_x=1.0, cellsize_y=1.0,
     _cuda.check(err, "surface_kernel")
     LAUNCHES += 1
     return tuple(outs[p] for p in which)
+
+
+def surface_stacked_cuda(data: torch.Tensor, which, cellsize_x=1.0,
+                         cellsize_y=1.0, azimuth=225.0, angle_altitude=25.0,
+                         squeeze=False) -> torch.Tensor:
+    """(K, H, W) float32 stack, plane k = product ``which[k]``, 1-cell NaN
+    ring; (H, W) when `squeeze` and K == 1."""
+    global STACKED_LAUNCHES
+    x = _card_raster(data, "surface_stacked_cuda")
+    check_products(which, allow_empty=False)
+    h, w = x.shape
+    out = torch.empty((len(which), h, w), dtype=torch.float32,
+                      device=x.device)
+    planes = [which.index(p) if p in which else -1 for p in PRODUCTS]
+    lib = _cuda.library()
+    with torch.cuda.device(x.device):
+        err = lib.surface_stacked_launch(
+            x.data_ptr(), out.data_ptr(), h, w, *planes,
+            *_scalars(cellsize_x, cellsize_y, azimuth, angle_altitude),
+            _cuda.stream_of(x.device))
+    _cuda.check(err, "surface_stacked_kernel")
+    STACKED_LAUNCHES += 1
+    return out[0] if squeeze and len(which) == 1 else out

@@ -5,9 +5,11 @@ are the torch twins, the plain versions of the CUDA kernel in
 ``cuda_surface.py``: one shared neighbourhood gather feeds per-product
 epilogues, in the same float32 operation order as the JAX package.
 
-Dispatch (``surface_kernels``, ``run_surface_op``): a tensor on the CPU
-goes to the twins, a tensor on the card to the CUDA kernel, at every size.
-The twins are reached on the card only by calling them by name.
+Dispatch (``surface_kernels``, ``run_surface_op``, ``surface_stacked``): a
+tensor on the CPU goes to the twins, a tensor on the card to a CUDA kernel
+(``surface_kernel``, or ``surface_stacked_kernel`` for the stacked
+output), at every size.  The twins are reached on the card only by
+calling them by name.
 
 Numerical contracts (all float32):
 - slope:   Horn 3x3 gradient, ``atan(|grad z|)*57.29578``;
@@ -32,7 +34,9 @@ __all__ = [
     "neighborhood", "slope_from_neighbors", "aspect_from_neighbors",
     "curvature_from_center", "hillshade_from_gradient", "sun_scalars",
     "slope", "aspect", "curvature", "hillshade", "surface_multi",
-    "surface_kernels", "run_surface_op", "PRODUCTS",
+    "surface_multi_stacked", "surface_kernels", "surface_stacked",
+    "check_products",
+    "run_surface_op", "PRODUCTS",
 ]
 
 
@@ -179,6 +183,27 @@ def surface_multi(data, cellsize_x, cellsize_y, azimuth, angle_altitude,
     return outs
 
 
+def check_products(which, allow_empty=True) -> None:
+    """Raise unless `which` names distinct surface products."""
+    if (not which and not allow_empty) or len(set(which)) != len(which) \
+            or any(p not in PRODUCTS for p in which):
+        raise ValueError(f"products must be distinct names from {PRODUCTS}, "
+                         f"got {which!r}")
+
+
+def surface_multi_stacked(data, cellsize_x, cellsize_y, azimuth,
+                          angle_altitude, which=("slope",), squeeze=False):
+    """(K, H, W) float32 stack of `which`, plane k = ``which[k]``; (H, W)
+    when `squeeze` and K == 1.  The plain version of
+    ``surface_stacked_kernel``."""
+    which = tuple(which)
+    check_products(which, allow_empty=False)
+    outs = surface_multi(data, cellsize_x, cellsize_y, azimuth,
+                         angle_altitude, which)
+    out = torch.stack([outs[p] for p in which])
+    return out[0] if squeeze and len(which) == 1 else out
+
+
 # ---------------------------------------------------------------------------
 # dispatch: CPU tensor -> twins, CUDA tensor -> kernel
 # ---------------------------------------------------------------------------
@@ -220,3 +245,19 @@ def run_surface_op(name, data, cellsize_x=1.0, cellsize_y=1.0,
         cellsize_y = cellsize_x
     return surface_kernels(data, (name,), cellsize_x, cellsize_y, azimuth,
                            angle_altitude)[name]
+
+
+def surface_stacked(data, cellsize_x=1.0, cellsize_y=1.0, azimuth=225.0,
+                    angle_altitude=25.0, which=("slope",), squeeze=False):
+    """(K, H, W) float32 stack of the products in `which` (any subset and
+    order of slope/aspect/curvature/hillshade), 1-cell NaN ring; (H, W)
+    when `squeeze` and K == 1.  The JAX package's ``surface_pallas``.
+
+    Curvature uses the mean of the two cell sizes.
+    """
+    if data.device.type == "cpu":
+        return surface_multi_stacked(data, cellsize_x, cellsize_y, azimuth,
+                                     angle_altitude, which, squeeze)
+    from .cuda_surface import surface_stacked_cuda
+    return surface_stacked_cuda(data, tuple(which), cellsize_x, cellsize_y,
+                                azimuth, angle_altitude, squeeze)

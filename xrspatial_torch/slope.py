@@ -1,15 +1,20 @@
 """Slope: terrain gradient magnitude in degrees (planar Horn).
 
 Counterpart of ``xrspatial_tpu/slope.py``.  The planar method runs
-through ``kernels/surface.py::run_surface_op``.  ``method='geodesic'``
-waits for ROADMAP A10.
+through ``kernels/surface.py::run_surface_op``; ``method='geodesic'`` is
+the float64 ECEF plane fit of ``kernels/geodesic.py`` (torch ops, on the
+raster's device).
 """
 
 from __future__ import annotations
 
+import torch
+
 from .dataset_support import supports_dataset
+from .kernels.geodesic import WGS84_A2, WGS84_B2, geodesic_slope
 from .kernels.surface import run_surface_op
-from .utils import get_dataarray_resolution, to_torch, wrap_like
+from .utils import (Z_UNITS, _extract_latlon_coords,
+                    get_dataarray_resolution, to_torch, wrap_like)
 from .xrlib import DataArray
 
 __all__ = ["slope"]
@@ -31,7 +36,8 @@ def slope(agg: DataArray,
         Name of output DataArray.
     method : str, default='planar'
         ``'planar'``: classic Horn algorithm with uniform cell size.
-        ``'geodesic'`` is not ported yet.
+        ``'geodesic'``: cells converted to ECEF and fit with a 3D plane —
+        accurate for geographic (lat/lon) grids.
     z_unit : str, default='meter'
         Unit of elevation values (geodesic method only).
 
@@ -43,10 +49,17 @@ def slope(agg: DataArray,
     if method not in ('planar', 'geodesic'):
         raise ValueError(
             f"method must be 'planar' or 'geodesic', got {method!r}")
-    if method == 'geodesic':
-        raise NotImplementedError(
-            "slope(method='geodesic') is not ported to xrspatial_torch yet "
-            "(ROADMAP A10)")
-    cellsize_x, cellsize_y = get_dataarray_resolution(agg)
-    out = run_surface_op("slope", to_torch(agg), cellsize_x, cellsize_y)
+    if method == 'planar':
+        cellsize_x, cellsize_y = get_dataarray_resolution(agg)
+        out = run_surface_op("slope", to_torch(agg), cellsize_x, cellsize_y)
+    else:
+        if z_unit not in Z_UNITS:
+            raise ValueError(
+                f"z_unit must be one of "
+                f"{sorted(Z_UNITS)}, got {z_unit!r}")
+        lat_2d, lon_2d = _extract_latlon_coords(agg)
+        elev = to_torch(agg, torch.float64)
+        out = geodesic_slope(elev, torch.from_numpy(lat_2d),
+                             torch.from_numpy(lon_2d), WGS84_A2, WGS84_B2,
+                             Z_UNITS[z_unit])
     return wrap_like(agg, out, name)

@@ -76,7 +76,25 @@ Phases, each fatal on failure:
    sun at azimuth 225, altitude 10), one warm-up and two timed calls; a
    1024^2 crop north-east of the summit (about half in shadow) on the card
    against the CPU: lit mask equal at every cell, shade within rtol 1e-6 /
-   atol 1e-6.
+   atol 1e-6;
+21. stencil probes and the fused jump-flood group vs twins: every
+   instantiation of the stencil-probe template (the ports of the TPU
+   probes B8c-f) against its twin at 300x70 and 257x1025 with NaN cells
+   (copy equal to its input; grad, slope, separable within the surface
+   tolerance; every nine-read slope, interior and ring_branch included,
+   equal to the surface kernel bit for bit, bare on the cells it writes);
+   the fused group (B8g) against the round kernel launched once per
+   stride, bit for bit, in both state forms at every metric, for
+   proximity's tail group, (64,) and (2, 1);
+22. probes at full size: ``python -m xrspatial_torch.tools.exp_stencil2``,
+   ``exp_separable_horn``, ``exp_padfree_stencil`` and ``exp_seam_cost``
+   at 16384^2, the tools users run (each kernel checked against its twin
+   before it is timed; every leg's ms, GB/s and share of the measured
+   roof); ``exp_jfa_fixed`` at its 4096^2 (the JAX probe's groups that
+   fit, against the round kernel); then the fused group on proximity's
+   16384^2 packed state after its first 9 rounds (targets ``dem > 900``):
+   the tail group (16, 8, 4, 2, 1, 2, 1) in one launch against the round
+   kernel's seven, bit for bit, and both and the twin timed in turns.
 
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -615,17 +633,21 @@ def fused_pipeline(on: bool):
 def reset_launches():
     from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
+    from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
     cuda_window.HALO_LAUNCHES = cuda_pipeline.LAUNCHES = 0
     cuda_jfa.LAUNCHES = 0
     cuda_screen.LAUNCHES = cuda_screen.F64_LAUNCHES = 0
     cuda_surface.STACKED_LAUNCHES = 0
     cuda_stream.COPY_LAUNCHES = cuda_stream.ADD_LAUNCHES = 0
+    cuda_stencil_probe.LAUNCHES = cuda_stencil_probe.EDGE_LAUNCHES = 0
+    cuda_jfa_group.LAUNCHES = 0
 
 
 def read_launches():
     from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
+    from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
     return {"surface_kernel": cuda_surface.LAUNCHES,
             "focal_kernel": cuda_window.LAUNCHES,
             "focal_halo_kernel": cuda_window.HALO_LAUNCHES,
@@ -634,7 +656,10 @@ def read_launches():
             "screen_hilo": cuda_screen.LAUNCHES,
             "surface_stacked_kernel": cuda_surface.STACKED_LAUNCHES,
             "stream_copy": cuda_stream.COPY_LAUNCHES,
-            "stream_add": cuda_stream.ADD_LAUNCHES}
+            "stream_add": cuda_stream.ADD_LAUNCHES,
+            "stencil_probe": cuda_stencil_probe.LAUNCHES,
+            "stencil_edge": cuda_stencil_probe.EDGE_LAUNCHES,
+            "jfa_group": cuda_jfa_group.LAUNCHES}
 
 
 def only(launches, name, n=1):
@@ -1519,6 +1544,274 @@ def shadows_path(dev, card):
     torch.cuda.empty_cache()
 
 
+# -- the stencil probes (B8c-f) and the fused jump-flood group (B8g) ---------
+
+PROBE_SHAPES = ((300, 70), (257, 1025))
+GROUP_TAIL = (16, 8, 4, 2, 1, 2, 1)   # the last rounds of proximity at N
+JFA_FIXED_N = 4096                   # the JAX probe's raster edge
+GROUPS = {"tail": GROUP_TAIL, "64": (64,), "2_1": (2, 1)}
+# (label, metric, axes): the round kernel's metrics in each state form
+GROUP_MODES = {"packed": (("euclidean", 0, "affine"),
+                          ("manhattan", 2, "affine")),
+               "coords": (("euclidean", 0, "nonaffine"),
+                          ("great circle", 1, "lonlat"),
+                          ("manhattan", 2, "nonaffine"))}
+# which port of a TPU probe each kernels-line row reports: (tool, leg of
+# the kernel, leg of the twin, leg of the library call or None)
+PROBE_ROWS = {
+    "stencil_probe_b8c": ("exp_stencil2", "C copy 32x8", "G twin copy",
+                          "A Tensor.copy_"),
+    "stencil_probe_b8d": ("exp_separable_horn", "separable 32x8",
+                          "twin separable", None),
+    "stencil_probe_b8e": ("exp_padfree_stencil", "interior 32x8", "twin",
+                          None),
+    "stencil_probe_b8f": ("exp_seam_cost", "bare", "twin", None)}
+
+
+def check_stencil_probes(dev):
+    """Phase 21a: every stencil-probe instantiation against its twin and
+    the surface kernel.  Returns {row: largest difference from the twin}
+    over the instantiations each row's TPU probe has."""
+    import torch
+    from xrspatial_torch.kernels import cuda_stencil_probe, cuda_surface
+    from xrspatial_torch.kernels.stencil_probe import (BLOCKS, VARIANTS,
+                                                       interior_extent,
+                                                       stencil_twin)
+    print("== stencil-probe kernels vs twins and the surface kernel on the "
+          "card")
+    # the instantiations of each row's TPU probe: (mode, form, edges) ->
+    # whether the row has it
+    rows = {"stencil_probe_b8c": lambda m, f, e: f == "nine" and e == "ring",
+            "stencil_probe_b8d": lambda m, f, e: m == "slope" and e == "ring",
+            "stencil_probe_b8e": lambda m, f, e: e == "interior",
+            "stencil_probe_b8f": lambda m, f, e: f == "nine" and m == "slope"
+            and e in ("ring", "bare")}
+    errs = dict.fromkeys(rows, 0.0)
+    for k, shape in enumerate(PROBE_SHAPES):
+        x = torch.from_numpy(test_raster(shape, seed=800 + k)).to(dev)
+        b1 = cuda_surface.surface_cuda(x, ("slope",))[0]
+        for mode, form, edges in VARIANTS:
+            for block in BLOCKS:
+                got = cuda_stencil_probe.stencil_probe_cuda(x, mode, form,
+                                                            edges, block)
+                ref = stencil_twin(x, mode, form, edges, block)
+                r0, r1, c0, c1 = interior_extent(*shape, block) \
+                    if edges == "bare" else (0, shape[0], 0, shape[1])
+                g, r, b = (t[r0:r1, c0:c1] for t in (got, ref, b1))
+                tag = f"stencil {shape} {mode} {form} {edges} " \
+                      f"{block[0]}x{block[1]}"
+                if mode == "copy":
+                    if not torch.equal(got.view(torch.int32),
+                                       x.view(torch.int32)):
+                        raise SmokeFailure(f"{tag}: differs from its input")
+                    print(f"  {tag}: equal to its input bit for bit")
+                    continue
+                err = check(f"{tag} vs twin", g, r, SURFACE_TOL)
+                if form == "nine" and mode == "slope":
+                    if not (torch.equal(torch.isnan(g), torch.isnan(b))
+                            and torch.equal(torch.nan_to_num(g),
+                                            torch.nan_to_num(b))):
+                        raise SmokeFailure(f"{tag}: differs from the "
+                                           f"surface kernel")
+                    print(f"  {tag}: equal to the surface kernel bit for "
+                          f"bit")
+                for row, has in rows.items():
+                    if has(mode, form, edges):
+                        errs[row] = max(errs[row], err)
+        torch.cuda.synchronize()
+    return errs
+
+
+def group_case(dev, form, metric, axes, shape, rng):
+    """(state planes, run of the group kernel, run of the round kernel
+    once per stride) for one check of the fused group."""
+    import torch
+    from xrspatial_torch.kernels import cuda_jfa, cuda_jfa_group
+    from xrspatial_torch.kernels.jfa import packed_state_plan
+    mask = torch.from_numpy(rng.random(shape) < 0.01).to(dev)
+    ys_np, xs_np = jfa_axes(axes, *shape, rng)
+    xs = torch.from_numpy(xs_np).to(dev)
+    ys = torch.from_numpy(ys_np).to(dev)
+    if form == "packed":
+        steps = packed_state_plan(xs_np, ys_np, metric)[0]
+        state = jfa_initial("packed", mask, None, xs, ys)[0]
+        for k in (64, 32):           # targets spread before the group
+            state, _, _ = cuda_jfa.round_packed_cuda(state, None, k, metric,
+                                                     steps)
+
+        def rounds(ks):
+            s = state
+            for k in ks:
+                s, _, _ = cuda_jfa.round_packed_cuda(s, None, k, metric,
+                                                     steps)
+            return (s,)
+        return (lambda ks: (cuda_jfa_group.group_packed_cuda(
+            state, ks, metric, steps),), rounds)
+    tx, ty, _ = jfa_initial("coords", mask, None, xs, ys)
+    for k in (64, 32):
+        tx, ty, _ = cuda_jfa.round_coords_cuda(tx, ty, None, xs, ys, k,
+                                               metric)
+
+    def rounds(ks):
+        a, b = tx, ty
+        for k in ks:
+            a, b, _ = cuda_jfa.round_coords_cuda(a, b, None, xs, ys, k,
+                                                 metric)
+        return a, b
+    return (lambda ks: cuda_jfa_group.group_coords_cuda(tx, ty, xs, ys, ks,
+                                                        metric), rounds)
+
+
+def check_jfa_group(dev):
+    """Phase 21b: the fused group against the round kernel launched once
+    per stride, bit for bit, every state form and metric."""
+    import torch
+    from xrspatial_torch.kernels.jfa_group import window_plan
+    print("== fused jump-flood group vs the round kernel on the card")
+    for si, shape in enumerate(PROBE_SHAPES):
+        rng = np.random.default_rng(900 + si)
+        for form, modes in GROUP_MODES.items():
+            for label, metric, axes in modes:
+                fused, rounds = group_case(dev, form, metric, axes, shape,
+                                           rng)
+                for gname, ks in GROUPS.items():
+                    tag = f"jfa_group {shape} {form} {label} {ks}"
+                    try:
+                        tile, _, nbytes = window_plan(ks, form)
+                    except ValueError as exc:
+                        print(f"  {tag}: not run, {exc}")
+                        continue
+                    got, ref = fused(ks), rounds(ks)
+                    torch.cuda.synchronize()
+                    n_bad = sum(int((g != r).sum()) for g, r in zip(got, ref))
+                    if n_bad:
+                        raise SmokeFailure(f"{tag}: {n_bad} cells differ from "
+                                           f"the round kernel")
+                    print(f"  {tag}: T = {tile}, {nbytes} bytes of shared "
+                          f"memory, equal to {len(ks)} round launches bit "
+                          f"for bit")
+        torch.cuda.synchronize()
+
+
+def stencil_probes_path(roof_gb_s, card):
+    """Phase 22a: the four stencil tools at N^2; returns {row: (launches,
+    max difference from the twin, (ms, twin ms), library ms)}."""
+    import importlib
+    import io
+    import torch
+    rows = {}
+    for row, (tool, leg, twin_leg, lib_leg) in PROBE_ROWS.items():
+        mod = importlib.import_module(f"xrspatial_torch.tools.{tool}")
+        print(f"== stencil probe: python -m xrspatial_torch.tools.{tool} {N}")
+        torch.cuda.synchronize()
+        reset_launches()
+        buf = io.StringIO()
+        try:
+            res = mod.measure(N, out=buf)
+            torch.cuda.synchronize()
+        finally:
+            for line in buf.getvalue().splitlines():
+                print("  " + line)
+        launches = read_launches()
+        if not launches["stencil_probe"] or (
+                tool == "exp_padfree_stencil"
+                and not launches["stencil_edge"]):
+            raise SmokeFailure(f"{tool}: launches {launches}")
+        print(f"  launches {launches}")
+        for name, data in res["inputs"].items():
+            for label, r in data["legs"].items():
+                print(f"  {name} {label}: {r['ms']:.4f} ms, "
+                      f"{r['gb_s']:.1f} GB/s, {r['gb_s'] / roof_gb_s * 100:.1f}"
+                      f"% of the measured roof, {card}")
+        legs = res["inputs"]["gaussian_bump"]["legs"]
+        err = max(max(d["checks"].values()) for d in res["inputs"].values())
+        rows[row] = (launches["stencil_probe"], err,
+                     (legs[leg]["ms"], legs[twin_leg]["ms"]),
+                     legs[lib_leg]["ms"] if lib_leg else None)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def jfa_group_path(dev, card):
+    """Phase 22b: the JAX probe's groups through the tool users run, then
+    the fused tail group on proximity's N^2 packed state after its first
+    rounds, against the round kernel's launches."""
+    import io
+    import torch
+    from xrspatial_torch.kernels import cuda_jfa, cuda_jfa_group
+    from xrspatial_torch.kernels.jfa import _stride_schedule, packed_state_plan
+    from xrspatial_torch.kernels.jfa_group import (TAIL, group_packed_twin,
+                                                   window_plan)
+    from xrspatial_torch.tools import exp_jfa_fixed
+    print(f"== fused jump-flood group: python -m "
+          f"xrspatial_torch.tools.exp_jfa_fixed {JFA_FIXED_N}")
+    reset_launches()
+    buf = io.StringIO()
+    try:
+        exp_jfa_fixed.measure(JFA_FIXED_N, out=buf)
+        torch.cuda.synchronize()
+    finally:
+        for line in buf.getvalue().splitlines():
+            print("  " + line)
+    launches = read_launches()
+    print(f"  launches {launches}")
+    if not launches["jfa_group"]:
+        raise SmokeFailure(f"exp_jfa_fixed: launches {launches}")
+    dem = gaussian_bump(N, N, dev)
+    schedule = [int(k) for k in _stride_schedule(N)]
+    if tuple(schedule[-len(TAIL):]) != TAIL:
+        raise SmokeFailure(f"the schedule at {N} ends {schedule}, not {TAIL}")
+    head = schedule[:-len(TAIL)]
+    print(f"== fused jump-flood group: proximity's {N}x{N} packed state "
+          f"(targets dem > 900) after rounds {head}, then the tail {TAIL}")
+    xs_np = np.arange(N, dtype=np.float32)
+    ys_np = np.arange(N, dtype=np.float32)[::-1].copy()
+    steps = packed_state_plan(xs_np, ys_np, 0)[0]
+    state = jfa_initial("packed", dem > 900, None, None, None)[0]
+    del dem
+    for k in head:
+        state, _, _ = cuda_jfa.round_packed_cuda(state, None, k, 0, steps)
+
+    def rounds():
+        s = state
+        for k in TAIL:
+            s, _, _ = cuda_jfa.round_packed_cuda(s, None, k, 0, steps)
+        return s
+
+    torch.cuda.synchronize()
+    reset_launches()
+    got = cuda_jfa_group.group_packed_cuda(state, TAIL, 0, steps)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if not only(launches, "jfa_group"):
+        raise SmokeFailure(f"fused group: launches {launches}")
+    ref = rounds()
+    n_bad = int((got != ref).sum())
+    tile, h, nbytes = window_plan(TAIL, "packed")
+    print(f"  one launch, T = {tile}, H = {h}, {nbytes} bytes of shared "
+          f"memory; {n_bad} cells differ from the round kernel's "
+          f"{len(TAIL)} launches; {int((got < 0).sum())} cells without a "
+          f"target")
+    if n_bad:
+        raise SmokeFailure(f"fused group: {n_bad} cells differ from the "
+                           f"round kernel")
+    if not torch.equal(group_packed_twin(state, TAIL, 0, steps), got):
+        raise SmokeFailure("fused group: differs from the twin")
+    del got, ref
+    print(f"== timing: fused jump-flood group at {N}x{N} on {card}")
+    ms = paired_ms(lambda: cuda_jfa_group.group_packed_cuda(
+        state, TAIL, 0, steps), lambda: group_packed_twin(
+        state, TAIL, 0, steps), 10, 1)
+    per_round = cuda_time_ms(rounds, 5)
+    print(f"  jfa_group, tail {TAIL}: kernel {ms[0]:.3f} ms, round kernel "
+          f"launched {len(TAIL)} times {per_round:.3f} ms, twin "
+          f"{ms[1]:.3f} ms, {card}")
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches["jfa_group"], ms, per_round
+
+
 # -- the least time of each kernel ------------------------------------------
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
@@ -1539,6 +1832,11 @@ JFA_OPS_PER_CANDIDATE, JFA_CANDIDATES = 8, 9
 # pair that passes one, 11 more (the subtract, the sign test, the product
 # and sum, the clip, each band and its max; screen.cu)
 SCREEN_OPS, SCREEN_OPS_COVERED = 6, 11
+# slope alone (surface_cell.cuh, stencil_probe.cu): 2 x 7 for the Sobel
+# sums, 10 for slope; a fused jump-flood group: 8 per candidate, 8
+# candidates a round
+SLOPE_OPS = 24
+GROUP_OPS_PER_ROUND = 8 * 8
 
 
 def bound(nbytes, ops, bytes_s=HBM_BYTES_S):
@@ -1553,10 +1851,12 @@ def bound(nbytes, ops, bytes_s=HBM_BYTES_S):
 def kernel_work(n_offsets_main, n_offsets_annulus, screen_counts):
     """(bytes, float operations) of each kernel at the work its timing
     measured."""
+    from xrspatial_torch.kernels.stencil_probe import interior_extent
     cells = N * N
     plane = 4 * cells                      # one float32 or int32 plane
     focal = FOCAL_OPS_PER_OFFSET * n_offsets_main + FOCAL_OPS
     pairs, covered, screen_nbytes = screen_counts
+    r0, r1, c0, c1 = interior_extent(N, N, (32, 8))
     return {
         # 1 read, slope and hillshade written
         "surface_kernel": (3 * plane, SURFACE_OPS * cells),
@@ -1578,6 +1878,18 @@ def kernel_work(n_offsets_main, n_offsets_annulus, screen_counts):
         "surface_stacked_kernel": (5 * plane, SURFACE_ALL_OPS * cells),
         "stream_copy": (2 * plane, 0),
         "stream_add": (3 * plane, cells),
+        # each stencil probe reads the plane and writes it; copy computes
+        # nothing
+        "stencil_probe_b8c": (2 * plane, 0),
+        "stencil_probe_b8d": (2 * plane, SLOPE_OPS * cells),
+        "stencil_probe_b8e": (2 * plane, SLOPE_OPS * cells),
+        # bare writes the interior blocks and reads them with their halo
+        "stencil_probe_b8f": (4 * ((r1 - r0 + 2) * (c1 - c0 + 2)
+                                   + (r1 - r0) * (c1 - c0)),
+                              SLOPE_OPS * (r1 - r0) * (c1 - c0)),
+        # the tail group reads the state once and writes it once
+        "jfa_group": (2 * plane, len(GROUP_TAIL) * GROUP_OPS_PER_ROUND
+                      * cells),
     }
 
 
@@ -1783,6 +2095,17 @@ def main() -> int:
     geodesic_path(dev, card)
     shadows_path(dev, card)
 
+    # -- the stencil probes and the fused jump-flood group --------------------
+    probe_errs = check_stencil_probes(dev)
+    check_jfa_group(dev)
+    for k, (n, err, row_ms, lib) in stencil_probes_path(
+            probes["roof_gb_s"], card).items():
+        launches[k], ms[k] = n, row_ms
+        max_err[k] = max(err, probe_errs[k])
+        library_ms[k] = lib
+    launches["jfa_group"], ms["jfa_group"], _ = jfa_group_path(dev, card)
+    max_err["jfa_group"] = 0.0             # equal to the rounds bit for bit
+
     work = kernel_work(
         len(offsets), len(kernel_offsets(halo_footprints()["annulus_40_38"])),
         screen_counts)
@@ -1822,9 +2145,25 @@ def main() -> int:
         "tools/measure_stream.py:42"),
         "stream_add": (
         "xrspatial_torch/csrc/stream.cu",
-        "tools/measure_stream.py:59")}
-    # Tensor.copy_ and torch.add compute the stream probes' functions; no
-    # single PyTorch call computes any of the others
+        "tools/measure_stream.py:59"),
+        "stencil_probe_b8c": (
+        "xrspatial_torch/csrc/stencil_probe.cu",
+        "tools/exp_stencil2.py:56"),
+        "stencil_probe_b8d": (
+        "xrspatial_torch/csrc/stencil_probe.cu",
+        "tools/exp_separable_horn.py:54"),
+        "stencil_probe_b8e": (
+        "xrspatial_torch/csrc/stencil_probe.cu",
+        "tools/exp_padfree_stencil.py:42"),
+        "stencil_probe_b8f": (
+        "xrspatial_torch/csrc/stencil_probe.cu",
+        "tools/exp_seam_cost.py:34"),
+        "jfa_group": (
+        "xrspatial_torch/csrc/jfa_group.cu",
+        "tools/exp_jfa_fixed.py:38")}
+    # Tensor.copy_ and torch.add compute the stream probes' functions and
+    # the copy mode of B8c's; no single PyTorch call computes any of the
+    # others
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k],

@@ -26,7 +26,12 @@ and its twin within the surface tolerance; the stream kernels equal
 ``x.clone()`` and ``x + y`` bit for bit.  Geodesic slope/aspect on the card
 match the CPU within rtol 1e-6 (float64 trig ulps); cast shadows give the
 CPU's lit mask at every cell and its shade within rtol 1e-6 / atol 1e-6.
-A numpy raster, with no device set, runs on the card.
+A numpy raster, with no device set, runs on the card.  Every
+instantiation of the stencil-probe template matches its twin (copy bit
+for bit, the rest within the surface tolerance) and its nine-read slope
+equals the surface kernel's bit for bit; the fused jump-flood group
+equals the round kernel launched once per stride, bit for bit, in both
+state forms and at every metric.
 """
 
 import numpy as np
@@ -37,10 +42,13 @@ import xrspatial_torch as xt
 from xrspatial_torch import focal
 from xrspatial_torch.convolution import (annulus_kernel, circle_kernel,
                                          convolution_2d)
-from xrspatial_torch.kernels import _cuda, cuda_jfa, cuda_pipeline
-from xrspatial_torch.kernels import cuda_screen, cuda_stream, cuda_surface
-from xrspatial_torch.kernels import cuda_window, jfa, jfa_rounds, screen
-from xrspatial_torch.kernels import shadows, stream, surface, viewshed_exact
+from xrspatial_torch.kernels import _cuda, cuda_jfa, cuda_jfa_group
+from xrspatial_torch.kernels import cuda_pipeline, cuda_screen
+from xrspatial_torch.kernels import cuda_stencil_probe, cuda_stream
+from xrspatial_torch.kernels import cuda_surface, cuda_window, jfa
+from xrspatial_torch.kernels import jfa_group, jfa_rounds, screen, shadows
+from xrspatial_torch.kernels import stencil_probe, stream, surface
+from xrspatial_torch.kernels import viewshed_exact
 from xrspatial_torch.kernels.pipeline import pipeline_multi
 from xrspatial_torch.kernels.surface import PRODUCTS, surface_multi
 from xrspatial_torch.kernels.window import kernel_offsets, window_stats
@@ -483,15 +491,22 @@ def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
     lambda x: cuda_jfa.round_packed_cuda(x.to(torch.int32), None, 1, 0,
                                          (1.0, 1.0)),
     lambda x: cuda_jfa.round_coords_cuda(x, x, None, x[0], x[:, 0], 1, 0),
+    lambda x: cuda_stencil_probe.stencil_probe_cuda(x, "copy"),
+    lambda x: cuda_jfa_group.group_packed_cuda(x.to(torch.int32), (2, 1), 0,
+                                               (1.0, 1.0)),
+    lambda x: cuda_jfa_group.group_coords_cuda(x, x, x[0], x[:, 0], (2, 1),
+                                               0),
 ], ids=["surface_cuda", "focal_stats_cuda", "round_packed_cuda",
-        "round_coords_cuda", "focal_stats_halo_cuda", "pipeline_cuda"])
+        "round_coords_cuda", "focal_stats_halo_cuda", "pipeline_cuda",
+        "stencil_probe_cuda", "group_packed_cuda", "group_coords_cuda"])
 def test_raw_wrappers_refuse_a_cpu_tensor(call):
     """The kernel wrappers never run the twin: a CPU tensor is refused
     before anything is built or launched."""
     def counts():
         return (cuda_surface.LAUNCHES, cuda_window.LAUNCHES,
                 cuda_window.HALO_LAUNCHES, cuda_pipeline.LAUNCHES,
-                cuda_jfa.LAUNCHES)
+                cuda_jfa.LAUNCHES, cuda_stencil_probe.LAUNCHES,
+                cuda_jfa_group.LAUNCHES)
 
     before = counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -672,3 +687,129 @@ def test_shadows_on_the_card_match_the_cpu(cuda, azimuth):
     got = shadows.hillshade_shadows(host.to(cuda), azimuth, 10, 30.0, 30.0)
     ref = shadows.hillshade_shadows(host, azimuth, 10, 30.0, 30.0)
     assert_matches(got, ref, dict(rtol=1e-6, atol=1e-6))
+
+
+# -- the stencil probes (B8c-f) and the fused jump-flood group (B8g) -----------
+
+PROBE_VARIANTS = [(mode, form, edges, block)
+                  for mode, form, edges in stencil_probe.VARIANTS
+                  for block in stencil_probe.BLOCKS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 70), (257, 1025), (2, 5), (9, 40)])
+def test_stencil_probe_kernel_matches_twin_and_surface_kernel(cuda, shape):
+    """Every instantiation against its twin (copy equal to the input, the
+    rest within the surface tolerance); ring, interior and the cells bare
+    writes equal the surface kernel's slope bit for bit."""
+    rng = np.random.default_rng(41)
+    data = (rng.random(shape) * 100).astype(np.float32)
+    data[shape[0] // 3, shape[1] // 4:shape[1] // 2] = np.nan
+    x = torch.from_numpy(data).to(cuda)
+    b1 = cuda_surface.surface_cuda(x, ("slope",))[0]
+    for mode, form, edges, block in PROBE_VARIANTS:
+        r0, r1, c0, c1 = stencil_probe.interior_extent(*shape, block)
+        inner = (r1 - r0) * (c1 - c0)
+        # ring: one launch; interior and bare: one on the interior blocks,
+        # if any; interior: one more on the edge bands
+        want = (int(edges == "ring" or inner > 0),
+                int(edges == "interior" and inner < x.numel()))
+        before = (cuda_stencil_probe.LAUNCHES,
+                  cuda_stencil_probe.EDGE_LAUNCHES)
+        got = cuda_stencil_probe.stencil_probe_cuda(x, mode, form, edges,
+                                                    block)
+        torch.cuda.synchronize()
+        assert (cuda_stencil_probe.LAUNCHES - before[0],
+                cuda_stencil_probe.EDGE_LAUNCHES - before[1]) == want
+        ref = stencil_probe.stencil_twin(x, mode, form, edges, block)
+        tag = f"{mode} {form} {edges} {block}"
+        region = (slice(None), slice(None))
+        if edges == "bare":
+            region = (slice(r0, r1), slice(c0, c1))
+        if mode == "copy":
+            assert torch.equal(got.view(torch.int32), x.view(torch.int32)), \
+                tag
+            continue
+        assert_matches(got[region], ref[region], SURFACE_TOL, tag)
+        if mode == "slope" and form == "nine":
+            g, r = got[region], b1[region]
+            assert torch.equal(torch.isnan(g), torch.isnan(r)), tag
+            assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(r)), tag
+
+
+@pytest.mark.gpu
+def test_stencil_probe_wrapper_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_stencil_probe.stencil_probe_cuda(x.double())
+    with pytest.raises(ValueError, match="instantiation"):
+        cuda_stencil_probe.stencil_probe_cuda(x, "copy", "separable")
+
+
+GROUP_CASES = {"packed_euclidean": ("packed", 0),
+               "packed_manhattan": ("packed", 2),
+               "coords_euclidean": ("coords", 0),
+               "coords_great_circle": ("coords", 1),
+               "coords_manhattan": ("coords", 2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ks", [jfa_group.TAIL, (64,), (2, 1)],
+                         ids=["tail", "64", "2_1"])
+@pytest.mark.parametrize("shape", [(300, 70), (257, 1025)])
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+def test_jfa_group_kernel_equals_round_kernel(cuda, case, shape, ks):
+    """One launch of the group equals the round kernel launched once per
+    stride, bit for bit, in every plane."""
+    form, metric = GROUP_CASES[case]
+    try:
+        jfa_group.window_plan(ks, form)
+    except ValueError:
+        pytest.skip(f"the {form} window of {ks} does not fit, by design")
+    rng = np.random.default_rng(43)
+    mask = torch.from_numpy(rng.random(shape) < 0.01).to(cuda)
+    ys, xs = (torch.from_numpy(a).to(cuda) for a in jfa_axes(
+        "lonlat" if metric == 1 else "affine", *shape))
+    tx = torch.where(mask, xs[None, :], np.inf)
+    ty = torch.where(mask, ys[:, None], np.inf)
+    # run the first rounds of the schedule, so the group starts from a
+    # state with targets everywhere
+    for k in (64, 32):
+        tx, ty, _ = cuda_jfa.round_coords_cuda(tx, ty, None, xs, ys, k,
+                                               metric)
+    before = cuda_jfa_group.LAUNCHES
+    if form == "packed":
+        steps = jfa.packed_state_plan(xs.cpu().numpy(), ys.cpu().numpy(),
+                                      metric)[0]
+        iy = torch.arange(shape[0], dtype=torch.int32, device=cuda)[:, None]
+        ix = torch.arange(shape[1], dtype=torch.int32, device=cuda)[None, :]
+        state = torch.where(mask, (iy << 15) | ix, -1)
+        got = (cuda_jfa_group.group_packed_cuda(state, ks, metric, steps),)
+        ref = state
+        for k in ks:
+            ref, _, _ = cuda_jfa.round_packed_cuda(ref, None, k, metric,
+                                                   steps)
+        ref = (ref,)
+    else:
+        got = cuda_jfa_group.group_coords_cuda(tx, ty, xs, ys, ks, metric)
+        ref = (tx, ty)
+        for k in ks:
+            ref = cuda_jfa.round_coords_cuda(*ref, None, xs, ys, k,
+                                             metric)[:2]
+    torch.cuda.synchronize()
+    assert cuda_jfa_group.LAUNCHES == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), case
+
+
+@pytest.mark.gpu
+def test_jfa_group_wrapper_refuses_what_it_cannot_take(cuda):
+    state = torch.full((16, 16), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        cuda_jfa_group.group_packed_cuda(
+            state, (64, 32, 16, 8, 4, 2, 1, 2, 1), 0, (1.0, 1.0))
+    with pytest.raises(ValueError, match="int32"):
+        cuda_jfa_group.group_packed_cuda(state.float(), (2, 1), 0,
+                                         (1.0, 1.0))
+    with pytest.raises(ValueError, match="metrics"):
+        cuda_jfa_group.group_packed_cuda(state, (2, 1), 1, (1.0, 1.0))

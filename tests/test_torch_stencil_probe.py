@@ -1,0 +1,220 @@
+"""The stencil probes' plain versions against the JAX package (CPU).
+
+``kernels/stencil_probe.py::stencil_twin`` is the plain version of every
+instantiation of the CUDA template ``csrc/stencil_probe.cu``, the port of
+the TPU probes ``tools/exp_stencil2.py`` (B8c), ``exp_separable_horn.py``
+(B8d), ``exp_padfree_stencil.py`` (B8e) and ``exp_seam_cost.py`` (B8f).
+The same numpy rasters (NaN cells inside) go through the twin and
+through:
+
+- ``xrspatial_tpu/kernels/surface.py::slope_jit``, the JAX package's
+  slope;
+- the TPU probes' own arithmetic, evaluated with the JAX package's
+  helpers ``pallas_surface._atan``/``DEG`` and
+  ``pallas_surface2._atan_of_sqrt`` (their polynomial atan);
+- ``pallas_surface2.surface_tiled(..., interpret=True)``, B1 itself, at a
+  ragged shape.
+
+Tolerance: the surface tolerance, rtol 1e-4 / atol 5e-5, NaN masks
+equal; copy equals its input bit for bit.  The tools under ``tools/`` are
+not imported: they set JAX's compilation cache and ``sys.path``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xrspatial_torch.kernels import stencil_probe as sp
+from xrspatial_tpu.kernels.pallas_surface import DEG, _atan
+from xrspatial_tpu.kernels.pallas_surface2 import _atan_of_sqrt, surface_tiled
+from xrspatial_tpu.kernels.surface import slope_jit
+
+SURFACE_TOL = dict(rtol=1e-4, atol=5e-5)
+HORN_DEG = 57.29577951308232        # tools/exp_separable_horn.py's DEG
+
+
+def raster(shape=(45, 70), seed=3):
+    """A random float32 DEM with a NaN patch and scattered NaN cells."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random(shape) * 100).astype(np.float32)
+    h, w = shape
+    a[h // 3:h // 3 + 3, w // 4:w // 4 + 5] = np.nan
+    a[rng.integers(0, h, 4), rng.integers(0, w, 4)] = np.nan
+    return a
+
+
+def assert_surface_close(got, ref, region=(slice(None), slice(None))):
+    got, ref = np.asarray(got)[region], np.asarray(ref)[region]
+    assert got.shape == ref.shape
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_allclose(got, ref, equal_nan=True, **SURFACE_TOL)
+
+
+def twin(data, *args, **kw):
+    return sp.stencil_twin(torch.from_numpy(data), *args, **kw).numpy()
+
+
+VARIANTS = [(mode, form, edges, block) for mode, form, edges in sp.VARIANTS
+            for block in (sp.BLOCKS if edges == "bare" else sp.BLOCKS[:1])]
+
+
+def variant_id(v):
+    mode, form, edges, (bx, by) = v
+    return f"{mode}-{form}-{edges}-{bx}x{by}"
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=map(variant_id, VARIANTS))
+def test_twin_of_every_instantiation_matches_slope_jit(variant):
+    """Slope instantiations against the JAX package's slope; grad against
+    tan(slope); copy is its input."""
+    mode, form, edges, block = variant
+    data = raster()
+    got = twin(data, mode, form, edges, block)
+    assert got.dtype == np.float32 and got.shape == data.shape
+    if mode == "copy":
+        assert np.array_equal(got.view(np.int32), data.view(np.int32))
+        return
+    ref = np.asarray(slope_jit(jnp.asarray(data), jnp.float32(1.0),
+                               jnp.float32(1.0)))
+    if mode == "grad":
+        ref = np.where(np.isnan(ref), np.nan,
+                       np.tan(np.radians(ref.astype(np.float64))))
+    region = (slice(None), slice(None))
+    if edges == "bare":
+        r0, r1, c0, c1 = sp.interior_extent(*data.shape, block)
+        region = (slice(r0, r1), slice(c0, c1))
+        outside = np.ones(data.shape, bool)
+        outside[region] = False
+        assert np.isnan(got[outside]).all()
+    assert_surface_close(got, ref, region)
+
+
+def pipe_stencil_arithmetic(data, mode):
+    """tools/exp_stencil2.py:72-84 on the whole raster with its NaN pad."""
+    h, w = data.shape
+    p = jnp.pad(jnp.asarray(data), 1, constant_values=jnp.nan)
+
+    def s(dy, dx):
+        return p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+    if mode == "copy":
+        return np.asarray(s(0, 0))
+    a, b, c = s(-1, -1), s(-1, 0), s(-1, 1)
+    d, f = s(0, -1), s(0, 1)
+    g, hh, ii = s(1, -1), s(1, 0), s(1, 1)
+    dzdx = ((c + 2.0 * f + ii) - (a + 2.0 * d + g)) * 0.125
+    dzdy = ((g + 2.0 * hh + ii) - (a + 2.0 * b + c)) * 0.125
+    mag = jnp.sqrt(dzdx * dzdx + dzdy * dzdy)
+    return np.asarray(mag if mode == "grad" else _atan(mag) * DEG)
+
+
+def horn_arithmetic(data, kind):
+    """tools/exp_separable_horn.py:31-45 with the raster as one tile: the
+    interior [1:-1, 1:-1]."""
+    x = jnp.asarray(data)
+    if kind == "nine":
+        a, b, c = x[:-2, :-2], x[:-2, 1:-1], x[:-2, 2:]
+        d, f = x[1:-1, :-2], x[1:-1, 2:]
+        g, hh, ii = x[2:, :-2], x[2:, 1:-1], x[2:, 2:]
+        dzdx8 = (c + 2.0 * f + ii) - (a + 2.0 * d + g)
+        dzdy8 = (g + 2.0 * hh + ii) - (a + 2.0 * b + c)
+    else:
+        s = x[:-2, :] + 2.0 * x[1:-1, :] + x[2:, :]
+        dv = x[2:, :] - x[:-2, :]
+        dzdx8 = s[:, 2:] - s[:, :-2]
+        dzdy8 = dv[:, :-2] + 2.0 * dv[:, 1:-1] + dv[:, 2:]
+    gx, gy = dzdx8 * 0.125, dzdy8 * 0.125
+    return np.asarray(_atan_of_sqrt(gx * gx + gy * gy) * HORN_DEG)
+
+
+@pytest.mark.parametrize("mode", sp.MODES)
+def test_twin_matches_pipe_stencil_arithmetic(mode):
+    """B8c: every cell, ring included (the TPU probe's NaN pad makes its
+    ring NaN in grad and slope, and copy passes it through)."""
+    data = raster()
+    got = twin(data, mode)
+    ref = pipe_stencil_arithmetic(data, mode)
+    if mode == "copy":
+        assert np.array_equal(got.view(np.int32), ref.view(np.int32))
+    else:
+        assert_surface_close(got, ref)
+
+
+@pytest.mark.parametrize("form", sp.FORMS)
+def test_twin_matches_separable_horn_arithmetic(form):
+    """B8d: the interior the TPU probe writes; the twin's ring is NaN."""
+    data = raster((40, 66), seed=4)
+    got = twin(data, "slope", form)
+    inner = (slice(1, -1), slice(1, -1))
+    assert_surface_close(got[inner], horn_arithmetic(data, form))
+    ring = np.ones(data.shape, bool)
+    ring[inner] = False
+    assert np.isnan(got[ring]).all()
+
+
+def test_nine_and_separable_forms_agree():
+    """dzdy rounds differently in the two forms; on this raster of noise
+    up to 1000 they agree within the surface tolerance and their NaN masks
+    agree (on a smooth 1000 m DEM at 16384^2 they part by more)."""
+    data = raster((64, 96), seed=5)
+    data[np.isnan(data)] = 50.0
+    data *= 10.0
+    nine, sep = twin(data, "slope", "nine"), twin(data, "slope", "separable")
+    assert_surface_close(sep, nine)
+
+
+@pytest.mark.parametrize("edges", ["ring", "interior", "bare"])
+def test_twin_matches_surface_tiled_interpret_at_a_ragged_shape(edges):
+    """B1 itself, the TPU kernel the probes measure, at 37 x 300 in
+    interpret mode (its ragged NaN pad and seam bands included)."""
+    data = raster((37, 300), seed=6)
+    one = jnp.float32(1.0)
+    ref = np.asarray(surface_tiled(jnp.asarray(data), one, one,
+                                   jnp.float32(225.0), jnp.float32(25.0),
+                                   ("slope",), interpret=True)[0])
+    got = twin(data, "slope", "nine", edges)
+    region = (slice(None), slice(None))
+    if edges == "bare":
+        r0, r1, c0, c1 = sp.interior_extent(37, 300)
+        region = (slice(r0, r1), slice(c0, c1))
+    assert_surface_close(got, ref, region)
+
+
+@pytest.mark.parametrize("shape,block,extent", [
+    ((16384, 16384), (32, 8), (8, 16376, 32, 16352)),
+    ((17, 65), (32, 8), (8, 16, 32, 64)),
+    ((300, 70), (64, 4), (4, 296, 64, 64)),
+    ((2, 5), (32, 16), (2, 2, 5, 5)),
+    ((1, 1000), (32, 8), (1, 1, 32, 992)),
+])
+def test_interior_extent(shape, block, extent):
+    """The interior blocks lie wholly inside the 1-cell ring, on the grid
+    anchored at (0, 0); everything else is the edge bands."""
+    r0, r1, c0, c1 = got = sp.interior_extent(*shape, block)
+    assert got == extent
+    h, w = shape
+    bx, by = block
+    assert (r1 - r0) % by == 0 and (c1 - c0) % bx == 0
+    if r1 > r0 and c1 > c0:
+        assert r0 >= 1 and r1 <= h - 1 and c0 >= 1 and c1 <= w - 1
+
+
+@pytest.mark.parametrize("args", [
+    ("copy", "separable", "ring", (32, 8)), ("grad", "nine", "interior",
+                                             (32, 8)),
+    ("slope", "separable", "bare", (32, 8)), ("slope", "nine", "ring",
+                                              (16, 16)),
+    ("aspect", "nine", "ring", (32, 8))])
+def test_uninstantiated_variants_are_refused(args):
+    with pytest.raises(ValueError, match="no stencil_probe instantiation"):
+        sp.stencil_twin(torch.zeros((4, 4)), *args)
+
+
+def test_dispatch_takes_the_twin_on_the_cpu():
+    x = torch.from_numpy(raster())
+    for mode, form, edges in sp.VARIANTS:
+        got = sp.stencil(x, mode, form, edges)
+        ref = sp.stencil_twin(x, mode, form, edges)
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))

@@ -16,16 +16,19 @@ from .aspect import aspect
 from .curvature import curvature
 from .focal import focal_stats, mean
 from .hillshade import hillshade
-from .proximity import DISTANCE_METRICS, allocation, direction, proximity
+from .proximity import (DISTANCE_METRICS, allocation, direction,
+                        euclidean_distance, great_circle_distance,
+                        manhattan_distance, proximity)
 from .slope import slope
 from .utils import default_device, set_default_device
 from .viewshed import viewshed
-from .xrlib import DataArray, Dataset
+from .xrlib import DataArray, Dataset, concat
 
-__all__ = ["DataArray", "Dataset", "slope", "aspect", "curvature",
+__all__ = ["DataArray", "Dataset", "concat", "slope", "aspect", "curvature",
            "hillshade", "focal_stats", "mean", "terrain_pipeline",
            "summarize_terrain", "proximity", "allocation", "direction",
-           "DISTANCE_METRICS", "viewshed", "set_default_device",
-           "default_device"]
+           "euclidean_distance", "manhattan_distance",
+           "great_circle_distance", "DISTANCE_METRICS", "viewshed",
+           "set_default_device", "default_device"]
 
 __version__ = "0.1.0"

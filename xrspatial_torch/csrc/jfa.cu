@@ -23,10 +23,8 @@
 // state_in and writes state_out, never in place (an in-place round would
 // read neighbours already updated in the same round).
 //
-// Keys are written with __fmul_rn/__fadd_rn/__fsub_rn so that nvcc cannot
-// contract dx*dx + dy*dy into an fma: the keys then equal the twin's
-// separately rounded multiply and add bit for bit, and so does every
-// choice between near-equal candidates.
+// The keys (jfa_key.cuh) are shared with the fused group kernel
+// jfa_group.cu, so both choose the same targets bit for bit.
 //
 // What bounds it: a round reads the state 9 times (the own cell and 8
 // candidates, 4 bytes each per int32 plane) and writes it once.  At large
@@ -40,52 +38,18 @@
 // strides and an L2-friendly order for large strides are later work.
 
 #include <cuda_runtime.h>
-#include <math.h>
-#include <math_constants.h>
+
+#include "jfa_key.cuh"
 
 namespace {
 
-constexpr int kEuclidean = 0, kGreatCircle = 1, kManhattan = 2;
-constexpr int kPackBits = 15, kPackMask = (1 << kPackBits) - 1;
+using xrt::kEuclidean;
+using xrt::kGreatCircle;
+using xrt::kManhattan;
+using xrt::key_coords;
+using xrt::key_packed;
+
 constexpr int kBlockX = 32, kBlockY = 8;
-// float32 pi/180, as the twin's scalar rounds to
-constexpr float kDeg2Rad = 0.017453292519943295f;
-
-template <int METRIC>
-__device__ __forceinline__ float key_packed(int piy, int pix, int cand,
-                                            float step_y, float step_x) {
-  if (cand < 0) return CUDART_INF_F;
-  const int ciy = cand >> kPackBits;  // arithmetic shift of a signed int
-  const int cix = cand & kPackMask;
-  const float dy = __fmul_rn((float)(piy - ciy), step_y);
-  const float dx = __fmul_rn((float)(pix - cix), step_x);
-  if (METRIC == kManhattan) return __fadd_rn(fabsf(dx), fabsf(dy));
-  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-}
-
-template <int METRIC>
-__device__ __forceinline__ float key_coords(float px, float py, float tx,
-                                            float ty) {
-  if (!isfinite(tx)) return CUDART_INF_F;
-  if (METRIC == kGreatCircle) {
-    // degrees-first deltas, as xrspatial_tpu/kernels/jfa.py::_metric_key
-    if (px == tx && py == ty) return 0.0f;
-    const float dlat_h = __fmul_rn(__fmul_rn(__fsub_rn(ty, py), kDeg2Rad),
-                                   0.5f);
-    const float dlon_h = __fmul_rn(__fmul_rn(__fsub_rn(tx, px), kDeg2Rad),
-                                   0.5f);
-    const float slat = sinf(dlat_h);
-    const float slon = sinf(dlon_h);
-    const float c12 = __fmul_rn(cosf(__fmul_rn(py, kDeg2Rad)),
-                                cosf(__fmul_rn(ty, kDeg2Rad)));
-    return __fadd_rn(__fmul_rn(slat, slat),
-                     __fmul_rn(c12, __fmul_rn(slon, slon)));
-  }
-  const float dx = __fsub_rn(px, tx);
-  const float dy = __fsub_rn(py, ty);
-  if (METRIC == kManhattan) return __fadd_rn(fabsf(dx), fabsf(dy));
-  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-}
 
 template <int METRIC, bool WITH_VAL>
 __global__ void jfa_round_packed_kernel(

@@ -135,6 +135,17 @@ def library() -> ctypes.CDLL:
                        ctypes.POINTER(i32), ctypes.POINTER(i32), p, i32, i32,
                        p, p, p]
         fn.restype = i32
+    lib.jfa_group_packed.argtypes = [p, p, i64, i64, ctypes.POINTER(i32),
+                                     i32, i32, i32, f32, f32, i32, p]
+    lib.jfa_group_packed.restype = i32
+    lib.jfa_group_coords.argtypes = [p, p, p, p, p, p, i64, i64,
+                                     ctypes.POINTER(i32), i32, i32, i32, i32,
+                                     p]
+    lib.jfa_group_coords.restype = i32
+    lib.stencil_probe_launch.argtypes = [p, p, i64, i64, i32, i32, i32, i32,
+                                         i32, i64, i64, i64, i64, f32, f32,
+                                         ctypes.c_uint, p]
+    lib.stencil_probe_launch.restype = i32
     lib.xrt_error_string.argtypes = [i32]
     lib.xrt_error_string.restype = ctypes.c_char_p
     return lib

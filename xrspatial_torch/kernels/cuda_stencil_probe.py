@@ -1,0 +1,59 @@
+"""Wrapper of the CUDA stencil-probe template (``csrc/stencil_probe.cu``).
+
+``stencil_probe_cuda`` launches one instantiation of the template, the
+port of the TPU probes ``tools/exp_stencil2.py::pipe_stencil``,
+``tools/exp_separable_horn.py::run``, ``tools/exp_padfree_stencil.py::
+slope_2d`` and ``tools/exp_seam_cost.py::run`` (``kernels/stencil_probe.py``
+names which instantiation ports which); its plain version is
+``kernels/stencil_probe.py::stencil_twin``.  It takes only a 2D float32
+tensor on the card: it builds the kernel library at the first call,
+allocates the output, launches on PyTorch's current stream and raises if
+the launch fails.  With edges "bare" the cells outside the interior blocks
+are left as ``torch.empty`` gave them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .stencil_probe import (EDGES, FORMS, MODES, check_variant,
+                            interior_extent)
+
+__all__ = ["stencil_probe_cuda", "LAUNCHES", "EDGE_LAUNCHES"]
+
+# launches in this process, for checks that a path ran on the kernels
+LAUNCHES = 0          # the template's main kernel (ring, separable, interior)
+EDGE_LAUNCHES = 0     # the edge-band kernel of edges "interior"
+
+
+def stencil_probe_cuda(x: torch.Tensor, mode="slope", form="nine",
+                       edges="ring", block=(32, 8)) -> torch.Tensor:
+    """A new (H, W) float32 tensor: the instantiation (mode, form, edges,
+    block) on `x`."""
+    global LAUNCHES, EDGE_LAUNCHES
+    check_variant(mode, form, edges, block)
+    if x.device.type != "cuda":
+        raise ValueError(f"stencil_probe_cuda takes a CUDA tensor, got one "
+                         f"on {x.device}")
+    if x.ndim != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"stencil_probe_cuda takes a contiguous 2D float32 "
+                         f"tensor, got {x.ndim}D {x.dtype}, contiguous="
+                         f"{x.is_contiguous()}")
+    h, w = x.shape
+    out = torch.empty_like(x)
+    r0, r1, c0, c1 = interior_extent(h, w, block)
+    with torch.cuda.device(x.device):
+        err = _cuda.library().stencil_probe_launch(
+            x.data_ptr(), out.data_ptr(), h, w, MODES.index(mode),
+            FORMS.index(form), EDGES.index(edges), block[0], block[1], r0, r1,
+            c0, c1, 1.0, 1.0, 0, _cuda.stream_of(x.device))
+    _cuda.check(err, "stencil_probe")
+    if h * w == 0:
+        return out
+    if edges == "ring" or (r1 > r0 and c1 > c0):
+        LAUNCHES += 1
+    if edges == "interior" and (r1 - r0) * (c1 - c0) < h * w:
+        EDGE_LAUNCHES += 1
+    return out
+

@@ -1,0 +1,134 @@
+"""The stencil probes of the surface kernel: one float32 3x3 slope stencil
+in several instantiations.
+
+Counterpart of four TPU probes of ``xrspatial_tpu``'s surface kernel B1
+(``pallas_surface2.py::surface_tiled``), each an instantiation of the
+CUDA template ``csrc/stencil_probe.cu`` (wrapper ``cuda_stencil_probe.py``):
+
+===  ======================================  ===============================
+B8c  ``tools/exp_stencil2.py::pipe_stencil``  mode copy, grad or slope; form
+                                              nine; edges ring; blocks
+                                              32x8, 32x16, 64x4 (the TPU
+                                              probe's tile shapes)
+B8d  ``tools/exp_separable_horn.py::run``     mode slope; form nine or
+                                              separable; edges ring
+B8e  ``tools/exp_padfree_stencil.py::         mode slope; form nine; edges
+     slope_2d``                               interior
+B8f  ``tools/exp_seam_cost.py::run``          prod = B1 by name;
+                                              ring_branch = edges ring;
+                                              bare = edges bare
+===  ======================================  ===============================
+
+``stencil_twin`` is the plain version of every instantiation:
+
+- copy: the input;
+- grad: ``sqrt(dzdx^2 + dzdy^2)`` with B1's ``dzdx = sx / (8*csx)`` at
+  cellsize 1, NaN ring;
+- slope: ``atan(grad) * 57.29578``, the surface twin's slope (B1's), NaN
+  ring;
+- separable: the vertical smooth and difference first, then the
+  horizontal combination, so dzdy rounds as ``(g-a) + 2(hh-b) + (ii-c)``;
+- edges interior equals ring; edges bare leaves every cell outside the
+  interior blocks unwritten, which the twin marks NaN (compare only
+  ``interior_extent``'s rectangle).
+
+``stencil`` dispatches: a tensor on the CPU goes to the twin, a tensor on
+the card to the kernel.  The ``xrspatial_torch.tools.exp_*`` probes time
+them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .surface import DEG, _nan_border, neighborhood, slope_from_neighbors
+
+__all__ = ["MODES", "FORMS", "EDGES", "BLOCKS", "VARIANTS", "check_variant",
+           "interior_extent", "stencil_twin", "stencil"]
+
+MODES = ("copy", "grad", "slope")
+FORMS = ("nine", "separable")
+EDGES = ("ring", "interior", "bare")
+BLOCKS = ((32, 8), (32, 16), (64, 4))     # (threads in x, threads in y)
+
+# the instantiations csrc/stencil_probe.cu compiles: (mode, form, edges)
+# at every block shape
+VARIANTS = (tuple((m, "nine", "ring") for m in MODES)
+            + (("slope", "separable", "ring"), ("slope", "nine", "interior"),
+               ("slope", "nine", "bare")))
+
+
+def check_variant(mode, form, edges, block) -> None:
+    """Raise ValueError unless the template has this instantiation."""
+    if (mode, form, edges) not in VARIANTS or tuple(block) not in BLOCKS:
+        raise ValueError(
+            f"no stencil_probe instantiation mode={mode!r} form={form!r} "
+            f"edges={edges!r} block={tuple(block)}; the template has "
+            f"(mode, form, edges) in {VARIANTS} at blocks {BLOCKS}")
+
+
+def interior_extent(h: int, w: int, block=(32, 8)) -> tuple:
+    """(r0, r1, c0, c1): the rows and columns of the blocks that lie wholly
+    inside the 1-cell ring, on the block grid anchored at (0, 0).  Empty
+    (r0 == r1 or c0 == c1) when no block fits."""
+    bx, by = block
+    r0 = min(by, h)
+    r1 = max(r0, by * ((h - 1) // by))
+    c0 = min(bx, w)
+    c1 = max(c0, bx * ((w - 1) // bx))
+    return r0, r1, c0, c1
+
+
+def _grad_from_neighbors(nb, cs):
+    a, b, c, d, e, f, g, h, i = nb
+    dz_dx = ((c + 2.0 * f + i) - (a + 2.0 * d + g)) / (8.0 * cs)
+    dz_dy = ((g + 2.0 * h + i) - (a + 2.0 * b + c)) / (8.0 * cs)
+    return torch.sqrt(dz_dx * dz_dx + dz_dy * dz_dy)
+
+
+def _separable_slope(x, cs):
+    p = torch.nn.functional.pad(x, (1, 1, 1, 1), value=math.nan)
+    smooth = p[:-2, :] + 2.0 * p[1:-1, :] + p[2:, :]    # vertical smooth
+    diff = p[2:, :] - p[:-2, :]                          # vertical difference
+    dz_dx = (smooth[:, 2:] - smooth[:, :-2]) / (8.0 * cs)
+    dz_dy = (diff[:, :-2] + 2.0 * diff[:, 1:-1] + diff[:, 2:]) / (8.0 * cs)
+    p = torch.sqrt(dz_dx * dz_dx + dz_dy * dz_dy)
+    return torch.atan(p) * DEG
+
+
+def stencil_twin(x: torch.Tensor, mode="slope", form="nine", edges="ring",
+                 block=(32, 8)) -> torch.Tensor:
+    """The plain version of the instantiation (mode, form, edges, block) on
+    the 2D float32 tensor `x`: a new (H, W) float32 tensor."""
+    check_variant(mode, form, edges, block)
+    if x.ndim != 2:
+        raise ValueError(f"stencil_twin takes a 2D tensor, got {x.ndim}D")
+    x = x.to(torch.float32)
+    if mode == "copy":
+        return x.clone()
+    cs = torch.tensor(1.0, dtype=torch.float32, device=x.device)
+    if form == "separable":
+        out = _separable_slope(x, cs)
+    elif mode == "grad":
+        out = _grad_from_neighbors(neighborhood(x), cs)
+    else:
+        out = slope_from_neighbors(neighborhood(x), cs, cs)
+    out = _nan_border(out)
+    if edges == "bare":
+        r0, r1, c0, c1 = interior_extent(*x.shape, block)
+        bare = torch.full_like(out, math.nan)
+        bare[r0:r1, c0:c1] = out[r0:r1, c0:c1]
+        out = bare
+    return out
+
+
+def stencil(x: torch.Tensor, mode="slope", form="nine", edges="ring",
+            block=(32, 8)) -> torch.Tensor:
+    """The instantiation on `x`'s device: the twin on the CPU, the kernel
+    on the card."""
+    if x.device.type == "cpu":
+        return stencil_twin(x, mode, form, edges, block)
+    from .cuda_stencil_probe import stencil_probe_cuda
+    return stencil_probe_cuda(x, mode, form, edges, block)

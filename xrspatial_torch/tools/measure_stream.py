@@ -20,38 +20,15 @@ twin, bit for bit, before it is timed.  Without a card it exits 1.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 
 import torch
 
 from ..kernels import stream
-
-NOMINAL_BYTES_S = 3.35e12   # H100 SXM device memory rate
+from ._probe import NOMINAL_BYTES_S, card_line
+from ._probe import device_ms as _ms
 
 __all__ = ["measure", "NOMINAL_BYTES_S"]
-
-
-def _ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` runs after one warm run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
 def measure(n: int = 16384, reps: int = 20, out=sys.stdout) -> dict:

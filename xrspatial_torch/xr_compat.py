@@ -9,8 +9,10 @@ the host as numpy arrays.
 Ported so far: construction, ``data``, ``values``/``to_numpy``, dims,
 coords, attrs, name, shape/ndim/dtype/size/sizes, coordinate get/set,
 ``rename``, ``to_dataset``, ``copy``, and the Dataset mapping.  Slicing,
-``sel``/``isel``, reductions, arithmetic, ``where`` and ``concat`` raise
-``NotImplementedError`` until ROADMAP item A5.
+``sel``/``isel``, reductions, arithmetic, comparisons, ``**``, ``abs``,
+``where``, ``item``, ``equals``/``identical``, ``assign_attrs``/
+``assign_coords``, ``expand_dims``, ``drop_vars``, ``chunks`` and
+``concat`` raise ``NotImplementedError`` until ROADMAP item A5.
 """
 
 from __future__ import annotations
@@ -291,8 +293,31 @@ class DataArray:
     __mul__ = __rmul__ = _not_ported("__mul__")
     __truediv__ = __rtruediv__ = _not_ported("__truediv__")
     __neg__ = _not_ported("__neg__")
+    __pow__ = __rpow__ = _not_ported("__pow__")
+    __abs__ = _not_ported("__abs__")
+    # xarray compares elementwise; Python's default would compare identity
+    # and answer a bool, so the comparisons raise until A5 ports them
+    __eq__ = _not_ported("__eq__")
+    __ne__ = _not_ported("__ne__")
+    __lt__ = _not_ported("__lt__")
+    __le__ = _not_ported("__le__")
+    __gt__ = _not_ported("__gt__")
+    __ge__ = _not_ported("__ge__")
+    item = _not_ported("item")
+    equals = _not_ported("equals")
+    identical = _not_ported("identical")
+    assign_attrs = _not_ported("assign_attrs")
+    assign_coords = _not_ported("assign_coords")
+    expand_dims = _not_ported("expand_dims")
+    drop_vars = _not_ported("drop_vars")
 
-    __hash__ = None  # mutable container semantics, like xarray
+    @property
+    def chunks(self):
+        _not_ported("chunks")(self)
+
+    # defining __eq__ would leave the class unhashable: keep hashing by
+    # identity until A5 brings the elementwise comparisons
+    __hash__ = object.__hash__
 
     def __repr__(self) -> str:
         shape = ", ".join(f"{d}: {s}" for d, s in zip(self._dims, self.shape))

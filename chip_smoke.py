@@ -63,7 +63,9 @@ Phases, each fatal on failure:
    runs on the card; the stacked and surface kernels and the twin timed
    in turns;
 18. stream probes: the copy and add kernels against their twins, bit for
-   bit (aligned and unaligned); then ``measure_stream`` at 16384^2, the
+   bit (aligned and unaligned, and the copy at mismatched alignments of
+   its input and output: the bulk route and the scalar route); then
+   ``measure_stream`` at 16384^2, the
    tool users run: kernel, twin and library times, GB/s and the measured
    stream roof;
 19. geodesic slope and aspect on a 3601^2 SRTM 1-arc-second tile (45-46 N,
@@ -83,6 +85,10 @@ Phases, each fatal on failure:
    (copy equal to its input; grad, slope, separable within the surface
    tolerance; every nine-read slope, interior and ring_branch included,
    equal to the surface kernel bit for bit, bare on the cells it writes);
+   the staged form (B8c) at every tile at those shapes and at an aligned
+   ragged 263x516, its slope equal to the surface kernel bit for bit, NaN
+   ring included, each launch on the route its plan names (cp.async at
+   the first two, TMA at the third);
    the fused group (B8g) against the round kernel launched once per
    stride, bit for bit, in both state forms at every metric, for
    proximity's tail group, (64,) and (2, 1);
@@ -90,7 +96,8 @@ Phases, each fatal on failure:
    ``exp_separable_horn``, ``exp_padfree_stencil`` and ``exp_seam_cost``
    at 16384^2, the tools users run (each kernel checked against its twin
    before it is timed; every leg's ms, GB/s and share of the measured
-   roof); ``exp_jfa_fixed`` at its 4096^2 (the JAX probe's groups that
+   roof; every staged launch of ``exp_stencil2`` on the TMA route);
+   ``exp_jfa_fixed`` at its 4096^2 (the JAX probe's groups that
    fit, against the round kernel); then the fused group on proximity's
    16384^2 packed state after its first 9 rounds (targets ``dem > 900``):
    the tail group (16, 8, 4, 2, 1, 2, 1) in one launch against the round
@@ -641,6 +648,7 @@ def reset_launches():
     cuda_surface.STACKED_LAUNCHES = 0
     cuda_stream.COPY_LAUNCHES = cuda_stream.ADD_LAUNCHES = 0
     cuda_stencil_probe.LAUNCHES = cuda_stencil_probe.EDGE_LAUNCHES = 0
+    cuda_stencil_probe.TMA_LAUNCHES = cuda_stencil_probe.ASYNC_LAUNCHES = 0
     cuda_jfa_group.LAUNCHES = 0
 
 
@@ -659,6 +667,8 @@ def read_launches():
             "stream_add": cuda_stream.ADD_LAUNCHES,
             "stencil_probe": cuda_stencil_probe.LAUNCHES,
             "stencil_edge": cuda_stencil_probe.EDGE_LAUNCHES,
+            "stencil_staged_tma": cuda_stencil_probe.TMA_LAUNCHES,
+            "stencil_staged_async": cuda_stencil_probe.ASYNC_LAUNCHES,
             "jfa_group": cuda_jfa_group.LAUNCHES}
 
 
@@ -1351,7 +1361,9 @@ def surface_family_path(dem, card):
 
 def check_stream(dev):
     """Phase 18a: the stream kernels against their twins, bit for bit,
-    on aligned and unaligned (scalar path) buffers."""
+    on aligned and unaligned buffers; the copy also into outputs offset by
+    0-3 values from its input's alignment (mismatched ones take the
+    scalar route, the others a scalar head and tail around bulk copies)."""
     import torch
     from xrspatial_torch.kernels import cuda_stream, stream
     print("== stream probes vs twins on the card")
@@ -1370,8 +1382,17 @@ def check_stream(dev):
                                     bits(stream.stream_add(x, y)))):
                 raise SmokeFailure(f"stream {n} {label}: differs from the "
                                    f"twin")
+        dest = torch.empty(n + 4, device=dev)
+        for xo in range(2):
+            for yo in range(4):
+                x = base[xo:xo + n]
+                got = cuda_stream.stream_copy_cuda(x, out=dest[yo:yo + n])
+                if not torch.equal(bits(got), bits(stream.stream_copy(x))):
+                    raise SmokeFailure(f"stream copy {n} at offsets {xo}, "
+                                       f"{yo}: differs from the twin")
         print(f"  n={n}: copy and add equal to the twins bit for bit, "
-              f"aligned and unaligned")
+              f"aligned and unaligned; the copy at input offsets 0-1 and "
+              f"output offsets 0-3 too")
     torch.cuda.synchronize()
 
 
@@ -1547,6 +1568,7 @@ def shadows_path(dev, card):
 # -- the stencil probes (B8c-f) and the fused jump-flood group (B8g) ---------
 
 PROBE_SHAPES = ((300, 70), (257, 1025))
+STAGED_RAGGED = (263, 516)           # ragged, but TMA's pitch rule holds
 GROUP_TAIL = (16, 8, 4, 2, 1, 2, 1)   # the last rounds of proximity at N
 JFA_FIXED_N = 4096                   # the JAX probe's raster edge
 GROUPS = {"tail": GROUP_TAIL, "64": (64,), "2_1": (2, 1)}
@@ -1557,15 +1579,18 @@ GROUP_MODES = {"packed": (("euclidean", 0, "affine"),
                           ("great circle", 1, "lonlat"),
                           ("manhattan", 2, "nonaffine"))}
 # which port of a TPU probe each kernels-line row reports: (tool, leg of
-# the kernel, leg of the twin, leg of the library call or None)
+# the kernel, leg of the twin, leg of the library call or None, the
+# launch counters of its kernel)
 PROBE_ROWS = {
-    "stencil_probe_b8c": ("exp_stencil2", "C copy 32x8", "G twin copy",
-                          "A Tensor.copy_"),
+    "stencil_probe_b8c": ("exp_stencil2", "C copy staged 32x248",
+                          "G twin copy", "A Tensor.copy_",
+                          ("stencil_staged_tma", "stencil_staged_async")),
     "stencil_probe_b8d": ("exp_separable_horn", "separable 32x8",
-                          "twin separable", None),
+                          "twin separable", None, ("stencil_probe",)),
     "stencil_probe_b8e": ("exp_padfree_stencil", "interior 32x8", "twin",
-                          None),
-    "stencil_probe_b8f": ("exp_seam_cost", "bare", "twin", None)}
+                          None, ("stencil_probe",)),
+    "stencil_probe_b8f": ("exp_seam_cost", "bare", "twin", None,
+                          ("stencil_probe",))}
 
 
 def check_stencil_probes(dev):
@@ -1574,14 +1599,16 @@ def check_stencil_probes(dev):
     over the instantiations each row's TPU probe has."""
     import torch
     from xrspatial_torch.kernels import cuda_stencil_probe, cuda_surface
-    from xrspatial_torch.kernels.stencil_probe import (BLOCKS, VARIANTS,
+    from xrspatial_torch.kernels.stencil_probe import (BLOCKS, MODES, TILES,
+                                                       VARIANTS,
                                                        interior_extent,
+                                                       staged_plan,
                                                        stencil_twin)
     print("== stencil-probe kernels vs twins and the surface kernel on the "
           "card")
     # the instantiations of each row's TPU probe: (mode, form, edges) ->
     # whether the row has it
-    rows = {"stencil_probe_b8c": lambda m, f, e: f == "nine" and e == "ring",
+    rows = {"stencil_probe_b8c": lambda m, f, e: f == "staged",
             "stencil_probe_b8d": lambda m, f, e: m == "slope" and e == "ring",
             "stencil_probe_b8e": lambda m, f, e: e == "interior",
             "stencil_probe_b8f": lambda m, f, e: f == "nine" and m == "slope"
@@ -1591,7 +1618,7 @@ def check_stencil_probes(dev):
         x = torch.from_numpy(test_raster(shape, seed=800 + k)).to(dev)
         b1 = cuda_surface.surface_cuda(x, ("slope",))[0]
         for mode, form, edges in VARIANTS:
-            for block in BLOCKS:
+            for block in BLOCKS if form != "staged" else ():
                 got = cuda_stencil_probe.stencil_probe_cuda(x, mode, form,
                                                             edges, block)
                 ref = stencil_twin(x, mode, form, edges, block)
@@ -1618,6 +1645,41 @@ def check_stencil_probes(dev):
                 for row, has in rows.items():
                     if has(mode, form, edges):
                         errs[row] = max(errs[row], err)
+        torch.cuda.synchronize()
+    for k, shape in enumerate(PROBE_SHAPES + (STAGED_RAGGED,)):
+        x = torch.from_numpy(test_raster(shape, seed=850 + k)).to(dev)
+        b1 = cuda_surface.surface_cuda(x, ("slope",))[0]
+        for tile in TILES:
+            route = staged_plan(*shape, tile, x.data_ptr()).route
+            for mode in MODES:
+                tag = f"stencil {shape} {mode} staged {tile[0]}x{tile[1]}"
+                before = (cuda_stencil_probe.TMA_LAUNCHES,
+                          cuda_stencil_probe.ASYNC_LAUNCHES)
+                got = cuda_stencil_probe.stencil_probe_cuda(
+                    x, mode, "staged", block=tile)
+                counted = (cuda_stencil_probe.TMA_LAUNCHES - before[0],
+                           cuda_stencil_probe.ASYNC_LAUNCHES - before[1])
+                if counted != ((1, 0) if route == "tma" else (0, 1)):
+                    raise SmokeFailure(f"{tag}: planned route {route}, "
+                                       f"launches (tma, async) {counted}")
+                if mode == "copy":
+                    if not torch.equal(got.view(torch.int32),
+                                       x.view(torch.int32)):
+                        raise SmokeFailure(f"{tag}: differs from its input")
+                    print(f"  {tag}, {route}: equal to its input bit for bit")
+                    continue
+                ref = stencil_twin(x, mode, "staged", block=tile)
+                err = check(f"{tag} vs twin", got, ref, SURFACE_TOL)
+                errs["stencil_probe_b8c"] = max(errs["stencil_probe_b8c"],
+                                                err)
+                if mode == "slope":
+                    if not (torch.equal(torch.isnan(got), torch.isnan(b1))
+                            and torch.equal(torch.nan_to_num(got),
+                                            torch.nan_to_num(b1))):
+                        raise SmokeFailure(f"{tag}: differs from the "
+                                           f"surface kernel")
+                    print(f"  {tag}, {route}: equal to the surface kernel "
+                          f"bit for bit, NaN ring included")
         torch.cuda.synchronize()
     return errs
 
@@ -1700,7 +1762,7 @@ def stencil_probes_path(roof_gb_s, card):
     import io
     import torch
     rows = {}
-    for row, (tool, leg, twin_leg, lib_leg) in PROBE_ROWS.items():
+    for row, (tool, leg, twin_leg, lib_leg, counters) in PROBE_ROWS.items():
         mod = importlib.import_module(f"xrspatial_torch.tools.{tool}")
         print(f"== stencil probe: python -m xrspatial_torch.tools.{tool} {N}")
         torch.cuda.synchronize()
@@ -1717,6 +1779,12 @@ def stencil_probes_path(roof_gb_s, card):
                 tool == "exp_padfree_stencil"
                 and not launches["stencil_edge"]):
             raise SmokeFailure(f"{tool}: launches {launches}")
+        # at N^2 (w % 4 == 0, an aligned base) every staged window is a
+        # TMA load
+        if tool == "exp_stencil2" and (not launches["stencil_staged_tma"]
+                                       or launches["stencil_staged_async"]):
+            raise SmokeFailure(f"{tool}: the staged legs did not all take "
+                               f"TMA: launches {launches}")
         print(f"  launches {launches}")
         for name, data in res["inputs"].items():
             for label, r in data["legs"].items():
@@ -1725,7 +1793,7 @@ def stencil_probes_path(roof_gb_s, card):
                       f"% of the measured roof, {card}")
         legs = res["inputs"]["gaussian_bump"]["legs"]
         err = max(max(d["checks"].values()) for d in res["inputs"].values())
-        rows[row] = (launches["stencil_probe"], err,
+        rows[row] = (sum(launches[c] for c in counters), err,
                      (legs[leg]["ms"], legs[twin_leg]["ms"]),
                      legs[lib_leg]["ms"] if lib_leg else None)
         torch.cuda.empty_cache()

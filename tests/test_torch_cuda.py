@@ -28,8 +28,10 @@ match the CPU within rtol 1e-6 (float64 trig ulps); cast shadows give the
 CPU's lit mask at every cell and its shade within rtol 1e-6 / atol 1e-6.
 A numpy raster, with no device set, runs on the card.  Every
 instantiation of the stencil-probe template matches its twin (copy bit
-for bit, the rest within the surface tolerance) and its nine-read slope
-equals the surface kernel's bit for bit; the fused jump-flood group
+for bit, the rest within the surface tolerance) and its nine-read and
+staged slope equal the surface kernel's bit for bit, NaN ring included;
+the staged form takes the route its plan names; the stream copy equals
+its twin at every alignment of both pointers; the fused jump-flood group
 equals the round kernel launched once per stride, bit for bit, in both
 state forms and at every metric.
 """
@@ -617,6 +619,30 @@ def test_stream_kernels_match_twins(cuda, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 17, 1023, 8192 * 5 + 7, 4096 * 257 + 3])
+def test_stream_copy_matches_twin_at_every_alignment(cuda, n):
+    """The copy at offsets 0-3 floats of each pointer, mismatched ones
+    (the scalar route) included: equal to the twin bit for bit, and
+    nothing written outside the output."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    base = torch.randn(n + 4, generator=gen, device=cuda) * 1e3
+    base[n // 2] = np.nan
+    for xo in range(4):
+        for yo in range(4):
+            x = base[xo:xo + n]
+            dest = torch.full((n + 4,), -7.0, device=cuda)
+            before = cuda_stream.COPY_LAUNCHES
+            cuda_stream.stream_copy_cuda(x, out=dest[yo:yo + n])
+            torch.cuda.synchronize()
+            assert cuda_stream.COPY_LAUNCHES == before + 1
+            assert torch.equal(dest[yo:yo + n].view(torch.int32),
+                               stream.stream_copy(x).view(torch.int32)), (
+                xo, yo)
+            rest = torch.cat([dest[:yo], dest[yo + n:]])
+            assert bool((rest == -7.0).all()), (xo, yo)
+
+
+@pytest.mark.gpu
 def test_a_cuda_tensor_never_reaches_a_twin(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a twin ran on a CUDA tensor")
@@ -693,7 +719,7 @@ def test_shadows_on_the_card_match_the_cpu(cuda, azimuth):
 
 PROBE_VARIANTS = [(mode, form, edges, block)
                   for mode, form, edges in stencil_probe.VARIANTS
-                  for block in stencil_probe.BLOCKS]
+                  if form != "staged" for block in stencil_probe.BLOCKS]
 
 
 @pytest.mark.gpu
@@ -738,12 +764,73 @@ def test_stencil_probe_kernel_matches_twin_and_surface_kernel(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 70), (257, 1025), (2, 5), (9, 40),
+                                   (263, 516)])
+def test_staged_stencil_matches_twin_and_surface_kernel(cuda, shape):
+    """The staged form (B8c) at every tile: copy equal to the input bit
+    for bit, grad and slope within the surface tolerance of the twin,
+    slope equal to the surface kernel bit for bit with the NaN ring (the
+    TMA map's NaN fill or the cp.async route's NaN stores); one launch on
+    the route its plan names (TMA where w % 4 == 0)."""
+    rng = np.random.default_rng(47)
+    data = (rng.random(shape) * 1000).astype(np.float32)
+    data[shape[0] // 3, shape[1] // 4:shape[1] // 2] = np.nan
+    x = torch.from_numpy(data).to(cuda)
+    b1 = cuda_surface.surface_cuda(x, ("slope",))[0]
+    for tile in stencil_probe.TILES:
+        route = stencil_probe.staged_plan(*shape, tile, x.data_ptr()).route
+        assert route == ("tma" if shape[1] % 4 == 0 else "async")
+        for mode in stencil_probe.MODES:
+            tag = f"{mode} staged {tile}"
+            before = (cuda_stencil_probe.TMA_LAUNCHES,
+                      cuda_stencil_probe.ASYNC_LAUNCHES,
+                      cuda_stencil_probe.LAUNCHES)
+            got = cuda_stencil_probe.stencil_probe_cuda(x, mode, "staged",
+                                                        block=tile)
+            torch.cuda.synchronize()
+            assert (cuda_stencil_probe.TMA_LAUNCHES - before[0],
+                    cuda_stencil_probe.ASYNC_LAUNCHES - before[1],
+                    cuda_stencil_probe.LAUNCHES - before[2]) == (
+                route == "tma", route == "async", 0), tag
+            if mode == "copy":
+                assert torch.equal(got.view(torch.int32),
+                                   x.view(torch.int32)), tag
+                continue
+            ref = stencil_probe.stencil_twin(x, mode, "staged", block=tile)
+            assert_matches(got, ref, SURFACE_TOL, tag)
+            if mode == "slope":
+                assert torch.equal(torch.isnan(got), torch.isnan(b1)), tag
+                assert torch.equal(torch.nan_to_num(got),
+                                   torch.nan_to_num(b1)), tag
+
+
+@pytest.mark.gpu
+def test_staged_stencil_takes_cp_async_from_an_unaligned_base(cuda):
+    """A raster whose pitch suits TMA but whose base is not 16-byte
+    aligned takes the cp.async route, with the same bits."""
+    flat = torch.rand(65 * 128 + 1, device=cuda) * 100
+    x = flat[1:].view(65, 128)
+    plan = stencil_probe.staged_plan(65, 128, (32, 128), x.data_ptr())
+    assert plan.route == "async"
+    before = cuda_stencil_probe.ASYNC_LAUNCHES
+    got = cuda_stencil_probe.stencil_probe_cuda(x, "slope", "staged")
+    torch.cuda.synchronize()
+    assert cuda_stencil_probe.ASYNC_LAUNCHES == before + 1
+    ref = cuda_surface.surface_cuda(x.contiguous(), ("slope",))[0]
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+
+
+@pytest.mark.gpu
 def test_stencil_probe_wrapper_refuses_what_it_cannot_take(cuda):
     x = torch.zeros((8, 8), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         cuda_stencil_probe.stencil_probe_cuda(x.double())
     with pytest.raises(ValueError, match="instantiation"):
         cuda_stencil_probe.stencil_probe_cuda(x, "copy", "separable")
+    with pytest.raises(ValueError, match="instantiation"):
+        cuda_stencil_probe.stencil_probe_cuda(x, "copy", "staged", "ring",
+                                              (32, 8))
 
 
 GROUP_CASES = {"packed_euclidean": ("packed", 0),

@@ -2,8 +2,9 @@
 
 ``kernels/stencil_probe.py::stencil_twin`` is the plain version of every
 instantiation of the CUDA template ``csrc/stencil_probe.cu``, the port of
-the TPU probes ``tools/exp_stencil2.py`` (B8c), ``exp_separable_horn.py``
-(B8d), ``exp_padfree_stencil.py`` (B8e) and ``exp_seam_cost.py`` (B8f).
+the TPU probes ``tools/exp_stencil2.py`` (B8c, the staged form, and its
+first port, the nine-read form), ``exp_separable_horn.py`` (B8d),
+``exp_padfree_stencil.py`` (B8e) and ``exp_seam_cost.py`` (B8f).
 The same numpy rasters (NaN cells inside) go through the twin and
 through:
 
@@ -18,6 +19,8 @@ through:
 Tolerance: the surface tolerance, rtol 1e-4 / atol 5e-5, NaN masks
 equal; copy equals its input bit for bit.  The tools under ``tools/`` are
 not imported: they set JAX's compilation cache and ``sys.path``.
+``staged_plan``, which the staged kernel's launcher checks, is pinned
+here: the TMA box rules, the shared memory, the route per pitch.
 """
 
 import jax.numpy as jnp
@@ -56,7 +59,8 @@ def twin(data, *args, **kw):
 
 
 VARIANTS = [(mode, form, edges, block) for mode, form, edges in sp.VARIANTS
-            for block in (sp.BLOCKS if edges == "bare" else sp.BLOCKS[:1])]
+            for block in (sp.TILES if form == "staged" else sp.BLOCKS
+                          if edges == "bare" else sp.BLOCKS[:1])]
 
 
 def variant_id(v):
@@ -128,12 +132,15 @@ def horn_arithmetic(data, kind):
     return np.asarray(_atan_of_sqrt(gx * gx + gy * gy) * HORN_DEG)
 
 
-@pytest.mark.parametrize("mode", sp.MODES)
-def test_twin_matches_pipe_stencil_arithmetic(mode):
+@pytest.mark.parametrize(
+    "mode,form", [(m, f) for f in ("nine", "staged") for m in sp.MODES],
+    ids=[*sp.MODES, *(f"staged-{m}" for m in sp.MODES)])
+def test_twin_matches_pipe_stencil_arithmetic(mode, form):
     """B8c: every cell, ring included (the TPU probe's NaN pad makes its
-    ring NaN in grad and slope, and copy passes it through)."""
+    ring NaN in grad and slope, and copy passes it through), in the
+    staged form and its first port, the nine-read form."""
     data = raster()
-    got = twin(data, mode)
+    got = twin(data, mode, form)
     ref = pipe_stencil_arithmetic(data, mode)
     if mode == "copy":
         assert np.array_equal(got.view(np.int32), ref.view(np.int32))
@@ -141,7 +148,7 @@ def test_twin_matches_pipe_stencil_arithmetic(mode):
         assert_surface_close(got, ref)
 
 
-@pytest.mark.parametrize("form", sp.FORMS)
+@pytest.mark.parametrize("form", ["nine", "separable"])
 def test_twin_matches_separable_horn_arithmetic(form):
     """B8d: the interior the TPU probe writes; the twin's ring is NaN."""
     data = raster((40, 66), seed=4)
@@ -164,8 +171,11 @@ def test_nine_and_separable_forms_agree():
     assert_surface_close(sep, nine)
 
 
-@pytest.mark.parametrize("edges", ["ring", "interior", "bare"])
-def test_twin_matches_surface_tiled_interpret_at_a_ragged_shape(edges):
+@pytest.mark.parametrize(
+    "form,edges", [("nine", "ring"), ("nine", "interior"), ("nine", "bare"),
+                   ("staged", "ring")],
+    ids=["ring", "interior", "bare", "staged-ring"])
+def test_twin_matches_surface_tiled_interpret_at_a_ragged_shape(form, edges):
     """B1 itself, the TPU kernel the probes measure, at 37 x 300 in
     interpret mode (its ragged NaN pad and seam bands included)."""
     data = raster((37, 300), seed=6)
@@ -173,7 +183,7 @@ def test_twin_matches_surface_tiled_interpret_at_a_ragged_shape(edges):
     ref = np.asarray(surface_tiled(jnp.asarray(data), one, one,
                                    jnp.float32(225.0), jnp.float32(25.0),
                                    ("slope",), interpret=True)[0])
-    got = twin(data, "slope", "nine", edges)
+    got = twin(data, "slope", form, edges)
     region = (slice(None), slice(None))
     if edges == "bare":
         r0, r1, c0, c1 = sp.interior_extent(37, 300)
@@ -205,7 +215,9 @@ def test_interior_extent(shape, block, extent):
                                              (32, 8)),
     ("slope", "separable", "bare", (32, 8)), ("slope", "nine", "ring",
                                               (16, 16)),
-    ("aspect", "nine", "ring", (32, 8))])
+    ("aspect", "nine", "ring", (32, 8)), ("slope", "staged", "interior",
+                                         (32, 128)),
+    ("slope", "staged", "ring", (32, 8)), ("copy", "nine", "ring", (32, 128))])
 def test_uninstantiated_variants_are_refused(args):
     with pytest.raises(ValueError, match="no stencil_probe instantiation"):
         sp.stencil_twin(torch.zeros((4, 4)), *args)
@@ -218,3 +230,58 @@ def test_dispatch_takes_the_twin_on_the_cpu():
         ref = sp.stencil_twin(x, mode, form, edges)
         assert torch.equal(torch.isnan(got), torch.isnan(ref))
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+
+
+# -- the staged form's plan -------------------------------------------------
+
+@pytest.mark.parametrize("shape,tile,ptr,plan", [
+    ((16384, 16384), (32, 128), 0,
+     ((136, 34), 4, 18560, 74496, "tma", 65536, 264)),
+    ((16384, 16384), (64, 128), 0,
+     ((136, 66), 3, 35968, 108160, "tma", 32768, 264)),
+    ((16384, 16384), (32, 248), 0,
+     ((256, 34), 3, 34816, 104704, "tma", 34304, 264)),
+    ((16384, 16384), (32, 128), 4,
+     ((136, 34), 4, 18560, 74496, "async", 65536, 264)),
+    ((300, 70), (32, 128), 0, ((136, 34), 4, 18560, 74496, "async", 10, 10)),
+    ((257, 1025), (64, 128), 0,
+     ((136, 66), 3, 35968, 108160, "async", 45, 45)),
+    ((263, 516), (32, 248), 0, ((256, 34), 3, 34816, 104704, "tma", 27, 27)),
+    ((2, 5), (32, 128), 0, ((136, 34), 4, 18560, 74496, "async", 1, 1)),
+], ids=["16384-32x128", "16384-64x128", "16384-32x248", "16384-unaligned",
+        "300x70", "257x1025", "263x516", "2x5"])
+def test_staged_plan(shape, tile, ptr, plan):
+    """The box, stages, shared bytes, route and grid at each probe shape;
+    the route is TMA exactly where the pitch and the base are 16-byte
+    aligned."""
+    assert tuple(sp.staged_plan(*shape, tile, ptr)) == plan
+
+
+@pytest.mark.parametrize("tile", sp.TILES)
+@pytest.mark.parametrize("shape", [(16384, 16384), (300, 70), (257, 1025),
+                                   (9, 40), (263, 516)])
+def test_staged_plan_keeps_the_box_and_shared_memory_rules(shape, tile):
+    p = sp.staged_plan(*shape, tile)
+    th, tw = tile
+    assert max(p.box) <= 256 and p.box[0] * 4 % 16 == 0
+    assert p.box == (tw + 8, th + 2)
+    assert p.stage_bytes % 128 == 0 and p.stage_bytes >= p.box[0] * p.box[1] * 4
+    assert 2 <= p.stages <= sp.MAX_STAGES
+    assert p.shared_bytes == 256 + p.stages * p.stage_bytes <= 232448
+    assert 2 * (p.shared_bytes + 1024) <= 233472     # two blocks an SM
+    assert p.route == ("tma" if shape[1] % 4 == 0 else "async")
+    assert p.tiles == -(-shape[0] // th) * -(-shape[1] // tw)
+    assert p.grid == min(p.tiles, 264)
+
+
+@pytest.mark.parametrize("tile,rule", [
+    ((32, 256), "box dimension is at most 256"),
+    ((32, 252), "box dimension is at most 256"),
+    ((255, 64), "box dimension is at most 256"),
+    ((32, 130), "multiple of 4"),
+    ((32, 0), "multiple of 4"),
+    ((200, 248), "bytes of shared memory"),
+])
+def test_staged_plan_refuses_a_tile_that_breaks_a_rule(tile, rule):
+    with pytest.raises(ValueError, match=rule):
+        sp.staged_plan(16384, 16384, tile)

@@ -4,7 +4,9 @@
 package's ``tools/measure_stream.py`` probes copy and add): ``x.clone()``
 and ``x + y``, which must equal numpy's copy and float32 sum, and the JAX
 package's ``x + 0.0`` and ``x + y``, bit for bit.  On a CPU tensor the
-dispatchers ``copy`` and ``add`` take the twins.
+dispatchers ``copy`` and ``add`` take the twins.  ``copy_plan``, the copy
+kernel's split into a scalar head, a bulk body and a scalar tail (its
+launcher checks the same rule), is pinned at every alignment.
 """
 
 import jax.numpy as jnp
@@ -56,3 +58,33 @@ def test_measure_stream_refuses_without_a_card(monkeypatch):
     assert measure_stream.main([]) == 1
     with pytest.raises(RuntimeError, match="needs an NVIDIA card"):
         measure_stream.measure(64)
+
+
+@pytest.mark.parametrize("ax", range(16))
+def test_copy_plan_splits_at_16_byte_boundaries(ax):
+    """Head, body and tail over pointer alignments 0-15 (x at `ax`, y at
+    every alignment) and lengths 0-100: they sum to n; with x and y alike
+    mod 16 (and 4-byte aligned) the body starts 16-byte aligned in both,
+    is whole 16-byte groups and leaves fewer than 4 values on each side;
+    otherwise every value is scalar."""
+    for ay in range(16):
+        x_ptr, y_ptr = 4096 + ax, 8192 + 64 + ay
+        for n in range(101):
+            head, body, tail = stream.copy_plan(n, x_ptr, y_ptr)
+            assert min(head, body, tail) >= 0 and head + body + tail == n
+            if ax != ay or ax % 4:
+                assert (head, body, tail) == (0, 0, n)
+                continue
+            assert body % 4 == 0 and tail < 4 and head < 4
+            if body:
+                assert (x_ptr + 4 * head) % 16 == 0
+                assert (y_ptr + 4 * head) % 16 == 0
+            if n >= head + 4:
+                assert body > 0
+
+
+def test_copy_plan_of_an_aligned_raster_is_all_body():
+    assert stream.copy_plan(16384 * 16384, 1 << 20, 1 << 21) == (
+        0, 16384 * 16384, 0)
+    assert stream.copy_plan(7, 256 + 8, 512 + 8) == (2, 4, 1)
+    assert stream.copy_plan(3, 256 + 4, 512 + 4) == (3, 0, 0)

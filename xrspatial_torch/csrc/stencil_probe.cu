@@ -2,14 +2,35 @@
 // instantiations are the port of four TPU probes of the surface kernel
 // B1 (xrspatial_torch/kernels/stencil_probe.py names which is which):
 //
-// - tools/exp_stencil2.py::pipe_stencil (B8c): MODE copy, grad or slope
-//   on BX x BY blocks, B1's per-cell ring test.  The TPU probe sweeps
-//   tile shapes; here the block shapes 32x8, 32x16 and 64x4 take their
-//   place.  Its NaN pad has no counterpart: the 1-cell ring is NaN in
-//   grad and slope, as in B1.  copy reads B1's whole 3x3 window and folds
-//   the 8 neighbours into its output through a mask the wrapper passes as
-//   0, so the compiler keeps those loads and the output equals the input
-//   bit for bit: B1's data movement without its arithmetic.
+// - tools/exp_stencil2.py::pipe_stencil (B8c): FORM staged, MODE copy,
+//   grad or slope, redesigned for Hopper after the TPU probe's own
+//   design.  The TPU probe stages each tile's (th+2) x (tw+2) window in
+//   VMEM through a double-buffered DMA pipeline and computes from it.
+//   Here persistent blocks (two an SM) walk TH x TW output tiles (32x128,
+//   64x128, 32x248 take the place of the TPU probe's tile shapes) in
+//   row-major order with the grid's stride.  One thread asks TMA for each
+//   tile's window (rows r0-1 .. r0+TH, columns c0-4 .. c0+TW+3: TMA takes
+//   no innermost coordinate that is not 16-byte aligned) into an S-stage
+//   ring in dynamic shared memory, S windows
+//   ahead, each stage tracked by an mbarrier; a stage is refilled after a
+//   block barrier says every thread has left it.  The tensor map fills
+//   out-of-bounds cells with NaN, the TPU probe's NaN pad, so the 1-cell
+//   ring comes out NaN from the arithmetic itself: no ring test, and one
+//   bounds test per 4 cells at the store.  Each thread computes 4
+//   neighbouring cells of a row from 3 x 6 shared values (every cell's
+//   nine neighbours; 3 shared loads a row) and writes them with one
+//   16-byte store; copy writes the window's centre, and TMA's load cannot
+//   be optimised away.  A pitch or
+//   base that TMA refuses (w % 4 != 0, or x or out not 16-byte aligned)
+//   takes the same kernel with the same window staged by 4-byte cp.async
+//   copies (NaN stores outside the raster) and scalar stores: the launcher
+//   picks the route by that rule alone and checks that the caller's plan
+//   (kernels/stencil_probe.py::staged_plan) agrees.
+//   The first port of this probe, FORM nine (each thread makes nine
+//   global loads, B1's access pattern; copy folds the 8 neighbours into
+//   its output through a mask the wrapper passes as 0, so the loads stay),
+//   runs at blocks 32x8, 32x16 and 64x4 and stays: it is B8f's
+//   ring_branch and B8e's edge path.
 // - tools/exp_separable_horn.py::run (B8d): FORM nine (B1's nine reads)
 //   or separable: each warp walks down a strip of rows and keeps each
 //   column's vertical smooth x[r-1] + 2x[r] + x[r+1] and difference
@@ -36,15 +57,19 @@
 //
 // What bounds it: one read and one write of the float32 plane (8 bytes a
 // cell) against ~24 float operations a cell: device memory, 0.641 ms at
-// 16384^2 and 3.35 TB/s.  What the variants measure: copy against slope
-// is the arithmetic's share of B1's time, interior and bare against
-// ring_branch the bounds checks' and the ring branch's, separable against
-// nine the cost of the nine reads.
+// 16384^2 and 3.35 TB/s; the staged form also re-reads each window's halo,
+// 2/TH + 8/TW of the plane (12.5% at 32x128), mostly from the 50 MB L2.
+// What the variants measure: copy against slope is the arithmetic's share
+// of the time, interior and bare against ring_branch the bounds checks'
+// and the ring branch's, separable against nine the cost of the nine
+// reads, staged against nine what a shared-memory window buys.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 #include "surface_cell.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -61,6 +86,18 @@ __device__ __forceinline__ float slope_of(float sx, float sy, float csx,
   const float dzdy = sy / (8.0f * csy);
   if (MODE == kGrad) return sqrtf(dzdx * dzdx + dzdy * dzdy);
   return atanf(sqrtf(dzdx * dzdx + dzdy * dzdy)) * xrt::kDeg;
+}
+
+// grad or slope of a cell from its 3x3 window (a b c above, d _ f at, g hh
+// ii below): B1's expression in B1's order
+template <int MODE>
+__device__ __forceinline__ float window_value(float a, float b, float c,
+                                              float d, float f, float g,
+                                              float hh, float ii, float csx,
+                                              float csy) {
+  const float sx = (c + 2.0f * f + ii) - (a + 2.0f * d + g);
+  const float sy = (g + 2.0f * hh + ii) - (a + 2.0f * b + c);
+  return slope_of<MODE>(sx, sy, csx, csy);
 }
 
 // The value of cell i, which lies inside the ring, from its 3x3 window.
@@ -80,9 +117,7 @@ __device__ __forceinline__ float nine_cell(const float* __restrict__ x,
                           __float_as_uint(hh) ^ __float_as_uint(ii);
     return __uint_as_float(__float_as_uint(e) | (fold & keep));
   }
-  const float sx = (c + 2.0f * f + ii) - (a + 2.0f * d + g);
-  const float sy = (g + 2.0f * hh + ii) - (a + 2.0f * b + c);
-  return slope_of<MODE>(sx, sy, csx, csy);
+  return window_value<MODE>(a, b, c, d, f, g, hh, ii, csx, csy);
 }
 
 // Any cell, with B1's ring test: copy passes the ring through, grad and
@@ -285,6 +320,292 @@ int launch_mode(int form, int edges, int bx, int by, const Launch& a) {
   return (int)cudaErrorInvalidValue;
 }
 
+// -- the staged form (B8c) ----------------------------------------------------
+
+constexpr int kStagedThreads = 256;
+constexpr int kRouteTma = 0, kRouteAsync = 1;
+constexpr int kBarrierBytes = 128;  // the stages' mbarriers, 8 bytes each
+constexpr int kAlignSlack = 128;    // room to align the ring to 128 bytes
+constexpr int kMaxStages = 8;       // cp_async_wait counts up to 7 pending
+
+// A TH x TW tile's window in shared memory: TH + 2 rows of kCols = TW + 8
+// floats, window (r, c) holding image cell (r0 - 1 + r, c0 - 4 + c).  The
+// window starts 4 columns left of the tile, not 1: TMA refuses (illegal
+// instruction) a box whose innermost coordinate is not a multiple of 16
+// bytes, and the tile's c0 is one.
+template <int TH, int TW>
+struct Window {
+  static constexpr int kCols = TW + 8;
+  static constexpr int kRows = TH + 2;
+  static constexpr int kBoxBytes = kCols * kRows * 4;
+  static constexpr int kStageBytes = (kBoxBytes + 127) / 128 * 128;
+  static_assert(TW % 4 == 0, "a tile row is whole 16-byte stores");
+  static_assert(kCols <= 256 && kRows <= 256, "a TMA box is at most 256");
+};
+
+struct StagedArgs {
+  const float* x;
+  float* out;
+  long long h, w, tiles_x, tiles;
+  int stages;
+  float csx, csy;
+};
+
+// The 6 floats p[3 .. 8] of a window row (p 16-byte aligned): a 4-byte, a
+// 16-byte and a 4-byte shared load
+__device__ __forceinline__ void load6(const float* p, float r[6]) {
+  const float4 mid = *reinterpret_cast<const float4*>(p + 4);
+  r[0] = p[3];
+  r[1] = mid.x;
+  r[2] = mid.y;
+  r[3] = mid.z;
+  r[4] = mid.w;
+  r[5] = p[8];
+}
+
+// Cells (row, col .. col + 3) from the window at p, the window cell of
+// (row - 1, col - 4); copy takes the window's centre.
+template <int MODE, int COLS>
+__device__ __forceinline__ void quad(const float* p, float csx, float csy,
+                                     float v[4]) {
+  float u[6], m[6], d[6];
+  load6(p, u);
+  load6(p + COLS, m);
+  load6(p + 2 * COLS, d);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = MODE == kCopy ? m[j + 1]
+                         : window_value<MODE>(u[j], u[j + 1], u[j + 2], m[j],
+                                              m[j + 2], d[j], d[j + 1],
+                                              d[j + 2], csx, csy);
+}
+
+// The first row and column of tile t of a raster `tiles_x` tiles wide.
+template <int TH, int TW>
+__device__ __forceinline__ void tile_origin(long long t, long long tiles_x,
+                                            long long& r0, long long& c0) {
+  r0 = t / tiles_x * TH;
+  c0 = t % tiles_x * TW;
+}
+
+// One thread: the window of the tile at (r0, c0) by TMA into `dst`.
+template <int TH, int TW>
+__device__ __forceinline__ void stage_tma(const CUtensorMap* map,
+                                          uint32_t dst, uint32_t bar,
+                                          long long r0, long long c0) {
+  xrt::mbar_expect_tx(bar, Window<TH, TW>::kBoxBytes);
+  xrt::tma_load_2d(dst, map, (int)(c0 - 4), (int)(r0 - 1), bar);
+}
+
+// Every thread: the same window by 4-byte cp.async copies, NaN outside
+// the raster.
+template <int TH, int TW>
+__device__ __forceinline__ void stage_async(const StagedArgs& a, float* win,
+                                            long long r0, long long c0) {
+  using Win = Window<TH, TW>;
+  for (int e = threadIdx.x; e < Win::kRows * Win::kCols;
+       e += kStagedThreads) {
+    const int r = e / Win::kCols;
+    const long long row = r0 - 1 + r, col = c0 - 4 + (e - r * Win::kCols);
+    if (row >= 0 && row < a.h && col >= 0 && col < a.w)
+      xrt::cp_async_4(xrt::smem_addr(win + e), a.x + row * a.w + col);
+    else
+      win[e] = CUDART_NAN_F;
+  }
+}
+
+template <int MODE, int TH, int TW, int ROUTE>
+__global__ void __launch_bounds__(kStagedThreads, 2)
+    stencil_staged_kernel(const __grid_constant__ CUtensorMap map,
+                          const StagedArgs a) {
+  using Win = Window<TH, TW>;
+  constexpr int kQuadCols = TW / 4;
+  constexpr int kStageFloats = Win::kStageBytes / 4;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = xrt::smem_addr(smem_raw);
+  unsigned char* const smem = smem_raw + (((raw + 127u) & ~127u) - raw);
+  const uint32_t bars = xrt::smem_addr(smem);
+  float* const ring = reinterpret_cast<float*>(smem + kBarrierBytes);
+  const uint32_t ring_addr = xrt::smem_addr(ring);
+  const int tid = threadIdx.x;
+  const long long step = gridDim.x;
+  // this block's tiles: blockIdx.x + k * gridDim.x for k < mine, tile k
+  // staged in stage k % stages
+  const long long mine =
+      blockIdx.x < a.tiles ? (a.tiles - blockIdx.x + step - 1) / step : 0;
+  long long r0, c0;
+
+  if (ROUTE == kRouteTma) {
+    if (tid == 0) {
+      for (int s = 0; s < a.stages; ++s) xrt::mbar_init(bars + 8 * s, 1);
+      xrt::mbar_fence_init();
+      for (int s = 0; s < a.stages && s < mine; ++s) {
+        tile_origin<TH, TW>(blockIdx.x + s * step, a.tiles_x, r0, c0);
+        stage_tma<TH, TW>(&map, ring_addr + s * Win::kStageBytes,
+                          bars + 8 * s, r0, c0);
+      }
+    }
+    __syncthreads();
+  } else {
+    for (int s = 0; s + 1 < a.stages; ++s) {
+      if (s < mine) {
+        tile_origin<TH, TW>(blockIdx.x + s * step, a.tiles_x, r0, c0);
+        stage_async<TH, TW>(a, ring + s * kStageFloats, r0, c0);
+      }
+      xrt::cp_async_commit();
+    }
+  }
+  for (long long k = 0; k < mine; ++k) {
+    const int s = (int)(k % a.stages);
+    if (ROUTE == kRouteTma) {
+      xrt::mbar_wait(bars + 8 * s, (uint32_t)((k / a.stages) & 1));
+    } else {
+      // tile k + stages - 1 into the stage of tile k - 1, which every
+      // thread left at the barrier that ended the last iteration
+      const long long j = k + a.stages - 1;
+      if (j < mine) {
+        tile_origin<TH, TW>(blockIdx.x + j * step, a.tiles_x, r0, c0);
+        stage_async<TH, TW>(a, ring + (int)(j % a.stages) * kStageFloats,
+                            r0, c0);
+      }
+      xrt::cp_async_commit();
+      xrt::cp_async_wait(a.stages - 1);
+      __syncthreads();
+    }
+    tile_origin<TH, TW>(blockIdx.x + k * step, a.tiles_x, r0, c0);
+    const float* const win = ring + s * kStageFloats;
+    for (int q = tid; q < TH * kQuadCols; q += kStagedThreads) {
+      const int tr = q / kQuadCols, tc = 4 * (q - tr * kQuadCols);
+      const long long row = r0 + tr, col = c0 + tc;
+      if (row >= a.h || col >= a.w) continue;
+      float v[4];
+      quad<MODE, Win::kCols>(win + tr * Win::kCols + tc, a.csx, a.csy, v);
+      float* const o = a.out + row * a.w + col;
+      // streaming stores (evict first): the output is not read again, and
+      // the L2 keeps the windows' halos for the neighbouring tiles
+      if (ROUTE == kRouteTma) {
+        // w % 4 == 0: the 4 cells lie in the raster together
+        __stcs(reinterpret_cast<float4*>(o),
+               make_float4(v[0], v[1], v[2], v[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < a.w) __stcs(o + j, v[j]);
+      }
+    }
+    __syncthreads();  // every thread has left stage s
+    if (ROUTE == kRouteTma && tid == 0 && k + a.stages < mine) {
+      tile_origin<TH, TW>(blockIdx.x + (k + a.stages) * step, a.tiles_x, r0,
+                          c0);
+      stage_tma<TH, TW>(&map, ring_addr + s * Win::kStageBytes, bars + 8 * s,
+                        r0, c0);
+    }
+  }
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// The route rule: TMA needs a 16-byte-aligned base and row pitch
+// (w % 4 == 0), and the 16-byte stores an aligned output; anything else
+// stages the window with cp.async.
+int staged_route(const float* x, const float* out, long long w) {
+  return w % 4 == 0 && aligned16(x) && aligned16(out) ? kRouteTma
+                                                      : kRouteAsync;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime, so that the
+// library links no libcuda.
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// Launches one instantiation; a failed tensor-map encode returns the
+// negated CUresult.
+template <int MODE, int TH, int TW, int ROUTE>
+int launch_staged(const float* x, float* out, long long h, long long w,
+                  int stages, int grid, int smem, float csx, float csy,
+                  cudaStream_t stream) {
+  using Win = Window<TH, TW>;
+  if (smem != kBarrierBytes + kAlignSlack + stages * Win::kStageBytes)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map{};
+  if (ROUTE == kRouteTma) {
+    EncodeTiled encode;
+    const cudaError_t err = encode_tiled(&encode);
+    if (err != cudaSuccess) return (int)err;
+    const cuuint64_t dims[2] = {(cuuint64_t)w, (cuuint64_t)h};
+    const cuuint64_t pitch[1] = {(cuuint64_t)w * sizeof(float)};
+    const cuuint32_t box[2] = {(cuuint32_t)Win::kCols, (cuuint32_t)Win::kRows};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUresult res = encode(
+        &map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)x, dims, pitch, box,
+        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA);
+    if (res != CUDA_SUCCESS) return -(int)res;
+  }
+  auto kernel = stencil_staged_kernel<MODE, TH, TW, ROUTE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles_x = (w + TW - 1) / TW;
+  const StagedArgs a{x,       out,   h,   w,  tiles_x,
+                     tiles_x * ((h + TH - 1) / TH), stages, csx, csy};
+  kernel<<<grid, kStagedThreads, smem, stream>>>(map, a);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, int TH, int TW>
+int staged_on_route(int route, const float* x, float* out, long long h,
+                    long long w, int stages, int grid, int smem, float csx,
+                    float csy, cudaStream_t stream) {
+  if (route == kRouteTma)
+    return launch_staged<MODE, TH, TW, kRouteTma>(x, out, h, w, stages, grid,
+                                                  smem, csx, csy, stream);
+  return launch_staged<MODE, TH, TW, kRouteAsync>(x, out, h, w, stages, grid,
+                                                  smem, csx, csy, stream);
+}
+
+template <int MODE>
+int staged_tile(int th, int tw, int route, const float* x, float* out,
+                long long h, long long w, int stages, int grid, int smem,
+                float csx, float csy, cudaStream_t stream) {
+  if (th == 32 && tw == 128)
+    return staged_on_route<MODE, 32, 128>(route, x, out, h, w, stages, grid,
+                                          smem, csx, csy, stream);
+  if (th == 64 && tw == 128)
+    return staged_on_route<MODE, 64, 128>(route, x, out, h, w, stages, grid,
+                                          smem, csx, csy, stream);
+  if (th == 32 && tw == 248)
+    return staged_on_route<MODE, 32, 248>(route, x, out, h, w, stages, grid,
+                                          smem, csx, csy, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -307,6 +628,35 @@ int stencil_probe_launch(const float* x, float* out, long long h,
   if (mode == kCopy) return launch_mode<kCopy>(form, edges, bx, by, a);
   if (mode == kGrad) return launch_mode<kGrad>(form, edges, bx, by, a);
   if (mode == kSlope) return launch_mode<kSlope>(form, edges, bx, by, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launches the staged form (mode 0 copy, 1 grad, 2 slope) at tile th x tw
+// on `stream`, as kernels/stencil_probe.py::staged_plan planned it: route
+// 0 TMA or 1 cp.async, which must be the route rule's (staged_route);
+// `stages` ring stages; `grid` persistent blocks; `smem` dynamic shared
+// bytes, which must equal the ring's.  Returns cudaGetLastError() after
+// the launch, cudaErrorInvalidValue for a plan that disagrees or a tile
+// that is not instantiated, or the negated CUresult of a failed
+// tensor-map encode.
+int stencil_staged_launch(const float* x, float* out, long long h,
+                          long long w, int mode, int th, int tw, int route,
+                          int stages, int grid, int smem, float csx,
+                          float csy, void* stream) {
+  if (h <= 0 || w <= 0) return 0;
+  if (route != staged_route(x, out, w) || stages < 2 ||
+      stages > kMaxStages || grid <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mode == kCopy)
+    return staged_tile<kCopy>(th, tw, route, x, out, h, w, stages, grid,
+                              smem, csx, csy, s);
+  if (mode == kGrad)
+    return staged_tile<kGrad>(th, tw, route, x, out, h, w, stages, grid,
+                              smem, csx, csy, s);
+  if (mode == kSlope)
+    return staged_tile<kSlope>(th, tw, route, x, out, h, w, stages, grid,
+                               smem, csx, csy, s);
   return (int)cudaErrorInvalidValue;
 }
 

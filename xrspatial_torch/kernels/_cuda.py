@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
     lib.surface_stacked_launch.restype = i32
     for fn in (lib.stream_copy_launch, lib.stream_add_launch):
         fn.restype = i32
-    lib.stream_copy_launch.argtypes = [p, p, i64, p]
+    lib.stream_copy_launch.argtypes = [p, p, i64, i64, i64, p]
     lib.stream_add_launch.argtypes = [p, p, p, i64, p]
     lib.focal_launch.argtypes = [p, p, i32, ctypes.POINTER(i32), p,
                                  i64, i64, p]
@@ -146,6 +146,9 @@ def library() -> ctypes.CDLL:
                                          i32, i64, i64, i64, i64, f32, f32,
                                          ctypes.c_uint, p]
     lib.stencil_probe_launch.restype = i32
+    lib.stencil_staged_launch.argtypes = [p, p, i64, i64, i32, i32, i32, i32,
+                                          i32, i32, i32, f32, f32, p]
+    lib.stencil_staged_launch.restype = i32
     lib.xrt_error_string.argtypes = [i32]
     lib.xrt_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,7 +9,9 @@ names which instantiation ports which); its plain version is
 tensor on the card: it builds the kernel library at the first call,
 allocates the output, launches on PyTorch's current stream and raises if
 the launch fails.  With edges "bare" the cells outside the interior blocks
-are left as ``torch.empty`` gave them.
+are left as ``torch.empty`` gave them.  The staged form runs as
+``staged_plan`` plans it; the launcher checks the plan's route against its
+own rule, and a failed tensor-map encode raises.
 """
 
 from __future__ import annotations
@@ -18,20 +20,45 @@ import torch
 
 from . import _cuda
 from .stencil_probe import (EDGES, FORMS, MODES, check_variant,
-                            interior_extent)
+                            interior_extent, shapes_of, staged_plan)
 
-__all__ = ["stencil_probe_cuda", "LAUNCHES", "EDGE_LAUNCHES"]
+__all__ = ["stencil_probe_cuda", "LAUNCHES", "EDGE_LAUNCHES", "TMA_LAUNCHES",
+           "ASYNC_LAUNCHES"]
 
 # launches in this process, for checks that a path ran on the kernels
 LAUNCHES = 0          # the template's main kernel (ring, separable, interior)
 EDGE_LAUNCHES = 0     # the edge-band kernel of edges "interior"
+TMA_LAUNCHES = 0      # the staged kernel, windows staged by TMA
+ASYNC_LAUNCHES = 0    # the staged kernel, windows staged by cp.async
+
+
+def _staged(x: torch.Tensor, out: torch.Tensor, mode, tile) -> None:
+    global TMA_LAUNCHES, ASYNC_LAUNCHES
+    h, w = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = staged_plan(h, w, tile, x.data_ptr(), sms)
+    with torch.cuda.device(x.device):
+        err = _cuda.library().stencil_staged_launch(
+            x.data_ptr(), out.data_ptr(), h, w, MODES.index(mode), tile[0],
+            tile[1], ("tma", "async").index(plan.route), plan.stages,
+            plan.grid, plan.shared_bytes, 1.0, 1.0, _cuda.stream_of(x.device))
+    if err < 0:
+        raise RuntimeError(f"stencil_staged: cuTensorMapEncodeTiled failed "
+                           f"with CUresult {-err} for a {h}x{w} float32 "
+                           f"raster, box {plan.box}")
+    _cuda.check(err, "stencil_staged")
+    if plan.route == "tma":
+        TMA_LAUNCHES += 1
+    else:
+        ASYNC_LAUNCHES += 1
 
 
 def stencil_probe_cuda(x: torch.Tensor, mode="slope", form="nine",
-                       edges="ring", block=(32, 8)) -> torch.Tensor:
+                       edges="ring", block=None) -> torch.Tensor:
     """A new (H, W) float32 tensor: the instantiation (mode, form, edges,
-    block) on `x`."""
+    block) on `x`; `block` defaults to the form's first shape."""
     global LAUNCHES, EDGE_LAUNCHES
+    block = block or shapes_of(form)[0]
     check_variant(mode, form, edges, block)
     if x.device.type != "cuda":
         raise ValueError(f"stencil_probe_cuda takes a CUDA tensor, got one "
@@ -42,6 +69,10 @@ def stencil_probe_cuda(x: torch.Tensor, mode="slope", form="nine",
                          f"{x.is_contiguous()}")
     h, w = x.shape
     out = torch.empty_like(x)
+    if form == "staged":
+        if h * w:
+            _staged(x, out, mode, block)
+        return out
     r0, r1, c0, c1 = interior_extent(h, w, block)
     with torch.cuda.device(x.device):
         err = _cuda.library().stencil_probe_launch(
@@ -56,4 +87,3 @@ def stencil_probe_cuda(x: torch.Tensor, mode="slope", form="nine",
     if edges == "interior" and (r1 - r0) * (c1 - c0) < h * w:
         EDGE_LAUNCHES += 1
     return out
-

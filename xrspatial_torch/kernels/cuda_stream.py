@@ -5,8 +5,10 @@
 ``tools/measure_stream.py::pallas_copy`` and ``pallas_add``; their plain
 versions are ``kernels/stream.py::stream_copy`` and ``stream_add``.  Each
 wrapper takes only contiguous float32 tensors on the card, allocates the
-output, launches on PyTorch's current stream and raises if the launch
-fails.
+output (the copy may be given one), launches on PyTorch's current stream
+and raises if the launch fails.  The copy moves its buffer as
+``kernels/stream.py::copy_plan`` splits it: a scalar head and tail around
+a body of bulk copies.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .stream import copy_plan
 
 __all__ = ["stream_copy_cuda", "stream_add_cuda", "COPY_LAUNCHES",
            "ADD_LAUNCHES"]
@@ -37,14 +40,18 @@ def _check(who: str, *tensors: torch.Tensor) -> None:
                              f"{tuple(t.shape)} differ")
 
 
-def stream_copy_cuda(x: torch.Tensor) -> torch.Tensor:
-    """A new tensor equal to `x` (1 read + 1 write)."""
+def stream_copy_cuda(x: torch.Tensor, out: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """`x` copied into `out`, a new tensor by default (1 read + 1 write)."""
     global COPY_LAUNCHES
-    _check("stream_copy_cuda", x)
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    _check("stream_copy_cuda", x, out)
+    head, body, _ = copy_plan(x.numel(), x.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
         err = _cuda.library().stream_copy_launch(
-            x.data_ptr(), out.data_ptr(), x.numel(), _cuda.stream_of(x.device))
+            x.data_ptr(), out.data_ptr(), x.numel(), head, body,
+            _cuda.stream_of(x.device))
     _cuda.check(err, "stream_copy_kernel")
     COPY_LAUNCHES += 1
     return out

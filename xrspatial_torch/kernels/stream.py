@@ -4,14 +4,35 @@ Counterpart of the TPU probes ``tools/measure_stream.py::pallas_copy`` and
 ``pallas_add``.  The functions here are the torch twins, the plain
 versions of the CUDA kernels in ``cuda_stream.py``; ``copy`` and ``add``
 dispatch: a tensor on the CPU goes to the twin, a tensor on the card to
-the kernel.  ``xrspatial_torch.tools.measure_stream`` times them.
+the kernel.  ``copy_plan`` is the copy kernel's split of a buffer into a
+scalar head, a body it moves with bulk copies and a scalar tail.
+``xrspatial_torch.tools.measure_stream`` times them.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["stream_copy", "stream_add", "copy", "add"]
+__all__ = ["stream_copy", "stream_add", "copy", "add", "copy_plan"]
+
+
+def copy_plan(n: int, x_ptr: int, y_ptr: int) -> tuple:
+    """(head, body, tail): how the copy kernel splits `n` float32 values
+    from address `x_ptr` to `y_ptr`.
+
+    The bulk copies move 16-byte groups between 16-byte-aligned
+    addresses.  When both pointers are 4-byte aligned and alike mod 16,
+    `head` scalars bring x (and so y) to its next 16-byte boundary, `body`
+    (a multiple of 4) goes in bulk and the `tail` (fewer than 4) is
+    scalar.  Otherwise no body can be aligned in both: every value is
+    scalar, ``(0, 0, n)``.  The launcher in ``csrc/stream.cu`` checks the
+    same rule.
+    """
+    if x_ptr % 16 != y_ptr % 16 or x_ptr % 4:
+        return 0, 0, n
+    head = min(n, (16 - x_ptr % 16) % 16 // 4)
+    body = (n - head) // 4 * 4
+    return head, body, n - head - body
 
 
 def stream_copy(x: torch.Tensor) -> torch.Tensor:

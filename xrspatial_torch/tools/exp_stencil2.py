@@ -5,15 +5,18 @@ without their arithmetic.
 
 Counterpart of ``tools/exp_stencil2.py``, whose TPU kernel ``pipe_stencil``
 (B8c) is the ``stencil_probe`` template in modes copy, grad and slope
-(``csrc/stencil_probe.cu``); the TPU probe's tile shapes become block
-shapes.  On an (N, N) float32 ``gaussian_bump`` and on uniform noise it
-checks each kernel against its twin (copy equal to the input, grad and
-slope within the surface tolerance, slope equal to the surface kernel bit
-for bit), then times in turns, from CUDA events:
+(``csrc/stencil_probe.cu``): form staged, each tile's window staged in
+shared memory by TMA as the TPU probe stages it in VMEM, at tiles 32x128,
+64x128 and 32x248; and form nine, nine global reads a cell, at blocks
+32x8, 32x16 and 64x4.  On an (N, N) float32 ``gaussian_bump`` and on
+uniform noise it checks each kernel against its twin (copy equal to the
+input, grad and slope within the surface tolerance, slope equal to the
+surface kernel bit for bit), then times in turns, from CUDA events:
 
 - A ``torch.add(x, 1)`` and ``Tensor.copy_``: the stream yardsticks;
 - B the surface kernel B1 and the stacked kernel B0, slope only;
-- C copy, E grad and slope, at blocks 32x8, 32x16 and 64x4;
+- C copy, E grad and slope: "staged TxW" at each tile, "nine BxB" at
+  each block;
 - D slope from cuDNN's ``conv2d`` Sobel pair in full float32;
 - G the torch-op twins of slope and copy.
 
@@ -30,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import cuda_surface
-from ..kernels.stencil_probe import BLOCKS, stencil, stencil_twin
+from ..kernels.stencil_probe import BLOCKS, TILES, stencil, stencil_twin
 from ..kernels.surface import DEG
 from ..kernels.window import _cudnn_full_fp32
 from . import _stencil
@@ -52,23 +55,32 @@ def conv_slope(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _tag(block):
-    return f"{block[0]}x{block[1]}"
+# (form, its shapes): every instantiation of the TPU probe's modes
+SHAPES = (("staged", TILES), ("nine", BLOCKS))
+
+
+def _tag(form, block):
+    return f"{form} {block[0]}x{block[1]}"
 
 
 def checks(x):
     b1 = lambda: cuda_surface.surface_cuda(x, ("slope",))[0]  # noqa: E731
     out = []
-    for block in BLOCKS:
-        t = _tag(block)
-        out.append((f"copy {t} = input", lambda b=block: stencil(
-            x, "copy", block=b), lambda: x, _stencil.EXACT, None))
-        for mode in ("grad", "slope"):
-            out.append((f"{mode} {t} vs twin",
-                        lambda b=block, m=mode: stencil(x, m, block=b),
-                        lambda m=mode: stencil_twin(x, m), SURFACE_TOL, None))
-        out.append((f"slope {t} = surface_kernel", lambda b=block: stencil(
-            x, "slope", block=b), b1, _stencil.EXACT, None))
+    for form, shapes in SHAPES:
+        for block in shapes:
+            t = _tag(form, block)
+            out.append((f"copy {t} = input", lambda f=form, b=block: stencil(
+                x, "copy", f, block=b), lambda: x, _stencil.EXACT, None))
+            for mode in ("grad", "slope"):
+                out.append((f"{mode} {t} vs twin",
+                            lambda f=form, b=block, m=mode: stencil(
+                                x, m, f, block=b),
+                            lambda m=mode: stencil_twin(x, m), SURFACE_TOL,
+                            None))
+            out.append((f"slope {t} = surface_kernel",
+                        lambda f=form, b=block: stencil(x, "slope", f,
+                                                        block=b),
+                        b1, _stencil.EXACT, None))
     out.append(("D conv2d Sobel slope vs surface_kernel", lambda: conv_slope(x),
                 b1, None, None))
     return out
@@ -86,10 +98,12 @@ def legs(x, reps=20):
                lambda: cuda_surface.surface_stacked_cuda(
                    x, ("slope",), squeeze=True), reps, 2 * plane)}
     for mode, leg in (("copy", "C"), ("grad", "E"), ("slope", "E")):
-        for block in BLOCKS:
-            out[f"{leg} {mode} {_tag(block)}"] = (
-                lambda m=mode, b=block: stencil(x, m, block=b), reps,
-                2 * plane)
+        for form, shapes in SHAPES:
+            for block in shapes:
+                out[f"{leg} {mode} {_tag(form, block)}"] = (
+                    lambda m=mode, f=form, b=block: stencil(x, m, f,
+                                                            block=b),
+                    reps, 2 * plane)
     out["D conv2d Sobel slope"] = (lambda: conv_slope(x), 3, 2 * plane)
     out["G twin slope"] = (lambda: stencil_twin(x, "slope"), 2, 2 * plane)
     out["G twin copy"] = (lambda: stencil_twin(x, "copy"), reps, 2 * plane)

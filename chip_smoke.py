@@ -27,16 +27,23 @@ Phases, each fatal on failure:
 8. timing (informational): warm proximity, allocation and direction, and
    the round kernel's schedule against its twin's, from CUDA events;
 9. halo and pipeline kernels vs twins: the large-footprint focal kernel
-   against ``window_stats`` (annulus 40/38, 1x601, 67x1 and an irregular
-   mask) and the fused pipeline kernel against the split kernels (equal
-   bit for bit) and its twin, at the small shapes and a thin 300x70;
+   (annulus 40/38, 1x601, 67x1, an irregular mask and a sparse footprint
+   of radius 500) on the route its plan names against the ring route
+   called by name, bit for bit, and against ``window_stats``, each launch
+   counted on its route (TMA, cp.async and the ring each at least once);
+   the fused pipeline kernel against the split kernels (equal bit for
+   bit) and its twin; at the small shapes, a thin 300x70 and an aligned
+   ragged 263x516;
 10. fused path: ``terrain_pipeline`` with ``XRSPATIAL_FUSED_PIPELINE=1``
    at 16384^2: one pipeline launch and no other, exact NaN ring, equal to
    the split path at every cell; fused and split timed in turns;
 11. annulus focal path: ``focal_stats`` over the 512-offset annulus at
-   16384^2: one halo launch and no other, agreement with the twin path;
-   the halo kernel, the tiled kernel on the same footprint and the twin
-   timed in turns;
+   16384^2: one halo launch, on the TMA route, and no other, agreement
+   with the twin path and the ring route; on the DEM with a nodata cell
+   in every tile, which no block reads as NaN-free, the TMA route against
+   the ring route, bit for bit; the staged halo kernel (on both DEMs),
+   its ring route by name, the tiled kernel by name on the same footprint and the
+   twin timed in turns;
 12. torch-op paths under PyTorch's default TF32 flags: the conv path
    (1257 offsets), ``convolution_2d``, ``hotspots`` and 2-pass ``mean``
    on the card against the CPU at 1024^2; the conv path timed at 16384^2;
@@ -63,8 +70,8 @@ Phases, each fatal on failure:
    runs on the card; the stacked and surface kernels and the twin timed
    in turns;
 18. stream probes: the copy and add kernels against their twins, bit for
-   bit (aligned and unaligned, and the copy at mismatched alignments of
-   its input and output: the bulk route and the scalar route); then
+   bit (aligned and unaligned, and at mismatched alignments of their
+   inputs and output: the bulk route and the scalar route); then
    ``measure_stream`` at 16384^2, the
    tool users run: kernel, twin and library times, GB/s and the measured
    stream roof;
@@ -107,8 +114,10 @@ The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
 of the bytes over 3.35 TB/s and the float operations, counted from the
 sources, over 67 TFLOP/s) and the same bound at the stream roof measured
-in phase 18 (``measured_roof_bound_ms``, and its share of ``ms``); the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+in phase 18 (``measured_roof_bound_ms``, and its share of ``ms``), and
+the design its timed launch ran (``design``: the staged route and tile of
+the large-footprint kernel, the stream kernels' bulk rings); the last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits 1 before printing any result.
 """
 
@@ -135,7 +144,7 @@ PROX_TOL = dict(rtol=1e-5, atol=1e-5)
 ROUNDS_AT_N = 16    # 8192 ... 1, then the JFA+2 rounds 2, 1
 BRUTE_CELLS = 1024
 FUNCS = ("proximity", "allocation", "direction")
-HALO_SHAPES = SMALL_SHAPES + ((300, 70),)
+HALO_SHAPES = SMALL_SHAPES + ((300, 70), (263, 516))
 OPS_N = 1024            # the torch-op paths against the CPU
 OPS_TOL = dict(rtol=1e-5, atol=1e-5)
 Z_THRESHOLDS = (1.65, 1.96, 2.58)
@@ -557,41 +566,84 @@ def halo_footprints():
     rng = np.random.default_rng(300)
     irregular = (rng.random((81, 61)) < 0.15).astype(float)  # ~740 ones
     irregular[0, 7] = 1                                       # ry = 40
+    sparse = np.zeros((1001, 1001))              # no window fits a block
+    sparse[[0, 0, 500, 1000, 1000], [0, 1000, 500, 0, 1000]] = 1
     return {"annulus_40_38": annulus_kernel(1, 1, 40, 38),
             "row_1x601": np.ones((1, 601)), "col_67x1": np.ones((67, 1)),
-            "irregular_81x61": irregular}
+            "irregular_81x61": irregular, "sparse_1001": sparse}
+
+
+HALO_ROUTES = ("tma", "async", "ring")
+
+
+def halo_route_launches():
+    from xrspatial_torch.kernels import cuda_window
+    return {"tma": cuda_window.HALO_TMA_LAUNCHES,
+            "async": cuda_window.HALO_ASYNC_LAUNCHES,
+            "ring": cuda_window.HALO_RING_LAUNCHES}
+
+
+def same_bits(a, b):
+    """Equal bit for bit, every NaN as NaN."""
+    import torch
+    nan_a = torch.isnan(a)
+    return torch.equal(nan_a, torch.isnan(b)) and torch.equal(
+        torch.where(nan_a, 0.0, a).view(torch.int32),
+        torch.where(nan_a, 0.0, b).view(torch.int32))
 
 
 def check_halo_and_pipeline(dev):
     """Phase 9: the halo kernel and the pipeline kernel against their
-    twins; the pipeline kernel also against the split kernels."""
+    twins; the halo kernel's planned route also against its ring route,
+    the pipeline kernel also against the split kernels."""
     import torch
     from xrspatial_torch.convolution import circle_kernel
     from xrspatial_torch.focal import _route
     from xrspatial_torch.kernels import cuda_pipeline, cuda_surface
     from xrspatial_torch.kernels import cuda_window
+    from xrspatial_torch.kernels.focal_halo import halo_plan
     from xrspatial_torch.kernels.pipeline import pipeline_multi
     from xrspatial_torch.kernels.surface import PRODUCTS
     from xrspatial_torch.kernels.window import kernel_offsets, window_stats
-    print("== halo focal kernel vs twin on the card")
+    print("== halo focal kernel: planned route vs ring route and twin on the "
+          "card")
     feet = {k: kernel_offsets(v) for k, v in halo_footprints().items()}
     for kname, offsets in feet.items():
         if len(offsets) > 1024 or _route(offsets) != "halo":
             raise SmokeFailure(f"{kname}: not a halo-kernel footprint")
     err = 0.0
+    taken = dict.fromkeys(HALO_ROUTES, 0)
     for k, shape in enumerate(HALO_SHAPES):
         host = test_raster(shape, seed=400 + k)
         host[shape[0] // 2, shape[1] // 2] = np.inf
         host[0, shape[1] - 1] = -np.inf
         x = torch.from_numpy(host).to(dev)
         for kname, offsets in feet.items():
+            route = halo_plan(*shape, offsets, x.data_ptr()).route
+            before = halo_route_launches()
             got = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS)
+            torch.cuda.synchronize()
+            counted = {r: n - before[r]
+                       for r, n in halo_route_launches().items()}
+            if counted != {r: int(r == route) for r in HALO_ROUTES}:
+                raise SmokeFailure(f"halo {shape} {kname}: plan route "
+                                   f"{route}, launches counted {counted}")
+            taken[route] += 1
+            ring = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS,
+                                                     route="ring")
+            if not same_bits(got, ring):
+                raise SmokeFailure(f"halo {shape} {kname}: the {route} route "
+                                   f"differs from the ring route")
             ref = window_stats(x, offsets, ALL_STATS)
-            err = max(err, *(check(f"halo {shape} {kname} {s}", got[i],
-                                   ref[s], FOCAL_TOL)
+            err = max(err, *(check(f"halo {shape} {kname} {route} {s}",
+                                   got[i], ref[s], FOCAL_TOL)
                              for i, s in enumerate(ALL_STATS)))
-            del got, ref
+            del got, ring, ref
         torch.cuda.synchronize()
+    print(f"  planned routes taken {taken}, each equal to the ring route bit "
+          f"for bit")
+    if not all(taken.values()):
+        raise SmokeFailure(f"halo: a route was never planned: {taken}")
     print("== pipeline kernel vs split kernels and twin on the card")
     cases = (("slope", "hillshade"), PRODUCTS)
     split_diff = 0.0
@@ -643,6 +695,8 @@ def reset_launches():
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
     cuda_window.HALO_LAUNCHES = cuda_pipeline.LAUNCHES = 0
+    cuda_window.HALO_TMA_LAUNCHES = cuda_window.HALO_ASYNC_LAUNCHES = 0
+    cuda_window.HALO_RING_LAUNCHES = 0
     cuda_jfa.LAUNCHES = 0
     cuda_screen.LAUNCHES = cuda_screen.F64_LAUNCHES = 0
     cuda_surface.STACKED_LAUNCHES = 0
@@ -659,6 +713,9 @@ def read_launches():
     return {"surface_kernel": cuda_surface.LAUNCHES,
             "focal_kernel": cuda_window.LAUNCHES,
             "focal_halo_kernel": cuda_window.HALO_LAUNCHES,
+            "focal_halo_tma": cuda_window.HALO_TMA_LAUNCHES,
+            "focal_halo_async": cuda_window.HALO_ASYNC_LAUNCHES,
+            "focal_halo_ring": cuda_window.HALO_RING_LAUNCHES,
             "pipeline_kernel": cuda_pipeline.LAUNCHES,
             "jfa_round": cuda_jfa.LAUNCHES,
             "screen_hilo": cuda_screen.LAUNCHES,
@@ -768,11 +825,15 @@ def annulus_path(dem, agg, card):
     import torch
     from xrspatial_torch import focal_stats
     from xrspatial_torch.kernels import cuda_window
+    from xrspatial_torch.kernels.focal_halo import halo_plan
     from xrspatial_torch.kernels.window import kernel_offsets, window_stats
     kernel = halo_footprints()["annulus_40_38"]
     offsets = kernel_offsets(kernel)
+    plan = halo_plan(N, N, offsets, dem.data_ptr())
     print(f"== annulus focal path: focal_stats, annulus_kernel(1, 1, 40, 38) "
-          f"({len(offsets)} offsets), {N}x{N}")
+          f"({len(offsets)} offsets), {N}x{N}; plan {plan}")
+    if plan.route != "tma":
+        raise SmokeFailure(f"annulus path: planned on {plan.route}, not TMA")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -784,9 +845,10 @@ def annulus_path(dem, agg, card):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  first call {first_ms:.1f} ms (host clock), launches "
           f"{launches}, peak allocated {peak_gib:.2f} GiB")
-    if not only(launches, "focal_halo_kernel"):
-        raise SmokeFailure(f"annulus path: expected one halo launch and no "
-                           f"other, got {launches}")
+    if launches != {k: int(k in ("focal_halo_kernel", "focal_halo_tma"))
+                    for k in launches}:
+        raise SmokeFailure(f"annulus path: expected one halo launch on the "
+                           f"TMA route and no other, got {launches}")
     if out.device.type != "cuda" or tuple(out.shape) != (
             len(PIPELINE_STATS), N, N) or not bool(torch.isfinite(out).all()):
         raise SmokeFailure(f"annulus focal_stats: {tuple(out.shape)} on "
@@ -796,30 +858,59 @@ def annulus_path(dem, agg, card):
             and bool((mean <= smax + 1e-3).all()) and bool((std >= 0).all())):
         raise SmokeFailure("annulus stats out of order")
     del mean, smax, smin, std
-    print("  full-size agreement with the twin path")
+    print("  full-size agreement with the twin path and the ring route")
     ref = window_stats(dem, offsets, PIPELINE_STATS)
     max_err = max(check(f"annulus {s}", out[i], ref[s], FOCAL_TOL)
                   for i, s in enumerate(PIPELINE_STATS))
-    del ref, out
+    del ref
+    ring = cuda_window.focal_stats_halo_cuda(dem, offsets, PIPELINE_STATS,
+                                             route="ring")
+    if not same_bits(out, ring):
+        raise SmokeFailure("annulus path: the TMA route differs from the "
+                           "ring route")
+    del ring, out
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"== timing: annulus focal path at {N}x{N} on {card}")
-    ms = paired_ms(
-        lambda: cuda_window.focal_stats_halo_cuda(dem, offsets,
-                                                  PIPELINE_STATS),
-        lambda: window_stats(dem, offsets, PIPELINE_STATS), 5, 1)
-    tiled_ms = cuda_time_ms(
-        lambda: cuda_window.focal_stats_cuda(dem, offsets, PIPELINE_STATS), 3)
-    halo_again = cuda_time_ms(
-        lambda: cuda_window.focal_stats_halo_cuda(dem, offsets,
-                                                  PIPELINE_STATS), 5)
-    print(f"  focal_halo_kernel: kernel {ms[0]:.3f} ms (again after the "
-          f"tiled kernel: {halo_again:.3f} ms), tiled focal_kernel by name "
-          f"on the same footprint {tiled_ms:.3f} ms, twin {ms[1]:.3f} ms, "
-          f"{card}")
+    # the DEM with a nodata cell in every tile: every window holds a NaN,
+    # so no block takes the NaN-free branch
+    holed = dem.clone()
+    holed[::plan.tile[0], plan.tile[1] // 2::plan.tile[1]] = float("nan")
+    staged = cuda_window.focal_stats_halo_cuda(holed, offsets, PIPELINE_STATS)
+    ring = cuda_window.focal_stats_halo_cuda(holed, offsets, PIPELINE_STATS,
+                                             route="ring")
+    if not same_bits(staged, ring):
+        raise SmokeFailure("annulus with nodata in every tile: the TMA route "
+                           "differs from the ring route")
+    print("  with a nodata cell in every tile: the TMA route equal to the "
+          "ring route bit for bit")
+    del staged, ring
+    legs = {
+        "staged": (lambda: cuda_window.focal_stats_halo_cuda(
+            dem, offsets, PIPELINE_STATS), 5),
+        "staged, nodata": (lambda: cuda_window.focal_stats_halo_cuda(
+            holed, offsets, PIPELINE_STATS), 5),
+        "ring": (lambda: cuda_window.focal_stats_halo_cuda(
+            dem, offsets, PIPELINE_STATS, route="ring"), 2),
+        "tiled": (lambda: cuda_window.focal_stats_cuda(
+            dem, offsets, PIPELINE_STATS), 2),
+        "twin": (lambda: window_stats(dem, offsets, PIPELINE_STATS), 1)}
+    times = {k: [] for k in legs}
+    for k in (*legs, *reversed(legs)):
+        fn, reps = legs[k]
+        times[k].append(cuda_time_ms(fn, reps))
+    t = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"  focal_halo_kernel, in turns: staged ({plan.route}, tile "
+          f"{plan.tile[0]}x{plan.tile[1]}) {t['staged']:.3f} ms (with a "
+          f"nodata cell in every tile: {t['staged, nodata']:.3f} ms), ring "
+          f"route by name {t['ring']:.3f} ms, tiled focal_kernel by name on "
+          f"the same footprint {t['tiled']:.3f} ms, twin {t['twin']:.3f} ms; "
+          f"staged {t['ring'] / t['staged']:.2f}x the ring's speed, "
+          f"{t['tiled'] / t['staged']:.2f}x the tiled kernel's, {card}")
+    del holed
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return launches["focal_halo_kernel"], max_err, ms
+    return launches["focal_halo_kernel"], max_err, (t["staged"], t["twin"])
 
 
 def torch_op_paths(dev, card):
@@ -1361,21 +1452,25 @@ def surface_family_path(dem, card):
 
 def check_stream(dev):
     """Phase 18a: the stream kernels against their twins, bit for bit,
-    on aligned and unaligned buffers; the copy also into outputs offset by
-    0-3 values from its input's alignment (mismatched ones take the
-    scalar route, the others a scalar head and tail around bulk copies)."""
+    on aligned and unaligned buffers, and at offsets of 0-3 values of
+    every pointer from the others' alignment: mismatched ones take the
+    scalar route, the others a scalar head and tail around bulk
+    copies."""
     import torch
     from xrspatial_torch.kernels import cuda_stream, stream
     print("== stream probes vs twins on the card")
     gen = torch.Generator(device=dev).manual_seed(11)
+
+    def bits(t):
+        return t.view(torch.int32)
+
     for n in (1, 3, 1000, 4096 * 257 + 3, N * 64):
-        base = torch.randn(n + 1, generator=gen, device=dev) * 1e3
-        other = torch.randn(n + 1, generator=gen, device=dev)
+        base = torch.randn(n + 4, generator=gen, device=dev) * 1e3
+        other = torch.randn(n + 4, generator=gen, device=dev)
         base[n // 2] = np.nan
         other[0] = -np.inf
         for label, x, y in (("aligned", base[:n], other[:n]),
-                            ("unaligned", base[1:], other[1:])):
-            bits = lambda t: t.view(torch.int32)  # noqa: E731
+                            ("unaligned", base[1:n + 1], other[1:n + 1])):
             if not (torch.equal(bits(cuda_stream.stream_copy_cuda(x)),
                                 bits(stream.stream_copy(x)))
                     and torch.equal(bits(cuda_stream.stream_add_cuda(x, y)),
@@ -1383,16 +1478,24 @@ def check_stream(dev):
                 raise SmokeFailure(f"stream {n} {label}: differs from the "
                                    f"twin")
         dest = torch.empty(n + 4, device=dev)
-        for xo in range(2):
+        for xo in range(4):
+            x = base[xo:xo + n]
             for yo in range(4):
-                x = base[xo:xo + n]
                 got = cuda_stream.stream_copy_cuda(x, out=dest[yo:yo + n])
                 if not torch.equal(bits(got), bits(stream.stream_copy(x))):
                     raise SmokeFailure(f"stream copy {n} at offsets {xo}, "
                                        f"{yo}: differs from the twin")
+                y = other[yo:yo + n]
+                for zo in range(4):
+                    got = cuda_stream.stream_add_cuda(x, y,
+                                                      out=dest[zo:zo + n])
+                    if not torch.equal(bits(got),
+                                       bits(stream.stream_add(x, y))):
+                        raise SmokeFailure(f"stream add {n} at offsets {xo}, "
+                                           f"{yo}, {zo}: differs from the "
+                                           f"twin")
         print(f"  n={n}: copy and add equal to the twins bit for bit, "
-              f"aligned and unaligned; the copy at input offsets 0-1 and "
-              f"output offsets 0-3 too")
+              f"aligned and unaligned, and at offsets 0-3 of every pointer")
     torch.cuda.synchronize()
 
 
@@ -1978,6 +2081,7 @@ def main() -> int:
     from xrspatial_torch import DataArray, terrain_pipeline
     from xrspatial_torch.convolution import circle_kernel
     from xrspatial_torch.kernels import _cuda, cuda_surface, cuda_window
+    from xrspatial_torch.kernels.focal_halo import halo_plan
     from xrspatial_torch.kernels.surface import PRODUCTS, surface_multi
     from xrspatial_torch.kernels.window import kernel_offsets, window_stats
 
@@ -2229,11 +2333,22 @@ def main() -> int:
         "jfa_group": (
         "xrspatial_torch/csrc/jfa_group.cu",
         "tools/exp_jfa_fixed.py:38")}
+    # the design each redesigned kernel's timed launch ran
+    halo = halo_plan(N, N, kernel_offsets(halo_footprints()["annulus_40_38"]),
+                     0)
+    designs = {
+        "focal_halo_kernel": f"staged window by {halo.route}, tile "
+                             f"{halo.tile[0]}x{halo.tile[1]}, row runs, 4 "
+                             f"cells a thread",
+        "stream_copy": "bulk-async ring",
+        "stream_add": "one-shot grid, 4 float4 pairs a thread, streaming",
+        "stencil_probe_b8c": "staged window by TMA, 32x248"}
     # Tensor.copy_ and torch.add compute the stream probes' functions and
     # the copy mode of B8c's; no single PyTorch call computes any of the
     # others
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+        {"name": k, "route": "cuda", "design": designs.get(k, "first port"),
+         "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k],
          "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0][0],
          "bound_by": bounds[k][0][1], "library_ms": library_ms.get(k),

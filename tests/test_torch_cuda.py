@@ -30,8 +30,10 @@ A numpy raster, with no device set, runs on the card.  Every
 instantiation of the stencil-probe template matches its twin (copy bit
 for bit, the rest within the surface tolerance) and its nine-read and
 staged slope equal the surface kernel's bit for bit, NaN ring included;
-the staged form takes the route its plan names; the stream copy equals
-its twin at every alignment of both pointers; the fused jump-flood group
+the staged form takes the route its plan names; the stream copy and add
+equal their twins at every alignment of their pointers; the
+large-footprint focal kernel takes the route its plan names and its
+staged routes equal the ring route bit for bit; the fused jump-flood group
 equals the round kernel launched once per stride, bit for bit, in both
 state forms and at every metric.
 """
@@ -51,6 +53,7 @@ from xrspatial_torch.kernels import cuda_surface, cuda_window, jfa
 from xrspatial_torch.kernels import jfa_group, jfa_rounds, screen, shadows
 from xrspatial_torch.kernels import stencil_probe, stream, surface
 from xrspatial_torch.kernels import viewshed_exact
+from xrspatial_torch.kernels.focal_halo import halo_plan
 from xrspatial_torch.kernels.pipeline import pipeline_multi
 from xrspatial_torch.kernels.surface import PRODUCTS, surface_multi
 from xrspatial_torch.kernels.window import kernel_offsets, window_stats
@@ -315,43 +318,173 @@ def halo_footprint(name):
     return k
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(90, 700), (2, 5), (1, 1000), (300, 70)])
-@pytest.mark.parametrize("kname", ["annulus_40_38", "row_601", "col_67",
-                                   "irregular", "ends_1x1025"])
-def test_focal_halo_kernel_matches_twin(cuda, kname, shape):
+def halo_routes():
+    return {"tma": cuda_window.HALO_TMA_LAUNCHES,
+            "async": cuda_window.HALO_ASYNC_LAUNCHES,
+            "ring": cuda_window.HALO_RING_LAUNCHES,
+            "all": cuda_window.HALO_LAUNCHES}
+
+
+def assert_one_launch_on(route, before):
+    after = halo_routes()
+    assert {k: after[k] - before[k] for k in after} == {
+        "tma": route == "tma", "async": route == "async",
+        "ring": route == "ring", "all": 1}
+
+
+def assert_same_bits(got, ref, msg=""):
+    """Equal bit for bit, every NaN as NaN."""
+    assert torch.equal(torch.isnan(got), torch.isnan(ref)), msg
+    assert torch.equal(torch.where(torch.isnan(got), 0.0, got).view(
+        torch.int32), torch.where(torch.isnan(ref), 0.0, ref).view(
+        torch.int32)), msg
+
+
+HALO_SHAPES = [(90, 700), (2, 5), (1, 1000), (300, 70), (263, 516)]
+HALO_NAMES = ["annulus_40_38", "row_601", "col_67", "irregular",
+              "ends_1x1025"]
+
+
+def halo_data(shape, cuda):
     rng = np.random.default_rng(23)
     data = (rng.random(shape) * 50).astype(np.float32)
     data[shape[0] // 3:shape[0] // 2 + 1, shape[1] // 4:shape[1] // 3] = np.nan
     data[-1, -1] = np.inf
     data[0, shape[1] // 2] = -np.inf
-    x = torch.from_numpy(data).to(cuda)
+    return torch.from_numpy(data).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", HALO_SHAPES)
+@pytest.mark.parametrize("kname", HALO_NAMES)
+def test_focal_halo_kernel_matches_twin(cuda, kname, shape):
+    """One launch on the route its plan names (TMA where w % 4 == 0),
+    within the focal tolerance of the twin."""
+    x = halo_data(shape, cuda)
     offsets = kernel_offsets(halo_footprint(kname))
     assert len(offsets) <= 1024 and focal._route(offsets) == "halo"
-    before = cuda_window.HALO_LAUNCHES
+    route = halo_plan(*shape, offsets, x.data_ptr()).route
+    assert route == ("tma" if shape[1] % 4 == 0 else "async")
+    before = halo_routes()
     got = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS)
     torch.cuda.synchronize()
-    assert cuda_window.HALO_LAUNCHES == before + 1
+    assert_one_launch_on(route, before)
     ref = window_stats(x, offsets, ALL_STATS)
     for i, s in enumerate(ALL_STATS):
         assert_matches(got[i], ref[s], FOCAL_TOL, s)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", HALO_SHAPES)
+@pytest.mark.parametrize("kname", HALO_NAMES)
+def test_staged_halo_route_equals_the_ring_route(cuda, kname, shape):
+    """The staged window (TMA or cp.async) and the ring of rows, called
+    by name, give the same bits, NaN and +-inf cells included; with one
+    stat, var alone and the main path's four."""
+    x = halo_data(shape, cuda)
+    offsets = kernel_offsets(halo_footprint(kname))
+    for stats in (ALL_STATS, ("var",), ("mean", "max", "min", "std")):
+        staged = cuda_window.focal_stats_halo_cuda(x, offsets, stats)
+        before = halo_routes()
+        ring = cuda_window.focal_stats_halo_cuda(x, offsets, stats, "ring")
+        torch.cuda.synchronize()
+        assert_one_launch_on("ring", before)
+        assert_same_bits(staged, ring, f"{kname} {shape} {stats}")
+
+
+@pytest.mark.gpu
+def test_staged_halo_takes_cp_async_from_an_unaligned_base(cuda):
+    """A pitch that suits TMA but a base that is not 16-byte aligned takes
+    the cp.async route, with the ring route's bits; the launcher refuses
+    a route that is not its plan's."""
+    flat = torch.rand(200 * 256 + 1, device=cuda) * 100
+    x = flat[1:].view(200, 256)
+    offsets = kernel_offsets(halo_footprint("annulus_40_38"))
+    assert halo_plan(200, 256, offsets, x.data_ptr()).route == "async"
+    before = halo_routes()
+    got = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS)
+    torch.cuda.synchronize()
+    assert_one_launch_on("async", before)
+    ring = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS, "ring")
+    assert_same_bits(got, ring)
+    with pytest.raises(ValueError, match="plan"):
+        cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS, "tma")
+
+
+@pytest.mark.gpu
+def test_staged_halo_launcher_refuses_an_unsafe_plan(cuda):
+    """The staged launcher launches halo_plan's plan and refuses one whose
+    route, boxes, window, shared bytes or grid break a safety rule."""
+    import ctypes
+    from xrspatial_torch.kernels.focal_halo import run_table
+    x = torch.rand(64, 256, device=cuda) * 100
+    offsets = kernel_offsets(halo_footprint("annulus_40_38"))
+    plan = halo_plan(64, 256, offsets, x.data_ptr())
+    runs = torch.tensor(run_table(offsets, plan), dtype=torch.int32,
+                        device=cuda)
+    out = torch.empty((1, 64, 256), device=cuda)
+    slots = (ctypes.c_int * 7)(0, -1, -1, -1, -1, -1, -1)
+    args = dict(route=0, th=plan.tile[0], pad=plan.pad, pitch=plan.pitch,
+                rows=plan.rows, box_cols=plan.box[0], box_rows=plan.box[1],
+                smem=plan.shared_bytes, grid=plan.grid)
+
+    def launch(**change):
+        a = {**args, **change}
+        return _cuda.library().focal_halo_staged_launch(
+            x.data_ptr(), runs.data_ptr(), runs.shape[0], len(offsets), slots,
+            out.data_ptr(), 64, 256, 40, 40, a["route"], a["th"], a["pad"],
+            a["pitch"], a["rows"], a["box_cols"], a["box_rows"], a["smem"],
+            a["grid"], _cuda.stream_of(cuda))
+
+    assert plan.route == "tma" and launch() == 0
+    torch.cuda.synchronize()
+    for change in (dict(route=1), dict(th=31), dict(pad=38),
+                   dict(pitch=192, box_cols=192), dict(box_cols=112),
+                   dict(rows=plan.rows - 1), dict(smem=plan.shared_bytes - 4),
+                   dict(smem=232448 + 4), dict(grid=plan.grid + 1)):
+        assert launch(**change) != 0, change
+
+
+@pytest.mark.gpu
 def test_focal_halo_kernel_opts_in_to_more_shared_memory(cuda):
-    """Called by name on a 1x2001 row (2001 offsets, rx = 1000): the offset
-    table and the ring need 49.7 KB of shared memory, past the default
-    48 KB.  Compared with the unrolled twin, which window_stats would not
-    take above 1024 offsets."""
+    """Called by name on a 1x2001 row (2001 offsets, rx = 1000): its plan
+    keeps the staged window at a tile of 8 rows (72 KB, 72 one-row TMA
+    boxes) and it runs there; the ring, by name, needs 49.7 KB of shared
+    memory, past the default 48 KB.  Both equal bit for bit, and compared
+    with the unrolled twin, which window_stats would not take above 1024
+    offsets."""
     from xrspatial_torch.kernels.window import _window_stats_unrolled
     rng = np.random.default_rng(31)
     data = (rng.random((9, 2500)) * 50).astype(np.float32)
     data[3, 100:400] = np.nan
     x = torch.from_numpy(data).to(cuda)
     offsets = kernel_offsets(np.ones((1, 2001)))
+    plan = halo_plan(9, 2500, offsets, x.data_ptr())
+    assert (plan.route, plan.tile, plan.boxes) == ("tma", (8, 128), 72)
+    before = halo_routes()
     got = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS)
     torch.cuda.synchronize()
+    assert_one_launch_on("tma", before)
+    ring = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS, "ring")
+    assert_same_bits(got, ring)
     ref = _window_stats_unrolled(x, offsets, ALL_STATS)
+    for i, s in enumerate(ALL_STATS):
+        assert_matches(got[i], ref[s], FOCAL_TOL, s)
+
+
+@pytest.mark.gpu
+def test_a_window_that_fits_no_block_takes_the_ring(cuda):
+    """A sparse footprint of radius 500 plans the ring, and runs there."""
+    k = np.zeros((1001, 1001))
+    k[[0, 0, 500, 1000, 1000], [0, 1000, 500, 0, 1000]] = 1
+    offsets = kernel_offsets(k)
+    x = halo_data((1100, 1200), cuda)
+    assert halo_plan(1100, 1200, offsets, x.data_ptr()).route == "ring"
+    before = halo_routes()
+    got = cuda_window.focal_stats_halo_cuda(x, offsets, ALL_STATS)
+    torch.cuda.synchronize()
+    assert_one_launch_on("ring", before)
+    ref = window_stats(x, offsets, ALL_STATS)
     for i, s in enumerate(ALL_STATS):
         assert_matches(got[i], ref[s], FOCAL_TOL, s)
 
@@ -362,11 +495,11 @@ def test_focal_stats_sends_the_annulus_to_the_halo_kernel(cuda):
     kernel = halo_footprint("annulus_40_38")
     stats = ["mean", "max", "min", "std"]
     on_card = xt.DataArray(torch.from_numpy(data).to(cuda), dims=("y", "x"))
-    before = (cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES)
+    before = (cuda_window.LAUNCHES, halo_routes())
     got = xt.focal_stats(on_card, kernel, stats)
     torch.cuda.synchronize()
-    assert (cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES) == (
-        before[0], before[1] + 1)
+    assert cuda_window.LAUNCHES == before[0]
+    assert_one_launch_on("tma", before[1])
     ref = xt.focal_stats(xt.DataArray(torch.from_numpy(data),
                                       dims=("y", "x")), kernel, stats)
     assert_matches(got.data, ref.data, FOCAL_TOL)
@@ -640,6 +773,33 @@ def test_stream_copy_matches_twin_at_every_alignment(cuda, n):
                 xo, yo)
             rest = torch.cat([dest[:yo], dest[yo + n:]])
             assert bool((rest == -7.0).all()), (xo, yo)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 17, 1023, 4096 * 5 + 7, 4096 * 257 + 3])
+def test_stream_add_matches_twin_at_every_alignment(cuda, n):
+    """The add at offsets 0-3 floats of x, y and z: all alike (the bulk
+    route, a scalar head and tail) or not (the scalar route), equal to
+    the twin bit for bit, and nothing written outside the output."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    xs = torch.randn(n + 4, generator=gen, device=cuda) * 1e3
+    ys = torch.randn(n + 4, generator=gen, device=cuda)
+    xs[n // 2] = np.nan
+    ys[0] = -np.inf
+    for xo in range(4):
+        for yo in range(4):
+            for zo in range(4):
+                x, y = xs[xo:xo + n], ys[yo:yo + n]
+                dest = torch.full((n + 4,), -7.0, device=cuda)
+                before = cuda_stream.ADD_LAUNCHES
+                cuda_stream.stream_add_cuda(x, y, out=dest[zo:zo + n])
+                torch.cuda.synchronize()
+                assert cuda_stream.ADD_LAUNCHES == before + 1
+                assert torch.equal(
+                    dest[zo:zo + n].view(torch.int32),
+                    stream.stream_add(x, y).view(torch.int32)), (xo, yo, zo)
+                rest = torch.cat([dest[:zo], dest[zo + n:]])
+                assert bool((rest == -7.0).all()), (xo, yo, zo)
 
 
 @pytest.mark.gpu

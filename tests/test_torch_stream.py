@@ -4,9 +4,10 @@
 package's ``tools/measure_stream.py`` probes copy and add): ``x.clone()``
 and ``x + y``, which must equal numpy's copy and float32 sum, and the JAX
 package's ``x + 0.0`` and ``x + y``, bit for bit.  On a CPU tensor the
-dispatchers ``copy`` and ``add`` take the twins.  ``copy_plan``, the copy
-kernel's split into a scalar head, a bulk body and a scalar tail (its
-launcher checks the same rule), is pinned at every alignment.
+dispatchers ``copy`` and ``add`` take the twins.  ``copy_plan`` and
+``add_plan``, the kernels' split into a scalar head, a 16-byte-aligned
+body and a scalar tail (their launcher checks the same rule), are pinned
+at every alignment.
 """
 
 import jax.numpy as jnp
@@ -88,3 +89,38 @@ def test_copy_plan_of_an_aligned_raster_is_all_body():
         0, 16384 * 16384, 0)
     assert stream.copy_plan(7, 256 + 8, 512 + 8) == (2, 4, 1)
     assert stream.copy_plan(3, 256 + 4, 512 + 4) == (3, 0, 0)
+
+
+@pytest.mark.parametrize("ax", range(16))
+def test_add_plan_splits_at_16_byte_boundaries(ax):
+    """Head, body and tail over alignments 0-15 of x (at `ax`), y and z
+    (at every alignment each) and lengths 0-40: they sum to n; with all
+    three alike mod 16 (and 4-byte aligned) the body starts 16-byte
+    aligned in each, is whole 16-byte groups and leaves fewer than 4
+    values on each side; otherwise every value is scalar.  With y == z
+    it is the copy's plan."""
+    for ay in range(16):
+        for az in range(16):
+            ptrs = 4096 + ax, 8192 + 64 + ay, 16384 + 32 + az
+            for n in range(41):
+                head, body, tail = stream.add_plan(n, *ptrs)
+                assert min(head, body, tail) >= 0
+                assert head + body + tail == n
+                if az == ay:
+                    assert (head, body, tail) == stream.copy_plan(
+                        n, *ptrs[:2])
+                if not ax == ay == az or ax % 4:
+                    assert (head, body, tail) == (0, 0, n)
+                    continue
+                assert body % 4 == 0 and tail < 4 and head < 4
+                if body:
+                    assert all((p + 4 * head) % 16 == 0 for p in ptrs)
+                if n >= head + 4:
+                    assert body > 0
+
+
+def test_add_plan_of_an_aligned_raster_is_all_body():
+    assert stream.add_plan(16384 * 16384, 1 << 20, 1 << 21, 1 << 22) == (
+        0, 16384 * 16384, 0)
+    assert stream.add_plan(7, 256 + 8, 512 + 8, 768 + 8) == (2, 4, 1)
+    assert stream.add_plan(7, 256 + 8, 512 + 8, 768 + 12) == (0, 0, 7)

@@ -47,17 +47,27 @@ __device__ __forceinline__ void focal_acc_add(FocalAcc& a, float s) {
   a.smax = s > a.smax ? s : a.smax;
 }
 
+// focal_acc_add for a value known not to be NaN, without the count: a
+// caller that knows a whole window has no NaN sets the count to the number
+// of offsets, which is what n additions of 1 give (n < 2^24).
+__device__ __forceinline__ void focal_acc_add_number(FocalAcc& a, float s) {
+  a.ssum += s;
+  a.smin = s < a.smin ? s : a.smin;
+  a.smax = s > a.smax ? s : a.smax;
+}
+
 __device__ __forceinline__ float focal_mean(const FocalAcc& a) {
   return a.cnt > 0.0f ? a.ssum / fmaxf(a.cnt, 1.0f) : CUDART_NAN_F;
 }
 
 // The second pass: dev2 += (s - mean)^2.  kRounded rounds the square and
 // the sum separately (__fmul_rn/__fadd_rn), as the twin's separate torch
-// ops do; otherwise nvcc may contract them into one fma.
-template <bool kRounded>
+// ops do; otherwise nvcc may contract them into one fma.  kNanFree leaves
+// out the NaN test, for a caller that knows s is not NaN.
+template <bool kRounded, bool kNanFree = false>
 __device__ __forceinline__ void focal_dev2_add(float& dev2, float s,
                                                float mean) {
-  if (isnan(s)) return;
+  if (!kNanFree && isnan(s)) return;
   const float dv = s - mean;
   if (kRounded)
     dev2 = __fadd_rn(dev2, __fmul_rn(dv, dv));

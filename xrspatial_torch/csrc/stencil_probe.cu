@@ -513,36 +513,6 @@ int staged_route(const float* x, const float* out, long long w) {
                                                       : kRouteAsync;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime, so that the
-// library links no libcuda.
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
 // Launches one instantiation; a failed tensor-map encode returns the
 // negated CUresult.
 template <int MODE, int TH, int TW, int ROUTE>
@@ -554,19 +524,9 @@ int launch_staged(const float* x, float* out, long long h, long long w,
     return (int)cudaErrorInvalidValue;
   CUtensorMap map{};
   if (ROUTE == kRouteTma) {
-    EncodeTiled encode;
-    const cudaError_t err = encode_tiled(&encode);
-    if (err != cudaSuccess) return (int)err;
-    const cuuint64_t dims[2] = {(cuuint64_t)w, (cuuint64_t)h};
-    const cuuint64_t pitch[1] = {(cuuint64_t)w * sizeof(float)};
-    const cuuint32_t box[2] = {(cuuint32_t)Win::kCols, (cuuint32_t)Win::kRows};
-    const cuuint32_t unit[2] = {1, 1};
-    const CUresult res = encode(
-        &map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)x, dims, pitch, box,
-        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-        CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA);
-    if (res != CUDA_SUCCESS) return -(int)res;
+    const int err =
+        xrt::encode_raster_map(&map, x, h, w, Win::kCols, Win::kRows);
+    if (err != 0) return err;
   }
   auto kernel = stencil_staged_kernel<MODE, TH, TW, ROUTE>;
   const cudaError_t err = cudaFuncSetAttribute(

@@ -23,9 +23,15 @@
 // Where x and y differ in alignment mod 16 the whole copy is scalar, a
 // grid-stride loop of many blocks.
 //
-// stream_add_kernel is a grid-stride loop over 16-byte float4 loads and
-// stores when every pointer is 16-byte aligned, then a scalar tail (or
-// scalars throughout when a pointer is not aligned), a few blocks an SM.
+// stream_add_kernel is redesigned too: a one-shot grid of one block a
+// 16 KB piece of x and of y, each thread loading its four float4 pairs
+// before it adds and stores any (streaming loads and stores, __ldcs/
+// __stcs).  In an A/B on the card, the copy's ring with two bulk loads a
+// stage, the same ring at more blocks an SM, and a one-wave grid-stride
+// form with four pairs in flight a thread each came out 3-6% slower
+// (PERF.md §6).  The scalar head and tail and the all-scalar case
+// follow the copy's rule for all three pointers (kernels/stream.py::
+// add_plan).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,23 +107,47 @@ __global__ void stream_copy_kernel(const float* __restrict__ x,
   xrt::bulk_wait_all();
 }
 
+constexpr int kAddPairs = 4;  // float4 pairs in flight a thread
+
+// z[i] = x[i] + y[i] for the `head` values before the body and those
+// after it (a grid-stride loop), then the body as 16-byte groups: block b
+// adds groups b * kThreads * kAddPairs + u * kThreads + threadIdx.x, u <
+// kAddPairs, all of them loaded before any is stored, with streaming loads
+// and stores (__ldcs/__stcs).
 __global__ void stream_add_kernel(const float* __restrict__ x,
                                   const float* __restrict__ y,
                                   float* __restrict__ z, long long n,
-                                  long long n4) {
+                                  long long head, long long body) {
+  const long long after = head + body, scalars = n - body;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  const float4* y4 = reinterpret_cast<const float4*>(y);
-  float4* z4 = reinterpret_cast<float4*>(z);
-  for (long long i = tid; i < n4; i += stride) {
-    const float4 a = x4[i], b = y4[i];
-    z4[i] = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < scalars; e += stride) {
+    const long long i = e < head ? e : after + (e - head);
+    z[i] = x[i] + y[i];
   }
-  for (long long i = 4 * n4 + tid; i < n; i += stride) z[i] = x[i] + y[i];
+  const float4* const x4 = reinterpret_cast<const float4*>(x + head);
+  const float4* const y4 = reinterpret_cast<const float4*>(y + head);
+  float4* const z4 = reinterpret_cast<float4*>(z + head);
+  const long long n4 = body / 4;
+  const long long base =
+      (long long)blockIdx.x * kThreads * kAddPairs + threadIdx.x;
+  float4 a[kAddPairs], b[kAddPairs];
+#pragma unroll
+  for (int u = 0; u < kAddPairs; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < n4) {
+      a[u] = __ldcs(x4 + i);
+      b[u] = __ldcs(y4 + i);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kAddPairs; ++u) {
+    const long long i = base + u * kThreads;
+    if (i >= n4) continue;
+    __stcs(z4 + i, make_float4(a[u].x + b[u].x, a[u].y + b[u].y,
+                               a[u].z + b[u].z, a[u].w + b[u].w));
+  }
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 int sm_count() {
   int dev = 0, sms = 132;
@@ -133,17 +163,26 @@ unsigned grid_for(long long items) {
   return (unsigned)(need < most ? (need > 0 ? need : 1) : most);
 }
 
-// The copy's split rule (kernels/stream.py::copy_plan): with x and y
-// 4-byte aligned and alike mod 16, `head` scalars up to x's next 16-byte
-// boundary, a body of whole 16-byte groups, the rest a scalar tail;
-// otherwise every value is scalar (head = body = 0).
-bool plan_matches(const float* x, const float* y, long long n,
-                  long long head, long long body) {
-  const uintptr_t ax = (uintptr_t)x & 15, ay = (uintptr_t)y & 15;
-  if (ax != ay || ax % 4 != 0) return head == 0 && body == 0;
+// The split rule of kernels/stream.py::copy_plan and add_plan: with every
+// pointer 4-byte aligned and all alike mod 16, `head` scalars up to x's
+// next 16-byte boundary, a body of whole 16-byte groups, the rest a
+// scalar tail; otherwise every value is scalar (head = body = 0).
+bool plan_matches(const float* x, const float* y, const float* z,
+                  long long n, long long head, long long body) {
+  const uintptr_t ax = (uintptr_t)x & 15;
+  if (ax != ((uintptr_t)y & 15) || ax != ((uintptr_t)z & 15) || ax % 4 != 0)
+    return head == 0 && body == 0;
   long long want = (long long)((16 - ax) % 16 / 4);
   if (want > n) want = n;
   return head == want && body == (n - want) / 4 * 4;
+}
+
+// The one-shot grid of stream_add_kernel for `body` values, or the
+// grid-stride loop's for n scalars when there is no body.
+unsigned add_grid(long long n, long long body) {
+  if (body == 0) return grid_for(n);
+  const long long per_block = 4LL * kThreads * kAddPairs;
+  return (unsigned)((body + per_block - 1) / per_block);
 }
 
 }  // namespace
@@ -157,7 +196,8 @@ extern "C" {
 int stream_copy_launch(const float* x, float* y, long long n, long long head,
                        long long body, void* stream) {
   if (n <= 0) return 0;
-  if (!plan_matches(x, y, n, head, body)) return (int)cudaErrorInvalidValue;
+  if (!plan_matches(x, y, y, n, head, body))
+    return (int)cudaErrorInvalidValue;
   if (body == 0) {
     stream_copy_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
         x, y, n, head, body);
@@ -175,15 +215,17 @@ int stream_copy_launch(const float* x, float* y, long long n, long long head,
   return (int)cudaGetLastError();
 }
 
-// z[i] = x[i] + y[i] for i < n, on `stream`.  Returns cudaGetLastError()
-// after the launch.
+// z[i] = x[i] + y[i] for i < n, on `stream`, split as add_plan(n, x, y,
+// z) says: the scalar head, the bulk body, the scalar tail.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// split that is not the rule's.
 int stream_add_launch(const float* x, const float* y, float* z, long long n,
-                      void* stream) {
+                      long long head, long long body, void* stream) {
   if (n <= 0) return 0;
-  const long long n4 =
-      aligned16(x) && aligned16(y) && aligned16(z) ? n / 4 : 0;
-  stream_add_kernel<<<grid_for(n4 > 0 ? n4 : n), kThreads, 0,
-                      (cudaStream_t)stream>>>(x, y, z, n, n4);
+  if (!plan_matches(x, y, z, n, head, body))
+    return (int)cudaErrorInvalidValue;
+  stream_add_kernel<<<add_grid(n, body), kThreads, 0,
+                      (cudaStream_t)stream>>>(x, y, z, n, head, body);
   return (int)cudaGetLastError();
 }
 

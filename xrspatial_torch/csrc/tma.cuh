@@ -11,13 +11,67 @@
 // - bulk copies (cp.async.bulk): contiguous bytes, global to shared with
 //   mbarrier completion, shared to global in bulk groups.
 // - cp.async: 4-byte copies global to shared, in commit groups.
+// - on the host, encode_tiled: cuTensorMapEncodeTiled without linking
+//   libcuda.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the header only: nothing links libcuda)
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace xrt {
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime, so that the
+// library links no libcuda.
+inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The tensor map of a row-major h x w float32 raster at x (16-byte
+// aligned, w % 4 == 0) in boxes of box_cols x box_rows, cells outside the
+// raster read as NaN; a failed encode returns the negated CUresult, a
+// failed lookup its cudaError_t.
+inline int encode_raster_map(CUtensorMap* map, const float* x, long long h,
+                             long long w, int box_cols, int box_rows) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return (int)err;
+  const cuuint64_t dims[2] = {(cuuint64_t)w, (cuuint64_t)h};
+  const cuuint64_t pitch[1] = {(cuuint64_t)w * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)x, dims, pitch, box,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA);
+  return res == CUDA_SUCCESS ? 0 : -(int)res;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

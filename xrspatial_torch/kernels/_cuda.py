@@ -112,13 +112,17 @@ def library() -> ctypes.CDLL:
     for fn in (lib.stream_copy_launch, lib.stream_add_launch):
         fn.restype = i32
     lib.stream_copy_launch.argtypes = [p, p, i64, i64, i64, p]
-    lib.stream_add_launch.argtypes = [p, p, p, i64, p]
+    lib.stream_add_launch.argtypes = [p, p, p, i64, i64, i64, p]
     lib.focal_launch.argtypes = [p, p, i32, ctypes.POINTER(i32), p,
                                  i64, i64, p]
     lib.focal_launch.restype = i32
     lib.focal_halo_launch.argtypes = [p, p, i32, ctypes.POINTER(i32), p,
                                       i64, i64, i32, p]
     lib.focal_halo_launch.restype = i32
+    lib.focal_halo_staged_launch.argtypes = [
+        p, p, i32, i32, ctypes.POINTER(i32), p, i64, i64, i32, i32, i32, i32,
+        i32, i32, i32, i32, i32, i32, i64, p]
+    lib.focal_halo_staged_launch.restype = i32
     lib.pipeline_launch.argtypes = [p, p, p, p, p, i32, f32, f32, f32, f32,
                                     f32, f32, p, i32, ctypes.POINTER(i32), p,
                                     i64, i64, p]

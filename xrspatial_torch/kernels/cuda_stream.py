@@ -5,10 +5,11 @@
 ``tools/measure_stream.py::pallas_copy`` and ``pallas_add``; their plain
 versions are ``kernels/stream.py::stream_copy`` and ``stream_add``.  Each
 wrapper takes only contiguous float32 tensors on the card, allocates the
-output (the copy may be given one), launches on PyTorch's current stream
-and raises if the launch fails.  The copy moves its buffer as
-``kernels/stream.py::copy_plan`` splits it: a scalar head and tail around
-a body of bulk copies.
+output (or is given one), launches on PyTorch's current stream and raises
+if the launch fails.  Each splits its buffers as ``kernels/stream.py::
+copy_plan`` or ``add_plan`` says: a scalar head and tail around a
+16-byte-aligned body, which the copy moves with bulk copies and the add
+with 16-byte loads and stores.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .stream import copy_plan
+from .stream import add_plan, copy_plan
 
 __all__ = ["stream_copy_cuda", "stream_add_cuda", "COPY_LAUNCHES",
            "ADD_LAUNCHES"]
@@ -57,15 +58,19 @@ def stream_copy_cuda(x: torch.Tensor, out: torch.Tensor | None = None
     return out
 
 
-def stream_add_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """`x` + `y`, a new tensor (2 reads + 1 write)."""
+def stream_add_cuda(x: torch.Tensor, y: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """`x` + `y` into `out`, a new tensor by default (2 reads + 1 write)."""
     global ADD_LAUNCHES
-    _check("stream_add_cuda", x, y)
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    _check("stream_add_cuda", x, y, out)
+    head, body, _ = add_plan(x.numel(), x.data_ptr(), y.data_ptr(),
+                             out.data_ptr())
     with torch.cuda.device(x.device):
         err = _cuda.library().stream_add_launch(
-            x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
-            _cuda.stream_of(x.device))
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), head,
+            body, _cuda.stream_of(x.device))
     _cuda.check(err, "stream_add_kernel")
     ADD_LAUNCHES += 1
     return out

@@ -4,7 +4,9 @@
   ``xrspatial_tpu/kernels/pallas_window2.py::focal_stats_tiled``;
 - ``focal_stats_halo_cuda``: ``csrc/focal_halo.cu``, replaces
   ``xrspatial_tpu/kernels/pallas_window.py::focal_stats_pallas``, for the
-  footprints beyond the tiled kernel's radius.
+  footprints beyond the tiled kernel's radius, on the route
+  ``kernels/focal_halo.py::halo_plan`` names: a whole halo window a tile,
+  staged by TMA or by cp.async, or the ring of input rows.
 
 Both take any raster shape and footprint.  A wrapper takes only a tensor
 on the card: it builds the kernel library at the first call, allocates the
@@ -21,13 +23,18 @@ import functools
 import torch
 
 from . import _cuda
+from .focal_halo import halo_plan, run_table
 
 __all__ = ["focal_stats_cuda", "focal_stats_halo_cuda", "LAUNCHES",
-           "HALO_LAUNCHES"]
+           "HALO_LAUNCHES", "HALO_TMA_LAUNCHES", "HALO_ASYNC_LAUNCHES",
+           "HALO_RING_LAUNCHES"]
 
 # launches of each kernel in this process, for checks that a path ran on it
-LAUNCHES = 0        # focal_kernel
-HALO_LAUNCHES = 0   # focal_halo_kernel
+LAUNCHES = 0             # focal_kernel
+HALO_LAUNCHES = 0        # the large-footprint kernel, every route
+HALO_TMA_LAUNCHES = 0    # ... its staged window by TMA
+HALO_ASYNC_LAUNCHES = 0  # ... its staged window by cp.async
+HALO_RING_LAUNCHES = 0   # ... the ring of input rows
 
 # the kernels' stat slots, in csrc/focal_cell.cuh's order
 _SLOT_ORDER = ("mean", "sum", "min", "max", "range", "var", "std")
@@ -37,6 +44,12 @@ _SLOT_ORDER = ("mean", "sum", "min", "max", "range", "var", "std")
 def _device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
     """(n, 2) int32 (dy, dx) pairs on the card, one per offsets tuple."""
     return torch.tensor(offsets, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_runs(table: tuple, device: torch.device) -> torch.Tensor:
+    """(runs, 2) int32 run table on the card, one per table."""
+    return torch.tensor(table, dtype=torch.int32, device=device)
 
 
 def focal_args(data: torch.Tensor, offsets, stats, who: str) -> tuple:
@@ -82,20 +95,50 @@ def focal_stats_cuda(data: torch.Tensor, offsets, stats) -> torch.Tensor:
     return out
 
 
-def focal_stats_halo_cuda(data: torch.Tensor, offsets,
-                          stats) -> torch.Tensor:
-    """(S, H, W) float32 focal statistics, stacked in `stats` order; input
-    rows staged in shared memory, for footprints of large radius."""
-    global HALO_LAUNCHES
+def focal_stats_halo_cuda(data: torch.Tensor, offsets, stats,
+                          route: str | None = None) -> torch.Tensor:
+    """(S, H, W) float32 focal statistics, stacked in `stats` order, for
+    footprints of large radius, on the route ``halo_plan`` names; `route`
+    "ring" takes the ring kernel by name (any other route must be the
+    plan's).  The routes give the same bits."""
+    global HALO_LAUNCHES, HALO_TMA_LAUNCHES, HALO_ASYNC_LAUNCHES
+    global HALO_RING_LAUNCHES
     x, offsets, offs, slots, out = focal_args(data, offsets, stats,
                                               "focal_stats_halo_cuda")
     h, w = x.shape
+    plan = halo_plan(h, w, offsets, x.data_ptr())
+    route = route or plan.route
+    if route not in ("ring", plan.route):
+        raise ValueError(f"focal_stats_halo_cuda: route {route!r} is not "
+                         f"the plan's ({plan.route!r}) or 'ring'")
+    if h * w == 0:
+        return out
+    ry = max(abs(dy) for dy, _ in offsets)
     rx = max(abs(dx) for _, dx in offsets)
     lib = _cuda.library()
     with torch.cuda.device(x.device):
-        err = lib.focal_halo_launch(x.data_ptr(), offs.data_ptr(),
-                                    len(offsets), slots, out.data_ptr(), h,
-                                    w, rx, _cuda.stream_of(x.device))
-    _cuda.check(err, "focal_halo_kernel")
+        if route == "ring":
+            err = lib.focal_halo_launch(x.data_ptr(), offs.data_ptr(),
+                                        len(offsets), slots, out.data_ptr(),
+                                        h, w, rx, _cuda.stream_of(x.device))
+        else:
+            runs = _device_runs(run_table(offsets, plan), x.device)
+            err = lib.focal_halo_staged_launch(
+                x.data_ptr(), runs.data_ptr(), runs.shape[0], len(offsets),
+                slots, out.data_ptr(), h, w, ry, rx,
+                ("tma", "async").index(route), plan.tile[0], plan.pad,
+                plan.pitch, plan.rows, plan.box[0], plan.box[1],
+                plan.shared_bytes, plan.grid, _cuda.stream_of(x.device))
+    if err < 0:
+        raise RuntimeError(f"focal_halo_staged: cuTensorMapEncodeTiled failed "
+                           f"with CUresult {-err} for a {h}x{w} float32 "
+                           f"raster, box {plan.box}")
+    _cuda.check(err, f"focal_halo ({route})")
     HALO_LAUNCHES += 1
+    if route == "tma":
+        HALO_TMA_LAUNCHES += 1
+    elif route == "async":
+        HALO_ASYNC_LAUNCHES += 1
+    else:
+        HALO_RING_LAUNCHES += 1
     return out

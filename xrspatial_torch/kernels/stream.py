@@ -4,8 +4,9 @@ Counterpart of the TPU probes ``tools/measure_stream.py::pallas_copy`` and
 ``pallas_add``.  The functions here are the torch twins, the plain
 versions of the CUDA kernels in ``cuda_stream.py``; ``copy`` and ``add``
 dispatch: a tensor on the CPU goes to the twin, a tensor on the card to
-the kernel.  ``copy_plan`` is the copy kernel's split of a buffer into a
-scalar head, a body it moves with bulk copies and a scalar tail.
+the kernel.  ``copy_plan`` and ``add_plan`` are the kernels' split of a
+buffer into a scalar head, a 16-byte-aligned body (bulk copies for the
+copy, 16-byte loads and stores for the add) and a scalar tail.
 ``xrspatial_torch.tools.measure_stream`` times them.
 """
 
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["stream_copy", "stream_add", "copy", "add", "copy_plan"]
+__all__ = ["stream_copy", "stream_add", "copy", "add", "copy_plan",
+           "add_plan"]
 
 
 def copy_plan(n: int, x_ptr: int, y_ptr: int) -> tuple:
@@ -28,7 +30,14 @@ def copy_plan(n: int, x_ptr: int, y_ptr: int) -> tuple:
     scalar, ``(0, 0, n)``.  The launcher in ``csrc/stream.cu`` checks the
     same rule.
     """
-    if x_ptr % 16 != y_ptr % 16 or x_ptr % 4:
+    return add_plan(n, x_ptr, y_ptr, y_ptr)
+
+
+def add_plan(n: int, x_ptr: int, y_ptr: int, z_ptr: int) -> tuple:
+    """(head, body, tail): how the add kernel splits `n` float32 values of
+    x + y at addresses `x_ptr`, `y_ptr` into z at `z_ptr`: the copy's rule
+    (``copy_plan``) with all three pointers alike mod 16."""
+    if not x_ptr % 16 == y_ptr % 16 == z_ptr % 16 or x_ptr % 4:
         return 0, 0, n
     head = min(n, (16 - x_ptr % 16) % 16 // 4)
     body = (n - head) // 4 * 4

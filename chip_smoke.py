@@ -18,14 +18,21 @@ Phases, each fatal on failure:
 6. jump-flood rounds: the CUDA round kernel against its twins over whole
    stride schedules, at small and ragged shapes, for each state form and
    metric, with and without a value channel, including a raster with no
-   target: bit for bit, great circle within rtol 1e-4;
+   target, on the routes ``kernels/jfa_plan.py::round_plan`` names and on
+   each route by name (staged, vector, simple; simple where the route
+   cannot take a stride): bit for bit, great circle within rtol 1e-4;
+   every route launched at least once;
 7. proximity path: ``proximity``, ``allocation`` and ``direction`` on the
    16384^2 DEM's targets (``dem > 900``, about 2% of the cells), the calls
-   users make; exactly 16 round launches per call and no twin call, full-
-   size agreement with the twin path, and exhaustive search on 1024
-   sampled cells;
-8. timing (informational): warm proximity, allocation and direction, and
-   the round kernel's schedule against its twin's, from CUDA events;
+   users make; exactly 16 round launches per call, counted by route
+   (``cuda_jfa.STAGED_LAUNCHES``/``VECTOR_LAUNCHES``/``SIMPLE_LAUNCHES``)
+   as the plan names them, and no twin call, full-size agreement with the
+   twin path, and exhaustive search on 1024 sampled cells;
+8. timing (informational): warm proximity, allocation and direction; the
+   round kernel's schedule on the plan against its twin's, and against
+   the first port (simple by name) in turns; one round of every stride on
+   every route that can take it, in turns (the per-stride table), with
+   the strides where the plan's route is slower than simple;
 9. halo and pipeline kernels vs twins: the large-footprint focal kernel
    (annulus 40/38, 1x601, 67x1, an irregular mask and a sparse footprint
    of radius 500) on the route its plan names against the ring route
@@ -98,7 +105,9 @@ Phases, each fatal on failure:
    the first two, TMA at the third);
    the fused group (B8g) against the round kernel launched once per
    stride, bit for bit, in both state forms at every metric, for
-   proximity's tail group, (64,) and (2, 1);
+   proximity's tail group, (64,) and (2, 1), on each of its routes: the
+   plan's single-buffered one (cp.async at the first two shapes, TMA at
+   263x516) and the first port (double) by name;
 22. probes at full size: ``python -m xrspatial_torch.tools.exp_stencil2``,
    ``exp_separable_horn``, ``exp_padfree_stencil`` and ``exp_seam_cost``
    at 16384^2, the tools users run (each kernel checked against its twin
@@ -107,8 +116,9 @@ Phases, each fatal on failure:
    ``exp_jfa_fixed`` at its 4096^2 (the JAX probe's groups that
    fit, against the round kernel); then the fused group on proximity's
    16384^2 packed state after its first 9 rounds (targets ``dem > 900``):
-   the tail group (16, 8, 4, 2, 1, 2, 1) in one launch against the round
-   kernel's seven, bit for bit, and both and the twin timed in turns.
+   the tail group (16, 8, 4, 2, 1, 2, 1) in one single-buffered launch
+   against the round kernel's seven, bit for bit, and the group's routes
+   and the seven launches timed in turns, the twin once.
 
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -116,7 +126,9 @@ of the bytes over 3.35 TB/s and the float operations, counted from the
 sources, over 67 TFLOP/s) and the same bound at the stream roof measured
 in phase 18 (``measured_roof_bound_ms``, and its share of ``ms``), and
 the design its timed launch ran (``design``: the staged route and tile of
-the large-footprint kernel, the stream kernels' bulk rings); the last
+the large-footprint kernel, the stream kernels' bulk rings, the jump-flood
+round's per-stride routes, the group's window) and, for the two jump-flood
+kernels, the first port's time by name (``first_port_ms``); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits 1 before printing any result.
 """
@@ -281,8 +293,23 @@ def jfa_initial(form, mask, values, xs, ys):
             torch.where(mask, ys[:, None], np.inf), val]
 
 
-def jfa_schedule(use_kernel, form, init, xs, ys, metric, steps):
-    """Run jump_flood's whole stride schedule through the round kernel or
+def jfa_route(route, form, state, k, with_val):
+    """`route` by name where it can take the round, else "simple"; None
+    ("plan") leaves the choice to round_plan."""
+    from xrspatial_torch.kernels.jfa_plan import round_plan
+    if route is None:
+        return None
+    h, w = state.shape
+    try:
+        round_plan(h, w, k, form, with_val, route=route)
+        return route
+    except ValueError:
+        return "simple"
+
+
+def jfa_schedule(use_kernel, form, init, xs, ys, metric, steps, route=None):
+    """Run jump_flood's whole stride schedule through the round kernel (on
+    the plan's routes, or `route` by name where it can take a round) or
     through its twins; returns the final planes and each cell's key."""
     from xrspatial_torch.kernels import cuda_jfa, jfa_rounds
     from xrspatial_torch.kernels.jfa import _stride_schedule
@@ -295,18 +322,33 @@ def jfa_schedule(use_kernel, form, init, xs, ys, metric, steps):
             if use_kernel:
                 state, val, best = cuda_jfa.round_packed_cuda(
                     state, val, k, metric, steps,
-                    emit_best=n == len(strides) - 1)
+                    emit_best=n == len(strides) - 1,
+                    route=jfa_route(route, form, state, k, val is not None))
             else:
                 state, val, best = jfa_rounds.round_packed(
                     state, val, k, metric, steps)
         return {"state": state, "value": val, "best": best}
     tx, ty, val = init
     for k in strides:
-        fn = cuda_jfa.round_coords_cuda if use_kernel \
-            else jfa_rounds.round_coords
-        tx, ty, val = fn(tx, ty, val, xs, ys, k, metric)
+        if use_kernel:
+            tx, ty, val = cuda_jfa.round_coords_cuda(
+                tx, ty, val, xs, ys, k, metric,
+                route=jfa_route(route, form, tx, k, val is not None))
+        else:
+            tx, ty, val = jfa_rounds.round_coords(tx, ty, val, xs, ys, k,
+                                                  metric)
     best = jfa_rounds.coords_key(xs[None, :], ys[:, None], tx, ty, metric)
     return {"tx": tx, "ty": ty, "value": val, "best": best}
+
+
+JFA_ROUTES = (None, "staged", "vector", "simple")   # None: the plan's
+
+
+def jfa_route_launches():
+    from xrspatial_torch.kernels import cuda_jfa
+    return {"staged": cuda_jfa.STAGED_LAUNCHES,
+            "vector": cuda_jfa.VECTOR_LAUNCHES,
+            "simple": cuda_jfa.SIMPLE_LAUNCHES}
 
 
 # (label, metric, axes, value channel): 0 euclidean, 1 great circle,
@@ -319,10 +361,13 @@ JFA_MODES = (("euclidean", 0, "affine", False),
 
 
 def check_jfa_rounds(dev):
-    """Phase 6: the round kernel against its twins, whole schedules."""
+    """Phase 6: the round kernel against its twins, whole schedules, on
+    the plan's routes and on each route by name (simple where it cannot
+    take a stride)."""
     import torch
-    from xrspatial_torch.kernels.jfa import _metric_finalize, packed_state_plan
-    print("== jump-flood round kernel vs twins on the card")
+    from xrspatial_torch.kernels.jfa import packed_state_plan
+    print("== jump-flood round kernel vs twins on the card, every route")
+    counts = dict.fromkeys(("staged", "vector", "simple"), 0)
     for si, shape in enumerate(JFA_SHAPES):
         for layout in (("targets", "none") if si == 0 else ("targets",)):
             rng = np.random.default_rng(200 + si)
@@ -342,29 +387,45 @@ def check_jfa_rounds(dev):
                 init = jfa_initial(form, mask, values if with_val else None,
                                    xs, ys)
                 steps = plan[0] if plan is not None else None
-                got = jfa_schedule(True, form, init, xs, ys, metric, steps)
                 ref = jfa_schedule(False, form, init, xs, ys, metric, steps)
-                torch.cuda.synchronize()
-                name = f"jfa {shape} {layout} {label} ({form})"
-                if metric == 1:
-                    moved = int(((got["tx"] != ref["tx"])
-                                 | (got["ty"] != ref["ty"])).sum())
-                    gd = _metric_finalize(got["best"], metric)
-                    rd = _metric_finalize(ref["best"], metric)
-                    check(f"{name} distance, {moved} cells chose another "
-                          f"target", gd, rd, dict(rtol=GC_RTOL, atol=0.0))
-                    continue
-                for plane, g in got.items():
-                    r = ref[plane]
-                    if (g is None) != (r is None):
-                        raise SmokeFailure(f"{name} {plane}: one side has no "
-                                           f"plane")
-                    if g is not None and not torch.equal(g, r):
-                        n_bad = int((g != r).sum())
-                        raise SmokeFailure(f"{name} {plane}: {n_bad} cells "
-                                           f"differ from the twin")
-                print(f"  {name}: bit for bit")
+                for route in JFA_ROUTES:
+                    before = jfa_route_launches()
+                    got = jfa_schedule(True, form, init, xs, ys, metric,
+                                       steps, route)
+                    torch.cuda.synchronize()
+                    for r, n in jfa_route_launches().items():
+                        counts[r] += n - before[r]
+                    name = (f"jfa {shape} {layout} {label} ({form}, "
+                            f"{route or 'plan'})")
+                    check_jfa_planes(name, got, ref, metric)
         torch.cuda.synchronize()
+    print(f"  launches by route over phase 6: {counts}")
+    if not all(counts.values()):
+        raise SmokeFailure(f"a route of jfa_round never ran: {counts}")
+
+
+def check_jfa_planes(name, got, ref, metric):
+    """Every plane of `got` equal to `ref`'s (great circle: the distances
+    within GC_RTOL)."""
+    import torch
+    from xrspatial_torch.kernels.jfa import _metric_finalize
+    if metric == 1:
+        moved = int(((got["tx"] != ref["tx"])
+                     | (got["ty"] != ref["ty"])).sum())
+        gd = _metric_finalize(got["best"], metric)
+        rd = _metric_finalize(ref["best"], metric)
+        check(f"{name} distance, {moved} cells chose another target", gd,
+              rd, dict(rtol=GC_RTOL, atol=0.0))
+        return
+    for plane, g in got.items():
+        r = ref[plane]
+        if (g is None) != (r is None):
+            raise SmokeFailure(f"{name} {plane}: one side has no plane")
+        if g is not None and not torch.equal(g, r):
+            n_bad = int((g != r).sum())
+            raise SmokeFailure(f"{name} {plane}: {n_bad} cells differ from "
+                               f"the twin")
+    print(f"  {name}: bit for bit")
 
 
 @contextlib.contextmanager
@@ -457,6 +518,7 @@ def proximity_path(dem, dev, card):
     import xrspatial_torch as xt
     from xrspatial_torch.kernels import cuda_jfa
     from xrspatial_torch.kernels.jfa import _stride_schedule, packed_state_plan
+    from xrspatial_torch.kernels.jfa_plan import round_plan
     print(f"== proximity path: {N}x{N}, targets dem > 900")
     ys_np = np.arange(N, dtype=float)[::-1].copy()
     xs_np = np.arange(N, dtype=float)
@@ -468,17 +530,20 @@ def proximity_path(dem, dev, card):
           f"({float(tgt.mean()) * 100:.2f}%)")
     aggs = {f: xt.DataArray(v, dims=("y", "x"), coords=coords)
             for f, v in inputs.items()}
-    outs, launches, first_ms = {}, {}, {}
+    outs, launches, first_ms, by_route = {}, {}, {}, {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with rounds_on("kernel"):
         for f, agg in aggs.items():
             cuda_jfa.LAUNCHES = 0
+            cuda_jfa.STAGED_LAUNCHES = cuda_jfa.VECTOR_LAUNCHES = 0
+            cuda_jfa.SIMPLE_LAUNCHES = 0
             t0 = time.perf_counter()
             out = getattr(xt, f)(agg).data
             torch.cuda.synchronize()
             first_ms[f] = (time.perf_counter() - t0) * 1e3
             launches[f] = cuda_jfa.LAUNCHES
+            by_route[f] = jfa_route_launches()
             if out.device.type != "cuda" or tuple(out.shape) != (N, N) \
                     or out.dtype != torch.float32:
                 raise SmokeFailure(f"{f}: {tuple(out.shape)} {out.dtype} on "
@@ -488,9 +553,18 @@ def proximity_path(dem, dev, card):
     print(f"  launches {launches}, first calls (host clock, ms) "
           f"{ {k: round(v, 1) for k, v in first_ms.items()} }, peak "
           f"allocated {peak_gib:.2f} GiB")
+    print(f"  round launches by route: {by_route}")
     if any(n != ROUNDS_AT_N for n in launches.values()):
         raise SmokeFailure(f"expected {ROUNDS_AT_N} round launches per call, "
                            f"got {launches}")
+    for f in FUNCS:
+        want = {r: 0 for r in ("staged", "vector", "simple")}
+        for k in _stride_schedule(N):
+            want[round_plan(N, N, int(k), "packed",
+                            f == "allocation").route] += 1
+        if by_route[f] != want:
+            raise SmokeFailure(f"{f}: round launches by route {by_route[f]}, "
+                               f"the plan names {want}")
     prox, alloc, direc = (outs[f] for f in FUNCS)
     on_target = tgt != 0
     if not (bool(torch.isfinite(prox).all()) and bool((prox >= 0).all())
@@ -541,21 +615,63 @@ def proximity_path(dem, dev, card):
         lambda: jfa_schedule(True, "packed", init, xs, ys, 0, plan[0]),
         lambda: jfa_schedule(False, "packed", init, xs, ys, 0, plan[0]),
         5, 1)
-    print(f"  jfa_round, {ROUNDS_AT_N} rounds of one proximity call: kernel "
-          f"{rounds[0]:.3f} ms ({rounds[0] / ROUNDS_AT_N:.3f} ms a round), "
-          f"twin {rounds[1]:.3f} ms, {card}")
-    state = init[0]
-    per_k = []
-    for k in _stride_schedule(N):
-        per_k.append((int(k), cuda_time_ms(
-            lambda k=k: cuda_jfa.round_packed_cuda(state, None, int(k), 0,
-                                                   plan[0]), 3)))
-    print("  jfa_round by stride (ms): "
-          + ", ".join(f"k={k} {t:.3f}" for k, t in per_k) + f", {card}")
-    del init, state, aggs, inputs, tgt
+    on_plan, simple = paired_ms(
+        lambda: jfa_schedule(True, "packed", init, xs, ys, 0, plan[0]),
+        lambda: jfa_schedule(True, "packed", init, xs, ys, 0, plan[0],
+                             "simple"), 5, 5)
+    print(f"  jfa_round, {ROUNDS_AT_N} rounds of one proximity call: on the "
+          f"plan {rounds[0]:.3f} ms ({rounds[0] / ROUNDS_AT_N:.3f} ms a "
+          f"round), twin {rounds[1]:.3f} ms; in turns with the first port: "
+          f"plan {on_plan:.3f} ms, simple by name {simple:.3f} ms, {card}")
+    table = stride_table(init[0], plan[0], card)
+    del init, aggs, inputs, tgt
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return launches["proximity"], max_err, rounds
+    return launches["proximity"], max_err, rounds, {
+        "plan_ms": on_plan, "simple_ms": simple, "table": table}
+
+
+def stride_table(state, steps, card, reps=3):
+    """Phase 8's table: one round of every stride of the N^2 schedule on
+    every route that can take it (the vector route in both row orders
+    where the plan takes k-phase order), timed in turns (the legs of a
+    stride in order, then reversed); returns {k: {leg: ms}} and prints
+    whether the plan's route is ever slower than simple by name."""
+    from xrspatial_torch.kernels import cuda_jfa
+    from xrspatial_torch.kernels.jfa import _stride_schedule
+    from xrspatial_torch.kernels.jfa_plan import round_plan
+    h, w = state.shape
+    table, slower = {}, []
+    print(f"  jfa_round by stride and route (ms, in turns), {card}:")
+    for k in dict.fromkeys(int(k) for k in _stride_schedule(N)):
+        legs = {}
+        for route in ("staged", "vector", "simple"):
+            try:
+                p = round_plan(h, w, k, "packed", False, route=route)
+            except ValueError:
+                continue
+            legs[route] = dict(route=route)
+            if route == "vector":
+                legs["vector " + ("rows" if p.phased else "k-phase")] = \
+                    dict(route=route, phased=not p.phased)
+        times = {}
+        for name in [*legs, *reversed(legs)]:
+            kw = legs[name]
+            times.setdefault(name, []).append(cuda_time_ms(
+                lambda kw=kw: cuda_jfa.round_packed_cuda(state, None, k, 0,
+                                                         steps, **kw), reps))
+        times = {n: sum(v) / len(v) for n, v in times.items()}
+        chosen = round_plan(h, w, k, "packed", False)
+        table[k] = times
+        print(f"    k={k}: " + ", ".join(f"{n} {t:.4f}"
+                                          for n, t in times.items())
+              + f"; plan: {chosen.route}"
+              + (" k-phase" if chosen.phased else ""))
+        if times[chosen.route] > times["simple"]:
+            slower.append(k)
+    print(f"  strides where the plan's route is slower than simple by name: "
+          f"{slower or 'none'}")
+    return table
 
 
 # -- the halo and pipeline kernels, the fused and annulus paths --------------
@@ -698,12 +814,15 @@ def reset_launches():
     cuda_window.HALO_TMA_LAUNCHES = cuda_window.HALO_ASYNC_LAUNCHES = 0
     cuda_window.HALO_RING_LAUNCHES = 0
     cuda_jfa.LAUNCHES = 0
+    cuda_jfa.STAGED_LAUNCHES = cuda_jfa.VECTOR_LAUNCHES = 0
+    cuda_jfa.SIMPLE_LAUNCHES = 0
     cuda_screen.LAUNCHES = cuda_screen.F64_LAUNCHES = 0
     cuda_surface.STACKED_LAUNCHES = 0
     cuda_stream.COPY_LAUNCHES = cuda_stream.ADD_LAUNCHES = 0
     cuda_stencil_probe.LAUNCHES = cuda_stencil_probe.EDGE_LAUNCHES = 0
     cuda_stencil_probe.TMA_LAUNCHES = cuda_stencil_probe.ASYNC_LAUNCHES = 0
     cuda_jfa_group.LAUNCHES = 0
+    cuda_jfa_group.SINGLE_LAUNCHES = cuda_jfa_group.DOUBLE_LAUNCHES = 0
 
 
 def read_launches():
@@ -1810,8 +1929,8 @@ def group_case(dev, form, metric, axes, shape, rng):
                 s, _, _ = cuda_jfa.round_packed_cuda(s, None, k, metric,
                                                      steps)
             return (s,)
-        return (lambda ks: (cuda_jfa_group.group_packed_cuda(
-            state, ks, metric, steps),), rounds)
+        return (lambda ks, **kw: (cuda_jfa_group.group_packed_cuda(
+            state, ks, metric, steps, **kw),), rounds)
     tx, ty, _ = jfa_initial("coords", mask, None, xs, ys)
     for k in (64, 32):
         tx, ty, _ = cuda_jfa.round_coords_cuda(tx, ty, None, xs, ys, k,
@@ -1823,38 +1942,49 @@ def group_case(dev, form, metric, axes, shape, rng):
             a, b, _ = cuda_jfa.round_coords_cuda(a, b, None, xs, ys, k,
                                                  metric)
         return a, b
-    return (lambda ks: cuda_jfa_group.group_coords_cuda(tx, ty, xs, ys, ks,
-                                                        metric), rounds)
+    return (lambda ks, **kw: cuda_jfa_group.group_coords_cuda(
+        tx, ty, xs, ys, ks, metric, **kw), rounds)
+
+
+# the group's routes, checked in phase 21 and timed in phase 22: the
+# plan's (single-buffered) and the first port by name
+GROUP_ROUTES = ("single", "double")
 
 
 def check_jfa_group(dev):
-    """Phase 21b: the fused group against the round kernel launched once
-    per stride, bit for bit, every state form and metric."""
+    """Phase 21b: the fused group on each of its routes against the round
+    kernel launched once per stride, bit for bit, every state form and
+    metric."""
     import torch
     from xrspatial_torch.kernels.jfa_group import window_plan
     print("== fused jump-flood group vs the round kernel on the card")
-    for si, shape in enumerate(PROBE_SHAPES):
+    for si, shape in enumerate(PROBE_SHAPES + (STAGED_RAGGED,)):
         rng = np.random.default_rng(900 + si)
         for form, modes in GROUP_MODES.items():
             for label, metric, axes in modes:
                 fused, rounds = group_case(dev, form, metric, axes, shape,
                                            rng)
                 for gname, ks in GROUPS.items():
-                    tag = f"jfa_group {shape} {form} {label} {ks}"
-                    try:
-                        tile, _, nbytes = window_plan(ks, form)
-                    except ValueError as exc:
-                        print(f"  {tag}: not run, {exc}")
-                        continue
-                    got, ref = fused(ks), rounds(ks)
-                    torch.cuda.synchronize()
-                    n_bad = sum(int((g != r).sum()) for g, r in zip(got, ref))
-                    if n_bad:
-                        raise SmokeFailure(f"{tag}: {n_bad} cells differ from "
-                                           f"the round kernel")
-                    print(f"  {tag}: T = {tile}, {nbytes} bytes of shared "
-                          f"memory, equal to {len(ks)} round launches bit "
-                          f"for bit")
+                    ref = rounds(ks)
+                    for route in GROUP_ROUTES:
+                        tag = f"jfa_group {shape} {form} {label} {ks} {route}"
+                        try:
+                            plan = window_plan(ks, form, route, shape[1])
+                        except ValueError as exc:
+                            print(f"  {tag}: not run, {exc}")
+                            continue
+                        got = fused(ks, route=route)
+                        torch.cuda.synchronize()
+                        n_bad = sum(int((g != r).sum())
+                                    for g, r in zip(got, ref))
+                        if n_bad:
+                            raise SmokeFailure(f"{tag}: {n_bad} cells differ "
+                                               f"from the round kernel")
+                        print(f"  {tag}: T = {plan.tile}, "
+                              f"{plan.stage or 'plain loads'}, "
+                              f"{plan.shared_bytes} bytes of shared memory, "
+                              f"equal to {len(ks)} round launches bit for "
+                              f"bit")
         torch.cuda.synchronize()
 
 
@@ -1956,31 +2086,41 @@ def jfa_group_path(dev, card):
     launches = read_launches()
     if not only(launches, "jfa_group"):
         raise SmokeFailure(f"fused group: launches {launches}")
+    if cuda_jfa_group.SINGLE_LAUNCHES != 1:
+        raise SmokeFailure("fused group: the launch was not single-buffered")
     ref = rounds()
     n_bad = int((got != ref).sum())
-    tile, h, nbytes = window_plan(TAIL, "packed")
-    print(f"  one launch, T = {tile}, H = {h}, {nbytes} bytes of shared "
-          f"memory; {n_bad} cells differ from the round kernel's "
-          f"{len(TAIL)} launches; {int((got < 0).sum())} cells without a "
-          f"target")
+    plan = window_plan(TAIL, "packed", w=N)
+    print(f"  one launch, {plan.route}, staged by {plan.stage}, T = "
+          f"{plan.tile}, H = {plan.halo}, "
+          f"{plan.shared_bytes} bytes of shared memory; {n_bad} cells differ "
+          f"from the round kernel's {len(TAIL)} launches; "
+          f"{int((got < 0).sum())} cells without a target")
     if n_bad:
         raise SmokeFailure(f"fused group: {n_bad} cells differ from the "
                            f"round kernel")
+    if not torch.equal(cuda_jfa_group.group_packed_cuda(
+            state, TAIL, 0, steps, "double"), got):
+        raise SmokeFailure("fused group: the first port differs")
     if not torch.equal(group_packed_twin(state, TAIL, 0, steps), got):
         raise SmokeFailure("fused group: differs from the twin")
     del got, ref
     print(f"== timing: fused jump-flood group at {N}x{N} on {card}")
-    ms = paired_ms(lambda: cuda_jfa_group.group_packed_cuda(
-        state, TAIL, 0, steps), lambda: group_packed_twin(
-        state, TAIL, 0, steps), 10, 1)
-    per_round = cuda_time_ms(rounds, 5)
-    print(f"  jfa_group, tail {TAIL}: kernel {ms[0]:.3f} ms, round kernel "
-          f"launched {len(TAIL)} times {per_round:.3f} ms, twin "
-          f"{ms[1]:.3f} ms, {card}")
+    legs = {route: lambda route=route: cuda_jfa_group.group_packed_cuda(
+        state, TAIL, 0, steps, route) for route in GROUP_ROUTES}
+    legs[f"{len(TAIL)} round launches"] = rounds
+    times = {}
+    for name in [*legs, *reversed(legs)]:
+        times.setdefault(name, []).append(cuda_time_ms(legs[name], 10))
+    times = {n: sum(v) / len(v) for n, v in times.items()}
+    twin = cuda_time_ms(lambda: group_packed_twin(state, TAIL, 0, steps), 1)
+    print(f"  jfa_group, tail {TAIL}, in turns: "
+          + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items())
+          + f"; twin {twin:.3f} ms, {card}")
     del state
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return launches["jfa_group"], ms, per_round
+    return launches["jfa_group"], (times["single"], twin), times
 
 
 # -- the least time of each kernel ------------------------------------------
@@ -2069,6 +2209,31 @@ def kernel_bounds(work, roof_bytes_s):
     roof: {name: ((ms, by), (ms, by))}."""
     return {k: (bound(b, ops), bound(b, ops, roof_bytes_s))
             for k, (b, ops) in work.items()}
+
+
+def jfa_design():
+    """The routes round_plan gives proximity's N^2 schedule."""
+    from xrspatial_torch.kernels.jfa import _stride_schedule
+    from xrspatial_torch.kernels.jfa_plan import round_plan
+    parts = []
+    for k in _stride_schedule(N):
+        p = round_plan(N, N, int(k), "packed", False)
+        name = p.route + (f" ({p.stage})" if p.stage else "") + \
+            (" k-phase" if p.phased else "")
+        if parts and parts[-1][0] == name:
+            parts[-1][1].append(int(k))
+        else:
+            parts.append((name, [int(k)]))
+    return "per-stride plan: " + "; ".join(
+        f"{name} at k={','.join(map(str, ks))}" for name, ks in parts)
+
+
+def group_design():
+    from xrspatial_torch.kernels.jfa_group import (SINGLE_THREADS, TAIL,
+                                                   window_plan)
+    p = window_plan(TAIL, "packed", w=N)
+    return (f"{p.route}-buffered window staged by {p.stage}, T={p.tile}, "
+            f"{SINGLE_THREADS} threads, flat regions")
 
 
 def main() -> int:
@@ -2226,8 +2391,8 @@ def main() -> int:
 
     # -- the proximity family ------------------------------------------------
     check_jfa_rounds(dev)
-    launches["jfa_round"], max_err["jfa_round"], ms["jfa_round"] = \
-        proximity_path(dem, dev, card)
+    launches["jfa_round"], max_err["jfa_round"], ms["jfa_round"], \
+        jfa_timing = proximity_path(dem, dev, card)
 
     # -- the halo and pipeline kernels, the fused and annulus paths ----------
     halo_small_err = check_halo_and_pipeline(dev)
@@ -2275,7 +2440,8 @@ def main() -> int:
         launches[k], ms[k] = n, row_ms
         max_err[k] = max(err, probe_errs[k])
         library_ms[k] = lib
-    launches["jfa_group"], ms["jfa_group"], _ = jfa_group_path(dev, card)
+    launches["jfa_group"], ms["jfa_group"], group_times = jfa_group_path(
+        dev, card)
     max_err["jfa_group"] = 0.0             # equal to the rounds bit for bit
 
     work = kernel_work(
@@ -2342,7 +2508,12 @@ def main() -> int:
                              f"cells a thread",
         "stream_copy": "bulk-async ring",
         "stream_add": "one-shot grid, 4 float4 pairs a thread, streaming",
-        "stencil_probe_b8c": "staged window by TMA, 32x248"}
+        "stencil_probe_b8c": "staged window by TMA, 32x248",
+        "jfa_round": jfa_design(),
+        "jfa_group": group_design()}
+    # the first ports, kept by name, timed in turns with the redesigns
+    first_port_ms = {"jfa_round": jfa_timing["simple_ms"],
+                     "jfa_group": group_times["double"]}
     # Tensor.copy_ and torch.add compute the stream probes' functions and
     # the copy mode of B8c's; no single PyTorch call computes any of the
     # others
@@ -2353,7 +2524,9 @@ def main() -> int:
          "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0][0],
          "bound_by": bounds[k][0][1], "library_ms": library_ms.get(k),
          "measured_roof_bound_ms": bounds[k][1][0],
-         "measured_roof_share": bounds[k][1][0] / ms[k][0]}
+         "measured_roof_share": bounds[k][1][0] / ms[k][0],
+         **({"first_port_ms": first_port_ms[k]} if k in first_port_ms
+            else {})}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -33,9 +33,13 @@ staged slope equal the surface kernel's bit for bit, NaN ring included;
 the staged form takes the route its plan names; the stream copy and add
 equal their twins at every alignment of their pointers; the
 large-footprint focal kernel takes the route its plan names and its
-staged routes equal the ring route bit for bit; the fused jump-flood group
-equals the round kernel launched once per stride, bit for bit, in both
-state forms and at every metric.
+staged routes equal the ring route bit for bit; the jump-flood round
+kernel's routes (staged, vector, simple), by name and as
+``jfa_plan.round_plan`` names them, equal the twins and the first port
+bit for bit, and its launcher refuses an unsafe plan; the fused
+jump-flood group equals the round kernel launched once per stride, bit
+for bit, in both state forms and at every metric, and its single-buffered
+route equals its first port.
 """
 
 import numpy as np
@@ -50,7 +54,8 @@ from xrspatial_torch.kernels import _cuda, cuda_jfa, cuda_jfa_group
 from xrspatial_torch.kernels import cuda_pipeline, cuda_screen
 from xrspatial_torch.kernels import cuda_stencil_probe, cuda_stream
 from xrspatial_torch.kernels import cuda_surface, cuda_window, jfa
-from xrspatial_torch.kernels import jfa_group, jfa_rounds, screen, shadows
+from xrspatial_torch.kernels import jfa_group, jfa_plan, jfa_rounds, screen
+from xrspatial_torch.kernels import shadows
 from xrspatial_torch.kernels import stencil_probe, stream, surface
 from xrspatial_torch.kernels import viewshed_exact
 from xrspatial_torch.kernels.focal_halo import halo_plan
@@ -262,6 +267,176 @@ def test_jfa_round_kernel_matches_twin(cuda, mode, shape):
         assert (g is None) == (r is None), plane
         if g is not None:
             assert torch.equal(g, r), plane
+
+
+def round_counts():
+    return (cuda_jfa.STAGED_LAUNCHES, cuda_jfa.VECTOR_LAUNCHES,
+            cuda_jfa.SIMPLE_LAUNCHES)
+
+
+def routed(route, phased=None):
+    """Round functions on `route` by name where it can take the round,
+    else on the simple route by name."""
+    def pick(form, state, k, with_val):
+        h, w = state.shape
+        try:
+            jfa_plan.round_plan(h, w, k, form, with_val, route=route)
+            return route
+        except ValueError:
+            return "simple"
+
+    def packed(state, val, k, metric, steps):
+        r = pick("packed", state, k, val is not None)
+        return cuda_jfa.round_packed_cuda(state, val, k, metric, steps,
+                                          emit_best=True, route=r,
+                                          phased=phased if r == "vector"
+                                          else None)
+
+    def coords(tx, ty, val, xs, ys, k, metric):
+        r = pick("coords", tx, k, val is not None)
+        return cuda_jfa.round_coords_cuda(tx, ty, val, xs, ys, k, metric,
+                                          route=r, phased=phased
+                                          if r == "vector" else None)
+    return packed, coords
+
+
+def jfa_case(cuda, mode, shape, seed=11):
+    metric, kind, with_val = JFA_MODES[mode]
+    rng = np.random.default_rng(seed)
+    mask_np = rng.random(shape) < 0.02
+    mask_np[0, shape[1] // 2] = True
+    mask = torch.from_numpy(mask_np).to(cuda)
+    values = torch.from_numpy(
+        rng.uniform(1, 9, shape).astype(np.float32)).to(cuda)
+    ys, xs = (torch.from_numpy(a).to(cuda) for a in jfa_axes(kind, *shape))
+    return (mask, values if with_val else None, xs, ys, metric)
+
+
+def assert_same_planes(got, ref, metric):
+    assert set(got) == set(ref)
+    if metric == 1:
+        d_got = jfa._metric_finalize(got["best"], metric).cpu().numpy()
+        d_ref = jfa._metric_finalize(ref["best"], metric).cpu().numpy()
+        np.testing.assert_allclose(d_got, d_ref, rtol=1e-4)
+        return
+    for plane, g in got.items():
+        r = ref[plane]
+        assert (g is None) == (r is None), plane
+        if g is not None:
+            assert torch.equal(g, r), plane
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(70, 300), (1, 257), (33, 47), (2, 5),
+                                   (129, 1024)])
+@pytest.mark.parametrize("mode", list(JFA_MODES))
+@pytest.mark.parametrize("route", ["staged", "vector", "simple"])
+def test_jfa_round_route_by_name_matches_twin(cuda, route, mode, shape):
+    """Each route by name (simple where it cannot take a stride) over the
+    whole schedule, against the twins, every form, metric and value
+    plane."""
+    args = jfa_case(cuda, mode, shape)
+    before = round_counts()
+    got = jfa_run(*routed(route), *args)
+    torch.cuda.synchronize()
+    n = len(jfa._stride_schedule(max(shape)))
+    after = round_counts()
+    assert sum(after) - sum(before) == n
+    if route != "simple" and shape[1] % 4 == 0 and shape != (1, 257):
+        assert after[("staged", "vector").index(route)] > \
+            before[("staged", "vector").index(route)]
+    ref = jfa_run(jfa_rounds.round_packed, jfa_rounds.round_coords, *args)
+    assert_same_planes(got, ref, args[-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(257, 1025), (1025, 2048), (300, 512)])
+@pytest.mark.parametrize("mode", ["euclidean", "allocation_values",
+                                  "euclidean_nonaffine_values",
+                                  "great_circle"])
+def test_jfa_round_plan_equals_simple_by_name(cuda, mode, shape):
+    """The plan's routes against the first port by name, bit for bit, and
+    the vector route's k-phase row order against its row order."""
+    args = jfa_case(cuda, mode, shape, seed=12)
+    plan_run = jfa_run(kernel_packed, cuda_jfa.round_coords_cuda, *args)
+    simple = jfa_run(*routed("simple"), *args)
+    for plane, g in plan_run.items():
+        if g is not None:
+            assert torch.equal(g, simple[plane]), plane
+    if shape[1] % 4 == 0:
+        for phased in (True, False):
+            got = jfa_run(*routed("vector", phased), *args)
+            for plane, g in got.items():
+                if g is not None:
+                    assert torch.equal(g, simple[plane]), (plane, phased)
+
+
+@pytest.mark.gpu
+def test_jfa_round_takes_cp_async_and_simple_from_an_unaligned_base(cuda):
+    """A state that starts 4 bytes past an aligned address: the staged
+    route stages by cp.async, the strides the plan gives the vector route
+    go to simple, and the bits are the twin's."""
+    h, w = 70, 300
+    rng = np.random.default_rng(5)
+    mask = torch.from_numpy(rng.random((h, w)) < 0.02).to(cuda)
+    iy = torch.arange(h, dtype=torch.int32, device=cuda)[:, None]
+    ix = torch.arange(w, dtype=torch.int32, device=cuda)[None, :]
+    flat = torch.empty(h * w + 1, dtype=torch.int32, device=cuda)
+    state = flat[1:].view(h, w)
+    state.copy_(torch.where(mask, (iy << 15) | ix, -1))
+    assert jfa_plan.round_plan(h, w, 1, "packed", False,
+                               state.data_ptr()).stage == "async"
+    assert jfa_plan.round_plan(h, w, 64, "packed", False,
+                               state.data_ptr()).route == "simple"
+    for k in (64, 8, 2, 1):
+        before = round_counts()
+        got, _, best = cuda_jfa.round_packed_cuda(state, None, k, 0,
+                                                  (1.0, 1.0), emit_best=True)
+        torch.cuda.synchronize()
+        moved = [b - a for a, b in zip(before, round_counts())]
+        assert moved == ([0, 0, 1] if k == 64 else [1, 0, 0])
+        ref, _, rbest = jfa_rounds.round_packed(state, None, k, 0, (1.0, 1.0))
+        assert torch.equal(got, ref) and torch.equal(best, rbest)
+        state = flat[1:].view(h, w)
+        state.copy_(got)
+    with pytest.raises(ValueError, match="vector route cannot"):
+        cuda_jfa.round_packed_cuda(state, None, 64, 0, (1.0, 1.0),
+                                   route="vector")
+
+
+@pytest.mark.gpu
+def test_jfa_round_launcher_refuses_an_unsafe_plan(cuda):
+    """jfa_round_routed launches round_plan's plans and refuses one that
+    breaks a safety rule of its route."""
+    import ctypes
+    h, w = 64, 256
+    state = torch.full((h, w), -1, dtype=torch.int32, device=cuda)
+    state[10, 20] = (10 << 15) | 20
+    out = torch.empty_like(state)
+    arr = ctypes.c_void_p * 3
+
+    def launch(plan, stride, **change):
+        a = {**plan._asdict(), "k": stride, **change}
+        return _cuda.library().jfa_round_routed(
+            0, arr(state.data_ptr()), arr(out.data_ptr()), None, None, None,
+            h, w, a["k"], 1.0, 1.0, 0, 0,
+            {"staged": 0, "vector": 1}.get(a["route"], 7),
+            {"tma": 0, "async": 1}.get(a["stage"], 0), a["tile"][0],
+            a["pad"], a["pitch"], a["rows"], a["shared_bytes"],
+            int(a["phased"]), a["grid"], _cuda.stream_of(cuda))
+
+    staged = jfa_plan.round_plan(h, w, 2, "packed", False, route="staged")
+    vector = jfa_plan.round_plan(h, w, 8, "packed", False, route="vector")
+    assert launch(staged, 2) == 0 and launch(vector, 8) == 0
+    torch.cuda.synchronize()
+    for change in (dict(k=3), dict(pad=0), dict(pad=2), dict(pitch=256),
+                   dict(rows=staged.rows - 1), dict(stage="async"),
+                   dict(shared_bytes=staged.shared_bytes - 4),
+                   dict(shared_bytes=232448 + 4), dict(grid=staged.grid + 1),
+                   dict(route="simple")):
+        assert launch(staged, 2, **change) != 0, change
+    for change in (dict(k=2), dict(k=6), dict(grid=vector.grid - 1)):
+        assert launch(vector, 8, **change) != 0, change
 
 
 @pytest.mark.gpu
@@ -1046,6 +1221,49 @@ def test_jfa_group_kernel_equals_round_kernel(cuda, case, shape, ks):
     torch.cuda.synchronize()
     assert cuda_jfa_group.LAUNCHES == before + 1
     for g, r in zip(got, ref):
+        assert torch.equal(g, r), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 70), (257, 1025), (256, 512)])
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+def test_jfa_group_single_equals_its_first_port(cuda, case, shape):
+    """The single-buffered route (TMA where w % 4 == 0, cp.async
+    elsewhere) against the double-buffered first port by name, bit for
+    bit, on the tail group."""
+    form, metric = GROUP_CASES[case]
+    rng = np.random.default_rng(44)
+    mask = torch.from_numpy(rng.random(shape) < 0.01).to(cuda)
+    ys, xs = (torch.from_numpy(a).to(cuda) for a in jfa_axes(
+        "lonlat" if metric == 1 else "affine", *shape))
+    tx = torch.where(mask, xs[None, :], np.inf)
+    ty = torch.where(mask, ys[:, None], np.inf)
+    for k in (64, 32):
+        tx, ty, _ = cuda_jfa.round_coords_cuda(tx, ty, None, xs, ys, k,
+                                               metric)
+    ks = jfa_group.TAIL
+    if form == "packed":
+        steps = jfa.packed_state_plan(xs.cpu().numpy(), ys.cpu().numpy(),
+                                      metric)[0]
+        # the packed form of the coordinate state on these affine axes
+        iy = (ys.numel() - 1 - (ty / 0.5).round()).int()
+        state = torch.where(tx < np.inf, (iy << 15) | (tx / 0.5).round()
+                            .int(), -1)
+
+        def run(route):
+            return (cuda_jfa_group.group_packed_cuda(state, ks, metric,
+                                                     steps, route),)
+    else:
+        def run(route):
+            return cuda_jfa_group.group_coords_cuda(tx, ty, xs, ys, ks,
+                                                    metric, route)
+    first = run("double")
+    before = (cuda_jfa_group.SINGLE_LAUNCHES, cuda_jfa_group.DOUBLE_LAUNCHES)
+    got = run("single")
+    torch.cuda.synchronize()
+    assert (cuda_jfa_group.SINGLE_LAUNCHES,
+            cuda_jfa_group.DOUBLE_LAUNCHES) == (before[0] + 1, before[1])
+    for g, r in zip(got, first):
         assert torch.equal(g, r), case
 
 

@@ -1,6 +1,7 @@
 // Per-candidate device code of the jump flood: the comparison keys of the
-// two state forms, shared by jfa_round (jfa.cu) and jfa_group
-// (jfa_group.cu), so both kernels compare candidates with the same
+// two state forms and the candidate step built on them (key_of, adopt),
+// shared by every route of jfa_round (jfa.cu) and of jfa_group
+// (jfa_group.cu), so all of them compare candidates with the same
 // instructions and choose the same targets bit for bit.
 //
 // Keys are written with __fmul_rn/__fadd_rn/__fsub_rn so that nvcc cannot
@@ -62,6 +63,54 @@ __device__ __forceinline__ float key_coords(float px, float py, float tx,
   const float dy = __fsub_rn(py, ty);
   if (METRIC == kManhattan) return __fadd_rn(fabsf(dx), fabsf(dy));
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+}
+
+// The state forms of the staged, vector and single-buffered routes, which
+// hold every plane as 32-bit words: packed (one int32 plane, iy<<15|ix)
+// and coordinates (two float32 planes, tx and ty, as their bits).
+constexpr int kPacked = 0, kCoords = 1;
+constexpr int kInfBits = 0x7f800000;  // +inf as a float32's bits
+
+template <int FORM>
+struct StateForm {
+  static constexpr int kPlanes = FORM == kPacked ? 1 : 2;
+  // plane 0's no-target sentinel; plane 1 (ty) takes kInfBits
+  static constexpr int kSentinel = FORM == kPacked ? -1 : kInfBits;
+};
+
+// Where a cell stands, for its keys: raster indices (packed) or world
+// coordinates (coordinates).
+struct Pos {
+  int iy, ix;
+  float px, py;
+};
+
+// Key of the candidate whose words are (a, b) (b unused when packed),
+// seen from `p`.
+template <int FORM, int METRIC>
+__device__ __forceinline__ float key_of(const Pos& p, int a, int b,
+                                        float step_y, float step_x) {
+  if (FORM == kPacked) return key_packed<METRIC>(p.iy, p.ix, a, step_y,
+                                                 step_x);
+  return key_coords<METRIC>(p.px, p.py, __int_as_float(a),
+                            __int_as_float(b));
+}
+
+// One candidate of a cell: adopts (a, b) when its key is strictly smaller
+// than `best`, and says whether it did.  Calling it over the candidates in
+// (sy, sx) row-major order from the cell's own target is a round.
+template <int FORM, int METRIC>
+__device__ __forceinline__ bool adopt(const Pos& p, float step_y,
+                                      float step_x, int a, int b,
+                                      float& best, int& s0, int& s1) {
+  const float nd = key_of<FORM, METRIC>(p, a, b, step_y, step_x);
+  const bool better = nd < best;
+  if (better) {
+    best = nd;
+    s0 = a;
+    s1 = b;
+  }
+  return better;
 }
 
 }  // namespace xrt

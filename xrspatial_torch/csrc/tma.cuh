@@ -1,6 +1,7 @@
 // tma.cuh: Hopper's asynchronous copies, in inline PTX, for the kernels
 // that stage their data through shared memory (stencil_probe.cu's staged
-// form, stream.cu's bulk copy).
+// form, stream.cu's bulk copy, focal_halo.cu, jfa.cu's staged route and
+// jfa_group.cu).
 //
 // - mbarriers: a 64-bit barrier in shared memory that completes a phase
 //   when its expected arrivals have arrived and its expected bytes have
@@ -12,7 +13,8 @@
 //   mbarrier completion, shared to global in bulk groups.
 // - cp.async: 4-byte copies global to shared, in commit groups.
 // - on the host, encode_tiled: cuTensorMapEncodeTiled without linking
-//   libcuda.
+//   libcuda; encode_raster_map (float32, NaN fill) and encode_word_map
+//   (32-bit words, zero fill) on top of it.
 
 #pragma once
 
@@ -52,25 +54,46 @@ inline cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// The tensor map of a row-major h x w float32 raster at x (16-byte
-// aligned, w % 4 == 0) in boxes of box_cols x box_rows, cells outside the
-// raster read as NaN; a failed encode returns the negated CUresult, a
-// failed lookup its cudaError_t.
-inline int encode_raster_map(CUtensorMap* map, const float* x, long long h,
-                             long long w, int box_cols, int box_rows) {
+// The tensor map of a row-major h x w plane of 4-byte elements of `type`
+// at p (16-byte aligned, w % 4 == 0) in boxes of box_cols x box_rows,
+// with out-of-bounds cells filled as `fill` says; a failed encode returns
+// the negated CUresult, a failed lookup its cudaError_t.
+inline int encode_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                         const void* p, long long h, long long w,
+                         int box_cols, int box_rows,
+                         CUtensorMapFloatOOBfill fill) {
   EncodeTiled encode;
   const cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return (int)err;
   const cuuint64_t dims[2] = {(cuuint64_t)w, (cuuint64_t)h};
-  const cuuint64_t pitch[1] = {(cuuint64_t)w * sizeof(float)};
+  const cuuint64_t pitch[1] = {(cuuint64_t)w * 4};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)x, dims, pitch, box,
-      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA);
+      map, type, 2, (void*)p, dims, pitch, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, fill);
   return res == CUDA_SUCCESS ? 0 : -(int)res;
+}
+
+// The tensor map of a row-major h x w float32 raster at x (16-byte
+// aligned, w % 4 == 0) in boxes of box_cols x box_rows, cells outside the
+// raster read as NaN.
+inline int encode_raster_map(CUtensorMap* map, const float* x, long long h,
+                             long long w, int box_cols, int box_rows) {
+  return encode_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, h, w,
+                       box_cols, box_rows,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA);
+}
+
+// The tensor map of a row-major h x w plane of 32-bit words (an int32 or
+// a float32 plane, copied as bits) at p, as encode_raster_map's; cells
+// outside the plane read as 0, which the caller overwrites where 0 means
+// something (a packed jump-flood target of row 0, column 0).
+inline int encode_word_map(CUtensorMap* map, const void* p, long long h,
+                           long long w, int box_cols, int box_rows) {
+  return encode_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_INT32, p, h, w, box_cols,
+                       box_rows, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

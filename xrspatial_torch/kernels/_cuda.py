@@ -133,6 +133,11 @@ def library() -> ctypes.CDLL:
     lib.jfa_round_coords.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64,
                                      i32, p]
     lib.jfa_round_coords.restype = i32
+    pp = ctypes.POINTER(p)
+    lib.jfa_round_routed.argtypes = [i32, pp, pp, p, p, p, i64, i64, i64,
+                                     f32, f32, i32, i32, i32, i32, i32, i32,
+                                     i32, i32, i32, i32, i64, p]
+    lib.jfa_round_routed.restype = i32
     for fn in (lib.screen_hilo_f32, lib.screen_hilo_f64):
         fn.argtypes = [p, p, p, p, p, p, i32, i32, ctypes.POINTER(p),
                        ctypes.POINTER(p), ctypes.POINTER(i32),
@@ -146,6 +151,10 @@ def library() -> ctypes.CDLL:
                                      ctypes.POINTER(i32), i32, i32, i32, i32,
                                      p]
     lib.jfa_group_coords.restype = i32
+    lib.jfa_group_single.argtypes = [i32, pp, pp, p, p, i64, i64,
+                                     ctypes.POINTER(i32), i32, i32, i32, i32,
+                                     i32, i32, i32, i32, f32, f32, i32, p]
+    lib.jfa_group_single.restype = i32
     lib.stencil_probe_launch.argtypes = [p, p, i64, i64, i32, i32, i32, i32,
                                          i32, i64, i64, i64, i64, f32, f32,
                                          ctypes.c_uint, p]

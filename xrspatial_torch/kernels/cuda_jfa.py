@@ -4,6 +4,8 @@ Replaces ``xrspatial_tpu/kernels/pallas_jfa.py``: the small-stride round
 ``_multi_round_small``, the tile-jump round ``_large_round`` and their
 callers ``jfa_rounds_pallas`` / ``jfa_rounds_packed`` become one round
 kernel with the stride as a runtime argument, in two state forms.  Each
+round runs on the route ``jfa_plan.round_plan`` names for it ("staged",
+"vector" or "simple"; a `route` by name must be one that can run).  Each
 wrapper takes only tensors on the card: it builds the kernel library at the
 first call, allocates the round's outputs (the kernel reads the round-start
 state and writes new buffers, never in place), launches on PyTorch's
@@ -13,15 +15,27 @@ current stream and raises if the launch fails.  Their plain versions are
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import operator
+
 import torch
 
 from . import _cuda
+from .jfa_plan import round_plan, state_planes
 from .jfa_rounds import EUCLIDEAN, GREAT_CIRCLE, MANHATTAN
 
-__all__ = ["round_packed_cuda", "round_coords_cuda", "LAUNCHES"]
+__all__ = ["round_packed_cuda", "round_coords_cuda", "LAUNCHES",
+           "STAGED_LAUNCHES", "VECTOR_LAUNCHES", "SIMPLE_LAUNCHES"]
 
 # launches of the kernel in this process, for checks that a path ran on it
-LAUNCHES = 0
+LAUNCHES = 0             # every route
+STAGED_LAUNCHES = 0      # ... the window staged in shared memory
+VECTOR_LAUNCHES = 0      # ... 16-byte loads at the 9 positions
+SIMPLE_LAUNCHES = 0      # ... the first port
+
+_ROUTE_CODES = {"staged": 0, "vector": 1}
+_STAGE_CODES = {"tma": 0, "async": 1, "": 0}
 
 
 def _check(name, t, dtype, shape):
@@ -38,15 +52,58 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _count(route):
+    global LAUNCHES, STAGED_LAUNCHES, VECTOR_LAUNCHES, SIMPLE_LAUNCHES
+    LAUNCHES += 1
+    if route == "staged":
+        STAGED_LAUNCHES += 1
+    elif route == "vector":
+        VECTOR_LAUNCHES += 1
+    else:
+        SIMPLE_LAUNCHES += 1
+
+
+def _plan(form, ins, outs, best, k, route, phased):
+    """round_plan for the planes `ins` and `outs` (and `best`)."""
+    h, w = ins[0].shape
+    ptr = functools.reduce(operator.or_, [
+        t.data_ptr() for t in (*ins, *outs, best) if t is not None], 0)
+    return round_plan(h, w, k, form, len(ins) > state_planes(form), ptr, route,
+                      phased)
+
+
+def _launch_routed(form, plan, ins, outs, best, xs, ys, k, metric, steps):
+    """One round of `plan` (staged or vector) through jfa_round_routed."""
+    h, w = ins[0].shape
+    arr = ctypes.c_void_p * 3
+    in_ptrs = arr(*[t.data_ptr() for t in ins])
+    out_ptrs = arr(*[t.data_ptr() for t in outs])
+    lib = _cuda.library()
+    with torch.cuda.device(ins[0].device):
+        err = lib.jfa_round_routed(
+            0 if form == "packed" else 1, in_ptrs, out_ptrs, _ptr(best),
+            _ptr(xs), _ptr(ys), h, w, int(k), float(steps[0]),
+            float(steps[1]), int(metric), int(len(ins) > state_planes(form)),
+            _ROUTE_CODES[plan.route], _STAGE_CODES[plan.stage], plan.tile[0],
+            plan.pad, plan.pitch, plan.rows, plan.shared_bytes,
+            int(plan.phased), plan.grid, _cuda.stream_of(ins[0].device))
+    if err < 0:
+        raise RuntimeError(f"jfa_round ({plan.route}): cuTensorMapEncodeTiled "
+                           f"failed with CUresult {-err} for a {h}x{w} plane, "
+                           f"box {plan.pitch}x{plan.rows}")
+    _cuda.check(err, f"jfa_round ({plan.route})")
+
+
 def round_packed_cuda(state, value, k: int, metric: int, steps,
-                      emit_best=False):
-    """One round over the packed int32 state on the card.
+                      emit_best=False, route=None, phased=None):
+    """One round over the packed int32 state on the card, on the route
+    ``round_plan`` names (or `route` by name; `phased` forces the vector
+    route's row order).
 
     Returns ``(state, value, best)`` like ``jfa_rounds.round_packed``;
     `value` is None when none was given, `best` (float32) only with
     `emit_best`, else None.
     """
-    global LAUNCHES
     if metric not in (EUCLIDEAN, MANHATTAN):
         raise ValueError(f"the packed state takes EUCLIDEAN or MANHATTAN, "
                          f"got metric {metric}")
@@ -61,23 +118,30 @@ def round_packed_cuda(state, value, k: int, metric: int, steps,
     v_out = None if value is None else torch.empty_like(value)
     best = (torch.empty((h, w), dtype=torch.float32, device=state.device)
             if emit_best else None)
-    lib = _cuda.library()
-    with torch.cuda.device(state.device):
-        err = lib.jfa_round_packed(
-            state.data_ptr(), _ptr(value), s_out.data_ptr(), _ptr(v_out),
-            _ptr(best), h, w, int(k), float(steps[0]), float(steps[1]),
-            int(metric), _cuda.stream_of(state.device))
-    _cuda.check(err, "jfa_round_packed")
-    LAUNCHES += 1
+    ins = [state] + ([value] if value is not None else [])
+    outs = [s_out] + ([v_out] if v_out is not None else [])
+    plan = _plan("packed", ins, outs, best, k, route, phased)
+    if plan.route == "simple":
+        with torch.cuda.device(state.device):
+            err = _cuda.library().jfa_round_packed(
+                state.data_ptr(), _ptr(value), s_out.data_ptr(), _ptr(v_out),
+                _ptr(best), h, w, int(k), float(steps[0]), float(steps[1]),
+                int(metric), _cuda.stream_of(state.device))
+        _cuda.check(err, "jfa_round_packed")
+    else:
+        _launch_routed("packed", plan, ins, outs, best, None, None, k,
+                       metric, steps)
+    _count(plan.route)
     return s_out, v_out, best
 
 
-def round_coords_cuda(tx, ty, value, xs, ys, k: int, metric: int):
-    """One round over the float32 coordinate state on the card.
+def round_coords_cuda(tx, ty, value, xs, ys, k: int, metric: int,
+                      route=None, phased=None):
+    """One round over the float32 coordinate state on the card, on the
+    route ``round_plan`` names (or `route` by name).
 
     Returns ``(tx, ty, value)`` like ``jfa_rounds.round_coords``.
     """
-    global LAUNCHES
     if metric not in (EUCLIDEAN, GREAT_CIRCLE, MANHATTAN):
         raise ValueError(f"unknown metric {metric}")
     if tx.ndim != 2:
@@ -93,12 +157,18 @@ def round_coords_cuda(tx, ty, value, xs, ys, k: int, metric: int):
     tx_out = torch.empty_like(tx)
     ty_out = torch.empty_like(ty)
     v_out = None if value is None else torch.empty_like(value)
-    lib = _cuda.library()
-    with torch.cuda.device(tx.device):
-        err = lib.jfa_round_coords(
-            tx.data_ptr(), ty.data_ptr(), _ptr(value), tx_out.data_ptr(),
-            ty_out.data_ptr(), _ptr(v_out), xs.data_ptr(), ys.data_ptr(),
-            h, w, int(k), int(metric), _cuda.stream_of(tx.device))
-    _cuda.check(err, "jfa_round_coords")
-    LAUNCHES += 1
+    ins = [tx, ty] + ([value] if value is not None else [])
+    outs = [tx_out, ty_out] + ([v_out] if v_out is not None else [])
+    plan = _plan("coords", ins, outs, None, k, route, phased)
+    if plan.route == "simple":
+        with torch.cuda.device(tx.device):
+            err = _cuda.library().jfa_round_coords(
+                tx.data_ptr(), ty.data_ptr(), _ptr(value), tx_out.data_ptr(),
+                ty_out.data_ptr(), _ptr(v_out), xs.data_ptr(), ys.data_ptr(),
+                h, w, int(k), int(metric), _cuda.stream_of(tx.device))
+        _cuda.check(err, "jfa_round_coords")
+    else:
+        _launch_routed("coords", plan, ins, outs, None, xs, ys, k, metric,
+                       (1.0, 1.0))
+    _count(plan.route)
     return tx_out, ty_out, v_out

@@ -8,13 +8,25 @@ by round over the same strides, bit for bit, so the plain versions here
 loop the round twins of ``jfa_rounds``.  Both state forms of the round
 kernel, every metric of each, and no value plane (as in the TPU probe).
 
-Shared memory is what limits a group: a block holds its window twice (the
-round-start values and the round's output), 4 bytes a cell a plane, and
-may use 227 KB (``SHARED_BYTES``).  ``window_plan`` takes the largest T of
-``TILES`` whose window fits and raises ``ValueError``, naming the bytes,
-for a group whose window fits at no T: the TPU probe's group (64, 32, 16,
-8, 4, 2, 1, 2, 1), H = 130, is one.  Proximity's 16384^2 schedule ends
-with ``TAIL`` (H = 34), which fits at T = 64 packed.
+Two routes, which ``window_plan`` plans:
+
+- "single" (the default): the window is staged once by TMA (``stage``
+  "tma"; 4-byte cp.async where TMA refuses the pitch or a base, ``stage``
+  "async") and held once: each round every thread computes its cells'
+  new states into registers, then a barrier, the stores, a barrier.  A
+  round's region is one flat index over its side^2 cells, so every lane
+  has a cell.  A thread holds at most ``REG_WORDS`` 32-bit words of new
+  state (its cells of the first, largest region times the planes); the
+  plan refuses a tile that needs more.
+- "double": the first port, the window held twice (the round-start values
+  and the round's output), kept by name for the A/B and the bit check.
+
+Shared memory is what limits a group: a block may use 227 KB
+(``SHARED_BYTES``), and a TMA box is at most 256 cells a side.
+``window_plan`` takes the largest tile whose window fits and raises ``ValueError``, naming the bytes, for a group whose window
+fits at none: the TPU probe's group (64, 32, 16, 8, 4, 2, 1, 2, 1), H =
+130, is one.  Proximity's 16384^2 schedule ends with ``TAIL`` (H = 34),
+which fits single-buffered at T = 128 packed, T = 64 coordinates.
 
 ``group_packed`` and ``group_coords`` dispatch: a tensor on the CPU goes
 to the twin, a tensor on the card to the kernel; both refuse a group that
@@ -23,41 +35,104 @@ the kernel cannot take.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 from .jfa_rounds import EUCLIDEAN, GREAT_CIRCLE, MANHATTAN
 from .jfa_rounds import round_coords, round_packed
 
-__all__ = ["TILES", "SHARED_BYTES", "MAX_ROUNDS", "TAIL", "window_plan",
-           "group_packed_twin", "group_coords_twin", "group_packed",
-           "group_coords"]
+__all__ = ["TILES", "SINGLE_THREADS", "SHARED_BYTES", "MAX_ROUNDS", "TAIL",
+           "REG_WORDS", "GroupPlan", "window_plan", "group_packed_twin",
+           "group_coords_twin", "group_packed", "group_coords"]
 
-TILES = (128, 64, 32, 16, 8)     # output tile edges T, largest first
+TILES = (128, 64, 32, 16, 8)     # tile edges T, largest first
+SINGLE_THREADS = 1024            # threads a block of the single route
 SHARED_BYTES = 232448            # shared memory a block may opt in to
+ALIGN_SLACK = 128                # room to align the barrier and window
+BARRIER_BYTES = 128              # the window's mbarrier
+TMA_BOX_MAX = 256                # cells in each dimension of a TMA box
+REG_WORDS = 32                   # new-state words a thread holds a round
+CELL_CLASSES = (16, 28)          # cells a thread the kernel is built for
 MAX_ROUNDS = 16                  # strides a launch takes (csrc/jfa_group.cu)
 # the last 7 rounds of proximity's schedule at 16384^2
 TAIL = (16, 8, 4, 2, 1, 2, 1)
 
 
-def window_plan(ks, form: str) -> tuple:
-    """(T, H, shared bytes) of the group `ks` in `form` ("packed": one
-    int32 plane, "coords": two float32 planes).  Raises ValueError for a
-    bad group, or one whose double-buffered window fits at no T."""
+class GroupPlan(NamedTuple):
+    route: str          # "single" or "double"
+    stage: str          # single: "tma" or "async"; double: ""
+    tile: int           # T: the output tile's edge
+    halo: int           # H = sum(ks)
+    pad: int            # single: window columns left of the halo's first
+                        # (H rounded up to 4, so a box starts 16-byte
+                        # aligned); double: H
+    pitch: int          # cells a window row
+    rows: int           # window rows (T + 2H)
+    cells: int          # single: the cells a thread the kernel is built
+                        # for (CELL_CLASSES); double: 0
+    shared_bytes: int   # dynamic shared memory a block asks for
+
+
+def _up(a, b):
+    return -(-a // b) * b
+
+
+def _single(ks, planes, t, stage):
+    h = sum(ks)
+    pad = _up(h, 4)
+    rows, pitch = t + 2 * h, t + 2 * pad
+    nbytes = ALIGN_SLACK + BARRIER_BYTES + planes * _up(rows * pitch * 4, 128)
+    side0 = t + 2 * (h - ks[0])
+    per_thread = -(-side0 * side0 // SINGLE_THREADS)
+    cells = next((c for c in CELL_CLASSES if per_thread <= c
+                  and c * planes <= REG_WORDS), 0)
+    ok = (rows <= TMA_BOX_MAX and pitch <= TMA_BOX_MAX
+          and nbytes <= SHARED_BYTES and cells > 0)
+    return GroupPlan("single", stage, t, h, pad, pitch, rows, cells,
+                     nbytes), ok
+
+
+def _double(ks, planes, t):
+    h = sum(ks)
+    side = t + 2 * h
+    nbytes = 2 * planes * 4 * side ** 2
+    return GroupPlan("double", "", t, h, h, side, side, 0,
+                     nbytes), nbytes <= SHARED_BYTES
+
+
+def window_plan(ks, form: str, route: str = "single", w: int = 0,
+                ptr: int = 0, tile: int | None = None) -> GroupPlan:
+    """The plan of the group `ks` in `form` ("packed": one int32 plane,
+    "coords": two float32 planes) on `route`, for a raster `w` wide whose
+    planes lie at addresses whose bitwise OR is `ptr` (the single route
+    stages by TMA where ``w % 4 == 0`` and ``ptr % 16 == 0``, by cp.async
+    elsewhere).  The first tile of ``TILES`` that fits, or `tile`.
+    Raises ValueError for a bad group, or one whose window fits at no tile
+    tried."""
     ks = tuple(int(k) for k in ks)
     if not ks or len(ks) > MAX_ROUNDS or min(ks) < 1:
         raise ValueError(f"a group is 1 to {MAX_ROUNDS} strides >= 1, got "
                          f"{ks}")
     if form not in ("packed", "coords"):
         raise ValueError(f"form is 'packed' or 'coords', got {form!r}")
+    if route not in ("single", "double"):
+        raise ValueError(f"route is 'single' or 'double', got {route!r}")
     planes = 1 if form == "packed" else 2
-    h = sum(ks)
-    for t in TILES:
-        nbytes = 2 * planes * 4 * (t + 2 * h) ** 2
-        if nbytes <= SHARED_BYTES:
-            return t, h, nbytes
-    need = 2 * planes * 4 * (TILES[-1] + 2 * h) ** 2
+    stage = "tma" if w % 4 == 0 and ptr % 16 == 0 else "async"
+    tries = [_single(ks, planes, t, stage) if route == "single"
+             else _double(ks, planes, t)
+             for t in TILES if tile is None or t == tile]
+    for plan, ok in tries:
+        if ok:
+            return plan
+    if not tries:
+        raise ValueError(f"tile is one of {TILES}, got {tile}")
+    last = tries[-1][0]
     raise ValueError(
-        f"the {form} window of group {ks} (H = {h}) needs {need} bytes of "
-        f"shared memory at T = {TILES[-1]}, more than the {SHARED_BYTES} a "
-        f"block may use")
+        f"the {form} window of group {ks} (H = {sum(ks)}) on the {route} "
+        f"route needs {last.shared_bytes} bytes of shared memory at T = "
+        f"{last.tile} (a {last.rows} x {last.pitch} window), or fits none "
+        f"of: the {SHARED_BYTES} bytes a block may use, a TMA box of "
+        f"{TMA_BOX_MAX} a side, {REG_WORDS} words of new state a thread")
 
 
 def group_packed_twin(state, ks, metric: int, steps):
@@ -84,21 +159,23 @@ def _check_metric(form, metric):
                          f"{metric}")
 
 
-def group_packed(state, ks, metric: int, steps):
-    """The group `ks` over the packed state on its device."""
-    window_plan(ks, "packed")
+def group_packed(state, ks, metric: int, steps, route: str = "single"):
+    """The group `ks` over the packed state on its device (on the card, on
+    `route`)."""
+    window_plan(ks, "packed", route)
     _check_metric("packed", metric)
     if state.device.type == "cpu":
         return group_packed_twin(state, ks, metric, steps)
     from .cuda_jfa_group import group_packed_cuda
-    return group_packed_cuda(state, ks, metric, steps)
+    return group_packed_cuda(state, ks, metric, steps, route)
 
 
-def group_coords(tx, ty, xs, ys, ks, metric: int):
-    """The group `ks` over the coordinate state on its device."""
-    window_plan(ks, "coords")
+def group_coords(tx, ty, xs, ys, ks, metric: int, route: str = "single"):
+    """The group `ks` over the coordinate state on its device (on the card,
+    on `route`)."""
+    window_plan(ks, "coords", route)
     _check_metric("coords", metric)
     if tx.device.type == "cpu":
         return group_coords_twin(tx, ty, xs, ys, ks, metric)
     from .cuda_jfa_group import group_coords_cuda
-    return group_coords_cuda(tx, ty, xs, ys, ks, metric)
+    return group_coords_cuda(tx, ty, xs, ys, ks, metric, route)

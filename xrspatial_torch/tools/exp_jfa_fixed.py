@@ -5,15 +5,18 @@ round kernel launched once per round.
 
 Counterpart of ``tools/exp_jfa_fixed.py``, whose TPU kernel
 ``multi_round_fixed`` (B8g) is ``csrc/jfa_group.cu``: each block runs the
-group on one fixed (T+2H)^2 window in shared memory.  On the JAX probe's
-(N, N) raster (256 targets from ``default_rng(0)``, unit axes, Euclidean)
-it runs, in both state forms (float32 coordinates, the TPU probe's, and
-packed int32, proximity's), the JAX probe's two groups (64,) and (64, 32,
-16, 8, 4, 2, 1, 2, 1) and proximity's tail (16, 8, 4, 2, 1, 2, 1).  A
+group on one fixed (T+2H)^2 window in shared memory, single-buffered (the
+default route) or double-buffered (the first port, route "double").  On
+the JAX probe's (N, N) raster (256 targets from ``default_rng(0)``, unit
+axes, Euclidean) it runs, in both state forms (float32 coordinates, the
+TPU probe's, and packed int32, proximity's), the JAX probe's two groups
+(64,) and (64, 32, 16, 8, 4, 2, 1, 2, 1) and proximity's tail (16, 8, 4,
+2, 1, 2, 1).  A
 group whose window does not fit in a block's shared memory is printed as
 not run, with the bytes it needs.  For each group that runs it prints the
-cells where the fused group and the round kernel differ (it must be 0)
-and the two times, in turns, from CUDA events.  Without a card it exits 1.
+cells where each route of the fused group and the round kernel differ (it
+must be 0) and the times, in turns, from CUDA events.  Without a card it
+exits 1.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ def initial_states(n: int, dev) -> dict:
 
 
 def _runs(form, state, ks):
-    """(fused, per round) callables of the group on `state`."""
+    """(fused on `route`, per round) callables of the group on `state`."""
     if form == "packed":
         s, steps = state
 
@@ -64,7 +67,8 @@ def _runs(form, state, ks):
             for k in ks:
                 out, _, _ = cuda_jfa.round_packed_cuda(out, None, k, 0, steps)
             return (out,)
-        return lambda: (group_packed(s, ks, 0, steps),), per_round
+        return (lambda route: (group_packed(s, ks, 0, steps, route),),
+                per_round)
     tx, ty, xs, ys = state
 
     def per_round():
@@ -72,16 +76,19 @@ def _runs(form, state, ks):
         for k in ks:
             a, b, _ = cuda_jfa.round_coords_cuda(a, b, None, xs, ys, k, 0)
         return a, b
-    return lambda: group_coords(tx, ty, xs, ys, ks, 0), per_round
+    return (lambda route: group_coords(tx, ty, xs, ys, ks, 0, route),
+            per_round)
 
 
 def measure(n: int = 4096, reps: int = 10, out=sys.stdout) -> dict:
-    """Run, check and time every group in both forms at (n, n).
+    """Run, check and time every group in both forms at (n, n), on the
+    single route and, where its window fits, the double route.
 
     Returns ``{"card", "runs": {(group, form): {"ks", "tile", "shared",
-    "mismatch", "fused_ms", "rounds_ms"}}, "not_run": {(group, form):
-    message}}``; raises RuntimeError if there is no card or a fused group
-    differs from the round kernel.
+    "mismatch", "fused_ms", "double_ms", "rounds_ms"}}, "not_run":
+    {(group, form): message}}`` (``double_ms`` None where the double
+    route does not fit); raises RuntimeError if there is no card or a
+    fused group differs from the round kernel.
     """
     dev = require_card("exp_jfa_fixed")
     card = header(dev, out)
@@ -90,29 +97,42 @@ def measure(n: int = 4096, reps: int = 10, out=sys.stdout) -> dict:
     for gname, ks in GROUPS.items():
         for form, state in states.items():
             try:
-                tile, h, nbytes = window_plan(ks, form)
+                plan = window_plan(ks, form)
             except ValueError as exc:
                 print(f"{gname} {ks}, {form}: not run: {exc}", file=out)
                 result["not_run"][(gname, form)] = str(exc)
                 continue
+            routes = ["single"]
+            try:
+                window_plan(ks, form, "double")
+                routes.append("double")
+            except ValueError:
+                pass
             fused, per_round = _runs(form, state, ks)
-            got, ref = fused(), per_round()
-            mismatch = sum(int((g != r).sum()) for g, r in zip(got, ref))
-            print(f"{gname} {ks}, {form}: T = {tile}, H = {h}, {nbytes} bytes "
-                  f"of shared memory; {mismatch} cells differ from the round "
-                  f"kernel", file=out)
+            ref = per_round()
+            mismatch = sum(int((g != r).sum()) for route in routes
+                           for g, r in zip(fused(route), ref))
+            print(f"{gname} {ks}, {form}: T = {plan.tile}, H = {plan.halo}, "
+                  f"{plan.shared_bytes} bytes of shared memory, staged by "
+                  f"{plan.stage}; routes {routes}: {mismatch} cells differ "
+                  f"from the round kernel", file=out)
             if mismatch:
                 raise RuntimeError(f"exp_jfa_fixed: {gname} {ks} {form}: "
                                    f"{mismatch} cells differ")
-            ms = in_turns({"fused": (fused, reps),
-                           "rounds": (per_round, reps)})
-            print(f"{gname} {ks}, {form}: fused {ms['fused']:.4f} ms, "
+            legs = {route: (lambda route=route: fused(route), reps)
+                    for route in routes}
+            legs["rounds"] = (per_round, reps)
+            ms = in_turns(legs)
+            double = ms.get("double")
+            print(f"{gname} {ks}, {form}: fused {ms['single']:.4f} ms, "
+                  f"first port (double) "
+                  f"{'not run' if double is None else f'{double:.4f} ms'}, "
                   f"{len(ks)} round launches {ms['rounds']:.4f} ms, {card}",
                   file=out)
             result["runs"][(gname, form)] = {
-                "ks": ks, "tile": tile, "shared": nbytes,
-                "mismatch": mismatch, "fused_ms": ms["fused"],
-                "rounds_ms": ms["rounds"]}
+                "ks": ks, "tile": plan.tile, "shared": plan.shared_bytes,
+                "mismatch": mismatch, "fused_ms": ms["single"],
+                "double_ms": double, "rounds_ms": ms["rounds"]}
     return result
 
 

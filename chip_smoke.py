@@ -9,12 +9,20 @@ Phases, each fatal on failure:
 2. build: ``nvcc`` compiles ``xrspatial_torch/csrc/*.cu`` (build time and
    ``-Xptxas -v`` register/spill lines are printed);
 3. kernels: each CUDA kernel against its torch twin, on the card, at small
-   and ragged shapes with NaN patches and +-inf cells;
+   and ragged shapes with NaN patches and +-inf cells; the focal kernel
+   (B2) on its staged route also against its first port by name, bit for
+   bit;
 4. main path: ``terrain_pipeline`` on a 16384^2 float32 DEM on the card,
-   the call users make; one launch of each kernel, outputs on the card,
-   exact NaN ring, full-size agreement with the twins;
+   the call users make; one launch of each kernel and no other, the focal
+   kernel on its staged TMA route, outputs on the card, exact NaN ring,
+   full-size agreement with the twins;
 5. timing (informational): warm ``terrain_pipeline`` and each kernel
-   against its twin, from CUDA events;
+   against its twin, from CUDA events; then B2's staged route against its
+   first port by name, bit for bit, at 16384^2 on the plus (also with a
+   nodata cell in every tile), a 3x3, the 1x513 row (rx = 256) and the
+   65x1 column (ry = 32), each launch counted on the TMA route; the staged
+   route, its first port and B5's staged kernel by name (the yardstick
+   leg) timed in turns on the plus, the other footprints' routes in turns;
 6. jump-flood rounds: the CUDA round kernel against its twins over whole
    stride schedules, at small and ragged shapes, for each state form and
    metric, with and without a value channel, including a raster with no
@@ -49,23 +57,28 @@ Phases, each fatal on failure:
    with the twin path and the ring route; on the DEM with a nodata cell
    in every tile, which no block reads as NaN-free, the TMA route against
    the ring route, bit for bit; the staged halo kernel (on both DEMs),
-   its ring route by name, the tiled kernel by name on the same footprint and the
-   twin timed in turns;
+   its ring route by name, the focal kernel's first port by name on the
+   same footprint and the twin timed in turns;
 12. torch-op paths under PyTorch's default TF32 flags: the conv path
    (1257 offsets), ``convolution_2d``, ``hotspots`` and 2-pass ``mean``
    on the card against the CPU at 1024^2; the conv path timed at 16384^2;
 13. interval-screen kernel vs twin: the exact viewshed's pair evaluation,
-   float32 level 1 and float64 level 2, on the same expanded stacks, bit
-   for bit in hi and lo, at 48x64, a corner 64x48, 96x112 with NaN cells,
-   300x70, a ragged 257x1025 and the 1024^2 plan of the next phase;
+   float32 level 1 and float64 level 2, on the same expanded stacks, on
+   the culled route (the default) and the first port by name, each bit
+   for bit in hi and lo, with the culled route's pre-pass equal to its
+   twin, at 48x64, a corner 64x48, 96x112 with NaN cells, 300x70, a ragged
+   257x1025 and the 1024^2 plan of the next phase;
 14. exact viewshed path: ``viewshed`` on ``gaussian_bump(1024, 1024)`` at
    the JAX bench's viewpoint, the call users make; one float32 screen
-   launch, one float64 launch per level-2 slab and no twin call; equal at
-   every cell to the float64-only route, and on a 256^2 crop to the
-   pairwise oracle;
-15. timing (informational): the viewshed's warm wall time and phases, the
-   screen kernel against its twin at the 1024^2 plan, and every
-   re-evaluation route forced through the module's thresholds;
+   launch, one float64 launch per level-2 slab, each on the culled route
+   after its pre-pass, and no twin call; equal at every cell to the
+   float64-only route, and on a 256^2 crop to the pairwise oracle;
+15. timing (informational): the viewshed's warm wall time and phases; at
+   the 1024^2 plan the screen's culled route (with its pre-pass), the
+   pre-pass alone, the first port by name and the twin in turns, and the
+   culled route's counts (pairs evaluated, (warp, chunk) pairs culled,
+   chunks staged), from which its bound is counted; every re-evaluation
+   route forced through the module's thresholds;
 16. stacked surface kernel vs twin and vs the surface kernel: plane k =
    ``which[k]`` for all four products, ("hillshade", "slope") and one
    product with and without squeeze, at the small shapes: equal to the
@@ -123,12 +136,16 @@ Phases, each fatal on failure:
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
 of the bytes over 3.35 TB/s and the float operations, counted from the
-sources, over 67 TFLOP/s) and the same bound at the stream roof measured
-in phase 18 (``measured_roof_bound_ms``, and its share of ``ms``), and
+sources, over 67 TFLOP/s; for the screen, the work its culled route does
+on this run's data, with the plan's whole pair count beside it as
+``plan_bound_ms``) and the same bound at the stream roof measured in
+phase 18 (``measured_roof_bound_ms``, and its share of ``ms``), and
 the design its timed launch ran (``design``: the staged route and tile of
-the large-footprint kernel, the stream kernels' bulk rings, the jump-flood
-round's per-stride routes, the group's window) and, for the two jump-flood
-kernels, the first port's time by name (``first_port_ms``); the last
+the focal kernels, the screen's culled share, the stream kernels' bulk
+rings, the jump-flood round's per-stride routes, the group's window) and,
+for the redesigned kernels that keep their first port by name (focal,
+screen, jump-flood round and group), that port's time in turns
+(``first_port_ms``); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits 1 before printing any result.
 """
@@ -699,6 +716,100 @@ def halo_route_launches():
             "ring": cuda_window.HALO_RING_LAUNCHES}
 
 
+def tiled_route_launches():
+    """focal_kernel's (B2's) launches by route."""
+    from xrspatial_torch.kernels import cuda_window
+    return {"tma": cuda_window.TMA_LAUNCHES,
+            "async": cuda_window.ASYNC_LAUNCHES,
+            "simple": cuda_window.SIMPLE_LAUNCHES}
+
+
+# B2's footprints at the tiled radii's corners, checked at N^2: the main
+# path's plus, a 3x3, the widest row (rx = 256) and the tallest column
+# (ry = 32)
+TILED_FOOTPRINTS = {"plus": None, "3x3": (3, 3), "1x513": (1, 513),
+                    "65x1": (65, 1)}
+
+
+def tiled_focal_path(dem, card):
+    """Phase 5, B2: its staged route against its first port by name, bit
+    for bit, at N^2 on the plus (and on the DEM with a nodata cell in every
+    tile), 3x3, 1x513 and 65x1; the staged route, the first port and B5's
+    staged kernel by name on the plus (the yardstick leg: the template B2
+    now instantiates) timed in turns, the other footprints' two routes
+    once each.  Returns the first port's ms on the plus."""
+    import torch
+    from xrspatial_torch.convolution import circle_kernel
+    from xrspatial_torch.kernels import cuda_window
+    from xrspatial_torch.kernels.focal_halo import halo_plan, register_class
+    from xrspatial_torch.kernels.window import kernel_offsets
+    feet = {k: kernel_offsets(circle_kernel(1, 1, 1.5) if v is None
+                              else np.ones(v))
+            for k, v in TILED_FOOTPRINTS.items()}
+    plus = feet["plus"]
+    holed = dem.clone()
+    holed[::32, 64::128] = float("nan")
+    for kname, offsets in feet.items():
+        for label, x in (("", dem), (", nodata", holed)):
+            if label and kname != "plus":
+                continue
+            plan = halo_plan(N, N, offsets, x.data_ptr())
+            before = tiled_route_launches()
+            got = cuda_window.focal_stats_cuda(x, offsets, PIPELINE_STATS)
+            counted = {k: v - before[k]
+                       for k, v in tiled_route_launches().items()}
+            first = cuda_window.focal_stats_cuda(x, offsets, PIPELINE_STATS,
+                                                 route="simple")
+            torch.cuda.synchronize()
+            if counted != {"tma": 1, "async": 0, "simple": 0} \
+                    or plan.route != "tma":
+                raise SmokeFailure(f"focal_kernel {kname}{label}: planned "
+                                   f"{plan.route}, launches {counted}")
+            if not same_bits(got, first):
+                raise SmokeFailure(f"focal_kernel {kname}{label} at {N}^2: "
+                                   f"the staged route differs from the "
+                                   f"first port")
+            print(f"  focal_kernel {kname}{label} ({len(offsets)} offsets) "
+                  f"at {N}x{N}: staged ({plan.route}, tile {plan.tile[0]}x"
+                  f"{plan.tile[1]}, {register_class(plan)} blocks an SM) "
+                  f"equal to the first port bit for bit")
+            del got, first
+    legs = {
+        "staged": (lambda: cuda_window.focal_stats_cuda(
+            dem, plus, PIPELINE_STATS), 20),
+        "staged, nodata": (lambda: cuda_window.focal_stats_cuda(
+            holed, plus, PIPELINE_STATS), 20),
+        "first port": (lambda: cuda_window.focal_stats_cuda(
+            dem, plus, PIPELINE_STATS, route="simple"), 10),
+        "B5 by name": (lambda: cuda_window.focal_stats_halo_cuda(
+            dem, plus, PIPELINE_STATS), 20)}
+    times = {k: [] for k in legs}
+    for k in (*legs, *reversed(legs)):
+        fn, reps = legs[k]
+        times[k].append(cuda_time_ms(fn, reps))
+    t = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"  focal_kernel on the plus at {N}x{N}, in turns: staged "
+          f"{t['staged']:.4f} ms (nodata in every tile {t['staged, nodata']:.4f}"
+          f"), first port by name {t['first port']:.4f} ms, B5's staged "
+          f"kernel by name {t['B5 by name']:.4f} ms, {card}")
+    for kname in ("3x3", "1x513", "65x1"):
+        offsets = feet[kname]
+        reps = 1 if kname == "1x513" else 5
+        pair = paired_ms(
+            lambda: cuda_window.focal_stats_cuda(dem, offsets,
+                                                 PIPELINE_STATS),
+            lambda: cuda_window.focal_stats_cuda(dem, offsets,
+                                                 PIPELINE_STATS,
+                                                 route="simple"),
+            reps, reps)
+        print(f"  focal_kernel {kname} at {N}x{N}, in turns: staged "
+              f"{pair[0]:.4f} ms, first port by name {pair[1]:.4f} ms, {card}")
+    del holed
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return t["first port"]
+
+
 def same_bits(a, b):
     """Equal bit for bit, every NaN as NaN."""
     import torch
@@ -810,6 +921,8 @@ def reset_launches():
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
+    cuda_window.TMA_LAUNCHES = cuda_window.ASYNC_LAUNCHES = 0
+    cuda_window.SIMPLE_LAUNCHES = 0
     cuda_window.HALO_LAUNCHES = cuda_pipeline.LAUNCHES = 0
     cuda_window.HALO_TMA_LAUNCHES = cuda_window.HALO_ASYNC_LAUNCHES = 0
     cuda_window.HALO_RING_LAUNCHES = 0
@@ -817,6 +930,8 @@ def reset_launches():
     cuda_jfa.STAGED_LAUNCHES = cuda_jfa.VECTOR_LAUNCHES = 0
     cuda_jfa.SIMPLE_LAUNCHES = 0
     cuda_screen.LAUNCHES = cuda_screen.F64_LAUNCHES = 0
+    cuda_screen.CULLED_LAUNCHES = cuda_screen.SIMPLE_LAUNCHES = 0
+    cuda_screen.BOUNDS_LAUNCHES = 0
     cuda_surface.STACKED_LAUNCHES = 0
     cuda_stream.COPY_LAUNCHES = cuda_stream.ADD_LAUNCHES = 0
     cuda_stencil_probe.LAUNCHES = cuda_stencil_probe.EDGE_LAUNCHES = 0
@@ -1012,7 +1127,7 @@ def annulus_path(dem, agg, card):
         "ring": (lambda: cuda_window.focal_stats_halo_cuda(
             dem, offsets, PIPELINE_STATS, route="ring"), 2),
         "tiled": (lambda: cuda_window.focal_stats_cuda(
-            dem, offsets, PIPELINE_STATS), 2),
+            dem, offsets, PIPELINE_STATS, route="simple"), 2),
         "twin": (lambda: window_stats(dem, offsets, PIPELINE_STATS), 1)}
     times = {k: [] for k in legs}
     for k in (*legs, *reversed(legs)):
@@ -1022,8 +1137,9 @@ def annulus_path(dem, agg, card):
     print(f"  focal_halo_kernel, in turns: staged ({plan.route}, tile "
           f"{plan.tile[0]}x{plan.tile[1]}) {t['staged']:.3f} ms (with a "
           f"nodata cell in every tile: {t['staged, nodata']:.3f} ms), ring "
-          f"route by name {t['ring']:.3f} ms, tiled focal_kernel by name on "
-          f"the same footprint {t['tiled']:.3f} ms, twin {t['twin']:.3f} ms; "
+          f"route by name {t['ring']:.3f} ms, focal_kernel's first port by "
+          f"name on the same footprint {t['tiled']:.3f} ms, twin "
+          f"{t['twin']:.3f} ms; "
           f"staged {t['ring'] / t['staged']:.2f}x the ring's speed, "
           f"{t['tiled'] / t['staged']:.2f}x the tiled kernel's, {card}")
     del holed
@@ -1169,33 +1285,53 @@ def vs_cases(dev):
 
 def check_screen(dev):
     """Phase 13: the interval-screen kernel against its twin, on the same
-    expanded stacks, at both levels: bit for bit in hi and lo."""
+    expanded stacks, at both levels: the culled route (the default) and the
+    first port by name, bit for bit in hi and lo, and the culled route's
+    pre-pass against its twin."""
     import torch
     from xrspatial_torch.kernels import cuda_screen, screen
     from xrspatial_torch.kernels import viewshed_exact as ve
     print("== interval-screen kernel vs twin on the card (float32 level 1, "
-          "float64 level 2)")
+          "float64 level 2; the culled route and the first port by name)")
     err = 0.0
     for label, (data, (vr, vc), oe, te, ew, ns) in vs_cases(dev).items():
         for level in (1, 2):
             args = ve.screen_inputs(data, vr, vc, oe, te, ew, ns, level=level,
                                     device=dev)
-            got = cuda_screen.screen_hilo_cuda(*args)
+            before = (cuda_screen.CULLED_LAUNCHES,
+                      cuda_screen.SIMPLE_LAUNCHES)
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            got = cuda_screen.screen_hilo_cuda(*args, stats=stats)
+            first = cuda_screen.screen_hilo_cuda(*args, route="simple")
             ref = screen.screen_hilo(*args)
             torch.cuda.synchronize()
-            for name, g, r in zip(("hi", "lo"), got, ref):
-                if g.dtype != r.dtype or not torch.equal(g, r):
-                    n_bad = int((g != r).sum())
-                    raise SmokeFailure(f"screen {label} level {level} {name}: "
-                                       f"{n_bad} targets differ from the twin")
-                fin = torch.isfinite(r)
-                if bool(fin.any()):
-                    err = max(err, float((g - r)[fin].abs().max()))
+            if (cuda_screen.CULLED_LAUNCHES - before[0],
+                    cuda_screen.SIMPLE_LAUNCHES - before[1]) != (1, 1):
+                raise SmokeFailure(f"screen {label} level {level}: launches "
+                                   f"not counted on their routes")
+            for route, pair in (("culled", got), ("simple", first)):
+                for name, g, r in zip(("hi", "lo"), pair, ref):
+                    if g.dtype != r.dtype or not torch.equal(g, r):
+                        n_bad = int((g != r).sum())
+                        raise SmokeFailure(
+                            f"screen {label} level {level} {name}, route "
+                            f"{route}: {n_bad} targets differ from the twin")
+                    fin = torch.isfinite(r)
+                    if bool(fin.any()):
+                        err = max(err, float((g - r)[fin].abs().max()))
+            if not torch.equal(cuda_screen.chunk_bounds_cuda(args[0],
+                                                             args[1]),
+                               screen.chunk_bounds(args[0], args[1])):
+                raise SmokeFailure(f"screen {label} level {level}: the "
+                                   f"pre-pass differs from its twin")
             A, C, Es, NBs, B = args[7:]
+            pairs, kept, culled, staged = stats.tolist()
             print(f"  screen {label} level {level} ({got[0].dtype}): A={A} "
                   f"C={C} B={B} Lg={args[0][1].shape[0]} E={Es} NB={NBs}: "
-                  f"bit for bit")
-            del args, got, ref
+                  f"culled and first port bit for bit; {culled} of "
+                  f"{kept + culled} (warp, chunk) pairs culled, {pairs} pairs "
+                  f"evaluated, {staged} chunks staged")
+            del args, got, first, ref
         torch.cuda.synchronize()
     return err
 
@@ -1266,16 +1402,19 @@ def viewshed_path(dev):
         first_s = time.perf_counter() - t0
         launches = read_launches()
         f64 = cuda_screen.F64_LAUNCHES
+        culled = (cuda_screen.CULLED_LAUNCHES, cuda_screen.BOUNDS_LAUNCHES)
     call = dict(ve.LAST_CALL)
     print(f"  first call {first_s:.3f} s (host clock), launches {launches} "
           f"({f64} float64), level-1 ambiguous {call['amb1']}, level-2 "
           f"ambiguous {call['amb2']}, route {call['route']}, level-2 slabs "
           f"{call['slabs']}")
     if not only(launches, "screen_hilo", 1 + call["slabs"]) \
-            or f64 != call["slabs"]:
+            or f64 != call["slabs"] \
+            or culled != (1 + call["slabs"],) * 2:
         raise SmokeFailure(f"viewshed: expected one float32 screen launch and "
-                           f"{call['slabs']} float64 ones, got {launches} "
-                           f"({f64} float64)")
+                           f"{call['slabs']} float64 ones, each on the culled "
+                           f"route after its pre-pass, got {launches} ({f64} "
+                           f"float64; culled and pre-pass {culled})")
     if out.device.type != "cuda" or out.dtype != torch.float64 \
             or tuple(out.shape) != (VS_N, VS_N):
         raise SmokeFailure(f"viewshed: {tuple(out.shape)} {out.dtype} on "
@@ -1359,6 +1498,15 @@ def screen_bytes(args):
             + 2 * al.numel() * al.element_size())
 
 
+def prepass_bytes(args):
+    """Bytes the culled route's pre-pass moves: the a0w and a2w rows of
+    every table read, two bounds a 128-candidate chunk written."""
+    from xrspatial_torch.kernels.screen import CHUNK
+    glob, stacks = args[0], args[1]
+    cands = glob[1].numel() + sum(idx.numel() for _, idx in stacks)
+    return (2 * cands + 2 * cands // CHUNK) * glob[0].element_size()
+
+
 def viewshed_timing(dev, card, out):
     """Phase 15: the exact viewshed's warm wall time and phases, the screen
     kernel against its twin at the main path's plan, and every re-evaluation
@@ -1397,14 +1545,37 @@ def viewshed_timing(dev, card, out):
     data = agg.data.to(torch.float64).cpu().numpy()
     args = ve.screen_inputs(data, vr, vc, oe, 0.0, 1.0, -1.0, level=1,
                             device=dev)
-    ms = paired_ms(lambda: cuda_screen.screen_hilo_cuda(*args),
-                   lambda: screen.screen_hilo(*args), 10, 1)
+    legs = {"culled": (lambda: cuda_screen.screen_hilo_cuda(*args), 10),
+            "pre-pass": (lambda: cuda_screen.chunk_bounds_cuda(args[0],
+                                                               args[1]), 10),
+            "simple": (lambda: cuda_screen.screen_hilo_cuda(
+                *args, route="simple"), 10),
+            "twin": (lambda: screen.screen_hilo(*args), 1)}
+    times = {k: [] for k in legs}
+    for k in (*legs, *reversed(legs)):
+        fn, reps = legs[k]
+        times[k].append(cuda_time_ms(fn, reps))
+    t = {k: sum(v) / len(v) for k, v in times.items()}
+    ms = (t["culled"], t["twin"])
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    cuda_screen.screen_hilo_cuda(*args, stats=stats)
+    evaluated, kept, culled, staged = stats.tolist()
+    share = culled / (kept + culled)
     pairs, covered = screen_pair_counts(args)
-    nbytes = screen_bytes(args)
-    print(f"  screen_hilo at the {VS_N}^2 plan (float32): kernel "
-          f"{ms[0]:.3f} ms, twin {ms[1]:.3f} ms, {card}; {pairs} pairs "
-          f"({pairs / ms[0] / 1e6:.1f} Gpairs/s), {covered} pass the maybe or "
-          f"sure test, {nbytes} bytes of inputs and outputs")
+    nbytes, pre_nbytes = screen_bytes(args), prepass_bytes(args)
+    print(f"  screen_hilo at the {VS_N}^2 plan (float32), in turns: culled "
+          f"route {t['culled']:.4f} ms (its pre-pass alone "
+          f"{t['pre-pass']:.4f} ms), first port by name {t['simple']:.4f} ms, "
+          f"twin {t['twin']:.3f} ms, {card}; {pairs} pairs in the plan "
+          f"({pairs / t['culled'] / 1e6:.1f} Gpairs/s on the culled route, "
+          f"{pairs / t['simple'] / 1e6:.1f} on the first port), {covered} pass "
+          f"the maybe or sure test; the culled route evaluated {evaluated} "
+          f"pairs ({evaluated / pairs:.4f} of the plan's) and culled {culled} "
+          f"of {kept + culled} (warp, chunk) pairs ({share:.4f}), staging "
+          f"{staged} chunks; {nbytes} bytes of inputs and outputs, "
+          f"{pre_nbytes} more for the pre-pass")
+    timing = {"simple_ms": t["simple"], "prepass_ms": t["pre-pass"],
+              "evaluated": evaluated, "culled_share": share}
     del args
     routes = (("default", {}),
               ("level-2 re-screen", {"_L2_MIN_AMB": 0}),
@@ -1433,7 +1604,7 @@ def viewshed_timing(dev, card, out):
               f"equal to the default at every cell, {card}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return ms, pairs, covered, nbytes
+    return ms, timing, pairs, covered, evaluated, nbytes, pre_nbytes
 
 
 # -- the surface family: stacked kernel, stream probes, geodesic, shadows ----
@@ -2141,8 +2312,11 @@ FOCAL_OPS_PER_OFFSET, FOCAL_OPS = 9, 9
 JFA_OPS_PER_CANDIDATE, JFA_CANDIDATES = 8, 9
 # per screen pair: the 6 float comparisons of the cover and key tests; per
 # pair that passes one, 11 more (the subtract, the sign test, the product
-# and sum, the clip, each band and its max; screen.cu)
+# and sum, the clip, each band and its max; screen.cu).  The culled route
+# makes the 3 of the wide cover and kt_hi on each pair it evaluates, and
+# the narrow cover's 3 and the 11 on each that passes
 SCREEN_OPS, SCREEN_OPS_COVERED = 6, 11
+SCREEN_WIDE_OPS, SCREEN_NARROW_OPS = 3, 3
 # slope alone (surface_cell.cuh, stencil_probe.cu): 2 x 7 for the Sobel
 # sums, 10 for slope; a fused jump-flood group: 8 per candidate, 8
 # candidates a round
@@ -2159,14 +2333,22 @@ def bound(nbytes, ops, bytes_s=HBM_BYTES_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def screen_plan_work(screen_counts):
+    """(bytes, float operations) of the screen on the plan's every pair,
+    the work of its first port and of the twin."""
+    pairs, covered, _, nbytes, _ = screen_counts
+    return nbytes, SCREEN_OPS * pairs + SCREEN_OPS_COVERED * covered
+
+
 def kernel_work(n_offsets_main, n_offsets_annulus, screen_counts):
     """(bytes, float operations) of each kernel at the work its timing
-    measured."""
+    measured; for the screen, the work its culled route does on this run's
+    data: the pairs of the (warp, chunk) pairs it keeps."""
     from xrspatial_torch.kernels.stencil_probe import interior_extent
     cells = N * N
     plane = 4 * cells                      # one float32 or int32 plane
     focal = FOCAL_OPS_PER_OFFSET * n_offsets_main + FOCAL_OPS
-    pairs, covered, screen_nbytes = screen_counts
+    _, covered, evaluated, screen_nbytes, prepass_nbytes = screen_counts
     r0, r1, c0, c1 = interior_extent(N, N, (32, 8))
     return {
         # 1 read, slope and hillshade written
@@ -2183,8 +2365,9 @@ def kernel_work(n_offsets_main, n_offsets_annulus, screen_counts):
         "jfa_round": (
             ROUNDS_AT_N * 2 * plane + plane,
             ROUNDS_AT_N * JFA_CANDIDATES * JFA_OPS_PER_CANDIDATE * cells),
-        "screen_hilo": (screen_nbytes,
-                        SCREEN_OPS * pairs + SCREEN_OPS_COVERED * covered),
+        "screen_hilo": (screen_nbytes + prepass_nbytes,
+                        SCREEN_WIDE_OPS * evaluated
+                        + (SCREEN_NARROW_OPS + SCREEN_OPS_COVERED) * covered),
         # 1 read, all four products written
         "surface_stacked_kernel": (5 * plane, SURFACE_ALL_OPS * cells),
         "stream_copy": (2 * plane, 0),
@@ -2246,7 +2429,7 @@ def main() -> int:
     from xrspatial_torch import DataArray, terrain_pipeline
     from xrspatial_torch.convolution import circle_kernel
     from xrspatial_torch.kernels import _cuda, cuda_surface, cuda_window
-    from xrspatial_torch.kernels.focal_halo import halo_plan
+    from xrspatial_torch.kernels.focal_halo import halo_plan, register_class
     from xrspatial_torch.kernels.surface import PRODUCTS, surface_multi
     from xrspatial_torch.kernels.window import kernel_offsets, window_stats
 
@@ -2291,7 +2474,13 @@ def main() -> int:
             ref = window_stats(x, offsets, ALL_STATS)
             for i, s in enumerate(ALL_STATS):
                 check(f"focal {shape} {kname} {s}", got[i], ref[s], FOCAL_TOL)
+            if not same_bits(got, cuda_window.focal_stats_cuda(
+                    x, offsets, ALL_STATS, route="simple")):
+                raise SmokeFailure(f"focal {shape} {kname}: the staged route "
+                                   f"differs from the first port")
         torch.cuda.synchronize()
+    print(f"  focal_kernel's staged route equal to its first port bit for "
+          f"bit at every shape; launches by route {tiled_route_launches()}")
 
     # -- the main path -------------------------------------------------------
     print(f"== main path: terrain_pipeline on a {N}x{N} float32 DEM")
@@ -2300,22 +2489,26 @@ def main() -> int:
                     attrs={"res": (1.0, 1.0)})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_surface.LAUNCHES = 0
-    cuda_window.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     with fused_pipeline(False):
         ds = terrain_pipeline(agg, surface=PIPELINE_SURFACE,
                               stats_funcs=PIPELINE_STATS)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    every = read_launches()
     launches = {"surface_kernel": cuda_surface.LAUNCHES,
                 "focal_kernel": cuda_window.LAUNCHES}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  first call {first_s * 1e3:.1f} ms (host clock), launches "
-          f"{launches}, peak allocated {peak_gib:.2f} GiB")
-    if launches != {"surface_kernel": 1, "focal_kernel": 1}:
-        raise SmokeFailure(f"expected one launch of each kernel, got "
-                           f"{launches}")
+          f"{launches}, focal_kernel by route {tiled_route_launches()}, peak "
+          f"allocated {peak_gib:.2f} GiB")
+    if every != {k: int(k in ("surface_kernel", "focal_kernel"))
+                 for k in every} or tiled_route_launches() != {
+                     "tma": 1, "async": 0, "simple": 0}:
+        raise SmokeFailure(f"expected one launch of each kernel, the focal "
+                           f"kernel on its TMA route, got {every}, "
+                           f"{tiled_route_launches()}")
 
     slope = ds["dem-slope"].data
     hill = ds["dem-hillshade"].data
@@ -2384,6 +2577,7 @@ def main() -> int:
     for k, (kern_ms, plain_ms) in ms.items():
         print(f"  {k}: kernel {kern_ms:.3f} ms, twin {plain_ms:.3f} ms, "
               f"{card}")
+    first_port_ms = {"focal_kernel": tiled_focal_path(dem, card)}
     print(f"  peak allocated by the main-path call: {peak_gib:.2f} GiB, "
           f"{card}")
     torch.cuda.synchronize()
@@ -2407,7 +2601,8 @@ def main() -> int:
     # -- the exact viewshed ----------------------------------------------------
     screen_err = check_screen(dev)
     launches["screen_hilo"], _, vs_out = viewshed_path(dev)
-    ms["screen_hilo"], *screen_counts = viewshed_timing(dev, card, vs_out)
+    ms["screen_hilo"], screen_timing, *screen_counts = viewshed_timing(
+        dev, card, vs_out)
     max_err["screen_hilo"] = screen_err
     del vs_out
 
@@ -2457,6 +2652,11 @@ def main() -> int:
               f"bound {b_ms:.3f} ms ({b_by}, {b_ms / ms[k][0] * 100:.1f}% "
               f"of it), at the measured roof {r_ms:.3f} ms ({r_by}, "
               f"{r_ms / ms[k][0] * 100:.1f}%)")
+    plan_ms, plan_by = bound(*screen_plan_work(screen_counts))
+    print(f"  screen_hilo on the plan's every pair (the first port's work): "
+          f"bound {plan_ms:.3f} ms ({plan_by}, "
+          f"{plan_ms / ms['screen_hilo'][0] * 100:.1f}% of the culled route's "
+          f"time)")
     sources = {"surface_kernel": (
         "xrspatial_torch/csrc/surface.cu",
         "xrspatial_tpu/kernels/pallas_surface2.py:178"),
@@ -2502,18 +2702,28 @@ def main() -> int:
     # the design each redesigned kernel's timed launch ran
     halo = halo_plan(N, N, kernel_offsets(halo_footprints()["annulus_40_38"]),
                      0)
+    tiled = halo_plan(N, N, offsets, 0)
     designs = {
         "focal_halo_kernel": f"staged window by {halo.route}, tile "
                              f"{halo.tile[0]}x{halo.tile[1]}, row runs, 4 "
-                             f"cells a thread",
+                             f"cells a thread, {register_class(halo)} blocks "
+                             f"an SM",
+        "focal_kernel": f"staged template: window by {tiled.route}, tile "
+                        f"{tiled.tile[0]}x{tiled.tile[1]}, 4 cells a "
+                        f"thread, 16-byte stores, {register_class(tiled)} "
+                        f"blocks an SM",
+        "screen_hilo": f"culled: {screen_timing['culled_share']:.4f} of "
+                       f"(warp, chunk) pairs culled, 4 targets a thread, "
+                       f"chunks by bulk copy",
         "stream_copy": "bulk-async ring",
         "stream_add": "one-shot grid, 4 float4 pairs a thread, streaming",
         "stencil_probe_b8c": "staged window by TMA, 32x248",
         "jfa_round": jfa_design(),
         "jfa_group": group_design()}
     # the first ports, kept by name, timed in turns with the redesigns
-    first_port_ms = {"jfa_round": jfa_timing["simple_ms"],
-                     "jfa_group": group_times["double"]}
+    first_port_ms.update(jfa_round=jfa_timing["simple_ms"],
+                         jfa_group=group_times["double"],
+                         screen_hilo=screen_timing["simple_ms"])
     # Tensor.copy_ and torch.add compute the stream probes' functions and
     # the copy mode of B8c's; no single PyTorch call computes any of the
     # others
@@ -2526,7 +2736,9 @@ def main() -> int:
          "measured_roof_bound_ms": bounds[k][1][0],
          "measured_roof_share": bounds[k][1][0] / ms[k][0],
          **({"first_port_ms": first_port_ms[k]} if k in first_port_ms
-            else {})}
+            else {}),
+         **({"plan_bound_ms": plan_ms, "plan_bound_by": plan_by}
+            if k == "screen_hilo" else {})}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

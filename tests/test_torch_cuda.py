@@ -150,6 +150,71 @@ def test_focal_kernel_matches_twin(cuda, kname, with_inf):
         assert_matches(got[i], ref[s], FOCAL_TOL, s)
 
 
+TILED_FOOTPRINTS = {
+    "plus": circle_kernel(1, 1, 1.5),
+    "3x3": np.ones((3, 3)),
+    "1x513": np.ones((1, 513)),
+    "65x1": np.ones((65, 1)),
+}
+
+
+def tiled_routes():
+    return {"tma": cuda_window.TMA_LAUNCHES,
+            "async": cuda_window.ASYNC_LAUNCHES,
+            "simple": cuda_window.SIMPLE_LAUNCHES,
+            "all": cuda_window.LAUNCHES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nodata", [False, True], ids=["dem", "nodata"])
+@pytest.mark.parametrize("shape", [(263, 516), (263, 517), (70, 300)])
+@pytest.mark.parametrize("fname", list(TILED_FOOTPRINTS))
+def test_focal_kernel_staged_route_equals_first_port(cuda, fname, shape,
+                                                     nodata):
+    """B2 on the route its plan names (TMA at w % 4 == 0, cp.async
+    elsewhere) equals its first port by name bit for bit: the same cell
+    code and rounding, 16-byte stores where w % 4 == 0."""
+    y, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    data = (np.sin(y / 9.0) * np.cos(xx / 7.0) * 400.0 + 500.0).astype(
+        np.float32)
+    if nodata:
+        data[::32, 64::128] = np.nan
+        data[5, 7] = np.inf
+    x = torch.from_numpy(data).to(cuda)
+    offsets = kernel_offsets(TILED_FOOTPRINTS[fname])
+    route = halo_plan(*shape, offsets, x.data_ptr()).route
+    assert route == ("tma" if shape[1] % 4 == 0 else "async")
+    before = tiled_routes()
+    got = cuda_window.focal_stats_cuda(x, offsets, ALL_STATS)
+    torch.cuda.synchronize()
+    after = tiled_routes()
+    assert {k: after[k] - before[k] for k in after} == {
+        "tma": int(route == "tma"), "async": int(route == "async"),
+        "simple": 0, "all": 1}
+    first = cuda_window.focal_stats_cuda(x, offsets, ALL_STATS,
+                                         route="simple")
+    assert tiled_routes()["simple"] == after["simple"] + 1
+    assert_same_bits(got, first)
+    ref = window_stats(x, offsets, ALL_STATS)
+    for i, s in enumerate(ALL_STATS):
+        assert_matches(got[i], ref[s], FOCAL_TOL, s)
+
+
+@pytest.mark.gpu
+def test_focal_kernel_refuses_a_route_not_its_plans(cuda):
+    x = torch.ones((64, 64), device=cuda)
+    offsets = kernel_offsets(TILED_FOOTPRINTS["plus"])
+    before = tiled_routes()
+    for route in ("async", "ring"):
+        with pytest.raises(ValueError, match="route"):
+            cuda_window.focal_stats_cuda(x, offsets, ("mean",), route=route)
+    k = np.zeros((1001, 1001))
+    k[[0, 1000], [0, 1000]] = 1
+    with pytest.raises(ValueError, match="fits a block"):
+        cuda_window.focal_stats_cuda(x, kernel_offsets(k), ("mean",))
+    assert tiled_routes() == before
+
+
 @pytest.mark.gpu
 def test_terrain_pipeline_launches_each_kernel_once(cuda):
     data, _ = surface_case("patches_70x300")
@@ -158,11 +223,16 @@ def test_terrain_pipeline_launches_each_kernel_once(cuda):
                            name="dem", attrs=attrs)
     on_host = xt.DataArray(torch.from_numpy(data), dims=("y", "x"),
                            name="dem", attrs=attrs)
-    before = (cuda_surface.LAUNCHES, cuda_window.LAUNCHES)
+    before = (cuda_surface.LAUNCHES, cuda_window.LAUNCHES,
+              cuda_window.TMA_LAUNCHES + cuda_window.ASYNC_LAUNCHES,
+              cuda_window.SIMPLE_LAUNCHES)
     got = xt.terrain_pipeline(on_card)
     torch.cuda.synchronize()
-    assert (cuda_surface.LAUNCHES, cuda_window.LAUNCHES) == (
-        before[0] + 1, before[1] + 1)
+    # B2 on its staged route, not the first port
+    assert (cuda_surface.LAUNCHES, cuda_window.LAUNCHES,
+            cuda_window.TMA_LAUNCHES + cuda_window.ASYNC_LAUNCHES,
+            cuda_window.SIMPLE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3])
     ref = xt.terrain_pipeline(on_host)
     assert list(got.data_vars) == list(ref.data_vars)
     for k in ("dem-slope", "dem-hillshade", "focal_stats"):
@@ -589,9 +659,10 @@ def test_staged_halo_takes_cp_async_from_an_unaligned_base(cuda):
 @pytest.mark.gpu
 def test_staged_halo_launcher_refuses_an_unsafe_plan(cuda):
     """The staged launcher launches halo_plan's plan and refuses one whose
-    route, boxes, window, shared bytes or grid break a safety rule."""
+    route, boxes, window, shared bytes, grid or register class (2 or 3
+    blocks an SM) break a safety rule."""
     import ctypes
-    from xrspatial_torch.kernels.focal_halo import run_table
+    from xrspatial_torch.kernels.focal_halo import register_class, run_table
     x = torch.rand(64, 256, device=cuda) * 100
     offsets = kernel_offsets(halo_footprint("annulus_40_38"))
     plan = halo_plan(64, 256, offsets, x.data_ptr())
@@ -601,7 +672,8 @@ def test_staged_halo_launcher_refuses_an_unsafe_plan(cuda):
     slots = (ctypes.c_int * 7)(0, -1, -1, -1, -1, -1, -1)
     args = dict(route=0, th=plan.tile[0], pad=plan.pad, pitch=plan.pitch,
                 rows=plan.rows, box_cols=plan.box[0], box_rows=plan.box[1],
-                smem=plan.shared_bytes, grid=plan.grid)
+                smem=plan.shared_bytes, grid=plan.grid,
+                blocks=register_class(plan))
 
     def launch(**change):
         a = {**args, **change}
@@ -609,14 +681,15 @@ def test_staged_halo_launcher_refuses_an_unsafe_plan(cuda):
             x.data_ptr(), runs.data_ptr(), runs.shape[0], len(offsets), slots,
             out.data_ptr(), 64, 256, 40, 40, a["route"], a["th"], a["pad"],
             a["pitch"], a["rows"], a["box_cols"], a["box_rows"], a["smem"],
-            a["grid"], _cuda.stream_of(cuda))
+            a["grid"], a["blocks"], _cuda.stream_of(cuda))
 
-    assert plan.route == "tma" and launch() == 0
+    assert plan.route == "tma" and launch() == 0 and launch(blocks=3) == 0
     torch.cuda.synchronize()
     for change in (dict(route=1), dict(th=31), dict(pad=38),
                    dict(pitch=192, box_cols=192), dict(box_cols=112),
                    dict(rows=plan.rows - 1), dict(smem=plan.shared_bytes - 4),
-                   dict(smem=232448 + 4), dict(grid=plan.grid + 1)):
+                   dict(smem=232448 + 4), dict(grid=plan.grid + 1),
+                   dict(blocks=1), dict(blocks=4)):
         assert launch(**change) != 0, change
 
 
@@ -834,6 +907,90 @@ def vs_ridge(shape, seed):
     data[shape[0] // 3, :] += 100.0
     data[np.unravel_index(rng.integers(0, data.size, 20), shape)] = np.nan
     return data
+
+
+SCREEN_CASES = {
+    "48x64": ((48, 64), 601, 20, (10, 10), 3.0, 0.5, 1.5),
+    "64x48_corner": ((64, 48), 602, 20, (0, 0), 3.0, 0.5, 1.5),
+    "96x112_nan_cells": ((96, 112), 603, 200, (50, 30), 3.0, 0.5, 1.0),
+    "300x70": ((300, 70), 604, 20, (200, 60), 2.0, 0.0, 1.0),
+    "257x1025": ((257, 1025), 605, 50, (100, 700), 2.0, 0.0, 1.0),
+}
+
+
+def screen_case(name, level, device):
+    """chip_smoke.py's phase-13 inputs (its ridge rasters)."""
+    shape, seed, n_nan, (vr, vc), oe, te, ew = SCREEN_CASES[name]
+    rng = np.random.default_rng(seed)
+    data = rng.random(shape) * 60.0
+    data[shape[0] // 3, :] += 100.0
+    data[np.unravel_index(rng.integers(0, data.size, n_nan), shape)] = np.nan
+    return viewshed_exact.screen_inputs(data, vr, vc, oe, te, ew, -1.0,
+                                        level=level, device=device)
+
+
+def screen_routes():
+    return (cuda_screen.LAUNCHES, cuda_screen.CULLED_LAUNCHES,
+            cuda_screen.SIMPLE_LAUNCHES, cuda_screen.BOUNDS_LAUNCHES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("name", list(SCREEN_CASES))
+def test_screen_culled_route_equals_twin_and_first_port(cuda, name, level):
+    """The culled route (the default) and the first port by name equal the
+    twin bit for bit; the pre-pass equals its twin; the kernel's counters
+    equal the CPU count of the (warp, chunk) pairs it culls."""
+    from xrspatial_torch.kernels.emulate import blocks_of
+    args = screen_case(name, level, cuda)
+    before = screen_routes()
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    hi, lo = cuda_screen.screen_hilo_cuda(*args, stats=stats)
+    torch.cuda.synchronize()
+    assert screen_routes() == (before[0] + 1, before[1] + 1, before[2],
+                               before[3] + 1)
+    ref_hi, ref_lo = screen.screen_hilo(*args)
+    assert hi.dtype == (torch.float64 if level == 2 else torch.float32)
+    assert torch.equal(hi, ref_hi) and torch.equal(lo, ref_lo)
+    s_hi, s_lo = cuda_screen.screen_hilo_cuda(*args, route="simple")
+    assert screen_routes()[2] == before[2] + 1
+    assert torch.equal(s_hi, ref_hi) and torch.equal(s_lo, ref_lo)
+    assert torch.equal(cuda_screen.chunk_bounds_cuda(args[0], args[1]),
+                       screen.chunk_bounds(args[0], args[1]))
+    host = tuple(a.cpu() if torch.is_tensor(a) else a for a in args[2:])
+    host_tables = (tuple(t.cpu() for t in args[0]),
+                   tuple(tuple(t.cpu() for t in st) for st in args[1]))
+    kept = culled = pairs = 0
+    for g, sl, a, k, _, _ in blocks_of(host_tables + host):
+        live = (~torch.isnan(a)).reshape(-1, 128).sum(dim=1)
+        k = k & (live > 0)[:, None]
+        kept += int(k.sum())
+        culled += int((~k & (live > 0)[:, None]).sum())
+        pairs += int((k.sum(dim=1) * live).sum()) * 128
+    assert stats.tolist()[:3] == [pairs, kept, culled]
+
+
+@pytest.mark.gpu
+def test_screen_wrapper_refuses_unaligned_tables_and_unknown_routes(cuda):
+    args = list(screen_case("48x64", 1, cuda))
+    gstk, gidx = args[0]
+    odd = torch.empty(gstk.numel() + 1, dtype=gstk.dtype, device=cuda)
+    odd = odd[1:].view(gstk.shape)
+    odd.copy_(gstk)
+    args[0] = (odd, gidx)
+    before = screen_routes()
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_screen.screen_hilo_cuda(*args)
+    with pytest.raises(ValueError, match="route"):
+        cuda_screen.screen_hilo_cuda(*args, route="fast")
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="culled route"):
+        cuda_screen.screen_hilo_cuda(*args, route="simple", stats=stats)
+    assert screen_routes() == before
+    # the first port takes the unaligned table, by name
+    hi, lo = cuda_screen.screen_hilo_cuda(*args, route="simple")
+    ref = screen.screen_hilo(*args)
+    assert torch.equal(hi, ref[0]) and torch.equal(lo, ref[1])
 
 
 @pytest.mark.gpu

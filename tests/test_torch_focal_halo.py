@@ -6,8 +6,8 @@ boxes, the shared bytes and the grid.  Its launcher checks only that a
 plan is safe to launch (the rules of
 ``test_halo_plan_keeps_the_box_and_shared_memory_rules``), so the choice
 of tile and blocks an SM is pinned here.  ``footprint_runs`` and
-``run_table`` give the staged kernel its footprint.  ``emulate_staged``
-is a torch emulation of the staged kernel's algorithm: each tile's window
+``run_table`` give the staged kernel its footprint.
+``kernels/emulate.py::emulate_staged`` is a torch emulation of the staged kernel's algorithm: each tile's window
 with its NaN fill, the run table's addresses, four cells along x a lane,
 offsets order in every cell, and the NaN-free branch that takes the count
 from the number of offsets.  It must equal ``window_stats``, the kernel's
@@ -16,16 +16,15 @@ order), and ``window_stats`` must match the JAX package's twin
 (``tests/test_torch_focal.py``).
 """
 
-import math
-
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from xrspatial_torch import focal
 from xrspatial_torch.convolution import annulus_kernel, circle_kernel
 from xrspatial_torch.kernels import focal_halo as fh
+from xrspatial_torch.kernels.emulate import (emulate_staged, halo_case,
+                                             same_bits)
 from xrspatial_torch.kernels.window import (_window_stats_unrolled,
                                             kernel_offsets, window_stats)
 
@@ -175,83 +174,6 @@ def test_run_table_addresses_each_runs_first_value():
 
 
 # -- a torch emulation of the staged kernel's algorithm -------------------------
-
-def emulate_staged(x, offsets):
-    """The staged kernel's statistics of the 2D float32 CPU tensor `x`
-    (dict by stat), and each tile's NaN-free flag."""
-    h, w = x.shape
-    plan = fh.halo_plan(h, w, offsets)
-    assert plan.route != "ring"
-    th, tw = plan.tile
-    ry = max(abs(dy) for dy, _ in offsets)
-    ty, tx = -(-h // th), -(-w // tw)
-    # window (i, k) of the tile at (r0, c0) is raster (r0 - ry + i,
-    # c0 - pad + k), NaN outside it: the TMA map's fill
-    big = F.pad(x, (plan.pad, tx * tw + plan.pitch, ry, ty * th + plan.rows),
-                value=math.nan)
-    wins = torch.stack([big[a * th:a * th + plan.rows,
-                            b * tw:b * tw + plan.pitch].reshape(-1)
-                        for a in range(ty) for b in range(tx)])
-    nan_free = ~torch.isnan(wins).any(dim=1)
-    # lane l's cell j at tile row tr starts at window float tr*pitch + 4l + j
-    tr = torch.arange(th)[:, None, None]
-    lane = torch.arange(32)[None, :, None]
-    cell = torch.arange(fh.CELLS)[None, None, :]
-    base = tr * plan.pitch + 4 * lane + cell
-    shape = (wins.shape[0], th, 32, fh.CELLS)
-
-    def values():
-        """Each offset's value for every cell, in the kernel's order."""
-        for quad, code in fh.run_table(offsets, plan):
-            for m in range(code >> 2):
-                idx = base + 4 * quad + (code & 3) + m
-                yield wins[:, idx.reshape(-1)].reshape(shape)
-
-    cnt, ssum = torch.zeros(shape), torch.zeros(shape)
-    smin, smax = torch.full(shape, math.inf), torch.full(shape, -math.inf)
-    for s in values():
-        ok = ~torch.isnan(s)
-        cnt = cnt + ok
-        ssum = torch.where(ok, ssum + s, ssum)
-        smin = torch.where(ok & (s < smin), s, smin)
-        smax = torch.where(ok & (s > smax), s, smax)
-    # the NaN-free branch: the count is the number of offsets
-    cnt = torch.where(nan_free[:, None, None, None], float(len(offsets)), cnt)
-    mean = torch.where(cnt > 0, ssum / torch.clamp(cnt, min=1.0), math.nan)
-    dev2 = torch.zeros(shape)
-    for s in values():
-        dv = s - mean
-        dev2 = torch.where(torch.isnan(s), dev2, dev2 + dv * dv)
-    smin = torch.where(torch.isinf(smin), math.nan, smin)
-    smax = torch.where(torch.isinf(smax), math.nan, smax)
-    var = torch.where(cnt > 0, dev2 / torch.clamp(cnt, min=1.0), math.nan)
-    planes = {"mean": mean, "sum": ssum, "min": smin, "max": smax,
-              "range": smax - smin, "var": var, "std": torch.sqrt(var)}
-
-    def raster(t):                                # (tiles, th, 32, 4)
-        t = t.reshape(ty, tx, th, tw).permute(0, 2, 1, 3)
-        return t.reshape(ty * th, tx * tw)[:h, :w]
-
-    return {k: raster(v) for k, v in planes.items()}, nan_free
-
-
-def halo_case(shape, seed):
-    rng = np.random.default_rng(seed)
-    data = (rng.random(shape) * 50).astype(np.float32)
-    h, w = shape
-    data[h // 8:h // 8 + 3, w // 5:w // 5 + 9] = np.nan
-    data[h - 1, w - 1] = np.inf
-    data[0, w // 2] = -np.inf
-    data[h // 9, 3] = np.inf
-    return torch.from_numpy(data)
-
-
-def same_bits(got, ref):
-    return (torch.equal(torch.isnan(got), torch.isnan(ref))
-            and torch.equal(torch.nan_to_num(got, 0.0, 1.0, -1.0),
-                            torch.nan_to_num(ref, 0.0, 1.0, -1.0))
-            and torch.equal(torch.isinf(got), torch.isinf(ref)))
-
 
 @pytest.mark.parametrize("name,shape,free_tiles", [
     ("annulus_40_38", (200, 340), True),

@@ -1,20 +1,22 @@
 // focal_kernel: masked-window focal statistics (mean, sum, min, max,
 // range, var, std) of a float32 raster, stacked as (S, H, W).
 //
-// Replaces the TPU kernel xrspatial_tpu/kernels/pallas_window2.py::
-// focal_stats_tiled (body emit_focal), for the footprints the JAX package
-// sends there (ry <= 32, rx <= 256); it takes any raster shape and any
-// number of offsets.  The TPU kernel's seam-band passes have no
+// The first port of the TPU kernel xrspatial_tpu/kernels/pallas_window2.py::
+// focal_stats_tiled (body emit_focal), kept by name as route "simple" of
+// kernels/cuda_window.py::focal_stats_cuda: the footprints the JAX package
+// sends there (ry <= 32, rx <= 256) now run on the staged template of
+// focal_halo.cu, which gives the same bits.  It takes any raster shape and
+// any number of offsets.  The TPU kernel's seam-band passes have no
 // counterpart: every thread reads its own window with bounds checks, and a
 // neighbour outside the raster is excluded like a NaN.  The per-cell code
 // is focal_cell.cuh, shared with the fused pipeline kernel (pipeline.cu).
 //
 // Bound on this card: device memory traffic, 4 bytes read and 4*S bytes
-// written per cell (1 read + S writes of f32); the window reads hit L1/L2.
-//
-// This is the simple first version: one thread per output cell, 32x8
-// blocks, neighbours read straight from global memory.  Shared-memory halo
-// tiles, cp.async or TMA, and compile-time offsets are later work.
+// written per cell (1 read + S writes of f32).  One thread per output
+// cell, 32x8 blocks, every neighbour read straight from global memory with
+// a 64-bit index and four bounds tests, the offsets read from global
+// memory each time, twice for the variance: on an H100, 5.2 ms on the
+// 5-cell plus at 16384^2 against a 1.6 ms byte bound.
 
 #include "focal_cell.cuh"
 

@@ -1,6 +1,6 @@
 // Per-cell device code of the focal statistics, shared by focal_kernel
-// (focal.cu), focal_halo_kernel (focal_halo.cu) and pipeline_kernel
-// (pipeline.cu): the window accumulation and the epilogue.
+// (focal.cu), the staged and ring kernels (focal_halo.cu) and
+// pipeline_kernel (pipeline.cu): the window accumulation and the epilogue.
 //
 // Semantics follow the torch twin (xrspatial_torch/kernels/window.py):
 // NaNs are excluded by count, and so is a neighbour outside the raster;
@@ -60,19 +60,41 @@ __device__ __forceinline__ float focal_mean(const FocalAcc& a) {
   return a.cnt > 0.0f ? a.ssum / fmaxf(a.cnt, 1.0f) : CUDART_NAN_F;
 }
 
-// The second pass: dev2 += (s - mean)^2.  kRounded rounds the square and
-// the sum separately (__fmul_rn/__fadd_rn), as the twin's separate torch
-// ops do; otherwise nvcc may contract them into one fma.  kNanFree leaves
-// out the NaN test, for a caller that knows s is not NaN.
-template <bool kRounded, bool kNanFree = false>
+// The second pass: dev2 += (s - mean)^2, the square and the sum rounded
+// apart (__fmul_rn/__fadd_rn), as the twin's separate torch ops do, so
+// that nvcc cannot contract them into one fma: every focal kernel
+// (focal_kernel, the staged and ring routes, pipeline_kernel) rounds the
+// same way.  kNanFree leaves out the NaN test, for a caller that knows s
+// is not NaN.
+template <bool kNanFree = false>
 __device__ __forceinline__ void focal_dev2_add(float& dev2, float s,
                                                float mean) {
   if (!kNanFree && isnan(s)) return;
   const float dv = s - mean;
-  if (kRounded)
-    dev2 = __fadd_rn(dev2, __fmul_rn(dv, dv));
-  else
-    dev2 += dv * dv;
+  dev2 = __fadd_rn(dev2, __fmul_rn(dv, dv));
+}
+
+// The seven statistics of one cell, in the slot order, from its first
+// pass and second-pass sum: a window whose extreme is +-inf (no value, or
+// +-inf data) has a NaN extreme.
+struct FocalOut {
+  float v[kNumStats];
+};
+
+__device__ __forceinline__ FocalOut focal_values(FocalAcc a, float mean,
+                                                 float dev2) {
+  FocalOut o;
+  o.v[kMean] = mean;
+  o.v[kSum] = a.ssum;
+  if (isinf(a.smin)) a.smin = CUDART_NAN_F;
+  if (isinf(a.smax)) a.smax = CUDART_NAN_F;
+  o.v[kMin] = a.smin;
+  o.v[kMax] = a.smax;
+  o.v[kRange] = a.smax - a.smin;
+  const float var = a.cnt > 0.0f ? dev2 / fmaxf(a.cnt, 1.0f) : CUDART_NAN_F;
+  o.v[kVar] = var;
+  o.v[kStd] = sqrtf(var);
+  return o;
 }
 
 // Writes the requested statistics of the cell at flat index i of each
@@ -82,19 +104,24 @@ __device__ __forceinline__ void focal_store(const Slots& sl,
                                             long long plane, long long i,
                                             FocalAcc a, float mean,
                                             float dev2) {
-  if (sl.s[kMean] >= 0) out[sl.s[kMean] * plane + i] = mean;
-  if (sl.s[kSum] >= 0) out[sl.s[kSum] * plane + i] = a.ssum;
-  // a window whose extreme is +-inf (no value, or +-inf data) is NaN
-  if (isinf(a.smin)) a.smin = CUDART_NAN_F;
-  if (isinf(a.smax)) a.smax = CUDART_NAN_F;
-  if (sl.s[kMin] >= 0) out[sl.s[kMin] * plane + i] = a.smin;
-  if (sl.s[kMax] >= 0) out[sl.s[kMax] * plane + i] = a.smax;
-  if (sl.s[kRange] >= 0) out[sl.s[kRange] * plane + i] = a.smax - a.smin;
-  if (needs_var(sl)) {
-    const float var = a.cnt > 0.0f ? dev2 / fmaxf(a.cnt, 1.0f) : CUDART_NAN_F;
-    if (sl.s[kVar] >= 0) out[sl.s[kVar] * plane + i] = var;
-    if (sl.s[kStd] >= 0) out[sl.s[kStd] * plane + i] = sqrtf(var);
-  }
+  const FocalOut o = focal_values(a, mean, dev2);
+#pragma unroll
+  for (int k = 0; k < kNumStats; ++k)
+    if (sl.s[k] >= 0) out[sl.s[k] * plane + i] = o.v[k];
+}
+
+// Writes the requested statistics of the 4 cells at flat indices i .. i +
+// 3, one 16-byte streaming store a plane: out + i and the plane stride must
+// keep 16-byte alignment.
+__device__ __forceinline__ void focal_store4(const Slots& sl,
+                                             float* __restrict__ out,
+                                             long long plane, long long i,
+                                             const FocalOut (&o)[4]) {
+#pragma unroll
+  for (int k = 0; k < kNumStats; ++k)
+    if (sl.s[k] >= 0)
+      __stcs(reinterpret_cast<float4*>(out + sl.s[k] * plane + i),
+             make_float4(o[0].v[k], o[1].v[k], o[2].v[k], o[3].v[k]));
 }
 
 // x[row + dy, col + dx], or NaN outside the h x w raster
@@ -124,10 +151,10 @@ __device__ __forceinline__ void focal_cell(const float* __restrict__ x,
   float dev2 = 0.0f;
   if (needs_var(sl))
     for (int k = 0; k < n; ++k)
-      focal_dev2_add<false>(dev2,
-                            window_value(x, h, w, row, col, offs[2 * k],
-                                         offs[2 * k + 1]),
-                            mean);
+      focal_dev2_add(dev2,
+                     window_value(x, h, w, row, col, offs[2 * k],
+                                  offs[2 * k + 1]),
+                     mean);
   focal_store(sl, out, h * w, row * w + col, a, mean, dev2);
 }
 

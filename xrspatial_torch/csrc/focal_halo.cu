@@ -1,14 +1,21 @@
-// focal_halo: masked-window focal statistics, stacked as (S, H, W), for
-// the footprints beyond focal_kernel's radius (ry > 32 or rx > 256), such
-// as the 512-offset annulus of a topographic position index with an outer
-// radius of 40 cells.
+// focal_halo: masked-window focal statistics, stacked as (S, H, W): the
+// staged template for every footprint whose window fits a block, and the
+// ring kernel for the rest.
 //
-// Replaces the TPU kernel xrspatial_tpu/kernels/pallas_window.py::
-// focal_stats_pallas (the emit_pipeline halo-window variant), which
-// copies a whole (th + 2ry) x (tw + 2rx) halo window into VMEM and
-// computes every cell of the tile from it.  Two kernels, three routes
-// (kernels/focal_halo.py::halo_plan chooses; the launcher checks that the
-// plan is safe to launch):
+// Replaces two TPU kernels:
+// - xrspatial_tpu/kernels/pallas_window.py::focal_stats_pallas (the
+//   emit_pipeline halo-window variant), for the footprints beyond the
+//   tiled radii (ry > 32 or rx > 256), such as the 512-offset annulus of a
+//   topographic position index with an outer radius of 40 cells; it
+//   copies a whole (th + 2ry) x (tw + 2rx) halo window into VMEM and
+//   computes every cell of the tile from it (kernels/cuda_window.py::
+//   focal_stats_halo_cuda);
+// - xrspatial_tpu/kernels/pallas_window2.py::focal_stats_tiled, for the
+//   footprints within them, such as terrain_pipeline's 5-cell plus
+//   (focal_stats_cuda; its first port, focal.cu::focal_kernel, is kept by
+//   name as route "simple").
+// Two kernels, three routes (kernels/focal_halo.py::halo_plan chooses;
+// the launcher checks that the plan is safe to launch):
 //
 // focal_halo_staged_kernel (routes "tma" and "async"), redesigned for
 // Hopper after the TPU kernel's own design.  What bounds it on this card
@@ -24,8 +31,9 @@
 //   with no bounds or ring test), completing on one mbarrier; the async
 //   route copies the same window with 4-byte cp.async and NaN stores.  One
 //   barrier a tile, and both passes read the same window.  Two blocks an
-//   SM (about 100 KB each for the annulus), so one block's staging hides
-//   under the other's arithmetic.
+//   SM (about 100 KB each for the annulus), or three where three windows
+//   fit (the plus's is 22 KB; register_class), so one block's staging
+//   hides under another's arithmetic.
 // - The footprint as row runs.  The wrapper merges consecutive offsets of
 //   one footprint row into runs (158 for the annulus's 512 offsets) and
 //   gives each as the window's 16-byte group that lane 0 reads first and
@@ -44,12 +52,17 @@
 //   for NaN but own no cells, and half the block idles through the
 //   arithmetic.  No footprint of the main path takes such a tile.
 // - Each cell accumulates in offsets order with focal_cell.cuh's float
-//   operations: focal_acc_add, then focal_dev2_add<true> (the rounded
+//   operations: focal_acc_add, then focal_dev2_add (the rounded
 //   square and sum of the twin).  The route is therefore equal bit for bit
 //   to the ring kernel.  A block whose whole window holds no NaN (every
 //   interior tile of a DEM without nodata; __syncthreads_or) takes the
 //   same steps without the NaN tests, and sets the count to the number of
 //   offsets, which n additions of 1 give: the same bits.
+// - Each plane is stored as one 16-byte streaming store of a thread's 4
+//   cells where w % 4 == 0 (and the output is aligned): a small footprint
+//   is bound by its output bytes (4 planes of 4 bytes a cell for 4 bytes
+//   read), which a warp writes in whole 16-byte vectors rather than as 4
+//   scalar stores 16 bytes apart.
 //
 // focal_halo_kernel (route "ring"), the first port, kept by name and for
 // windows that fit no block (a sparse footprint of radius 500, say).  Each
@@ -93,6 +106,7 @@ struct StagedArgs {
   float* out;
   long long h, w, tiles_x;
   int th, ry, pad, pitch, rows, box_cols, box_rows, per_row;
+  bool vec;  // w % 4 == 0 and out 16-byte aligned: float4 stores
 };
 
 __device__ __forceinline__ void put4(float* v, float4 q) {
@@ -190,19 +204,32 @@ __device__ __forceinline__ void tile_cells(const StagedArgs& a,
     }
   if (xrt::needs_var(a.slots))
     walk_runs(base, pitch4, runs, a.nruns, [&](int r, int j, float s) {
-      xrt::focal_dev2_add<true, kNanFree>(dev2[r][j], s, mean[r][j]);
+      xrt::focal_dev2_add<kNanFree>(dev2[r][j], s, mean[r][j]);
     });
+  const long long plane = a.h * a.w;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < kRows; ++r) {
+    if (row + r >= a.h) break;
+    if (a.vec) {
+      // w % 4 == 0: the 4 cells lie in the raster together
+      if (col >= a.w) continue;
+      xrt::FocalOut o[kCells];
 #pragma unroll
-    for (int j = 0; j < kCells; ++j)
-      if (row + r < a.h && col + j < a.w)
-        xrt::focal_store(a.slots, a.out, a.h * a.w, (row + r) * a.w + col + j,
-                         acc[r][j], mean[r][j], dev2[r][j]);
+      for (int j = 0; j < kCells; ++j)
+        o[j] = xrt::focal_values(acc[r][j], mean[r][j], dev2[r][j]);
+      xrt::focal_store4(a.slots, a.out, plane, (row + r) * a.w + col, o);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCells; ++j)
+        if (col + j < a.w)
+          xrt::focal_store(a.slots, a.out, plane, (row + r) * a.w + col + j,
+                           acc[r][j], mean[r][j], dev2[r][j]);
+    }
+  }
 }
 
-template <int ROUTE>
-__global__ void __launch_bounds__(kStagedThreads, 2)
+template <int ROUTE, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kStagedThreads, MIN_BLOCKS)
     focal_halo_staged_kernel(const __grid_constant__ CUtensorMap map,
                              const StagedArgs a) {
   extern __shared__ unsigned char smem_raw[];
@@ -364,7 +391,7 @@ __global__ void focal_halo_kernel(const float* __restrict__ x,
     float dev2 = 0.0f;
     if (need_var)
       sweep(s_offs, n, ring, rw, x, h, w, r0, c0, rxs, base,
-            [&](float s) { xrt::focal_dev2_add<true>(dev2, s, mean); });
+            [&](float s) { xrt::focal_dev2_add(dev2, s, mean); });
     const long long row = r0 + threadIdx.y;
     if (row < h && col < w)
       xrt::focal_store(slots, out, h * w, row * w + col, acc, mean, dev2);
@@ -412,8 +439,9 @@ int focal_halo_launch(const float* x, const int* offs, int n,
 // halo_plan planned it: `runs` (2 ints a run, kernels/focal_halo.py::
 // run_table) on the card; n offsets of radii ry, rx; route 0 TMA or 1
 // cp.async; tile rows th; window pad, pitch and rows; box columns and
-// rows; shared bytes; grid.  The plan's choice of tile and blocks an SM is
-// halo_plan's alone; this checks what keeps the launch safe: the route is
+// rows; shared bytes; grid; and the blocks an SM the kernel is compiled
+// for (kernels/focal_halo.py::register_class: 2 or 3, its register cap).  The plan's choice of tile and blocks
+// an SM is halo_plan's alone; this checks what keeps the launch safe: the route is
 // the route rule's (TMA where w % 4 == 0 and x is 16-byte aligned), boxes
 // of at most 256 a side and whole 32-float widths that tile the pitch, a
 // window that covers the tile and its halo, shared bytes that hold it and
@@ -425,7 +453,7 @@ int focal_halo_staged_launch(const float* x, const int* runs, int nruns,
                              long long h, long long w, int ry, int rx,
                              int route, int th, int pad, int pitch, int rows,
                              int box_cols, int box_rows, int smem,
-                             long long grid, void* stream) {
+                             long long grid, int min_blocks, void* stream) {
   if (h <= 0 || w <= 0) return 0;
   const bool tma = w % 4 == 0 && aligned16(x);
   const int per_row = box_cols > 0 ? pitch / box_cols : 0;
@@ -442,7 +470,8 @@ int focal_halo_staged_launch(const float* x, const int* runs, int nruns,
   if (route != (tma ? kRouteTma : kRouteAsync) || nruns <= 0 || n <= 0 ||
       th <= 0 || th % kRows != 0 || pad < rx || pad % 4 != 0 || !boxes_ok ||
       pitch < kTileCols + 2 * pad || rows < th + 2LL * ry || smem < need ||
-      smem > kSmemPerBlock || grid != (h + th - 1) / th * tiles_x)
+      smem > kSmemPerBlock || grid != (h + th - 1) / th * tiles_x ||
+      min_blocks < 2 || min_blocks > 3)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map{};
   if (tma) {
@@ -467,8 +496,13 @@ int focal_halo_staged_launch(const float* x, const int* runs, int nruns,
   a.box_cols = box_cols;
   a.box_rows = box_rows;
   a.per_row = per_row;
-  auto kernel = tma ? focal_halo_staged_kernel<kRouteTma>
-                    : focal_halo_staged_kernel<kRouteAsync>;
+  a.vec = w % 4 == 0 && aligned16(out);
+  void (*const kernels[2][2])(const CUtensorMap, const StagedArgs) = {
+      {focal_halo_staged_kernel<kRouteTma, 2>,
+       focal_halo_staged_kernel<kRouteTma, 3>},
+      {focal_halo_staged_kernel<kRouteAsync, 2>,
+       focal_halo_staged_kernel<kRouteAsync, 3>}};
+  const auto kernel = kernels[tma ? 0 : 1][min_blocks - 2];
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

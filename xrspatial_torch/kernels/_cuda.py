@@ -121,7 +121,7 @@ def library() -> ctypes.CDLL:
     lib.focal_halo_launch.restype = i32
     lib.focal_halo_staged_launch.argtypes = [
         p, p, i32, i32, ctypes.POINTER(i32), p, i64, i64, i32, i32, i32, i32,
-        i32, i32, i32, i32, i32, i32, i64, p]
+        i32, i32, i32, i32, i32, i32, i64, i32, p]
     lib.focal_halo_staged_launch.restype = i32
     lib.pipeline_launch.argtypes = [p, p, p, p, p, i32, f32, f32, f32, f32,
                                     f32, f32, p, i32, ctypes.POINTER(i32), p,
@@ -138,11 +138,18 @@ def library() -> ctypes.CDLL:
                                      f32, f32, i32, i32, i32, i32, i32, i32,
                                      i32, i32, i32, i32, i64, p]
     lib.jfa_round_routed.restype = i32
+    tier_args = [i32, i32, ctypes.POINTER(p), ctypes.POINTER(p),
+                 ctypes.POINTER(i32), ctypes.POINTER(i32),
+                 ctypes.POINTER(i32), p, i32, i32]
     for fn in (lib.screen_hilo_f32, lib.screen_hilo_f64):
-        fn.argtypes = [p, p, p, p, p, p, i32, i32, ctypes.POINTER(p),
-                       ctypes.POINTER(p), ctypes.POINTER(i32),
-                       ctypes.POINTER(i32), ctypes.POINTER(i32), p, i32, i32,
-                       p, p, p]
+        fn.argtypes = [p, p, p, p, p, p, *tier_args, p, p, p]
+        fn.restype = i32
+    for fn in (lib.screen_culled_f32, lib.screen_culled_f64):
+        fn.argtypes = [p, p, p, p, p, p, *tier_args, p, p, p, p, p]
+        fn.restype = i32
+    for fn in (lib.screen_bounds_f32, lib.screen_bounds_f64):
+        fn.argtypes = [p, i32, i32, ctypes.POINTER(p), ctypes.POINTER(i32),
+                       ctypes.POINTER(i32), p, p]
         fn.restype = i32
     lib.jfa_group_packed.argtypes = [p, p, i64, i64, ctypes.POINTER(i32),
                                      i32, i32, i32, f32, f32, i32, p]

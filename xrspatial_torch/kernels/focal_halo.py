@@ -6,7 +6,8 @@ three routes, which ``halo_plan`` chooses between:
 
 - "tma": each block stages its output tile's whole halo window in shared
   memory once, with TMA boxes whose out-of-bounds fill is NaN, then walks
-  the footprint as row runs, four cells along x a thread;
+  the footprint as row runs, four cells along x a thread, and stores each
+  plane 4 cells at a time;
 - "async": the same kernel, the window staged by 4-byte ``cp.async``
   copies (NaN stores outside the raster), for a pitch or base TMA refuses
   (``w % 4 != 0`` or a base that is not 16-byte aligned);
@@ -14,8 +15,12 @@ three routes, which ``halo_plan`` chooses between:
   in a ring of 8 rows, only where no tile's window fits in a block's
   shared memory (a sparse footprint of radius 500, say).
 
-The choice of tile and blocks an SM is ``halo_plan``'s alone, pinned by
-the CPU tests; the launcher checks only what keeps a launch safe (the
+The same staged template serves the footprints within the tiled radii
+(``focal_stats_cuda``, the port of ``pallas_window2.py::
+focal_stats_tiled``) and beyond them (``focal_stats_halo_cuda``): every
+footprint of at most 1024 offsets with ry <= 32 and rx <= 256 fits a
+staged window.  The choice of tile and blocks an SM is ``halo_plan``'s
+and ``register_class``'s alone, pinned by the CPU tests; the launcher checks only what keeps a launch safe (the
 route rule, box sizes, a window that covers the tile and its halo, shared
 bytes that hold it, a grid of one block a tile) and refuses a plan that
 fails.
@@ -29,7 +34,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 __all__ = ["TILE_COLS", "TILE_ROWS", "CELLS", "HaloPlan", "footprint_runs",
-           "halo_plan", "run_table"]
+           "halo_plan", "register_class", "run_table"]
 
 TILE_COLS = 128            # a warp's 32 lanes x CELLS cells along x
 CELLS = 4                  # cells along x a thread
@@ -42,6 +47,7 @@ BARRIER_BYTES = 128        # the window's mbarrier
 READ_SLACK = 64            # a run's 16-byte loads read up to 8 floats past
                            # the window's last row
 RING_TILE = (8, 32)        # the ring kernel's output tile
+REGISTER_CLASSES = (3, 2)  # blocks an SM the staged kernel is compiled for
 RING_MAX_RX = 511          # the ring's widest staged row radius
 
 
@@ -144,6 +150,20 @@ def halo_plan(h: int, w: int, offsets, ptr: int = 0) -> HaloPlan:
                                 (box_cols, box_rows), boxes, shared, per_sm,
                                 -(-h // th) * tiles_x)
     return _ring_plan(h, w, len(offsets), rx)
+
+
+def register_class(plan: HaloPlan) -> int:
+    """The blocks an SM the staged kernel is compiled for on `plan` (its
+    ``__launch_bounds__``, so its register cap: 80 registers a thread at 3,
+    128 at 2): 3 where three of the plan's windows fit an SM's shared
+    memory, else 2.  A third block hides more of the window's staging and
+    the stores; four blocks (64 registers a thread) spill."""
+    if plan.route == "ring":
+        raise ValueError("the ring route is not the staged kernel")
+    for blocks in REGISTER_CLASSES:
+        if blocks * (plan.shared_bytes + 1024) <= SMEM_PER_SM:
+            return blocks
+    return REGISTER_CLASSES[-1]
 
 
 def run_table(offsets, plan: HaloPlan) -> Tuple[Tuple[int, int], ...]:

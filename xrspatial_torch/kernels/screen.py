@@ -21,12 +21,16 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["F13", "screen_pairs", "screen_hilo"]
+__all__ = ["F13", "CHUNK", "screen_pairs", "screen_hilo", "chunk_bounds"]
 
 # stacked-field order of the expanded candidate tables (idx rides
 # separately as int32: flat indices above 2^24 are not exact in f32)
 F13 = ("a0w", "a0n", "a2w", "a2n", "a1e", "g1", "s01", "s21", "mn",
        "mx", "ts", "tw", "key")
+
+# candidates a chunk: the CUDA kernels stage and cull the tables in runs of
+# CHUNK candidates, and every block length E and glob length is a multiple
+CHUNK = 128
 
 
 def screen_pairs(al, kt_lo, kt_hi, it, c):
@@ -91,3 +95,24 @@ def screen_hilo(glob, stacks, al, klo, khi, it, rows, A, C, Es, NBs, B):
         hi[g] = h
         lo[g] = l
     return hi.reshape(A * C), lo.reshape(A * C)
+
+
+def chunk_bounds(glob, stacks):
+    """(lo, hi) of every CHUNK-candidate chunk of the global table, then of
+    each tier's table (all its blocks) in order, as one flat tensor of
+    2 values a chunk: ``lo`` is the least ``a0w`` and ``hi`` the largest
+    ``a2w`` over the chunk's candidates with ``a0w < a2w`` (+inf and -inf
+    when it has none).  A pair passes the wide cover ``a0w < al < a2w``
+    only if ``lo < al < hi``.  The plain version of the culled route's
+    pre-pass (``csrc/screen.cu::screen_bounds_kernel``)."""
+    ia0w, ia2w = F13.index("a0w"), F13.index("a2w")
+    parts = []
+    for stk in (glob[0][None], *(s for s, _ in stacks)):
+        w0 = stk[:, ia0w].reshape(-1, CHUNK)
+        w2 = stk[:, ia2w].reshape(-1, CHUNK)
+        ok = w0 < w2
+        inf = torch.tensor(torch.inf, dtype=w0.dtype, device=w0.device)
+        lo = torch.where(ok, w0, inf).amin(dim=1)
+        hi = torch.where(ok, w2, -inf).amax(dim=1)
+        parts.append(torch.stack([lo, hi], dim=1).reshape(-1))
+    return torch.cat(parts)

@@ -11,11 +11,16 @@ Phases, each fatal on failure:
 3. kernels: each CUDA kernel against its torch twin, on the card, at small
    and ragged shapes with NaN patches and +-inf cells; the focal kernel
    (B2) on its staged route also against its first port by name, bit for
-   bit;
+   bit; the surface kernel (B1) on its staged routes against its first
+   port by name, bit for bit, at every product mask (each product, slope
+   + hillshade, all four), with flat cells (aspect -1), from an aligned
+   base and from one 4 bytes off (TMA and cp.async, each launch counted
+   on the route its plan names), at every tile, at the small shapes, a
+   thin 300x70 and an aligned ragged 263x516;
 4. main path: ``terrain_pipeline`` on a 16384^2 float32 DEM on the card,
-   the call users make; one launch of each kernel and no other, the focal
-   kernel on its staged TMA route, outputs on the card, exact NaN ring,
-   full-size agreement with the twins;
+   the call users make; one launch of each kernel and no other, the
+   surface and focal kernels each on its staged TMA route, outputs on the
+   card, exact NaN ring, full-size agreement with the twins;
 5. timing (informational): warm ``terrain_pipeline`` and each kernel
    against its twin, from CUDA events; then B2's staged route against its
    first port by name, bit for bit, at 16384^2 on the plus (also with a
@@ -23,6 +28,8 @@ Phases, each fatal on failure:
    65x1 column (ry = 32), each launch counted on the TMA route; the staged
    route, its first port and B5's staged kernel by name (the yardstick
    leg) timed in turns on the plus, the other footprints' routes in turns;
+   B1's staged kernel at each tile against its first port by name at
+   16384^2, bit for bit, on TMA, and all of them timed in turns;
 6. jump-flood rounds: the CUDA round kernel against its twins over whole
    stride schedules, at small and ragged shapes, for each state form and
    metric, with and without a value channel, including a raster with no
@@ -46,12 +53,19 @@ Phases, each fatal on failure:
    of radius 500) on the route its plan names against the ring route
    called by name, bit for bit, and against ``window_stats``, each launch
    counted on its route (TMA, cp.async and the ring each at least once);
-   the fused pipeline kernel against the split kernels (equal bit for
-   bit) and its twin; at the small shapes, a thin 300x70 and an aligned
-   ragged 263x516;
+   the fused pipeline kernel (B4) on the route its plan names against its
+   first port by name and the split kernels (staged B1 + staged B2), bit
+   for bit, and its twin, on the plus, a radius-2 circle, a 3x3, a 1x3
+   row and a 3x1 column (radii clamped to 1) and the fused gate's largest
+   footprint, 65x129 (bits only: the twin takes the conv path), from an
+   aligned base and one 4 bytes off, each launch counted on its route; at
+   the small shapes, a thin 300x70 and an aligned ragged 263x516;
 10. fused path: ``terrain_pipeline`` with ``XRSPATIAL_FUSED_PIPELINE=1``
-   at 16384^2: one pipeline launch and no other, exact NaN ring, equal to
-   the split path at every cell; fused and split timed in turns;
+   at 16384^2: one pipeline launch, on its TMA route, and no other, exact
+   NaN ring, equal to the split path at every cell; fused and split timed
+   in turns; B4's staged route against its first port by name, bit for
+   bit, and the staged route, the first port and the split kernels timed
+   in turns;
 11. annulus focal path: ``focal_stats`` over the 512-offset annulus at
    16384^2: one halo launch, on the TMA route, and no other, agreement
    with the twin path and the ring route; on the DEM with a nodata cell
@@ -141,11 +155,11 @@ on this run's data, with the plan's whole pair count beside it as
 ``plan_bound_ms``) and the same bound at the stream roof measured in
 phase 18 (``measured_roof_bound_ms``, and its share of ``ms``), and
 the design its timed launch ran (``design``: the staged route and tile of
-the focal kernels, the screen's culled share, the stream kernels' bulk
-rings, the jump-flood round's per-stride routes, the group's window) and,
-for the redesigned kernels that keep their first port by name (focal,
-screen, jump-flood round and group), that port's time in turns
-(``first_port_ms``); the last
+the surface, focal and pipeline kernels, the screen's culled share, the
+stream kernels' bulk rings, the jump-flood round's per-stride routes, the
+group's window) and, for the redesigned kernels that keep their first
+port by name (surface, focal, pipeline, screen, jump-flood round and
+group), that port's time in turns (``first_port_ms``); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits 1 before printing any result.
 """
@@ -167,6 +181,7 @@ FOCAL_TOL = dict(rtol=1e-5, atol=1e-5)
 ALL_STATS = ("mean", "max", "min", "range", "std", "var", "sum")
 PIPELINE_STATS = ("mean", "max", "min", "std")
 PIPELINE_SURFACE = ("slope", "hillshade")
+PRODUCTS_ALL = ("slope", "aspect", "curvature", "hillshade")
 JFA_SHAPES = ((70, 300), (2, 5), (1025, 2049), (2048, 2048), (1, 1000))
 GC_RTOL = 1e-4      # great circle: libdevice and torch trig differ by ulps
 PROX_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -279,6 +294,177 @@ def paired_ms(kernel_fn, plain_fn, reps_kernel, reps_plain):
             cuda_time_ms(kernel_fn, reps_kernel)]
     plain.append(cuda_time_ms(plain_fn, reps_plain))
     return sum(kern) / 2, sum(plain) / 2
+
+
+# -- the surface kernel B1 and the fused pipeline B4: routes -----------------
+
+# the product masks B1's routes are held to each other at: each product
+# alone, the main path's pair and all four
+SURFACE_MASKS = (("slope",), ("aspect",), ("curvature",), ("hillshade",),
+                 PIPELINE_SURFACE, ("slope", "aspect", "curvature",
+                                    "hillshade"))
+SURFACE_SHAPES = SMALL_SHAPES + ((300, 70), (263, 516))
+
+
+def surface_route_launches():
+    """surface_kernel's (B1's) launches by route."""
+    from xrspatial_torch.kernels import cuda_surface
+    return {"tma": cuda_surface.STAGED_TMA_LAUNCHES,
+            "async": cuda_surface.STAGED_ASYNC_LAUNCHES,
+            "simple": cuda_surface.SIMPLE_LAUNCHES}
+
+
+def pipeline_route_launches():
+    """pipeline_kernel's (B4's) launches by route."""
+    from xrspatial_torch.kernels import cuda_pipeline
+    return {"tma": cuda_pipeline.TMA_LAUNCHES,
+            "async": cuda_pipeline.ASYNC_LAUNCHES,
+            "simple": cuda_pipeline.SIMPLE_LAUNCHES}
+
+
+def launched_since(routes, before):
+    """Launches by route since `before` (a reading of `routes`)."""
+    return {k: v - before[k] for k, v in routes().items()}
+
+
+def unaligned(x):
+    """A contiguous copy of `x` whose base is 4 bytes past a 16-byte
+    boundary: the staged kernels take cp.async from it."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def surface_raster(shape, seed):
+    """test_raster with +-inf cells and a flat 6x6 block (aspect -1)."""
+    host = test_raster(shape, seed)
+    h, w = shape
+    host[h // 2, w // 2] = np.inf
+    host[h - 1, 0] = -np.inf
+    host[(2 * h) // 3:(2 * h) // 3 + 6, w // 5:w // 5 + 6] = 40.0
+    return host
+
+
+def check_surface_routes(dev):
+    """Phase 3b: B1's staged kernel on both routes against its first port
+    by name, bit for bit, every mask, at the small shapes, a thin 300x70
+    and an aligned ragged 263x516; each launch counted on the route its
+    plan names (TMA from an aligned base where w % 4 == 0, cp.async from
+    a base 4 bytes off and where w % 4 != 0); every tile at each shape.
+    Returns the largest difference from the twin."""
+    import torch
+    from xrspatial_torch.kernels import cuda_surface
+    from xrspatial_torch.kernels.surface import (SURFACE_TILES, surface_multi,
+                                                 surface_plan)
+    print("== surface kernel B1: staged routes vs first port and twin on the "
+          "card")
+    args = (2.0, 3.0, 300.0, 40.0)
+    err = 0.0
+    taken = {"tma": 0, "async": 0}
+    for k, shape in enumerate(SURFACE_SHAPES):
+        x = torch.from_numpy(surface_raster(shape, seed=150 + k)).to(dev)
+        twin = surface_multi(x, *args)
+        flat = int((twin["aspect"] == -1.0).sum())
+        for label, xx in (("aligned", x), ("base+4", unaligned(x))):
+            for which in SURFACE_MASKS:
+                route = surface_plan(*shape, xx.data_ptr()).route
+                before = surface_route_launches()
+                got = cuda_surface.surface_cuda(xx, which, *args)
+                n = launched_since(surface_route_launches, before)
+                if n != {"tma": int(route == "tma"),
+                         "async": int(route == "async"), "simple": 0}:
+                    raise SmokeFailure(f"surface {shape} {label} {which}: "
+                                       f"planned {route}, launches {n}")
+                taken[route] += 1
+                first = cuda_surface.surface_cuda(xx, which, *args,
+                                                  route="simple")
+                tag = f"surface {shape} {label} {'+'.join(which)} ({route})"
+                for p, g, f in zip(which, got, first):
+                    if not same_bits(g, f):
+                        raise SmokeFailure(f"{tag} {p}: the staged route "
+                                           f"differs from the first port")
+                    err = max(err, check(
+                        f"{tag} {p} vs twin", g, twin[p], SURFACE_TOL,
+                        circular=360.0 if p == "aspect" else None))
+        for tile in SURFACE_TILES:
+            got = cuda_surface.surface_cuda(x, PRODUCTS_ALL, *args, tile=tile)
+            first = cuda_surface.surface_cuda(x, PRODUCTS_ALL, *args,
+                                              route="simple")
+            if not all(same_bits(g, f) for g, f in zip(got, first)):
+                raise SmokeFailure(f"surface {shape} tile {tile}: the staged "
+                                   f"route differs from the first port")
+        print(f"  surface {shape}: staged routes and tiles {SURFACE_TILES} "
+              f"equal to the first port bit for bit, every mask ({flat} flat "
+              f"cells of aspect -1)")
+        torch.cuda.synchronize()
+    print(f"  routes taken {taken}")
+    if not all(taken.values()):
+        raise SmokeFailure(f"surface: a route was never planned: {taken}")
+    return err
+
+
+def surface_tiles_path(dem, card):
+    """Phase 5b, B1: its staged kernel at each tile against its first port
+    by name at N^2 (slope + hillshade), bit for bit, then timed in turns
+    (first port, each tile, each tile again, first port); at (N-1)^2 its
+    cp.async route against the first port, bit for bit and in turns.
+    Returns the first port's ms at N^2."""
+    import torch
+    from xrspatial_torch.kernels import cuda_surface
+    from xrspatial_torch.kernels.surface import SURFACE_TILE, SURFACE_TILES
+    first = cuda_surface.surface_cuda(dem, PIPELINE_SURFACE, route="simple")
+    for tile in SURFACE_TILES:
+        before = surface_route_launches()
+        got = cuda_surface.surface_cuda(dem, PIPELINE_SURFACE, tile=tile)
+        if launched_since(surface_route_launches, before) != {
+                "tma": 1, "async": 0, "simple": 0}:
+            raise SmokeFailure(f"surface_kernel at {N}^2, tile {tile}: not "
+                               f"one TMA launch")
+        if not all(same_bits(g, f) for g, f in zip(got, first)):
+            raise SmokeFailure(f"surface_kernel at {N}^2, tile {tile}: the "
+                               f"staged route differs from the first port")
+        del got
+    del first
+    torch.cuda.synchronize()
+    print(f"  surface_kernel at {N}x{N}: the staged route at every tile "
+          f"equal to the first port bit for bit, on TMA")
+    legs = {"first port": lambda: cuda_surface.surface_cuda(
+        dem, PIPELINE_SURFACE, route="simple")}
+    for tile in SURFACE_TILES:
+        legs[f"staged {tile[0]}x{tile[1]}"] = (
+            lambda t=tile: cuda_surface.surface_cuda(dem, PIPELINE_SURFACE,
+                                                     tile=t))
+    times = {k: [] for k in legs}
+    for k in (*legs, *reversed(legs)):
+        times[k].append(cuda_time_ms(legs[k], 20))
+    t = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"  surface_kernel, slope + hillshade at {N}x{N}, in turns: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+          + f" (the plan's tile {SURFACE_TILE[0]}x{SURFACE_TILE[1]}), {card}")
+    # w % 4 != 0: the plan's cp.async route
+    odd = dem[:N - 1, :N - 1].contiguous()
+    before = surface_route_launches()
+    staged = cuda_surface.surface_cuda(odd, PIPELINE_SURFACE)
+    first = cuda_surface.surface_cuda(odd, PIPELINE_SURFACE, route="simple")
+    if launched_since(surface_route_launches, before) != {
+            "tma": 0, "async": 1, "simple": 1} \
+            or not all(same_bits(g, f) for g, f in zip(staged, first)):
+        raise SmokeFailure(f"surface_kernel at {N - 1}^2: not on cp.async, "
+                           f"or differs from the first port")
+    del staged, first
+    odd_ms = paired_ms(
+        lambda: cuda_surface.surface_cuda(odd, PIPELINE_SURFACE),
+        lambda: cuda_surface.surface_cuda(odd, PIPELINE_SURFACE,
+                                          route="simple"), 20, 20)
+    print(f"  surface_kernel, slope + hillshade at {N - 1}x{N - 1}, in "
+          f"turns: staged (async) {odd_ms[0]:.4f} ms, first port "
+          f"{odd_ms[1]:.4f} ms, equal bit for bit, {card}")
+    del odd
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return t["first port"]
 
 
 # -- the jump-flood phases ---------------------------------------------------
@@ -824,13 +1010,9 @@ def check_halo_and_pipeline(dev):
     twins; the halo kernel's planned route also against its ring route,
     the pipeline kernel also against the split kernels."""
     import torch
-    from xrspatial_torch.convolution import circle_kernel
     from xrspatial_torch.focal import _route
-    from xrspatial_torch.kernels import cuda_pipeline, cuda_surface
     from xrspatial_torch.kernels import cuda_window
     from xrspatial_torch.kernels.focal_halo import halo_plan
-    from xrspatial_torch.kernels.pipeline import pipeline_multi
-    from xrspatial_torch.kernels.surface import PRODUCTS
     from xrspatial_torch.kernels.window import kernel_offsets, window_stats
     print("== halo focal kernel: planned route vs ring route and twin on the "
           "card")
@@ -871,34 +1053,98 @@ def check_halo_and_pipeline(dev):
           f"for bit")
     if not all(taken.values()):
         raise SmokeFailure(f"halo: a route was never planned: {taken}")
-    print("== pipeline kernel vs split kernels and twin on the card")
-    cases = (("slope", "hillshade"), PRODUCTS)
-    split_diff = 0.0
-    for k, shape in enumerate(HALO_SHAPES):
-        x = torch.from_numpy(test_raster(shape, seed=500 + k)).to(dev)
-        for radius in (1.5, 2.5):
-            offsets = kernel_offsets(circle_kernel(1, 1, radius))
-            for which in cases:
-                stats = PIPELINE_STATS if len(which) == 2 else ALL_STATS
-                args = (2.0, 3.0, 225.0, 25.0)
-                got = cuda_pipeline.pipeline_cuda(x, offsets, stats, which,
-                                                  *args)
-                split = (*cuda_surface.surface_cuda(x, which, *args),
-                         cuda_window.focal_stats_cuda(x, offsets, stats))
-                twin = pipeline_multi(x, offsets, stats, which, *args)
-                tag = f"pipeline {shape} r{radius} {len(which)} products"
-                for j, (g, sp, t) in enumerate(zip(got, split, twin)):
-                    label = which[j] if j < len(which) else "focal"
-                    split_diff = max(split_diff, check(
-                        f"{tag} {label} vs split", g, sp,
-                        dict(rtol=0.0, atol=0.0)))
-                    check(f"{tag} {label} vs twin", g, t,
-                          FOCAL_TOL if label == "focal" else SURFACE_TOL,
-                          circular=360.0 if label == "aspect" else None)
-        torch.cuda.synchronize()
-    print(f"  pipeline kernel vs split kernels: largest difference "
-          f"{split_diff:.3e} over every shape and case")
+    pipeline_checks(dev)
     return err
+
+
+# the fused pipeline's footprints: the main path's plus, a radius-2
+# circle, a 3x3, a 1x3 row and a 3x1 column (ry = 0, rx = 0: the window's
+# radii are clamped to 1), and the fused gate's largest, 65x129 (ry = 32,
+# rx = 64; 8385 offsets, so only at the three smallest-celled shapes)
+PIPELINE_FOOTPRINTS = {"plus": (1.5,), "r2": (2.5,), "3x3": (3, 3),
+                       "1x3": (1, 3), "3x1": (3, 1), "gate_65x129": (65, 129)}
+GATE_SHAPES = ((300, 70), (263, 516), (70, 300))
+
+
+def pipeline_checks(dev):
+    """Phase 9b: the fused pipeline kernel B4 on the route its plan names
+    against its first port by name and against the split kernels (staged
+    B1 + staged B2), bit for bit, and against its twin, at the small
+    shapes, a thin 300x70 and an aligned ragged 263x516, each from an
+    aligned base and one 4 bytes off (TMA and cp.async)."""
+    import torch
+    from xrspatial_torch.convolution import circle_kernel
+    from xrspatial_torch.kernels import cuda_pipeline, cuda_surface
+    from xrspatial_torch.kernels import cuda_window
+    from xrspatial_torch.kernels.pipeline import (pipeline_multi,
+                                                  pipeline_plan,
+                                                  pipeline_supported)
+    from xrspatial_torch.kernels.window import kernel_offsets
+    print("== pipeline kernel B4: staged routes vs first port, split kernels "
+          "and twin on the card")
+    feet = {k: kernel_offsets(circle_kernel(1, 1, v[0]) if len(v) == 1
+                              else np.ones(v))
+            for k, v in PIPELINE_FOOTPRINTS.items()}
+    for kname, offsets in feet.items():
+        if not pipeline_supported(offsets):
+            raise SmokeFailure(f"{kname}: not a footprint the fused gate "
+                               f"accepts")
+    cases = ((PIPELINE_SURFACE, PIPELINE_STATS), (PRODUCTS_ALL, ALL_STATS))
+    args = (2.0, 3.0, 300.0, 40.0)
+    taken = {"tma": 0, "async": 0}
+    twin_diff = 0.0
+    for k, shape in enumerate(HALO_SHAPES):
+        x = torch.from_numpy(surface_raster(shape, seed=500 + k)).to(dev)
+        for kname, offsets in feet.items():
+            if kname == "gate_65x129" and shape not in GATE_SHAPES:
+                continue
+            for label, xx in (("aligned", x), ("base+4", unaligned(x))):
+                route = pipeline_plan(*shape, offsets, xx.data_ptr()).route
+                for which, stats in cases:
+                    tag = (f"pipeline {shape} {kname} {label} "
+                           f"{len(which)} products ({route})")
+                    before = pipeline_route_launches()
+                    got = cuda_pipeline.pipeline_cuda(xx, offsets, stats,
+                                                      which, *args)
+                    n = launched_since(pipeline_route_launches, before)
+                    if n != {"tma": int(route == "tma"),
+                             "async": int(route == "async"), "simple": 0}:
+                        raise SmokeFailure(f"{tag}: launches {n}")
+                    taken[route] += 1
+                    first = cuda_pipeline.pipeline_cuda(
+                        xx, offsets, stats, which, *args, route="simple")
+                    split = (*cuda_surface.surface_cuda(xx, which, *args),
+                             cuda_window.focal_stats_cuda(xx, offsets,
+                                                          stats))
+                    for j, (g, f, sp) in enumerate(zip(got, first, split)):
+                        part = which[j] if j < len(which) else "focal"
+                        if not same_bits(g, f):
+                            raise SmokeFailure(f"{tag} {part}: differs from "
+                                               f"the first port")
+                        if not same_bits(g, sp):
+                            raise SmokeFailure(f"{tag} {part}: differs from "
+                                               f"the split kernels")
+                    # the twin's focal half takes the conv path above 1024
+                    # offsets (global-mean centred variance): bits only
+                    if len(offsets) <= 1024 and label == "aligned":
+                        twin = pipeline_multi(xx, offsets, stats, which,
+                                              *args)
+                        for j, (g, t) in enumerate(zip(got, twin)):
+                            part = which[j] if j < len(which) else "focal"
+                            twin_diff = max(twin_diff, check(
+                                f"{tag} {part} vs twin", g, t,
+                                FOCAL_TOL if part == "focal"
+                                else SURFACE_TOL,
+                                circular=360.0 if part == "aspect"
+                                else None))
+                    del got, first, split
+        torch.cuda.synchronize()
+        print(f"  pipeline {shape}: every footprint, both bases, equal to "
+              f"the first port and to the split kernels bit for bit")
+    print(f"  routes taken {taken}; largest difference from the twin "
+          f"{twin_diff:.3e}")
+    if not all(taken.values()):
+        raise SmokeFailure(f"pipeline: a route was never planned: {taken}")
 
 
 @contextlib.contextmanager
@@ -921,6 +1167,10 @@ def reset_launches():
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
+    cuda_surface.STAGED_TMA_LAUNCHES = cuda_surface.STAGED_ASYNC_LAUNCHES = 0
+    cuda_surface.SIMPLE_LAUNCHES = 0
+    cuda_pipeline.TMA_LAUNCHES = cuda_pipeline.ASYNC_LAUNCHES = 0
+    cuda_pipeline.SIMPLE_LAUNCHES = 0
     cuda_window.TMA_LAUNCHES = cuda_window.ASYNC_LAUNCHES = 0
     cuda_window.SIMPLE_LAUNCHES = 0
     cuda_window.HALO_LAUNCHES = cuda_pipeline.LAUNCHES = 0
@@ -973,6 +1223,7 @@ def fused_path(dem, agg, card):
     import torch
     from xrspatial_torch import terrain_pipeline
     from xrspatial_torch.convolution import circle_kernel
+    from xrspatial_torch.kernels import cuda_surface, cuda_window
     from xrspatial_torch.kernels.cuda_pipeline import pipeline_cuda
     from xrspatial_torch.kernels.pipeline import pipeline_multi
     from xrspatial_torch.kernels.window import kernel_offsets
@@ -988,12 +1239,16 @@ def fused_path(dem, agg, card):
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = read_launches()
+        routes = pipeline_route_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  first call {first_ms:.1f} ms (host clock), launches "
-          f"{launches}, peak allocated {peak_gib:.2f} GiB")
-    if not only(launches, "pipeline_kernel"):
-        raise SmokeFailure(f"fused path: expected one pipeline launch and "
-                           f"no other, got {launches}")
+          f"{launches}, pipeline_kernel by route {routes}, peak allocated "
+          f"{peak_gib:.2f} GiB")
+    if not only(launches, "pipeline_kernel") or routes != {
+            "tma": 1, "async": 0, "simple": 0}:
+        raise SmokeFailure(f"fused path: expected one pipeline launch on its "
+                           f"TMA route and no other, got {launches}, "
+                           f"{routes}")
     ring = torch.ones((N, N), dtype=torch.bool, device=dem.device)
     ring[1:-1, 1:-1] = False
     for p in PIPELINE_SURFACE:
@@ -1049,9 +1304,40 @@ def fused_path(dem, agg, card):
                                PIPELINE_SURFACE), 20, 5)
     print(f"  pipeline_kernel: kernel {ms[0]:.3f} ms, twin {ms[1]:.3f} ms, "
           f"{card}")
+    staged = pipeline_cuda(dem, offsets, PIPELINE_STATS, PIPELINE_SURFACE)
+    first = pipeline_cuda(dem, offsets, PIPELINE_STATS, PIPELINE_SURFACE,
+                          route="simple")
+    if not all(same_bits(g, f) for g, f in zip(staged, first)):
+        raise SmokeFailure(f"pipeline_kernel at {N}^2: the staged route "
+                           f"differs from the first port")
+    del staged, first
+    print(f"  pipeline_kernel at {N}x{N}: the staged route equal to the "
+          f"first port bit for bit")
+
+    def split_kernels():
+        cuda_surface.surface_cuda(dem, PIPELINE_SURFACE)
+        cuda_window.focal_stats_cuda(dem, offsets, PIPELINE_STATS)
+
+    legs = {
+        "staged": lambda: pipeline_cuda(dem, offsets, PIPELINE_STATS,
+                                        PIPELINE_SURFACE),
+        "first port": lambda: pipeline_cuda(dem, offsets, PIPELINE_STATS,
+                                            PIPELINE_SURFACE,
+                                            route="simple"),
+        "split B1 + B2": split_kernels}
+    times = {k: [] for k in legs}
+    for k in (*legs, *reversed(legs)):
+        times[k].append(cuda_time_ms(legs[k], 10))
+    t = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"  pipeline_kernel, slope + hillshade + 4 stats at {N}x{N}, in "
+          f"turns: staged {t['staged']:.4f} ms, first port by name "
+          f"{t['first port']:.4f} ms, the split kernels (staged B1 + staged "
+          f"B2) {t['split B1 + B2']:.4f} ms: "
+          f"{'fused' if t['staged'] < t['split B1 + B2'] else 'split'} "
+          f"wins, {card}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return launches["pipeline_kernel"], max_err, ms
+    return launches["pipeline_kernel"], max_err, ms, t["first port"]
 
 
 def annulus_path(dem, agg, card):
@@ -2430,7 +2716,11 @@ def main() -> int:
     from xrspatial_torch.convolution import circle_kernel
     from xrspatial_torch.kernels import _cuda, cuda_surface, cuda_window
     from xrspatial_torch.kernels.focal_halo import halo_plan, register_class
-    from xrspatial_torch.kernels.surface import PRODUCTS, surface_multi
+    from xrspatial_torch.kernels.pipeline import pipeline_plan
+    from xrspatial_torch.kernels.surface import (PRODUCTS,
+                                                 SURFACE_BLOCKS_PER_SM,
+                                                 SURFACE_TILE, surface_multi,
+                                                 surface_plan)
     from xrspatial_torch.kernels.window import kernel_offsets, window_stats
 
     dev = torch.device("cuda", 0)
@@ -2481,6 +2771,7 @@ def main() -> int:
         torch.cuda.synchronize()
     print(f"  focal_kernel's staged route equal to its first port bit for "
           f"bit at every shape; launches by route {tiled_route_launches()}")
+    surface_small_err = check_surface_routes(dev)
 
     # -- the main path -------------------------------------------------------
     print(f"== main path: terrain_pipeline on a {N}x{N} float32 DEM")
@@ -2501,13 +2792,16 @@ def main() -> int:
                 "focal_kernel": cuda_window.LAUNCHES}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  first call {first_s * 1e3:.1f} ms (host clock), launches "
-          f"{launches}, focal_kernel by route {tiled_route_launches()}, peak "
+          f"{launches}, surface_kernel by route {surface_route_launches()}, "
+          f"focal_kernel by route {tiled_route_launches()}, peak "
           f"allocated {peak_gib:.2f} GiB")
+    on_tma = {"tma": 1, "async": 0, "simple": 0}
     if every != {k: int(k in ("surface_kernel", "focal_kernel"))
-                 for k in every} or tiled_route_launches() != {
-                     "tma": 1, "async": 0, "simple": 0}:
-        raise SmokeFailure(f"expected one launch of each kernel, the focal "
-                           f"kernel on its TMA route, got {every}, "
+                 for k in every} or tiled_route_launches() != on_tma \
+            or surface_route_launches() != on_tma:
+        raise SmokeFailure(f"expected one launch of each kernel, each on "
+                           f"its staged TMA route, got {every}, surface "
+                           f"{surface_route_launches()}, focal "
                            f"{tiled_route_launches()}")
 
     slope = ds["dem-slope"].data
@@ -2543,8 +2837,9 @@ def main() -> int:
     max_err = {}
     ref = surface_multi(dem, 1.0, 1.0, 225.0, 25.0, PIPELINE_SURFACE)
     max_err["surface_kernel"] = max(
-        check(f"surface {p}", ds[f"dem-{p}"].data, ref[p], SURFACE_TOL)
-        for p in PIPELINE_SURFACE)
+        surface_small_err,
+        *(check(f"surface {p}", ds[f"dem-{p}"].data, ref[p], SURFACE_TOL)
+          for p in PIPELINE_SURFACE))
     del ref
     offsets = kernel_offsets(circle_kernel(1, 1, 1.5))
     ref = window_stats(dem, offsets, PIPELINE_STATS)
@@ -2577,7 +2872,8 @@ def main() -> int:
     for k, (kern_ms, plain_ms) in ms.items():
         print(f"  {k}: kernel {kern_ms:.3f} ms, twin {plain_ms:.3f} ms, "
               f"{card}")
-    first_port_ms = {"focal_kernel": tiled_focal_path(dem, card)}
+    first_port_ms = {"focal_kernel": tiled_focal_path(dem, card),
+                     "surface_kernel": surface_tiles_path(dem, card)}
     print(f"  peak allocated by the main-path call: {peak_gib:.2f} GiB, "
           f"{card}")
     torch.cuda.synchronize()
@@ -2591,7 +2887,8 @@ def main() -> int:
     # -- the halo and pipeline kernels, the fused and annulus paths ----------
     halo_small_err = check_halo_and_pipeline(dev)
     launches["pipeline_kernel"], max_err["pipeline_kernel"], \
-        ms["pipeline_kernel"] = fused_path(dem, agg, card)
+        ms["pipeline_kernel"], first_port_ms["pipeline_kernel"] = fused_path(
+            dem, agg, card)
     launches["focal_halo_kernel"], max_err["focal_halo_kernel"], \
         ms["focal_halo_kernel"] = annulus_path(dem, agg, card)
     max_err["focal_halo_kernel"] = max(max_err["focal_halo_kernel"],
@@ -2670,7 +2967,7 @@ def main() -> int:
         "xrspatial_torch/csrc/focal_halo.cu",
         "xrspatial_tpu/kernels/pallas_window.py:110"),
         "pipeline_kernel": (
-        "xrspatial_torch/csrc/pipeline.cu",
+        "xrspatial_torch/csrc/focal_halo.cu",
         "xrspatial_tpu/kernels/pallas_pipeline.py:82"),
         "screen_hilo": (
         "xrspatial_torch/csrc/screen.cu",
@@ -2703,7 +3000,18 @@ def main() -> int:
     halo = halo_plan(N, N, kernel_offsets(halo_footprints()["annulus_40_38"]),
                      0)
     tiled = halo_plan(N, N, offsets, 0)
+    surf = surface_plan(N, N, 0)
+    fused = pipeline_plan(N, N, offsets, 0)
     designs = {
+        "surface_kernel": f"staged window ring by {surf.route}, tile "
+                          f"{SURFACE_TILE[0]}x{SURFACE_TILE[1]}, "
+                          f"{surf.stages} stages, persistent blocks "
+                          f"({SURFACE_BLOCKS_PER_SM} an SM), 4 cells a "
+                          f"thread, 16-byte stores",
+        "pipeline_kernel": f"B2's staged window by {fused.route} with a "
+                           f"surface epilogue, tile {fused.tile[0]}x"
+                           f"{fused.tile[1]}, 2 x 4 cells a thread, 16-byte "
+                           f"stores, {register_class(fused)} blocks an SM",
         "focal_halo_kernel": f"staged window by {halo.route}, tile "
                              f"{halo.tile[0]}x{halo.tile[1]}, row runs, 4 "
                              f"cells a thread, {register_class(halo)} blocks "

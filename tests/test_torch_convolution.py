@@ -6,6 +6,13 @@ kernel) with a NaN ring of the kernel radius, NaNs inside not skipped.
 Tolerance rtol 1e-5, atol 1e-5 (float32 sums in another order), NaN masks
 equal.  The kernels' weights are positive, so no cancellation makes a
 relative tolerance meaningless.
+
+A raster smaller than its kernel (ROADMAP C3): ``convolve_2d``,
+``convolution_2d`` and ``hotspots`` give the input-shaped all-NaN plane
+(int8 zeros for ``hotspots``), exactly the JAX package's result where its
+shape is the input's (k - 1 cells a side); below that the JAX package's
+result is larger than its input and all NaN / zeros, and the port keeps
+the input's shape.
 """
 
 import numpy as np
@@ -14,7 +21,9 @@ import torch
 
 import xrspatial_torch as xt
 import xrspatial_tpu.convolution as jconv
+import xrspatial_tpu.focal as jfocal
 from xrspatial_torch import convolution as tconv
+from xrspatial_torch import focal as tfocal
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
 
 
@@ -110,3 +119,55 @@ def test_convolution_2d_refuses_an_even_kernel_as_jax_does():
         tconv.convolution_2d(xt.DataArray(data, dims=("y", "x")),
                              np.ones((2, 3)))
     assert str(got.value) == str(ref.value)
+
+
+# (raster shape, kernel): k - 1 cells a side, where the JAX package's result
+# has the input's shape, and below it
+SMALLER_THAN_KERNEL = {
+    "10x10_circle11": ((10, 10), tconv.circle_kernel(1, 1, 5)),
+    "2x9_ones3": ((2, 9), np.ones((3, 3))),
+    "8x4_ones3x5": ((8, 4), np.ones((3, 5))),
+    "1x9_ones3": ((1, 9), np.ones((3, 3))),
+    "40x50_ones51": ((40, 50), np.ones((51, 51))),
+}
+
+
+def small_call(func, pkg, data, kernel):
+    """`func` of the port ("torch") or the JAX package on `data`, as a
+    numpy array."""
+    if pkg == "torch":
+        conv, foc, da = tconv, tfocal, xt.DataArray
+    else:
+        conv, foc, da = jconv, jfocal, JaxDataArray
+    if func == "convolve_2d":
+        return np.asarray(conv.convolve_2d(data, kernel))
+    agg = da(data, dims=("y", "x"), attrs={"res": (1.0, 1.0)})
+    if func == "convolution_2d":
+        return np.asarray(conv.convolution_2d(agg, kernel).values)
+    return np.asarray(foc.hotspots(agg, kernel).values)
+
+
+@pytest.mark.parametrize("func", ["convolve_2d", "convolution_2d",
+                                  "hotspots"])
+@pytest.mark.parametrize("case", list(SMALLER_THAN_KERNEL))
+def test_a_raster_smaller_than_its_kernel(case, func):
+    shape, kernel = SMALLER_THAN_KERNEL[case]
+    rng = np.random.default_rng(31)
+    data = (rng.random(shape) * 100).astype(np.float32)
+    got = small_call(func, "torch", data, kernel)
+    ref = small_call(func, "jax", data, kernel)
+    assert got.shape == shape
+    if func == "hotspots":
+        assert got.dtype == ref.dtype == np.int8
+        assert not got.any() and not ref.any()
+    else:
+        assert got.dtype == np.float32
+        assert np.isnan(got).all() and np.isnan(ref).all()
+    exact = all(n >= k - 1 for n, k in zip(shape, kernel.shape))
+    if exact:
+        # the JAX result has the input's shape: equal, NaN mask and classes
+        assert ref.shape == shape
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert ref.shape == tuple(max(n, k - 1)
+                                  for n, k in zip(shape, kernel.shape))

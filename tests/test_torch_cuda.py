@@ -11,7 +11,12 @@ file imports neither jax nor the JAX package.
 
 Tolerances: surface products rtol 1e-4 / atol 5e-5, focal stats
 rtol 1e-5 / atol 1e-5, NaN masks equal; the fused pipeline kernel equals
-the split kernels bit for bit (the same device code).  The torch-op paths
+the split kernels bit for bit (the same device code).  The surface kernel
+B1 and the fused pipeline kernel B4 on their staged routes (TMA, or
+cp.async from a base 4 bytes off or where w % 4 != 0) equal their first
+ports by name bit for bit, B4 also the split kernels, on the row and
+column footprints and the fused gate's largest too; each launch is
+counted on the route its plan names.  The torch-op paths
 (conv-path focal statistics, convolution, mean, hotspots) on the card
 against the same call on the CPU: rtol 1e-5, which a TF32 convolution
 would miss by orders of magnitude.  The jump-flood round kernel equals
@@ -55,7 +60,7 @@ from xrspatial_torch.kernels import cuda_pipeline, cuda_screen
 from xrspatial_torch.kernels import cuda_stencil_probe, cuda_stream
 from xrspatial_torch.kernels import cuda_surface, cuda_window, jfa
 from xrspatial_torch.kernels import jfa_group, jfa_plan, jfa_rounds, screen
-from xrspatial_torch.kernels import shadows
+from xrspatial_torch.kernels import pipeline, shadows
 from xrspatial_torch.kernels import stencil_probe, stream, surface
 from xrspatial_torch.kernels import viewshed_exact
 from xrspatial_torch.kernels.focal_halo import halo_plan
@@ -225,14 +230,18 @@ def test_terrain_pipeline_launches_each_kernel_once(cuda):
                            name="dem", attrs=attrs)
     before = (cuda_surface.LAUNCHES, cuda_window.LAUNCHES,
               cuda_window.TMA_LAUNCHES + cuda_window.ASYNC_LAUNCHES,
-              cuda_window.SIMPLE_LAUNCHES)
+              cuda_window.SIMPLE_LAUNCHES, cuda_surface.STAGED_TMA_LAUNCHES,
+              cuda_surface.SIMPLE_LAUNCHES)
     got = xt.terrain_pipeline(on_card)
     torch.cuda.synchronize()
-    # B2 on its staged route, not the first port
+    # B1 and B2 each on its staged route (TMA: w % 4 == 0), not the first
+    # port
     assert (cuda_surface.LAUNCHES, cuda_window.LAUNCHES,
             cuda_window.TMA_LAUNCHES + cuda_window.ASYNC_LAUNCHES,
-            cuda_window.SIMPLE_LAUNCHES) == (
-        before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+            cuda_window.SIMPLE_LAUNCHES, cuda_surface.STAGED_TMA_LAUNCHES,
+            cuda_surface.SIMPLE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3],
+        before[4] + 1, before[5])
     ref = xt.terrain_pipeline(on_host)
     assert list(got.data_vars) == list(ref.data_vars)
     for k in ("dem-slope", "dem-hillshade", "focal_stats"):
@@ -794,12 +803,15 @@ def test_fused_terrain_pipeline_launches_only_the_pipeline_kernel(
     on_card = xt.DataArray(torch.from_numpy(data).to(cuda), dims=("y", "x"),
                            name="dem", attrs=attrs)
     before = (cuda_pipeline.LAUNCHES, cuda_surface.LAUNCHES,
-              cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES)
+              cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES,
+              cuda_pipeline.TMA_LAUNCHES)
     got = xt.terrain_pipeline(on_card)
     torch.cuda.synchronize()
+    # B4 on its staged route (TMA: w % 4 == 0), not the first port
     assert (cuda_pipeline.LAUNCHES, cuda_surface.LAUNCHES,
-            cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES) == (
-        before[0] + 1, *before[1:])
+            cuda_window.LAUNCHES, cuda_window.HALO_LAUNCHES,
+            cuda_pipeline.TMA_LAUNCHES) == (
+        before[0] + 1, *before[1:4], before[4] + 1)
     monkeypatch.setenv("XRSPATIAL_FUSED_PIPELINE", "0")
     split = xt.terrain_pipeline(on_card)
     assert list(got.data_vars) == list(split.data_vars)
@@ -807,6 +819,159 @@ def test_fused_terrain_pipeline_launches_only_the_pipeline_kernel(
         assert got[k].data.device.type == "cuda", k
         assert torch.equal(torch.nan_to_num(got[k].data),
                            torch.nan_to_num(split[k].data)), k
+
+
+# -- B1 and B4 on staged windows ------------------------------------------------
+
+SURFACE_MASKS = [("slope",), ("aspect",), ("curvature",), ("hillshade",),
+                 ("slope", "hillshade"), PRODUCTS]
+
+
+def surface_routes():
+    return {"tma": cuda_surface.STAGED_TMA_LAUNCHES,
+            "async": cuda_surface.STAGED_ASYNC_LAUNCHES,
+            "simple": cuda_surface.SIMPLE_LAUNCHES,
+            "all": cuda_surface.LAUNCHES}
+
+
+def pipeline_routes():
+    return {"tma": cuda_pipeline.TMA_LAUNCHES,
+            "async": cuda_pipeline.ASYNC_LAUNCHES,
+            "simple": cuda_pipeline.SIMPLE_LAUNCHES,
+            "all": cuda_pipeline.LAUNCHES}
+
+
+def off_by_four(x):
+    """A contiguous copy of `x` whose base is 4 bytes past a 16-byte
+    boundary (the staged kernels take cp.async from it)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def staged_raster(shape, seed):
+    """NaN patches, +-inf cells and a flat block (aspect -1)."""
+    rng = np.random.default_rng(seed)
+    data = (rng.random(shape) * 100).astype(np.float32)
+    h, w = shape
+    data[h // 3:h // 3 + 3, w // 4:w // 4 + 5] = np.nan
+    data[h // 2, w // 2] = np.inf
+    data[h - 1, 0] = -np.inf
+    data[(2 * h) // 3:(2 * h) // 3 + 6, w // 5:w // 5 + 6] = 40.0
+    return data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", ["aligned", "base+4"])
+@pytest.mark.parametrize("which", SURFACE_MASKS,
+                         ids=["slope", "aspect", "curvature", "hillshade",
+                              "slope+hillshade", "all"])
+@pytest.mark.parametrize("shape", [(300, 70), (263, 516), (70, 300), (2, 5),
+                                   (1, 1000)])
+def test_surface_staged_route_equals_first_port(cuda, shape, which, base):
+    """B1 on the route its plan names (TMA from an aligned base where
+    w % 4 == 0, cp.async otherwise) equals its first port by name bit for
+    bit: NaN ring, NaN patches, +-inf cells, aspect's -1 on flat cells;
+    and its twin within the surface tolerance."""
+    x = torch.from_numpy(staged_raster(shape, seed=41)).to(cuda)
+    if base == "base+4":
+        x = off_by_four(x)
+    args = (2.0, 3.0, 300.0, 40.0)
+    route = surface.surface_plan(*shape, x.data_ptr()).route
+    assert route == ("tma" if shape[1] % 4 == 0 and base == "aligned"
+                     else "async")
+    before = surface_routes()
+    got = cuda_surface.surface_cuda(x, which, *args)
+    torch.cuda.synchronize()
+    after = surface_routes()
+    assert {k: after[k] - before[k] for k in after} == {
+        "tma": int(route == "tma"), "async": int(route == "async"),
+        "simple": 0, "all": 1}
+    first = cuda_surface.surface_cuda(x, which, *args, route="simple")
+    assert surface_routes()["simple"] == after["simple"] + 1
+    ref = surface_multi(x, *args, which)
+    for p, g, f in zip(which, got, first):
+        assert_same_bits(g, f, p)
+        if p != "aspect":
+            assert_matches(g, ref[p], SURFACE_TOL, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", surface.SURFACE_TILES)
+def test_surface_staged_tiles_equal_first_port(cuda, tile):
+    x = torch.from_numpy(staged_raster((257, 1024), seed=42)).to(cuda)
+    got = cuda_surface.surface_cuda(x, PRODUCTS, tile=tile)
+    first = cuda_surface.surface_cuda(x, PRODUCTS, route="simple")
+    torch.cuda.synchronize()
+    for g, f in zip(got, first):
+        assert_same_bits(g, f)
+
+
+@pytest.mark.gpu
+def test_surface_cuda_refuses_a_route_not_its_plans(cuda):
+    x = torch.ones((64, 64), device=cuda)
+    before = surface_routes()
+    for route in ("async", "ring"):
+        with pytest.raises(ValueError, match="route"):
+            cuda_surface.surface_cuda(x, ("slope",), route=route)
+    with pytest.raises(ValueError, match="no tile"):
+        cuda_surface.surface_cuda(x, ("slope",), tile=(16, 128))
+    assert surface_routes() == before
+
+
+PIPELINE_FEET = {
+    "plus": circle_kernel(1, 1, 1.5), "3x3": np.ones((3, 3)),
+    "1x3": np.ones((1, 3)), "3x1": np.ones((3, 1)),
+    "gate_65x129": np.ones((65, 129)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", ["aligned", "base+4"])
+@pytest.mark.parametrize("shape", [(300, 70), (263, 516), (70, 300), (2, 5)])
+@pytest.mark.parametrize("foot", list(PIPELINE_FEET))
+def test_pipeline_staged_route_equals_first_port_and_split(cuda, foot,
+                                                           shape, base):
+    """B4 on the route its plan names equals its first port by name and the
+    split kernels (staged B1 + staged B2) bit for bit, the row and column
+    footprints (radii clamped to 1) and the fused gate's largest footprint
+    included, with nodata."""
+    x = torch.from_numpy(staged_raster(shape, seed=43)).to(cuda)
+    if base == "base+4":
+        x = off_by_four(x)
+    offsets = kernel_offsets(PIPELINE_FEET[foot])
+    args = (2.0, 3.0, 300.0, 40.0)
+    route = pipeline.pipeline_plan(*shape, offsets, x.data_ptr()).route
+    assert route == ("tma" if shape[1] % 4 == 0 and base == "aligned"
+                     else "async")
+    before = pipeline_routes()
+    got = cuda_pipeline.pipeline_cuda(x, offsets, ALL_STATS, PRODUCTS, *args)
+    torch.cuda.synchronize()
+    after = pipeline_routes()
+    assert {k: after[k] - before[k] for k in after} == {
+        "tma": int(route == "tma"), "async": int(route == "async"),
+        "simple": 0, "all": 1}
+    first = cuda_pipeline.pipeline_cuda(x, offsets, ALL_STATS, PRODUCTS,
+                                        *args, route="simple")
+    split = (*cuda_surface.surface_cuda(x, PRODUCTS, *args),
+             cuda_window.focal_stats_cuda(x, offsets, ALL_STATS))
+    torch.cuda.synchronize()
+    for k, (g, f, sp) in enumerate(zip(got, first, split)):
+        assert_same_bits(g, f, str(k))
+        assert_same_bits(g, sp, str(k))
+
+
+@pytest.mark.gpu
+def test_pipeline_cuda_refuses_a_route_not_its_plans(cuda):
+    x = torch.ones((64, 64), device=cuda)
+    offsets = kernel_offsets(PIPELINE_FEET["plus"])
+    before = pipeline_routes()
+    for route in ("async", "ring"):
+        with pytest.raises(ValueError, match="route"):
+            cuda_pipeline.pipeline_cuda(x, offsets, ("mean",), ("slope",),
+                                        route=route)
+    assert pipeline_routes() == before
 
 
 def host_and_card(data, cuda):

@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_proximity import GC_RTOL, TOL, axes, layout
 from xrspatial_torch.kernels import jfa as tjfa
 from xrspatial_torch.kernels import jfa_rounds
+from xrspatial_torch.kernels.emulate import GC_RTOL, TOL, axes, layout
 from xrspatial_tpu.kernels import jfa as jjfa
 from xrspatial_tpu.kernels import pallas_jfa
 

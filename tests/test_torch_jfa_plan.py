@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_proximity import axes, layout
 from xrspatial_torch.kernels import jfa_plan, jfa_rounds
+from xrspatial_torch.kernels.emulate import axes, layout
 from xrspatial_torch.kernels.jfa import _stride_schedule, packed_state_plan
 from xrspatial_torch.kernels.jfa_plan import round_plan
 from xrspatial_tpu.kernels import jfa as jjfa

@@ -26,6 +26,7 @@ import torch
 import xrspatial_torch as xt
 from xrspatial_torch.kernels import jfa as tjfa
 from xrspatial_torch.kernels import jfa_rounds
+from xrspatial_torch.kernels.emulate import GC_RTOL, TOL, axes, layout
 from xrspatial_tpu.kernels import jfa as jjfa
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
 from xrspatial_tpu.xrlib import Dataset as JaxDataset
@@ -44,33 +45,7 @@ def numpy_rasters_on_the_cpu():
 jprox = importlib.import_module("xrspatial_tpu.proximity")
 tprox = importlib.import_module("xrspatial_torch.proximity")
 
-TOL = dict(rtol=1e-5, atol=1e-5)
-GC_RTOL = 1e-4
 FUNCS = ("proximity", "allocation", "direction")
-
-
-def layout(shape, density, seed):
-    """Targets (values 1-8) on a zero background, from a seed."""
-    rng = np.random.default_rng(seed)
-    vals = rng.integers(1, 9, shape)
-    return np.where(rng.random(shape) < density, vals, 0).astype(np.float32)
-
-
-def axes(kind, h, w, seed=0):
-    """(ys, xs) coordinate vectors of one kind."""
-    rng = np.random.default_rng(seed)
-    if kind == "affine_desc":        # create_test_raster's: y descending
-        return (np.arange(h)[::-1] * 0.5, np.arange(w) * 0.5)
-    if kind == "affine_asc":         # scaled steps, both ascending
-        return (3.0 + np.arange(h) * 0.25, -50.0 + np.arange(w) * 8.0)
-    if kind == "nonaffine":          # monotone, not affine
-        return (np.sort(rng.uniform(-50, 50, h))[::-1],
-                np.sort(rng.uniform(-50, 50, w)))
-    if kind == "nonmonotone":
-        return (np.arange(h, dtype=float), rng.permutation(w) * 1.5)
-    if kind == "lonlat":             # bench.py's great-circle grid
-        return np.linspace(75, -75, h), np.linspace(-170, 170, w)
-    raise ValueError(kind)
 
 
 # name -> (shape, target density, seed, axes kind)

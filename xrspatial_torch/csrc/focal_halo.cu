@@ -2,7 +2,7 @@
 // staged template for every footprint whose window fits a block, and the
 // ring kernel for the rest.
 //
-// Replaces two TPU kernels:
+// Replaces three TPU kernels:
 // - xrspatial_tpu/kernels/pallas_window.py::focal_stats_pallas (the
 //   emit_pipeline halo-window variant), for the footprints beyond the
 //   tiled radii (ry > 32 or rx > 256), such as the 512-offset annulus of a
@@ -13,7 +13,21 @@
 // - xrspatial_tpu/kernels/pallas_window2.py::focal_stats_tiled, for the
 //   footprints within them, such as terrain_pipeline's 5-cell plus
 //   (focal_stats_cuda; its first port, focal.cu::focal_kernel, is kept by
-//   name as route "simple").
+//   name as route "simple");
+// - xrspatial_tpu/kernels/pallas_pipeline.py::pipeline_tiled (B4),
+//   terrain_pipeline's fused branch: the staged kernel with its surface
+//   epilogue (SURF; kernels/cuda_pipeline.py::pipeline_cuda; its first
+//   port, pipeline.cu::pipeline_kernel, is kept by name as route
+//   "simple").  Its bound is bytes: 1 read, the product planes and the
+//   stat planes written (7.52 GB at 16384^2 with slope, hillshade and 4
+//   stats, 2.244 ms at 3.35 TB/s), below the split kernels' 0.962 +
+//   1.603 ms because the DEM is read once.  After a thread's focal
+//   statistics, the same window gives its 2 x 4 cells' surface products
+//   through surface_cell.cuh::surface_quad (B1's cell code) and each
+//   product plane takes 16-byte streaming stores.  The window is halo_plan's over
+//   radii max(ry, 1) and max(rx, 1) (kernels/pipeline.py::pipeline_plan):
+//   the fused gate admits a 1x3 row or a 3x1 column, and the surface half
+//   needs one halo row and column.  So B4 equals B1 + B2 bit for bit.
 // Two kernels, three routes (kernels/focal_halo.py::halo_plan chooses;
 // the launcher checks that the plan is safe to launch):
 //
@@ -80,6 +94,7 @@
 #include <stdint.h>
 
 #include "focal_cell.cuh"
+#include "surface_cell.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -106,7 +121,8 @@ struct StagedArgs {
   float* out;
   long long h, w, tiles_x;
   int th, ry, pad, pitch, rows, box_cols, box_rows, per_row;
-  bool vec;  // w % 4 == 0 and out 16-byte aligned: float4 stores
+  bool vec;  // w % 4 == 0 and every output 16-byte aligned: float4 stores
+  xrt::SurfaceArgs surf;  // the fused pipeline's products (B4)
 };
 
 __device__ __forceinline__ void put4(float* v, float4 q) {
@@ -228,7 +244,30 @@ __device__ __forceinline__ void tile_cells(const StagedArgs& a,
   }
 }
 
-template <int ROUTE, int MIN_BLOCKS>
+// The fused pipeline's surface products of cells (row + r, col + j),
+// r < kRows, j < kCells, from the same window: cell (row + r, col + j)'s
+// 3x3 neighbourhood lies at window rows tr + r - 1 + ry .. tr + r + 1 + ry
+// and columns pad + 4 lane + j - 1 .. pad + 4 lane + j + 1, inside the
+// window because its radii are at least 1 (ry >= 1, pad >= 4).  Each
+// product plane is stored 4 cells at a time.
+__device__ __forceinline__ void surface_cells(const StagedArgs& a,
+                                              const float* win, int tr,
+                                              int lane, long long row,
+                                              long long col) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (row + r >= a.h || col >= a.w) break;
+    float v[4][4];
+    xrt::surface_quad(
+        win + (tr + r - 1 + a.ry) * a.pitch + a.pad - 4 + kCells * lane,
+        a.pitch, a.surf, v);
+    xrt::surface_store4(a.surf, (row + r) * a.w + col, v, a.vec, a.w - col);
+  }
+}
+
+// SURF: the fused pipeline (B4): after each thread's focal statistics,
+// its cells' surface products from the same window.
+template <int ROUTE, int MIN_BLOCKS, bool SURF>
 __global__ void __launch_bounds__(kStagedThreads, MIN_BLOCKS)
     focal_halo_staged_kernel(const __grid_constant__ CUtensorMap map,
                              const StagedArgs a) {
@@ -303,6 +342,7 @@ __global__ void __launch_bounds__(kStagedThreads, MIN_BLOCKS)
       tile_cells<true>(a, base, s_runs, row, col);
     else
       tile_cells<false>(a, base, s_runs, row, col);
+    if (SURF) surface_cells(a, win, tr, lane, row, col);
   }
 }
 
@@ -404,6 +444,95 @@ xrt::Slots slots_of(const int* slots) {
   return sl;
 }
 
+// A staged launch's plan (kernels/focal_halo.py::HaloPlan and
+// register_class).
+struct StagedPlan {
+  int route, th, pad, pitch, rows, box_cols, box_rows, smem;
+  long long grid;
+  int min_blocks;
+};
+
+// Launches focal_halo_staged_kernel on plan `p`, with the surface
+// epilogue where `surf` is given, after checking what keeps the launch
+// safe: the route is the route rule's (TMA where w % 4 == 0 and x is
+// 16-byte aligned), boxes of at most 256 a side and whole 32-float widths
+// that tile the pitch, a window that covers the tile and its halo, shared
+// bytes that hold it and fit a block, and a grid of one block a tile.
+int staged_launch(const float* x, const int* runs, int nruns, int n,
+                  const int* slots, float* out, long long h, long long w,
+                  int ry, int rx, const StagedPlan& p,
+                  const xrt::SurfaceArgs* surf, cudaStream_t stream) {
+  if (h <= 0 || w <= 0) return 0;
+  const bool tma = w % 4 == 0 && aligned16(x);
+  const int per_row = p.box_cols > 0 ? p.pitch / p.box_cols : 0;
+  const long long tiles_x = (w + kTileCols - 1) / kTileCols;
+  const long long need = kAlignSlack + kBarrierBytes +
+                         round_up(nruns * 8LL, 128) +
+                         (long long)p.rows * p.pitch * 4 + kReadSlack;
+  const bool boxes_ok =
+      p.box_cols > 0 && p.box_cols <= kBoxMax && p.box_cols % 32 == 0 &&
+      per_row * p.box_cols == p.pitch &&
+      (per_row == 1 ? p.box_rows > 0 && p.box_rows <= kBoxMax &&
+                          p.rows % p.box_rows == 0
+                    : p.box_rows == 1);
+  if (p.route != (tma ? kRouteTma : kRouteAsync) || nruns <= 0 || n <= 0 ||
+      p.th <= 0 || p.th % kRows != 0 || p.pad < rx || p.pad % 4 != 0 ||
+      !boxes_ok || p.pitch < kTileCols + 2 * p.pad ||
+      p.rows < p.th + 2LL * ry || p.smem < need || p.smem > kSmemPerBlock ||
+      p.grid != (h + p.th - 1) / p.th * tiles_x || p.min_blocks < 2 ||
+      p.min_blocks > 3)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map{};
+  if (tma) {
+    const int err =
+        xrt::encode_raster_map(&map, x, h, w, p.box_cols, p.box_rows);
+    if (err != 0) return err;
+  }
+  StagedArgs a{};
+  a.x = x;
+  a.runs = reinterpret_cast<const int2*>(runs);
+  a.nruns = nruns;
+  a.n = n;
+  a.slots = slots_of(slots);
+  a.out = out;
+  a.h = h;
+  a.w = w;
+  a.tiles_x = tiles_x;
+  a.th = p.th;
+  a.ry = ry;
+  a.pad = p.pad;
+  a.pitch = p.pitch;
+  a.rows = p.rows;
+  a.box_cols = p.box_cols;
+  a.box_rows = p.box_rows;
+  a.per_row = per_row;
+  a.vec = w % 4 == 0 && aligned16(out);
+  if (surf != nullptr) {
+    a.surf = *surf;
+    const float* const planes[4] = {surf->slope, surf->aspect, surf->curv,
+                                    surf->hill};
+    for (int k = 0; k < 4; ++k)
+      if (surf->mask & (1 << k)) a.vec = a.vec && aligned16(planes[k]);
+  }
+  using Kernel = void (*)(const CUtensorMap, const StagedArgs);
+  const Kernel kernels[2][2][2] = {
+      {{focal_halo_staged_kernel<kRouteTma, 2, false>,
+        focal_halo_staged_kernel<kRouteTma, 2, true>},
+       {focal_halo_staged_kernel<kRouteTma, 3, false>,
+        focal_halo_staged_kernel<kRouteTma, 3, true>}},
+      {{focal_halo_staged_kernel<kRouteAsync, 2, false>,
+        focal_halo_staged_kernel<kRouteAsync, 2, true>},
+       {focal_halo_staged_kernel<kRouteAsync, 3, false>,
+        focal_halo_staged_kernel<kRouteAsync, 3, true>}}};
+  const Kernel kernel =
+      kernels[tma ? 0 : 1][p.min_blocks - 2][surf != nullptr ? 1 : 0];
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)p.grid, kStagedThreads, p.smem, stream>>>(map, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -440,75 +569,49 @@ int focal_halo_launch(const float* x, const int* offs, int n,
 // run_table) on the card; n offsets of radii ry, rx; route 0 TMA or 1
 // cp.async; tile rows th; window pad, pitch and rows; box columns and
 // rows; shared bytes; grid; and the blocks an SM the kernel is compiled
-// for (kernels/focal_halo.py::register_class: 2 or 3, its register cap).  The plan's choice of tile and blocks
-// an SM is halo_plan's alone; this checks what keeps the launch safe: the route is
-// the route rule's (TMA where w % 4 == 0 and x is 16-byte aligned), boxes
-// of at most 256 a side and whole 32-float widths that tile the pitch, a
-// window that covers the tile and its halo, shared bytes that hold it and
-// fit a block, and a grid of one block a tile.  Returns cudaGetLastError()
-// after the launch, cudaErrorInvalidValue for a plan that fails a check,
-// or the negated CUresult of a failed tensor-map encode.
+// for (kernels/focal_halo.py::register_class: 2 or 3, its register cap).
+// The plan's choice of tile and blocks an SM is halo_plan's alone; this
+// checks what keeps the launch safe (staged_launch).  Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for a plan
+// that fails a check, or the negated CUresult of a failed tensor-map
+// encode.
 int focal_halo_staged_launch(const float* x, const int* runs, int nruns,
                              int n, const int* slots, float* out,
                              long long h, long long w, int ry, int rx,
                              int route, int th, int pad, int pitch, int rows,
                              int box_cols, int box_rows, int smem,
                              long long grid, int min_blocks, void* stream) {
-  if (h <= 0 || w <= 0) return 0;
-  const bool tma = w % 4 == 0 && aligned16(x);
-  const int per_row = box_cols > 0 ? pitch / box_cols : 0;
-  const long long tiles_x = (w + kTileCols - 1) / kTileCols;
-  const long long need = kAlignSlack + kBarrierBytes +
-                         round_up(nruns * 8LL, 128) +
-                         (long long)rows * pitch * 4 + kReadSlack;
-  const bool boxes_ok =
-      box_cols > 0 && box_cols <= kBoxMax && box_cols % 32 == 0 &&
-      per_row * box_cols == pitch &&
-      (per_row == 1 ? box_rows > 0 && box_rows <= kBoxMax &&
-                          rows % box_rows == 0
-                    : box_rows == 1);
-  if (route != (tma ? kRouteTma : kRouteAsync) || nruns <= 0 || n <= 0 ||
-      th <= 0 || th % kRows != 0 || pad < rx || pad % 4 != 0 || !boxes_ok ||
-      pitch < kTileCols + 2 * pad || rows < th + 2LL * ry || smem < need ||
-      smem > kSmemPerBlock || grid != (h + th - 1) / th * tiles_x ||
-      min_blocks < 2 || min_blocks > 3)
+  const StagedPlan plan{route, th,       pad,      pitch, rows,
+                        box_cols, box_rows, smem, grid,  min_blocks};
+  return staged_launch(x, runs, nruns, n, slots, out, h, w, ry, rx, plan,
+                       nullptr, (cudaStream_t)stream);
+}
+
+// Launches the fused pipeline's staged kernel (B4) on `stream`: the
+// surface products of surface_launch's `mask` (1 slope, 2 aspect, 4
+// curvature, 8 hillshade; 0 writes none) and its scalars, plus the focal
+// statistics of focal_halo_staged_launch's arguments, as kernels/
+// pipeline.py::pipeline_plan planned them: halo_plan over the radii
+// max(ry, 1), max(rx, 1), which the caller passes as ry and rx, so that
+// every cell's 3x3 neighbourhood lies in its tile's window.  Also refuses
+// ry < 1 or rx < 1.  Returns as focal_halo_staged_launch.
+int pipeline_staged_launch(const float* x, float* slope, float* aspect,
+                           float* curv, float* hill, int mask, float csx,
+                           float csy, float sin_a, float cos_a, float sin_p,
+                           float cos_p, const int* runs, int nruns, int n,
+                           const int* slots, float* out, long long h,
+                           long long w, int ry, int rx, int route, int th,
+                           int pad, int pitch, int rows, int box_cols,
+                           int box_rows, int smem, long long grid,
+                           int min_blocks, void* stream) {
+  if (ry < 1 || rx < 1 || mask < 0 || mask > 15)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap map{};
-  if (tma) {
-    const int err = xrt::encode_raster_map(&map, x, h, w, box_cols, box_rows);
-    if (err != 0) return err;
-  }
-  StagedArgs a;
-  a.x = x;
-  a.runs = reinterpret_cast<const int2*>(runs);
-  a.nruns = nruns;
-  a.n = n;
-  a.slots = slots_of(slots);
-  a.out = out;
-  a.h = h;
-  a.w = w;
-  a.tiles_x = tiles_x;
-  a.th = th;
-  a.ry = ry;
-  a.pad = pad;
-  a.pitch = pitch;
-  a.rows = rows;
-  a.box_cols = box_cols;
-  a.box_rows = box_rows;
-  a.per_row = per_row;
-  a.vec = w % 4 == 0 && aligned16(out);
-  void (*const kernels[2][2])(const CUtensorMap, const StagedArgs) = {
-      {focal_halo_staged_kernel<kRouteTma, 2>,
-       focal_halo_staged_kernel<kRouteTma, 3>},
-      {focal_halo_staged_kernel<kRouteAsync, 2>,
-       focal_halo_staged_kernel<kRouteAsync, 3>}};
-  const auto kernel = kernels[tma ? 0 : 1][min_blocks - 2];
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)grid, kStagedThreads, smem, (cudaStream_t)stream>>>(
-      map, a);
-  return (int)cudaGetLastError();
+  const xrt::SurfaceArgs surf{slope, aspect, curv,  hill,  mask, csx,
+                              csy,   sin_a,  cos_a, sin_p, cos_p};
+  const StagedPlan plan{route, th,       pad,      pitch, rows,
+                        box_cols, box_rows, smem, grid,  min_blocks};
+  return staged_launch(x, runs, nruns, n, slots, out, h, w, ry, rx, plan,
+                       &surf, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -15,8 +15,10 @@
 // path's traffic drops from 2 reads + 6 writes of f32 per cell to 1 + 6.
 // The neighbour reads of both halves hit L1/L2.
 //
-// This is the simple first version: one thread per output cell, 32x8
-// blocks, neighbours read straight from global memory.
+// This is B4's first port, kept by name (route "simple"): one thread per
+// output cell, 32x8 blocks, neighbours read straight from global memory.
+// The redesign, on B2's staged window, is focal_halo.cu's
+// focal_halo_staged_kernel with its surface epilogue.
 
 #include "focal_cell.cuh"
 #include "surface_cell.cuh"

@@ -25,7 +25,8 @@
 //   takes the same kernel with the same window staged by 4-byte cp.async
 //   copies (NaN stores outside the raster) and scalar stores: the launcher
 //   picks the route by that rule alone and checks that the caller's plan
-//   (kernels/stencil_probe.py::staged_plan) agrees.
+//   (kernels/staged.py::staged_plan) agrees.  The ring is
+//   staged_window.cuh's, which the surface kernel B1 runs too.
 //   The first port of this probe, FORM nine (each thread makes nine
 //   global loads, B1's access pattern; copy folds the 8 neighbours into
 //   its output through a mask the wrapper passes as 0, so the loads stay),
@@ -68,8 +69,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "staged_window.cuh"
 #include "surface_cell.cuh"
-#include "tma.cuh"
 
 namespace {
 
@@ -89,7 +90,8 @@ __device__ __forceinline__ float slope_of(float sx, float sy, float csx,
 }
 
 // grad or slope of a cell from its 3x3 window (a b c above, d _ f at, g hh
-// ii below): B1's expression in B1's order
+// ii below): B1's expression in B1's order, surface_cell.cuh's sobel and
+// slope_value operation for operation
 template <int MODE>
 __device__ __forceinline__ float window_value(float a, float b, float c,
                                               float d, float f, float g,
@@ -321,47 +323,13 @@ int launch_mode(int form, int edges, int bx, int by, const Launch& a) {
 }
 
 // -- the staged form (B8c) ----------------------------------------------------
-
-constexpr int kStagedThreads = 256;
-constexpr int kRouteTma = 0, kRouteAsync = 1;
-constexpr int kBarrierBytes = 128;  // the stages' mbarriers, 8 bytes each
-constexpr int kAlignSlack = 128;    // room to align the ring to 128 bytes
-constexpr int kMaxStages = 8;       // cp_async_wait counts up to 7 pending
-
-// A TH x TW tile's window in shared memory: TH + 2 rows of kCols = TW + 8
-// floats, window (r, c) holding image cell (r0 - 1 + r, c0 - 4 + c).  The
-// window starts 4 columns left of the tile, not 1: TMA refuses (illegal
-// instruction) a box whose innermost coordinate is not a multiple of 16
-// bytes, and the tile's c0 is one.
-template <int TH, int TW>
-struct Window {
-  static constexpr int kCols = TW + 8;
-  static constexpr int kRows = TH + 2;
-  static constexpr int kBoxBytes = kCols * kRows * 4;
-  static constexpr int kStageBytes = (kBoxBytes + 127) / 128 * 128;
-  static_assert(TW % 4 == 0, "a tile row is whole 16-byte stores");
-  static_assert(kCols <= 256 && kRows <= 256, "a TMA box is at most 256");
-};
+// The window ring is staged_window.cuh's, shared with the surface kernel B1.
 
 struct StagedArgs {
-  const float* x;
+  xrt::RingArgs ring;
   float* out;
-  long long h, w, tiles_x, tiles;
-  int stages;
   float csx, csy;
 };
-
-// The 6 floats p[3 .. 8] of a window row (p 16-byte aligned): a 4-byte, a
-// 16-byte and a 4-byte shared load
-__device__ __forceinline__ void load6(const float* p, float r[6]) {
-  const float4 mid = *reinterpret_cast<const float4*>(p + 4);
-  r[0] = p[3];
-  r[1] = mid.x;
-  r[2] = mid.y;
-  r[3] = mid.z;
-  r[4] = mid.w;
-  r[5] = p[8];
-}
 
 // Cells (row, col .. col + 3) from the window at p, the window cell of
 // (row - 1, col - 4); copy takes the window's centre.
@@ -369,9 +337,9 @@ template <int MODE, int COLS>
 __device__ __forceinline__ void quad(const float* p, float csx, float csy,
                                      float v[4]) {
   float u[6], m[6], d[6];
-  load6(p, u);
-  load6(p + COLS, m);
-  load6(p + 2 * COLS, d);
+  xrt::load6(p, u);
+  xrt::load6(p + COLS, m);
+  xrt::load6(p + 2 * COLS, d);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     v[j] = MODE == kCopy ? m[j + 1]
@@ -380,162 +348,59 @@ __device__ __forceinline__ void quad(const float* p, float csx, float csy,
                                               d[j + 2], csx, csy);
 }
 
-// The first row and column of tile t of a raster `tiles_x` tiles wide.
-template <int TH, int TW>
-__device__ __forceinline__ void tile_origin(long long t, long long tiles_x,
-                                            long long& r0, long long& c0) {
-  r0 = t / tiles_x * TH;
-  c0 = t % tiles_x * TW;
-}
-
-// One thread: the window of the tile at (r0, c0) by TMA into `dst`.
-template <int TH, int TW>
-__device__ __forceinline__ void stage_tma(const CUtensorMap* map,
-                                          uint32_t dst, uint32_t bar,
-                                          long long r0, long long c0) {
-  xrt::mbar_expect_tx(bar, Window<TH, TW>::kBoxBytes);
-  xrt::tma_load_2d(dst, map, (int)(c0 - 4), (int)(r0 - 1), bar);
-}
-
-// Every thread: the same window by 4-byte cp.async copies, NaN outside
-// the raster.
-template <int TH, int TW>
-__device__ __forceinline__ void stage_async(const StagedArgs& a, float* win,
-                                            long long r0, long long c0) {
-  using Win = Window<TH, TW>;
-  for (int e = threadIdx.x; e < Win::kRows * Win::kCols;
-       e += kStagedThreads) {
-    const int r = e / Win::kCols;
-    const long long row = r0 - 1 + r, col = c0 - 4 + (e - r * Win::kCols);
-    if (row >= 0 && row < a.h && col >= 0 && col < a.w)
-      xrt::cp_async_4(xrt::smem_addr(win + e), a.x + row * a.w + col);
-    else
-      win[e] = CUDART_NAN_F;
-  }
-}
-
 template <int MODE, int TH, int TW, int ROUTE>
-__global__ void __launch_bounds__(kStagedThreads, 2)
+__global__ void __launch_bounds__(xrt::kStagedThreads, 2)
     stencil_staged_kernel(const __grid_constant__ CUtensorMap map,
                           const StagedArgs a) {
-  using Win = Window<TH, TW>;
+  using Win = xrt::Window<TH, TW>;
   constexpr int kQuadCols = TW / 4;
-  constexpr int kStageFloats = Win::kStageBytes / 4;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = xrt::smem_addr(smem_raw);
-  unsigned char* const smem = smem_raw + (((raw + 127u) & ~127u) - raw);
-  const uint32_t bars = xrt::smem_addr(smem);
-  float* const ring = reinterpret_cast<float*>(smem + kBarrierBytes);
-  const uint32_t ring_addr = xrt::smem_addr(ring);
-  const int tid = threadIdx.x;
-  const long long step = gridDim.x;
-  // this block's tiles: blockIdx.x + k * gridDim.x for k < mine, tile k
-  // staged in stage k % stages
-  const long long mine =
-      blockIdx.x < a.tiles ? (a.tiles - blockIdx.x + step - 1) / step : 0;
-  long long r0, c0;
-
-  if (ROUTE == kRouteTma) {
-    if (tid == 0) {
-      for (int s = 0; s < a.stages; ++s) xrt::mbar_init(bars + 8 * s, 1);
-      xrt::mbar_fence_init();
-      for (int s = 0; s < a.stages && s < mine; ++s) {
-        tile_origin<TH, TW>(blockIdx.x + s * step, a.tiles_x, r0, c0);
-        stage_tma<TH, TW>(&map, ring_addr + s * Win::kStageBytes,
-                          bars + 8 * s, r0, c0);
-      }
-    }
-    __syncthreads();
-  } else {
-    for (int s = 0; s + 1 < a.stages; ++s) {
-      if (s < mine) {
-        tile_origin<TH, TW>(blockIdx.x + s * step, a.tiles_x, r0, c0);
-        stage_async<TH, TW>(a, ring + s * kStageFloats, r0, c0);
-      }
-      xrt::cp_async_commit();
-    }
-  }
-  for (long long k = 0; k < mine; ++k) {
-    const int s = (int)(k % a.stages);
-    if (ROUTE == kRouteTma) {
-      xrt::mbar_wait(bars + 8 * s, (uint32_t)((k / a.stages) & 1));
-    } else {
-      // tile k + stages - 1 into the stage of tile k - 1, which every
-      // thread left at the barrier that ended the last iteration
-      const long long j = k + a.stages - 1;
-      if (j < mine) {
-        tile_origin<TH, TW>(blockIdx.x + j * step, a.tiles_x, r0, c0);
-        stage_async<TH, TW>(a, ring + (int)(j % a.stages) * kStageFloats,
-                            r0, c0);
-      }
-      xrt::cp_async_commit();
-      xrt::cp_async_wait(a.stages - 1);
-      __syncthreads();
-    }
-    tile_origin<TH, TW>(blockIdx.x + k * step, a.tiles_x, r0, c0);
-    const float* const win = ring + s * kStageFloats;
-    for (int q = tid; q < TH * kQuadCols; q += kStagedThreads) {
-      const int tr = q / kQuadCols, tc = 4 * (q - tr * kQuadCols);
-      const long long row = r0 + tr, col = c0 + tc;
-      if (row >= a.h || col >= a.w) continue;
-      float v[4];
-      quad<MODE, Win::kCols>(win + tr * Win::kCols + tc, a.csx, a.csy, v);
-      float* const o = a.out + row * a.w + col;
-      // streaming stores (evict first): the output is not read again, and
-      // the L2 keeps the windows' halos for the neighbouring tiles
-      if (ROUTE == kRouteTma) {
-        // w % 4 == 0: the 4 cells lie in the raster together
-        __stcs(reinterpret_cast<float4*>(o),
-               make_float4(v[0], v[1], v[2], v[3]));
-      } else {
+  const long long h = a.ring.h, w = a.ring.w;
+  xrt::staged_tiles<TH, TW, ROUTE>(
+      &map, a.ring, smem_raw,
+      [&](const float* win, long long r0, long long c0) {
+        for (int q = threadIdx.x; q < TH * kQuadCols;
+             q += xrt::kStagedThreads) {
+          const int tr = q / kQuadCols, tc = 4 * (q - tr * kQuadCols);
+          const long long row = r0 + tr, col = c0 + tc;
+          if (row >= h || col >= w) continue;
+          float v[4];
+          quad<MODE, Win::kCols>(win + tr * Win::kCols + tc, a.csx, a.csy,
+                                 v);
+          float* const o = a.out + row * w + col;
+          // streaming stores (evict first): the output is not read again,
+          // and the L2 keeps the windows' halos for the neighbouring tiles
+          if (ROUTE == xrt::kStagedRouteTma) {
+            // w % 4 == 0: the 4 cells lie in the raster together
+            __stcs(reinterpret_cast<float4*>(o),
+                   make_float4(v[0], v[1], v[2], v[3]));
+          } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (col + j < a.w) __stcs(o + j, v[j]);
-      }
-    }
-    __syncthreads();  // every thread has left stage s
-    if (ROUTE == kRouteTma && tid == 0 && k + a.stages < mine) {
-      tile_origin<TH, TW>(blockIdx.x + (k + a.stages) * step, a.tiles_x, r0,
-                          c0);
-      stage_tma<TH, TW>(&map, ring_addr + s * Win::kStageBytes, bars + 8 * s,
-                        r0, c0);
-    }
-  }
+            for (int j = 0; j < 4; ++j)
+              if (col + j < w) __stcs(o + j, v[j]);
+          }
+        }
+      });
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-// The route rule: TMA needs a 16-byte-aligned base and row pitch
-// (w % 4 == 0), and the 16-byte stores an aligned output; anything else
-// stages the window with cp.async.
-int staged_route(const float* x, const float* out, long long w) {
-  return w % 4 == 0 && aligned16(x) && aligned16(out) ? kRouteTma
-                                                      : kRouteAsync;
-}
-
-// Launches one instantiation; a failed tensor-map encode returns the
-// negated CUresult.
+// Launches one instantiation on a plan staged_setup accepts.
 template <int MODE, int TH, int TW, int ROUTE>
 int launch_staged(const float* x, float* out, long long h, long long w,
                   int stages, int grid, int smem, float csx, float csy,
                   cudaStream_t stream) {
-  using Win = Window<TH, TW>;
-  if (smem != kBarrierBytes + kAlignSlack + stages * Win::kStageBytes)
-    return (int)cudaErrorInvalidValue;
   CUtensorMap map{};
-  if (ROUTE == kRouteTma) {
-    const int err =
-        xrt::encode_raster_map(&map, x, h, w, Win::kCols, Win::kRows);
-    if (err != 0) return err;
-  }
+  StagedArgs a{};
+  int err = xrt::staged_setup<TH, TW>(x, xrt::aligned16(out), h, w, ROUTE,
+                                      stages, grid, smem, &map, &a.ring);
+  if (err != 0) return err;
+  a.out = out;
+  a.csx = csx;
+  a.csy = csy;
   auto kernel = stencil_staged_kernel<MODE, TH, TW, ROUTE>;
-  const cudaError_t err = cudaFuncSetAttribute(
+  err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles_x = (w + TW - 1) / TW;
-  const StagedArgs a{x,       out,   h,   w,  tiles_x,
-                     tiles_x * ((h + TH - 1) / TH), stages, csx, csy};
-  kernel<<<grid, kStagedThreads, smem, stream>>>(map, a);
+  if (err != 0) return err;
+  kernel<<<grid, xrt::kStagedThreads, smem, stream>>>(map, a);
   return (int)cudaGetLastError();
 }
 
@@ -543,11 +408,11 @@ template <int MODE, int TH, int TW>
 int staged_on_route(int route, const float* x, float* out, long long h,
                     long long w, int stages, int grid, int smem, float csx,
                     float csy, cudaStream_t stream) {
-  if (route == kRouteTma)
-    return launch_staged<MODE, TH, TW, kRouteTma>(x, out, h, w, stages, grid,
-                                                  smem, csx, csy, stream);
-  return launch_staged<MODE, TH, TW, kRouteAsync>(x, out, h, w, stages, grid,
-                                                  smem, csx, csy, stream);
+  if (route == xrt::kStagedRouteTma)
+    return launch_staged<MODE, TH, TW, xrt::kStagedRouteTma>(
+        x, out, h, w, stages, grid, smem, csx, csy, stream);
+  return launch_staged<MODE, TH, TW, xrt::kStagedRouteAsync>(
+      x, out, h, w, stages, grid, smem, csx, csy, stream);
 }
 
 template <int MODE>
@@ -592,8 +457,8 @@ int stencil_probe_launch(const float* x, float* out, long long h,
 }
 
 // Launches the staged form (mode 0 copy, 1 grad, 2 slope) at tile th x tw
-// on `stream`, as kernels/stencil_probe.py::staged_plan planned it: route
-// 0 TMA or 1 cp.async, which must be the route rule's (staged_route);
+// on `stream`, as kernels/staged.py::staged_plan planned it: route
+// 0 TMA or 1 cp.async, which must be the route rule's (xrt::staged_route);
 // `stages` ring stages; `grid` persistent blocks; `smem` dynamic shared
 // bytes, which must equal the ring's.  Returns cudaGetLastError() after
 // the launch, cudaErrorInvalidValue for a plan that disagrees or a tile
@@ -604,8 +469,7 @@ int stencil_staged_launch(const float* x, float* out, long long h,
                           int stages, int grid, int smem, float csx,
                           float csy, void* stream) {
   if (h <= 0 || w <= 0) return 0;
-  if (route != staged_route(x, out, w) || stages < 2 ||
-      stages > kMaxStages || grid <= 0)
+  if (route != xrt::kStagedRouteTma && route != xrt::kStagedRouteAsync)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (mode == kCopy)
@@ -619,5 +483,4 @@ int stencil_staged_launch(const float* x, float* out, long long h,
                                smem, csx, csy, s);
   return (int)cudaErrorInvalidValue;
 }
-
 }  // extern "C"

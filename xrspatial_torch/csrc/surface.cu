@@ -1,5 +1,5 @@
-// surface_kernel: slope, aspect, curvature and hillshade of a float32 DEM
-// from one read of its 3x3 neighbourhood.
+// surface_staged_kernel (B1): slope, aspect, curvature and hillshade of a
+// float32 DEM from one read of each tile's window.
 //
 // Replaces the TPU kernel xrspatial_tpu/kernels/pallas_surface2.py::
 // surface_tiled (body emit_surface), together with the polynomial
@@ -7,27 +7,44 @@
 // _atan2, _atan, _atan_poly): those exist only because the TPU compiler
 // has no atan, so this kernel calls libdevice atanf/atan2f instead.  The
 // TPU kernel's seam-band passes and ragged-edge NaN pad have no
-// counterpart: every thread reads its own neighbours with bounds checks.
+// counterpart.
 //
-// Bound on this card: device memory traffic, 4 bytes read and 4 bytes
-// written per product per cell (1 read + K writes of f32); the few dozen
-// flops per cell are far below the compute roof.
+// Bound on this card: device memory traffic, 1 read + K writes of f32 a
+// cell (3.22 GB for slope + hillshade at 16384^2, 0.962 ms at 3.35 TB/s);
+// ~41 float operations a cell are far below the compute roof.
 //
-// This is the simple first version: one thread per output cell, 32x8
-// blocks, neighbours read straight from global memory (the 3x3 reuse is
-// left to L1/L2).  Shared-memory halo tiles, cp.async or TMA are later
-// work.  The per-cell code is surface_cell.cuh, shared with the fused
-// pipeline kernel (pipeline.cu).
+// Redesigned for Hopper on the stencil probe B8c's staged form, whose
+// slope reached 0.88 ms against 2.19 ms for the first port's nine global
+// reads a cell (the same bits).  Persistent blocks, three an SM, walk TH x
+// TW tiles through a ring of TMA-staged (TH + 2) x (TW + 8) windows
+// (staged_window.cuh: NaN out-of-bounds fill, so the 1-cell NaN ring, and
+// every cell of a raster with h < 3 or w < 3, come out of the arithmetic
+// with no ring or bounds test; cp.async where TMA refuses the pitch or
+// base).  Each thread computes 4 neighbouring cells of a row from 3 x 6
+// shared values for every product in the mask (surface_cell.cuh::
+// surface_quad) and writes each product plane with one 16-byte streaming
+// store (scalar stores on the cp.async route).  The tile, the ring's
+// stages and the grid are kernels/surface.py::surface_plan's.
 //
-// surface_stacked_kernel: the same products written as the planes of one
-// (K, H, W) float32 buffer, plane k = which[k] in any order.  Replaces the
-// TPU kernel xrspatial_tpu/kernels/pallas_surface.py::surface_pallas (its
-// emit_pipeline body), with the same libdevice atanf/atan2f in place of
-// that file's polynomial atan.  The TPU kernel's tile padding and ragged
-// NaN pad have no counterpart.  It runs surface_cell on plane pointers
-// taken from the product -> plane map, so each plane equals
-// surface_kernel's product bit for bit.  Same bound: 1 read + K writes.
+// surface_kernel: B1's first port, kept by name (route "simple"): one
+// thread per output cell, 32x8 blocks, neighbours read straight from
+// global memory with the ring test (surface_cell.cuh::surface_cell).
+//
+// surface_stacked_kernel (B0): the same products written as the planes of
+// one (K, H, W) float32 buffer, plane k = which[k] in any order.  Replaces
+// the TPU kernel xrspatial_tpu/kernels/pallas_surface.py::surface_pallas
+// (its emit_pipeline body), with the same libdevice atanf/atan2f in place
+// of that file's polynomial atan.  The TPU kernel's tile padding and
+// ragged NaN pad have no counterpart.  It runs surface_cell on plane
+// pointers taken from the product -> plane map, so each plane equals B1's
+// product bit for bit.  Same bound: 1 read + K writes.  Still the first
+// port's design.
+//
+// All three compute every product through surface_cell.cuh's per-product
+// functions (sobel, slope_value, ...): the same instructions in the same
+// order.
 
+#include "staged_window.cuh"
 #include "surface_cell.cuh"
 
 namespace {
@@ -75,6 +92,64 @@ __global__ void surface_stacked_kernel(const float* __restrict__ x,
     xrt::surface_cell(x, h, w, row, col, args);
 }
 
+// Blocks an SM the staged kernel is compiled for, its register cap (80 a
+// thread), and the ring's size (kernels/surface.py::SURFACE_BLOCKS_PER_SM):
+// three blocks of 2 stages at 64x128 were faster than two of 3 stages at
+// every tile on an H100, four no faster than three.
+constexpr int kSurfaceBlocksPerSm = 3;
+
+template <int TH, int TW, int ROUTE>
+__global__ void __launch_bounds__(xrt::kStagedThreads, kSurfaceBlocksPerSm)
+    surface_staged_kernel(const __grid_constant__ CUtensorMap map,
+                          const xrt::RingArgs a, const xrt::SurfaceArgs p) {
+  using Win = xrt::Window<TH, TW>;
+  constexpr int kQuadCols = TW / 4;
+  extern __shared__ unsigned char smem_raw[];
+  xrt::staged_tiles<TH, TW, ROUTE>(
+      &map, a, smem_raw, [&](const float* win, long long r0, long long c0) {
+        for (int q = threadIdx.x; q < TH * kQuadCols;
+             q += xrt::kStagedThreads) {
+          const int tr = q / kQuadCols, tc = 4 * (q - tr * kQuadCols);
+          const long long row = r0 + tr, col = c0 + tc;
+          if (row >= a.h || col >= a.w) continue;
+          float v[4][4];
+          xrt::surface_quad(win + tr * Win::kCols + tc, Win::kCols, p, v);
+          // the TMA route has w % 4 == 0: the 4 cells lie in the raster
+          // together
+          xrt::surface_store4(p, row * a.w + col, v,
+                              ROUTE == xrt::kStagedRouteTma, a.w - col);
+        }
+      });
+}
+
+template <int TH, int TW, int ROUTE>
+int launch_staged(const float* x, const xrt::SurfaceArgs& p, bool aligned,
+                  long long h, long long w, int stages, int grid, int smem,
+                  cudaStream_t stream) {
+  CUtensorMap map{};
+  xrt::RingArgs a{};
+  int err = xrt::staged_setup<TH, TW>(x, aligned, h, w, ROUTE, stages, grid,
+                                      smem, &map, &a);
+  if (err != 0) return err;
+  auto kernel = surface_staged_kernel<TH, TW, ROUTE>;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  kernel<<<grid, xrt::kStagedThreads, smem, stream>>>(map, a, p);
+  return (int)cudaGetLastError();
+}
+
+template <int TH, int TW>
+int staged_on_route(int route, const float* x, const xrt::SurfaceArgs& p,
+                    bool aligned, long long h, long long w, int stages,
+                    int grid, int smem, cudaStream_t stream) {
+  if (route == xrt::kStagedRouteTma)
+    return launch_staged<TH, TW, xrt::kStagedRouteTma>(
+        x, p, aligned, h, w, stages, grid, smem, stream);
+  return launch_staged<TH, TW, xrt::kStagedRouteAsync>(
+      x, p, aligned, h, w, stages, grid, smem, stream);
+}
+
 dim3 surface_grid(long long h, long long w) {
   const long long blocks_y = (h + kBlockY - 1) / kBlockY;
   return dim3((unsigned)((w + kBlockX - 1) / kBlockX),
@@ -85,9 +160,9 @@ dim3 surface_grid(long long h, long long w) {
 
 extern "C" {
 
-// Launches surface_kernel on `stream`.  `mask` selects the products
-// (1 slope, 2 aspect, 4 curvature, 8 hillshade); the pointer of a product
-// that is not selected is not touched.  Returns cudaGetLastError() after
+// Launches surface_kernel, B1's first port, on `stream`.  `mask` selects
+// the products (1 slope, 2 aspect, 4 curvature, 8 hillshade); the pointer
+// of a product that is not selected is not touched.  Returns cudaGetLastError() after
 // the launch, so a refused launch is reported to the caller.
 int surface_launch(const float* x, float* slope, float* aspect, float* curv,
                    float* hill, long long h, long long w, int mask,
@@ -99,6 +174,44 @@ int surface_launch(const float* x, float* slope, float* aspect, float* curv,
   surface_kernel<<<surface_grid(h, w), dim3(kBlockX, kBlockY), 0,
                    (cudaStream_t)stream>>>(x, args, h, w);
   return (int)cudaGetLastError();
+}
+
+// Launches surface_staged_kernel at tile th x tw (32x128, 64x128 or
+// 32x248) on `stream`, as kernels/surface.py::surface_plan planned it:
+// route 0 TMA or 1 cp.async, which must be the route rule's
+// (xrt::staged_route over x and every selected plane); `stages` ring
+// stages; `grid` persistent blocks; `smem` dynamic shared bytes, which
+// must equal the ring's.  `mask` and the planes as surface_launch's; mask
+// 0 or above 15 is refused.  Returns cudaGetLastError() after the launch,
+// cudaErrorInvalidValue for a plan that disagrees or a tile that is not
+// instantiated, or the negated CUresult of a failed tensor-map encode.
+int surface_staged_launch(const float* x, float* slope, float* aspect,
+                          float* curv, float* hill, long long h, long long w,
+                          int mask, float csx, float csy, float sin_a,
+                          float cos_a, float sin_p, float cos_p, int th,
+                          int tw, int route, int stages, int grid, int smem,
+                          void* stream) {
+  if (h <= 0 || w <= 0) return 0;
+  if (mask <= 0 || mask > 15 ||
+      (route != xrt::kStagedRouteTma && route != xrt::kStagedRouteAsync))
+    return (int)cudaErrorInvalidValue;
+  const xrt::SurfaceArgs p{slope, aspect, curv,  hill,  mask, csx,
+                           csy,   sin_a,  cos_a, sin_p, cos_p};
+  float* const planes[4] = {slope, aspect, curv, hill};
+  bool aligned = true;
+  for (int k = 0; k < 4; ++k)
+    if (mask & (1 << k)) aligned = aligned && xrt::aligned16(planes[k]);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (th == 32 && tw == 128)
+    return staged_on_route<32, 128>(route, x, p, aligned, h, w, stages, grid,
+                                     smem, s);
+  if (th == 64 && tw == 128)
+    return staged_on_route<64, 128>(route, x, p, aligned, h, w, stages, grid,
+                                     smem, s);
+  if (th == 32 && tw == 248)
+    return staged_on_route<32, 248>(route, x, p, aligned, h, w, stages, grid,
+                                     smem, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches surface_stacked_kernel on `stream`: plane p_slope ... p_hill of

@@ -106,6 +106,10 @@ def library() -> ctypes.CDLL:
     lib.surface_launch.argtypes = [p, p, p, p, p, i64, i64, i32,
                                    f32, f32, f32, f32, f32, f32, p]
     lib.surface_launch.restype = i32
+    lib.surface_staged_launch.argtypes = [p, p, p, p, p, i64, i64, i32,
+                                          f32, f32, f32, f32, f32, f32, i32,
+                                          i32, i32, i32, i32, i32, p]
+    lib.surface_staged_launch.restype = i32
     lib.surface_stacked_launch.argtypes = [p, p, i64, i64, i32, i32, i32, i32,
                                            f32, f32, f32, f32, f32, f32, p]
     lib.surface_stacked_launch.restype = i32
@@ -123,6 +127,11 @@ def library() -> ctypes.CDLL:
         p, p, i32, i32, ctypes.POINTER(i32), p, i64, i64, i32, i32, i32, i32,
         i32, i32, i32, i32, i32, i32, i64, i32, p]
     lib.focal_halo_staged_launch.restype = i32
+    lib.pipeline_staged_launch.argtypes = [
+        p, p, p, p, p, i32, f32, f32, f32, f32, f32, f32, p, i32, i32,
+        ctypes.POINTER(i32), p, i64, i64, i32, i32, i32, i32, i32, i32, i32,
+        i32, i32, i32, i64, i32, p]
+    lib.pipeline_staged_launch.restype = i32
     lib.pipeline_launch.argtypes = [p, p, p, p, p, i32, f32, f32, f32, f32,
                                     f32, f32, p, i32, ctypes.POINTER(i32), p,
                                     i64, i64, p]

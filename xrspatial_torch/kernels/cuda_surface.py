@@ -1,9 +1,13 @@
 """Wrappers of the CUDA surface kernels (``csrc/surface.cu``).
 
-``surface_cuda`` (``surface_kernel``) replaces
-``xrspatial_tpu/kernels/pallas_surface2.py::surface_tiled``; its plain
-version is ``kernels/surface.py::surface_multi``.
-``surface_stacked_cuda`` (``surface_stacked_kernel``) replaces
+``surface_cuda`` (B1) replaces
+``xrspatial_tpu/kernels/pallas_surface2.py::surface_tiled``: by default
+``surface_staged_kernel`` on the route ``kernels/surface.py::
+surface_plan`` names ("tma", or "async" where TMA refuses the pitch or
+base), or B1's first port ``surface_kernel`` by name (route "simple");
+the routes give the same bits.  Its plain version is
+``kernels/surface.py::surface_multi``.
+``surface_stacked_cuda`` (``surface_stacked_kernel``, B0) replaces
 ``xrspatial_tpu/kernels/pallas_surface.py::surface_pallas``; its plain
 version is ``kernels/surface.py::surface_multi_stacked``.  Each wrapper
 takes only a tensor on the card: it builds the kernel library at the
@@ -16,14 +20,19 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .surface import PRODUCTS, check_products, sun_scalars
+from .surface import (PRODUCTS, SURFACE_TILE, check_products, sun_scalars,
+                      surface_plan)
 
 __all__ = ["surface_cuda", "surface_stacked_cuda", "LAUNCHES",
+           "STAGED_TMA_LAUNCHES", "STAGED_ASYNC_LAUNCHES", "SIMPLE_LAUNCHES",
            "STACKED_LAUNCHES"]
 
 # launches of each kernel in this process, for checks that a path ran on it
-LAUNCHES = 0            # surface_kernel
-STACKED_LAUNCHES = 0    # surface_stacked_kernel
+LAUNCHES = 0               # B1 (surface_cuda), every route
+STAGED_TMA_LAUNCHES = 0    # ... surface_staged_kernel, windows by TMA
+STAGED_ASYNC_LAUNCHES = 0  # ... surface_staged_kernel, windows by cp.async
+SIMPLE_LAUNCHES = 0        # ... the first port, surface_kernel, by name
+STACKED_LAUNCHES = 0       # surface_stacked_kernel (B0)
 
 
 def _scalars(cellsize_x, cellsize_y, azimuth, angle_altitude) -> tuple:
@@ -61,19 +70,48 @@ def surface_args(x: torch.Tensor, which, cellsize_x, cellsize_y, azimuth,
 
 
 def surface_cuda(data: torch.Tensor, which, cellsize_x=1.0, cellsize_y=1.0,
-                 azimuth=225.0, angle_altitude=25.0) -> tuple:
-    """Tuple of (H, W) float32 products, in `which` order, 1-cell NaN ring."""
-    global LAUNCHES
+                 azimuth=225.0, angle_altitude=25.0, route=None,
+                 tile=SURFACE_TILE) -> tuple:
+    """Tuple of (H, W) float32 products, in `which` order, 1-cell NaN ring.
+
+    `route` None takes the plan's route (``surface_plan`` at `tile`, one
+    of ``SURFACE_TILES``); "tma" or "async" must be the plan's; "simple"
+    takes the first port, ``surface_kernel``, by name."""
+    global LAUNCHES, STAGED_TMA_LAUNCHES, STAGED_ASYNC_LAUNCHES
+    global SIMPLE_LAUNCHES
     x = _card_raster(data, "surface_cuda")
     check_products(which, allow_empty=False)
     h, w = x.shape
     outs, ptrs, mask, scalars = surface_args(
         x, which, cellsize_x, cellsize_y, azimuth, angle_altitude)
     lib = _cuda.library()
-    with torch.cuda.device(x.device):
-        err = lib.surface_launch(x.data_ptr(), *ptrs, h, w, mask, *scalars,
-                                 _cuda.stream_of(x.device))
-    _cuda.check(err, "surface_kernel")
+    if route == "simple":
+        with torch.cuda.device(x.device):
+            err = lib.surface_launch(x.data_ptr(), *ptrs, h, w, mask,
+                                     *scalars, _cuda.stream_of(x.device))
+        _cuda.check(err, "surface_kernel")
+        SIMPLE_LAUNCHES += 1
+    else:
+        sms = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        plan = surface_plan(h, w, x.data_ptr(), tile, sms)
+        if route not in (None, plan.route):
+            raise ValueError(f"surface_cuda: route {route!r} is not the "
+                             f"plan's ({plan.route!r}) or 'simple'")
+        with torch.cuda.device(x.device):
+            err = lib.surface_staged_launch(
+                x.data_ptr(), *ptrs, h, w, mask, *scalars, tile[0], tile[1],
+                ("tma", "async").index(plan.route), plan.stages, plan.grid,
+                plan.shared_bytes, _cuda.stream_of(x.device))
+        if err < 0:
+            raise RuntimeError(f"surface_staged: cuTensorMapEncodeTiled "
+                               f"failed with CUresult {-err} for a {h}x{w} "
+                               f"float32 raster, box {plan.box}")
+        _cuda.check(err, f"surface_staged ({plan.route})")
+        if plan.route == "tma":
+            STAGED_TMA_LAUNCHES += 1
+        else:
+            STAGED_ASYNC_LAUNCHES += 1
     LAUNCHES += 1
     return tuple(outs[p] for p in which)
 

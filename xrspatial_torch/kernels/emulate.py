@@ -1,4 +1,4 @@
-"""Torch emulations of two CUDA kernels' algorithms, for the CPU tests.
+"""Torch emulations of CUDA kernels' algorithms, for the CPU tests.
 
 A CUDA kernel cannot run without a card, so the tests hold these
 emulations, written with the kernels' own window, index arithmetic and
@@ -6,12 +6,19 @@ loop order, to the kernels' plain versions bit for bit:
 
 - ``emulate_staged``: ``csrc/focal_halo.cu::focal_halo_staged_kernel``
   (B2's and B5's staged template), against ``window.window_stats``;
+- ``emulate_surface_staged`` (with ``ring_schedule``, the persistent
+  loop of ``csrc/staged_window.cuh``): ``csrc/surface.cu::
+  surface_staged_kernel`` (B1), against ``surface.surface_multi``;
+- ``emulate_pipeline``: the staged template with its surface epilogue
+  (B4), against ``pipeline.pipeline_multi``;
 - ``blocks_of`` and ``emulate_culled``: ``csrc/screen.cu::
   screen_culled_kernel`` (B7's culled route), against
   ``screen.screen_hilo``; ``blocks_of`` also gives the (warp, chunk)
   pairs the kernel keeps, which the card's tests hold its counters to.
 
-Nothing in the package calls them.
+Also the proximity family's test cases (``layout``, ``axes``) and
+tolerances, which several test files share.  Nothing in the package
+calls any of these.
 """
 
 from __future__ import annotations
@@ -24,26 +31,31 @@ import torch.nn.functional as F
 
 from . import focal_halo as fh
 from . import screen as TS
+from . import surface as TSU
 
-__all__ = ["emulate_staged", "halo_case", "same_bits", "SCREEN_R",
+__all__ = ["emulate_staged", "ring_schedule", "emulate_surface_staged",
+           "emulate_pipeline", "halo_case", "same_bits", "SCREEN_R",
            "SCREEN_WARP", "SCREEN_BLOCK", "group_segments", "blocks_of",
-           "emulate_culled"]
+           "emulate_culled", "TOL", "GC_RTOL", "layout", "axes"]
 
 
 # -- the staged focal template ------------------------------------------------
 
-def emulate_staged(x, offsets):
+def emulate_staged(x, offsets, min_radius=0, windows=False):
     """The staged kernel's statistics of the 2D float32 CPU tensor `x`
     (dict by stat), and each tile's NaN-free flag: each tile's window with
     its NaN fill, the run table's addresses, four cells along x a lane,
     offsets order in every cell, and the NaN-free branch that takes the
-    count from the number of offsets."""
+    count from the number of offsets.  The window's radii are at least
+    `min_radius` (the fused pipeline's plan); with `windows`, also
+    ``(plan, ry, wins)``: the plan, the window's row radius and the
+    flattened windows, tile by tile in row-major order."""
     h, w = x.shape
-    plan = fh.halo_plan(h, w, offsets)
+    plan = fh.halo_plan(h, w, offsets, min_radius=min_radius)
     if plan.route == "ring":
         raise ValueError("the ring route is not the staged kernel")
     th, tw = plan.tile
-    ry = max(abs(dy) for dy, _ in offsets)
+    ry = max(max(abs(dy) for dy, _ in offsets), min_radius)
     ty, tx = -(-h // th), -(-w // tw)
     # window (i, k) of the tile at (r0, c0) is raster (r0 - ry + i,
     # c0 - pad + k), NaN outside it: the TMA map's fill
@@ -62,7 +74,7 @@ def emulate_staged(x, offsets):
 
     def values():
         """Each offset's value for every cell, in the kernel's order."""
-        for quad, code in fh.run_table(offsets, plan):
+        for quad, code in fh.run_table(offsets, plan, min_radius):
             for m in range(code >> 2):
                 idx = base + 4 * quad + (code & 3) + m
                 yield wins[:, idx.reshape(-1)].reshape(shape)
@@ -88,11 +100,127 @@ def emulate_staged(x, offsets):
     planes = {"mean": mean, "sum": ssum, "min": smin, "max": smax,
               "range": smax - smin, "var": var, "std": torch.sqrt(var)}
 
-    def raster(t):                                # (tiles, th, 32, 4)
-        t = t.reshape(ty, tx, th, tw).permute(0, 2, 1, 3)
-        return t.reshape(ty * th, tx * tw)[:h, :w]
+    stats = {k: _tiles_to_raster(v, ty, tx, h, w)
+             for k, v in planes.items()}
+    if windows:
+        return stats, nan_free, (plan, ry, wins)
+    return stats, nan_free
 
-    return {k: raster(v) for k, v in planes.items()}, nan_free
+
+def _tiles_to_raster(t, ty, tx, h, w):
+    """(ty * tx, TH, ...) tile values, tile-major in row-major tile order,
+    as the (h, w) raster they cover."""
+    th = t.shape[1]
+    t = t.reshape(ty, tx, th, -1).permute(0, 2, 1, 3)
+    return t.reshape(ty * th, -1)[:h, :w].contiguous()
+
+
+# -- the surface kernels' staged windows ---------------------------------------
+
+def ring_schedule(tiles, grid, stages):
+    """The persistent loop of ``csrc/staged_window.cuh::staged_tiles``:
+    ``(block, k, tile, stage, parity)`` of each tile, in each block's
+    order: block b's k-th tile is b + k * grid, staged in stage k % stages,
+    whose mbarrier phase has parity (k // stages) & 1."""
+    for b in range(grid):
+        mine = (tiles - b + grid - 1) // grid if b < tiles else 0
+        for k in range(mine):
+            yield b, k, b + k * grid, k % stages, (k // stages) & 1
+
+
+def _products(nb, which, csx, csy, azimuth, angle_altitude):
+    """`which` of the surface products from the nine (h, w) neighbour
+    tensors `nb` (a ... i), with the twins' functions, and no ring
+    applied: NaN neighbours make it."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    csx, csy = f32(csx), f32(csy)
+    out = {}
+    if "slope" in which:
+        out["slope"] = TSU.slope_from_neighbors(nb, csx, csy)
+    if "aspect" in which:
+        out["aspect"] = TSU.aspect_from_neighbors(nb)
+    if "curvature" in which:
+        out["curvature"] = TSU.curvature_from_center(nb, (csx + csy) * 0.5)
+    if "hillshade" in which:
+        out["hillshade"] = TSU.hillshade_from_gradient(
+            nb, f32(azimuth), f32(angle_altitude))
+    return out
+
+
+def emulate_surface_staged(x, which, cellsize_x=1.0, cellsize_y=1.0,
+                           azimuth=225.0, angle_altitude=25.0,
+                           tile=TSU.SURFACE_TILE, sms=132):
+    """B1's staged kernel (``csrc/surface.cu::surface_staged_kernel``) on
+    the 2D float32 CPU tensor `x`: a dict of the products in `which`.
+
+    Written with the kernel's loop and index arithmetic: the persistent
+    blocks' tiles (``ring_schedule`` on ``surface_plan``'s grid and
+    stages), each tile's (TH + 2) x (TW + 8) window from (r0 - 1, c0 - 4)
+    with TMA's NaN fill outside the raster, thread quad q at tile row
+    tr = q // (TW / 4) and column tc = 4 (q mod TW / 4), its 3 x 6 values
+    at window floats tr * cols + tc + 3 .. + 8 of rows tr .. tr + 2
+    (``load6``), and only cells inside the raster written.  The products
+    come from the nine neighbour rasters through the twins' functions."""
+    h, w = x.shape
+    th, tw = tile
+    plan = TSU.surface_plan(h, w, 0, tile, sms)
+    cols, rows = plan.box
+    ty, tx = -(-h // th), -(-w // tw)
+    big = F.pad(x, (4, tx * tw + cols, 1, ty * th + rows), value=math.nan)
+    walked = {}
+    for _, _, t, _, _ in ring_schedule(plan.tiles, plan.grid, plan.stages):
+        r0, c0 = t // tx * th, t % tx * tw
+        # window (r, c) = raster (r0 - 1 + r, c0 - 4 + c) = big (r0 + r,
+        # c0 + c)
+        walked[t] = big[r0:r0 + rows, c0:c0 + cols].reshape(-1)
+    if sorted(walked) != list(range(plan.tiles)):
+        raise AssertionError("the persistent loop missed or repeated a tile")
+    wins = torch.stack([walked[t] for t in range(plan.tiles)])
+    q = torch.arange(th * tw // 4)
+    tr, tc = q // (tw // 4), 4 * (q % (tw // 4))
+    p = (tr * cols + tc)[:, None]                 # window float of (tr, tc)
+    j = torch.arange(4)[None, :]
+    nb = []
+    for dr in range(3):                           # rows above, at, below
+        for dc in range(3):
+            idx = (p + dr * cols + 3 + j + dc).reshape(-1)
+            cells = wins[:, idx].reshape(-1, th, tw)  # quads in row order
+            nb.append(_tiles_to_raster(cells, ty, tx, h, w))
+    return _products(tuple(nb), tuple(which), cellsize_x, cellsize_y,
+                     azimuth, angle_altitude)
+
+
+def emulate_pipeline(x, offsets, stats, which, cellsize_x=1.0,
+                     cellsize_y=1.0, azimuth=225.0, angle_altitude=25.0):
+    """B4's staged kernel (``csrc/focal_halo.cu``, the staged template
+    with its surface epilogue) on the 2D float32 CPU tensor `x`:
+    ``pipeline_multi``'s outputs, the products in `which` order, then the
+    (S, H, W) stack in `stats` order.
+
+    ``emulate_staged`` on the pipeline's plan (radii at least 1) for the
+    statistics; from the same windows, lane l's cell j of tile row tr
+    reads its 3x3 neighbourhood at window rows tr - 1 + ry .. tr + 1 + ry
+    and columns pad - 4 + 4 l + 3 + j .. + 2 (``load6`` at window float
+    (tr - 1 + ry) * pitch + pad - 4 + 4 l)."""
+    h, w = x.shape
+    focal, _, (plan, ry, wins) = emulate_staged(x, offsets, min_radius=1,
+                                                windows=True)
+    th, tw = plan.tile
+    ty, tx = -(-h // th), -(-w // tw)
+    tr = torch.arange(th)[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    j = torch.arange(4)[None, None, :]
+    p = (tr - 1 + ry) * plan.pitch + plan.pad - 4 + 4 * lane
+    nb = []
+    for dr in range(3):
+        for dc in range(3):
+            idx = (p + dr * plan.pitch + 3 + j + dc).reshape(-1)
+            cells = wins[:, idx].reshape(-1, th, tw)
+            nb.append(_tiles_to_raster(cells, ty, tx, h, w))
+    surf = _products(tuple(nb), tuple(which), cellsize_x, cellsize_y,
+                     azimuth, angle_altitude)
+    return (*(surf[p] for p in which),
+            torch.stack([focal[s] for s in stats]))
 
 
 def halo_case(shape, seed):
@@ -201,3 +329,33 @@ def emulate_culled(args):
             s = m & (t > f["a0n"]) & (t < f["a2n"]) & (f["key"] < kl)
             lo[t0:t0 + n] = torch.where(s, gi - f["ts"], ninf).amax(dim=1)
     return hi, lo
+
+
+# -- the proximity family's test cases ------------------------------------------
+
+TOL = dict(rtol=1e-5, atol=1e-5)   # distances and direction
+GC_RTOL = 1e-4                     # great-circle distances
+
+
+def layout(shape, density, seed):
+    """Targets (values 1-8) on a zero background, from a seed."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(1, 9, shape)
+    return np.where(rng.random(shape) < density, vals, 0).astype(np.float32)
+
+
+def axes(kind, h, w, seed=0):
+    """(ys, xs) coordinate vectors of one kind."""
+    rng = np.random.default_rng(seed)
+    if kind == "affine_desc":        # create_test_raster's: y descending
+        return (np.arange(h)[::-1] * 0.5, np.arange(w) * 0.5)
+    if kind == "affine_asc":         # scaled steps, both ascending
+        return (3.0 + np.arange(h) * 0.25, -50.0 + np.arange(w) * 8.0)
+    if kind == "nonaffine":          # monotone, not affine
+        return (np.sort(rng.uniform(-50, 50, h))[::-1],
+                np.sort(rng.uniform(-50, 50, w)))
+    if kind == "nonmonotone":
+        return (np.arange(h, dtype=float), rng.permutation(w) * 1.5)
+    if kind == "lonlat":             # bench.py's great-circle grid
+        return np.linspace(75, -75, h), np.linspace(-170, 170, w)
+    raise ValueError(kind)

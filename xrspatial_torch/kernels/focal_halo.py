@@ -77,9 +77,9 @@ def footprint_runs(offsets) -> Tuple[Tuple[int, int, int], ...]:
     return tuple(map(tuple, runs))
 
 
-def _radii(offsets) -> tuple:
-    return (max(abs(dy) for dy, _ in offsets),
-            max(abs(dx) for _, dx in offsets))
+def _radii(offsets, min_radius: int = 0) -> tuple:
+    return (max(max(abs(dy) for dy, _ in offsets), min_radius),
+            max(max(abs(dx) for _, dx in offsets), min_radius))
 
 
 def _window(rx: int) -> tuple:
@@ -112,9 +112,11 @@ def _ring_plan(h: int, w: int, n: int, rx: int) -> HaloPlan:
                     shared, min(8, SMEM_PER_SM // (shared + 1024)), grid)
 
 
-def halo_plan(h: int, w: int, offsets, ptr: int = 0) -> HaloPlan:
+def halo_plan(h: int, w: int, offsets, ptr: int = 0,
+              min_radius: int = 0) -> HaloPlan:
     """How the large-footprint focal kernel runs an (h, w) float32 raster
-    at input address `ptr` over `offsets`.
+    at input address `ptr` over `offsets`, its window's radii at least
+    `min_radius` (the fused pipeline's surface half needs 1).
 
     A block stages the window of one tile (TILE_ROWS rows x 128 columns,
     with ry rows and `pad` columns of halo on each side) and the run
@@ -128,7 +130,7 @@ def halo_plan(h: int, w: int, offsets, ptr: int = 0) -> HaloPlan:
     elsewhere.
     """
     offsets = tuple(offsets)
-    ry, rx = _radii(offsets)
+    ry, rx = _radii(offsets, min_radius)
     pad, pitch, box_cols, per_row = _window(rx)
     table = -(-len(footprint_runs(offsets)) * 8 // 128) * 128
     route = "tma" if w % 4 == 0 and ptr % 16 == 0 else "async"
@@ -166,14 +168,16 @@ def register_class(plan: HaloPlan) -> int:
     return REGISTER_CLASSES[-1]
 
 
-def run_table(offsets, plan: HaloPlan) -> Tuple[Tuple[int, int], ...]:
+def run_table(offsets, plan: HaloPlan,
+              min_radius: int = 0) -> Tuple[Tuple[int, int], ...]:
     """The staged kernel's footprint: for each run of ``footprint_runs``,
     ``(quad, code)``: ``quad`` is the 16-byte group of the window (row
     dy + ry, column pad + dx0) that lane 0's first cell reads first,
-    rounded down, and ``code`` is ``(pad + dx0) % 4 + 4 * length``."""
+    rounded down, and ``code`` is ``(pad + dx0) % 4 + 4 * length``; ry
+    is the window's row radius, at least `min_radius` as in the plan."""
     if plan.route == "ring":
         raise ValueError("the ring route takes the offsets, not runs")
-    ry, _ = _radii(offsets)
+    ry, _ = _radii(offsets, min_radius)
     table = []
     for dy, dx0, length in footprint_runs(offsets):
         col = plan.pad + dx0

@@ -6,23 +6,47 @@ Counterpart of ``xrspatial_tpu/kernels/pallas_pipeline.py``.
 of the CUDA kernel in ``cuda_pipeline.py``, which computes every output
 from one launch over the DEM.  ``pipeline_kernels`` dispatches: a tensor
 on the CPU to the twin, a tensor on the card to the kernel, at every size.
+
+``pipeline_plan`` plans the kernel (B4 on B2's staged window,
+``csrc/focal_halo.cu``): ``halo_plan``'s window over the footprint's
+radii, each at least ``SURFACE_RADIUS``, since the surface products read
+every cell's 3x3 neighbourhood from the same window and the gate admits
+footprints of radius 0 along an axis (a 1x3 row, a 3x1 column).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .focal_halo import HaloPlan, halo_plan
 from .surface import surface_multi
 from .window import window_stats
 
-__all__ = ["pipeline_supported", "pipeline_multi", "pipeline_kernels"]
+__all__ = ["pipeline_supported", "pipeline_plan", "pipeline_radii",
+           "pipeline_multi", "pipeline_kernels", "SURFACE_RADIUS"]
+
+SURFACE_RADIUS = 1   # the surface products' 3x3 neighbourhood
+
+
+def pipeline_radii(offsets) -> tuple:
+    """(ry, rx) of the fused kernel's window: the footprint's radii, each
+    at least ``SURFACE_RADIUS``."""
+    return (max(max(abs(dy) for dy, _ in offsets), SURFACE_RADIUS),
+            max(max(abs(dx) for _, dx in offsets), SURFACE_RADIUS))
+
+
+def pipeline_plan(h: int, w: int, offsets, ptr: int = 0) -> HaloPlan:
+    """How the fused kernel runs an (h, w) float32 raster at input address
+    `ptr` over `offsets`: ``halo_plan`` with its radii at least
+    ``SURFACE_RADIUS``; route "tma" or "async" (or "ring" where no
+    window fits a block, which no footprint the gate accepts reaches)."""
+    return halo_plan(h, w, offsets, ptr, min_radius=SURFACE_RADIUS)
 
 
 def pipeline_supported(offsets) -> bool:
     """The JAX package's gate for its fused kernel: ry <= 32 and
     2*rx <= 128, with radii of at least 1."""
-    ry = max(max(abs(dy) for dy, _ in offsets), 1)
-    rx = max(max(abs(dx) for _, dx in offsets), 1)
+    ry, rx = pipeline_radii(offsets)
     return ry <= 32 and 2 * rx <= 128
 
 

@@ -20,9 +20,11 @@ B8f  ``tools/exp_seam_cost.py::run``          prod = B1 by name;
 ===  ======================================  ===============================
 
 The staged form stages each tile's window in shared memory, as the TPU
-probe does in VMEM: ``staged_plan`` says how (the TMA box, the ring's
-stages and shared bytes, the route, the persistent grid), and refuses a
-tile that breaks a rule of the box or of shared memory, naming it.  Form
+probe does in VMEM: ``staged_plan`` (``kernels/staged.py``, the plan of
+the window ring B1's staged kernel shares) says how (the TMA box, the
+ring's stages and shared bytes, the route, the persistent grid), and
+refuses a tile that breaks a rule of the box or of shared memory, naming
+it.  Form
 nine at blocks 32x8, 32x16 and 64x4, B8c's first port (nine global reads
 a cell, B1's access pattern), stays as B8f's ring_branch and B8e's edge
 path.
@@ -50,10 +52,10 @@ them.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
 import torch
 
+from .staged import MAX_STAGES, StagedPlan, staged_plan  # noqa: F401
 from .surface import DEG, _nan_border, neighborhood, slope_from_neighbors
 
 __all__ = ["MODES", "FORMS", "EDGES", "BLOCKS", "TILES", "VARIANTS",
@@ -73,16 +75,6 @@ VARIANTS = (tuple((m, "nine", "ring") for m in MODES)
                ("slope", "nine", "bare"))
             + tuple((m, "staged", "ring") for m in MODES))
 
-# the staged form's plan; csrc/stencil_probe.cu checks the same numbers
-SMEM_PER_BLOCK = 232448    # shared memory a block can use on an H100
-SMEM_PER_SM = 233472       # an SM's 228 KB, of which 1 KB a block is reserved
-BARRIER_BYTES = 128        # the stages' mbarriers
-ALIGN_SLACK = 128          # room to align the ring to 128 bytes
-MAX_STAGES = 4
-BLOCKS_PER_SM = 2
-TMA_BOX_MAX = 256          # elements in each dimension of a TMA box
-
-
 def shapes_of(form) -> tuple:
     """The block shapes (nine, separable) or tiles (staged) of a form."""
     return TILES if form == "staged" else BLOCKS
@@ -97,59 +89,6 @@ def check_variant(mode, form, edges, block) -> None:
             f"edges={edges!r} block={tuple(block)}; the template has "
             f"(mode, form, edges) in {VARIANTS} at blocks {BLOCKS}, and "
             f"form staged at tiles {TILES}")
-
-
-class StagedPlan(NamedTuple):
-    box: tuple          # (columns, rows) of a tile's window: the TMA box
-    stages: int         # windows in the shared-memory ring
-    stage_bytes: int    # one window, rounded up to 128 bytes
-    shared_bytes: int   # the dynamic shared memory a block asks for
-    route: str          # "tma" or "async" (4-byte cp.async copies)
-    tiles: int          # output tiles of the raster
-    grid: int           # persistent blocks, at most BLOCKS_PER_SM an SM
-
-
-def staged_plan(h: int, w: int, tile, ptr: int = 0,
-                sms: int = 132) -> StagedPlan:
-    """How the staged form runs an (h, w) raster at `tile` = (rows,
-    columns), from input address `ptr` (the output is allocated 16-byte
-    aligned), on `sms` SMs.
-
-    A tile's window is its rows with a 1-row halo and its columns with a
-    4-column halo on each side: TMA refuses an innermost start coordinate
-    that is not a multiple of 16 bytes, so the window starts at column
-    c0 - 4.  Rules, each refused by name: the width a multiple of 4 (each
-    thread stores 16 bytes, and c0 - 4 is 16-byte aligned); each box
-    dimension at most 256; two stages within a block's shared memory.  The
-    ring takes as many windows as let two blocks share an SM, up to 4, and
-    never fewer than 2.  The route is TMA when the row pitch and the base
-    are 16-byte aligned (``w % 4 == 0``, ``ptr % 16 == 0``), else
-    cp.async.
-    """
-    th, tw = tile
-    if th < 1 or tw < 4 or tw % 4:
-        raise ValueError(f"staged tile {th}x{tw}: the width must be a "
-                         f"positive multiple of 4 (each thread stores 16 "
-                         f"bytes)")
-    box = (tw + 8, th + 2)
-    if max(box) > TMA_BOX_MAX:
-        raise ValueError(f"staged tile {th}x{tw}: its window is a {box[0]}x"
-                         f"{box[1]} TMA box, and a box dimension is at most "
-                         f"{TMA_BOX_MAX}")
-    stage_bytes = -(-(box[0] * box[1] * 4) // 128) * 128
-    fixed = BARRIER_BYTES + ALIGN_SLACK
-    shared_of_two = SMEM_PER_SM // BLOCKS_PER_SM - 1024
-    stages = max(2, min(MAX_STAGES, (shared_of_two - fixed) // stage_bytes))
-    shared = fixed + stages * stage_bytes
-    if shared > SMEM_PER_BLOCK:
-        raise ValueError(f"staged tile {th}x{tw}: two stages of its window "
-                         f"need {shared} bytes of shared memory, more than "
-                         f"the {SMEM_PER_BLOCK} a block can use")
-    route = "tma" if w % 4 == 0 and ptr % 16 == 0 else "async"
-    tiles = -(-h // th) * -(-w // tw)
-    per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (shared + 1024))
-    return StagedPlan(box, stages, stage_bytes, shared, route, tiles,
-                      min(tiles, per_sm * sms))
 
 
 def interior_extent(h: int, w: int, block=(32, 8)) -> tuple:

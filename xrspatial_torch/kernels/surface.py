@@ -7,9 +7,15 @@ epilogues, in the same float32 operation order as the JAX package.
 
 Dispatch (``surface_kernels``, ``run_surface_op``, ``surface_stacked``): a
 tensor on the CPU goes to the twins, a tensor on the card to a CUDA kernel
-(``surface_kernel``, or ``surface_stacked_kernel`` for the stacked
-output), at every size.  The twins are reached on the card only by
-calling them by name.
+(B1, ``surface_staged_kernel``, on the route ``surface_plan`` names, or
+``surface_stacked_kernel`` for the stacked output), at every size.  The
+twins, and B1's first port ``surface_kernel``, are reached on the card
+only by calling them by name.
+
+``surface_plan`` plans B1's staged kernel: persistent blocks walking
+``SURFACE_TILE`` tiles through a ring of TMA-staged windows
+(``kernels/staged.py::staged_plan``), TMA where the row pitch and the base
+are 16-byte aligned, cp.async elsewhere.
 
 Numerical contracts (all float32):
 - slope:   Horn 3x3 gradient, ``atan(|grad z|)*57.29578``;
@@ -26,17 +32,30 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .staged import StagedPlan, staged_plan
+
 DEG = 57.29578  # the reference's degree conversion constant
 
 PRODUCTS = ("slope", "aspect", "curvature", "hillshade")
+
+# B1's staged kernel: the tiles csrc/surface.cu instantiates, (rows,
+# columns), and the one the plan takes, the fastest of the three at the
+# main path's 16384^2 on an H100 (chip_smoke.py phase 5; at 3 blocks an SM
+# all three were faster than at 2)
+SURFACE_TILES = ((32, 128), (64, 128), (32, 248))
+SURFACE_TILE = (64, 128)
+# blocks an SM the kernel is compiled for (csrc/surface.cu kBlocksPerSm,
+# its register cap: 80 registers a thread) and the ring is sized for
+SURFACE_BLOCKS_PER_SM = 3
 
 __all__ = [
     "neighborhood", "slope_from_neighbors", "aspect_from_neighbors",
     "curvature_from_center", "hillshade_from_gradient", "sun_scalars",
     "slope", "aspect", "curvature", "hillshade", "surface_multi",
     "surface_multi_stacked", "surface_kernels", "surface_stacked",
-    "check_products",
-    "run_surface_op", "PRODUCTS",
+    "check_products", "surface_plan",
+    "run_surface_op", "PRODUCTS", "SURFACE_TILES", "SURFACE_TILE",
+    "SURFACE_BLOCKS_PER_SM",
 ]
 
 
@@ -181,6 +200,20 @@ def surface_multi(data, cellsize_x, cellsize_y, azimuth, angle_altitude,
         outs["hillshade"] = _nan_border(hillshade_from_gradient(
             nb, _f32(azimuth, dev), _f32(angle_altitude, dev)))
     return outs
+
+
+def surface_plan(h: int, w: int, ptr: int = 0, tile=SURFACE_TILE,
+                 sms: int = 132) -> StagedPlan:
+    """How B1's staged kernel runs an (h, w) float32 raster at input
+    address `ptr` on `sms` SMs: ``staged_plan`` at `tile`, one of
+    ``SURFACE_TILES``, its ring sized for ``SURFACE_BLOCKS_PER_SM`` blocks
+    an SM (2 stages at 64x128).  The route is "tma" where ``w % 4 == 0``
+    and ``ptr % 16 == 0``, else "async"."""
+    tile = tuple(tile)
+    if tile not in SURFACE_TILES:
+        raise ValueError(f"surface_staged_kernel has no tile {tile}; it is "
+                         f"compiled at {SURFACE_TILES}")
+    return staged_plan(h, w, tile, ptr, sms, SURFACE_BLOCKS_PER_SM)
 
 
 def check_products(which, allow_empty=True) -> None:

@@ -253,10 +253,18 @@ def window_stats(data: torch.Tensor, offsets: Tuple[Tuple[int, int], ...],
 
 def convolve2d(data: torch.Tensor, kernel) -> torch.Tensor:
     """Cross-correlation (un-flipped kernel) over the full input, with a
-    NaN ring of the kernel radius; NaNs inside are not skipped."""
+    NaN ring of the kernel radius; NaNs inside are not skipped.
+
+    A raster with fewer rows or columns than the kernel has no cell
+    inside the ring: the result is all NaN, of the input's shape.  (The
+    JAX package pads its empty VALID convolution by the radius, so below
+    k - 1 cells a side its result is larger than its input.)
+    """
     data = data.to(torch.float32)
     kernel = torch.as_tensor(np.asarray(kernel), dtype=torch.float32,
                              device=data.device)
+    if data.shape[0] < kernel.shape[0] or data.shape[1] < kernel.shape[1]:
+        return torch.full_like(data, math.nan)
     ry = (kernel.shape[0] - 1) // 2
     rx = (kernel.shape[1] - 1) // 2
     return F.pad(_conv2d(data, kernel), (rx, rx, ry, ry), value=math.nan)

@@ -93,16 +93,25 @@ Phases, each fatal on failure:
    culled route's counts (pairs evaluated, (warp, chunk) pairs culled,
    chunks staged), from which its bound is counted; every re-evaluation
    route forced through the module's thresholds;
-16. stacked surface kernel vs twin and vs the surface kernel: plane k =
-   ``which[k]`` for all four products, ("hillshade", "slope") and one
-   product with and without squeeze, at the small shapes: equal to the
-   surface kernel bit for bit, within the surface tolerance of the twin;
+16. stacked surface kernel B0 vs its first port, the surface kernel and
+   the twin: plane k = ``which[k]`` for all four products, ("hillshade",
+   "slope") and one product with and without squeeze, on the route
+   ``stacked_plan`` names (TMA, or phased where TMA refuses), on the
+   phased route and the first port by name, at the small shapes, odd
+   H * W (257x1025), an aligned ragged 263x516 and 40x119, from an
+   aligned base and one 4 bytes off: every route equal to the surface
+   kernel bit for bit, within the surface tolerance of the twin, each
+   launch counted on its route (``cuda_surface.STACKED_TMA_LAUNCHES``,
+   ``STACKED_PHASED_LAUNCHES``, ``STACKED_SIMPLE_LAUNCHES``);
 17. surface family path: ``surface_stacked`` with all four products on
-   the 16384^2 DEM, the stacked entry users call: one stacked launch and
-   no other, equal to the surface kernel at every cell and within the
-   twin's tolerance; a numpy DEM given to ``slope`` with no device set
-   runs on the card; the stacked and surface kernels and the twin timed
-   in turns;
+   the 16384^2 DEM, the stacked entry users call: one stacked launch, on
+   its TMA route, and no other, equal to the surface kernel and to B0's
+   first port at every cell and within the twin's tolerance; at 16383^2
+   the phased route equal to both; a numpy DEM given to ``slope`` with no
+   device set runs on the card; at 16384^2 and 16383^2 B0 on its plan,
+   its first port by name, the surface kernel with four products and
+   the twin timed in turns; B0's tiles and ring stages on each route
+   timed in turns;
 18. stream probes: the copy and add kernels against their twins, bit for
    bit (aligned and unaligned, and at mismatched alignments of their
    inputs and output: the bulk route and the scalar route); then
@@ -129,7 +138,12 @@ Phases, each fatal on failure:
    the staged form (B8c) at every tile at those shapes and at an aligned
    ragged 263x516, its slope equal to the surface kernel bit for bit, NaN
    ring included, each launch on the route its plan names (cp.async at
-   the first two, TMA at the third);
+   the first two, TMA at the third); the staged separable form (B8d's
+   redesign) at every tile at the same shapes, from an aligned base and
+   one 4 bytes off, equal to the first-port separable form bit for bit
+   and within the surface tolerance of its twin, each launch counted on
+   the route its plan names (``cuda_stencil_probe.SEP_TMA_LAUNCHES``,
+   ``SEP_ASYNC_LAUNCHES``);
    the fused group (B8g) against the round kernel launched once per
    stride, bit for bit, in both state forms at every metric, for
    proximity's tail group, (64,) and (2, 1), on each of its routes: the
@@ -139,7 +153,10 @@ Phases, each fatal on failure:
    ``exp_separable_horn``, ``exp_padfree_stencil`` and ``exp_seam_cost``
    at 16384^2, the tools users run (each kernel checked against its twin
    before it is timed; every leg's ms, GB/s and share of the measured
-   roof; every staged launch of ``exp_stencil2`` on the TMA route);
+   roof; every staged launch of ``exp_stencil2`` and every staged
+   separable launch of ``exp_separable_horn`` on the TMA route;
+   ``exp_separable_horn`` times the staged separable form and B8c's
+   staged slope at each tile in turns with the first ports);
    ``exp_jfa_fixed`` at its 4096^2 (the JAX probe's groups that
    fit, against the round kernel); then the fused group on proximity's
    16384^2 packed state after its first 9 rounds (targets ``dem > 900``):
@@ -157,11 +174,13 @@ phase 18 (``measured_roof_bound_ms``, and its share of ``ms``), and
 the design its timed launch ran (``design``: the staged route and tile of
 the surface, focal and pipeline kernels, the screen's culled share, the
 stream kernels' bulk rings, the jump-flood round's per-stride routes, the
-group's window) and, for the redesigned kernels that keep their first
-port by name (surface, focal, pipeline, screen, jump-flood round and
-group), that port's time in turns (``first_port_ms``); the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
-the script exits 1 before printing any result.
+group's window, B0's route and tile, B8d's staged separable form) and,
+for the redesigned kernels that keep their first port by name (surface,
+focal, pipeline, screen, jump-flood round and group, the stacked surface
+kernel B0, the stencil probes B8c and B8d), that port's time in turns
+(``first_port_ms``), each entry with the card's name and power limit
+(``card``); the last line is ``{"ok": true, "device": {...}}``.  Without
+a CUDA device the script exits 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -1182,10 +1201,14 @@ def reset_launches():
     cuda_screen.LAUNCHES = cuda_screen.F64_LAUNCHES = 0
     cuda_screen.CULLED_LAUNCHES = cuda_screen.SIMPLE_LAUNCHES = 0
     cuda_screen.BOUNDS_LAUNCHES = 0
-    cuda_surface.STACKED_LAUNCHES = 0
+    cuda_surface.STACKED_LAUNCHES = cuda_surface.STACKED_TMA_LAUNCHES = 0
+    cuda_surface.STACKED_PHASED_LAUNCHES = 0
+    cuda_surface.STACKED_SIMPLE_LAUNCHES = 0
     cuda_stream.COPY_LAUNCHES = cuda_stream.ADD_LAUNCHES = 0
     cuda_stencil_probe.LAUNCHES = cuda_stencil_probe.EDGE_LAUNCHES = 0
     cuda_stencil_probe.TMA_LAUNCHES = cuda_stencil_probe.ASYNC_LAUNCHES = 0
+    cuda_stencil_probe.SEP_TMA_LAUNCHES = 0
+    cuda_stencil_probe.SEP_ASYNC_LAUNCHES = 0
     cuda_jfa_group.LAUNCHES = 0
     cuda_jfa_group.SINGLE_LAUNCHES = cuda_jfa_group.DOUBLE_LAUNCHES = 0
 
@@ -1204,12 +1227,17 @@ def read_launches():
             "jfa_round": cuda_jfa.LAUNCHES,
             "screen_hilo": cuda_screen.LAUNCHES,
             "surface_stacked_kernel": cuda_surface.STACKED_LAUNCHES,
+            "surface_stacked_tma": cuda_surface.STACKED_TMA_LAUNCHES,
+            "surface_stacked_phased": cuda_surface.STACKED_PHASED_LAUNCHES,
+            "surface_stacked_simple": cuda_surface.STACKED_SIMPLE_LAUNCHES,
             "stream_copy": cuda_stream.COPY_LAUNCHES,
             "stream_add": cuda_stream.ADD_LAUNCHES,
             "stencil_probe": cuda_stencil_probe.LAUNCHES,
             "stencil_edge": cuda_stencil_probe.EDGE_LAUNCHES,
             "stencil_staged_tma": cuda_stencil_probe.TMA_LAUNCHES,
             "stencil_staged_async": cuda_stencil_probe.ASYNC_LAUNCHES,
+            "stencil_sep_tma": cuda_stencil_probe.SEP_TMA_LAUNCHES,
+            "stencil_sep_async": cuda_stencil_probe.SEP_ASYNC_LAUNCHES,
             "jfa_group": cuda_jfa_group.LAUNCHES}
 
 
@@ -1895,54 +1923,122 @@ def viewshed_timing(dev, card, out):
 
 # -- the surface family: stacked kernel, stream probes, geodesic, shadows ----
 
+# B0's extra shapes: odd H * W (every plane at its own phase), an aligned
+# ragged width (TMA), and w = 119 (a second tile for the last span)
+STACKED_SHAPES = SMALL_SHAPES + ((257, 1025), (263, 516), (40, 119))
+
+
+def stacked_route_launches():
+    """B0's launches by route."""
+    from xrspatial_torch.kernels import cuda_surface
+    return {"tma": cuda_surface.STACKED_TMA_LAUNCHES,
+            "phased": cuda_surface.STACKED_PHASED_LAUNCHES,
+            "simple": cuda_surface.STACKED_SIMPLE_LAUNCHES}
+
+
 def check_stacked(dev):
-    """Phase 16: the stacked surface kernel against its twin and against
-    the surface kernel, at the small shapes and in several orders."""
+    """Phase 16: B0 on the route its plan names, on the phased route and
+    its first port by name, against B1 and each other bit for bit and the
+    twin within the surface tolerance, at the small shapes, odd H * W, an
+    aligned ragged 263x516 and w = 119, from an aligned base and one 4
+    bytes off, in several orders; each launch counted on its route."""
     import torch
     from xrspatial_torch.kernels import cuda_surface
-    from xrspatial_torch.kernels.surface import surface_multi_stacked
-    print("== stacked surface kernel vs twin and surface kernel on the card")
+    from xrspatial_torch.kernels.surface import (stacked_plan,
+                                                 surface_multi_stacked)
+    print("== stacked surface kernel B0: routes vs first port, surface "
+          "kernel and twin on the card")
     err = 0.0
+    planned = {"tma": 0, "phased": 0}
     cases = [(w, False) for w in STACK_ORDERS] + [(("slope",), True)]
-    for k, shape in enumerate(SMALL_SHAPES):
-        x = torch.from_numpy(test_raster(shape, seed=700 + k)).to(dev)
-        for which, squeeze in cases:
-            args = (2.0, 3.0, 300.0, 40.0)
-            got = cuda_surface.surface_stacked_cuda(x, which, *args,
-                                                    squeeze=squeeze)
-            twin = surface_multi_stacked(x, *args, which=which,
-                                         squeeze=squeeze)
-            split = cuda_surface.surface_cuda(x, which, *args)
-            want = shape if squeeze else (len(which), *shape)
-            if tuple(got.shape) != want or got.shape != twin.shape:
-                raise SmokeFailure(f"stacked {shape} {which}: shape "
-                                   f"{tuple(got.shape)}, expected {want}")
-            planes = got[None] if squeeze else got
-            tplanes = twin[None] if squeeze else twin
-            tag = f"stacked {shape} {'+'.join(which)}" + (
-                " squeezed" if squeeze else "")
-            for j, p in enumerate(which):
-                if not torch.equal(torch.isnan(planes[j]),
-                                   torch.isnan(split[j])) or not torch.equal(
-                        torch.nan_to_num(planes[j]),
-                        torch.nan_to_num(split[j])):
-                    raise SmokeFailure(f"{tag} {p}: differs from the surface "
-                                       f"kernel")
-                err = max(err, check(f"{tag} {p} (= surface kernel)",
-                                     planes[j], tplanes[j], SURFACE_TOL,
-                                     circular=360.0 if p == "aspect"
-                                     else None))
+    args = (2.0, 3.0, 300.0, 40.0)
+    for k, shape in enumerate(STACKED_SHAPES):
+        x0 = torch.from_numpy(surface_raster(shape, seed=700 + k)).to(dev)
+        for label, x in (("aligned", x0), ("base+4", unaligned(x0))):
+            for which, squeeze in cases:
+                twin = surface_multi_stacked(x, *args, which=which,
+                                             squeeze=squeeze)
+                split = cuda_surface.surface_cuda(x, which, *args)
+                want = shape if squeeze else (len(which), *shape)
+                plan = stacked_plan(*shape, x.data_ptr()).route
+                planned[plan] += 1
+                tag = f"stacked {shape} {label} {'+'.join(which)}" + (
+                    " squeezed" if squeeze else "")
+                outs = {}
+                for route in (None, "phased", "simple"):
+                    before = stacked_route_launches()
+                    got = cuda_surface.surface_stacked_cuda(
+                        x, which, *args, squeeze=squeeze, route=route)
+                    n = launched_since(stacked_route_launches, before)
+                    ran = plan if route is None else route
+                    if n != {r: int(r == ran) for r in n}:
+                        raise SmokeFailure(f"{tag}: route {route} (plan "
+                                           f"{plan}), launches {n}")
+                    if tuple(got.shape) != want:
+                        raise SmokeFailure(f"{tag}: shape {tuple(got.shape)}"
+                                           f", expected {want}")
+                    outs[ran if route else "plan"] = got[None] \
+                        if squeeze else got
+                planes = outs["plan"]
+                for j, p in enumerate(which):
+                    for ran, got in outs.items():
+                        if not same_bits(got[j], split[j]):
+                            raise SmokeFailure(f"{tag} {p}: route {ran} "
+                                               f"differs from the surface "
+                                               f"kernel")
+                    err = max(err, check(
+                        f"{tag} {p} ({plan}; = phased, first port, surface "
+                        f"kernel)", planes[j],
+                        (twin[None] if squeeze else twin)[j], SURFACE_TOL,
+                        circular=360.0 if p == "aspect" else None))
         torch.cuda.synchronize()
+    print(f"  routes planned {planned}; launches by route "
+          f"{stacked_route_launches()}")
+    if not all(planned.values()):
+        raise SmokeFailure(f"stacked: a route was never planned: {planned}")
     return err
 
 
+def stacked_sweep(dem, odd, card):
+    """Phase 17b: B0's tiles and ring stages on each route, all four
+    products, in turns: TMA at N^2, phased at (N-1)^2 and by name at N^2.
+    Returns {label: ms}."""
+    from xrspatial_torch.kernels import cuda_surface
+    from xrspatial_torch.kernels.surface import PRODUCTS, STACKED_TILES
+    legs = {}
+    for route, x, n in (("tma", dem, N), ("phased", odd, N - 1)):
+        for tile in STACKED_TILES[route]:
+            for stages in (2, 3, 4):
+                if stages > 2 and tile[0] == 64:
+                    continue     # two blocks an SM at most: not the plan's
+                legs[f"{route} {tile[0]}x{tile[1]} {stages} stages at "
+                     f"{n}^2"] = (
+                    lambda r=route, x=x, t=tile, s=stages:
+                    cuda_surface.surface_stacked_cuda(
+                        x, PRODUCTS, route=r, tile=t, stages=s))
+    legs[f"phased 64x120 2 stages at {N}^2 (by name)"] = (
+        lambda: cuda_surface.surface_stacked_cuda(dem, PRODUCTS,
+                                                  route="phased"))
+    times = {k: [] for k in legs}
+    for k in (*legs, *reversed(legs)):
+        times[k].append(cuda_time_ms(legs[k], 20))
+    t = {k: sum(v) / len(v) for k, v in times.items()}
+    for k, v in t.items():
+        print(f"  B0 sweep, 4 products: {k}: {v:.4f} ms, {card}")
+    return t
+
+
 def surface_family_path(dem, card):
-    """Phase 17: ``surface_stacked`` on the N^2 DEM on the card; a numpy
-    DEM through ``slope`` with no device set; timings."""
+    """Phase 17: ``surface_stacked`` on the N^2 DEM on the card; B0's
+    routes against its first port, B1 and the twin at N^2 and (N-1)^2; a
+    numpy DEM through ``slope`` with no device set; timings.  Returns
+    (launches, max difference from the twin, (ms, twin ms), first port
+    ms, the plan at N^2)."""
     import torch
     import xrspatial_torch as xt
     from xrspatial_torch.kernels import cuda_surface
-    from xrspatial_torch.kernels.surface import (PRODUCTS, surface_multi,
+    from xrspatial_torch.kernels.surface import (PRODUCTS, stacked_plan,
+                                                 surface_multi,
                                                  surface_multi_stacked,
                                                  surface_stacked)
     print(f"== surface family path: surface_stacked, all four products, "
@@ -1958,9 +2054,11 @@ def surface_family_path(dem, card):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  first call {first_ms:.1f} ms (host clock), launches "
           f"{launches}, peak allocated {peak_gib:.2f} GiB")
-    if not only(launches, "surface_stacked_kernel"):
-        raise SmokeFailure(f"surface_stacked: expected one stacked launch and "
-                           f"no other, got {launches}")
+    if launches != {k: int(k in ("surface_stacked_kernel",
+                                 "surface_stacked_tma"))
+                    for k in launches}:
+        raise SmokeFailure(f"surface_stacked: expected one stacked launch on "
+                           f"its TMA route and no other, got {launches}")
     if out.device.type != "cuda" or tuple(out.shape) != (4, N, N):
         raise SmokeFailure(f"surface_stacked: {tuple(out.shape)} on "
                            f"{out.device}")
@@ -1972,18 +2070,34 @@ def surface_family_path(dem, card):
                                f"1-cell ring")
     del ring
     split = cuda_surface.surface_cuda(dem, PRODUCTS)
+    first = cuda_surface.surface_stacked_cuda(dem, PRODUCTS, route="simple")
     for k, p in enumerate(PRODUCTS):
-        if not torch.equal(torch.nan_to_num(out[k]),
-                           torch.nan_to_num(split[k])):
+        if not (same_bits(out[k], split[k]) and same_bits(out[k], first[k])):
             raise SmokeFailure(f"stacked {p}: differs from the surface "
-                               f"kernel at {N}x{N}")
-    del split
-    print("  equal at every cell to the surface kernel on the same products")
+                               f"kernel or B0's first port at {N}x{N}")
+    del split, first
+    print("  equal at every cell to the surface kernel and to B0's first "
+          "port on the same products")
     twin = surface_multi(dem, 1.0, 1.0, 225.0, 25.0, PRODUCTS)
     max_err = max(check(f"stacked {p} vs twin", out[k], twin[p], SURFACE_TOL,
                         circular=360.0 if p == "aspect" else None)
                   for k, p in enumerate(PRODUCTS))
     del twin, out
+    # w % 4 != 0: the phased route, against the first port and B1
+    odd = dem[:N - 1, :N - 1].contiguous()
+    before = stacked_route_launches()
+    got = cuda_surface.surface_stacked_cuda(odd, PRODUCTS)
+    first = cuda_surface.surface_stacked_cuda(odd, PRODUCTS, route="simple")
+    split = cuda_surface.surface_cuda(odd, PRODUCTS)
+    if launched_since(stacked_route_launches, before) != {
+            "tma": 0, "phased": 1, "simple": 1} or not all(
+            same_bits(got[k], first[k]) and same_bits(got[k], split[k])
+            for k in range(4)):
+        raise SmokeFailure(f"stacked at {N - 1}^2: not on the phased route, "
+                           f"or differs from the first port or B1")
+    del got, first, split
+    print(f"  at {N - 1}x{N - 1}: the phased route equal to B0's first port "
+          f"and to the surface kernel bit for bit")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2000,30 +2114,44 @@ def surface_family_path(dem, card):
           f"one surface kernel launch")
     del got
 
-    print(f"== timing: surface family at {N}x{N} on {card}")
-    ms = paired_ms(
-        lambda: cuda_surface.surface_stacked_cuda(dem, PRODUCTS),
-        lambda: surface_multi_stacked(dem, 1.0, 1.0, 225.0, 25.0,
-                                      which=PRODUCTS), 20, 3)
-    split_ms = paired_ms(lambda: cuda_surface.surface_cuda(dem, PRODUCTS),
-                         lambda: cuda_surface.surface_stacked_cuda(dem,
-                                                                   PRODUCTS),
-                         20, 20)
-    # the stacked planes lie 2^30 bytes apart at N^2; at (N-1)^2 they do not
-    odd = dem[:N - 1, :N - 1].contiguous()
-    odd_ms = paired_ms(lambda: cuda_surface.surface_cuda(odd, PRODUCTS),
-                       lambda: cuda_surface.surface_stacked_cuda(odd,
-                                                                 PRODUCTS),
-                       20, 20)
-    del odd
-    print(f"  surface_stacked_kernel, 4 products: kernel {ms[0]:.3f} ms, twin "
-          f"{ms[1]:.3f} ms; in turns with surface_kernel on the same "
-          f"products: surface_kernel {split_ms[0]:.3f} ms, stacked "
-          f"{split_ms[1]:.3f} ms; at {N - 1}x{N - 1}: surface_kernel "
-          f"{odd_ms[0]:.3f} ms, stacked {odd_ms[1]:.3f} ms, {card}")
+    print(f"== timing: surface family at {N}x{N}, {N - 1}x{N - 1} and "
+          f"{N}x{N + 4} on {card}")
+    # N + 4 columns: w % 4 == 0, but every other row starts 16 bytes off a
+    # 32-byte sector, so a 128-cell row segment splits two sectors with
+    # its neighbours
+    wide = gaussian_bump(N, N + 4, dem.device)
+    ms = {}
+    for n, x in ((N, dem), (N - 1, odd), (N + 4, wide)):
+        legs = {
+            "B0 (plan)": lambda x=x: cuda_surface.surface_stacked_cuda(
+                x, PRODUCTS),
+            "B0 first port": lambda x=x: cuda_surface.surface_stacked_cuda(
+                x, PRODUCTS, route="simple"),
+            "B1, 4 products": lambda x=x: cuda_surface.surface_cuda(
+                x, PRODUCTS),
+            "twin": lambda x=x: surface_multi_stacked(
+                x, 1.0, 1.0, 225.0, 25.0, which=PRODUCTS)}
+        if n == N + 4:
+            del legs["twin"]
+            legs["B0 phased (by name)"] = \
+                lambda x=x: cuda_surface.surface_stacked_cuda(
+                    x, PRODUCTS, route="phased")
+        times = {k: [] for k in legs}
+        for k in (*legs, *reversed(legs)):
+            times[k].append(cuda_time_ms(legs[k], 3 if k == "twin" else 20))
+        ms[n] = {k: sum(v) / len(v) for k, v in times.items()}
+        plan = stacked_plan(*x.shape, x.data_ptr())
+        print(f"  {x.shape[0]}x{x.shape[1]}, 4 products, in turns: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms[n].items())
+              + f" (the plan: {plan.route}, tile {plan.tile[0]}x"
+                f"{plan.tile[1]}, {plan.stages} stages), {card}")
+    stacked_sweep(dem, odd, card)
+    del odd, wide
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return launches["surface_stacked_kernel"], max_err, ms
+    return (launches["surface_stacked_kernel"], max_err,
+            (ms[N]["B0 (plan)"], ms[N]["twin"]), ms[N]["B0 first port"],
+            stacked_plan(N, N, dem.data_ptr()))
 
 
 def check_stream(dev):
@@ -2259,17 +2387,20 @@ GROUP_MODES = {"packed": (("euclidean", 0, "affine"),
                           ("manhattan", 2, "nonaffine"))}
 # which port of a TPU probe each kernels-line row reports: (tool, leg of
 # the kernel, leg of the twin, leg of the library call or None, the
-# launch counters of its kernel)
+# launch counters of its kernel, leg of its first port or None)
 PROBE_ROWS = {
     "stencil_probe_b8c": ("exp_stencil2", "C copy staged 32x248",
                           "G twin copy", "A Tensor.copy_",
-                          ("stencil_staged_tma", "stencil_staged_async")),
-    "stencil_probe_b8d": ("exp_separable_horn", "separable 32x8",
-                          "twin separable", None, ("stencil_probe",)),
+                          ("stencil_staged_tma", "stencil_staged_async"),
+                          "C copy nine 32x8"),
+    "stencil_probe_b8d": ("exp_separable_horn", "separable_staged 64x128",
+                          "twin separable", None,
+                          ("stencil_sep_tma", "stencil_sep_async"),
+                          "separable 32x8"),
     "stencil_probe_b8e": ("exp_padfree_stencil", "interior 32x8", "twin",
-                          None, ("stencil_probe",)),
+                          None, ("stencil_probe",), None),
     "stencil_probe_b8f": ("exp_seam_cost", "bare", "twin", None,
-                          ("stencil_probe",))}
+                          ("stencil_probe",), None)}
 
 
 def check_stencil_probes(dev):
@@ -2278,7 +2409,8 @@ def check_stencil_probes(dev):
     over the instantiations each row's TPU probe has."""
     import torch
     from xrspatial_torch.kernels import cuda_stencil_probe, cuda_surface
-    from xrspatial_torch.kernels.stencil_probe import (BLOCKS, MODES, TILES,
+    from xrspatial_torch.kernels.stencil_probe import (BLOCKS, MODES,
+                                                       STAGED_FORMS, TILES,
                                                        VARIANTS,
                                                        interior_extent,
                                                        staged_plan,
@@ -2297,7 +2429,7 @@ def check_stencil_probes(dev):
         x = torch.from_numpy(test_raster(shape, seed=800 + k)).to(dev)
         b1 = cuda_surface.surface_cuda(x, ("slope",))[0]
         for mode, form, edges in VARIANTS:
-            for block in BLOCKS if form != "staged" else ():
+            for block in BLOCKS if form not in STAGED_FORMS else ():
                 got = cuda_stencil_probe.stencil_probe_cuda(x, mode, form,
                                                             edges, block)
                 ref = stencil_twin(x, mode, form, edges, block)
@@ -2359,6 +2491,31 @@ def check_stencil_probes(dev):
                                            f"surface kernel")
                     print(f"  {tag}, {route}: equal to the surface kernel "
                           f"bit for bit, NaN ring included")
+        # B8d's staged separable form against its first port, both routes
+        for label, xx in (("aligned", x), ("base+4", unaligned(x))):
+            first = cuda_stencil_probe.stencil_probe_cuda(xx, "slope",
+                                                          "separable")
+            ref = stencil_twin(xx, "slope", "separable")
+            for tile in TILES:
+                route = staged_plan(*shape, tile, xx.data_ptr()).route
+                tag = (f"stencil {shape} {label} slope separable_staged "
+                       f"{tile[0]}x{tile[1]}")
+                before = (cuda_stencil_probe.SEP_TMA_LAUNCHES,
+                          cuda_stencil_probe.SEP_ASYNC_LAUNCHES)
+                got = cuda_stencil_probe.stencil_probe_cuda(
+                    xx, "slope", "separable_staged", block=tile)
+                counted = (cuda_stencil_probe.SEP_TMA_LAUNCHES - before[0],
+                           cuda_stencil_probe.SEP_ASYNC_LAUNCHES - before[1])
+                if counted != ((1, 0) if route == "tma" else (0, 1)):
+                    raise SmokeFailure(f"{tag}: planned route {route}, "
+                                       f"launches (tma, async) {counted}")
+                if not same_bits(got, first):
+                    raise SmokeFailure(f"{tag}: differs from the first-port "
+                                       f"separable form")
+                errs["stencil_probe_b8d"] = max(
+                    errs["stencil_probe_b8d"],
+                    check(f"{tag} vs twin ({route}; = first port)", got, ref,
+                          SURFACE_TOL))
         torch.cuda.synchronize()
     return errs
 
@@ -2447,12 +2604,14 @@ def check_jfa_group(dev):
 
 def stencil_probes_path(roof_gb_s, card):
     """Phase 22a: the four stencil tools at N^2; returns {row: (launches,
-    max difference from the twin, (ms, twin ms), library ms)}."""
+    max difference from the twin, (ms, twin ms), library ms, first port
+    ms)}."""
     import importlib
     import io
     import torch
     rows = {}
-    for row, (tool, leg, twin_leg, lib_leg, counters) in PROBE_ROWS.items():
+    for row, (tool, leg, twin_leg, lib_leg, counters, first_leg) in \
+            PROBE_ROWS.items():
         mod = importlib.import_module(f"xrspatial_torch.tools.{tool}")
         print(f"== stencil probe: python -m xrspatial_torch.tools.{tool} {N}")
         torch.cuda.synchronize()
@@ -2475,6 +2634,12 @@ def stencil_probes_path(roof_gb_s, card):
                                        or launches["stencil_staged_async"]):
             raise SmokeFailure(f"{tool}: the staged legs did not all take "
                                f"TMA: launches {launches}")
+        if tool == "exp_separable_horn" and (
+                not launches["stencil_sep_tma"]
+                or launches["stencil_sep_async"]
+                or launches["stencil_staged_async"]):
+            raise SmokeFailure(f"{tool}: the staged separable legs did not "
+                               f"all take TMA: launches {launches}")
         print(f"  launches {launches}")
         for name, data in res["inputs"].items():
             for label, r in data["legs"].items():
@@ -2485,7 +2650,8 @@ def stencil_probes_path(roof_gb_s, card):
         err = max(max(d["checks"].values()) for d in res["inputs"].values())
         rows[row] = (sum(launches[c] for c in counters), err,
                      (legs[leg]["ms"], legs[twin_leg]["ms"]),
-                     legs[lib_leg]["ms"] if lib_leg else None)
+                     legs[lib_leg]["ms"] if lib_leg else None,
+                     legs[first_leg]["ms"] if first_leg else None)
         torch.cuda.empty_cache()
     return rows
 
@@ -2607,6 +2773,10 @@ SCREEN_WIDE_OPS, SCREEN_NARROW_OPS = 3, 3
 # sums, 10 for slope; a fused jump-flood group: 8 per candidate, 8
 # candidates a round
 SLOPE_OPS = 24
+# the staged separable slope (stencil_probe.cu, quad<kSepSlope>): per 4
+# cells 6 smooths (a product and 2 sums) and 6 differences, then per cell
+# 1 for sx and 3 for sy, 10 for slope: (6 * 4 + 4 * 14) / 4
+SEP_STAGED_OPS = 20
 GROUP_OPS_PER_ROUND = 8 * 8
 
 
@@ -2661,7 +2831,7 @@ def kernel_work(n_offsets_main, n_offsets_annulus, screen_counts):
         # each stencil probe reads the plane and writes it; copy computes
         # nothing
         "stencil_probe_b8c": (2 * plane, 0),
-        "stencil_probe_b8d": (2 * plane, SLOPE_OPS * cells),
+        "stencil_probe_b8d": (2 * plane, SEP_STAGED_OPS * cells),
         "stencil_probe_b8e": (2 * plane, SLOPE_OPS * cells),
         # bare writes the interior blocks and reads them with their halo
         "stencil_probe_b8f": (4 * ((r1 - r0 + 2) * (c1 - c0 + 2)
@@ -2905,8 +3075,9 @@ def main() -> int:
 
     # -- the surface family ---------------------------------------------------
     stacked_err = check_stacked(dev)
-    launches["surface_stacked_kernel"], max_err["surface_stacked_kernel"], \
-        ms["surface_stacked_kernel"] = surface_family_path(dem, card)
+    (launches["surface_stacked_kernel"], max_err["surface_stacked_kernel"],
+     ms["surface_stacked_kernel"], first_port_ms["surface_stacked_kernel"],
+     stacked) = surface_family_path(dem, card)
     max_err["surface_stacked_kernel"] = max(
         max_err["surface_stacked_kernel"], stacked_err)
     del dem, agg
@@ -2927,11 +3098,13 @@ def main() -> int:
     # -- the stencil probes and the fused jump-flood group --------------------
     probe_errs = check_stencil_probes(dev)
     check_jfa_group(dev)
-    for k, (n, err, row_ms, lib) in stencil_probes_path(
+    for k, (n, err, row_ms, lib, first) in stencil_probes_path(
             probes["roof_gb_s"], card).items():
         launches[k], ms[k] = n, row_ms
         max_err[k] = max(err, probe_errs[k])
         library_ms[k] = lib
+        if first is not None:
+            first_port_ms[k] = first
     launches["jfa_group"], ms["jfa_group"], group_times = jfa_group_path(
         dev, card)
     max_err["jfa_group"] = 0.0             # equal to the rounds bit for bit
@@ -3026,6 +3199,17 @@ def main() -> int:
         "stream_copy": "bulk-async ring",
         "stream_add": "one-shot grid, 4 float4 pairs a thread, streaming",
         "stencil_probe_b8c": "staged window by TMA, 32x248",
+        "stencil_probe_b8d": "separable arithmetic (6 column smooths and "
+                             "differences a quad) on the staged window by "
+                             "TMA, 64x128, 16-byte stores",
+        "surface_stacked_kernel": f"B1's staged window ring by "
+                                  f"{stacked.route}, tile {stacked.tile[0]}x"
+                                  f"{stacked.tile[1]}, {stacked.stages} "
+                                  f"stages, persistent blocks, 4 products as "
+                                  f"planes of one buffer, 16-byte stores "
+                                  f"(where TMA refuses: the phased route, "
+                                  f"16-byte row-body copies, 32-byte-aligned "
+                                  f"plane spans)",
         "jfa_round": jfa_design(),
         "jfa_group": group_design()}
     # the first ports, kept by name, timed in turns with the redesigns
@@ -3037,6 +3221,7 @@ def main() -> int:
     # others
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "design": designs.get(k, "first port"),
+         "card": card,
          "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k],
          "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0][0],

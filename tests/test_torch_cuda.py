@@ -26,8 +26,11 @@ differ by ulps, which may turn a near-tie).  The exact viewshed's
 interval-screen kernel equals its twin bit for bit in hi and lo, float32
 and float64; ``viewshed`` on the card gives the CPU's visibility at every
 cell and its angles within rtol 1e-12 (float64 atan ulps).  The stacked
-surface kernel equals the surface kernel bit for bit (the same cell code)
-and its twin within the surface tolerance; the stream kernels equal
+surface kernel B0 equals the surface kernel bit for bit (the same cell
+code) and its twin within the surface tolerance, on each of its routes
+(TMA, phased, and its first port by name) at odd H * W, a ragged width and
+a base 4 bytes off, each launch counted on its route; the stream kernels
+equal
 ``x.clone()`` and ``x + y`` bit for bit.  Geodesic slope/aspect on the card
 match the CPU within rtol 1e-6 (float64 trig ulps); cast shadows give the
 CPU's lit mask at every cell and its shade within rtol 1e-6 / atol 1e-6.
@@ -35,7 +38,9 @@ A numpy raster, with no device set, runs on the card.  Every
 instantiation of the stencil-probe template matches its twin (copy bit
 for bit, the rest within the surface tolerance) and its nine-read and
 staged slope equal the surface kernel's bit for bit, NaN ring included;
-the staged form takes the route its plan names; the stream copy and add
+the staged form takes the route its plan names, and B8d's staged
+separable form equals the first-port separable form bit for bit on both
+routes; the stream copy and add
 equal their twins at every alignment of their pointers; the
 large-footprint focal kernel takes the route its plan names and its
 staged routes equal the ring route bit for bit; the jump-flood round
@@ -1231,6 +1236,47 @@ def test_stacked_kernel_matches_surface_kernel_and_twin(cuda, name, order,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(70, 300), (257, 1025), (263, 516),
+                                   (2, 5), (40, 119), (1, 1000)])
+def test_stacked_routes_match_first_port_and_surface_kernel(cuda, shape):
+    """B0 on the plan's route (TMA where w % 4 == 0 and the base is
+    aligned, else phased), on the phased route by name and on its first
+    port by name: every plane equal to B1's product and to the first
+    port's bit for bit, from an aligned base and one 4 bytes off, each
+    launch counted on its route."""
+    rng = np.random.default_rng(43)
+    data = (rng.random(shape) * 500).astype(np.float32)
+    data[shape[0] // 3, shape[1] // 4:shape[1] // 2] = np.nan
+    data[shape[0] // 2, shape[1] // 2] = np.inf
+    flat = torch.empty(data.size + 1, device=cuda)
+    for off in (0, 1):
+        x = flat[off:off + data.size].view(shape)
+        x.copy_(torch.from_numpy(data))
+        for which in (PRODUCTS, ("hillshade", "slope"), ("curvature",)):
+            b1 = cuda_surface.surface_cuda(x, which, 2.0, 3.0, 300.0, 40.0)
+            plan = surface.stacked_plan(*shape, x.data_ptr())
+            for route in (None, "phased", "simple"):
+                want = plan.route if route is None else route
+                before = (cuda_surface.STACKED_TMA_LAUNCHES,
+                          cuda_surface.STACKED_PHASED_LAUNCHES,
+                          cuda_surface.STACKED_SIMPLE_LAUNCHES)
+                got = cuda_surface.surface_stacked_cuda(
+                    x, which, 2.0, 3.0, 300.0, 40.0, route=route)
+                torch.cuda.synchronize()
+                after = (cuda_surface.STACKED_TMA_LAUNCHES,
+                         cuda_surface.STACKED_PHASED_LAUNCHES,
+                         cuda_surface.STACKED_SIMPLE_LAUNCHES)
+                assert tuple(a - b for a, b in zip(after, before)) == tuple(
+                    int(want == r) for r in ("tma", "phased", "simple"))
+                for k, p in enumerate(which):
+                    tag = f"{shape} +{off} {route} {p}"
+                    assert torch.equal(torch.isnan(got[k]),
+                                       torch.isnan(b1[k])), tag
+                    assert torch.equal(torch.nan_to_num(got[k]),
+                                       torch.nan_to_num(b1[k])), tag
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 5, 1023, 4096 * 33 + 3])
 def test_stream_kernels_match_twins(cuda, n):
     gen = torch.Generator(device=cuda).manual_seed(n)
@@ -1376,7 +1422,8 @@ def test_shadows_on_the_card_match_the_cpu(cuda, azimuth):
 
 PROBE_VARIANTS = [(mode, form, edges, block)
                   for mode, form, edges in stencil_probe.VARIANTS
-                  if form != "staged" for block in stencil_probe.BLOCKS]
+                  if form not in stencil_probe.STAGED_FORMS
+                  for block in stencil_probe.BLOCKS]
 
 
 @pytest.mark.gpu
@@ -1459,6 +1506,46 @@ def test_staged_stencil_matches_twin_and_surface_kernel(cuda, shape):
                 assert torch.equal(torch.isnan(got), torch.isnan(b1)), tag
                 assert torch.equal(torch.nan_to_num(got),
                                    torch.nan_to_num(b1)), tag
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 70), (257, 1025), (2, 5), (9, 40),
+                                   (263, 516)])
+def test_separable_staged_matches_first_port_separable(cuda, shape):
+    """B8d's staged separable form at every tile equals the first-port
+    separable form bit for bit, NaN ring included, and its twin within the
+    surface tolerance; one launch on the route its plan names, from an
+    aligned base and one 4 bytes off."""
+    rng = np.random.default_rng(49)
+    data = (rng.random(shape) * 1000).astype(np.float32)
+    data[shape[0] // 3, shape[1] // 4:shape[1] // 2] = np.nan
+    flat = torch.empty(data.size + 1, device=cuda)
+    for off in (0, 1):
+        x = flat[off:off + data.size].view(shape)
+        x.copy_(torch.from_numpy(data))
+        first = cuda_stencil_probe.stencil_probe_cuda(x, "slope", "separable")
+        ref = stencil_probe.stencil_twin(x, "slope", "separable")
+        for tile in stencil_probe.TILES:
+            route = stencil_probe.staged_plan(*shape, tile,
+                                              x.data_ptr()).route
+            before = (cuda_stencil_probe.SEP_TMA_LAUNCHES,
+                      cuda_stencil_probe.SEP_ASYNC_LAUNCHES,
+                      cuda_stencil_probe.TMA_LAUNCHES,
+                      cuda_stencil_probe.ASYNC_LAUNCHES)
+            got = cuda_stencil_probe.stencil_probe_cuda(
+                x, "slope", "separable_staged", block=tile)
+            torch.cuda.synchronize()
+            after = (cuda_stencil_probe.SEP_TMA_LAUNCHES,
+                     cuda_stencil_probe.SEP_ASYNC_LAUNCHES,
+                     cuda_stencil_probe.TMA_LAUNCHES,
+                     cuda_stencil_probe.ASYNC_LAUNCHES)
+            tag = f"{shape} +{off} {tile}"
+            assert tuple(a - b for a, b in zip(after, before)) == (
+                route == "tma", route == "async", 0, 0), tag
+            assert torch.equal(torch.isnan(got), torch.isnan(first)), tag
+            assert torch.equal(torch.nan_to_num(got),
+                               torch.nan_to_num(first)), tag
+            assert_matches(got, ref, SURFACE_TOL, tag)
 
 
 @pytest.mark.gpu

@@ -20,7 +20,12 @@ Tolerance: the surface tolerance, rtol 1e-4 / atol 5e-5, NaN masks
 equal; copy equals its input bit for bit.  The tools under ``tools/`` are
 not imported: they set JAX's compilation cache and ``sys.path``.
 ``staged_plan``, which the staged kernel's launcher checks, is pinned
-here: the TMA box rules, the shared memory, the route per pitch.
+here: the TMA box rules, the shared memory, the route per pitch.  B8d's
+redesign, form separable_staged (the separable arithmetic on the staged
+windows), is held through ``emulate.emulate_separable_staged``, written
+with its windows and quad arithmetic: equal to the separable twin bit for
+bit and within the surface tolerance of the TPU probe's separable
+arithmetic.
 """
 
 import jax.numpy as jnp
@@ -28,7 +33,9 @@ import numpy as np
 import pytest
 import torch
 
+from xrspatial_torch.kernels import cuda_stencil_probe
 from xrspatial_torch.kernels import stencil_probe as sp
+from xrspatial_torch.kernels.emulate import emulate_separable_staged
 from xrspatial_tpu.kernels.pallas_surface import DEG, _atan
 from xrspatial_tpu.kernels.pallas_surface2 import _atan_of_sqrt, surface_tiled
 from xrspatial_tpu.kernels.surface import slope_jit
@@ -59,7 +66,7 @@ def twin(data, *args, **kw):
 
 
 VARIANTS = [(mode, form, edges, block) for mode, form, edges in sp.VARIANTS
-            for block in (sp.TILES if form == "staged" else sp.BLOCKS
+            for block in (sp.TILES if form in sp.STAGED_FORMS else sp.BLOCKS
                           if edges == "bare" else sp.BLOCKS[:1])]
 
 
@@ -148,7 +155,7 @@ def test_twin_matches_pipe_stencil_arithmetic(mode, form):
         assert_surface_close(got, ref)
 
 
-@pytest.mark.parametrize("form", ["nine", "separable"])
+@pytest.mark.parametrize("form", ["nine", "separable", "separable_staged"])
 def test_twin_matches_separable_horn_arithmetic(form):
     """B8d: the interior the TPU probe writes; the twin's ring is NaN."""
     data = raster((40, 66), seed=4)
@@ -217,7 +224,10 @@ def test_interior_extent(shape, block, extent):
                                               (16, 16)),
     ("aspect", "nine", "ring", (32, 8)), ("slope", "staged", "interior",
                                          (32, 128)),
-    ("slope", "staged", "ring", (32, 8)), ("copy", "nine", "ring", (32, 128))])
+    ("slope", "staged", "ring", (32, 8)), ("copy", "nine", "ring", (32, 128)),
+    ("slope", "separable_staged", "ring", (32, 8)),
+    ("grad", "separable_staged", "ring", (32, 128)),
+    ("slope", "separable_staged", "interior", (64, 128))])
 def test_uninstantiated_variants_are_refused(args):
     with pytest.raises(ValueError, match="no stencil_probe instantiation"):
         sp.stencil_twin(torch.zeros((4, 4)), *args)
@@ -285,3 +295,59 @@ def test_staged_plan_keeps_the_box_and_shared_memory_rules(shape, tile):
 def test_staged_plan_refuses_a_tile_that_breaks_a_rule(tile, rule):
     with pytest.raises(ValueError, match=rule):
         sp.staged_plan(16384, 16384, tile)
+
+
+# -- B8d's redesign: the separable arithmetic on the staged windows ----------
+
+@pytest.mark.parametrize("tile", sp.TILES)
+@pytest.mark.parametrize("shape", [(45, 70), (2, 5), (1, 300), (70, 301),
+                                   (263, 516)])
+def test_emulated_separable_staged_equals_the_separable_twin(shape, tile):
+    """Bit for bit, the NaN ring (from the windows' NaN fill), NaN cells and
+    their neighbours included: the quad's 6 smooths and differences are the
+    first port's expressions, combined as it combines them."""
+    x = torch.from_numpy(raster(shape, seed=7))
+    got = emulate_separable_staged(x, tile)
+    ref = sp.stencil_twin(x, "slope", "separable")
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+
+
+@pytest.mark.parametrize("tile", sp.TILES)
+def test_emulated_separable_staged_matches_separable_horn_arithmetic(tile):
+    """Against the TPU probe's separable arithmetic on the interior it
+    writes (its polynomial atan): the surface tolerance."""
+    data = raster((40, 66), seed=4)
+    got = emulate_separable_staged(torch.from_numpy(data), tile).numpy()
+    inner = (slice(1, -1), slice(1, -1))
+    assert_surface_close(got[inner], horn_arithmetic(data, "sep"))
+
+
+@pytest.mark.parametrize("block", sp.TILES + sp.BLOCKS)
+def test_separable_staged_is_instantiated_only_at_the_tiles(block):
+    """At B8c's tiles (the staged ring's plan), never at the first ports'
+    blocks."""
+    if block in sp.TILES:
+        sp.check_variant("slope", "separable_staged", "ring", block)
+        assert sp.shapes_of("separable_staged") == sp.TILES
+    else:
+        with pytest.raises(ValueError, match="no stencil_probe"):
+            sp.check_variant("slope", "separable_staged", "ring", block)
+
+
+@pytest.mark.parametrize("form", sp.STAGED_FORMS)
+@pytest.mark.parametrize("tile", sp.TILES)
+def test_staged_forms_refuse_a_cpu_tensor(form, tile):
+    """Each staged route of the wrapper takes only a tensor on the card,
+    and counts nothing when it refuses."""
+    def counts():
+        return (cuda_stencil_probe.TMA_LAUNCHES,
+                cuda_stencil_probe.ASYNC_LAUNCHES,
+                cuda_stencil_probe.SEP_TMA_LAUNCHES,
+                cuda_stencil_probe.SEP_ASYNC_LAUNCHES,
+                cuda_stencil_probe.LAUNCHES)
+    before = counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_stencil_probe.stencil_probe_cuda(torch.ones((8, 8)), "slope",
+                                              form, block=tile)
+    assert counts() == before

@@ -1,4 +1,4 @@
-"""B1 and B4 on staged windows: their plans and windows, on the CPU.
+"""B1, B4 and B0 on staged windows: their plans and windows, on the CPU.
 
 ``cuda_surface.surface_cuda`` (B1, the port of ``xrspatial_tpu/kernels/
 pallas_surface2.py::surface_tiled``) runs ``csrc/surface.cu::
@@ -23,7 +23,19 @@ Pinned here without a card:
   ``pipeline_tiled`` in interpret mode (surface rtol 1e-4 / atol 5e-5,
   focal rtol 1e-5 / atol 1e-5: libdevice-free torch math against the
   TPU's polynomial atan);
-- the wrappers refuse a CPU tensor on every route without counting.
+- the wrappers refuse a CPU tensor on every route without counting;
+- B0 (``cuda_surface.surface_stacked_cuda``, the port of
+  ``pallas_surface.py::surface_pallas``) on B1's ring: ``stacked_plan``'s
+  route rule (TMA where w % 4 == 0 and the bases are aligned, else the
+  phased route), tiles, stages and refusals; ``emulate_stacked``, a torch
+  emulation of both routes in a flat model of device memory (plane
+  addressing at odd H * W, each window row's phase and its split into
+  16-byte body copies and 4-byte head and tail copies, the phased loads'
+  shift, each plane's 32-byte-aligned spans, the ring schedule), equal to
+  ``surface_multi_stacked`` bit for bit at every plane order, input base
+  and output base, and within the surface tolerance of the JAX package's
+  ``surface_multi`` stacked in `which` order (``surface_pallas`` has no
+  interpret mode on the CPU).
 """
 
 import re
@@ -41,6 +53,7 @@ from xrspatial_torch.kernels import pipeline as tp
 from xrspatial_torch.kernels import staged
 from xrspatial_torch.kernels import surface as ts
 from xrspatial_torch.kernels.emulate import (emulate_pipeline,
+                                             emulate_stacked,
                                              emulate_surface_staged,
                                              halo_case, ring_schedule,
                                              same_bits)
@@ -351,3 +364,220 @@ def test_the_dispatchers_take_the_twins_on_the_cpu():
     ref = tp.pipeline_multi(x, offsets, STATS, ("slope",))
     assert all(same_bits(g, r) for g, r in zip(got, ref))
     assert counts() == before
+
+
+# -- B0 on the ring: the plan -------------------------------------------------
+
+def test_b0_source_compiles_the_plans_tiles():
+    """The stacked launcher dispatches exactly STACKED_TILES on each route,
+    and the phased kernel's span and row pad are the plan's."""
+    src = (CSRC / "surface.cu").read_text()
+    body = src[src.index("int surface_stacked_staged_launch("):]
+    body = body[:body.index("\n}\n")]
+    phased = re.findall(r"if \(th == (\d+) && tw == xrt::kSpanCells\)", body)
+    assert tuple((int(th), ts.SPAN_CELLS) for th in phased) == \
+        ts.STACKED_TILES["phased"]
+    tma = re.findall(r"if \(th == (\d+) && tw == (\d+)\)\n\s+return "
+                     r"launch_staged<", body)
+    assert tuple((int(a), int(b)) for a, b in tma) == ts.STACKED_TILES["tma"]
+    cell = (CSRC / "surface_cell.cuh").read_text()
+    assert f"kSpanCells = {ts.SPAN_CELLS}, kSpanShift = {ts.SPAN_SHIFT};" \
+        in cell
+    ring = (CSRC / "staged_window.cuh").read_text()
+    assert f"kPhasedPitch = kCols + {ts.PHASED_ROW_PAD};" in ring
+    assert ts.STACKED_TILE["tma"] in ts.STACKED_TILES["tma"]
+    assert ts.STACKED_TILE["phased"] in ts.STACKED_TILES["phased"]
+
+
+@pytest.mark.parametrize("args,plan", [
+    ((16384, 16384, 0, 0, None, None, None),
+     ("tma", (64, 128), 2, 35968, 72192, 32768, 396)),
+    ((16383, 16383, 0, 0, None, None, None),
+     ("phased", (64, 120), 2, 36992, 74240, 35072, 396)),
+    ((16384, 16384, 4, 0, None, None, None),
+     ("phased", (64, 120), 2, 36992, 74240, 35072, 396)),
+    ((16384, 16384, 0, 4, None, None, None),
+     ("phased", (64, 120), 2, 36992, 74240, 35072, 396)),
+    ((16384, 16384, 0, 0, "phased", None, None),
+     ("phased", (64, 120), 2, 36992, 74240, 35072, 396)),
+    ((16383, 16383, 0, 0, None, (32, 120), None),
+     ("phased", (32, 120), 4, 19072, 76544, 70144, 396)),
+    ((16384, 16384, 0, 0, None, (32, 128), 3),
+     ("tma", (32, 128), 3, 18560, 55936, 65536, 396)),
+    ((40, 119, 0, 0, None, None, None),
+     ("phased", (64, 120), 2, 36992, 74240, 2, 2)),
+    ((263, 516, 16, 256, None, (32, 248), None),
+     ("tma", (32, 248), 2, 34816, 69888, 27, 27)),
+    ((2, 5, 0, 0, None, None, None),
+     ("phased", (64, 120), 2, 36992, 74240, 1, 1)),
+], ids=["16384", "16383", "16384-base+4", "16384-out+4", "16384-phased",
+        "16383-32x120", "16384-32x128-s3", "40x119", "263x516-32x248",
+        "2x5"])
+def test_stacked_plan(args, plan):
+    """Route, tile, stages, stage and shared bytes, tiles and grid: a
+    phased window row 4 floats longer; phased tiles 120 columns apart
+    covering w + 7 columns (two tiles at w = 119); three blocks an SM."""
+    h, w, ptr, out_ptr, route, tile, stages = args
+    p = ts.stacked_plan(h, w, ptr, out_ptr, route, tile, stages)
+    assert tuple(p) == plan
+    assert 3 * (p.shared_bytes + 1024) <= staged.SMEM_PER_SM
+    assert p.shared_bytes == 256 + p.stages * p.stage_bytes
+
+
+@pytest.mark.parametrize("w", [16384, 16383, 16382, 16381])
+@pytest.mark.parametrize("ptr", [0, 4, 8, 12, 16])
+def test_stacked_route_rule(w, ptr):
+    """TMA exactly where the pitch and both bases are 16-byte aligned (the
+    planes of a w % 4 == 0 stack then are too); the phased route by name
+    everywhere; TMA by name refused elsewhere."""
+    for out_ptr in (0, 4, 256):
+        want = "tma" if w % 4 == 0 and ptr % 16 == 0 and out_ptr % 16 == 0 \
+            else "phased"
+        assert ts.stacked_plan(64, w, ptr, out_ptr).route == want
+        assert ts.stacked_plan(64, w, ptr, out_ptr, "phased").route == \
+            "phased"
+        if want == "phased":
+            with pytest.raises(ValueError, match="takes 'phased'"):
+                ts.stacked_plan(64, w, ptr, out_ptr, "tma")
+
+
+@pytest.mark.parametrize("route,tile,stages,match", [
+    ("tma", (64, 120), None, "has no tile"),
+    ("phased", (64, 128), None, "has no tile"),
+    ("phased", (32, 248), None, "has no tile"),
+    (None, (16, 128), None, "has no tile"),
+    ("async", None, None, "no route"),
+    ("simple", None, None, "no route"),
+    (None, None, 1, "takes 2 to"),
+    (None, None, 5, "takes 2 to"),
+])
+def test_stacked_plan_refuses_what_the_kernel_lacks(route, tile, stages,
+                                                    match):
+    with pytest.raises(ValueError, match=match):
+        ts.stacked_plan(16384, 16384, 0, 0, route, tile, stages)
+
+
+# -- B0 on the ring: the emulation ---------------------------------------------
+
+STACK_ORDERS = {"all": PRODUCTS, "hillshade_slope": ("hillshade", "slope"),
+                "curvature": ("curvature",),
+                "mixed": ("aspect", "hillshade", "slope", "curvature")}
+
+
+@pytest.mark.parametrize("x_off", [0, 1], ids=["base", "base+4"])
+@pytest.mark.parametrize("shape", [(1, 1000), (2, 5), (70, 301), (300, 70),
+                                   (40, 119), (9, 240)])
+@pytest.mark.parametrize("order", list(STACK_ORDERS))
+def test_emulated_b0_equals_surface_multi_stacked(order, shape, x_off):
+    """Bit for bit on the plan's route, every plane: the NaN ring from the
+    windows' NaN fill (every cell where h < 3 or w < 3), NaN patches, +-inf
+    cells, aspect's -1; odd and even H * W; the input 0 or 4 bytes past a
+    16-byte boundary; sms=1, so each block walks many tiles."""
+    which = STACK_ORDERS[order]
+    x = dem(shape, seed=31)
+    got, info = emulate_stacked(x, which, *ARGS, x_off=x_off, sms=1,
+                                stats=True)
+    assert info["route"] == ts.stacked_plan(*shape, 4 * x_off).route
+    ref = ts.surface_multi_stacked(x, *ARGS, which=which)
+    assert got.shape == ref.shape == (len(which), *shape)
+    for k, p in enumerate(which):
+        assert same_bits(got[k], ref[k]), p
+
+
+@pytest.mark.parametrize("out_off", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape,x_off", [((257, 1025), 0), ((263, 516), 1),
+                                         ((70, 301), 1)])
+def test_emulated_phased_route_at_every_output_phase(shape, x_off, out_off):
+    """The phased route with the stack 0-3 floats past a 16-byte boundary
+    (and so at every plane phase): bit for bit, each plane cell written
+    once; only the sectors that hold a plane row's start are written by
+    two warps (every other 32-byte sector by one 16-byte store pair)."""
+    x = dem(shape, seed=32)
+    got, info = emulate_stacked(x, PRODUCTS, *ARGS, route="phased",
+                                x_off=x_off, out_off=out_off, stats=True)
+    ref = ts.surface_multi_stacked(x, *ARGS, which=PRODUCTS)
+    for k, p in enumerate(PRODUCTS):
+        assert same_bits(got[k], ref[k]), p
+    assert info["split_sectors"] == info["row_end_sectors"]
+    assert info["scalar_stores"] <= 2 * 7 * shape[0] * len(PRODUCTS)
+
+
+@pytest.mark.parametrize("shape", [(9, 240), (263, 516), (1, 1000)])
+def test_emulated_phased_route_by_name_on_an_aligned_raster(shape):
+    x = dem(shape, seed=33)
+    got = emulate_stacked(x, ("slope", "aspect"), *ARGS, route="phased")
+    ref = ts.surface_multi_stacked(x, *ARGS, which=("slope", "aspect"))
+    assert same_bits(got, ref)
+
+
+@pytest.mark.parametrize("x_off", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", [(70, 301), (263, 516), (5, 113)])
+def test_phased_staging_splits_each_row_into_body_head_and_tail(shape,
+                                                                x_off):
+    """Each window row lies in shared memory at its phase: the 16-byte
+    chunks wholly inside the raster are single copies (their sources
+    16-byte aligned, which the emulation checks), at most 3 cells at each
+    raster edge are 4-byte copies, the rest NaN."""
+    x = dem(shape, seed=34)
+    _, info = emulate_stacked(x, ("slope",), *ARGS, route="phased",
+                              x_off=x_off, stats=True)
+    th = ts.STACKED_TILE["phased"][0]
+    assert info["edge_cells_a_row"] <= 6
+    rows = info["tiles"] * (th + 2)
+    pitch = 128 + 8 + ts.PHASED_ROW_PAD
+    assert 4 * info["body_chunks"] + info["edge_cells"] + \
+        info["nan_cells"] == rows * pitch
+    if shape[1] >= 256:
+        assert info["body_chunks"] > 20 * info["edge_cells"]
+
+
+@pytest.mark.parametrize("tile", ts.STACKED_TILES["tma"])
+def test_emulated_b0_tma_route_at_every_tile(tile):
+    x = dem((70, 516), seed=35)
+    got, info = emulate_stacked(x, STACK_ORDERS["mixed"], *ARGS, tile=tile,
+                                stats=True)
+    assert info["route"] == "tma" and info["scalar_stores"] == 0
+    ref = ts.surface_multi_stacked(x, *ARGS, which=STACK_ORDERS["mixed"])
+    assert same_bits(got, ref)
+
+
+@pytest.mark.parametrize("order", ["all", "mixed"])
+@pytest.mark.parametrize("shape", [(37, 300), (37, 301)],
+                         ids=["tma", "phased"])
+def test_emulated_b0_matches_jax_surface_multi(shape, order):
+    """Against the JAX package's ``surface_multi`` stacked in `which`
+    order, within the surface tolerance (libdevice-free torch math against
+    XLA's)."""
+    from xrspatial_tpu.kernels.surface import surface_multi as jax_multi
+    which = STACK_ORDERS[order]
+    data = jax_raster(shape, seed=36)
+    f32 = jnp.float32
+    ref = jax_multi(jnp.asarray(data), f32(2.0), f32(3.0), f32(300.0),
+                    f32(40.0), which)
+    got = emulate_stacked(torch.from_numpy(data), which, *ARGS)
+    for k, p in enumerate(which):
+        assert_close(got[k].numpy(), np.asarray(ref[p]), SURFACE_TOL, p)
+
+
+def stacked_counts():
+    return (cuda_surface.STACKED_LAUNCHES, cuda_surface.STACKED_TMA_LAUNCHES,
+            cuda_surface.STACKED_PHASED_LAUNCHES,
+            cuda_surface.STACKED_SIMPLE_LAUNCHES, cuda_surface.LAUNCHES)
+
+
+@pytest.mark.parametrize("route", [None, "tma", "phased", "simple"])
+def test_stacked_wrapper_refuses_a_cpu_tensor_on_every_route(route):
+    before = stacked_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_surface.surface_stacked_cuda(torch.ones((8, 8)), ("slope",),
+                                          route=route)
+    assert stacked_counts() == before
+
+
+def test_surface_stacked_takes_the_twin_on_the_cpu():
+    x = dem((40, 61))
+    before = stacked_counts()
+    got = ts.surface_stacked(x, *ARGS, which=STACK_ORDERS["mixed"])
+    assert same_bits(got, ts.surface_multi_stacked(
+        x, *ARGS, which=STACK_ORDERS["mixed"]))
+    assert stacked_counts() == before

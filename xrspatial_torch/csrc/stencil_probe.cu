@@ -42,6 +42,18 @@
 //   part by more than the surface tolerance.  The TPU
 //   probe leaves each tile's border columns unwritten; here both forms
 //   compute the whole raster with the 1-cell NaN ring.
+//   Redesigned for Hopper as FORM separable_staged: the separable
+//   arithmetic on B8c's staged window ring, at B8c's tiles and on both of
+//   its routes.  Each thread forms the 6 column smooths and differences of
+//   its 4 cells' 3 x 6 staged values once (6 + 6 where the nine-read
+//   arithmetic makes 4 x 14 sums) and writes the 4 slopes with one 16-byte
+//   streaming store (scalar on the cp.async route).  Its expressions are
+//   the first port's, operand for operand, so nvcc contracts them alike
+//   and the forms give the same bits; the NaN ring comes from the
+//   window's NaN fill.  The first port (FORM separable, blocks 32x8, 32x16,
+//   64x4) stays by name.  It asks the TPU probe's question with the window
+//   in shared memory, where no read is repeated from device memory: does
+//   computing the vertical sums once a column buy anything?
 // - tools/exp_padfree_stencil.py::slope_2d (B8e): EDGES interior.  The
 //   main launch covers only the blocks that lie wholly inside the ring and
 //   tests no bound; a second, small launch writes the edge bands and the
@@ -63,7 +75,10 @@
 // What the variants measure: copy against slope is the arithmetic's share
 // of the time, interior and bare against ring_branch the bounds checks'
 // and the ring branch's, separable against nine the cost of the nine
-// reads, staged against nine what a shared-memory window buys.
+// reads, staged against nine what a shared-memory window buys,
+// separable_staged against staged what the separable arithmetic (~20
+// float operations a cell against ~24) buys once the window is in shared
+// memory.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -75,6 +90,7 @@
 namespace {
 
 constexpr int kCopy = 0, kGrad = 1, kSlope = 2;
+constexpr int kSepSlope = 3;  // the staged kernel's separable slope
 constexpr int kNine = 0, kSeparable = 1;
 constexpr int kRing = 0, kInterior = 1, kBare = 2;
 constexpr int kEdgeThreads = 256;
@@ -332,7 +348,9 @@ struct StagedArgs {
 };
 
 // Cells (row, col .. col + 3) from the window at p, the window cell of
-// (row - 1, col - 4); copy takes the window's centre.
+// (row - 1, col - 4); copy takes the window's centre.  kSepSlope forms the
+// 6 columns' vertical smooth and difference once and combines
+// neighbouring columns, in stencil_separable_kernel's expressions.
 template <int MODE, int COLS>
 __device__ __forceinline__ void quad(const float* p, float csx, float csy,
                                      float v[4]) {
@@ -340,12 +358,28 @@ __device__ __forceinline__ void quad(const float* p, float csx, float csy,
   xrt::load6(p, u);
   xrt::load6(p + COLS, m);
   xrt::load6(p + 2 * COLS, d);
+  if constexpr (MODE == kSepSlope) {
+    float smooth[6], diff[6];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    v[j] = MODE == kCopy ? m[j + 1]
-                         : window_value<MODE>(u[j], u[j + 1], u[j + 2], m[j],
-                                              m[j + 2], d[j], d[j + 1],
-                                              d[j + 2], csx, csy);
+    for (int i = 0; i < 6; ++i) {
+      smooth[i] = u[i] + 2.0f * m[i] + d[i];
+      diff[i] = d[i] - u[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float sx = smooth[j + 2] - smooth[j];
+      const float sy = diff[j] + 2.0f * diff[j + 1] + diff[j + 2];
+      v[j] = slope_of<kSlope>(sx, sy, csx, csy);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = MODE == kCopy
+                 ? m[j + 1]
+                 : window_value<MODE>(u[j], u[j + 1], u[j + 2], m[j],
+                                      m[j + 2], d[j], d[j + 1], d[j + 2],
+                                      csx, csy);
+  }
 }
 
 template <int MODE, int TH, int TW, int ROUTE>
@@ -456,22 +490,29 @@ int stencil_probe_launch(const float* x, float* out, long long h,
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches the staged form (mode 0 copy, 1 grad, 2 slope) at tile th x tw
-// on `stream`, as kernels/staged.py::staged_plan planned it: route
+// Launches a staged form at tile th x tw on `stream`, as kernels/staged.py::
+// staged_plan planned it: form 0 staged (mode 0 copy, 1 grad, 2 slope, the
+// nine-read arithmetic) or 1 separable_staged (mode 2 slope only); route
 // 0 TMA or 1 cp.async, which must be the route rule's (xrt::staged_route);
 // `stages` ring stages; `grid` persistent blocks; `smem` dynamic shared
 // bytes, which must equal the ring's.  Returns cudaGetLastError() after
 // the launch, cudaErrorInvalidValue for a plan that disagrees or a tile
-// that is not instantiated, or the negated CUresult of a failed
-// tensor-map encode.
+// or (form, mode) that is not instantiated, or the negated CUresult of a
+// failed tensor-map encode.
 int stencil_staged_launch(const float* x, float* out, long long h,
-                          long long w, int mode, int th, int tw, int route,
-                          int stages, int grid, int smem, float csx,
-                          float csy, void* stream) {
+                          long long w, int mode, int form, int th, int tw,
+                          int route, int stages, int grid, int smem,
+                          float csx, float csy, void* stream) {
   if (h <= 0 || w <= 0) return 0;
   if (route != xrt::kStagedRouteTma && route != xrt::kStagedRouteAsync)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (form == 1) {
+    if (mode != kSlope) return (int)cudaErrorInvalidValue;
+    return staged_tile<kSepSlope>(th, tw, route, x, out, h, w, stages, grid,
+                                  smem, csx, csy, s);
+  }
+  if (form != 0) return (int)cudaErrorInvalidValue;
   if (mode == kCopy)
     return staged_tile<kCopy>(th, tw, route, x, out, h, w, stages, grid,
                               smem, csx, csy, s);

@@ -30,19 +30,37 @@
 // thread per output cell, 32x8 blocks, neighbours read straight from
 // global memory with the ring test (surface_cell.cuh::surface_cell).
 //
-// surface_stacked_kernel (B0): the same products written as the planes of
-// one (K, H, W) float32 buffer, plane k = which[k] in any order.  Replaces
-// the TPU kernel xrspatial_tpu/kernels/pallas_surface.py::surface_pallas
-// (its emit_pipeline body), with the same libdevice atanf/atan2f in place
-// of that file's polynomial atan.  The TPU kernel's tile padding and
-// ragged NaN pad have no counterpart.  It runs surface_cell on plane
-// pointers taken from the product -> plane map, so each plane equals B1's
-// product bit for bit.  Same bound: 1 read + K writes.  Still the first
-// port's design.
+// B0, the stacked surface kernel: the same products written as the planes
+// of one (K, H, W) float32 buffer, plane k = which[k] in any order.
+// Replaces the TPU kernel xrspatial_tpu/kernels/pallas_surface.py::
+// surface_pallas (its emit_pipeline body), with the same libdevice
+// atanf/atan2f in place of that file's polynomial atan.  The TPU kernel's
+// tile padding and ragged NaN pad have no counterpart.  Same bound: 1 read
+// + K writes (5.37 GB for all four products at 16384^2, 1.603 ms at 3.35
+// TB/s).  Redesigned on B1's persistent window ring, its planes being the
+// product pointers out + plane * H * W (kernels/surface.py::stacked_plan
+// names the route):
+// - route TMA (w % 4 == 0 and 16-byte-aligned bases: every plane is then
+//   16-byte aligned): surface_staged_kernel itself.
+// - route phased (any pitch and base; the plan takes it where TMA
+//   refuses): surface_phased_kernel.  Its windows are staged with 16-byte
+//   cp.async copies of each row's aligned body, the row placed in shared
+//   memory at its global phase (staged_window.cuh), read back through
+//   load6_phased.  With odd H * W the planes of one buffer lie at four
+//   different offsets, and a 32-byte sector written in parts by two warps
+//   costs more than a third of the kernel's time (surface_cell.cuh,
+//   store_span): so a warp computes 128 cells of a tile row and writes
+//   each plane's 120-cell span that starts on a 32-byte boundary of that
+//   plane, with 16-byte streaming stores, lanes handing their neighbours
+//   the cells a store needs by shuffle; tiles lie 120 columns apart, and
+//   only the sectors around a raster row's ends are written in parts.
+// - surface_stacked_kernel, B0's first port, kept by name (route
+//   "simple"): surface_cell on the plane pointers, one thread a cell.
 //
-// All three compute every product through surface_cell.cuh's per-product
-// functions (sobel, slope_value, ...): the same instructions in the same
-// order.
+// Every kernel here computes every product through surface_cell.cuh's
+// per-product functions (sobel, slope_value, ...): the same instructions
+// in the same order, so each of B0's planes equals B1's product bit for
+// bit.
 
 #include "staged_window.cuh"
 #include "surface_cell.cuh"
@@ -139,6 +157,61 @@ int launch_staged(const float* x, const xrt::SurfaceArgs& p, bool aligned,
   return (int)cudaGetLastError();
 }
 
+// B0's route phased: B1's loop on windows staged by route phased.  Each
+// warp computes 128 cells of a tile row (32 quads) from cc0 = c0 - 8 and
+// stores each plane's 120-cell span (surface_cell.cuh::store_span); tiles
+// lie 120 columns apart, and one more covers a row whose last span ends
+// past the last tile's 120 columns.
+template <int TH>
+__global__ void __launch_bounds__(xrt::kStagedThreads, kSurfaceBlocksPerSm)
+    surface_phased_kernel(const xrt::RingArgs a, const xrt::SurfaceArgs p) {
+  constexpr int TW = 128;
+  using Win = xrt::Window<TH, TW>;
+  static_assert(TW / 4 == 32, "a tile row is one warp's quads");
+  extern __shared__ unsigned char smem_raw[];
+  xrt::staged_tiles<TH, TW, xrt::kStagedRoutePhased, xrt::kSpanCells,
+                    xrt::kSpanShift>(
+      nullptr, a, smem_raw,
+      [&](const float* win, long long r0, long long cc0) {
+        const int tc = 4 * (threadIdx.x & 31);
+        // rows grow with tr, and a warp shares its tr: the break and the
+        // product branches are the same for all 32 lanes, as the
+        // shuffles of the stores need
+        for (int tr = threadIdx.x / 32; tr < TH;
+             tr += xrt::kStagedThreads / 32) {
+          const long long row = r0 + tr;
+          if (row >= a.h) break;
+          const float* const w0 = win + tr * Win::kPhasedPitch;
+          float u[6], m[6], d[6];
+          xrt::load6_phased(w0, xrt::row_phase(a, row - 1, cc0), tc, u);
+          xrt::load6_phased(w0 + Win::kPhasedPitch,
+                            xrt::row_phase(a, row, cc0), tc, m);
+          xrt::load6_phased(w0 + 2 * Win::kPhasedPitch,
+                            xrt::row_phase(a, row + 1, cc0), tc, d);
+          float v[4][4];
+          xrt::surface_quad_of(u, m, d, p, v);
+          xrt::surface_store_spans(p, row, a.w, cc0, v);
+        }
+      });
+}
+
+template <int TH>
+int launch_phased(const float* x, const xrt::SurfaceArgs& p, long long h,
+                  long long w, int stages, int grid, int smem,
+                  cudaStream_t stream) {
+  xrt::RingArgs a{};
+  int err = xrt::staged_setup<TH, 128>(
+      x, true, h, w, xrt::kStagedRoutePhased, stages, grid, smem, nullptr,
+      &a, xrt::kSpanCells, xrt::kSpanShift - 1);
+  if (err != 0) return err;
+  auto kernel = surface_phased_kernel<TH>;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  kernel<<<grid, xrt::kStagedThreads, smem, stream>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
 template <int TH, int TW>
 int staged_on_route(int route, const float* x, const xrt::SurfaceArgs& p,
                     bool aligned, long long h, long long w, int stages,
@@ -214,9 +287,62 @@ int surface_staged_launch(const float* x, float* slope, float* aspect,
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches surface_stacked_kernel on `stream`: plane p_slope ... p_hill of
-// the (K, h, w) buffer `out` receives that product; a product whose plane
-// is -1 is not computed.  Returns cudaGetLastError() after the launch.
+// Launches B0 on `stream` as kernels/surface.py::stacked_plan planned it:
+// plane p_slope ... p_hill of the (K, h, w) buffer `out` receives that
+// product (a product whose plane is -1 is not computed); route 0 TMA
+// (surface_staged_kernel at tile th x tw, 32x128, 64x128 or 32x248; the
+// route rule's, over x and every plane) or 2 phased (surface_phased_kernel
+// writing tiles of 32x120 or 64x120, any pitch and base); `stages`, `grid`
+// and `smem` as surface_staged_launch's.  Returns cudaGetLastError() after
+// the launch, cudaErrorInvalidValue for no product, a plan that disagrees
+// or a tile the route lacks, or the negated CUresult of a failed
+// tensor-map encode.
+int surface_stacked_staged_launch(const float* x, float* out, long long h,
+                                  long long w, int p_slope, int p_aspect,
+                                  int p_curv, int p_hill, float csx,
+                                  float csy, float sin_a, float cos_a,
+                                  float sin_p, float cos_p, int th, int tw,
+                                  int route, int stages, int grid, int smem,
+                                  void* stream) {
+  if (h <= 0 || w <= 0) return 0;
+  const int plane[4] = {p_slope, p_aspect, p_curv, p_hill};
+  float* planes[4];
+  int mask = 0;
+  bool aligned = true;
+  for (int k = 0; k < 4; ++k) {
+    planes[k] = plane[k] >= 0 ? out + plane[k] * h * w : nullptr;
+    if (plane[k] < 0) continue;
+    mask |= 1 << k;
+    aligned = aligned && xrt::aligned16(planes[k]);
+  }
+  if (mask == 0) return (int)cudaErrorInvalidValue;
+  const xrt::SurfaceArgs p{planes[0], planes[1], planes[2], planes[3], mask,
+                           csx,       csy,       sin_a,     cos_a,     sin_p,
+                           cos_p};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (route == xrt::kStagedRoutePhased) {
+    if (th == 32 && tw == xrt::kSpanCells)
+      return launch_phased<32>(x, p, h, w, stages, grid, smem, s);
+    if (th == 64 && tw == xrt::kSpanCells)
+      return launch_phased<64>(x, p, h, w, stages, grid, smem, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route != xrt::kStagedRouteTma) return (int)cudaErrorInvalidValue;
+  if (th == 32 && tw == 128)
+    return launch_staged<32, 128, xrt::kStagedRouteTma>(
+        x, p, aligned, h, w, stages, grid, smem, s);
+  if (th == 64 && tw == 128)
+    return launch_staged<64, 128, xrt::kStagedRouteTma>(
+        x, p, aligned, h, w, stages, grid, smem, s);
+  if (th == 32 && tw == 248)
+    return launch_staged<32, 248, xrt::kStagedRouteTma>(
+        x, p, aligned, h, w, stages, grid, smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launches surface_stacked_kernel, B0's first port, on `stream`: planes
+// as surface_stacked_staged_launch's.  Returns cudaGetLastError() after
+// the launch.
 int surface_stacked_launch(const float* x, float* out, long long h,
                            long long w, int p_slope, int p_aspect,
                            int p_curv, int p_hill, float csx, float csy,

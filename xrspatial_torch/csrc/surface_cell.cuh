@@ -15,6 +15,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace xrt {
 
@@ -132,20 +133,37 @@ __device__ __forceinline__ void load6(const float* p, float r[6]) {
   r[5] = p[8];
 }
 
-// The selected products of 4 neighbouring cells of a row from a staged
-// window: p is the window cell of (row - 1, col - 4), `pitch` floats a
-// window row; v[k][j] is product k (0 slope, 1 aspect, 2 curvature, 3
-// hillshade) of cell col + j; the entries of a product not in s.mask are
-// not touched.  One branch a product, and the 4 cells' chains inside it
-// are independent, so their long-latency steps (division, sqrt, atan)
-// overlap.
-__device__ __forceinline__ void surface_quad(const float* p, int pitch,
-                                             const SurfaceArgs& s,
-                                             float v[4][4]) {
-  float u[6], m[6], d[6];
-  load6(p, u);
-  load6(p + pitch, m);
-  load6(p + 2 * pitch, d);
+// load6 on a window row staged at phase f (route phased, staged_window.cuh:
+// window column c at row[f + c], `row` 16-byte aligned): the 6 floats of
+// window columns tc + 3 .. tc + 8 (tc a multiple of 4) from two aligned
+// 16-byte loads and one 4-byte load, then shifted by o = (f + 3) mod 4 in
+// two selects on o's bits (o is the same for a whole warp).
+__device__ __forceinline__ void load6_phased(const float* row, int f, int tc,
+                                             float r[6]) {
+  const int o = (f + 3) & 3;
+  const float* const p = row + tc + (f + 3 - o);  // 16-byte aligned
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  const float v[9] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w, p[8]};
+  float y[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) y[j] = (o & 1) ? v[j + 1] : v[j];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) r[j] = (o & 2) ? y[j + 2] : y[j];
+}
+
+// The selected products of 4 neighbouring cells of a row from the 3 x 6
+// values around them (u the row above, m theirs, d the row below, cells
+// col - 1 .. col + 4): v[k][j] is product k (0 slope, 1 aspect, 2
+// curvature, 3 hillshade) of cell col + j; the entries of a product not in
+// s.mask are not touched.  One branch a product, and the 4 cells' chains
+// inside it are independent, so their long-latency steps (division, sqrt,
+// atan) overlap.
+__device__ __forceinline__ void surface_quad_of(const float (&u)[6],
+                                                const float (&m)[6],
+                                                const float (&d)[6],
+                                                const SurfaceArgs& s,
+                                                float v[4][4]) {
   if (s.mask & (kSlope | kAspect)) {
     float sx[4], sy[4];
 #pragma unroll
@@ -174,6 +192,18 @@ __device__ __forceinline__ void surface_quad(const float* p, int pitch,
   }
 }
 
+// surface_quad_of from a staged window: p is the window cell of (row - 1,
+// col - 4), `pitch` floats a window row (16-byte aligned rows).
+__device__ __forceinline__ void surface_quad(const float* p, int pitch,
+                                             const SurfaceArgs& s,
+                                             float v[4][4]) {
+  float u[6], m[6], d[6];
+  load6(p, u);
+  load6(p + pitch, m);
+  load6(p + 2 * pitch, d);
+  surface_quad_of(u, m, d, s, v);
+}
+
 // Stores surface_quad's products of cells i .. i + 3 (flat indices) of
 // each selected plane: one 16-byte streaming store a plane where `vec`
 // (w % 4 == 0 and every plane 16-byte aligned: the 4 cells lie in the
@@ -198,6 +228,83 @@ __device__ __forceinline__ void surface_store4(const SurfaceArgs& s,
         if (j < n) __stcs(o + j, v[k][j]);
     }
   }
+}
+
+// The phased route's stores (surface.cu, surface_phased_kernel).  A 32-byte
+// sector of a plane written in parts, by two warps, costs far more than one
+// written whole (B1's TMA route with four products is about a third slower
+// at 16384 x 16388, where every other row starts 16 bytes off a sector,
+// than at 16384^2: chip_smoke.py phase 17, PERF.md), and with odd H * W
+// the planes of one buffer lie at four different offsets.  So a warp
+// computes the 128 cells cc0 .. cc0 + 127 of a row (lane l cells cc0 + 4l
+// .. + 3) and writes, for each plane, the 120 cells from the first 32-byte
+// boundary of that plane at or after cc0 + 1: the span c0 - s .. c0 + 119
+// - s, c0 = cc0 + 8, s (0-7) the plane's float offset of cell c0 from a
+// 32-byte boundary, the same for every tile of a row (tiles 120 columns
+// apart), so the spans of a row's tiles meet.  Only the sectors around a
+// raster row's ends are written in parts.
+constexpr int kSpanCells = 120, kSpanShift = 8;
+
+// A lane's 16-byte group of a span whose groups start T cells into the
+// quads: g[j] = q[j + T], and past q[3] the next lane's q[j + T - 4], by
+// shuffle.
+template <int T>
+__device__ __forceinline__ void span_group(const float (&q)[4],
+                                           float (&g)[4]) {
+  float n[4];
+#pragma unroll
+  for (int j = 0; j < T; ++j) n[j] = __shfl_down_sync(0xffffffffu, q[j], 1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) g[j] = j + T < 4 ? q[j + T] : n[(j + T) & 3];
+}
+
+// Stores the span of one plane row, `o` the plane's cell (row, 0), from a
+// whole warp: lane l + b (b = (8 - s) / 4) stores the span's 16-byte group
+// l, cells cc0 + 4(l + b) + t .. + 3 with t = (8 - s) mod 4, its own
+// q[t..3] and the next lane's q[0..t-1], with one streaming store; where
+// the warp's 128 cells are not `inside` the raster row [0, w), cells
+// outside it are skipped, one by one.  Every lane of the warp must call
+// it; t and b are the same for all of them.
+__device__ __forceinline__ void store_span(float* o, long long cc0,
+                                           const float (&q)[4], long long w,
+                                           bool inside) {
+  const int lane = threadIdx.x & 31;
+  float* const base = o + cc0;
+  const int rel = kSpanShift - (int)(((uintptr_t)(base + kSpanShift) >> 2)
+                                     & 7u);  // the span's start from cc0
+  const int t = rel & 3, b = rel >> 2;
+  float g[4];
+  switch (t) {
+    case 0: span_group<0>(q, g); break;
+    case 1: span_group<1>(q, g); break;
+    case 2: span_group<2>(q, g); break;
+    default: span_group<3>(q, g); break;
+  }
+  if ((unsigned)(lane - b) >= (unsigned)(kSpanCells / 4)) return;
+  const int c = 4 * lane + t;  // the group's first cell, from cc0
+  if (inside || (cc0 + c >= 0 && cc0 + c + 4 <= w)) {
+    __stcs(reinterpret_cast<float4*>(base + c), make_float4(g[0], g[1], g[2],
+                                                            g[3]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (cc0 + c + j >= 0 && cc0 + c + j < w) __stcs(base + c + j, g[j]);
+  }
+}
+
+// surface_quad's products of a warp's 128 cells of `row` from cc0: each
+// selected plane's span stored by store_span.
+__device__ __forceinline__ void surface_store_spans(const SurfaceArgs& s,
+                                                    long long row,
+                                                    long long w,
+                                                    long long cc0,
+                                                    const float (&v)[4][4]) {
+  float* const planes[4] = {s.slope, s.aspect, s.curv, s.hill};
+  const bool inside = cc0 >= 0 && cc0 + 128 <= w;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (s.mask & (1 << k))
+      store_span(planes[k] + row * w, cc0, v[k], w, inside);
 }
 
 }  // namespace xrt

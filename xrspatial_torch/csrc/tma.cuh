@@ -11,7 +11,7 @@
 //   says and reports the bytes to an mbarrier.
 // - bulk copies (cp.async.bulk): contiguous bytes, global to shared with
 //   mbarrier completion, shared to global in bulk groups.
-// - cp.async: 4-byte copies global to shared, in commit groups.
+// - cp.async: 4-byte and 16-byte copies global to shared, in commit groups.
 // - on the host, encode_tiled: cuTensorMapEncodeTiled without linking
 //   libcuda; encode_raster_map (float32, NaN fill) and encode_word_map
 //   (32-bit words, zero fill) on top of it.
@@ -205,6 +205,15 @@ __device__ __forceinline__ void bulk_wait_all() {
 // 4 bytes from global `src` to shared `dst`, in the open cp.async group.
 __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"((uint64_t)src)
+               : "memory");
+}
+
+// 16 bytes from global `src` to shared `dst`, both 16-byte aligned, in the
+// open cp.async group; .cg: cached in L2 only, as the window's halo is
+// read again by the neighbouring tile from L2, not from this SM's L1.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
                "l"((uint64_t)src)
                : "memory");
 }

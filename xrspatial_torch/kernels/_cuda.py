@@ -113,6 +113,10 @@ def library() -> ctypes.CDLL:
     lib.surface_stacked_launch.argtypes = [p, p, i64, i64, i32, i32, i32, i32,
                                            f32, f32, f32, f32, f32, f32, p]
     lib.surface_stacked_launch.restype = i32
+    lib.surface_stacked_staged_launch.argtypes = [
+        p, p, i64, i64, i32, i32, i32, i32, f32, f32, f32, f32, f32, f32, i32,
+        i32, i32, i32, i32, i32, p]
+    lib.surface_stacked_staged_launch.restype = i32
     for fn in (lib.stream_copy_launch, lib.stream_add_launch):
         fn.restype = i32
     lib.stream_copy_launch.argtypes = [p, p, i64, i64, i64, p]
@@ -176,7 +180,7 @@ def library() -> ctypes.CDLL:
                                          ctypes.c_uint, p]
     lib.stencil_probe_launch.restype = i32
     lib.stencil_staged_launch.argtypes = [p, p, i64, i64, i32, i32, i32, i32,
-                                          i32, i32, i32, f32, f32, p]
+                                          i32, i32, i32, i32, f32, f32, p]
     lib.stencil_staged_launch.restype = i32
     lib.xrt_error_string.argtypes = [i32]
     lib.xrt_error_string.restype = ctypes.c_char_p

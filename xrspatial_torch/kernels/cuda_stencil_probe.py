@@ -10,8 +10,10 @@ tensor on the card: it builds the kernel library at the first call,
 allocates the output, launches on PyTorch's current stream and raises if
 the launch fails.  With edges "bare" the cells outside the interior blocks
 are left as ``torch.empty`` gave them.  The staged form runs as
-``staged_plan`` plans it; the launcher checks the plan's route against its
-own rule, and a failed tensor-map encode raises.
+``staged_plan`` plans it, and so does form separable_staged (B8d's
+redesign, the separable arithmetic on the same windows); the launcher
+checks the plan's route against its own rule, and a failed tensor-map
+encode raises.
 """
 
 from __future__ import annotations
@@ -19,38 +21,45 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .stencil_probe import (EDGES, FORMS, MODES, check_variant,
-                            interior_extent, shapes_of, staged_plan)
+from .stencil_probe import (EDGES, FORMS, MODES, STAGED_FORMS,
+                            check_variant, interior_extent, shapes_of,
+                            staged_plan)
 
 __all__ = ["stencil_probe_cuda", "LAUNCHES", "EDGE_LAUNCHES", "TMA_LAUNCHES",
-           "ASYNC_LAUNCHES"]
+           "ASYNC_LAUNCHES", "SEP_TMA_LAUNCHES", "SEP_ASYNC_LAUNCHES"]
 
 # launches in this process, for checks that a path ran on the kernels
 LAUNCHES = 0          # the template's main kernel (ring, separable, interior)
 EDGE_LAUNCHES = 0     # the edge-band kernel of edges "interior"
-TMA_LAUNCHES = 0      # the staged kernel, windows staged by TMA
-ASYNC_LAUNCHES = 0    # the staged kernel, windows staged by cp.async
+TMA_LAUNCHES = 0      # the staged kernel (B8c), windows staged by TMA
+ASYNC_LAUNCHES = 0    # the staged kernel (B8c), windows staged by cp.async
+SEP_TMA_LAUNCHES = 0    # form separable_staged (B8d), by TMA
+SEP_ASYNC_LAUNCHES = 0  # form separable_staged (B8d), by cp.async
 
 
-def _staged(x: torch.Tensor, out: torch.Tensor, mode, tile) -> None:
-    global TMA_LAUNCHES, ASYNC_LAUNCHES
+def _staged(x: torch.Tensor, out: torch.Tensor, mode, form, tile) -> None:
+    global TMA_LAUNCHES, ASYNC_LAUNCHES, SEP_TMA_LAUNCHES, SEP_ASYNC_LAUNCHES
     h, w = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = staged_plan(h, w, tile, x.data_ptr(), sms)
     with torch.cuda.device(x.device):
         err = _cuda.library().stencil_staged_launch(
-            x.data_ptr(), out.data_ptr(), h, w, MODES.index(mode), tile[0],
-            tile[1], ("tma", "async").index(plan.route), plan.stages,
-            plan.grid, plan.shared_bytes, 1.0, 1.0, _cuda.stream_of(x.device))
+            x.data_ptr(), out.data_ptr(), h, w, MODES.index(mode),
+            STAGED_FORMS.index(form), tile[0], tile[1],
+            ("tma", "async").index(plan.route), plan.stages, plan.grid,
+            plan.shared_bytes, 1.0, 1.0, _cuda.stream_of(x.device))
     if err < 0:
         raise RuntimeError(f"stencil_staged: cuTensorMapEncodeTiled failed "
                            f"with CUresult {-err} for a {h}x{w} float32 "
                            f"raster, box {plan.box}")
-    _cuda.check(err, "stencil_staged")
-    if plan.route == "tma":
-        TMA_LAUNCHES += 1
+    _cuda.check(err, f"stencil_staged ({form})")
+    tma = plan.route == "tma"
+    if form == "staged":
+        TMA_LAUNCHES += tma
+        ASYNC_LAUNCHES += not tma
     else:
-        ASYNC_LAUNCHES += 1
+        SEP_TMA_LAUNCHES += tma
+        SEP_ASYNC_LAUNCHES += not tma
 
 
 def stencil_probe_cuda(x: torch.Tensor, mode="slope", form="nine",
@@ -69,9 +78,9 @@ def stencil_probe_cuda(x: torch.Tensor, mode="slope", form="nine",
                          f"{x.is_contiguous()}")
     h, w = x.shape
     out = torch.empty_like(x)
-    if form == "staged":
+    if form in STAGED_FORMS:
         if h * w:
-            _staged(x, out, mode, block)
+            _staged(x, out, mode, form, block)
         return out
     r0, r1, c0, c1 = interior_extent(h, w, block)
     with torch.cuda.device(x.device):

@@ -7,9 +7,14 @@ surface_plan`` names ("tma", or "async" where TMA refuses the pitch or
 base), or B1's first port ``surface_kernel`` by name (route "simple");
 the routes give the same bits.  Its plain version is
 ``kernels/surface.py::surface_multi``.
-``surface_stacked_cuda`` (``surface_stacked_kernel``, B0) replaces
-``xrspatial_tpu/kernels/pallas_surface.py::surface_pallas``; its plain
-version is ``kernels/surface.py::surface_multi_stacked``.  Each wrapper
+``surface_stacked_cuda`` (B0) replaces
+``xrspatial_tpu/kernels/pallas_surface.py::surface_pallas``: by default on
+the route ``kernels/surface.py::stacked_plan`` names ("tma":
+``surface_staged_kernel`` on the planes of one buffer; "phased":
+``surface_phased_kernel``, where TMA refuses the pitch or a base), or B0's
+first port ``surface_stacked_kernel`` by name (route "simple"); the routes
+give the same bits.  Its plain version is ``kernels/surface.py::
+surface_multi_stacked``.  Each wrapper
 takes only a tensor on the card: it builds the kernel library at the
 first call, allocates the outputs, launches on PyTorch's current stream
 and raises if the launch fails.
@@ -20,19 +25,23 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .surface import (PRODUCTS, SURFACE_TILE, check_products, sun_scalars,
-                      surface_plan)
+from .surface import (PRODUCTS, SURFACE_TILE, check_products, stacked_plan,
+                      sun_scalars, surface_plan)
 
 __all__ = ["surface_cuda", "surface_stacked_cuda", "LAUNCHES",
            "STAGED_TMA_LAUNCHES", "STAGED_ASYNC_LAUNCHES", "SIMPLE_LAUNCHES",
-           "STACKED_LAUNCHES"]
+           "STACKED_LAUNCHES", "STACKED_TMA_LAUNCHES",
+           "STACKED_PHASED_LAUNCHES", "STACKED_SIMPLE_LAUNCHES"]
 
 # launches of each kernel in this process, for checks that a path ran on it
 LAUNCHES = 0               # B1 (surface_cuda), every route
 STAGED_TMA_LAUNCHES = 0    # ... surface_staged_kernel, windows by TMA
 STAGED_ASYNC_LAUNCHES = 0  # ... surface_staged_kernel, windows by cp.async
 SIMPLE_LAUNCHES = 0        # ... the first port, surface_kernel, by name
-STACKED_LAUNCHES = 0       # surface_stacked_kernel (B0)
+STACKED_LAUNCHES = 0       # B0 (surface_stacked_cuda), every route
+STACKED_TMA_LAUNCHES = 0   # ... surface_staged_kernel on the planes, TMA
+STACKED_PHASED_LAUNCHES = 0  # ... surface_phased_kernel
+STACKED_SIMPLE_LAUNCHES = 0  # ... the first port, surface_stacked_kernel
 
 
 def _scalars(cellsize_x, cellsize_y, azimuth, angle_altitude) -> tuple:
@@ -118,22 +127,51 @@ def surface_cuda(data: torch.Tensor, which, cellsize_x=1.0, cellsize_y=1.0,
 
 def surface_stacked_cuda(data: torch.Tensor, which, cellsize_x=1.0,
                          cellsize_y=1.0, azimuth=225.0, angle_altitude=25.0,
-                         squeeze=False) -> torch.Tensor:
+                         squeeze=False, route=None, tile=None,
+                         stages=None) -> torch.Tensor:
     """(K, H, W) float32 stack, plane k = product ``which[k]``, 1-cell NaN
-    ring; (H, W) when `squeeze` and K == 1."""
-    global STACKED_LAUNCHES
+    ring; (H, W) when `squeeze` and K == 1.
+
+    `route` None takes the plan's route (``stacked_plan``: "tma" or
+    "phased"); "tma" must be the plan's, "phased" runs at any shape;
+    `tile` and `stages` as ``stacked_plan`` takes them; "simple" takes the
+    first port, ``surface_stacked_kernel``, by name."""
+    global STACKED_LAUNCHES, STACKED_TMA_LAUNCHES, STACKED_PHASED_LAUNCHES
+    global STACKED_SIMPLE_LAUNCHES
     x = _card_raster(data, "surface_stacked_cuda")
     check_products(which, allow_empty=False)
     h, w = x.shape
     out = torch.empty((len(which), h, w), dtype=torch.float32,
                       device=x.device)
     planes = [which.index(p) if p in which else -1 for p in PRODUCTS]
+    scalars = _scalars(cellsize_x, cellsize_y, azimuth, angle_altitude)
     lib = _cuda.library()
-    with torch.cuda.device(x.device):
-        err = lib.surface_stacked_launch(
-            x.data_ptr(), out.data_ptr(), h, w, *planes,
-            *_scalars(cellsize_x, cellsize_y, azimuth, angle_altitude),
-            _cuda.stream_of(x.device))
-    _cuda.check(err, "surface_stacked_kernel")
+    if route == "simple":
+        with torch.cuda.device(x.device):
+            err = lib.surface_stacked_launch(
+                x.data_ptr(), out.data_ptr(), h, w, *planes, *scalars,
+                _cuda.stream_of(x.device))
+        _cuda.check(err, "surface_stacked_kernel")
+        STACKED_SIMPLE_LAUNCHES += 1
+    else:
+        sms = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        plan = stacked_plan(h, w, x.data_ptr(), out.data_ptr(), route, tile,
+                            stages, sms)
+        with torch.cuda.device(x.device):
+            err = lib.surface_stacked_staged_launch(
+                x.data_ptr(), out.data_ptr(), h, w, *planes, *scalars,
+                plan.tile[0], plan.tile[1],
+                {"tma": 0, "phased": 2}[plan.route], plan.stages, plan.grid,
+                plan.shared_bytes, _cuda.stream_of(x.device))
+        if err < 0:
+            raise RuntimeError(f"surface_stacked: cuTensorMapEncodeTiled "
+                               f"failed with CUresult {-err} for a {h}x{w} "
+                               f"float32 raster, tile {plan.tile}")
+        _cuda.check(err, f"surface_stacked ({plan.route})")
+        if plan.route == "tma":
+            STACKED_TMA_LAUNCHES += 1
+        else:
+            STACKED_PHASED_LAUNCHES += 1
     STACKED_LAUNCHES += 1
     return out[0] if squeeze and len(which) == 1 else out

@@ -11,6 +11,14 @@ loop order, to the kernels' plain versions bit for bit:
   surface_staged_kernel`` (B1), against ``surface.surface_multi``;
 - ``emulate_pipeline``: the staged template with its surface epilogue
   (B4), against ``pipeline.pipeline_multi``;
+- ``emulate_stacked``: B0 on its route, ``csrc/surface.cu::
+  surface_staged_kernel`` on the planes of one buffer (TMA) or
+  ``surface_phased_kernel`` (phased: ``csrc/staged_window.cuh::
+  stage_phased``'s row phases and 16-byte body copies, ``surface_cell.cuh::
+  load6_phased`` and ``store_span``), in a flat model of device memory,
+  against ``surface.surface_multi_stacked``;
+- ``emulate_separable_staged``: ``csrc/stencil_probe.cu``'s form
+  separable_staged (B8d), against ``stencil_probe.stencil_twin``;
 - ``blocks_of`` and ``emulate_culled``: ``csrc/screen.cu::
   screen_culled_kernel`` (B7's culled route), against
   ``screen.screen_hilo``; ``blocks_of`` also gives the (warp, chunk)
@@ -34,7 +42,8 @@ from . import screen as TS
 from . import surface as TSU
 
 __all__ = ["emulate_staged", "ring_schedule", "emulate_surface_staged",
-           "emulate_pipeline", "halo_case", "same_bits", "SCREEN_R",
+           "emulate_pipeline", "emulate_stacked", "emulate_separable_staged",
+           "halo_case", "same_bits", "SCREEN_R",
            "SCREEN_WARP", "SCREEN_BLOCK", "group_segments", "blocks_of",
            "emulate_culled", "TOL", "GC_RTOL", "layout", "axes"]
 
@@ -159,35 +168,258 @@ def emulate_surface_staged(x, which, cellsize_x=1.0, cellsize_y=1.0,
     with TMA's NaN fill outside the raster, thread quad q at tile row
     tr = q // (TW / 4) and column tc = 4 (q mod TW / 4), its 3 x 6 values
     at window floats tr * cols + tc + 3 .. + 8 of rows tr .. tr + 2
-    (``load6``), and only cells inside the raster written.  The products
-    come from the nine neighbour rasters through the twins' functions."""
+    (``load6``, ``_tma_rows``), and only cells inside the raster written.
+    The products come from each quad's nine neighbour values through the
+    twins' functions."""
     h, w = x.shape
     th, tw = tile
     plan = TSU.surface_plan(h, w, 0, tile, sms)
-    cols, rows = plan.box
+    vals = _products(_quad_cells(*_tma_rows(x, tile, plan)), tuple(which),
+                     cellsize_x, cellsize_y, azimuth, angle_altitude)
     ty, tx = -(-h // th), -(-w // tw)
-    big = F.pad(x, (4, tx * tw + cols, 1, ty * th + rows), value=math.nan)
-    walked = {}
-    for _, _, t, _, _ in ring_schedule(plan.tiles, plan.grid, plan.stages):
-        r0, c0 = t // tx * th, t % tx * tw
-        # window (r, c) = raster (r0 - 1 + r, c0 - 4 + c) = big (r0 + r,
-        # c0 + c)
-        walked[t] = big[r0:r0 + rows, c0:c0 + cols].reshape(-1)
+    return {p: _tiles_to_raster(v.reshape(plan.tiles, th, tw), ty, tx, h, w)
+            for p, v in vals.items()}
+
+
+def _walk(plan):
+    """The tiles of ``ring_schedule`` on `plan`'s grid and stages, checked
+    to be every tile once."""
+    walked = [t for _, _, t, _, _ in ring_schedule(plan.tiles, plan.grid,
+                                                   plan.stages)]
     if sorted(walked) != list(range(plan.tiles)):
         raise AssertionError("the persistent loop missed or repeated a tile")
-    wins = torch.stack([walked[t] for t in range(plan.tiles)])
-    q = torch.arange(th * tw // 4)
-    tr, tc = q // (tw // 4), 4 * (q % (tw // 4))
-    p = (tr * cols + tc)[:, None]                 # window float of (tr, tc)
-    j = torch.arange(4)[None, :]
-    nb = []
-    for dr in range(3):                           # rows above, at, below
-        for dc in range(3):
-            idx = (p + dr * cols + 3 + j + dc).reshape(-1)
-            cells = wins[:, idx].reshape(-1, th, tw)  # quads in row order
-            nb.append(_tiles_to_raster(cells, ty, tx, h, w))
-    return _products(tuple(nb), tuple(which), cellsize_x, cellsize_y,
+    return walked
+
+
+def _tma_rows(x, tile, plan):
+    """The TMA route's windows of the (h, w) CPU tensor `x` at `tile`
+    (``staged_window.cuh``: rows r0 - 1 .. r0 + TH, columns c0 - 4 ..
+    c0 + TW + 3, NaN outside), read as ``load6`` reads them: (u, m, d), each
+    (tiles, TH, TW / 4, 6), the 6 values of quad (tr, tc / 4) in the rows
+    above, at and below, at window floats tr * cols + tc + 3 .. + 8."""
+    h, w = x.shape
+    th, tw = tile
+    cols, rows = tw + 8, th + 2
+    ty, tx = -(-h // th), -(-w // tw)
+    big = F.pad(x, (4, tx * tw + cols, 1, ty * th + rows), value=math.nan)
+    wins = {}
+    for t in _walk(plan):
+        r0, c0 = t // tx * th, t % tx * tw
+        wins[t] = big[r0:r0 + rows, c0:c0 + cols].reshape(-1)
+    wins = torch.stack([wins[t] for t in range(plan.tiles)])
+    tr = torch.arange(th)[:, None, None]
+    tc = 4 * torch.arange(tw // 4)[None, :, None]
+    j = torch.arange(6)[None, None, :]
+    return tuple(wins[:, (tr + i) * cols + tc + 3 + j]
+                 for i in range(3))
+
+
+def _quad_cells(u, m, d):
+    """The nine neighbour tensors (a ... i) of each quad's 4 cells from its
+    3 x 6 values, as ``surface_quad_of`` takes them: (..., 4) each."""
+    return tuple(r[..., k:k + 4] for r in (u, m, d) for k in range(3))
+
+
+def emulate_stacked(x, which, cellsize_x=1.0, cellsize_y=1.0,
+                    azimuth=225.0, angle_altitude=25.0, route=None,
+                    tile=None, x_off=0, out_off=0, sms=132, stats=False):
+    """B0 on the 2D float32 CPU tensor `x`: the (K, H, W) stack, plane k =
+    ``which[k]``, on ``stacked_plan``'s route (or `route` by name) with
+    `x` `x_off` floats and the output `out_off` floats past a 16-byte
+    boundary.
+
+    Device memory is modelled as flat float tensors at those offsets.
+    Route "tma": B1's windows and quads, each plane's 16-byte stores at
+    ``out_off + plane * H * W + row * W + col``.  Route "phased": each tile
+    120 columns apart, its warps' 128 cells from cc0 = c0 - 8; every window
+    row staged at its phase f (16-byte chunks wholly inside the raster
+    copied whole, the head and tail cells one by one, NaN outside), read
+    back through ``load6_phased``'s aligned loads and its shift, and each
+    plane's span stored by ``store_span`` (the next lane's values by
+    shuffle, 16-byte groups, cells outside the raster row skipped).  Raises AssertionError if a copy
+    or a store is not aligned as the kernel's instruction needs, a tile is
+    walked twice or missed, or a plane cell is written other than once or
+    a cell outside the planes at all.  With `stats`, also a dict: the
+    route, tiles, 16-byte body chunks, head/tail cells copied, NaN cells,
+    the most head/tail cells of one window row, vector and scalar stores,
+    and the 32-byte sectors of the planes that more than one warp row
+    wrote (``split_sectors``, with the sectors that hold the start of a
+    plane row, the buffer's first excepted, ``row_end_sectors``)."""
+    which = tuple(which)
+    TSU.check_products(which, allow_empty=False)
+    h, w = x.shape
+    hw = h * w
+    plan = TSU.stacked_plan(h, w, 4 * x_off, 4 * out_off, route, tile,
+                            sms=sms)
+    th, tw = plan.tile
+    info = {"route": plan.route, "tiles": plan.tiles}
+    if plan.route == "tma":
+        u, m, d = _tma_rows(x, plan.tile, plan)
+        tx = -(-w // tw)
+        t = torch.arange(plan.tiles)
+        row = (t // tx * th)[:, None, None] + torch.arange(th)[None, :, None]
+        col = (t % tx * tw)[:, None, None] \
+            + 4 * torch.arange(tw // 4)[None, None, :]
+    else:
+        u, m, d, row, col, info2 = _phased_rows(x, plan, x_off)
+        info.update(info2)
+    vals = _products(_quad_cells(u, m, d), which, cellsize_x, cellsize_y,
                      azimuth, angle_altitude)
+    out = torch.full((out_off + len(which) * hw + 8,), -7.0)
+    writes = torch.zeros(out.shape, dtype=torch.int64)
+    vec = scal = 0
+    sector_writers = []
+    for k, p in enumerate(which):
+        q = vals[p]                                   # (tiles, TH, 32, 4)
+        base = out_off + k * hw
+        if plan.route == "tma":
+            ok = (row < h) & (col < w)                 # whole quads
+            addr = base + row * w + col
+            if bool((addr[ok] % 4 != 0).any()) or w % 4:
+                raise AssertionError("a TMA-route store is not 16-byte "
+                                     "aligned")
+            a = (addr[..., None] + torch.arange(4))[ok]
+            v = q[ok]
+            vec += int(ok.sum())
+            writer = torch.broadcast_to(
+                (torch.arange(plan.tiles)[:, None, None] * th
+                 + torch.arange(th)[None, :, None]), ok.shape)[ok]
+            writer = writer[:, None].expand(-1, 4)
+        else:
+            a, v, writer, nv, ns = _span_stores(q, row, col, base, w, h)
+            vec, scal = vec + nv, scal + ns
+        out[a.reshape(-1)] = v.reshape(-1)
+        writes.index_add_(0, a.reshape(-1), torch.ones(a.numel(),
+                                                        dtype=torch.int64))
+        sector_writers.append(torch.stack([a.reshape(-1) // 8,
+                                           writer.reshape(-1)], 1))
+    inside = writes[out_off:out_off + len(which) * hw]
+    if not bool((inside == 1).all()) or int(writes.sum()) != inside.numel():
+        raise AssertionError("a plane cell was written other than once, or "
+                             "a cell outside the planes was written")
+    res = out[out_off:out_off + len(which) * hw].reshape(len(which), h, w)
+    if not stats:
+        return res
+    pairs = torch.unique(torch.cat(sector_writers), dim=0)
+    _, per = torch.unique(pairs[:, 0], return_counts=True)
+    # the sectors holding a plane row's start, but the buffer's first
+    ends = torch.tensor([out_off + k * hw + r * w
+                         for k in range(len(which)) for r in range(h)
+                         if (k or r) and (out_off + k * hw + r * w) % 8],
+                        dtype=torch.int64)
+    info.update(vector_stores=vec, scalar_stores=scal,
+                split_sectors=int((per > 1).sum()),
+                row_end_sectors=int(torch.unique(ends // 8).numel()))
+    return res, info
+
+
+def _phased_rows(x, plan, x_off):
+    """Route phased's windows, staged as ``stage_phased`` does, and read as
+    ``load6_phased`` reads them: (u, m, d) as ``_tma_rows``' (32 quads a
+    row from cc0), the rows and first columns of the quads, and the
+    staging's counts."""
+    h, w = x.shape
+    th = plan.tile[0]
+    cells, shift = TSU.SPAN_CELLS, TSU.SPAN_SHIFT
+    pitch = 128 + 8 + TSU.PHASED_ROW_PAD
+    chunks = pitch // 4
+    tx = -(-(w + shift - 1) // cells)
+    mem = torch.cat([torch.full((x_off,), 1e30), x.reshape(-1)])
+    t = torch.tensor(_walk(plan))
+    order = torch.argsort(t)
+    r0 = (t // tx * th)[order]
+    cc0 = (t % tx * cells - shift)[order]
+    wr = torch.arange(th + 2)
+    row = r0[:, None] - 1 + wr[None, :]               # (tiles, TH + 2)
+    f = (x_off + row * w + cc0[:, None] - 4) % 4      # each row's phase
+    col = cc0[:, None, None] - 4 - f[..., None] \
+        + 4 * torch.arange(chunks)[None, None, :]     # chunk m's first cell
+    inrow = ((row >= 0) & (row < h))[..., None]
+    body = inrow & (col >= 0) & (col + 4 <= w)
+    if bool(((x_off + row[..., None] * w + col)[body] % 4 != 0).any()):
+        raise AssertionError("a 16-byte cp.async source is not 16-byte "
+                             "aligned")
+    c4 = col[..., None] + torch.arange(4)
+    valid = inrow[..., None] & (c4 >= 0) & (c4 < w)
+    src = (x_off + row[..., None, None] * w + c4).clamp(0, mem.numel() - 1)
+    win = torch.where(valid, mem[src], math.nan).reshape(
+        len(t), th + 2, pitch)
+    edge = valid & ~body[..., None]
+    staged = {"body_chunks": int(body.sum()), "edge_cells": int(edge.sum()),
+              "nan_cells": int((~valid).sum()),
+              "edge_cells_a_row": int(edge.sum(dim=(2, 3)).max())}
+    lane = torch.arange(32)
+    reads = []
+    for i in range(3):
+        fi = f[:, i:i + th, None, None]                # (tiles, TH, 1, 1)
+        o = (fi + 3) % 4
+        a = 4 * lane[None, None, :, None] + fi + 3 - o
+        if bool((a % 4 != 0).any()):
+            raise AssertionError("a load6_phased 16-byte load is not "
+                                 "aligned")
+        nine = torch.gather(
+            win[:, i:i + th], 2,
+            (a + torch.arange(9)).reshape(len(t), th, -1)).reshape(
+                len(t), th, 32, 9)
+        reads.append(torch.gather(nine, 3,
+                                  (o + torch.arange(6)).expand(-1, -1, 32,
+                                                               -1)))
+    rows = (r0[:, None] + torch.arange(th)[None, :])[:, :, None]
+    cols = cc0[:, None, None] + 4 * lane[None, None, :]
+    return (*reads, rows, cols, staged)
+
+
+def _span_stores(q, row, col, base, w, h):
+    """``store_span`` for every warp row: the addresses, values and writer
+    (tile, row) of each stored cell, and the counts of 16-byte and 4-byte
+    stores.  `q` holds each lane's 4 values (tiles, TH, 32, 4), `row` and
+    `col` the quads' rows and first cells (col = cc0 + 4 l)."""
+    n, th = q.shape[:2]
+    lane = torch.arange(32)
+    cc0 = col[:, :, :1]                               # (tiles, 1, 1)
+    o = base + row * w                                # (tiles, TH, 1)
+    s = (o + cc0 + TSU.SPAN_SHIFT) % 8
+    rel = TSU.SPAN_SHIFT - s
+    t, b = rel % 4, rel // 4
+    nxt = q[:, :, torch.clamp(lane + 1, max=31), :]   # shfl_down: lane 31 own
+    x7 = torch.cat([q, nxt[..., :3]], dim=3)
+    g = torch.gather(x7, 3, (t[..., None] + torch.arange(4)).expand(
+        -1, -1, 32, -1))
+    c = cc0 + 4 * lane + t                            # (tiles, TH, 32)
+    stores = (lane >= b) & (lane < b + TSU.SPAN_CELLS // 4) & (row < h)
+    vec = stores & (c >= 0) & (c + 4 <= w)
+    if bool(((o + c)[vec] % 4 != 0).any()):
+        raise AssertionError("a span's 16-byte store is not 16-byte aligned")
+    cj = c[..., None] + torch.arange(4)
+    ok = stores[..., None] & (cj >= 0) & (cj < w)
+    addr = (o[..., None] + cj)[ok]
+    writer = torch.broadcast_to(
+        torch.arange(n * th).reshape(n, th, 1, 1), ok.shape)[ok]
+    n_scalar = int((ok & ~vec[..., None]).sum())
+    return addr, g[ok], writer, int(vec.sum()), n_scalar
+
+
+def emulate_separable_staged(x, tile=(64, 128), sms=132):
+    """``csrc/stencil_probe.cu``'s form separable_staged (B8d) on the 2D
+    float32 CPU tensor `x` at `tile`: ``staged_plan``'s windows and loop,
+    each quad's 6 column smooths ``up + 2 mid + dn`` and differences
+    ``dn - up`` once, then ``sx = s[j+2] - s[j]``, ``sy = d[j] + 2 d[j+1] +
+    d[j+2]`` and B1's slope of them, the NaN ring from the windows' NaN
+    fill."""
+    from .staged import staged_plan
+    h, w = x.shape
+    th, tw = tile
+    plan = staged_plan(h, w, tile, 0, sms)
+    u, m, d = _tma_rows(x, tile, plan)
+    smooth = u + 2.0 * m + d
+    diff = d - u
+    sx = smooth[..., 2:] - smooth[..., :4]
+    sy = diff[..., :4] + 2.0 * diff[..., 1:5] + diff[..., 2:]
+    one = torch.tensor(1.0)
+    dzdx, dzdy = sx / (8.0 * one), sy / (8.0 * one)
+    v = torch.atan(torch.sqrt(dzdx * dzdx + dzdy * dzdy)) * TSU.DEG
+    return _tiles_to_raster(v.reshape(plan.tiles, th, tw), -(-h // th),
+                            -(-w // tw), h, w)
 
 
 def emulate_pipeline(x, offsets, stats, which, cellsize_x=1.0,

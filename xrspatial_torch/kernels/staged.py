@@ -1,8 +1,9 @@
 """The plan of the persistent, TMA-staged window ring of the 3x3 stencil
 kernels (``csrc/staged_window.cuh``): the surface kernel B1
 (``csrc/surface.cu::surface_staged_kernel``, planned by
-``kernels/surface.py::surface_plan``) and the stencil probe B8c
-(``csrc/stencil_probe.cu::stencil_staged_kernel``).
+``kernels/surface.py::surface_plan``), the stacked surface kernel B0
+(planned by ``kernels/surface.py::stacked_plan``) and the stencil probes
+B8c and B8d (``csrc/stencil_probe.cu::stencil_staged_kernel``).
 
 ``staged_plan`` says how a tile's window is staged (the TMA box, the
 ring's stages and shared bytes, the route, the persistent grid) and
@@ -38,7 +39,8 @@ class StagedPlan(NamedTuple):
 
 
 def staged_plan(h: int, w: int, tile, ptr: int = 0, sms: int = 132,
-                blocks_per_sm: int = BLOCKS_PER_SM) -> StagedPlan:
+                blocks_per_sm: int = BLOCKS_PER_SM, row_pad: int = 0,
+                stages: int | None = None) -> StagedPlan:
     """How a staged kernel runs an (h, w) raster at `tile` = (rows,
     columns), from input address `ptr` (the outputs are allocated 16-byte
     aligned), on `sms` SMs.
@@ -48,11 +50,13 @@ def staged_plan(h: int, w: int, tile, ptr: int = 0, sms: int = 132,
     that is not a multiple of 16 bytes, so the window starts at column
     c0 - 4.  Rules, each refused by name: the width a multiple of 4 (each
     thread stores 16 bytes, and c0 - 4 is 16-byte aligned); each box
-    dimension at most 256; two stages within a block's shared memory.  The
-    ring takes as many windows as let `blocks_per_sm` blocks share an SM,
-    up to 4, and never fewer than 2.  The route is TMA when the row pitch and the base
-    are 16-byte aligned (``w % 4 == 0``, ``ptr % 16 == 0``), else
-    cp.async.
+    dimension at most 256; the stages within a block's shared memory.  The
+    ring takes `stages` windows (2 .. MAX_STAGES), by default as many as
+    let `blocks_per_sm` blocks share an SM, up to 4, and never fewer than
+    2.  A window row holds the box's columns and `row_pad` floats more
+    (the stacked surface kernel's phased route: 4).  The route is TMA when
+    the row pitch and the base are 16-byte aligned (``w % 4 == 0``,
+    ``ptr % 16 == 0``), else cp.async.
     """
     th, tw = tile
     if th < 1 or tw < 4 or tw % 4:
@@ -64,15 +68,20 @@ def staged_plan(h: int, w: int, tile, ptr: int = 0, sms: int = 132,
         raise ValueError(f"staged tile {th}x{tw}: its window is a {box[0]}x"
                          f"{box[1]} TMA box, and a box dimension is at most "
                          f"{TMA_BOX_MAX}")
-    stage_bytes = -(-(box[0] * box[1] * 4) // 128) * 128
+    stage_bytes = -(-((box[0] + row_pad) * box[1] * 4) // 128) * 128
     fixed = BARRIER_BYTES + ALIGN_SLACK
-    shared_of_one = SMEM_PER_SM // blocks_per_sm - 1024
-    stages = max(2, min(MAX_STAGES, (shared_of_one - fixed) // stage_bytes))
+    if stages is None:
+        shared_of_one = SMEM_PER_SM // blocks_per_sm - 1024
+        stages = max(2, min(MAX_STAGES,
+                            (shared_of_one - fixed) // stage_bytes))
+    elif not 2 <= stages <= MAX_STAGES:
+        raise ValueError(f"staged tile {th}x{tw}: {stages} stages; the ring "
+                         f"takes 2 to {MAX_STAGES}")
     shared = fixed + stages * stage_bytes
     if shared > SMEM_PER_BLOCK:
-        raise ValueError(f"staged tile {th}x{tw}: two stages of its window "
-                         f"need {shared} bytes of shared memory, more than "
-                         f"the {SMEM_PER_BLOCK} a block can use")
+        raise ValueError(f"staged tile {th}x{tw}: {stages} stages of its "
+                         f"window need {shared} bytes of shared memory, more "
+                         f"than the {SMEM_PER_BLOCK} a block can use")
     route = "tma" if w % 4 == 0 and ptr % 16 == 0 else "async"
     tiles = -(-h // th) * -(-w // tw)
     per_sm = min(blocks_per_sm, SMEM_PER_SM // (shared + 1024))

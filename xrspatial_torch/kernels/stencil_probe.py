@@ -10,8 +10,11 @@ B8c  ``tools/exp_stencil2.py::pipe_stencil``  mode copy, grad or slope; form
                                               staged; edges ring; tiles
                                               32x128, 64x128, 32x248 (the
                                               TPU probe's tile shapes)
-B8d  ``tools/exp_separable_horn.py::run``     mode slope; form nine or
-                                              separable; edges ring
+B8d  ``tools/exp_separable_horn.py::run``     mode slope; form
+                                              separable_staged (tiles as
+                                              B8c's), its first port
+                                              separable, or nine; edges
+                                              ring
 B8e  ``tools/exp_padfree_stencil.py::         mode slope; form nine; edges
      slope_2d``                               interior
 B8f  ``tools/exp_seam_cost.py::run``          prod = B1 by name;
@@ -27,7 +30,9 @@ refuses a tile that breaks a rule of the box or of shared memory, naming
 it.  Form
 nine at blocks 32x8, 32x16 and 64x4, B8c's first port (nine global reads
 a cell, B1's access pattern), stays as B8f's ring_branch and B8e's edge
-path.
+path.  Form separable_staged, B8d's redesign, is the separable
+arithmetic on the same staged windows and plan, at the same tiles; its
+first port, form separable at the blocks, stays by name.
 
 ``stencil_twin`` is the plain version of every instantiation:
 
@@ -38,8 +43,9 @@ path.
   ring;
 - staged: the nine-read twin, the same bits (its NaN pad gives the NaN
   ring);
-- separable: the vertical smooth and difference first, then the
-  horizontal combination, so dzdy rounds as ``(g-a) + 2(hh-b) + (ii-c)``;
+- separable and separable_staged: the vertical smooth and difference
+  first, then the horizontal combination, so dzdy rounds as
+  ``(g-a) + 2(hh-b) + (ii-c)``;
 - edges interior equals ring; edges bare leaves every cell outside the
   interior blocks unwritten, which the twin marks NaN (compare only
   ``interior_extent``'s rectangle).
@@ -58,12 +64,14 @@ import torch
 from .staged import MAX_STAGES, StagedPlan, staged_plan  # noqa: F401
 from .surface import DEG, _nan_border, neighborhood, slope_from_neighbors
 
-__all__ = ["MODES", "FORMS", "EDGES", "BLOCKS", "TILES", "VARIANTS",
+__all__ = ["MODES", "FORMS", "STAGED_FORMS", "EDGES", "BLOCKS", "TILES",
+           "VARIANTS",
            "shapes_of", "check_variant", "interior_extent", "StagedPlan",
            "staged_plan", "stencil_twin", "stencil"]
 
 MODES = ("copy", "grad", "slope")
-FORMS = ("nine", "separable", "staged")
+FORMS = ("nine", "separable", "staged", "separable_staged")
+STAGED_FORMS = ("staged", "separable_staged")  # at TILES, on staged_plan
 EDGES = ("ring", "interior", "bare")
 BLOCKS = ((32, 8), (32, 16), (64, 4))     # (threads in x, threads in y)
 TILES = ((32, 128), (64, 128), (32, 248))  # staged: (rows, columns) a tile
@@ -73,11 +81,14 @@ TILES = ((32, 128), (64, 128), (32, 248))  # staged: (rows, columns) a tile
 VARIANTS = (tuple((m, "nine", "ring") for m in MODES)
             + (("slope", "separable", "ring"), ("slope", "nine", "interior"),
                ("slope", "nine", "bare"))
-            + tuple((m, "staged", "ring") for m in MODES))
+            + tuple((m, "staged", "ring") for m in MODES)
+            + (("slope", "separable_staged", "ring"),))
+
 
 def shapes_of(form) -> tuple:
-    """The block shapes (nine, separable) or tiles (staged) of a form."""
-    return TILES if form == "staged" else BLOCKS
+    """The block shapes (nine, separable) or tiles (staged,
+    separable_staged) of a form."""
+    return TILES if form in STAGED_FORMS else BLOCKS
 
 
 def check_variant(mode, form, edges, block) -> None:
@@ -88,7 +99,7 @@ def check_variant(mode, form, edges, block) -> None:
             f"no stencil_probe instantiation mode={mode!r} form={form!r} "
             f"edges={edges!r} block={tuple(block)}; the template has "
             f"(mode, form, edges) in {VARIANTS} at blocks {BLOCKS}, and "
-            f"form staged at tiles {TILES}")
+            f"forms {STAGED_FORMS} at tiles {TILES}")
 
 
 def interior_extent(h: int, w: int, block=(32, 8)) -> tuple:
@@ -133,7 +144,7 @@ def stencil_twin(x: torch.Tensor, mode="slope", form="nine", edges="ring",
     if mode == "copy":
         return x.clone()
     cs = torch.tensor(1.0, dtype=torch.float32, device=x.device)
-    if form == "separable":
+    if form in ("separable", "separable_staged"):
         out = _separable_slope(x, cs)
     elif mode == "grad":
         out = _grad_from_neighbors(neighborhood(x), cs)

@@ -7,15 +7,21 @@ epilogues, in the same float32 operation order as the JAX package.
 
 Dispatch (``surface_kernels``, ``run_surface_op``, ``surface_stacked``): a
 tensor on the CPU goes to the twins, a tensor on the card to a CUDA kernel
-(B1, ``surface_staged_kernel``, on the route ``surface_plan`` names, or
-``surface_stacked_kernel`` for the stacked output), at every size.  The
-twins, and B1's first port ``surface_kernel``, are reached on the card
-only by calling them by name.
+(B1, ``surface_staged_kernel``, on the route ``surface_plan`` names, or B0
+for the stacked output, on the route ``stacked_plan`` names), at every
+size.  The twins, and the first ports ``surface_kernel`` (B1) and
+``surface_stacked_kernel`` (B0), are reached on the card only by calling
+them by name (route "simple").
 
 ``surface_plan`` plans B1's staged kernel: persistent blocks walking
 ``SURFACE_TILE`` tiles through a ring of TMA-staged windows
 (``kernels/staged.py::staged_plan``), TMA where the row pitch and the base
-are 16-byte aligned, cp.async elsewhere.
+are 16-byte aligned, cp.async elsewhere.  ``stacked_plan`` plans B0 on the
+same ring: route "tma" (B1's staged kernel on the planes of one buffer)
+where the pitch and the bases are 16-byte aligned, else route "phased"
+(``csrc/surface.cu::surface_phased_kernel``: 16-byte copies of each
+window row's aligned body, each plane written in spans that start on its
+own 32-byte sectors).
 
 Numerical contracts (all float32):
 - slope:   Horn 3x3 gradient, ``atan(|grad z|)*57.29578``;
@@ -28,11 +34,12 @@ Numerical contracts (all float32):
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from .staged import StagedPlan, staged_plan
+from .staged import SMEM_PER_SM, StagedPlan, staged_plan
 
 DEG = 57.29578  # the reference's degree conversion constant
 
@@ -48,14 +55,32 @@ SURFACE_TILE = (64, 128)
 # its register cap: 80 registers a thread) and the ring is sized for
 SURFACE_BLOCKS_PER_SM = 3
 
+# B0 on the ring: its routes, the tiles csrc/surface.cu compiles on each
+# (rows, columns written), and the tile each route's plan takes, chosen by
+# timing all four products at 16384^2 and 16383^2 on an H100 (chip_smoke.py
+# phase 17).  The phased kernel's warps compute 128 cells of a tile row
+# (32 quads) from SPAN_SHIFT columns left of the tile and write each
+# plane's SPAN_CELLS-cell span that starts on a 32-byte boundary of it
+# (csrc/surface_cell.cuh::store_span): its tiles lie SPAN_CELLS apart, and
+# one more covers a row whose last span ends past the last tile.
+STACKED_ROUTES = ("tma", "phased")
+SPAN_CELLS, SPAN_SHIFT = 120, 8
+STACKED_TILES = {"tma": SURFACE_TILES,
+                 "phased": ((32, SPAN_CELLS), (64, SPAN_CELLS))}
+STACKED_TILE = {"tma": (64, 128), "phased": (64, SPAN_CELLS)}
+# a phased window row: the TMA box's columns and 4 more, so that a row
+# placed at its phase (0-3 floats in) still holds them all
+PHASED_ROW_PAD = 4
+
 __all__ = [
     "neighborhood", "slope_from_neighbors", "aspect_from_neighbors",
     "curvature_from_center", "hillshade_from_gradient", "sun_scalars",
     "slope", "aspect", "curvature", "hillshade", "surface_multi",
     "surface_multi_stacked", "surface_kernels", "surface_stacked",
-    "check_products", "surface_plan",
+    "check_products", "surface_plan", "StackedPlan", "stacked_plan",
     "run_surface_op", "PRODUCTS", "SURFACE_TILES", "SURFACE_TILE",
-    "SURFACE_BLOCKS_PER_SM",
+    "SURFACE_BLOCKS_PER_SM", "STACKED_ROUTES", "STACKED_TILES",
+    "STACKED_TILE", "PHASED_ROW_PAD", "SPAN_CELLS", "SPAN_SHIFT",
 ]
 
 
@@ -216,6 +241,59 @@ def surface_plan(h: int, w: int, ptr: int = 0, tile=SURFACE_TILE,
     return staged_plan(h, w, tile, ptr, sms, SURFACE_BLOCKS_PER_SM)
 
 
+class StackedPlan(NamedTuple):
+    route: str          # "tma" or "phased"
+    tile: tuple         # (rows, columns) a block writes of a tile
+    stages: int         # windows in the shared-memory ring
+    stage_bytes: int    # one window, rounded up to 128 bytes
+    shared_bytes: int   # the dynamic shared memory a block asks for
+    tiles: int          # output tiles of the raster
+    grid: int           # persistent blocks
+
+
+def stacked_plan(h: int, w: int, ptr: int = 0, out_ptr: int = 0,
+                 route=None, tile=None, stages=None,
+                 sms: int = 132) -> StackedPlan:
+    """How B0 runs an (h, w) float32 raster at input address `ptr` into a
+    stacked buffer at `out_ptr`, on `sms` SMs.
+
+    The route rule: "tma" where TMA and 16-byte stores take every pointer
+    (``w % 4 == 0``, which makes every plane's offset a multiple of 16
+    bytes, and both bases 16-byte aligned), else "phased".  `route`
+    "phased" may be asked for at any shape; "tma" only where the rule
+    gives it.  The tile is ``STACKED_TILE[route]`` unless `tile` names one
+    of ``STACKED_TILES[route]``; the ring is ``staged_plan``'s for
+    ``SURFACE_BLOCKS_PER_SM`` blocks an SM, `stages` windows if given.
+    The phased route's windows are those of 128-column tiles, each row
+    ``PHASED_ROW_PAD`` floats longer; its tiles lie ``SPAN_CELLS`` columns
+    apart and cover w + SPAN_SHIFT - 1 columns."""
+    rule = ("tma" if w % 4 == 0 and ptr % 16 == 0 and out_ptr % 16 == 0
+            else "phased")
+    route = rule if route is None else route
+    if route not in STACKED_ROUTES:
+        raise ValueError(f"B0 has no route {route!r}; its staged routes are "
+                         f"{STACKED_ROUTES} (and the first port, 'simple')")
+    if route == "tma" and rule != "tma":
+        raise ValueError(f"B0's route 'tma' needs w % 4 == 0 and 16-byte "
+                         f"aligned bases; a {h}x{w} raster at {ptr:#x} into "
+                         f"{out_ptr:#x} takes 'phased'")
+    tile = STACKED_TILE[route] if tile is None else tuple(tile)
+    if tile not in STACKED_TILES[route]:
+        raise ValueError(f"B0's route {route!r} has no tile {tile}; it is "
+                         f"compiled at {STACKED_TILES[route]}")
+    if route == "tma":
+        p = staged_plan(h, w, tile, ptr, sms, SURFACE_BLOCKS_PER_SM,
+                        stages=stages)
+        return StackedPlan(route, tile, p.stages, p.stage_bytes,
+                           p.shared_bytes, p.tiles, p.grid)
+    p = staged_plan(h, w, (tile[0], 128), ptr, sms, SURFACE_BLOCKS_PER_SM,
+                    PHASED_ROW_PAD, stages)
+    tiles = -(-h // tile[0]) * -(-(w + SPAN_SHIFT - 1) // SPAN_CELLS)
+    per_sm = min(SURFACE_BLOCKS_PER_SM, SMEM_PER_SM // (p.shared_bytes + 1024))
+    return StackedPlan(route, tile, p.stages, p.stage_bytes, p.shared_bytes,
+                       tiles, min(tiles, per_sm * sms))
+
+
 def check_products(which, allow_empty=True) -> None:
     """Raise unless `which` names distinct surface products."""
     if (not which and not allow_empty) or len(set(which)) != len(which) \
@@ -284,7 +362,8 @@ def surface_stacked(data, cellsize_x=1.0, cellsize_y=1.0, azimuth=225.0,
                     angle_altitude=25.0, which=("slope",), squeeze=False):
     """(K, H, W) float32 stack of the products in `which` (any subset and
     order of slope/aspect/curvature/hillshade), 1-cell NaN ring; (H, W)
-    when `squeeze` and K == 1.  The JAX package's ``surface_pallas``.
+    when `squeeze` and K == 1.  The JAX package's ``surface_pallas``; on
+    the card B0 on the route ``stacked_plan`` names.
 
     Curvature uses the mean of the two cell sizes.
     """

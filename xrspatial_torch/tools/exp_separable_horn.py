@@ -3,17 +3,24 @@
     python -m xrspatial_torch.tools.exp_separable_horn [N]     (N = 16384)
 
 Counterpart of ``tools/exp_separable_horn.py``, whose TPU kernel ``run``
-(B8d) is the ``stencil_probe`` template in forms nine and separable
-(``csrc/stencil_probe.cu``): the separable form keeps each column's
-vertical smooth and difference in a shared-memory row tile and combines
-neighbouring columns from it.  Unlike the TPU probe, both forms write the
-whole raster with its 1-cell NaN ring.  On an (N, N) float32
-``gaussian_bump`` and on uniform noise it checks nine against the surface
-kernel (bit for bit) and each form against its twin (surface tolerance),
-prints how far the forms lie from each other and from a float64 slope,
-then times in turns, from CUDA events, both forms at blocks 32x8, 32x16
-and 64x4, the surface kernel B1 (slope only, the production path) and
-the twins.  Without a card it exits 1.
+(B8d) is the ``stencil_probe`` template (``csrc/stencil_probe.cu``) in
+form separable_staged, B8d's redesign: the TPU probe's separable
+arithmetic (each column's vertical smooth and difference formed once,
+then neighbouring columns combined) on the staged window ring of B8c, at
+its tiles 32x128, 64x128 and 32x248; its first port, form separable (a
+shared-memory row tile per warp, blocks 32x8, 32x16, 64x4); and form
+nine.  Unlike the TPU probe, every form writes the whole raster with its
+1-cell NaN ring.  On an (N, N) float32 ``gaussian_bump`` and on uniform
+noise it checks nine against the surface kernel (bit for bit), the staged
+separable form against the first port (bit for bit) and each form against
+its twin (surface tolerance), prints how far the forms lie from each
+other and from a float64 slope, then times in turns, from CUDA events,
+the staged separable form and B8c's staged slope (nine-read arithmetic,
+same windows) at each tile, nine and separable at each block, the surface
+kernel B1 (slope only, the production path) and the twins.  Staged
+separable against staged slope is the probe's question with the window in
+shared memory: does forming the vertical sums once a column buy anything?
+Without a card it exits 1.
 
 The forms are not held to each other: they round dzdy differently, and
 on a DEM a kilometre high, where each Sobel sum is about 4|z|, they may
@@ -28,7 +35,7 @@ import sys
 import torch
 
 from ..kernels import cuda_surface
-from ..kernels.stencil_probe import BLOCKS, stencil, stencil_twin
+from ..kernels.stencil_probe import BLOCKS, TILES, stencil, stencil_twin
 from ..kernels.surface import _nan_border, neighborhood, slope_from_neighbors
 from . import _stencil
 from ._probe import SURFACE_TOL
@@ -62,12 +69,27 @@ def checks(x):
                  lambda: stencil_twin(x, form="separable"), SURFACE_TOL,
                  None),
                 (f"separable {t} vs nine", sep, nine, None, None)]
+    first = lambda: stencil(x, "slope", "separable")  # noqa: E731
+    for tile in TILES:
+        t = f"{tile[0]}x{tile[1]}"
+        staged = lambda b=tile: stencil(  # noqa: E731
+            x, "slope", "separable_staged", block=b)
+        out += [(f"separable_staged {t} = separable 32x8", staged, first,
+                 _stencil.EXACT, None),
+                (f"separable_staged {t} vs twin", staged,
+                 lambda: stencil_twin(x, form="separable"), SURFACE_TOL,
+                 None)]
     return out
 
 
 def legs(x, reps=20):
     plane = x.numel() * x.element_size()
     out = {}
+    for form in ("separable_staged", "staged"):
+        for b in TILES:
+            out[f"{form} {b[0]}x{b[1]}"] = (
+                lambda f=form, b=b: stencil(x, "slope", f, block=b), reps,
+                2 * plane)
     for form in ("nine", "separable"):
         for b in BLOCKS:
             out[f"{form} {b[0]}x{b[1]}"] = (

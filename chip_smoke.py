@@ -143,7 +143,16 @@ Phases, each fatal on failure:
    one 4 bytes off, equal to the first-port separable form bit for bit
    and within the surface tolerance of its twin, each launch counted on
    the route its plan names (``cuda_stencil_probe.SEP_TMA_LAUNCHES``,
-   ``SEP_ASYNC_LAUNCHES``);
+   ``SEP_ASYNC_LAUNCHES``); B8e's and B8f's redesigns, the staged form
+   with edges interior (the interior walk, then the edge bands), bare (the
+   walk alone) and ring_branch (the full walk with a per-cell ring test),
+   at every tile at those shapes, at 45x300 (clamped tiles) and at 40x70
+   (no interior), from an aligned base and one 4 bytes off: interior and
+   ring_branch equal to the surface kernel bit for bit, NaN ring
+   included, bare on ``staged_interior_extent``, each launch counted on
+   the route its plan names (``INTERIOR_TMA_LAUNCHES``/
+   ``INTERIOR_ASYNC_LAUNCHES``, ``RING_TMA_LAUNCHES``/
+   ``RING_ASYNC_LAUNCHES``, ``EDGE_LAUNCHES``);
    the fused group (B8g) against the round kernel launched once per
    stride, bit for bit, in both state forms at every metric, for
    proximity's tail group, (64,) and (2, 1), on each of its routes: the
@@ -156,7 +165,10 @@ Phases, each fatal on failure:
    roof; every staged launch of ``exp_stencil2`` and every staged
    separable launch of ``exp_separable_horn`` on the TMA route;
    ``exp_separable_horn`` times the staged separable form and B8c's
-   staged slope at each tile in turns with the first ports);
+   staged slope at each tile in turns with the first ports; every
+   interior-walk and ring_branch launch of ``exp_padfree_stencil`` and
+   ``exp_seam_cost`` on the TMA route, and at least one edge-band launch
+   of ``exp_padfree_stencil``);
    ``exp_jfa_fixed`` at its 4096^2 (the JAX probe's groups that
    fit, against the round kernel); then the fused group on proximity's
    16384^2 packed state after its first 9 rounds (targets ``dem > 900``):
@@ -174,10 +186,11 @@ phase 18 (``measured_roof_bound_ms``, and its share of ``ms``), and
 the design its timed launch ran (``design``: the staged route and tile of
 the surface, focal and pipeline kernels, the screen's culled share, the
 stream kernels' bulk rings, the jump-flood round's per-stride routes, the
-group's window, B0's route and tile, B8d's staged separable form) and,
-for the redesigned kernels that keep their first port by name (surface,
-focal, pipeline, screen, jump-flood round and group, the stacked surface
-kernel B0, the stencil probes B8c and B8d), that port's time in turns
+group's window, B0's route and tile, B8d's staged separable form, B8e's
+and B8f's interior walk) and, for the redesigned kernels that keep their
+first port by name (surface, focal, pipeline, screen, jump-flood round and
+group, the stacked surface kernel B0, the stencil probes B8c-f), that
+port's time in turns
 (``first_port_ms``), each entry with the card's name and power limit
 (``card``); the last line is ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script exits 1 before printing any result.
@@ -1209,6 +1222,10 @@ def reset_launches():
     cuda_stencil_probe.TMA_LAUNCHES = cuda_stencil_probe.ASYNC_LAUNCHES = 0
     cuda_stencil_probe.SEP_TMA_LAUNCHES = 0
     cuda_stencil_probe.SEP_ASYNC_LAUNCHES = 0
+    cuda_stencil_probe.INTERIOR_TMA_LAUNCHES = 0
+    cuda_stencil_probe.INTERIOR_ASYNC_LAUNCHES = 0
+    cuda_stencil_probe.RING_TMA_LAUNCHES = 0
+    cuda_stencil_probe.RING_ASYNC_LAUNCHES = 0
     cuda_jfa_group.LAUNCHES = 0
     cuda_jfa_group.SINGLE_LAUNCHES = cuda_jfa_group.DOUBLE_LAUNCHES = 0
 
@@ -1238,6 +1255,11 @@ def read_launches():
             "stencil_staged_async": cuda_stencil_probe.ASYNC_LAUNCHES,
             "stencil_sep_tma": cuda_stencil_probe.SEP_TMA_LAUNCHES,
             "stencil_sep_async": cuda_stencil_probe.SEP_ASYNC_LAUNCHES,
+            "stencil_interior_tma": cuda_stencil_probe.INTERIOR_TMA_LAUNCHES,
+            "stencil_interior_async":
+                cuda_stencil_probe.INTERIOR_ASYNC_LAUNCHES,
+            "stencil_ring_tma": cuda_stencil_probe.RING_TMA_LAUNCHES,
+            "stencil_ring_async": cuda_stencil_probe.RING_ASYNC_LAUNCHES,
             "jfa_group": cuda_jfa_group.LAUNCHES}
 
 
@@ -2376,6 +2398,7 @@ def shadows_path(dev, card):
 
 PROBE_SHAPES = ((300, 70), (257, 1025))
 STAGED_RAGGED = (263, 516)           # ragged, but TMA's pitch rule holds
+PROBE_TILE = (64, 128)               # the tile B8c-f's rows report (B1's)
 GROUP_TAIL = (16, 8, 4, 2, 1, 2, 1)   # the last rounds of proximity at N
 JFA_FIXED_N = 4096                   # the JAX probe's raster edge
 GROUPS = {"tail": GROUP_TAIL, "64": (64,), "2_1": (2, 1)}
@@ -2397,10 +2420,20 @@ PROBE_ROWS = {
                           "twin separable", None,
                           ("stencil_sep_tma", "stencil_sep_async"),
                           "separable 32x8"),
-    "stencil_probe_b8e": ("exp_padfree_stencil", "interior 32x8", "twin",
-                          None, ("stencil_probe",), None),
-    "stencil_probe_b8f": ("exp_seam_cost", "bare", "twin", None,
-                          ("stencil_probe",), None)}
+    "stencil_probe_b8e": ("exp_padfree_stencil", "interior staged 64x128",
+                          "twin", None,
+                          ("stencil_interior_tma", "stencil_interior_async",
+                           "stencil_edge"), "interior 32x8"),
+    "stencil_probe_b8f": ("exp_seam_cost", "bare staged 64x128", "twin",
+                          None,
+                          ("stencil_interior_tma", "stencil_interior_async",
+                           "stencil_ring_tma", "stencil_ring_async"),
+                          "bare")}
+# B8e's and B8f's staged forms, checked in phase 21: the edges, and the
+# shapes beside PROBE_SHAPES and STAGED_RAGGED (45x300: clamped tiles on
+# TMA; 40x70: no interior)
+STAGED_EDGES = ("interior", "bare", "ring_branch")
+EDGE_SHAPES = ((45, 300), (40, 70))
 
 
 def check_stencil_probes(dev):
@@ -2411,7 +2444,7 @@ def check_stencil_probes(dev):
     from xrspatial_torch.kernels import cuda_stencil_probe, cuda_surface
     from xrspatial_torch.kernels.stencil_probe import (BLOCKS, MODES,
                                                        STAGED_FORMS, TILES,
-                                                       VARIANTS,
+                                                       VARIANTS, bare_extent,
                                                        interior_extent,
                                                        staged_plan,
                                                        stencil_twin)
@@ -2517,7 +2550,52 @@ def check_stencil_probes(dev):
                     check(f"{tag} vs twin ({route}; = first port)", got, ref,
                           SURFACE_TOL))
         torch.cuda.synchronize()
+    for k, shape in enumerate(PROBE_SHAPES + (STAGED_RAGGED,) + EDGE_SHAPES):
+        x = torch.from_numpy(test_raster(shape, seed=870 + k)).to(dev)
+        b1 = cuda_surface.surface_cuda(x, ("slope",))[0]
+        for label, xx in (("aligned", x), ("base+4", unaligned(x))):
+            for tile, edges in ((t, e) for t in TILES for e in STAGED_EDGES):
+                row, got, route = check_staged_edges(xx, tile, edges)
+                tag = (f"stencil {shape} {label} slope staged {edges} "
+                       f"{tile[0]}x{tile[1]}, {route}")
+                r0, r1, c0, c1 = bare_extent(*shape, "staged", tile)
+                if edges != "bare":
+                    r0, r1, c0, c1 = 0, shape[0], 0, shape[1]
+                g, b = got[r0:r1, c0:c1], b1[r0:r1, c0:c1]
+                if not same_bits(g, b):
+                    raise SmokeFailure(f"{tag}: differs from the surface "
+                                       f"kernel")
+                errs[row] = max(errs[row], check(
+                    f"{tag} vs twin (= surface kernel)", g,
+                    stencil_twin(xx, "slope", "staged", edges,
+                                 tile)[r0:r1, c0:c1], SURFACE_TOL))
+        torch.cuda.synchronize()
     return errs
+
+
+def check_staged_edges(x, tile, edges):
+    """One launch set of B8e's or B8f's staged form on `x`, counted on the
+    route its plan names: (kernels-line row, result, route)."""
+    from xrspatial_torch.kernels import cuda_stencil_probe as csp
+    from xrspatial_torch.kernels.stencil_probe import staged_plan
+    walk = "full" if edges == "ring_branch" else "interior"
+    plan = staged_plan(*x.shape, tile, x.data_ptr(), walk=walk)
+    tma, ran = plan.route == "tma", plan.tiles > 0
+    names = ("INTERIOR_TMA_LAUNCHES", "INTERIOR_ASYNC_LAUNCHES",
+             "RING_TMA_LAUNCHES", "RING_ASYNC_LAUNCHES", "EDGE_LAUNCHES",
+             "TMA_LAUNCHES", "ASYNC_LAUNCHES", "LAUNCHES")
+    want = {"interior": (tma and ran, ran and not tma, 0, 0, 1),
+            "bare": (tma and ran, ran and not tma, 0, 0, 0),
+            "ring_branch": (0, 0, tma, not tma, 0)}[edges] + (0, 0, 0)
+    before = [getattr(csp, n) for n in names]
+    got = csp.stencil_probe_cuda(x, "slope", "staged", edges, tile)
+    counted = tuple(getattr(csp, n) - b for n, b in zip(names, before))
+    if counted != tuple(map(int, want)):
+        raise SmokeFailure(f"staged {edges} {tile} at {tuple(x.shape)}: "
+                           f"planned route {plan.route}, {plan.tiles} tiles; "
+                           f"launches {dict(zip(names, counted))}")
+    row = "stencil_probe_b8f" if edges != "interior" else "stencil_probe_b8e"
+    return row, got, plan.route
 
 
 def group_case(dev, form, metric, axes, shape, rng):
@@ -2640,6 +2718,16 @@ def stencil_probes_path(roof_gb_s, card):
                 or launches["stencil_staged_async"]):
             raise SmokeFailure(f"{tool}: the staged separable legs did not "
                                f"all take TMA: launches {launches}")
+        # B8e's and B8f's interior walk, and B8f's ring_branch, on TMA
+        if tool in ("exp_padfree_stencil", "exp_seam_cost") and (
+                not launches["stencil_interior_tma"]
+                or launches["stencil_interior_async"]
+                or launches["stencil_ring_async"]
+                or launches["stencil_staged_async"]
+                or (tool == "exp_seam_cost"
+                    and not launches["stencil_ring_tma"])):
+            raise SmokeFailure(f"{tool}: the staged legs did not all take "
+                               f"TMA: launches {launches}")
         print(f"  launches {launches}")
         for name, data in res["inputs"].items():
             for label, r in data["legs"].items():
@@ -2800,12 +2888,12 @@ def kernel_work(n_offsets_main, n_offsets_annulus, screen_counts):
     """(bytes, float operations) of each kernel at the work its timing
     measured; for the screen, the work its culled route does on this run's
     data: the pairs of the (warp, chunk) pairs it keeps."""
-    from xrspatial_torch.kernels.stencil_probe import interior_extent
+    from xrspatial_torch.kernels.stencil_probe import staged_interior_extent
     cells = N * N
     plane = 4 * cells                      # one float32 or int32 plane
     focal = FOCAL_OPS_PER_OFFSET * n_offsets_main + FOCAL_OPS
     _, covered, evaluated, screen_nbytes, prepass_nbytes = screen_counts
-    r0, r1, c0, c1 = interior_extent(N, N, (32, 8))
+    r0, r1, c0, c1 = staged_interior_extent(N, N, PROBE_TILE)
     return {
         # 1 read, slope and hillshade written
         "surface_kernel": (3 * plane, SURFACE_OPS * cells),
@@ -2833,7 +2921,8 @@ def kernel_work(n_offsets_main, n_offsets_annulus, screen_counts):
         "stencil_probe_b8c": (2 * plane, 0),
         "stencil_probe_b8d": (2 * plane, SEP_STAGED_OPS * cells),
         "stencil_probe_b8e": (2 * plane, SLOPE_OPS * cells),
-        # bare writes the interior blocks and reads them with their halo
+        # bare writes the interior walk's cells and reads them with their
+        # halo
         "stencil_probe_b8f": (4 * ((r1 - r0 + 2) * (c1 - c0 + 2)
                                    + (r1 - r0) * (c1 - c0)),
                               SLOPE_OPS * (r1 - r0) * (c1 - c0)),
@@ -3202,6 +3291,13 @@ def main() -> int:
         "stencil_probe_b8d": "separable arithmetic (6 column smooths and "
                              "differences a quad) on the staged window by "
                              "TMA, 64x128, 16-byte stores",
+        "stencil_probe_b8e": "staged window ring by TMA on the interior "
+                             "walk (windows inside the raster, last tiles "
+                             "pulled back), 64x128, no bounds test, 16-byte "
+                             "stores; the edge bands by a second launch",
+        "stencil_probe_b8f": "bare: the staged interior walk alone by TMA, "
+                             "64x128, the cells outside [1, h-1) x [4, w-4) "
+                             "unwritten",
         "surface_stacked_kernel": f"B1's staged window ring by "
                                   f"{stacked.route}, tile {stacked.tile[0]}x"
                                   f"{stacked.tile[1]}, {stacked.stages} "

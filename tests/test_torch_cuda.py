@@ -40,7 +40,10 @@ for bit, the rest within the surface tolerance) and its nine-read and
 staged slope equal the surface kernel's bit for bit, NaN ring included;
 the staged form takes the route its plan names, and B8d's staged
 separable form equals the first-port separable form bit for bit on both
-routes; the stream copy and add
+routes; B8e's and B8f's staged forms (the interior walk with its edge
+bands, the walk alone, and ring_branch) equal the surface kernel's slope
+bit for bit (bare on its extent), each launch counted on its plan's route,
+and the edge-band launch alone writes only the bands; the stream copy and add
 equal their twins at every alignment of their pointers; the
 large-footprint focal kernel takes the route its plan names and its
 staged routes equal the ring route bit for bit; the jump-flood round
@@ -1548,6 +1551,90 @@ def test_separable_staged_matches_first_port_separable(cuda, shape):
             assert_matches(got, ref, SURFACE_TOL, tag)
 
 
+STAGED_EDGES = ("interior", "bare", "ring_branch")
+
+
+def staged_edge_counts():
+    return (cuda_stencil_probe.INTERIOR_TMA_LAUNCHES,
+            cuda_stencil_probe.INTERIOR_ASYNC_LAUNCHES,
+            cuda_stencil_probe.RING_TMA_LAUNCHES,
+            cuda_stencil_probe.RING_ASYNC_LAUNCHES,
+            cuda_stencil_probe.EDGE_LAUNCHES,
+            cuda_stencil_probe.TMA_LAUNCHES,
+            cuda_stencil_probe.ASYNC_LAUNCHES,
+            cuda_stencil_probe.LAUNCHES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", ["aligned", "base+4"])
+@pytest.mark.parametrize("shape", [(263, 516), (257, 1025), (45, 300),
+                                   (40, 70)])
+def test_staged_edges_equal_the_surface_kernel(cuda, shape, base):
+    """B8e's and B8f's redesigns at every tile: edges interior (the
+    interior walk and the edge bands) and ring_branch equal the surface
+    kernel's slope bit for bit, NaN ring included; bare equals it on
+    ``staged_interior_extent``.  Each launch counted on the route its plan
+    names: the interior walk's on TMA where w % 4 == 0 and the base is
+    aligned (263x516, 45x300), else on cp.async; none where the raster
+    has no interior (40x70, and 45x300 at 64x128)."""
+    data = staged_raster(shape, seed=53)
+    x = torch.from_numpy(data).to(cuda)
+    b1 = cuda_surface.surface_cuda(x, ("slope",))[0]
+    if base == "base+4":
+        x = off_by_four(x)
+    for tile in stencil_probe.TILES:
+        for edges in STAGED_EDGES:
+            walk = "full" if edges == "ring_branch" else "interior"
+            plan = stencil_probe.staged_plan(*shape, tile, x.data_ptr(),
+                                             walk=walk)
+            assert plan.route == ("tma" if shape[1] % 4 == 0
+                                  and base == "aligned" else "async")
+            tma, ran = plan.route == "tma", plan.tiles > 0
+            want = {"interior": (tma and ran, ran and not tma, 0, 0, 1),
+                    "bare": (tma and ran, ran and not tma, 0, 0, 0),
+                    "ring_branch": (0, 0, tma, not tma, 0)}[edges]
+            before = staged_edge_counts()
+            got = cuda_stencil_probe.stencil_probe_cuda(x, "slope", "staged",
+                                                        edges, tile)
+            torch.cuda.synchronize()
+            tag = f"{shape} {base} {edges} {tile}"
+            assert tuple(a - b for a, b in zip(staged_edge_counts(),
+                                               before)) == (*want, 0, 0, 0), \
+                tag
+            r0, r1, c0, c1 = stencil_probe.bare_extent(*shape, "staged", tile)
+            if edges == "bare":
+                assert (r1 - r0) * (c1 - c0) > 0 or not ran, tag
+                got, ref = got[r0:r1, c0:c1], b1[r0:r1, c0:c1]
+            else:
+                ref = b1
+            assert torch.equal(torch.isnan(got), torch.isnan(ref)), tag
+            assert torch.equal(torch.nan_to_num(got),
+                               torch.nan_to_num(ref)), tag
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(263, 516), (257, 1025), (40, 70)])
+def test_edge_bands_alone_write_only_the_bands(cuda, shape):
+    """One launch of the edge-band kernel writes the surface kernel's slope
+    outside the extent and leaves the interior as it was."""
+    data = staged_raster(shape, seed=59)
+    x = torch.from_numpy(data).to(cuda)
+    b1 = cuda_surface.surface_cuda(x, ("slope",))[0]
+    extent = stencil_probe.staged_interior_extent(*shape)
+    r0, r1, c0, c1 = extent
+    out = torch.full_like(x, 7.0)
+    before = cuda_stencil_probe.EDGE_LAUNCHES
+    cuda_stencil_probe.edge_bands_cuda(x, out, extent)
+    torch.cuda.synchronize()
+    assert cuda_stencil_probe.EDGE_LAUNCHES == before + 1
+    inside = torch.zeros(shape, dtype=torch.bool, device=cuda)
+    inside[r0:r1, c0:c1] = True
+    assert bool((out[inside] == 7.0).all())
+    got, ref = out[~inside], b1[~inside]
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+
+
 @pytest.mark.gpu
 def test_staged_stencil_takes_cp_async_from_an_unaligned_base(cuda):
     """A raster whose pitch suits TMA but whose base is not 16-byte
@@ -1575,6 +1662,9 @@ def test_stencil_probe_wrapper_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="instantiation"):
         cuda_stencil_probe.stencil_probe_cuda(x, "copy", "staged", "ring",
                                               (32, 8))
+    with pytest.raises(ValueError, match="instantiation"):
+        cuda_stencil_probe.stencil_probe_cuda(x, "slope", "nine",
+                                              "ring_branch", (32, 8))
 
 
 GROUP_CASES = {"packed_euclidean": ("packed", 0),

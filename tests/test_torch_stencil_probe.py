@@ -25,7 +25,12 @@ redesign, form separable_staged (the separable arithmetic on the staged
 windows), is held through ``emulate.emulate_separable_staged``, written
 with its windows and quad arithmetic: equal to the separable twin bit for
 bit and within the surface tolerance of the TPU probe's separable
-arithmetic.
+arithmetic.  B8e's and B8f's redesigns, form staged with edges interior,
+bare and ring_branch, are held through ``staged.tile_origin`` (the
+interior walk's windows all inside the raster, its tiles covering the
+interior) and ``emulate.emulate_interior_staged``, written with the walk
+and the edge-band kernel's index arithmetic: equal to ``surface_multi``'s
+slope bit for bit.
 """
 
 import jax.numpy as jnp
@@ -35,7 +40,11 @@ import torch
 
 from xrspatial_torch.kernels import cuda_stencil_probe
 from xrspatial_torch.kernels import stencil_probe as sp
-from xrspatial_torch.kernels.emulate import emulate_separable_staged
+from xrspatial_torch.kernels import surface as ts
+from xrspatial_torch.kernels.emulate import (emulate_interior_staged,
+                                             emulate_separable_staged,
+                                             same_bits)
+from xrspatial_torch.kernels.staged import tile_origin, walk_tiles
 from xrspatial_tpu.kernels.pallas_surface import DEG, _atan
 from xrspatial_tpu.kernels.pallas_surface2 import _atan_of_sqrt, surface_tiled
 from xrspatial_tpu.kernels.surface import slope_jit
@@ -93,7 +102,7 @@ def test_twin_of_every_instantiation_matches_slope_jit(variant):
                        np.tan(np.radians(ref.astype(np.float64))))
     region = (slice(None), slice(None))
     if edges == "bare":
-        r0, r1, c0, c1 = sp.interior_extent(*data.shape, block)
+        r0, r1, c0, c1 = sp.bare_extent(*data.shape, form, block)
         region = (slice(r0, r1), slice(c0, c1))
         outside = np.ones(data.shape, bool)
         outside[region] = False
@@ -180,8 +189,10 @@ def test_nine_and_separable_forms_agree():
 
 @pytest.mark.parametrize(
     "form,edges", [("nine", "ring"), ("nine", "interior"), ("nine", "bare"),
-                   ("staged", "ring")],
-    ids=["ring", "interior", "bare", "staged-ring"])
+                   ("staged", "ring"), ("staged", "interior"),
+                   ("staged", "bare"), ("staged", "ring_branch")],
+    ids=["ring", "interior", "bare", "staged-ring", "staged-interior",
+         "staged-bare", "staged-ring_branch"])
 def test_twin_matches_surface_tiled_interpret_at_a_ragged_shape(form, edges):
     """B1 itself, the TPU kernel the probes measure, at 37 x 300 in
     interpret mode (its ragged NaN pad and seam bands included)."""
@@ -193,7 +204,8 @@ def test_twin_matches_surface_tiled_interpret_at_a_ragged_shape(form, edges):
     got = twin(data, "slope", form, edges)
     region = (slice(None), slice(None))
     if edges == "bare":
-        r0, r1, c0, c1 = sp.interior_extent(37, 300)
+        r0, r1, c0, c1 = sp.bare_extent(37, 300, form)
+        assert r1 > r0 and c1 > c0
         region = (slice(r0, r1), slice(c0, c1))
     assert_surface_close(got, ref, region)
 
@@ -222,8 +234,8 @@ def test_interior_extent(shape, block, extent):
                                              (32, 8)),
     ("slope", "separable", "bare", (32, 8)), ("slope", "nine", "ring",
                                               (16, 16)),
-    ("aspect", "nine", "ring", (32, 8)), ("slope", "staged", "interior",
-                                         (32, 128)),
+    ("aspect", "nine", "ring", (32, 8)), ("grad", "staged", "interior",
+                                         (64, 128)),
     ("slope", "staged", "ring", (32, 8)), ("copy", "nine", "ring", (32, 128)),
     ("slope", "separable_staged", "ring", (32, 8)),
     ("grad", "separable_staged", "ring", (32, 128)),
@@ -345,9 +357,152 @@ def test_staged_forms_refuse_a_cpu_tensor(form, tile):
                 cuda_stencil_probe.ASYNC_LAUNCHES,
                 cuda_stencil_probe.SEP_TMA_LAUNCHES,
                 cuda_stencil_probe.SEP_ASYNC_LAUNCHES,
+                cuda_stencil_probe.INTERIOR_TMA_LAUNCHES,
+                cuda_stencil_probe.INTERIOR_ASYNC_LAUNCHES,
+                cuda_stencil_probe.RING_TMA_LAUNCHES,
+                cuda_stencil_probe.RING_ASYNC_LAUNCHES,
+                cuda_stencil_probe.EDGE_LAUNCHES,
                 cuda_stencil_probe.LAUNCHES)
     before = counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_stencil_probe.stencil_probe_cuda(torch.ones((8, 8)), "slope",
                                               form, block=tile)
+    assert counts() == before
+
+
+# -- B8e's and B8f's redesigns: the staged ring's interior walk --------------
+
+WALK_SHAPES = [(16384, 16384), (263, 516), (257, 1025), (45, 300), (66, 136),
+               (34, 256), (300, 70), (40, 70)]
+
+
+@pytest.mark.parametrize("tile", sp.TILES)
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_interior_walk_keeps_every_window_inside_the_raster(shape, tile):
+    """Every tile's window (rows r0 - 1 .. r0 + TH, columns c0 - 4 ..
+    c0 + TW + 3) lies inside the raster; the tiles cover [1, h - 1) x
+    [4, w - 4) and nothing else; c0 - 4 is a multiple of 4 where
+    w % 4 == 0 (TMA's 16-byte rule); the plan counts the walk's tiles."""
+    h, w = shape
+    th, tw = tile
+    ty, tx = walk_tiles(h, w, tile, "interior")
+    plan = sp.staged_plan(h, w, tile, walk="interior")
+    assert plan.tiles == ty * tx
+    assert plan.grid == min(plan.tiles, 264)
+    assert plan.route == ("tma" if w % 4 == 0 else "async")
+    if plan.tiles == 0:
+        return
+    r0s = {tile_origin(t * tx, h, w, tile, "interior")[0] for t in range(ty)}
+    c0s = {tile_origin(t, h, w, tile, "interior")[1] for t in range(tx)}
+    assert len(r0s) == ty and len(c0s) == tx
+    for r0 in r0s:
+        assert r0 - 1 >= 0 and r0 + th <= h - 1
+    for c0 in c0s:
+        assert c0 - 4 >= 0 and c0 + tw + 3 <= w - 1
+        if w % 4 == 0:
+            assert (c0 - 4) % 4 == 0
+    rows = set().union(*(range(r, r + th) for r in r0s))
+    cols = set().union(*(range(c, c + tw) for c in c0s))
+    assert rows == set(range(1, h - 1)) and cols == set(range(4, w - 4))
+    assert sp.staged_interior_extent(h, w, tile) == (1, h - 1, 4, w - 4)
+
+
+@pytest.mark.parametrize("tile", sp.TILES)
+@pytest.mark.parametrize("short", ["rows", "columns", "both"])
+def test_interior_walk_is_empty_below_a_tile_and_its_halo(tile, short):
+    """No tile, grid 0 and an empty extent below TH + 2 rows or TW + 8
+    columns; at exactly TH + 2 and TW + 8 one tile."""
+    th, tw = tile
+    h = th + 1 if short in ("rows", "both") else th + 2
+    w = tw + 7 if short in ("columns", "both") else tw + 8
+    plan = sp.staged_plan(h, w, tile, walk="interior")
+    assert (plan.tiles, plan.grid) == (0, 0)
+    r0, r1, c0, c1 = sp.staged_interior_extent(h, w, tile)
+    assert r0 == r1 and c0 == c1
+    assert sp.staged_plan(th + 2, tw + 8, tile, walk="interior").tiles == 1
+
+
+@pytest.mark.parametrize("tile", sp.TILES)
+@pytest.mark.parametrize("shape", [(263, 516), (257, 1025), (45, 300),
+                                   (40, 70)])
+def test_emulated_interior_walk_and_edge_bands_equal_surface_multi(shape,
+                                                                    tile):
+    """Edges interior: the interior walk's windows (no fill needed) and the
+    edge-band kernel's cells give ``surface_multi``'s slope bit for bit,
+    NaN ring, NaN cells and +-inf included; every cell is written, each
+    edge-band cell once and by the edge launch alone; bare writes only
+    ``staged_interior_extent``'s rectangle and equals the twin."""
+    x = torch.from_numpy(raster(shape, seed=8))
+    x[shape[0] // 2, shape[1] // 3] = np.inf
+    x[shape[0] - 1, 5] = -np.inf
+    ref = ts.surface_multi(x, 1.0, 1.0, 225.0, 25.0, ("slope",))["slope"]
+    got, writes = emulate_interior_staged(x, tile, "interior")
+    assert same_bits(got, ref)
+    bare, bare_writes = emulate_interior_staged(x, tile, "bare")
+    r0, r1, c0, c1 = sp.staged_interior_extent(*shape, tile)
+    inside = torch.zeros(shape, dtype=torch.bool)
+    inside[r0:r1, c0:c1] = True
+    assert bool((bare_writes[inside] >= 1).all())
+    assert bool((bare_writes[~inside] == 0).all())
+    assert bool((writes[~inside] == 1).all())
+    assert same_bits(bare, sp.stencil_twin(x, "slope", "staged", "bare",
+                                           tile))
+    assert same_bits(bare[inside], ref[inside])
+
+
+@pytest.mark.parametrize("edges", ["interior", "ring_branch"])
+@pytest.mark.parametrize("shape", [(263, 516), (40, 70), (2, 5)])
+def test_staged_edges_twins_equal_the_ring_twin(shape, edges):
+    """Edges interior and ring_branch compute what edges ring computes:
+    B1's slope, NaN ring included, at every tile."""
+    x = torch.from_numpy(raster(shape, seed=9))
+    ref = sp.stencil_twin(x, "slope", "staged")
+    for tile in sp.TILES:
+        assert same_bits(sp.stencil_twin(x, "slope", "staged", edges, tile),
+                         ref)
+
+
+@pytest.mark.parametrize("edges", ["interior", "bare", "ring_branch"])
+def test_new_staged_edges_are_instantiated_only_for_staged_slope(edges):
+    """At every tile in form staged, mode slope; never in form nine
+    (ring_branch) or separable_staged, nor in copy or grad."""
+    for tile in sp.TILES:
+        sp.check_variant("slope", "staged", edges, tile)
+        for mode, form in (("copy", "staged"), ("grad", "staged"),
+                           ("slope", "separable_staged")):
+            with pytest.raises(ValueError, match="no stencil_probe"):
+                sp.check_variant(mode, form, edges, tile)
+    if edges == "ring_branch":
+        with pytest.raises(ValueError, match="no stencil_probe"):
+            sp.check_variant("slope", "nine", edges, (32, 8))
+
+
+def test_edge_bands_refuse_cpu_tensors():
+    """The edge-band launch takes only tensors on the card, and counts
+    nothing when it refuses."""
+    before = cuda_stencil_probe.EDGE_LAUNCHES
+    x = torch.ones((8, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_stencil_probe.edge_bands_cuda(x, torch.empty_like(x),
+                                           (1, 7, 4, 4))
+    assert cuda_stencil_probe.EDGE_LAUNCHES == before
+
+
+@pytest.mark.parametrize("edges", ["interior", "bare", "ring_branch"])
+@pytest.mark.parametrize("tile", sp.TILES)
+def test_staged_edges_refuse_a_cpu_tensor(edges, tile):
+    """The interior walk, its edge bands and ring_branch take only a tensor
+    on the card, and count nothing when they refuse."""
+    def counts():
+        return (cuda_stencil_probe.INTERIOR_TMA_LAUNCHES,
+                cuda_stencil_probe.INTERIOR_ASYNC_LAUNCHES,
+                cuda_stencil_probe.RING_TMA_LAUNCHES,
+                cuda_stencil_probe.RING_ASYNC_LAUNCHES,
+                cuda_stencil_probe.EDGE_LAUNCHES,
+                cuda_stencil_probe.TMA_LAUNCHES,
+                cuda_stencil_probe.ASYNC_LAUNCHES)
+    before = counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_stencil_probe.stencil_probe_cuda(torch.ones((80, 300)), "slope",
+                                              "staged", edges, tile)
     assert counts() == before

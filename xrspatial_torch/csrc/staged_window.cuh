@@ -20,6 +20,16 @@
 // The launcher of each kernel picks the route by that rule alone
 // (staged_route) and checks that the caller's plan (kernels/staged.py::
 // staged_plan) agrees.
+// The walk is a compile-time parameter.  kWalkFull (every kernel's
+// default) tiles the whole raster from (0, 0), so the last row and column
+// of tiles are ragged and the windows at the raster's border reach out of
+// it.  kWalkInterior (the stencil probes B8e and B8f) tiles only output
+// rows [1, h - 1) and columns [4, w - 4): the tile at (ty, tx) starts at
+// r0 = 1 + min(ty * TH, h - 2 - TH), c0 = 4 + min(tx * TW, w - 8 - TW), so
+// the last row and column of tiles are pulled back to overlap their
+// neighbours (which write the same bits twice) and every window lies
+// wholly inside the raster; where w % 4 == 0, c0 - 4 is a multiple of 4.
+// It has tiles only where h - 2 >= TH and w - 8 >= TW.
 // - route phased (the stacked surface kernel B0 where TMA refuses, and by
 //   name at any pitch or base): each window row is placed in a row of
 //   kCols + 4 floats at its global phase f, the row's first image column's
@@ -46,6 +56,7 @@ constexpr int kStagedRouteTma = 0, kStagedRouteAsync = 1,
 constexpr int kStagedBarrierBytes = 128;  // the stages' mbarriers, 8 each
 constexpr int kStagedAlignSlack = 128;    // room to align the ring
 constexpr int kStagedMaxStages = 8;       // cp_async_wait counts up to 7
+constexpr int kWalkFull = 0, kWalkInterior = 1;
 
 // A TH x TW tile's window in shared memory: TH + 2 rows of kCols = TW + 8
 // floats, window (r, c) holding image cell (r0 - 1 + r, c0 - 4 + c).
@@ -89,14 +100,24 @@ __device__ __forceinline__ int row_phase(const RingArgs& a, long long row,
   return (int)((a.phase + row * a.w + c0 - 4) & 3);
 }
 
-// The first row and column of tile t of a raster `tiles_x` tiles wide,
-// tiles STRIDE columns apart; a kernel that computes SHIFT columns left of
-// the tile it writes gets its computing origin, SHIFT columns left.
-template <int TH, int TW, int STRIDE = TW, int SHIFT = 0>
-__device__ __forceinline__ void tile_origin(long long t, long long tiles_x,
+// The first row and column of tile t of the walk WALK over a raster
+// a.tiles_x tiles wide.  kWalkFull: tiles STRIDE columns apart from
+// (0, 0); a kernel that computes SHIFT columns left of the tile it writes
+// gets its computing origin, SHIFT columns left.  kWalkInterior: TH x TW
+// tiles from (1, 4), the last row and column pulled back inside (see the
+// top of the file).
+template <int TH, int TW, int STRIDE = TW, int SHIFT = 0,
+          int WALK = kWalkFull>
+__device__ __forceinline__ void tile_origin(long long t, const RingArgs& a,
                                             long long& r0, long long& c0) {
-  r0 = t / tiles_x * TH;
-  c0 = t % tiles_x * STRIDE - SHIFT;
+  if (WALK == kWalkInterior) {
+    const long long ty = t / a.tiles_x, tx = t % a.tiles_x;
+    r0 = 1 + (ty * TH < a.h - 2 - TH ? ty * TH : a.h - 2 - TH);
+    c0 = 4 + (tx * TW < a.w - 8 - TW ? tx * TW : a.w - 8 - TW);
+  } else {
+    r0 = t / a.tiles_x * TH;
+    c0 = t % a.tiles_x * STRIDE - SHIFT;
+  }
 }
 
 // One thread: the window of the tile at (r0, c0) by TMA into `dst`.
@@ -172,12 +193,12 @@ __device__ __forceinline__ void stage_copies(const RingArgs& a, float* win,
 
 // The block's tiles, blockIdx.x + k * gridDim.x for k < mine, tile k
 // staged in stage k % stages: calls tile(win, r0, c0) on every thread
-// once tile k's window (the tile at r0, c0, tile_origin's with STRIDE and
-// SHIFT) has landed in `win`.  `smem_raw` is the kernel's dynamic shared
+// once tile k's window (the tile at r0, c0, tile_origin's with STRIDE,
+// SHIFT and WALK) has landed in `win`.  `smem_raw` is the kernel's dynamic shared
 // memory, kStagedAlignSlack + kStagedBarrierBytes + stages *
 // stage_bytes(ROUTE) bytes.
 template <int TH, int TW, int ROUTE, int STRIDE = TW, int SHIFT = 0,
-          typename Tile>
+          int WALK = kWalkFull, typename Tile>
 __device__ __forceinline__ void staged_tiles(const CUtensorMap* map,
                                              const RingArgs& a,
                                              unsigned char* smem_raw,
@@ -200,8 +221,8 @@ __device__ __forceinline__ void staged_tiles(const CUtensorMap* map,
       for (int s = 0; s < a.stages; ++s) mbar_init(bars + 8 * s, 1);
       mbar_fence_init();
       for (int s = 0; s < a.stages && s < mine; ++s) {
-        tile_origin<TH, TW, STRIDE, SHIFT>(blockIdx.x + s * step, a.tiles_x,
-                                           r0, c0);
+        tile_origin<TH, TW, STRIDE, SHIFT, WALK>(blockIdx.x + s * step, a,
+                                                 r0, c0);
         stage_tma<TH, TW>(map, ring_addr + s * kStageBytes, bars + 8 * s,
                           r0, c0);
       }
@@ -210,8 +231,8 @@ __device__ __forceinline__ void staged_tiles(const CUtensorMap* map,
   } else {
     for (int s = 0; s + 1 < a.stages; ++s) {
       if (s < mine) {
-        tile_origin<TH, TW, STRIDE, SHIFT>(blockIdx.x + s * step, a.tiles_x,
-                                           r0, c0);
+        tile_origin<TH, TW, STRIDE, SHIFT, WALK>(blockIdx.x + s * step, a,
+                                                 r0, c0);
         stage_copies<TH, TW, ROUTE>(a, ring + s * kStageFloats, r0, c0);
       }
       cp_async_commit();
@@ -226,8 +247,8 @@ __device__ __forceinline__ void staged_tiles(const CUtensorMap* map,
       // thread left at the barrier that ended the last iteration
       const long long j = k + a.stages - 1;
       if (j < mine) {
-        tile_origin<TH, TW, STRIDE, SHIFT>(blockIdx.x + j * step, a.tiles_x,
-                                           r0, c0);
+        tile_origin<TH, TW, STRIDE, SHIFT, WALK>(blockIdx.x + j * step, a,
+                                                 r0, c0);
         stage_copies<TH, TW, ROUTE>(
             a, ring + (int)(j % a.stages) * kStageFloats, r0, c0);
       }
@@ -235,13 +256,13 @@ __device__ __forceinline__ void staged_tiles(const CUtensorMap* map,
       cp_async_wait(a.stages - 1);
       __syncthreads();
     }
-    tile_origin<TH, TW, STRIDE, SHIFT>(blockIdx.x + k * step, a.tiles_x, r0,
-                                       c0);
+    tile_origin<TH, TW, STRIDE, SHIFT, WALK>(blockIdx.x + k * step, a, r0,
+                                             c0);
     tile(static_cast<const float*>(ring + s * kStageFloats), r0, c0);
     __syncthreads();  // every thread has left stage s
     if (ROUTE == kStagedRouteTma && tid == 0 && k + a.stages < mine) {
-      tile_origin<TH, TW, STRIDE, SHIFT>(blockIdx.x + (k + a.stages) * step,
-                                         a.tiles_x, r0, c0);
+      tile_origin<TH, TW, STRIDE, SHIFT, WALK>(
+          blockIdx.x + (k + a.stages) * step, a, r0, c0);
       stage_tma<TH, TW>(map, ring_addr + s * kStageBytes, bars + 8 * s, r0,
                         c0);
     }
@@ -270,13 +291,16 @@ constexpr int staged_shared_bytes(int stages, int route = kStagedRouteTma) {
 // safe (TMA or async: the route rule's; phased, which takes any pitch and
 // base, where the caller asks for it; 2 .. kStagedMaxStages stages, the
 // shared bytes of that ring, a grid), and the TMA route's tensor map.
-// Tiles lie `stride` columns apart and cover w + `reach` columns.
-// Returns 0, or cudaErrorInvalidValue for a plan that disagrees, or the
-// negated CUresult of a failed tensor-map encode.
+// On kWalkFull, tiles lie `stride` columns apart and cover w + `reach`
+// columns; kWalkInterior has its own tiles (tile_origin), none where
+// h - 2 < TH or w - 8 < TW.  Returns 0, or cudaErrorInvalidValue for a
+// plan that disagrees, or the negated CUresult of a failed tensor-map
+// encode.
 template <int TH, int TW>
 int staged_setup(const float* x, bool outs_aligned, long long h, long long w,
                  int route, int stages, int grid, int smem, CUtensorMap* map,
-                 RingArgs* a, long long stride = TW, long long reach = 0) {
+                 RingArgs* a, long long stride = TW, long long reach = 0,
+                 int walk = kWalkFull) {
   using Win = Window<TH, TW>;
   if ((route != kStagedRoutePhased &&
        route != staged_route(x, outs_aligned, w)) ||
@@ -287,8 +311,14 @@ int staged_setup(const float* x, bool outs_aligned, long long h, long long w,
     const int err = encode_raster_map(map, x, h, w, Win::kCols, Win::kRows);
     if (err != 0) return err;
   }
-  const long long tiles_x = (w + reach + stride - 1) / stride;
-  *a = RingArgs{x,      h, w, tiles_x, tiles_x * ((h + TH - 1) / TH),
+  long long tiles_x = (w + reach + stride - 1) / stride;
+  long long tiles_y = (h + TH - 1) / TH;
+  if (walk == kWalkInterior) {
+    const bool any = h - 2 >= TH && w - 8 >= TW;
+    tiles_x = any ? (w - 8 + TW - 1) / TW : 0;
+    tiles_y = any ? (h - 2 + TH - 1) / TH : 0;
+  }
+  *a = RingArgs{x,      h, w, tiles_x, tiles_x * tiles_y,
                 stages, (int)(((uintptr_t)x >> 2) & 3)};
   return 0;
 }

@@ -30,8 +30,8 @@
 //   The first port of this probe, FORM nine (each thread makes nine
 //   global loads, B1's access pattern; copy folds the 8 neighbours into
 //   its output through a mask the wrapper passes as 0, so the loads stay),
-//   runs at blocks 32x8, 32x16 and 64x4 and stays: it is B8f's
-//   ring_branch and B8e's edge path.
+//   runs at blocks 32x8, 32x16 and 64x4 and stays by name, as do its
+//   interior and bare variants, B8e's and B8f's first ports.
 // - tools/exp_separable_horn.py::run (B8d): FORM nine (B1's nine reads)
 //   or separable: each warp walks down a strip of rows and keeps each
 //   column's vertical smooth x[r-1] + 2x[r] + x[r+1] and difference
@@ -55,14 +55,29 @@
 //   in shared memory, where no read is repeated from device memory: does
 //   computing the vertical sums once a column buy anything?
 // - tools/exp_padfree_stencil.py::slope_2d (B8e): EDGES interior.  The
-//   main launch covers only the blocks that lie wholly inside the ring and
-//   tests no bound; a second, small launch writes the edge bands and the
-//   ring.  The result equals B1's slope bit for bit.
-// - tools/exp_seam_cost.py::run (B8f): the port has no seam passes, so its
-//   variants become B1 with and without the border branch: ring_branch is
-//   EDGES ring (B1's per-cell test, surface_cell.cuh), bare is EDGES bare
-//   (interior blocks only, the ring and edge bands left unwritten); prod
-//   is B1 itself, called by name.
+//   TPU probe clamps its interior tiles so that the last overlaps its
+//   neighbour and no window reaches outside the raster, and writes the
+//   thin edge bands in a second pass.  Redesigned for Hopper as FORM
+//   staged, EDGES interior: B8c's staged ring on staged_window.cuh's
+//   interior walk (kWalkInterior: output rows [1, h - 1), columns
+//   [4, w - 4), the last tiles pulled back), so every window lies wholly
+//   inside the raster, TMA takes every box and none needs its NaN fill;
+//   the tile loop has no bounds test, and the TMA route stores 16 bytes a
+//   thread.  A second launch, stencil_edge_kernel on the extent
+//   (1, h - 1, 4, w - 4), writes rows 0 and h - 1 and the 4 columns at
+//   each side (B1's per-cell ring test, checked_cell).  The result equals
+//   B1's slope bit for bit.  The first port, FORM nine with the main
+//   launch on the blocks wholly inside the ring (stencil_interior_kernel)
+//   and the same edge kernel on the rest, stays by name.
+// - tools/exp_seam_cost.py::run (B8f): the port has no seam passes; the
+//   question becomes what B1's border machinery (the NaN-filled edge
+//   windows, the bounds tests, the ragged tiles) costs on the staged
+//   ring.  FORM staged, EDGES bare is the interior walk alone (the cells
+//   outside [1, h - 1) x [4, w - 4) left unwritten); EDGES ring_branch is
+//   B8c's full walk with B1's first port's per-cell ring test compiled
+//   into the quad in place of relying on the NaN fill; prod is B1 itself,
+//   called by name.  The first ports, FORM nine EDGES ring (B1's per-cell
+//   test) and EDGES bare (the interior blocks alone), stay by name.
 //
 // Every slope is B1's expression: sx / (8*csx) (exact at csx = 1, where
 // the TPU probes multiply by 0.125), libdevice sqrtf and atanf, the same
@@ -73,9 +88,11 @@
 // 16384^2 and 3.35 TB/s; the staged form also re-reads each window's halo,
 // 2/TH + 8/TW of the plane (12.5% at 32x128), mostly from the 50 MB L2.
 // What the variants measure: copy against slope is the arithmetic's share
-// of the time, interior and bare against ring_branch the bounds checks'
-// and the ring branch's, separable against nine the cost of the nine
-// reads, staged against nine what a shared-memory window buys,
+// of the time; on the staged ring, bare against B1 what the NaN-filled
+// edge windows, the bounds tests and the ragged tiles cost, ring_branch
+// against staged slope what an explicit ring test costs; separable
+// against nine the cost of the nine reads, staged against nine what a
+// shared-memory window buys,
 // separable_staged against staged what the separable arithmetic (~20
 // float operations a cell against ~24) buys once the window is in shared
 // memory.
@@ -92,7 +109,7 @@ namespace {
 constexpr int kCopy = 0, kGrad = 1, kSlope = 2;
 constexpr int kSepSlope = 3;  // the staged kernel's separable slope
 constexpr int kNine = 0, kSeparable = 1;
-constexpr int kRing = 0, kInterior = 1, kBare = 2;
+constexpr int kRing = 0, kInterior = 1, kBare = 2, kRingBranch = 3;
 constexpr int kEdgeThreads = 256;
 
 // grad or slope from the Sobel sums, as surface_cell.cuh computes slope
@@ -280,6 +297,19 @@ struct Launch {
   cudaStream_t stream;
 };
 
+// The edge-band kernel on the cells outside [r0, r1) x [c0, c1), if any.
+template <int MODE>
+int launch_edges(const Launch& a) {
+  const long long n = a.r0 * a.w + (a.h - a.r1) * a.w +
+                      (a.r1 - a.r0) * (a.c0 + a.w - a.c1);
+  if (n <= 0) return 0;
+  const long long blocks = (n + kEdgeThreads - 1) / kEdgeThreads;
+  stencil_edge_kernel<MODE><<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                              kEdgeThreads, 0, a.stream>>>(
+      a.x, a.out, a.h, a.w, a.r0, a.r1, a.c0, a.c1, n, a.csx, a.csy, a.keep);
+  return (int)cudaGetLastError();
+}
+
 template <int MODE, int BX, int BY>
 int launch_variant(int form, int edges, const Launch& a) {
   const dim3 block(BX, BY);
@@ -314,17 +344,7 @@ int launch_variant(int form, int edges, const Launch& a) {
       const int err = (int)cudaGetLastError();
       if (err != 0) return err;
     }
-    const long long n = a.r0 * a.w + (a.h - a.r1) * a.w +
-                        (a.r1 - a.r0) * (a.c0 + a.w - a.c1);
-    if (edges == kInterior && n > 0) {
-      const long long blocks = (n + kEdgeThreads - 1) / kEdgeThreads;
-      stencil_edge_kernel<MODE><<<(unsigned)(blocks < 4096 ? blocks : 4096),
-                                  kEdgeThreads, 0, a.stream>>>(
-          a.x, a.out, a.h, a.w, a.r0, a.r1, a.c0, a.c1, n, a.csx, a.csy,
-          a.keep);
-      return (int)cudaGetLastError();
-    }
-    return 0;
+    return edges == kInterior ? launch_edges<MODE>(a) : 0;
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -382,25 +402,39 @@ __device__ __forceinline__ void quad(const float* p, float csx, float csy,
   }
 }
 
-template <int MODE, int TH, int TW, int ROUTE>
+// EDGES kRing: B8c's full walk, bounds tests at the store, the ring NaN
+// from the windows' NaN fill.  kInterior: the interior walk (edges
+// interior and bare), no bounds test.  kRingBranch: the full walk with
+// B1's first port's per-cell ring test on each of the 4 cells.
+template <int MODE, int TH, int TW, int ROUTE, int EDGES>
 __global__ void __launch_bounds__(xrt::kStagedThreads, 2)
     stencil_staged_kernel(const __grid_constant__ CUtensorMap map,
                           const StagedArgs a) {
   using Win = xrt::Window<TH, TW>;
   constexpr int kQuadCols = TW / 4;
+  constexpr int kWalk =
+      EDGES == kInterior ? xrt::kWalkInterior : xrt::kWalkFull;
   extern __shared__ unsigned char smem_raw[];
   const long long h = a.ring.h, w = a.ring.w;
-  xrt::staged_tiles<TH, TW, ROUTE>(
+  xrt::staged_tiles<TH, TW, ROUTE, TW, 0, kWalk>(
       &map, a.ring, smem_raw,
       [&](const float* win, long long r0, long long c0) {
         for (int q = threadIdx.x; q < TH * kQuadCols;
              q += xrt::kStagedThreads) {
           const int tr = q / kQuadCols, tc = 4 * (q - tr * kQuadCols);
           const long long row = r0 + tr, col = c0 + tc;
-          if (row >= h || col >= w) continue;
+          // the interior walk's tiles lie inside the raster
+          if (EDGES != kInterior && (row >= h || col >= w)) continue;
           float v[4];
           quad<MODE, Win::kCols>(win + tr * Win::kCols + tc, a.csx, a.csy,
                                  v);
+          if (EDGES == kRingBranch) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (row == 0 || row == h - 1 || col + j == 0 ||
+                  col + j == w - 1)
+                v[j] = CUDART_NAN_F;
+          }
           float* const o = a.out + row * w + col;
           // streaming stores (evict first): the output is not read again,
           // and the L2 keeps the windows' halos for the neighbouring tiles
@@ -411,26 +445,29 @@ __global__ void __launch_bounds__(xrt::kStagedThreads, 2)
           } else {
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-              if (col + j < w) __stcs(o + j, v[j]);
+              if (EDGES == kInterior || col + j < w) __stcs(o + j, v[j]);
           }
         }
       });
 }
 
-// Launches one instantiation on a plan staged_setup accepts.
-template <int MODE, int TH, int TW, int ROUTE>
+// Launches one instantiation on a plan staged_setup accepts, whose walk
+// has `tiles` tiles.
+template <int MODE, int TH, int TW, int ROUTE, int EDGES>
 int launch_staged(const float* x, float* out, long long h, long long w,
-                  int stages, int grid, int smem, float csx, float csy,
-                  cudaStream_t stream) {
+                  int stages, int grid, int smem, long long tiles, float csx,
+                  float csy, cudaStream_t stream) {
   CUtensorMap map{};
   StagedArgs a{};
-  int err = xrt::staged_setup<TH, TW>(x, xrt::aligned16(out), h, w, ROUTE,
-                                      stages, grid, smem, &map, &a.ring);
+  int err = xrt::staged_setup<TH, TW>(
+      x, xrt::aligned16(out), h, w, ROUTE, stages, grid, smem, &map, &a.ring,
+      TW, 0, EDGES == kInterior ? xrt::kWalkInterior : xrt::kWalkFull);
   if (err != 0) return err;
+  if (a.ring.tiles != tiles || grid > tiles) return (int)cudaErrorInvalidValue;
   a.out = out;
   a.csx = csx;
   a.csy = csy;
-  auto kernel = stencil_staged_kernel<MODE, TH, TW, ROUTE>;
+  auto kernel = stencil_staged_kernel<MODE, TH, TW, ROUTE, EDGES>;
   err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
@@ -438,30 +475,34 @@ int launch_staged(const float* x, float* out, long long h, long long w,
   return (int)cudaGetLastError();
 }
 
-template <int MODE, int TH, int TW>
-int staged_on_route(int route, const float* x, float* out, long long h,
-                    long long w, int stages, int grid, int smem, float csx,
-                    float csy, cudaStream_t stream) {
-  if (route == xrt::kStagedRouteTma)
-    return launch_staged<MODE, TH, TW, xrt::kStagedRouteTma>(
-        x, out, h, w, stages, grid, smem, csx, csy, stream);
-  return launch_staged<MODE, TH, TW, xrt::kStagedRouteAsync>(
-      x, out, h, w, stages, grid, smem, csx, csy, stream);
+// A staged launch's arguments after the mode, tile and edges.
+struct StagedLaunch {
+  int route;
+  const float* x;
+  float* out;
+  long long h, w;
+  int stages, grid, smem;
+  long long tiles;
+  float csx, csy;
+  cudaStream_t stream;
+};
+
+template <int MODE, int TH, int TW, int EDGES>
+int staged_on_route(const StagedLaunch& l) {
+  if (l.route == xrt::kStagedRouteTma)
+    return launch_staged<MODE, TH, TW, xrt::kStagedRouteTma, EDGES>(
+        l.x, l.out, l.h, l.w, l.stages, l.grid, l.smem, l.tiles, l.csx,
+        l.csy, l.stream);
+  return launch_staged<MODE, TH, TW, xrt::kStagedRouteAsync, EDGES>(
+      l.x, l.out, l.h, l.w, l.stages, l.grid, l.smem, l.tiles, l.csx, l.csy,
+      l.stream);
 }
 
-template <int MODE>
-int staged_tile(int th, int tw, int route, const float* x, float* out,
-                long long h, long long w, int stages, int grid, int smem,
-                float csx, float csy, cudaStream_t stream) {
-  if (th == 32 && tw == 128)
-    return staged_on_route<MODE, 32, 128>(route, x, out, h, w, stages, grid,
-                                          smem, csx, csy, stream);
-  if (th == 64 && tw == 128)
-    return staged_on_route<MODE, 64, 128>(route, x, out, h, w, stages, grid,
-                                          smem, csx, csy, stream);
-  if (th == 32 && tw == 248)
-    return staged_on_route<MODE, 32, 248>(route, x, out, h, w, stages, grid,
-                                          smem, csx, csy, stream);
+template <int MODE, int EDGES = kRing>
+int staged_tile(int th, int tw, const StagedLaunch& l) {
+  if (th == 32 && tw == 128) return staged_on_route<MODE, 32, 128, EDGES>(l);
+  if (th == 64 && tw == 128) return staged_on_route<MODE, 64, 128, EDGES>(l);
+  if (th == 32 && tw == 248) return staged_on_route<MODE, 32, 248, EDGES>(l);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -492,36 +533,58 @@ int stencil_probe_launch(const float* x, float* out, long long h,
 
 // Launches a staged form at tile th x tw on `stream`, as kernels/staged.py::
 // staged_plan planned it: form 0 staged (mode 0 copy, 1 grad, 2 slope, the
-// nine-read arithmetic) or 1 separable_staged (mode 2 slope only); route
+// nine-read arithmetic) or 1 separable_staged (mode 2 slope only); edges
+// 0 ring (the full walk), 1 interior or 2 bare (the interior walk, staged
+// slope only; the edge bands are stencil_edge_launch's) or 3 ring_branch
+// (the full walk with a per-cell ring test, staged slope only); route
 // 0 TMA or 1 cp.async, which must be the route rule's (xrt::staged_route);
 // `stages` ring stages; `grid` persistent blocks; `smem` dynamic shared
-// bytes, which must equal the ring's.  Returns cudaGetLastError() after
-// the launch, cudaErrorInvalidValue for a plan that disagrees or a tile
-// or (form, mode) that is not instantiated, or the negated CUresult of a
-// failed tensor-map encode.
+// bytes, which must equal the ring's; `tiles` the walk's tiles.  Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for a plan
+// that disagrees or a tile or (form, mode, edges) that is not
+// instantiated, or the negated CUresult of a failed tensor-map encode.
 int stencil_staged_launch(const float* x, float* out, long long h,
-                          long long w, int mode, int form, int th, int tw,
-                          int route, int stages, int grid, int smem,
-                          float csx, float csy, void* stream) {
+                          long long w, int mode, int form, int edges, int th,
+                          int tw, int route, int stages, int grid, int smem,
+                          long long tiles, float csx, float csy,
+                          void* stream) {
   if (h <= 0 || w <= 0) return 0;
   if (route != xrt::kStagedRouteTma && route != xrt::kStagedRouteAsync)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
+  const StagedLaunch l{route, x,    out,   h,   w,   stages,
+                       grid,  smem, tiles, csx, csy, (cudaStream_t)stream};
+  if (edges != kRing) {
+    if (form != 0 || mode != kSlope) return (int)cudaErrorInvalidValue;
+    if (edges == kInterior || edges == kBare)
+      return staged_tile<kSlope, kInterior>(th, tw, l);
+    if (edges == kRingBranch)
+      return staged_tile<kSlope, kRingBranch>(th, tw, l);
+    return (int)cudaErrorInvalidValue;
+  }
   if (form == 1) {
     if (mode != kSlope) return (int)cudaErrorInvalidValue;
-    return staged_tile<kSepSlope>(th, tw, route, x, out, h, w, stages, grid,
-                                  smem, csx, csy, s);
+    return staged_tile<kSepSlope>(th, tw, l);
   }
   if (form != 0) return (int)cudaErrorInvalidValue;
-  if (mode == kCopy)
-    return staged_tile<kCopy>(th, tw, route, x, out, h, w, stages, grid,
-                              smem, csx, csy, s);
-  if (mode == kGrad)
-    return staged_tile<kGrad>(th, tw, route, x, out, h, w, stages, grid,
-                              smem, csx, csy, s);
-  if (mode == kSlope)
-    return staged_tile<kSlope>(th, tw, route, x, out, h, w, stages, grid,
-                               smem, csx, csy, s);
+  if (mode == kCopy) return staged_tile<kCopy>(th, tw, l);
+  if (mode == kGrad) return staged_tile<kGrad>(th, tw, l);
+  if (mode == kSlope) return staged_tile<kSlope>(th, tw, l);
   return (int)cudaErrorInvalidValue;
+}
+
+// Launches the edge-band kernel alone on `stream`: the slope (B1's
+// expression, NaN on the 1-cell ring) of every cell outside [r0, r1) x
+// [c0, c1), which must lie inside the raster (r0 == r1 and c0 == c1 for
+// an empty interior: every cell).  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for an extent outside the raster.
+int stencil_edge_launch(const float* x, float* out, long long h, long long w,
+                        long long r0, long long r1, long long c0,
+                        long long c1, float csx, float csy, void* stream) {
+  if (h <= 0 || w <= 0) return 0;
+  if (r0 < 0 || r1 < r0 || r1 > h || c0 < 0 || c1 < c0 || c1 > w)
+    return (int)cudaErrorInvalidValue;
+  const Launch a{x,  out, h,   w,   r0, r1,
+                 c0, c1,  csx, csy, 0u, (cudaStream_t)stream};
+  return launch_edges<kSlope>(a);
 }
 }  // extern "C"

@@ -180,8 +180,12 @@ def library() -> ctypes.CDLL:
                                          ctypes.c_uint, p]
     lib.stencil_probe_launch.restype = i32
     lib.stencil_staged_launch.argtypes = [p, p, i64, i64, i32, i32, i32, i32,
-                                          i32, i32, i32, i32, f32, f32, p]
+                                          i32, i32, i32, i32, i32, i64, f32,
+                                          f32, p]
     lib.stencil_staged_launch.restype = i32
+    lib.stencil_edge_launch.argtypes = [p, p, i64, i64, i64, i64, i64, i64,
+                                        f32, f32, p]
+    lib.stencil_edge_launch.restype = i32
     lib.xrt_error_string.argtypes = [i32]
     lib.xrt_error_string.restype = ctypes.c_char_p
     return lib

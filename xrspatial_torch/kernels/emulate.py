@@ -19,6 +19,9 @@ loop order, to the kernels' plain versions bit for bit:
   against ``surface.surface_multi_stacked``;
 - ``emulate_separable_staged``: ``csrc/stencil_probe.cu``'s form
   separable_staged (B8d), against ``stencil_probe.stencil_twin``;
+- ``emulate_interior_staged`` (with ``emulate_edge_bands``): its form
+  staged on the interior walk, edges interior (B8e) and bare (B8f),
+  against ``surface.surface_multi``;
 - ``blocks_of`` and ``emulate_culled``: ``csrc/screen.cu::
   screen_culled_kernel`` (B7's culled route), against
   ``screen.screen_hilo``; ``blocks_of`` also gives the (warp, chunk)
@@ -43,6 +46,7 @@ from . import surface as TSU
 
 __all__ = ["emulate_staged", "ring_schedule", "emulate_surface_staged",
            "emulate_pipeline", "emulate_stacked", "emulate_separable_staged",
+           "emulate_interior_staged", "emulate_edge_bands",
            "halo_case", "same_bits", "SCREEN_R",
            "SCREEN_WARP", "SCREEN_BLOCK", "group_segments", "blocks_of",
            "emulate_culled", "TOL", "GC_RTOL", "layout", "axes"]
@@ -420,6 +424,87 @@ def emulate_separable_staged(x, tile=(64, 128), sms=132):
     v = torch.atan(torch.sqrt(dzdx * dzdx + dzdy * dzdy)) * TSU.DEG
     return _tiles_to_raster(v.reshape(plan.tiles, th, tw), -(-h // th),
                             -(-w // tw), h, w)
+
+
+def emulate_interior_staged(x, tile=(64, 128), edges="interior", sms=132):
+    """``csrc/stencil_probe.cu``'s form staged, slope, on the interior walk
+    (edges interior, B8e, or bare, B8f) on the 2D float32 CPU tensor `x`
+    at `tile`: ``staged_plan(..., walk="interior")``'s tiles in
+    ``ring_schedule``'s order, each at ``tile_origin``'s (r0, c0), its
+    window rows r0 - 1 .. r0 + TH and columns c0 - 4 .. c0 + TW + 3 read
+    from the raster with no fill (AssertionError if a window cell lies
+    outside it), each quad's 3 x 6 values read as ``load6`` reads them
+    (``_tma_rows``), and every cell of the tile written; overlapping tiles
+    write again.  Edges interior then writes the edge bands
+    (``emulate_edge_bands`` outside ``staged_interior_extent``); bare
+    leaves every other cell NaN.  Returns (slope, writes a cell)."""
+    from .staged import staged_plan, tile_origin
+    from .stencil_probe import staged_interior_extent
+    h, w = x.shape
+    th, tw = tile
+    cols, rows = tw + 8, th + 2
+    plan = staged_plan(h, w, tile, 0, sms, walk="interior")
+    out = torch.full_like(x, math.nan)
+    writes = torch.zeros(x.shape, dtype=torch.int32)
+    origins, wins = [], []
+    for _, _, t, _, _ in ring_schedule(plan.tiles, plan.grid, plan.stages):
+        r0, c0 = tile_origin(t, h, w, tile, "interior")
+        if r0 - 1 < 0 or r0 + th >= h or c0 - 4 < 0 or c0 + tw + 3 >= w:
+            raise AssertionError(f"tile {t}'s window at ({r0 - 1}, "
+                                 f"{c0 - 4}) leaves the {h}x{w} raster")
+        origins.append((r0, c0))
+        wins.append(x[r0 - 1:r0 - 1 + rows, c0 - 4:c0 - 4 + cols]
+                    .reshape(-1))
+    if wins:
+        wins = torch.stack(wins)
+        tr = torch.arange(th)[:, None, None]
+        tc = 4 * torch.arange(tw // 4)[None, :, None]
+        j = torch.arange(6)[None, None, :]
+        u, m, d = (wins[:, (tr + i) * cols + tc + 3 + j] for i in range(3))
+        one = torch.tensor(1.0)
+        v = TSU.slope_from_neighbors(_quad_cells(u, m, d), one, one)
+        for (r0, c0), tile_v in zip(origins, v.reshape(-1, th, tw)):
+            out[r0:r0 + th, c0:c0 + tw] = tile_v
+            writes[r0:r0 + th, c0:c0 + tw] += 1
+    if edges == "interior":
+        band, band_writes = emulate_edge_bands(
+            x, staged_interior_extent(h, w, tile))
+        out = torch.where(band_writes > 0, band, out)
+        writes += band_writes
+    return out, writes
+
+
+def emulate_edge_bands(x, extent):
+    """``csrc/stencil_probe.cu::stencil_edge_kernel`` on the 2D float32 CPU
+    tensor `x`: cell e of the n cells outside `extent` = (r0, r1, c0, c1)
+    at the kernel's (row, col) (the top band, the bottom band, the left
+    and the right band of the interior rows, each row-major), its value
+    ``checked_cell``'s (NaN on the 1-cell ring, else B1's slope of its
+    nine neighbours).  Returns (values, NaN elsewhere; writes a cell)."""
+    h, w = x.shape
+    r0, r1, c0, c1 = extent
+    top, bottom, left = r0 * w, (h - r1) * w, (r1 - r0) * c0
+    n = top + bottom + left + (r1 - r0) * (w - c1)
+    k = torch.arange(n)
+    kb, kl, kr = k - top, k - top - bottom, k - top - bottom - left
+    safe = lambda d: max(d, 1)  # noqa: E731  (a band that is empty)
+    row = torch.where(k < top, k // w, torch.where(
+        kb < bottom, r1 + kb // w, torch.where(
+            kl < left, r0 + kl // safe(c0), r0 + kr // safe(w - c1))))
+    col = torch.where(k < top, k % w, torch.where(
+        kb < bottom, kb % w, torch.where(
+            kl < left, kl % safe(c0), c1 + kr % safe(w - c1))))
+    ring = (row == 0) | (row == h - 1) | (col == 0) | (col == w - 1)
+    nb = tuple(x[(row + dr).clamp(0, h - 1), (col + dc).clamp(0, w - 1)]
+               for dr in (-1, 0, 1) for dc in (-1, 0, 1))
+    one = torch.tensor(1.0)
+    v = torch.where(ring, math.nan, TSU.slope_from_neighbors(nb, one, one))
+    out = torch.full_like(x, math.nan)
+    writes = torch.zeros(x.shape, dtype=torch.int32)
+    out[row, col] = v
+    writes.index_put_((row, col), torch.ones(n, dtype=torch.int32),
+                      accumulate=True)
+    return out, writes
 
 
 def emulate_pipeline(x, offsets, stats, which, cellsize_x=1.0,

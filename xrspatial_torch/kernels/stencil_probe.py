@@ -15,11 +15,15 @@ B8d  ``tools/exp_separable_horn.py::run``     mode slope; form
                                               B8c's), its first port
                                               separable, or nine; edges
                                               ring
-B8e  ``tools/exp_padfree_stencil.py::         mode slope; form nine; edges
-     slope_2d``                               interior
-B8f  ``tools/exp_seam_cost.py::run``          prod = B1 by name;
-                                              ring_branch = edges ring;
-                                              bare = edges bare
+B8e  ``tools/exp_padfree_stencil.py::         mode slope; form staged (tiles
+     slope_2d``                               as B8c's), its first port
+                                              nine; edges interior
+B8f  ``tools/exp_seam_cost.py::run``          prod = B1 by name; bare =
+                                              form staged, edges bare;
+                                              ring_branch = form staged,
+                                              edges ring_branch; their
+                                              first ports form nine, edges
+                                              bare and ring
 ===  ======================================  ===============================
 
 The staged form stages each tile's window in shared memory, as the TPU
@@ -27,12 +31,20 @@ probe does in VMEM: ``staged_plan`` (``kernels/staged.py``, the plan of
 the window ring B1's staged kernel shares) says how (the TMA box, the
 ring's stages and shared bytes, the route, the persistent grid), and
 refuses a tile that breaks a rule of the box or of shared memory, naming
-it.  Form
-nine at blocks 32x8, 32x16 and 64x4, B8c's first port (nine global reads
-a cell, B1's access pattern), stays as B8f's ring_branch and B8e's edge
-path.  Form separable_staged, B8d's redesign, is the separable
-arithmetic on the same staged windows and plan, at the same tiles; its
-first port, form separable at the blocks, stays by name.
+it.  Edges
+interior and bare walk the interior (``staged_plan(..., walk="interior")``:
+output rows [1, h - 1) and columns [4, w - 4), the last tiles pulled back
+inside, so no window leaves the raster and no tile tests a bound);
+interior then writes the edge bands outside ``staged_interior_extent``
+with a second, small launch, and bare leaves them unwritten.  Edges
+ring_branch walks the whole raster as B8c does, with B1's first port's
+per-cell ring test.  Form nine at blocks 32x8, 32x16 and 64x4, B8c's
+first port (nine global reads a cell, B1's access pattern), stays by
+name, with edges interior and bare (B8e's and B8f's first ports: the
+blocks wholly inside the ring, ``interior_extent``).  Form
+separable_staged, B8d's redesign, is the separable arithmetic on the same
+staged windows and plan, at the same tiles; its first port, form
+separable at the blocks, stays by name.
 
 ``stencil_twin`` is the plain version of every instantiation:
 
@@ -46,9 +58,10 @@ first port, form separable at the blocks, stays by name.
 - separable and separable_staged: the vertical smooth and difference
   first, then the horizontal combination, so dzdy rounds as
   ``(g-a) + 2(hh-b) + (ii-c)``;
-- edges interior equals ring; edges bare leaves every cell outside the
-  interior blocks unwritten, which the twin marks NaN (compare only
-  ``interior_extent``'s rectangle).
+- edges interior and ring_branch equal ring; edges bare leaves every cell
+  outside its rectangle unwritten, which the twin marks NaN (compare only
+  ``bare_extent``'s rectangle: ``interior_extent``'s blocks in form nine,
+  ``staged_interior_extent`` in form staged).
 
 ``stencil`` dispatches: a tensor on the CPU goes to the twin, a tensor on
 the card to the kernel.  The ``xrspatial_torch.tools.exp_*`` probes time
@@ -66,13 +79,14 @@ from .surface import DEG, _nan_border, neighborhood, slope_from_neighbors
 
 __all__ = ["MODES", "FORMS", "STAGED_FORMS", "EDGES", "BLOCKS", "TILES",
            "VARIANTS",
-           "shapes_of", "check_variant", "interior_extent", "StagedPlan",
+           "shapes_of", "check_variant", "interior_extent",
+           "staged_interior_extent", "bare_extent", "StagedPlan",
            "staged_plan", "stencil_twin", "stencil"]
 
 MODES = ("copy", "grad", "slope")
 FORMS = ("nine", "separable", "staged", "separable_staged")
 STAGED_FORMS = ("staged", "separable_staged")  # at TILES, on staged_plan
-EDGES = ("ring", "interior", "bare")
+EDGES = ("ring", "interior", "bare", "ring_branch")  # ring_branch: staged
 BLOCKS = ((32, 8), (32, 16), (64, 4))     # (threads in x, threads in y)
 TILES = ((32, 128), (64, 128), (32, 248))  # staged: (rows, columns) a tile
 
@@ -82,7 +96,9 @@ VARIANTS = (tuple((m, "nine", "ring") for m in MODES)
             + (("slope", "separable", "ring"), ("slope", "nine", "interior"),
                ("slope", "nine", "bare"))
             + tuple((m, "staged", "ring") for m in MODES)
-            + (("slope", "separable_staged", "ring"),))
+            + (("slope", "separable_staged", "ring"),
+               ("slope", "staged", "interior"), ("slope", "staged", "bare"),
+               ("slope", "staged", "ring_branch")))
 
 
 def shapes_of(form) -> tuple:
@@ -112,6 +128,26 @@ def interior_extent(h: int, w: int, block=(32, 8)) -> tuple:
     c0 = min(bx, w)
     c1 = max(c0, bx * ((w - 1) // bx))
     return r0, r1, c0, c1
+
+
+def staged_interior_extent(h: int, w: int, tile=(64, 128)) -> tuple:
+    """(r0, r1, c0, c1): the cells the staged form's interior walk at
+    `tile` writes, (1, h - 1, 4, w - 4); empty (r0 == r1 and c0 == c1,
+    every cell in the edge bands) where h - 2 < TH or w - 8 < TW."""
+    th, tw = tile
+    if h - 2 < th or w - 8 < tw:
+        return min(1, h), min(1, h), min(4, w), min(4, w)
+    return 1, h - 1, 4, w - 4
+
+
+def bare_extent(h: int, w: int, form="nine", block=None) -> tuple:
+    """(r0, r1, c0, c1): the cells edges bare writes in `form` at
+    `block`: ``interior_extent`` in form nine, ``staged_interior_extent``
+    in form staged."""
+    block = block or shapes_of(form)[0]
+    if form in STAGED_FORMS:
+        return staged_interior_extent(h, w, block)
+    return interior_extent(h, w, block)
 
 
 def _grad_from_neighbors(nb, cs):
@@ -152,7 +188,7 @@ def stencil_twin(x: torch.Tensor, mode="slope", form="nine", edges="ring",
         out = slope_from_neighbors(neighborhood(x), cs, cs)
     out = _nan_border(out)
     if edges == "bare":
-        r0, r1, c0, c1 = interior_extent(*x.shape, block)
+        r0, r1, c0, c1 = bare_extent(*x.shape, form, block)
         bare = torch.full_like(out, math.nan)
         bare[r0:r1, c0:c1] = out[r0:r1, c0:c1]
         out = bare

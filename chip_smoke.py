@@ -174,7 +174,30 @@ Phases, each fatal on failure:
    16384^2 packed state after its first 9 rounds (targets ``dem > 900``):
    the tail group (16, 8, 4, 2, 1, 2, 1) in one single-buffered launch
    against the round kernel's seven, bit for bit, and the group's routes
-   and the seven launches timed in turns, the twin once.
+   and the seven launches timed in turns, the twin once;
+23. the A5/A6 paths, torch ops and no kernel of ours, each result on the
+   card and held against numpy on the host (on the middle sixteenth of
+   the rows, the summit's, where a whole raster would take too long), each
+   timed with CUDA events beside its peak allocated memory and, for
+   elementwise work, its byte bound: the DataArray shim at 16384^2 (``a +
+   b``, ``a * 2``, ``a > 900``, ``where``, ``fillna`` bit for bit;
+   ``mean``/``std``/``min``/``max`` with ``skipna`` on the DEM with a NaN
+   patch and without on a NaN-free raster, against a float64 oracle at
+   rtol 1e-5; ``isel``/``sel`` crops, ``astype``, ``concat``); the ten
+   multispectral indices at 16384^2 (bands ``|dem|/1000 + 0.1``,
+   ``|dem|/800 + 0.2`` and ``|dem|/1200 + 0.05``, ``bench.py:357-362``),
+   each equal to its numpy float32 formula bit for bit (ebbi within 2
+   ulps), ``true_color`` within 1, ``ndvi`` at 8192^2 (the bench leg); the
+   local functions on 4 variables and a reference at 16384^2 against
+   numpy (mean and std rtol 1e-6), ``combine`` at 2048^2; classify:
+   ``quantile(k=5)`` at 4096^2 (the bench leg) and 16384^2, its order
+   statistics against ``np.partition`` and its bins bit for bit through
+   the same float32 formula; the classes of percentiles, equal_interval,
+   std_mean, box_plot, head_tail_breaks, binary and reclassify at
+   16384^2, and of maximum_breaks and natural_breaks (20,000 samples,
+   k=5) at 4096^2, against ``np.searchsorted``; the Jenks DP's seconds on
+   the card and on the CPU, its breaks equal to the CPU run's or of the
+   same float64 within-class variance within rtol 1e-5.
 
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -2834,6 +2857,568 @@ def jfa_group_path(dev, card):
     return launches["jfa_group"], (times["single"], twin), times
 
 
+# -- phase 23: the A5/A6 paths (torch ops, no kernel) -----------------------
+
+A5_N = N               # the A5/A6 paths' raster edge
+NDVI_N = 8192          # the JAX bench's ndvi leg (bench.py:357-368)
+QUANTILE_N = 4096      # the JAX bench's quantile leg (bench.py:370-371)
+COMBINE_N = 2048       # combine's ids come from np.unique on the host
+JENKS_N = 4096
+JENKS_SAMPLE = 20000   # natural_breaks' default num_sample
+JENKS_K = 5
+A5_RTOL = 1e-5          # reductions against the float64 oracle
+LOCAL_RTOL = 1e-6       # local mean and std against numpy float32
+JENKS_RTOL = 1e-5       # within-class variance, card against CPU
+F32 = np.float32
+
+
+def _guard_np(den, num):
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(den == 0, F32(np.nan),
+                        num / np.where(den == 0, F32(1), den))
+
+
+# index -> (bands in call order, the formula in numpy float32, each op
+# rounded apart); the bands are nir, red and a third band standing for
+# blue, green, swir1/swir2 and tir.  Each index equals its formula bit for
+# bit, but ebbi: a float32 sqrt 1 ulp off (torch's on the CPU is, in about
+# 0.6% of values) moves it by up to 2 ulps
+MS_ULPS = {"ebbi": 2}
+MS_INDICES = {
+    "arvi": (("nir", "red", "third"), lambda n, r, b: _guard_np(
+        n + F32(2) * r + b, n - F32(2) * r + b)),
+    "evi": (("nir", "red", "third"), lambda n, r, b: F32(2.5) * _guard_np(
+        n + F32(6) * r - F32(7.5) * b + F32(1), n - r)),
+    "gci": (("nir", "third"), lambda n, g: np.where(
+        g == 0, F32(np.nan), n / np.where(g == 0, F32(1), g) - F32(1))),
+    "nbr": (("nir", "third"), lambda a, b: _guard_np(a + b, a - b)),
+    "nbr2": (("red", "third"), lambda a, b: _guard_np(a + b, a - b)),
+    "ndvi": (("nir", "red"), lambda a, b: _guard_np(a + b, a - b)),
+    "ndmi": (("nir", "third"), lambda a, b: _guard_np(a + b, a - b)),
+    "savi": (("nir", "red"), lambda n, r: _guard_np(
+        (n + r + F32(1)) * F32(2), n - r)),
+    "sipi": (("nir", "red", "third"), lambda n, r, b: _guard_np(
+        n - r, n - b)),
+    "ebbi": (("red", "nir", "third"), lambda r, s, t: _guard_np(
+        F32(10) * np.sqrt(s + t), s - r)),
+}
+
+
+def pct_plan(n, pct):
+    """``jnp.nanpercentile``'s ranks and weights for `n` finite values as
+    XLA evaluates them: ``q * ((counts - 1) * 0.01)`` in float32, ranks
+    clamped in integers."""
+    c = F32(n)
+    t = np.asarray(pct, dtype=F32) * ((c - F32(1)) * F32(0.01))
+    lo, hi = np.floor(t), np.ceil(t)
+    ranks = [np.minimum(np.maximum(F32(0), np.minimum(r, c - F32(1)))
+                        .astype(np.int64), n - 1) for r in (lo, hi)]
+    return ranks, F32(1) - (t - lo), t - lo
+
+
+def partitioned(finite, pcts):
+    """`finite` partitioned by ``np.partition`` at every rank that the
+    percentile lists `pcts` read."""
+    kth = np.unique(np.concatenate([r for p in pcts
+                                    for r in pct_plan(finite.size, p)[0]]))
+    return np.partition(finite, kth)
+
+
+def np_percentiles(part, n, pct):
+    """The percentiles `pct` from the order statistics in `part`, with
+    XLA's ``fma(high, high_weight, low * low_weight)`` in float64 rounded
+    once; also (low, high)."""
+    (rlo, rhi), lw, hw = pct_plan(n, pct)
+    low, high = part[rlo], part[rhi]
+    return (high.astype(np.float64) * hw.astype(np.float64)
+            + (low * lw).astype(np.float64)).astype(F32), (low, high)
+
+
+def np_classes(x, bins, new_values=None):
+    """``_bin``'s classes in numpy: the count of bins below each value,
+    NaN past the last bin and where the value is not finite."""
+    bins = np.asarray(bins).astype(F32)
+    nv = (np.arange(bins.size) if new_values is None
+          else np.asarray(new_values)).astype(F32)
+    idx = np.searchsorted(np.sort(bins), x, side="left")
+    ok = np.isfinite(x) & (idx < bins.size)
+    return np.where(ok, nv[np.minimum(idx, bins.size - 1)], F32(np.nan))
+
+
+def check_classes(label, got, x, bins, new_values=None, near=0.0):
+    """The card's classes on host rows `x` against ``np_classes``; where
+    the bins came from float32 sums, cells within `near` of a bin may fall
+    either side."""
+    expected = np_classes(x, bins, new_values)
+    differ = ~((got == expected) | (np.isnan(got) & np.isnan(expected)))
+    if near > 0 and differ.any():
+        gap = np.min(np.abs(x[differ][:, None].astype(np.float64)
+                            - np.asarray(bins, np.float64)), axis=-1)
+        differ[differ] = gap > near
+    n_bad = int(differ.sum())
+    print(f"  {label}: classes against np.searchsorted on {x.size} cells, "
+          f"bad_cells={n_bad}")
+    if n_bad:
+        raise SmokeFailure(f"{label}: {n_bad} cells in another class than "
+                           f"np.searchsorted gives")
+
+
+def edge_patch(edge):
+    """A NaN patch of a classify raster: rows and columns off its centre."""
+    return (slice(edge // 4, edge // 4 + edge // 40),
+            slice(edge // 2, edge // 2 + edge // 14))
+
+
+def within_class_variance(values, bins):
+    """Float64 sum of the squared deviations from each class's mean."""
+    values = np.sort(values.astype(np.float64))
+    idx = np.searchsorted(np.asarray(bins, np.float64), values, side="left")
+    return sum(float(((values[idx == c] - values[idx == c].mean()) ** 2)
+                     .sum()) for c in np.unique(idx))
+
+
+def a5_a6_paths(dev, card, roof_bytes_s):
+    """Phase 23: the A5/A6 paths (the DataArray shim's methods,
+    multispectral, local, classify), torch ops on the card, each against
+    numpy on the host; returns the rows of its table."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch import classify, local, multispectral
+    t_phase = time.perf_counter()
+    rows = []
+    # the rows held against numpy on the host: the middle sixteenth, the
+    # summit's; NaN patches, crops and sampled cells lie in or near them
+    lo, hi = A5_N * 15 // 32, A5_N * 17 // 32
+    band = hi - lo
+    patch = (slice(lo + band // 4, lo + band // 4 + band // 8),
+             slice(A5_N // 64, A5_N // 16))
+
+    def run(label, fn, reps, nbytes=None, edge=A5_N):
+        """The first call (its result); then a warm-up call and `reps`
+        calls timed with CUDA events, or, with `reps` 0, the first call
+        timed alone (paths whose time is host numpy); peak allocated over
+        all of them."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        if reps:
+            fn()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+        ms = start.elapsed_time(end) / max(reps, 1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        row = {"path": label, "edge": edge, "ms": ms, "peak_gib": peak,
+               "card": card}
+        note = ""
+        if nbytes is not None:
+            row["bytes"] = nbytes
+            row["bound_ms"] = nbytes / HBM_BYTES_S * 1e3
+            row["roof_bound_ms"] = nbytes / roof_bytes_s * 1e3
+            note = (f", bound {row['bound_ms']:.3f} ms ("
+                    f"{row['bound_ms'] / ms * 100:.1f}%), at the measured "
+                    f"roof {row['roof_bound_ms']:.3f} ms ("
+                    f"{row['roof_bound_ms'] / ms * 100:.1f}%)")
+        print(f"  {label} at {edge}^2: {ms:.3f} ms{' (one call)' * (not reps)}"
+              f"{note}, peak allocated {peak:.2f} GiB, {card}")
+        rows.append(row)
+        data = out.data if isinstance(out, xt.DataArray) else out
+        if isinstance(data, torch.Tensor) and data.device.type != "cuda":
+            raise SmokeFailure(f"{label}: the result is on {data.device}")
+        return out
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    def same(x, y):
+        """Equal tensors, NaN equal to NaN."""
+        return x.shape == y.shape and bool(
+            ((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+
+    def equal(label, got, expected, rtol=0.0):
+        ok = np.isnan(got) == np.isnan(expected)
+        fin = ok & ~np.isnan(expected)
+        if rtol:
+            err = np.abs(got[fin].astype(np.float64) - expected[fin])
+            ok[fin] = err <= rtol * np.abs(expected[fin].astype(np.float64))
+        else:
+            ok[fin] = got[fin] == expected[fin]
+        n_bad = int((~ok).sum())
+        print(f"  {label}: {'rtol ' + str(rtol) if rtol else 'bit for bit'}"
+              f" on {expected.size} cells, bad_cells={n_bad}")
+        if n_bad:
+            raise SmokeFailure(f"{label}: {n_bad} cells differ from numpy")
+
+    cell = A5_N * A5_N * 4
+    coords = {"y": np.arange(A5_N, dtype=np.float64)[::-1].copy(),
+              "x": np.arange(A5_N, dtype=np.float64)}
+
+    # -- the shim ---------------------------------------------------------------
+    print(f"== A5/A6 paths: the DataArray shim at {A5_N}x{A5_N} on {card}")
+    dem = gaussian_bump(A5_N, A5_N, dev)
+    dem[patch] = float("nan")
+    a = xt.DataArray(dem, dims=("y", "x"), coords=coords, name="dem",
+                     attrs={"res": (1.0, 1.0)})
+    b = xt.DataArray(gaussian_bump(A5_N, A5_N, dev).flip(1) * 0.5 + 10.0,
+                     dims=("y", "x"), coords=coords)
+    ha, hb = host(a.data[lo:hi]), host(b.data[lo:hi])
+    dem_host = host(dem)                   # read again by classify below
+    for label, fn, nbytes, ref in (
+            ("a + b", lambda: a + b, 3 * cell, ha + hb),
+            ("a * 2", lambda: a * 2, 2 * cell, ha * F32(2)),
+            ("a > 900", lambda: a > 900, cell + cell // 4, ha > 900),
+            ("a.where(a > 900)", lambda: a.where(a > 900), 2 * cell,
+             np.where(ha > 900, ha, F32(np.nan))),
+            ("a.fillna(0)", lambda: a.fillna(0.0), 2 * cell,
+             np.where(np.isnan(ha), F32(0), ha))):
+        out = run(f"shim {label}", fn, 5, nbytes)
+        got = host(out.data[lo:hi])
+        if got.dtype == np.bool_:
+            got, ref = got.astype(F32), ref.astype(F32)
+        equal(f"shim {label}", got, ref)
+        if out.dims != ("y", "x") or list(out.coords) != ["y", "x"]:
+            raise SmokeFailure(f"shim {label}: dims {out.dims}, coords "
+                               f"{list(out.coords)}")
+    del out
+    host64 = dem_host.astype(np.float64)
+    # skipna on the DEM with its NaN patch, the plain reductions on b
+    b64 = host(b.data).astype(np.float64)
+    oracle = {("mean", True): np.nanmean, ("std", True): np.nanstd,
+              ("min", True): np.nanmin, ("max", True): np.nanmax,
+              ("mean", False): np.mean, ("std", False): np.std,
+              ("min", False): np.min, ("max", False): np.max}
+    for (name, skipna), fn in oracle.items():
+        x = a if skipna else b
+        out = run(f"shim {name}(skipna={skipna})",
+                  lambda: getattr(x, name)(skipna=skipna), 3, cell)
+        got, ref = float(out.data), float(fn(host64 if skipna else b64))
+        ok = (np.isnan(got) and np.isnan(ref)) or \
+            abs(got - ref) <= A5_RTOL * abs(ref)
+        print(f"    {got!r} against the float64 oracle {ref!r}")
+        if out.data.shape != () or not ok:
+            raise SmokeFailure(f"shim {name}(skipna={skipna}): {got} "
+                               f"against {ref}, rtol {A5_RTOL}")
+    del host64, b64
+    r0, c0, side = A5_N // 2 - A5_N // 8, 100, A5_N // 4
+    crop = run("shim isel crop", lambda: a.isel(y=slice(r0, r0 + side),
+                                                x=slice(3, 3 + side)), 5)
+    # y descends: the slice runs from the larger coordinate to the smaller
+    sel = run("shim sel crop (descending y)", lambda: a.sel(
+        y=slice(A5_N - 1.0 - r0, float(A5_N - r0 - side)),
+        x=slice(float(c0), float(c0 + side - 1))), 5)
+    as64 = run("shim astype(float64)", lambda: a.astype(np.float64), 3,
+               cell * 3)
+    cat = run("shim concat along a new dim", lambda: xt.concat([a, b], "t"),
+              3, cell * 4)
+    if not (same(crop.data, dem[r0:r0 + side, 3:3 + side])
+            and same(sel.data, dem[r0:r0 + side, c0:c0 + side])
+            and float(sel.coords["y"].values[0]) == A5_N - 1.0 - r0
+            and as64.data.dtype == torch.float64
+            and same(as64.data, dem.double())
+            and cat.dims == ("t", "y", "x")
+            and same(cat.data, torch.stack([dem, b.data]))):
+        raise SmokeFailure("shim crops, astype or concat differ from the "
+                           "tensor ops they stand for")
+    print("  isel/sel crops, astype and concat equal to the tensor ops")
+    del crop, sel, as64, cat, b
+
+    # -- multispectral -------------------------------------------------------
+    print(f"== A5/A6 paths: multispectral at {A5_N}x{A5_N} on {card} "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+    mag = gaussian_bump(A5_N, A5_N, dev).abs()
+    bands = {"red": mag / 1000 + 0.1, "nir": mag / 800 + 0.2,
+             "third": mag / 1200 + 0.05}
+    del mag
+    bands["nir"][lo + band // 2:lo + band // 2 + band // 40,
+                 A5_N * 3 // 8:A5_N * 3 // 8 + A5_N // 50] = float("nan")
+    aggs = {k: xt.DataArray(v, dims=("y", "x"), coords=coords, name=k)
+            for k, v in bands.items()}
+    hband = {k: host(v[lo:hi]) for k, v in bands.items()}
+    for name, (which, formula) in MS_INDICES.items():
+        fn = getattr(multispectral, name)
+        out = run(name, lambda: fn(*(aggs[k] for k in which)), 10,
+                  (len(which) + 1) * cell)
+        got = host(out.data[lo:hi])
+        expected = formula(*(hband[k] for k in which))
+        fin = ~np.isnan(expected)
+        ulps = np.abs(got[fin].view(np.int32).astype(np.int64)
+                      - expected[fin].view(np.int32))
+        most = int(ulps.max()) if ulps.size else 0
+        print(f"  {name}: within {most} ulps of the numpy float32 formula "
+              f"(limit {MS_ULPS.get(name, 0)}) on {expected.size} cells")
+        if not np.array_equal(np.isnan(got), ~fin) \
+                or most > MS_ULPS.get(name, 0):
+            raise SmokeFailure(f"{name}: {most} ulps from numpy, or another "
+                               f"NaN mask")
+    out = run("true_color", lambda: multispectral.true_color(
+        aggs["red"], aggs["nir"], aggs["third"]), 5, 3 * cell + cell)
+    got = host(out.data[lo:hi])
+    expected = []
+    for k in ("red", "nir", "third"):
+        whole = host(bands[k])
+        mn, mx = np.nanmin(whole), np.nanmax(whole)
+        norm = (hband[k] - mn) / (mx - mn)
+        norm = F32(1) / (F32(1) + np.exp(F32(10) * (F32(0.125) - norm)))
+        expected.append(np.clip(np.nan_to_num(norm * F32(255)), 0, 255)
+                        .astype(np.uint8))
+    red = hband["red"]
+    expected.append(np.where(np.isnan(red) | (red <= 1), 0, 255)
+                    .astype(np.uint8))
+    diff = np.abs(got.astype(int) - np.stack(expected, -1).astype(int))
+    print(f"  true_color: uint8 within {int(diff.max())} of numpy on "
+          f"{got.size} values (atol 1)")
+    if out.data.dtype != torch.uint8 or diff.max() > 1:
+        raise SmokeFailure("true_color differs from numpy by more than 1")
+    del out
+    red8 = aggs["red"].data[:NDVI_N, :NDVI_N].contiguous()
+    nir8 = aggs["nir"].data[:NDVI_N, :NDVI_N].contiguous()
+    ndvi8 = run("ndvi (the bench leg)", lambda: multispectral.ndvi(
+        xt.DataArray(nir8, dims=("y", "x")),
+        xt.DataArray(red8, dims=("y", "x"))), 20,
+        3 * NDVI_N * NDVI_N * 4, NDVI_N)
+    equal("ndvi (the bench leg)", host(ndvi8.data),
+          MS_INDICES["ndvi"][1](host(nir8), host(red8)))
+    del ndvi8, red8, nir8, aggs, bands, hband
+
+    # -- local ------------------------------------------------------------------
+    print(f"== A5/A6 paths: local at {A5_N}x{A5_N} on {card} "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+    g = gaussian_bump(A5_N, A5_N, dev)
+    variables = {"v0": torch.round(g / 50), "v1": torch.round((1000 - g) / 50),
+                 "v2": torch.round(g.flip(1) / 50),
+                 "v3": torch.round(g.flip(0) / 50),
+                 "ref": torch.floor(g / 250) - 1}   # -1 ... 3: wraps too
+    variables["v1"][lo + band // 2:lo + band // 2 + band // 20,
+                    A5_N // 5:A5_N // 5 + A5_N // 40] = float("nan")
+    del g
+    ds = xt.Dataset({k: xt.DataArray(v, dims=("y", "x"))
+                     for k, v in variables.items()})
+    data_vars = ["v0", "v1", "v2", "v3"]
+    cube = np.stack([host(variables[k][lo:hi]) for k in data_vars])
+    ref = host(variables["ref"][lo:hi])
+    nan_any = np.isnan(cube).any(axis=0)
+    with np.errstate(invalid="ignore"):
+        numpy_local = {
+            "max": cube.max(axis=0), "min": cube.min(axis=0),
+            "sum": cube.sum(axis=0), "mean": cube.mean(axis=0),
+            "median": np.median(cube, axis=0), "std": cube.std(axis=0)}
+    for func, expected in numpy_local.items():
+        out = run(f"cell_stats {func}", lambda: local.cell_stats(
+            ds, data_vars, func), 2, 5 * cell)
+        equal(f"cell_stats {func}", host(out.data[lo:hi]), expected,
+              LOCAL_RTOL if func in ("mean", "std") else 0.0)
+    for func, op in (("lesser_frequency", np.greater),
+                     ("equal_frequency", np.equal),
+                     ("greater_frequency", np.less)):
+        out = run(func, lambda: getattr(local, func)(ds, "ref"), 2,
+                  6 * cell)
+        with np.errstate(invalid="ignore"):
+            count = op(ref[None], cube).sum(axis=0).astype(F32)
+        equal(func, host(out.data[lo:hi]),
+              np.where(nan_any, F32(np.nan), count))
+    for func, arg in (("lowest_position", np.argmin),
+                      ("highest_position", np.argmax)):
+        out = run(func, lambda: getattr(local, func)(ds, data_vars), 2,
+                  5 * cell)
+        pos = (arg(np.where(np.isnan(cube), 0, cube), axis=0) + 1)
+        equal(func, host(out.data[lo:hi]),
+              np.where(nan_any, F32(np.nan), pos.astype(F32)))
+    s = np.sort(cube, axis=0)
+    v = cube.shape[0]
+    idx = ref.astype(np.int64) - 1
+    is_new = np.concatenate([np.ones_like(s[:1], bool), s[1:] != s[:-1]])
+    n_unique = is_new.sum(axis=0)
+    eff = np.where(idx < 0, n_unique + idx, idx)
+    pick = is_new & (np.cumsum(is_new, axis=0) - 1 == eff[None])
+    pop = np.where(n_unique == 1, s[0], np.where(pick, s, 0).sum(axis=0))
+    pop = np.where((idx >= n_unique) & (n_unique != 1), np.nan, pop)
+    pop = np.where(nan_any | (n_unique >= v), np.nan, pop).astype(F32)
+    eff = np.where(idx < 0, v + idx, idx)
+    rank = np.take_along_axis(s, np.clip(eff, 0, v - 1)[None], 0)[0]
+    rank = np.where(nan_any | (idx >= v) | (eff < 0), np.nan, rank)
+    for func, expected in (("popularity", pop), ("rank", rank.astype(F32))):
+        out = run(func, lambda: getattr(local, func)(ds, "ref"), 2, 6 * cell)
+        equal(func, host(out.data[lo:hi]), expected)
+    del out, ds, variables, cube, s
+    g2 = gaussian_bump(COMBINE_N, COMBINE_N, dev)
+    ds2 = xt.Dataset({f"v{i}": xt.DataArray(torch.round(t / 100),
+                                            dims=("y", "x"))
+                      for i, t in enumerate((g2, g2.flip(0), g2.t()))})
+    out = run("combine", lambda: local.combine(ds2), 0, None, COMBINE_N)
+    ids = host(out.data).ravel()
+    vals = np.stack([host(ds2[k].data).ravel() for k in ds2], axis=1)
+    key = out.attrs["key"]
+    uniq, first = np.unique(ids, return_index=True)
+    sample = np.random.default_rng(23).integers(0, ids.size, 1000)
+    if (out.data.dtype != torch.float64 or list(uniq) != list(
+            range(1, len(key) + 1)) or not (np.diff(first) > 0).all()
+            or any(key[int(ids[i])] != tuple(vals[i].tolist())
+                   for i in sample)):
+        raise SmokeFailure("combine: ids are not 1..n in first-occurrence "
+                           "order with their combinations as keys")
+    print(f"  combine: {len(key)} ids in first-occurrence order, keys "
+          f"equal to the cells' values on 1000 sampled cells")
+    del out, ds2, g2
+
+    # -- classify ---------------------------------------------------------------
+    print(f"== A5/A6 paths: classify on {card} "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+    quintiles, quartiles = [20, 40, 60, 80, 100], [25, 50, 75, 100]
+    for edge, raster in ((QUANTILE_N, None), (A5_N, dem)):
+        if raster is None:
+            raster = gaussian_bump(edge, edge, dev)
+            raster[edge_patch(edge)] = float("nan")
+        agg = xt.DataArray(raster, dims=("y", "x"))
+        label = f"quantile(k=5){' (the bench leg)' * (edge == QUANTILE_N)}"
+        out = run(label, lambda: classify.quantile(agg, k=5), 2, 2 * edge
+                  * edge * 4, edge)
+        values = host(raster) if edge != A5_N else dem_host
+        finite = values[np.isfinite(values)]
+        # one partition for every rank read below (quartiles for
+        # percentiles and box_plot)
+        part = partitioned(finite, [quintiles, quartiles])
+        pct, (low, high) = np_percentiles(part, finite.size, quintiles)
+        got_bins = classify._quantile_bins(raster, 5)
+        print(f"    {finite.size} finite cells (float32 count "
+              f"{F32(finite.size):.0f}); order statistics by np.partition "
+              f"{low.tolist()} / {high.tolist()}")
+        if not np.array_equal(got_bins, np.unique(pct)):
+            raise SmokeFailure(f"{label}: bins {got_bins.tolist()} against "
+                               f"numpy's {np.unique(pct).tolist()}")
+        print(f"  {label}: bins equal to numpy's bit for bit")
+        rows_x = values[lo:hi] if edge == A5_N else values
+        rows_got = host(out.data[lo:hi] if edge == A5_N else out.data)
+        check_classes(label, rows_got, rows_x, got_bins)
+    del out, values, dem_host
+    x = host(dem[lo:hi])
+    mn, mx = float(finite.min()), float(finite.max())
+    q = np_percentiles(part, finite.size, quartiles)[0]
+    out = run("percentiles", lambda: classify.percentiles(agg), 2, 2 * cell)
+    check_classes("percentiles", host(out.data[lo:hi]), x, np.unique(q))
+    width = (mx - mn) / 5
+    cuts = np.arange(mn + width, mx + width, width)[:5]
+    cuts[-1] = mx
+    out = run("equal_interval", lambda: classify.equal_interval(agg), 2,
+              2 * cell)
+    check_classes("equal_interval", host(out.data[lo:hi]), x, cuts)
+    d64 = dem.double()
+    m, sd = float(torch.nanmean(d64)), float(torch.sqrt(torch.nanmean(
+        (d64 - torch.nanmean(d64)) ** 2)))
+    out = run("std_mean", lambda: classify.std_mean(agg), 2, 2 * cell)
+    check_classes("std_mean", host(out.data[lo:hi]), x, np.unique(
+        [m - 2 * sd, m - sd, m + sd, m + 2 * sd, mx]),
+        near=1e-5 * (abs(m) + sd))
+    q1, q2, q3 = (float(v) for v in np_percentiles(part, finite.size,
+                                                   [25, 50, 75])[0])
+    iqr = q3 - q1
+    bins = np.unique([q1 - 1.5 * iqr, q1, q2, q3, q3 + 1.5 * iqr, mx])
+    bins = bins[bins <= mx]
+    out = run("box_plot", lambda: classify.box_plot(agg), 2, 2 * cell)
+    check_classes("box_plot", host(out.data[lo:hi]), x, bins)
+    mask = torch.isfinite(d64)
+    ht_bins, total = [], int(mask.sum())
+    while total > 1:                    # head/tail breaks in float64
+        mean_v = float(d64[mask].mean())
+        ht_bins.append(mean_v)
+        head = mask & (d64 > mean_v)
+        n_head = int(head.sum())
+        if n_head == 0 or n_head / total > 0.40:
+            break
+        mask, total = head, n_head
+    del d64, mask, head
+    out = run("head_tail_breaks", lambda: classify.head_tail_breaks(agg), 2,
+              2 * cell)
+    check_classes("head_tail_breaks", host(out.data[lo:hi]), x,
+                  ht_bins + [mx], near=1e-5 * abs(mx))
+    members = [float(x[band // 20, A5_N // 20]),
+               float(x[band // 2, A5_N * 3 // 10]), 500.25]
+    out = run("binary", lambda: classify.binary(agg, members), 2, 2 * cell)
+    expected = np.where(np.isfinite(x), np.isin(x, np.asarray(
+        members, F32)).astype(F32), F32(np.nan))
+    equal("binary", host(out.data[lo:hi]), expected)
+    out = run("reclassify", lambda: classify.reclassify(
+        agg, [200, 500, 800, 1100], [1, 2, 3, 4]), 2, 2 * cell)
+    check_classes("reclassify", host(out.data[lo:hi]), x,
+                  [200, 500, 800, 1100], [1, 2, 3, 4])
+    del out, agg, finite, part, x, dem
+
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into the phase)")
+    g4 = gaussian_bump(JENKS_N, JENKS_N, dev)
+    g4[edge_patch(JENKS_N)] = float("nan")
+    agg4 = xt.DataArray(g4, dims=("y", "x"))
+    values = host(g4).ravel()
+    uv = np.unique(values[np.isfinite(values)])
+    diffs = np.diff(uv)
+    top = np.sort(np.argsort(diffs, kind="stable")[-(JENKS_K - 1):])
+    mb_bins = np.append((uv[top] + uv[top + 1]) / 2.0, float(uv[-1]))
+    out = run("maximum_breaks", lambda: classify.maximum_breaks(agg4), 0,
+              2 * JENKS_N * JENKS_N * 4, JENKS_N)
+    check_classes("maximum_breaks", host(out.data), values.reshape(
+        JENKS_N, JENKS_N), mb_bins)
+    # the public call, with its DP (``classify._run_jenks``: the sample's
+    # sort and upload, the DP on the card, the matrix's read-back and the
+    # backtrack) timed inside it and its sample and breaks kept
+    dp = {}
+    run_jenks = classify._run_jenks
+
+    def timed_jenks(sample, n_classes, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        breaks = run_jenks(sample, n_classes, device)
+        dp.update(s=time.perf_counter() - t0, sample=sample, breaks=breaks)
+        return breaks
+
+    classify._run_jenks = timed_jenks
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = classify.natural_breaks(agg4, num_sample=JENKS_SAMPLE,
+                                      k=JENKS_K)
+        torch.cuda.synchronize()
+        nb_s = time.perf_counter() - t0
+    finally:
+        classify._run_jenks = run_jenks
+    sample, card_breaks = dp["sample"], dp["breaks"]
+    t0 = time.perf_counter()
+    cpu_breaks = classify._run_jenks(sample, JENKS_K, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    var_card = within_class_variance(sample, card_breaks[1:])
+    var_cpu = within_class_variance(sample, cpu_breaks[1:])
+    same = np.array_equal(card_breaks, cpu_breaks)
+    rows.append({"path": "natural_breaks", "edge": JENKS_N,
+                 "ms": nb_s * 1e3, "dp_s": dp["s"], "dp_cpu_s": cpu_s,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "card": card})
+    print(f"  natural_breaks(num_sample={JENKS_SAMPLE}, k={JENKS_K}) at "
+          f"{JENKS_N}^2: {nb_s:.3f} s (host clock, one call), of which the "
+          f"Jenks DP on {sample.size} samples {dp['s']:.3f} s; the same DP "
+          f"on the CPU {cpu_s:.3f} s; breaks {'equal' if same else 'differ'}"
+          f": card {card_breaks[1:].tolist()}, CPU "
+          f"{cpu_breaks[1:].tolist()}; within-class variance {var_card!r} "
+          f"against {var_cpu!r}, {card}")
+    if not same and abs(var_card - var_cpu) > JENKS_RTOL * abs(var_cpu):
+        raise SmokeFailure("natural_breaks: the card's breaks reach another "
+                           "within-class variance than the CPU's")
+    nb_bins = card_breaks[1:].copy()
+    nb_bins[-1] = float(np.nanmax(values))
+    check_classes("natural_breaks", host(out.data), values.reshape(
+        JENKS_N, JENKS_N), nb_bins, np.arange(np.unique(sample).size))
+    del out, agg4, g4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"  phase 23: {time.perf_counter() - t_phase:.1f} s, {card}")
+    print(json.dumps({"a5_a6_paths": rows}))
+    return rows
+
+
 # -- the least time of each kernel ------------------------------------------
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
@@ -3197,6 +3782,9 @@ def main() -> int:
     launches["jfa_group"], ms["jfa_group"], group_times = jfa_group_path(
         dev, card)
     max_err["jfa_group"] = 0.0             # equal to the rounds bit for bit
+
+    # -- the A5/A6 paths: torch ops, no kernel ----------------------------------
+    a5_a6_paths(dev, card, probes["roof_gb_s"] * 1e9)
 
     work = kernel_work(
         len(offsets), len(kernel_offsets(halo_footprints()["annulus_40_38"])),

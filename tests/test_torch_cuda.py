@@ -52,7 +52,13 @@ kernel's routes (staged, vector, simple), by name and as
 bit for bit, and its launcher refuses an unsafe plan; the fused
 jump-flood group equals the round kernel launched once per stride, bit
 for bit, in both state forms and at every metric, and its single-buffered
-route equals its first port.
+route equals its first port.  The A5/A6 paths (the DataArray shim's
+methods, multispectral, local, classify; torch ops, no kernel of ours)
+keep their results on the card and equal the same call on the CPU bit for
+bit, but reductions and std within rtol 1e-6 (another summation order),
+ebbi within 2 ulps (the CPU's float32 sqrt is 1 ulp off in some values)
+and ``true_color`` within 1; the Jenks DP's breaks reach the CPU's
+float64 within-class variance within rtol 1e-5.
 """
 
 import numpy as np
@@ -1777,3 +1783,105 @@ def test_jfa_group_wrapper_refuses_what_it_cannot_take(cuda):
                                          (1.0, 1.0))
     with pytest.raises(ValueError, match="metrics"):
         cuda_jfa_group.group_packed_cuda(state, (2, 1), 1, (1.0, 1.0))
+
+
+# -- A5/A6: the shim, multispectral, local and classify as torch ops ----------
+
+def a5_bands(dev):
+    rng = np.random.default_rng(21)
+    bands = [(rng.random((96, 130)) * 2).astype(np.float32) for _ in range(3)]
+    bands[0][4, 5] = np.nan
+    for b in bands:
+        b[7, 9] = 0.0
+    return [xt.DataArray(torch.from_numpy(b).to(dev), dims=("y", "x"))
+            for b in bands]
+
+
+A5_CALLS = {
+    "shim_arithmetic": lambda m, b: (b[0] + b[1] * 2 - 1) / (abs(b[2]) + 1),
+    "shim_compare_where": lambda m, b: b[0].where(b[0] > 0.5, -1.0),
+    "shim_fillna": lambda m, b: b[0].fillna(7.0),
+    "shim_reduce_mean": lambda m, b: b[0].mean(),
+    "shim_reduce_std_x": lambda m, b: b[0].std(dim="x"),
+    "shim_reduce_min": lambda m, b: b[0].min(skipna=False),
+    "shim_isel_astype": lambda m, b: b[0].isel(y=slice(3, 40)).astype(
+        np.float64),
+    "shim_concat": lambda m, b: xt.concat([b[0], b[1]], "t"),
+    "ndvi": lambda m, b: m["ms"].ndvi(b[0], b[1]),
+    "arvi": lambda m, b: m["ms"].arvi(b[0], b[1], b[2]),
+    "evi": lambda m, b: m["ms"].evi(b[0], b[1], b[2]),
+    "savi": lambda m, b: m["ms"].savi(b[0], b[1], soil_factor=0.3),
+    "ebbi": lambda m, b: m["ms"].ebbi(b[0], b[1], b[2]),
+    "cell_stats_median": lambda m, b: m["local"].cell_stats(
+        xt.Dataset({"a": b[0], "b": b[1], "c": b[2], "d": b[1]}),
+        func="median"),
+    "cell_stats_std": lambda m, b: m["local"].cell_stats(
+        xt.Dataset({"a": b[0], "b": b[1], "c": b[2]}), func="std"),
+    "popularity": lambda m, b: m["local"].popularity(
+        xt.Dataset({"a": b[0], "b": b[0], "c": b[2], "r": b[1] * 3 - 2}),
+        "r"),
+    "rank": lambda m, b: m["local"].rank(
+        xt.Dataset({"a": b[0], "b": b[1], "c": b[2], "r": b[1] * 3 - 2}),
+        "r"),
+    "quantile": lambda m, b: m["cl"].quantile(b[0], k=5),
+    "percentiles": lambda m, b: m["cl"].percentiles(b[1]),
+    "std_mean": lambda m, b: m["cl"].std_mean(b[1]),
+    "head_tail_breaks": lambda m, b: m["cl"].head_tail_breaks(b[2]),
+    "box_plot": lambda m, b: m["cl"].box_plot(b[2]),
+}
+
+
+# rtol 1e-6 where the card sums in another order than the CPU; ebbi within
+# 2 ulps, since the CPU's float32 sqrt is 1 ulp off in some values
+A5_RTOL = {"shim_reduce_mean": 1e-6,
+           "shim_reduce_std_x": 1e-6, "cell_stats_std": 1e-6,
+           "ebbi": 2.5e-7}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(A5_CALLS))
+def test_a5_a6_paths_on_the_card_match_the_cpu(cuda, name):
+    """The result stays on the card and equals the same call on the CPU,
+    bit for bit but where ``A5_RTOL`` says."""
+    from xrspatial_torch import classify, local, multispectral
+    mods = {"ms": multispectral, "local": local, "cl": classify}
+    got = A5_CALLS[name](mods, a5_bands(cuda))
+    ref = A5_CALLS[name](mods, a5_bands("cpu"))
+    assert isinstance(got.data, torch.Tensor)
+    assert got.data.device.type == "cuda", got.data.device
+    g, r = got.values, ref.values
+    assert g.dtype == r.dtype and g.shape == r.shape
+    assert np.array_equal(np.isnan(g), np.isnan(r))
+    np.testing.assert_allclose(g, r, equal_nan=True, atol=0,
+                               rtol=A5_RTOL.get(name, 0.0))
+
+
+@pytest.mark.gpu
+def test_true_color_on_the_card(cuda):
+    from xrspatial_torch import multispectral
+    got = multispectral.true_color(*a5_bands(cuda))
+    ref = multispectral.true_color(*a5_bands("cpu"))
+    assert got.data.device.type == "cuda" and got.data.dtype == torch.uint8
+    diff = np.abs(got.values.astype(int) - ref.values.astype(int))
+    assert diff.max() <= 1 and (got.values[..., 3] == ref.values[..., 3]).all()
+
+
+@pytest.mark.gpu
+def test_jenks_on_the_card(cuda):
+    """The card's prefix sums add in another order than the CPU's: the
+    breaks may differ at a near-tie, the float64 within-class variance
+    they reach agrees within rtol 1e-5."""
+    from xrspatial_torch import classify
+    values = (np.random.default_rng(4).random(800) * 100).astype(np.float32)
+    got = classify._run_jenks(values, 5, cuda)[1:]
+    ref = classify._run_jenks(values, 5, torch.device("cpu"))[1:]
+
+    def within(bins):
+        v = np.sort(values.astype(np.float64))
+        idx = np.searchsorted(bins.astype(np.float64), v, side="left")
+        return sum(((v[idx == c] - v[idx == c].mean()) ** 2).sum()
+                   for c in np.unique(idx))
+
+    np.testing.assert_allclose(within(got), within(ref), rtol=1e-5)
+    out = classify.natural_breaks(a5_bands(cuda)[0], k=4, num_sample=300)
+    assert out.data.device.type == "cuda"

@@ -22,6 +22,7 @@ from xrspatial_torch.convolution import circle_kernel
 from xrspatial_torch.kernels import pipeline as tpipeline
 from xrspatial_torch.kernels.window import kernel_offsets
 from xrspatial_torch.utils import dataarray_from, to_torch
+from xrspatial_tpu import xr_compat as jxr_compat
 from xrspatial_tpu.xrlib import DataArray as JaxDataArray
 
 
@@ -317,11 +318,19 @@ def test_to_torch_converts_dtype_and_device_explicitly():
 
 
 @pytest.mark.parametrize("call", [
-    lambda a: a.isel(x=0), lambda a: a.sel(x=0.0), lambda a: a.mean(),
+    lambda a: a.isel(x=0), lambda a: a.sel(x=1.0), lambda a: a.mean(),
     lambda a: a + 1, lambda a: a[0], lambda a: a.where(a.data > 0),
-    lambda a: xt.xr_compat.concat([a, a], "t"),
+    lambda a: (xt.concat if isinstance(a, xt.DataArray)
+               else jxr_compat.concat)([a, a], "t"),
 ], ids=["isel", "sel", "mean", "add", "index", "where", "concat"])
 def test_unported_dataarray_methods_raise(call):
-    a = xt.DataArray(np.ones((2, 3), np.float32), dims=("y", "x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        call(a)
+    """Named for what it held before ROADMAP A5 ported these methods; it
+    now holds each to the JAX shim's result: the same dims, coords and
+    values, and a tensor payload that stays a tensor."""
+    data = np.arange(6, dtype=np.float32).reshape(2, 3) - 2
+    kw = dict(dims=("y", "x"), coords={"x": np.arange(3.0)})
+    j = call(JaxDataArray(data, **kw))
+    t = call(xt.DataArray(torch.from_numpy(data.copy()), **kw))
+    assert isinstance(t.data, torch.Tensor)
+    assert t.dims == j.dims and list(t.coords) == list(j.coords)
+    np.testing.assert_array_equal(t.values, np.asarray(j.data))

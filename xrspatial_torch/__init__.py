@@ -13,9 +13,13 @@ Only what is ported is exported; ROADMAP.md lists the rest in order.
 
 from .analytics import summarize_terrain, terrain_pipeline
 from .aspect import aspect
+from .classify import (binary, box_plot, equal_interval, head_tail_breaks,
+                       maximum_breaks, natural_breaks, percentiles, quantile,
+                       reclassify, std_mean)
 from .curvature import curvature
 from .focal import focal_stats, mean
 from .hillshade import hillshade
+from .multispectral import arvi, evi, nbr, ndvi, savi, sipi
 from .proximity import (DISTANCE_METRICS, allocation, direction,
                         euclidean_distance, great_circle_distance,
                         manhattan_distance, proximity)
@@ -29,6 +33,9 @@ __all__ = ["DataArray", "Dataset", "concat", "slope", "aspect", "curvature",
            "summarize_terrain", "proximity", "allocation", "direction",
            "euclidean_distance", "manhattan_distance",
            "great_circle_distance", "DISTANCE_METRICS", "viewshed",
-           "set_default_device", "default_device"]
+           "binary", "box_plot", "equal_interval", "head_tail_breaks",
+           "maximum_breaks", "natural_breaks", "percentiles", "quantile",
+           "reclassify", "std_mean", "arvi", "evi", "nbr", "ndvi", "savi",
+           "sipi", "set_default_device", "default_device"]
 
 __version__ = "0.1.0"

@@ -1,0 +1,369 @@
+"""Classification: binary, reclassify, quantile, natural_breaks (Jenks),
+equal_interval, std_mean, head_tail_breaks, percentiles, maximum_breaks,
+box_plot.
+
+Counterpart of ``xrspatial_tpu/classify.py``.  Binning and the global
+statistics (percentiles, mean, std, min, max) are torch ops on the
+raster's device; the break arithmetic, ``maximum_breaks``' unique values
+and ``natural_breaks``' fixed-seed sampler (``RandomState(1234567890)``)
+are host numpy, copied from the JAX package.  The Jenks dynamic program
+runs on the raster's device as a loop over the sorted sample whose step
+updates all classes at once: a class's candidates read only rows below
+the current one, so the JAX package's sequential loop over classes has
+independent iterations.  Its variances are float32 prefix sums, whose
+summation order differs from XLA's, so a near-tie may pick another break
+than the JAX package's.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .dataset_support import supports_dataset
+from .kernels.selection import nanpercentile
+from .utils import to_torch, wrap_like
+from .xr_compat import _to_numpy, nanmax, nanmin, nanvar
+
+__all__ = ["binary", "reclassify", "quantile", "natural_breaks",
+           "equal_interval", "std_mean", "head_tail_breaks", "percentiles",
+           "maximum_breaks", "box_plot"]
+
+
+# ---------------------------------------------------------------------------
+# core bin
+# ---------------------------------------------------------------------------
+
+def _bin(data: torch.Tensor, bins, new_values) -> torch.Tensor:
+    """val <= bins[0] -> class 0; bins[i-1] < val <= bins[i] -> class i;
+    val > bins[-1] or non-finite -> NaN.
+
+    The class index is the count of bins below the value (the JAX
+    package's ``searchsorted(method="compare_all")``), found by a search
+    of the bins sorted on the host; bins and values are float32.
+    """
+    data = data.to(torch.float32)
+    bins = np.asarray(bins).astype(np.float32)
+    new_values = np.asarray(new_values).astype(np.float32)
+    nb = bins.shape[0]
+    idx = torch.searchsorted(torch.from_numpy(np.sort(bins)).to(data.device),
+                             data, side="left", out_int32=True)
+    valid = torch.isfinite(data) & (idx < nb)
+    gathered = torch.from_numpy(new_values).to(data.device)[
+        idx.clamp_max(nb - 1)]
+    return torch.where(valid, gathered, math.nan)
+
+
+def _finite_or_nan(data: torch.Tensor) -> torch.Tensor:
+    data = data.to(torch.float32)
+    return torch.where(torch.isinf(data), math.nan, data)
+
+
+def _nan_raster(data: torch.Tensor) -> torch.Tensor:
+    return torch.full(data.shape, math.nan, dtype=torch.float32,
+                      device=data.device)
+
+
+# ---------------------------------------------------------------------------
+# binary / reclassify
+# ---------------------------------------------------------------------------
+
+@supports_dataset
+def binary(agg, values, name='binary'):
+    """1 where the cell value is in `values`, 0 otherwise; NaN/inf -> NaN."""
+    data = to_torch(agg)
+    member = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
+    for v in np.asarray(values, dtype=np.float32).ravel():
+        member = member | (data == float(v))
+    out = torch.where(torch.isfinite(data), member.to(torch.float32),
+                      math.nan)
+    return wrap_like(agg, out, name)
+
+
+@supports_dataset
+def reclassify(agg, bins, new_values, name: Optional[str] = 'reclassify'):
+    """Classify into `new_values` by user-defined upper-bound `bins`."""
+    if len(bins) != len(new_values):
+        raise ValueError(
+            'bins and new_values mismatch. Should have same length.')
+    out = _bin(to_torch(agg), bins, new_values)
+    return wrap_like(agg, out, name)
+
+
+# ---------------------------------------------------------------------------
+# quantile / percentiles / equal_interval / std_mean / box_plot
+# ---------------------------------------------------------------------------
+
+def _nanpercentile(data: torch.Tensor, p) -> np.ndarray:
+    """The percentiles `p` of the finite cells, read to the host."""
+    return _to_numpy(nanpercentile(_finite_or_nan(data).reshape(-1),
+                                   np.asarray(p, dtype=np.float32)))
+
+
+def _quantile_bins(data, k: int) -> np.ndarray:
+    w = 100.0 / k
+    p = np.arange(w, 100 + w, w)
+    if p[-1] > 100.0:
+        p[-1] = 100.0
+    return np.unique(_nanpercentile(data, p))
+
+
+@supports_dataset
+def quantile(agg, k: int = 4, name: Optional[str] = 'quantile'):
+    """Classify into `k` quantile classes (equal counts per class)."""
+    data = to_torch(agg)
+    q = _quantile_bins(data, k)
+    if q.shape[0] < k:
+        print("Quantile Warning: Not enough unique values "
+              "for k classes (using {} bins)".format(q.shape[0]))
+        k = q.shape[0]
+    out = _bin(data, q, np.arange(k))
+    return wrap_like(agg, out, name)
+
+
+@supports_dataset
+def percentiles(agg, pct: Optional[List] = None,
+                name: Optional[str] = 'percentiles'):
+    """Classify by explicit percentile breakpoints (default [25,50,75,100])."""
+    if pct is None:
+        pct = [25, 50, 75, 100]
+    for p in pct:
+        if not 0 < p <= 100:
+            raise ValueError("percentiles must be in (0, 100]")
+    data = to_torch(agg)
+    q = np.unique(_nanpercentile(data, np.asarray(pct, dtype=float)))
+    out = _bin(data, q, np.arange(len(q)))
+    return wrap_like(agg, out, name)
+
+
+@supports_dataset
+def equal_interval(agg, k: int = 5,
+                   name: Optional[str] = 'equal_interval'):
+    """Classify into `k` classes of equal value-range width."""
+    data = to_torch(agg)
+    clean = _finite_or_nan(data)
+    min_data, max_data = float(nanmin(clean)), float(nanmax(clean))
+    width = (max_data - min_data) / k
+    if width == 0 or not np.isfinite(width):
+        # constant raster: one class
+        cuts = np.array([max_data])
+    else:
+        cuts = np.arange(min_data + width, max_data + width, width)
+        if cuts.shape[0] > k:
+            cuts = cuts[0:k]
+        cuts[-1] = max_data
+    out = _bin(data, cuts, np.arange(cuts.shape[0]))
+    return wrap_like(agg, out, name)
+
+
+@supports_dataset
+def std_mean(agg, name: Optional[str] = 'std_mean'):
+    """Classify by standard deviations from the mean
+    (breaks at mean ± 1σ, ± 2σ, max)."""
+    data = to_torch(agg)
+    clean = _finite_or_nan(data)
+    m = float(torch.nanmean(clean))
+    s = float(torch.sqrt(nanvar(clean)))
+    mx = float(nanmax(clean))
+    bins = np.sort(np.unique([m - 2 * s, m - s, m + s, m + 2 * s, mx]))
+    out = _bin(data, bins, np.arange(len(bins)))
+    return wrap_like(agg, out, name)
+
+
+@supports_dataset
+def box_plot(agg, hinge: float = 1.5, name: Optional[str] = 'box_plot'):
+    """Classify by box-plot fences: q1-h*iqr, q1, q2, q3, q3+h*iqr, max."""
+    data = to_torch(agg)
+    q1, q2, q3 = (float(v) for v in _nanpercentile(data, [25.0, 50.0, 75.0]))
+    if not np.isfinite([q1, q2, q3]).all():
+        # all-NaN input: the fences are undefined; all-NaN output
+        return wrap_like(agg, _nan_raster(data), name)
+    max_v = float(nanmax(_finite_or_nan(data)))
+    iqr = q3 - q1
+    raw = [q1 - hinge * iqr, q1, q2, q3, q3 + hinge * iqr, max_v]
+    bins = np.sort(np.unique(raw))
+    bins = bins[bins <= max_v]
+    if bins[-1] < max_v:
+        bins = np.append(bins, max_v)
+    out = _bin(data, bins, np.arange(len(bins)))
+    return wrap_like(agg, out, name)
+
+
+# ---------------------------------------------------------------------------
+# head/tail breaks
+# ---------------------------------------------------------------------------
+
+@supports_dataset
+def head_tail_breaks(agg, name: Optional[str] = 'head_tail_breaks'):
+    """Head/Tail Breaks: iteratively split at the mean while the head
+    holds <= 40% of the data (heavy-tailed distributions)."""
+    data = _finite_or_nan(to_torch(agg))
+    mask = torch.isfinite(data)
+    bins = []
+    total = int(mask.sum())
+    while total > 1:
+        cnt = mask.sum()
+        mean_f = float(torch.where(mask, data, 0.0).sum()
+                       / cnt.clamp_min(1))
+        bins.append(mean_f)
+        new_mask = mask & (data > mean_f)
+        head = int(new_mask.sum())
+        if head == 0 or head / total > 0.40:
+            break
+        mask = new_mask
+        total = head
+    if not bins:
+        bins = [float(torch.nanmean(data))]
+    bins.append(float(nanmax(data)))
+    out = _bin(data, np.array(bins), np.arange(len(bins)))
+    return wrap_like(agg, out, name)
+
+
+# ---------------------------------------------------------------------------
+# maximum breaks
+# ---------------------------------------------------------------------------
+
+@supports_dataset
+def maximum_breaks(agg, k: int = 5, name: Optional[str] = 'maximum_breaks'):
+    """Break at the k-1 largest gaps between sorted unique values."""
+    data = to_torch(agg)
+    values = _to_numpy(data).ravel()
+    values = values[np.isfinite(values)]
+    uv = np.unique(values)
+    if uv.size == 0:
+        # all-NaN input: all-NaN output
+        return wrap_like(agg, _nan_raster(data), name)
+    if len(uv) < k:
+        bins = uv
+    else:
+        diffs = np.diff(uv)
+        n_gaps = min(k - 1, len(diffs))
+        top = np.argsort(diffs, kind='stable')[-n_gaps:]
+        top.sort()
+        bins = np.array([(uv[i] + uv[i + 1]) / 2.0 for i in top])
+        bins = np.append(bins, float(uv[-1]))
+    out = _bin(data, bins, np.arange(len(bins)))
+    return wrap_like(agg, out, name)
+
+
+# ---------------------------------------------------------------------------
+# natural breaks (Jenks)
+# ---------------------------------------------------------------------------
+
+def jenks_matrix(data: torch.Tensor, n_classes: int) -> torch.Tensor:
+    """Lower-class-limit matrix of the Jenks dynamic program, on `data`'s
+    device.
+
+    ``data`` is sorted ascending, float32, length n.  Step l (2..n) takes
+    the variance of every window ``data[i:l]`` from float32 prefix sums of
+    ``data[l-1], data[l-2], ...`` (the JAX package's reversed cumulative
+    sums) and, for every class j >= 2 at once, the row i in [1, l-1] that
+    minimises ``var_comb[i, j-1] + variance(data[i:l])``; ``min`` takes the
+    first minimum, the smallest i, which is the JAX package's tie to the
+    larger m = l-1-i.  Row l of ``var_comb`` is +inf until step l writes
+    it, so the JAX package's ``best <= var_comb[l, j]`` always holds (the
+    data are finite) and the step writes ``best`` and ``l - m = i + 1``
+    unconditionally: 12 launches a step.
+    """
+    n = data.shape[0]
+    kk = n_classes + 1
+    dev = data.device
+    lcl = torch.zeros((n + 1, kk), dtype=torch.float32, device=dev)
+    lcl[1:, 1] = 1.0
+    lcl[1, 2:] = 1.0
+    var_comb = torch.zeros((n + 1, kk), dtype=torch.float32, device=dev)
+    var_comb[2:, 1:] = math.inf
+    row = torch.zeros((n + 1, max(kk - 2, 0)), dtype=torch.int64,
+                      device=dev)           # i - 1 of step l's best row i
+    rev = data.flip(0)
+    w = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+    for l in range(2, n + 1):
+        t = rev[n - l:]                      # data[l-1], ..., data[0]
+        csum = torch.cumsum(t, 0)
+        csumsq = torch.cumsum(t * t, 0)
+        # variance[m]: the window of the last m+1 values, data[l-1-m:l]
+        variance = csumsq - csum * csum / w[:l]
+        if kk > 2:
+            cand = var_comb[1:l, 1:kk - 1] + variance[:l - 1].flip(0)[:, None]
+            torch.min(cand, dim=0, out=(var_comb[l, 2:], row[l]))
+        var_comb[l, 1] = variance[l - 1]
+    lcl[2:, 2:] = (row[2:] + 2).to(torch.float32)
+    return lcl
+
+
+def _run_jenks(sample_data: np.ndarray, n_classes: int,
+               device) -> np.ndarray:
+    data = np.sort(sample_data).astype(np.float32)
+    lcl = _to_numpy(jenks_matrix(torch.from_numpy(data).to(device),
+                                 n_classes))
+    k = data.shape[0]
+    kclass = np.zeros(n_classes + 1, dtype=np.float32)
+    kclass[0] = data[0]
+    kclass[-1] = data[-1]
+    count_num = n_classes
+    while count_num > 1:
+        elt = int(lcl[k][count_num] - 2)
+        kclass[count_num - 1] = data[elt]
+        k = int(lcl[k][count_num] - 1)
+        count_num -= 1
+    return kclass
+
+
+def _natural_break_bins(values: np.ndarray, num_sample: Optional[int],
+                        k: int, max_data: float, device):
+    num_data = values.size
+    if num_sample is not None and num_sample < num_data:
+        # fixed-seed linspace+shuffle sampling, the reference's
+        generator = np.random.RandomState(1234567890)
+        idx = np.linspace(0, num_data, num_data, endpoint=False,
+                          dtype=np.uint32)
+        generator.shuffle(idx)
+        sample_data = values[idx[:num_sample]]
+    else:
+        sample_data = values
+
+    sample_data = np.asarray(sample_data)
+    sample_data = sample_data[np.isfinite(sample_data)]
+    uv = np.unique(sample_data)
+    uvk = len(uv)
+
+    if uvk < k:
+        with warnings.catch_warnings():
+            warnings.simplefilter('default')
+            warnings.warn('natural_breaks Warning: Not enough unique values '
+                          'in data array for {} classes. '
+                          'n_samples={} should be >= n_clusters={}. '
+                          'Using k={} instead.'.format(k, uvk, k, uvk),
+                          Warning)
+        uv.sort()
+        bins = uv
+    else:
+        centroids = _run_jenks(sample_data, k, device)
+        bins = np.array(centroids[1:])
+        bins[-1] = max_data
+    return bins, uvk
+
+
+@supports_dataset
+def natural_breaks(agg, num_sample: Optional[int] = 20000,
+                   name: Optional[str] = 'natural_breaks', k: int = 5):
+    """Jenks natural-breaks classification into `k` classes.
+
+    Fits on a fixed-seed sample of `num_sample` points (the DP is
+    O(n^2 k)); the sample is drawn on the host, the DP runs on the
+    raster's device.
+    """
+    data = to_torch(agg)
+    values = _to_numpy(data).ravel()
+    if not np.isfinite(values).any():
+        # no finite values to fit on: every cell is NaN
+        return wrap_like(agg, _nan_raster(data), name)
+    max_data = float(nanmax(_finite_or_nan(data)))
+    bins, uvk = _natural_break_bins(values, num_sample, k, max_data,
+                                    data.device)
+    out = _bin(data, bins, np.arange(uvk))
+    return wrap_like(agg, out, name)

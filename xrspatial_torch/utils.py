@@ -1,11 +1,12 @@
 """Shared helpers: resolution inference and torch adapters.
 
 Counterpart of ``xrspatial_tpu/utils.py``.  Ported so far: the resolution
-helpers (host code, same behaviour), ``to_torch`` in place of ``to_jax``,
-``wrap_like``, ``dataarray_from``, which carries a raster and its metadata
-over from any DataArray-like object, the package's default device, the
-geodesic helpers (``Z_UNITS``, the lat/lon extraction) and ``nan_border``.
-``canvas_like`` waits for its callers (ROADMAP A5-A9); float64 is native in
+helpers (host code, same behaviour), ``validate_arrays``, ``to_torch`` in
+place of ``to_jax``, ``wrap_like``, ``dataarray_from``, which carries a
+raster and its metadata over from any DataArray-like object, the package's
+default device, the geodesic helpers (``Z_UNITS``, the lat/lon extraction)
+and ``nan_border``.
+``canvas_like`` waits for its callers (ROADMAP A9); float64 is native in
 torch, so ``x64`` has no counterpart.
 
 A numpy payload goes to the default device, which is the card (``cuda``)
@@ -27,6 +28,7 @@ __all__ = [
     "get_xy_range",
     "calc_res",
     "get_dataarray_resolution",
+    "validate_arrays",
     "to_torch",
     "wrap_like",
     "dataarray_from",
@@ -104,6 +106,17 @@ def get_dataarray_resolution(agg, xdim: Optional[str] = None,
         return calc_res(agg, xdim, ydim)
     except Exception:
         return calc_res(agg, xdim, ydim)
+
+
+def validate_arrays(*arrays):
+    """Check that all input DataArrays share one shape."""
+    if len(arrays) < 2:
+        raise ValueError(
+            "validate_arrays() input must contain 2 or more arrays")
+    first = arrays[0]
+    for other in arrays[1:]:
+        if tuple(first.data.shape) != tuple(other.data.shape):
+            raise ValueError("input arrays must have equal shapes")
 
 
 def to_torch(agg, dtype: Optional[torch.dtype] = torch.float32,

@@ -197,7 +197,27 @@ Phases, each fatal on failure:
    16384^2, and of maximum_breaks and natural_breaks (20,000 samples,
    k=5) at 4096^2, against ``np.searchsorted``; the Jenks DP's seconds on
    the card and on the CPU, its breaks equal to the CPU run's or of the
-   same float64 within-class variance within rtol 1e-5.
+   same float64 within-class variance within rtol 1e-5;
+24. A7, zonal (torch ops, no kernel of ours; no launch counted) on
+   ``gaussian_bump`` with zones ``floor(dem / 100)`` in int32:
+   ``zonal_stats``' 7 stats (``bench.py:376-378``) at 4096^2, the JAX
+   bench's leg, and at 16384^2, against ``bench.py:218-241``'s float64
+   oracle (by bincount; the count after its float32 rounding, min and max
+   against a masked reduction of each zone); majority at 4096^2 on the
+   DEM in whole metres against numpy; ``zonal_crosstab`` count at 16384^2
+   (categories ``floor(dem / 250)``) against numpy's bincount;
+   ``regions`` at 4096^2 equal to ``scipy.ndimage.label``'s regions at
+   every cell, its propagation steps printed, and once at 16384^2;
+   ``zonal_apply`` (a host function), ``trim`` and ``crop`` at 16384^2;
+   each path's ms and peak allocated memory;
+25. A11, XDraw: the scan kernel X1 (``csrc/xdraw.cu``) against its twin
+   bit for bit at 17x1, 1x23, 300x70, 70x300 and 263x516 with NaN cells,
+   the viewpoint at every corner and inside, and at 4096^2 and 16384^2 at
+   the JAX bench's viewpoint; ``viewshed`` at 4096^2 (x = y = 100,
+   observer 100, ``bench.py:343-344``) and at 16384^2: one X1 launch each,
+   no twin call, no other kernel, float32 on the card; at 4096^2 equal to
+   the CPU's visibility at every cell; agreement with ``exact=True`` at
+   1024^2 at least 0.985; warm ms of the call, of X1 alone and of the twin.
 
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -1221,6 +1241,8 @@ def reset_launches():
     from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
+    from xrspatial_torch.kernels import cuda_xdraw
+    cuda_xdraw.XDRAW_LAUNCHES = 0
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
     cuda_surface.STAGED_TMA_LAUNCHES = cuda_surface.STAGED_ASYNC_LAUNCHES = 0
     cuda_surface.SIMPLE_LAUNCHES = 0
@@ -1257,6 +1279,7 @@ def read_launches():
     from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
+    from xrspatial_torch.kernels import cuda_xdraw
     return {"surface_kernel": cuda_surface.LAUNCHES,
             "focal_kernel": cuda_window.LAUNCHES,
             "focal_halo_kernel": cuda_window.HALO_LAUNCHES,
@@ -1283,7 +1306,8 @@ def read_launches():
                 cuda_stencil_probe.INTERIOR_ASYNC_LAUNCHES,
             "stencil_ring_tma": cuda_stencil_probe.RING_TMA_LAUNCHES,
             "stencil_ring_async": cuda_stencil_probe.RING_ASYNC_LAUNCHES,
-            "jfa_group": cuda_jfa_group.LAUNCHES}
+            "jfa_group": cuda_jfa_group.LAUNCHES,
+            "xdraw_scan": cuda_xdraw.XDRAW_LAUNCHES}
 
 
 def only(launches, name, n=1):
@@ -3419,6 +3443,414 @@ def a5_a6_paths(dev, card, roof_bytes_s):
     return rows
 
 
+# -- phases 24 and 25: A7 (zonal, torch ops) and A11 (XDraw, kernel X1) ------
+
+ZONAL_N = 4096          # the JAX bench's zonal_stats leg (bench.py:373-380)
+ZONAL_STATS = ["mean", "max", "min", "sum", "std", "var", "count"]
+ZONAL_RTOL = 1e-5       # bench.py:236-239: mean, sum and std (std atol 1e-3)
+ZONAL_STD_ATOL = 1e-3
+XDRAW_N = 4096          # the JAX bench's viewshed leg (bench.py:343-344)
+XDRAW_VIEW = (100.0, 100.0, 100.0)  # its x, y and observer_elev
+XDRAW_SHAPES = ((17, 1), (1, 23), (300, 70), (70, 300), (263, 516))
+XDRAW_EXACT_N = 1024    # the exact route's ceiling: agreement measured there
+XDRAW_AGREE = 0.985     # tests/test_viewshed.py:346
+XDRAW_ANGLE_RTOL = 1e-6
+# float operations per cone cell of the scan (xdraw.cu: the minor offset
+# and its abs, the division, 1 - wsec, two products, the sum, the max)
+XDRAW_OPS = 8
+
+
+def timed_run(fn, reps):
+    """(the first call's result, ms, peak allocated GiB): with `reps`, a
+    warm-up call and `reps` calls timed with CUDA events; with 0, the
+    first call timed alone (host-bound paths)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    if reps:
+        fn()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+    return (out, start.elapsed_time(end) / max(reps, 1),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def bump_raster(n, dev):
+    """gaussian_bump(n, n) as a DataArray with the JAX bench's coordinates
+    (y descending, x ascending, 1 apart)."""
+    import xrspatial_torch as xt
+    coords = {"y": np.arange(n, dtype=np.float64)[::-1].copy(),
+              "x": np.arange(n, dtype=np.float64)}
+    return xt.DataArray(gaussian_bump(n, n, dev), dims=("y", "x"),
+                        coords=coords, attrs={"res": (1.0, 1.0)})
+
+
+def zonal_oracle(zones, values):
+    """bench.py:218-241's float64 oracle, by bincount: (zones present,
+    count, sum, mean, std, var) of float32 values over int zones."""
+    z = zones.ravel().astype(np.int64)
+    zmin = int(z.min())
+    b = z - zmin
+    v = values.ravel().astype(np.float64)
+    cnt = np.bincount(b)
+    present = cnt > 0
+    ssum = np.bincount(b, weights=v)[present]
+    ssq = np.bincount(b, weights=v * v)[present]
+    cnt = cnt[present]
+    mean = ssum / cnt
+    var = np.maximum(ssq / cnt - mean * mean, 0.0)
+    return np.nonzero(present)[0] + zmin, cnt, ssum, mean, np.sqrt(var), var
+
+
+def check_zonal_stats(label, cols, zones_t, values_t):
+    """The 7 stats' columns against the float64 oracle (count after the
+    float32 rounding the package reports), min and max against a masked
+    reduction of each zone on the card."""
+    zones, values = zones_t.cpu().numpy(), values_t.cpu().numpy()
+    uz, cnt, ssum, mean, std, var = zonal_oracle(zones, values)
+    bad = []
+    if not np.array_equal(np.asarray(cols["zone"]), uz):
+        bad.append("zone")
+    if not np.array_equal(np.asarray(cols["count"]),
+                          cnt.astype(np.float32).astype(np.float64)):
+        bad.append("count")
+    for k, ref, atol in (("mean", mean, 0), ("sum", ssum, 0),
+                         ("std", std, ZONAL_STD_ATOL),
+                         ("var", var, ZONAL_STD_ATOL * std.max())):
+        if not np.allclose(cols[k], ref, rtol=ZONAL_RTOL, atol=atol):
+            bad.append(k)
+    lo = np.array([float(values_t[zones_t == z].min()) for z in uz])
+    hi = np.array([float(values_t[zones_t == z].max()) for z in uz])
+    if not (np.array_equal(cols["min"], lo)
+            and np.array_equal(cols["max"], hi)):
+        bad.append("min/max")
+    print(f"  {label}: {len(uz)} zones, the largest {int(cnt.max())} cells; "
+          f"against the float64 oracle: "
+          f"{'equal within tolerance' if not bad else 'BAD ' + str(bad)}")
+    if bad:
+        raise SmokeFailure(f"{label}: {bad} differ from the oracle")
+
+
+def scipy_regions(zones):
+    """Scan-order region ids of an integer raster from scipy.ndimage.label
+    (4-connected), one value at a time."""
+    from scipy import ndimage
+    ids = np.zeros(zones.shape, dtype=np.int64)
+    base = 0
+    for v in np.unique(zones):
+        lbl, n = ndimage.label(zones == v)
+        ids[lbl > 0] = lbl[lbl > 0] + base
+        base += n
+    _, first, inverse = np.unique(ids.ravel(), return_index=True,
+                                  return_inverse=True)
+    rank = np.empty(first.size, dtype=np.int64)
+    rank[np.argsort(first)] = np.arange(first.size)
+    return (rank[inverse] + 1).reshape(zones.shape), base
+
+
+def regions_counted(raster):
+    """(regions(raster), ms of the one call, peak GiB, propagation steps)."""
+    import xrspatial_torch as xt
+    from xrspatial_torch import zonal
+    steps = []
+    propagate = zonal._label_propagate
+
+    def counted(data, n8):
+        labels, k = propagate(data, n8)
+        steps.append(k)
+        return labels, k
+
+    zonal._label_propagate = counted
+    try:
+        out, ms, peak = timed_run(lambda: xt.regions(raster), 0)
+    finally:
+        zonal._label_propagate = propagate
+    return out, ms, peak, steps[0]
+
+
+def zonal_path(dev, card):
+    """Phase 24: A7 (zonal), torch ops and no kernel of ours, on the card:
+    zonal_stats' 7 stats at 4096^2 (the JAX bench's leg) and N^2 against
+    the float64 oracle, majority at 4096^2, crosstab count at N^2,
+    regions at 4096^2 against scipy (and timed once at N^2), apply, trim
+    and crop at N^2.  Returns its rows."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch import zonal
+    t_phase = time.perf_counter()
+    print(f"== A7 zonal at {ZONAL_N}^2 and {N}^2 on {card}")
+    rows = []
+
+    def row(label, edge, ms, peak, reps, **extra):
+        rows.append({"path": label, "edge": edge, "ms": ms, "peak_gib": peak,
+                     "card": card, **extra})
+        print(f"  {label} at {edge}^2: {ms:.3f} ms"
+              f"{' (one call)' * (not reps)}, peak allocated {peak:.2f} GiB"
+              f"{''.join(f', {k} {v}' for k, v in extra.items())}, {card}")
+
+    def rasters(n):
+        values = bump_raster(n, dev)
+        zones = xt.DataArray(torch.floor(values.data / 100.0).to(torch.int32),
+                             dims=("y", "x"), coords=values.coords)
+        return values, zones
+
+    def stats_leg(n, values, zones):
+        reset_launches()
+        cols, ms, peak = timed_run(
+            lambda: xt.zonal_stats(zones, values, stats_funcs=ZONAL_STATS), 3)
+        launched = {k: v for k, v in read_launches().items() if v}
+        if launched:
+            raise SmokeFailure(f"zonal_stats launched kernels: {launched}")
+        row("zonal_stats (7 stats)", n, ms, peak, 3)
+        check_zonal_stats(f"zonal_stats at {n}^2", cols, zones.data,
+                          values.data)
+
+    # 4096^2: the JAX bench's leg, majority, regions against scipy
+    values, zones = rasters(ZONAL_N)
+    stats_leg(ZONAL_N, values, zones)
+    metres = xt.DataArray(torch.round(values.data), dims=("y", "x"))
+    cols, ms, peak = timed_run(
+        lambda: xt.zonal_stats(zones, metres, stats_funcs=["majority"]), 3)
+    row("zonal_stats majority (whole metres)", ZONAL_N, ms, peak, 3)
+    zh, vh = zones.data.cpu().numpy(), metres.data.cpu().numpy()
+    ref = []
+    for z in np.unique(zh):
+        u, c = np.unique(vh[zh == z].astype(np.float64), return_counts=True)
+        ref.append(u[np.argmax(c)])
+    if not np.array_equal(np.asarray(cols["majority"]), ref):
+        raise SmokeFailure("majority differs from numpy's")
+    print(f"  majority equal to numpy's per-zone np.unique in {len(ref)} "
+          f"zones")
+    out, ms, peak, steps = regions_counted(
+        xt.DataArray(zones.data.to(torch.float32), dims=("y", "x")))
+    ref, nreg = scipy_regions(zh)
+    if not np.array_equal(out.data.cpu().numpy(), ref):
+        raise SmokeFailure("regions differ from scipy.ndimage.label")
+    row("regions (4 neighbours)", ZONAL_N, ms, peak, 0, steps=steps,
+        regions=nreg)
+    print(f"  regions equal to scipy.ndimage.label's {nreg} regions at every "
+          f"cell, in {steps} propagation steps")
+    del values, zones, metres, out, zh, vh, ref
+
+    # N^2: the stats, the extremes' lanes against one lane a zone,
+    # crosstab, regions once, apply, trim, crop
+    values, zones = rasters(N)
+    stats_leg(N, values, zones)
+    lanes = zonal._EXTREME_LANES
+    turns = {}
+    for k in (lanes, 1, 1, lanes):
+        zonal._EXTREME_LANES = k
+        try:
+            turns.setdefault(k, []).append(timed_run(lambda: xt.zonal_stats(
+                zones, values, stats_funcs=["min", "max"]), 1)[1])
+        finally:
+            zonal._EXTREME_LANES = lanes
+    print(f"  min and max at {N}^2 in turns: {lanes} lanes a zone "
+          f"{turns[lanes]} ms, one lane {turns[1]} ms, {card}")
+    rows.append({"path": "min/max lanes a zone", "edge": N, "card": card,
+                 "ms_by_lanes": {str(k): v for k, v in turns.items()}})
+    cats = xt.DataArray(torch.floor(values.data / 250.0), dims=("y", "x"))
+    cols, ms, peak = timed_run(lambda: xt.zonal_crosstab(zones, cats), 3)
+    row("zonal_crosstab count (floor(dem / 250))", N, ms, peak, 3)
+    zh, ch = zones.data.cpu().numpy(), cats.data.cpu().numpy()
+    uz, uc = np.unique(zh), np.unique(ch)
+    ref = np.bincount(np.searchsorted(uz, zh.ravel()) * uc.size
+                      + np.searchsorted(uc, ch.ravel()),
+                      minlength=uz.size * uc.size).reshape(uz.size, uc.size)
+    got = np.stack([np.asarray(cols[c]) for c in uc], axis=1)
+    if not (np.array_equal(np.asarray(cols["zone"]), uz)
+            and np.array_equal(got, ref.astype(np.float32))):
+        raise SmokeFailure("crosstab counts differ from numpy's")
+    print(f"  crosstab: {uz.size} zones x {uc.size} categories equal to "
+          f"numpy's bincount (float32)")
+    del cols, cats, ch
+    out, ms, peak, steps = regions_counted(
+        xt.DataArray(zones.data.to(torch.float32), dims=("y", "x")))
+    row("regions (4 neighbours)", N, ms, peak, 0, steps=steps,
+        regions=int(torch.nan_to_num(out.data).max()))
+    del out
+    torch.cuda.empty_cache()
+
+    # apply: a host function on every cell outside zone 0
+    target = xt.DataArray(values.data.clone(), dims=("y", "x"))
+    _, ms, peak = timed_run(
+        lambda: xt.zonal_apply(zones, target, lambda x: x * 2), 0)
+    mid = slice(N * 15 // 32, N * 17 // 32)
+    want = torch.where(zones.data[mid] != 0, values.data[mid] * 2,
+                       values.data[mid])
+    if target.data.device.type != "cuda" or not torch.equal(
+            target.data[mid], want):
+        raise SmokeFailure("zonal_apply: wrong values or not on the card")
+    row("zonal_apply (x * 2, host function)", N, ms, peak, 0)
+    del target, want
+
+    def extent(mask):
+        r, c = np.nonzero(mask.any(1))[0], np.nonzero(mask.any(0))[0]
+        return r[0], r[-1] + 1, c[0], c[-1] + 1
+
+    for label, fn, mask in (
+            ("trim (values -1, 0)", lambda: xt.trim(zones, values=(-1, 0)),
+             ~np.isin(zh, (-1, 0))),
+            ("crop (zone 5)", lambda: xt.crop(zones, values, zones_ids=(5,)),
+             zh == 5)):
+        out, ms, peak = timed_run(fn, 3)
+        r0, r1, c0, c1 = extent(mask)
+        if out.shape != (r1 - r0, c1 - c0) or out.data.device.type != "cuda":
+            raise SmokeFailure(f"{label}: {out.shape} on {out.data.device}, "
+                               f"expected {(r1 - r0, c1 - c0)} on the card")
+        row(label, N, ms, peak, 3,
+            extent=[int(r0), int(r1), int(c0), int(c1)])
+    del zh, values, zones, out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"  phase 24: {time.perf_counter() - t_phase:.1f} s, {card}")
+    print(json.dumps({"a7_zonal_paths": rows}))
+    return rows
+
+
+def xdraw_cone_reads(h, w, vp_row, vp_col):
+    """Slope cells X1 reads: every cell of each half-plane's ray cone."""
+    import torch
+    dy = torch.arange(h, dtype=torch.float64)[:, None] - vp_row
+    dx = torch.arange(w, dtype=torch.float64)[None, :] - vp_col
+    return int(((dx > 0) & (dy.abs() <= dx)).sum()
+               + ((dx < 0) & (dy.abs() <= -dx)).sum()
+               + ((dy > 0) & (dx.abs() <= dy)).sum()
+               + ((dy < 0) & (dx.abs() <= -dy)).sum())
+
+
+def xdraw_path(dev, card):
+    """Phase 25: A11, the XDraw viewshed and its scan kernel X1.  Returns
+    (X1 launches in the N^2 call, X1 ms with the wrapper's transpose, twin
+    ms, (bytes, operations) of the function)."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch.kernels import cuda_xdraw, viewshed as kv
+    t_phase = time.perf_counter()
+    print(f"== A11 XDraw: X1 (csrc/xdraw.cu) against its twin, then "
+          f"viewshed at {XDRAW_N}^2 and {N}^2 on {card}")
+    for shape in XDRAW_SHAPES:
+        h, w = shape
+        host = test_raster(shape, seed=h * w)
+        for vp in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1),
+                   (h // 3, w // 2)):
+            slope = kv._xdraw_fields(torch.from_numpy(host).to(dev), *vp,
+                                     2.0, 0.0, 1.0, -1.0)[3]
+            before = cuda_xdraw.XDRAW_LAUNCHES
+            got = cuda_xdraw.xdraw_scan_cuda(slope, *vp)
+            if cuda_xdraw.XDRAW_LAUNCHES != before + 1:
+                raise SmokeFailure("xdraw_scan_cuda did not count its launch")
+            if not same_bits(got, kv.xdraw_scan_twin(slope, *vp)):
+                raise SmokeFailure(f"X1 {shape} vp {vp}: differs from its "
+                                   f"twin")
+    torch.cuda.synchronize()
+    print(f"  X1 equal to its twin bit for bit at {list(XDRAW_SHAPES)}, "
+          f"the viewpoint at every corner and inside")
+
+    x, y, oe = XDRAW_VIEW
+    twin = kv.xdraw_scan_twin
+    timings = {}
+    for n in (XDRAW_N, N):
+        agg = bump_raster(n, dev)
+        vp = (n - 1 - int(y), int(x))
+        slope = kv._xdraw_fields(agg.data, *vp, oe, 0.0, 1.0, -1.0)[3]
+        got = cuda_xdraw.xdraw_scan_cuda(slope, *vp)
+        t0 = time.perf_counter()
+        ref = twin(slope, *vp)
+        torch.cuda.synchronize()
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        if not same_bits(got, ref):
+            raise SmokeFailure(f"X1 at {n}^2 differs from its twin")
+        print(f"  X1 equal to its twin bit for bit at {n}^2 (viewpoint "
+              f"{vp}); the twin {twin_ms:.1f} ms (one call, host clock)")
+        del got, ref
+
+        def refuse(*a):
+            raise SmokeFailure("the XDraw path called the twin on the card")
+
+        kv.xdraw_scan_twin = refuse
+        try:
+            reset_launches()
+            cuda_xdraw.XDRAW_LAUNCHES = 0
+            out = xt.viewshed(agg, x=x, y=y, observer_elev=oe)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in read_launches().items()
+                        if v and k != "xdraw_scan"}
+            x1 = cuda_xdraw.XDRAW_LAUNCHES
+        finally:
+            kv.xdraw_scan_twin = twin
+        vis = out.data
+        if x1 != 1 or launched or vis.dtype != torch.float32 \
+                or vis.device.type != "cuda" or tuple(vis.shape) != (n, n):
+            raise SmokeFailure(f"viewshed at {n}^2: {x1} X1 launches, others "
+                               f"{launched}, {vis.dtype} {tuple(vis.shape)} "
+                               f"on {vis.device}")
+        if float(vis[vp]) != 180.0 or not bool(
+                ((vis == -1) | ((vis >= 0) & (vis <= 180))).all()):
+            raise SmokeFailure(f"viewshed at {n}^2: values out of range")
+        share = float((vis > -1).double().mean())
+        print(f"  viewshed at {n}^2 (x={x}, y={y}, observer_elev={oe}): one "
+              f"X1 launch, no twin call, no other kernel; float32 on the "
+              f"card, {share:.4f} of the cells visible")
+        if n == XDRAW_N:
+            cpu = xt.DataArray(agg.data.cpu(), dims=("y", "x"),
+                               coords=agg.coords)
+            ref = xt.viewshed(cpu, x=x, y=y, observer_elev=oe).data
+            g = vis.cpu()
+            both = (g > -1) & (ref > -1)
+            if not torch.equal(g == -1, ref == -1) or not torch.allclose(
+                    g[both], ref[both], rtol=XDRAW_ANGLE_RTOL, atol=0):
+                raise SmokeFailure("viewshed at 4096^2: the card differs "
+                                   "from the CPU")
+            print(f"  equal to the CPU's visibility at every cell, angles "
+                  f"within rtol {XDRAW_ANGLE_RTOL}")
+            del cpu, ref, g, both
+        del out, vis
+        t_call = timed_run(lambda: xt.viewshed(agg, x=x, y=y,
+                                               observer_elev=oe), 3)
+        t_x1 = timed_run(lambda: cuda_xdraw.xdraw_scan_cuda(slope, *vp), 5)
+        timings[n] = {"viewshed_ms": t_call[1], "x1_ms": t_x1[1],
+                      "x1_launches": x1, "twin_ms": twin_ms,
+                      "peak_gib": t_call[2],
+                      "cone_reads": xdraw_cone_reads(n, n, *vp), "vp": vp}
+        print(f"  at {n}^2: viewshed warm {t_call[1]:.3f} ms (peak "
+              f"{t_call[2]:.2f} GiB), X1 alone (its transpose included) "
+              f"{t_x1[1]:.3f} ms, the twin {twin_ms:.1f} ms, {card}")
+        del agg, slope, t_call, t_x1
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # the exact route against XDraw at the ceiling
+    agg = bump_raster(XDRAW_EXACT_N, dev)
+    kw = dict(x=x, y=y, observer_elev=oe)
+    exact = xt.viewshed(agg, exact=True, **kw).data
+    los = xt.viewshed(agg, exact=False, **kw).data
+    agree = float(((exact > -1) == (los > -1)).double().mean())
+    print(f"  at {XDRAW_EXACT_N}^2: XDraw agrees with the exact predicate "
+          f"on {agree:.5f} of the cells (at least {XDRAW_AGREE})")
+    if agree < XDRAW_AGREE:
+        raise SmokeFailure(f"XDraw agrees with the exact route on only "
+                           f"{agree}")
+    print(f"  phase 25: {time.perf_counter() - t_phase:.1f} s, {card}")
+    print(json.dumps({"a11_xdraw": {str(k): v for k, v in timings.items()}}))
+    # the function's bytes: each cone cell of the slope field read once,
+    # the field written once.  The wrapper's transpose for the east and
+    # west half-planes is a layout choice, so it is in X1's ms and not in
+    # its bound
+    t = timings[N]
+    work = (4 * (t["cone_reads"] + N * N), XDRAW_OPS * t["cone_reads"])
+    return t["x1_launches"], t["x1_ms"], t["twin_ms"], work
+
+
 # -- the least time of each kernel ------------------------------------------
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
@@ -3786,9 +4218,16 @@ def main() -> int:
     # -- the A5/A6 paths: torch ops, no kernel ----------------------------------
     a5_a6_paths(dev, card, probes["roof_gb_s"] * 1e9)
 
+    # -- A7 and A11: zonal (torch ops), the XDraw viewshed (X1) -----------------
+    zonal_path(dev, card)
+    launches["xdraw_scan"], x1_ms, x1_twin_ms, x1_work = xdraw_path(dev, card)
+    ms["xdraw_scan"] = (x1_ms, x1_twin_ms)
+    max_err["xdraw_scan"] = 0.0            # equal to the twin bit for bit
+
     work = kernel_work(
         len(offsets), len(kernel_offsets(halo_footprints()["annulus_40_38"])),
         screen_counts)
+    work["xdraw_scan"] = x1_work
     roof = probes["roof_gb_s"] * 1e9
     bounds = kernel_bounds(work, roof)
     print(f"== bounds: nominal {HBM_BYTES_S / 1e12:.2f} TB/s, measured stream "
@@ -3845,7 +4284,11 @@ def main() -> int:
         "tools/exp_seam_cost.py:34"),
         "jfa_group": (
         "xrspatial_torch/csrc/jfa_group.cu",
-        "tools/exp_jfa_fixed.py:38")}
+        "tools/exp_jfa_fixed.py:38"),
+        # no Pallas kernel: the JAX package's XLA scan
+        "xdraw_scan": (
+        "xrspatial_torch/csrc/xdraw.cu",
+        "xrspatial_tpu/kernels/viewshed.py:771")}
     # the design each redesigned kernel's timed launch ran
     halo = halo_plan(N, N, kernel_offsets(halo_footprints()["annulus_40_38"]),
                      0)
@@ -3895,7 +4338,12 @@ def main() -> int:
                                   f"16-byte row-body copies, 32-byte-aligned "
                                   f"plane spans)",
         "jfa_round": jfa_design(),
-        "jfa_group": group_design()}
+        "jfa_group": group_design(),
+        "xdraw_scan": "one block a half-plane (4 of the SMs), 1024 threads "
+                      "x N/1024 lanes, the carry double-buffered in shared "
+                      "memory, one __syncthreads a step, the next line "
+                      "prefetched; the cone's lanes only; ms with the "
+                      "wrapper's transpose of the slope field"}
     # the first ports, kept by name, timed in turns with the redesigns
     first_port_ms.update(jfa_round=jfa_timing["simple_ms"],
                          jfa_group=group_times["double"],

@@ -58,7 +58,13 @@ keep their results on the card and equal the same call on the CPU bit for
 bit, but reductions and std within rtol 1e-6 (another summation order),
 ebbi within 2 ulps (the CPU's float32 sqrt is 1 ulp off in some values)
 and ``true_color`` within 1; the Jenks DP's breaks reach the CPU's
-float64 within-class variance within rtol 1e-5.
+float64 within-class variance within rtol 1e-5.  The XDraw scan kernel
+X1 equals its twin bit for bit at rows, columns, ragged shapes and one
+side above what a block's shared memory holds (its scratch route), the
+viewpoint at every corner, one launch a call; ``viewshed`` with
+``exact=False`` launches it once and never its twin.  The zonal columns on
+the card equal the CPU's (mean and sum rtol 1e-6, var and std 1e-5: the
+card adds in another order), crosstab, regions, trim and crop exactly.
 """
 
 import numpy as np
@@ -1885,3 +1891,148 @@ def test_jenks_on_the_card(cuda):
     np.testing.assert_allclose(within(got), within(ref), rtol=1e-5)
     out = classify.natural_breaks(a5_bands(cuda)[0], k=4, num_sample=300)
     assert out.data.device.type == "cuda"
+
+
+# -- A7 and A11 (X1): zonal on the card, the XDraw scan kernel -----------------
+
+# h != w both ways, a row and a column, ragged sizes, and one side above
+# the 29,056 cells a block's shared memory holds (the scratch route)
+XDRAW_SHAPES = ((17, 1), (1, 23), (300, 70), (70, 300), (263, 516),
+                (1, 30000), (30000, 2))
+
+
+def xdraw_slope(shape, vp, dev, seed=0):
+    from xrspatial_torch.kernels.viewshed import _xdraw_fields
+    rng = np.random.default_rng(seed)
+    data = (rng.random(shape) * 50).astype(np.float32)
+    h, w = shape
+    data[h // 3:h // 3 + max(1, h // 10), w // 2:w // 2 + max(1, w // 10)] \
+        += 150.0
+    data[rng.integers(0, h, 3), rng.integers(0, w, 3)] = np.nan
+    return _xdraw_fields(torch.from_numpy(data).to(dev), *vp, 2.0, 0.0, 1.0,
+                         -1.0)[3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", XDRAW_SHAPES)
+def test_xdraw_kernel_equals_its_twin(cuda, shape):
+    """Bit for bit, NaN where NaN, at every corner and an inner viewpoint
+    (two opposite corners on the long shapes); one launch a call."""
+    from xrspatial_torch.kernels import cuda_xdraw
+    from xrspatial_torch.kernels.emulate import same_bits
+    from xrspatial_torch.kernels.viewshed import xdraw_scan_twin
+    h, w = shape
+    vps = ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (h // 3, w // 2))
+    if max(shape) > 4096:      # each twin call walks 30000 steps
+        vps = vps[::3]
+    for vp in vps:
+        slope = xdraw_slope(shape, vp, cuda, seed=h + w)
+        before = cuda_xdraw.XDRAW_LAUNCHES
+        got = cuda_xdraw.xdraw_scan_cuda(slope, *vp)
+        torch.cuda.synchronize()
+        assert cuda_xdraw.XDRAW_LAUNCHES == before + 1
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        # the twin on the card: at 30000 steps it is slow on the CPU
+        ref = xdraw_scan_twin(slope, *vp)
+        assert same_bits(got.cpu(), ref.cpu()), (shape, vp)
+
+
+@pytest.mark.gpu
+def test_xdraw_path_goes_through_the_kernel(cuda):
+    """viewshed with exact=False on the card: one X1 launch, no twin call,
+    the CPU's float32 output at every cell."""
+    from xrspatial_torch.kernels import cuda_xdraw, viewshed as kv
+    rng = np.random.default_rng(5)
+    data = (rng.random((120, 90)) * 40).astype(np.float32)
+    ys, xs = np.arange(120.0)[::-1].copy(), np.arange(90.0)
+
+    def agg(dev):
+        return xt.DataArray(torch.from_numpy(data).to(dev), dims=("y", "x"),
+                            coords={"y": ys, "x": xs})
+
+    twin = kv.xdraw_scan_twin
+    calls = []
+    kv.xdraw_scan_twin = lambda *a: calls.append(a) or twin(*a)
+    try:
+        before = cuda_xdraw.XDRAW_LAUNCHES
+        got = xt.viewshed(agg(cuda), x=30.0, y=70.0, observer_elev=3.0,
+                          exact=False)
+        assert cuda_xdraw.XDRAW_LAUNCHES == before + 1 and not calls
+    finally:
+        kv.xdraw_scan_twin = twin
+    ref = xt.viewshed(agg("cpu"), x=30.0, y=70.0, observer_elev=3.0,
+                      exact=False)
+    assert got.data.device.type == "cuda" and got.data.dtype == torch.float32
+    np.testing.assert_array_equal(got.values == -1, ref.values == -1)
+    np.testing.assert_allclose(got.values, ref.values, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_xdraw_wrapper_refuses_what_it_cannot_take(cuda):
+    from xrspatial_torch.kernels import cuda_xdraw
+    before = cuda_xdraw.XDRAW_LAUNCHES
+    x = torch.zeros((8, 9), device=cuda)
+    for bad, match in ((x.cpu(), "CUDA"), (x.double(), "float32"),
+                       (x.t(), "contiguous"), (x[None], "2-D")):
+        with pytest.raises(ValueError, match=match):
+            cuda_xdraw.xdraw_scan_cuda(bad, 1, 1)
+    with pytest.raises(ValueError, match="outside"):
+        cuda_xdraw.xdraw_scan_cuda(x, 8, 0)
+    assert cuda_xdraw.XDRAW_LAUNCHES == before
+
+
+def test_xdraw_wrapper_refuses_cpu_tensors():
+    """Without a card too: a CPU tensor never reaches the launch."""
+    from xrspatial_torch.kernels import cuda_xdraw
+    before = cuda_xdraw.XDRAW_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_xdraw.xdraw_scan_cuda(torch.zeros((4, 5)), 1, 1)
+    assert cuda_xdraw.XDRAW_LAUNCHES == before
+
+
+def zonal_rasters(dev):
+    rng = np.random.default_rng(31)
+    zones = rng.integers(0, 9, (150, 170)).astype(np.int32)
+    zones[:4, :4] = 700000             # a wide range: the unique path too
+    values = (rng.random((150, 170)) * 100).astype(np.float32)
+    values[20:30, 40:60] = np.nan
+    cats = np.floor(values / 25)
+    return [xt.DataArray(torch.from_numpy(a).to(dev), dims=("y", "x"),
+                         coords={"y": np.arange(150.0), "x": np.arange(170.0)})
+            for a in (zones, values, cats)]
+
+
+@pytest.mark.gpu
+def test_zonal_on_the_card_matches_the_cpu(cuda):
+    """The columns of stats (mean and sum within rtol 1e-6, var and std
+    1e-5: the card adds in another order; the rest equal), crosstab,
+    regions, trim and crop on the card against the same calls on the
+    CPU; results stay on the card."""
+    from xrspatial_torch import zonal
+    card, cpu = zonal_rasters(cuda), zonal_rasters("cpu")
+    got = zonal.stats_columns(card[0], card[1])
+    ref = zonal.stats_columns(cpu[0], cpu[1])
+    rtol = {"mean": 1e-6, "sum": 1e-6, "std": 1e-5, "var": 1e-5}
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=rtol.get(k, 0.0),
+                                   atol=1e-6 if k in ("std", "var") else 0,
+                                   err_msg=k)
+    for kw in (dict(), dict(agg="percentage", zone_ids=[1, 3])):
+        got = zonal.crosstab_columns(card[0], card[2], **kw)
+        ref = zonal.crosstab_columns(cpu[0], cpu[2], **kw)
+        assert list(got) == list(ref)
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k])
+    da = zonal.stats_columns(card[0], card[1], stats_funcs=["max"],
+                             return_type="xarray.DataArray")
+    assert da.data.device.type == "cuda"
+    for n in (4, 8):
+        out = zonal.regions(card[2], neighborhood=n)
+        assert out.data.device.type == "cuda"
+        np.testing.assert_array_equal(
+            out.values, zonal.regions(cpu[2], neighborhood=n).values)
+    for fn in (lambda r: zonal.trim(r[2], values=(0.0, 3.0)),
+               lambda r: zonal.crop(r[0], r[1], zones_ids=(700000,))):
+        out = fn(card)
+        assert out.data.device.type == "cuda"
+        np.testing.assert_array_equal(out.values, fn(cpu).values)

@@ -563,7 +563,7 @@ def test_exact_routes_equal_bitwise(monkeypatch):
     assert torch.equal(base, l2) and torch.equal(base, valve)
 
 
-# -- (vii) arguments and what is not ported --------------------------------
+# -- (vii) arguments and routes ------------------------------------------
 
 def test_viewpoint_outside_raises():
     _, tagg = rasters(np.zeros((5, 5)))
@@ -575,20 +575,36 @@ def test_viewpoint_outside_raises():
 
 
 def test_xdraw_raises_not_implemented(monkeypatch):
+    """The routing that took the place of the refusal this test was named
+    for: the exact predicate (float64) at or under the ceiling by default
+    and with exact=True above it, XDraw (float32, the scan twin on the
+    CPU) above it by default and with exact=False under it; each equal to
+    the JAX package's route (visibility at every cell here, XDraw's
+    near-tie cells are held in tests/test_torch_xdraw.py)."""
     data = bitwise_raster((48, 64))
     jagg, tagg = rasters(data)
     xs, ys = np.asarray(tagg["x"].data), np.asarray(tagg["y"].data)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        xt.viewshed(tagg, x=xs[3], y=ys[5], exact=False)
+    kw = dict(x=xs[3], y=ys[5], observer_elev=2.0)
+    los = TV.viewshed_grid_los(torch.from_numpy(data), 5, 3, 2.0, 0.0,
+                               float(xs[1] - xs[0]), float(ys[1] - ys[0]))
+
+    def both(**extra):
+        got = xt.viewshed(tagg, **kw, **extra).data
+        ref = np.asarray(jvs.viewshed(jagg, **kw, **extra).data)
+        np.testing.assert_array_equal(got.numpy() == -1, ref == -1)
+        return got
+
+    for mod in (jvs, tvs):
+        monkeypatch.setattr(mod, "_EXACT_MAX_CELLS", 48 * 64)
+    at_ceiling = both()
+    assert at_ceiling.dtype == torch.float64
+    assert torch.equal(at_ceiling, both(exact=True))
+    xdraw = both(exact=False)
+    assert xdraw.dtype == torch.float32 and torch.equal(xdraw, los)
     for mod in (jvs, tvs):
         monkeypatch.setattr(mod, "_EXACT_MAX_CELLS", 40 * 40)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        xt.viewshed(tagg, x=xs[3], y=ys[5])
-    # above the ceiling exact=True still gives the exact predicate
-    got = xt.viewshed(tagg, x=xs[3], y=ys[5], exact=True).data.numpy()
-    ref = np.asarray(jvs.viewshed(jagg, x=xs[3], y=ys[5], exact=True).data)
-    np.testing.assert_array_equal(got == -1, ref == -1)
-    np.testing.assert_allclose(got, ref, rtol=ANGLE_RTOL, atol=0)
+    assert torch.equal(both(), los)
+    assert torch.equal(both(exact=True), at_ceiling)
 
 
 # -- (viii) the kernel wrapper ---------------------------------------------

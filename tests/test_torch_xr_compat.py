@@ -398,7 +398,26 @@ def test_every_ported_public_name_of_the_jax_package_is_exported():
     ported = public & _port_definitions()
     assert {"slope", "proximity", "viewshed", "DataArray", "concat",
             *DISTANCES} <= ported
+    # the JAX package exports zonal's functions under other names
+    # (zonal_stats for zonal.stats, ...): a name whose function the port
+    # defines under the function's own name counts as ported too
+    port_modules = {mod.__name__.removeprefix("xrspatial_torch.")
+                    for mod in map(importlib.import_module, (
+                        info.name for info in pkgutil.walk_packages(
+                            xt.__path__, "xrspatial_torch.")))}
+    aliases = {name for name in public - ported
+               if getattr(vars(xrspatial_tpu)[name], "__module__", "")
+               .removeprefix("xrspatial_tpu.") in port_modules
+               and vars(xrspatial_tpu)[name].__name__ in _port_definitions()}
+    assert {"zonal_stats", "zonal_crosstab", "zonal_apply"} <= aliases
+    ported |= aliases
+    assert {"crop", "regions", "suggest_zonal_canvas", "trim"} <= ported
     missing = sorted(n for n in ported if not hasattr(xt, n))
     assert not missing, f"ported but not exported: {missing}"
     for name in ported:
         assert name in xt.__all__, name
+        # the JAX package's signature, argument for argument
+        if inspect.isfunction(getattr(xt, name)):
+            assert inspect.signature(getattr(xt, name)).parameters.keys() \
+                == inspect.signature(getattr(xrspatial_tpu, name)) \
+                .parameters.keys(), name

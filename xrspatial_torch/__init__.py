@@ -27,6 +27,10 @@ from .slope import slope
 from .utils import default_device, set_default_device
 from .viewshed import viewshed
 from .xrlib import DataArray, Dataset, concat
+from .zonal import apply as zonal_apply
+from .zonal import crop, regions, suggest_zonal_canvas, trim
+from .zonal import crosstab as zonal_crosstab
+from .zonal import stats as zonal_stats
 
 __all__ = ["DataArray", "Dataset", "concat", "slope", "aspect", "curvature",
            "hillshade", "focal_stats", "mean", "terrain_pipeline",
@@ -36,6 +40,8 @@ __all__ = ["DataArray", "Dataset", "concat", "slope", "aspect", "curvature",
            "binary", "box_plot", "equal_interval", "head_tail_breaks",
            "maximum_breaks", "natural_breaks", "percentiles", "quantile",
            "reclassify", "std_mean", "arvi", "evi", "nbr", "ndvi", "savi",
-           "sipi", "set_default_device", "default_device"]
+           "sipi", "zonal_stats", "zonal_crosstab", "zonal_apply", "crop",
+           "regions", "suggest_zonal_canvas", "trim", "set_default_device",
+           "default_device"]
 
 __version__ = "0.1.0"

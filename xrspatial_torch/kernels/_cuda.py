@@ -186,6 +186,10 @@ def library() -> ctypes.CDLL:
     lib.stencil_edge_launch.argtypes = [p, p, i64, i64, i64, i64, i64, i64,
                                         f32, f32, p]
     lib.stencil_edge_launch.restype = i32
+    lib.xdraw_scratch_bytes.argtypes = [i32, i32]
+    lib.xdraw_scratch_bytes.restype = i64
+    lib.xdraw_scan_launch.argtypes = [p, p, p, i32, i32, i32, i32, p, p]
+    lib.xdraw_scan_launch.restype = i32
     lib.xrt_error_string.argtypes = [i32]
     lib.xrt_error_string.restype = ctypes.c_char_p
     return lib

@@ -25,7 +25,11 @@ loop order, to the kernels' plain versions bit for bit:
 - ``blocks_of`` and ``emulate_culled``: ``csrc/screen.cu::
   screen_culled_kernel`` (B7's culled route), against
   ``screen.screen_hilo``; ``blocks_of`` also gives the (warp, chunk)
-  pairs the kernel keeps, which the card's tests hold its counters to.
+  pairs the kernel keeps, which the card's tests hold its counters to;
+- ``emulate_xdraw``: ``csrc/xdraw.cu::xdraw_scan_kernel`` (X1: a block a
+  half-plane from the step after the viewpoint, the lanes of the ray
+  cone, each cell written by its own octant's scan), against
+  ``viewshed.xdraw_scan_twin``.
 
 Also the proximity family's test cases (``layout``, ``axes``) and
 tolerances, which several test files share.  Nothing in the package
@@ -676,3 +680,58 @@ def axes(kind, h, w, seed=0):
     if kind == "lonlat":             # bench.py's great-circle grid
         return np.linspace(75, -75, h), np.linspace(-170, 170, w)
     raise ValueError(kind)
+
+
+def emulate_xdraw(slope, vp_row, vp_col):
+    """``xdraw_scan_kernel``'s algorithm, its four blocks in turn: each
+    walks its half-plane from step k0 = (the viewpoint's major index) + 1,
+    updates only the lanes of the cone |minor| <= dxf from the previous
+    step's carry (both carry buffers start at -inf), and writes the cells
+    it owns into one field: east and west every cone cell, south and north
+    those with |minor| < dxf, east also the viewpoint (-inf).  Cells no
+    block writes stay NaN, which the tests would see."""
+    h, w = slope.shape
+    f32 = torch.float32
+    neginf = float("-inf")
+    out = torch.full((h, w), float("nan"), dtype=f32)
+    out[vp_row, vp_col] = neginf
+    slope_t = slope.t().contiguous()
+    for hp in range(4):
+        x_major, reverse = hp < 2, hp % 2 == 1
+        steps, lanes = (w, h) if x_major else (h, w)
+        last = steps - 1
+        vp_major = vp_col if x_major else vp_row
+        vp_minor = torch.tensor(vp_row if x_major else vp_col, dtype=f32)
+        vpm = (torch.tensor(last, dtype=f32) - torch.tensor(vp_major, dtype=f32)
+               if reverse else torch.tensor(vp_major, dtype=f32))
+        k0 = (last - vp_major if reverse else vp_major) + 1
+        src = slope_t if x_major else slope
+        minor = torch.arange(lanes, dtype=f32) - vp_minor
+        ady = minor.abs()
+        lane = torch.arange(lanes)
+        cur = torch.full((lanes,), neginf, dtype=f32)
+        for k in range(k0, steps):
+            dxf = torch.tensor(k, dtype=f32) - vpm
+            wden = torch.clamp(dxf, min=1.0)
+            line = last - k if reverse else k
+            cone = ady <= dxf
+            prim = cur
+            up = torch.where(lane > 0, cur.roll(1), neginf)
+            down = torch.where(lane + 1 < lanes, cur.roll(-1), neginf)
+            sec = torch.where(minor > 0, up, torch.where(minor < 0, down,
+                                                         prim))
+            wsec = torch.where(ady > 0, ady / wden, 0.0)
+            interp = torch.where(
+                torch.isfinite(prim) & torch.isfinite(sec),
+                prim * (1.0 - wsec) + sec * wsec, torch.maximum(prim, sec))
+            blocked = torch.full_like(interp, neginf) if dxf == 1.0 \
+                else interp
+            m = torch.maximum(blocked, src[line])
+            nxt = torch.where(cone, m, cur)
+            if x_major:
+                out[:, line] = torch.where(cone, m, out[:, line])
+            else:
+                own = ady < dxf
+                out[line] = torch.where(own, m, out[line])
+            cur = nxt
+    return out

@@ -1,13 +1,13 @@
 """Viewshed: GRASS r.viewshed semantics, reformulated data-parallel.
 
-Counterpart of the exact half of ``xrspatial_tpu/kernels/viewshed.py``.  A
+Counterpart of ``xrspatial_tpu/kernels/viewshed.py``.  A
 cell C is visible iff no cell B that is closer to the viewpoint and whose
 angular span (enter/exit corner angles) covers C's center angle has an
 interpolated gradient (piecewise-linear between enter/center/exit
 gradients) above C's gradient: the predicate the reference's radial sweep
 evaluates at every CENTER event, without the tree.
 
-Two halves:
+Three parts:
 - host code in numpy float64 (``cell_attrs_host``, ``cell_attrs_subset``
   and their helpers), copied from the JAX package as it is: it is the
   single source of the predicate attributes, so both packages' attributes
@@ -16,9 +16,12 @@ Two halves:
   predicate ``_interp_blocked_max``, the pairwise oracle
   ``_pairwise_visibility`` / ``viewshed_grid`` (O(N^2), the reference the
   bucket path in ``viewshed_exact.py`` is held against) and the vertical-
-  angle epilogue.
-
-The XDraw approximation of the JAX module is not ported (ROADMAP A11).
+  angle epilogue;
+- the XDraw approximation (``viewshed_grid_los``), float32: the slope
+  fields and the epilogue as torch ops, the four half-plane scans in one
+  launch of ``csrc/xdraw.cu`` on the card and in the twin
+  ``xdraw_scan_twin`` on the CPU.  Its mesh forms are not ported (ROADMAP
+  A13).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from math import pi as PI
 import numpy as np
 import torch
 
-__all__ = ["viewshed_grid", "cell_attrs_host", "cell_attrs_subset",
+__all__ = ["viewshed_grid", "viewshed_grid_los", "xdraw_scan_twin",
+           "xdraw_max_slope", "cell_attrs_host", "cell_attrs_subset",
            "INVISIBLE"]
 
 INVISIBLE = -1
@@ -577,3 +581,213 @@ def viewshed_grid(data, vp_row: int, vp_col: int, observer_elev: float,
     return _visibility_epilogue(data.to(torch.float64), visible,
                                 at["vp_elev"], vp_row, vp_col, target_elev,
                                 ew_res, ns_res)
+
+
+# ---------------------------------------------------------------------------
+# XDraw: the octant-scan wavefront, an O(N) float32 approximation
+# ---------------------------------------------------------------------------
+
+
+def _f32(x, device):
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _shift(arr, dy, dx, fill):
+    """`arr` read at (row + dy, col + dx), `fill` outside."""
+    h, w = arr.shape
+    py0, py1 = max(-dy, 0), max(dy, 0)
+    px0, px1 = max(-dx, 0), max(dx, 0)
+    p = torch.nn.functional.pad(arr, (px0, px1, py0, py1), value=fill)
+    return p[py0 + dy:py0 + dy + h, px0 + dx:px0 + dx + w]
+
+
+def _xdraw_interp(prim, sec, wsec):
+    """The blocking slope between the primary and secondary cells, each
+    product and the sum rounded apart (XLA on the CPU contracts the first
+    product and the sum into an FMA; the CUDA kernel does not)."""
+    return prim * (1.0 - wsec) + sec * wsec
+
+
+def _xdraw_fields(data, vp_row, vp_col, observer_elev, target_elev,
+                  ew_res, ns_res):
+    """Per-cell slopes and viewpoint-relative geometry, float32: (dy, dx,
+    safe_d, slope_self, slope_tgt, vp_elev).  At the viewpoint slope_self
+    is -inf and slope_tgt +inf."""
+    h, w = data.shape
+    dev = data.device
+    vp_r, vp_c = _f32(vp_row, dev), _f32(vp_col, dev)
+    vp_elev = data[vp_row, vp_col] + _f32(observer_elev, dev)
+    dy = torch.arange(h, dtype=torch.float32, device=dev)[:, None] - vp_r
+    dx = torch.arange(w, dtype=torch.float32, device=dev)[None, :] - vp_c
+    wx = dx * _f32(ew_res, dev)
+    wy = dy * _f32(ns_res, dev)
+    dist_w = torch.sqrt(wx * wx + wy * wy)
+    safe_d = torch.clamp(dist_w, min=_f32(1e-12, dev).item())
+    slope_self = torch.where(dist_w > 0, (data - vp_elev) / safe_d,
+                             float("-inf"))
+    slope_tgt = torch.where(
+        dist_w > 0, (data + _f32(target_elev, dev) - vp_elev) / safe_d,
+        float("inf"))
+    dy, dx = torch.broadcast_tensors(dy, dx)
+    return dy, dx, safe_d, slope_self, slope_tgt, vp_elev
+
+
+def xdraw_scan_twin(slope, vp_row: int, vp_col: int) -> torch.Tensor:
+    """The XDraw running max slope, (H, W) float32: the plain version of
+    the CUDA kernel ``xdraw_scan_kernel``.
+
+    The four half-plane scans of the JAX package's ``_halfplane_scan4``
+    as one loop over the major axis with a (4, N) carry, N = max(h, w):
+    east and west walk the columns, south and north the rows; padded
+    lanes have minor offset 3N, so they never enter the mask, and padded
+    steps come after every real one.  Each step's lines are sliced from
+    the raster and its results written into the four scans' (H, W) fields
+    (the JAX package stacks an (N, 4, N) input and output).  Each cell
+    then takes its own octant's scan (``_xdraw_octant_masks``; a diagonal
+    cell is east or west).  Every product and sum is rounded apart, as
+    the kernel's ``__fmul_rn``/``__fadd_rn`` are.
+    """
+    h, w = slope.shape
+    n = max(h, w)
+    dev = slope.device
+    neginf = float("-inf")
+
+    def pad1(v):
+        return torch.nn.functional.pad(v, (0, n - v.shape[0]),
+                                       value=float(3 * n))
+
+    dy_vec = torch.arange(h, dtype=torch.float32, device=dev) - _f32(
+        vp_row, dev)
+    dx_vec = torch.arange(w, dtype=torch.float32, device=dev) - _f32(
+        vp_col, dev)
+    minor = torch.stack([pad1(dy_vec), pad1(dy_vec), pad1(dx_vec),
+                         pad1(dx_vec)])                         # (4, N)
+    vpm = torch.stack([_f32(vp_col, dev), _f32(w - 1, dev) - _f32(vp_col, dev),
+                       _f32(vp_row, dev), _f32(h - 1, dev) - _f32(vp_row, dev)])
+    ady = torch.abs(minor)
+    sy = torch.sign(minor)
+    use_sec = ady > 0
+    edge = torch.full((4, 1), neginf, device=dev)
+    m = torch.full((4, n), neginf, device=dev)
+    m_e, m_w, m_s, m_n = (torch.empty((h, w), device=dev) for _ in range(4))
+    for k in range(n):
+        s_k = torch.full((4, n), neginf, device=dev)
+        if k < w:
+            s_k[0, :h] = slope[:, k]
+            s_k[1, :h] = slope[:, w - 1 - k]
+        if k < h:
+            s_k[2, :w] = slope[k]
+            s_k[3, :w] = slope[h - 1 - k]
+        dxf = (_f32(k, dev) - vpm)[:, None]
+        mask = (ady <= dxf) & (dxf > 0)
+        prim = m
+        up = torch.cat([edge, m[:, :-1]], 1)
+        down = torch.cat([m[:, 1:], edge], 1)
+        sec = torch.where(sy > 0, up, torch.where(sy < 0, down, prim))
+        wsec = torch.where(use_sec, ady / torch.clamp(dxf, min=1.0), 0.0)
+        both = torch.isfinite(prim) & torch.isfinite(sec)
+        interp = torch.where(both, _xdraw_interp(prim, sec, wsec),
+                             torch.maximum(prim, sec))
+        blocked = torch.where(dxf == 1.0, neginf, interp)
+        m = torch.where(mask, torch.maximum(blocked, s_k), neginf)
+        if k < w:
+            m_e[:, k] = m[0, :h]
+            m_w[:, w - 1 - k] = m[1, :h]
+        if k < h:
+            m_s[k] = m[2, :w]
+            m_n[h - 1 - k] = m[3, :w]
+
+    east, west, south, _ = _xdraw_octant_masks(dy_vec[:, None],
+                                               dx_vec[None, :])
+    return torch.where(east, m_e, torch.where(west, m_w,
+                       torch.where(south, m_s, m_n)))
+
+
+def _xdraw_octant_masks(dy, dx):
+    """Disjoint cell->scan assignment (east, west, south, north)."""
+    ady = torch.abs(dy)
+    adx = torch.abs(dx)
+    x_dom = adx >= ady
+    return (x_dom & (dx >= 0), x_dom & (dx < 0),
+            ~x_dom & (dy >= 0), ~x_dom & (dy < 0))
+
+
+def xdraw_max_slope(slope, vp_row: int, vp_col: int) -> torch.Tensor:
+    """The XDraw running max slope: the CUDA kernel for a tensor on the
+    card (its wrapper raises on one elsewhere), the twin on the CPU."""
+    if slope.device.type == "cpu":
+        return xdraw_scan_twin(slope, vp_row, vp_col)
+    from .cuda_xdraw import xdraw_scan_cuda
+    return xdraw_scan_cuda(slope, vp_row, vp_col)
+
+
+def _xdraw_inward_max(m, dy, dx):
+    """The max slope of the terrain strictly inward of each cell: the
+    scan's interpolation read from the combined field `m` at the cell's
+    primary and secondary inward neighbours; -inf within one ring of the
+    viewpoint."""
+    h, w = m.shape
+    ady = torch.abs(dy)
+    adx = torch.abs(dx)
+    sy = torch.sign(dy)
+    sx = torch.sign(dx)
+    dom_y = ady >= adx
+    p_dy = torch.where(dom_y, -sy, 0.0)
+    p_dx = torch.where(dom_y, 0.0, -sx)
+    s_dy = -sy
+    s_dx = -sx
+    denom = torch.clamp(torch.maximum(ady, adx), min=1.0)
+    minor = torch.minimum(ady, adx)
+    use_sec = torch.where(dom_y, adx > 0, ady > 0)
+    wsec = torch.where(use_sec, minor / denom, 0.0)
+    ring = torch.maximum(ady, adx)
+    neginf = float("-inf")
+
+    def shifted_for(offs_dy, offs_dx, arr):
+        out = torch.full((h, w), neginf, device=arr.device)
+        for ody in (-1, 0, 1):
+            for odx in (-1, 0, 1):
+                if ody == 0 and odx == 0:
+                    continue
+                sel = (offs_dy == ody) & (offs_dx == odx)
+                out = torch.where(sel, _shift(arr, ody, odx, neginf), out)
+        return out
+
+    mp = shifted_for(p_dy, p_dx, m)
+    ms = shifted_for(s_dy, s_dx, m)
+    both = torch.isfinite(mp) & torch.isfinite(ms)
+    inward_max = torch.where(both, _xdraw_interp(mp, ms, wsec),
+                             torch.maximum(mp, ms))
+    return torch.where(ring <= 1, neginf, inward_max)
+
+
+def _xdraw_epilogue(m, data, dy, dx, safe_d, slope_tgt, vp_elev,
+                    target_elev):
+    """Combined max-slope field -> visibility + vertical angles."""
+    visible = _xdraw_inward_max(m, dy, dx) <= slope_tgt
+    diff = vp_elev - (data + _f32(target_elev, data.device))
+    vert = torch.where(
+        diff == 0.0, 90.0,
+        torch.where(diff > 0,
+                    torch.arctan(safe_d / torch.where(diff == 0, 1.0, diff))
+                    * 180.0 / PI,
+                    torch.arctan(torch.abs(diff) / safe_d) * 180.0 / PI
+                    + 90.0))
+    out = torch.where(visible, vert, float(INVISIBLE))
+    out = torch.where(torch.isnan(data), float(INVISIBLE), out)
+    is_vp = (dy == 0.0) & (dx == 0.0)
+    return torch.where(is_vp, 180.0, out)
+
+
+def viewshed_grid_los(data, vp_row: int, vp_col: int, observer_elev: float,
+                      target_elev: float, ew_res: float, ns_res: float):
+    """XDraw viewshed (vertical angles, INVISIBLE=-1, viewpoint=180),
+    float32 on `data`'s device: the four octant scans in one launch of
+    ``xdraw_scan_kernel`` on the card (the twin on the CPU), then the
+    epilogue as torch ops."""
+    data = torch.as_tensor(data).to(torch.float32)
+    dy, dx, safe_d, slope_self, slope_tgt, vp_elev = _xdraw_fields(
+        data, vp_row, vp_col, observer_elev, target_elev, ew_res, ns_res)
+    m = xdraw_max_slope(slope_self, vp_row, vp_col)
+    return _xdraw_epilogue(m, data, dy, dx, safe_d, slope_tgt, vp_elev,
+                           target_elev)

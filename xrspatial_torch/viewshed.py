@@ -11,9 +11,11 @@ Output: vertical angle in degrees [0, 180] for visible cells (0 = straight
 up, 90 = level, 180 = the viewpoint itself), -1 for invisible cells,
 float64 on the raster's device.
 
-Not ported yet: the XDraw approximation, which the JAX package takes for
-``exact=False`` and by default above the ceiling, and its mesh branches.
-Those calls raise ``NotImplementedError`` (ROADMAP A11, A13).
+Larger rasters, and ``exact=False``, take the XDraw octant-scan
+approximation (``kernels/viewshed.py::viewshed_grid_los``, float32): its
+four half-plane scans run in one launch of the CUDA kernel
+``csrc/xdraw.cu`` on the card, in the torch twin on the CPU.  The JAX
+package's mesh branches are not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Union
 
 import numpy as np
 
+from .kernels.viewshed import viewshed_grid_los
 from .kernels.viewshed_exact import viewshed_grid_exact
 from .utils import to_torch, wrap_like
 from .xrlib import DataArray
@@ -35,10 +38,6 @@ TARGET_ELEV = 0
 # bucket evaluation to the XDraw approximation; the ceiling decides which
 # output the default call returns, so it is kept as it is
 _EXACT_MAX_CELLS = 1024 * 1024
-
-_XDRAW_LATER = ("the XDraw viewshed approximation is not ported to "
-                "xrspatial_torch yet (ROADMAP A11); pass exact=True for the "
-                "exact predicate at any size")
 
 
 def viewshed(raster: DataArray,
@@ -63,10 +62,10 @@ def viewshed(raster: DataArray,
         Height of hypothetical targets above the terrain; a cell is
         visible if a target at that height above it can be seen.
     exact : bool, optional
-        ``True`` forces the exact GRASS predicate at any size; ``None``
-        (default) takes it up to 1024x1024 cells.  ``False``, and the
-        default above the ceiling, select the XDraw approximation, which
-        is not ported yet and raises ``NotImplementedError``.
+        ``True`` forces the exact GRASS predicate at any size (float64);
+        ``False`` forces the XDraw approximation (float32); ``None``
+        (default) takes the exact predicate up to 1024x1024 cells and
+        XDraw above.
     """
     y_coords = np.asarray(raster['y'].data)
     x_coords = np.asarray(raster['x'].data)
@@ -85,8 +84,11 @@ def viewshed(raster: DataArray,
 
     use_exact = (height * width <= _EXACT_MAX_CELLS
                  if exact is None else bool(exact))
-    if not use_exact:
-        raise NotImplementedError(_XDRAW_LATER)
-    out = viewshed_grid_exact(to_torch(raster, dtype=None), y_view, x_view,
-                              observer_elev, target_elev, ew_res, ns_res)
+    if use_exact:
+        out = viewshed_grid_exact(to_torch(raster, dtype=None), y_view,
+                                  x_view, observer_elev, target_elev, ew_res,
+                                  ns_res)
+    else:
+        out = viewshed_grid_los(to_torch(raster), y_view, x_view,
+                                observer_elev, target_elev, ew_res, ns_res)
     return wrap_like(raster, out, raster.name)

@@ -217,12 +217,29 @@ Phases, each fatal on failure:
    observer 100, ``bench.py:343-344``) and at 16384^2: one X1 launch each,
    no twin call, no other kernel, float32 on the card; at 4096^2 equal to
    the CPU's visibility at every cell; agreement with ``exact=True`` at
-   1024^2 at least 0.985; warm ms of the call, of X1 alone and of the twin.
+   1024^2 at least 0.985; warm ms of the call, of X1 alone and of the twin;
+26. A9 and A12: the bump kernel X2 (``csrc/bump.cu``) against its twin bit
+   for bit at spreads 0, 1 and 3 (600 bumps on 23x17: duplicate
+   locations, every edge and corner, non-integer heights); ``bump`` at
+   4096^2 and its default count (1,677,721 bumps, spread 1): one X2
+   launch, no twin call, float64 on the card, X2 on the same inputs equal
+   to it, X2's ms (CUDA events); on the first 262,144 of those bumps X2
+   equal to the twin bit for bit, both timed (the twin by host clock: ~35
+   us a bump); ``generate_terrain`` at 4096^2 (the JAX bench's
+   leg), cold and warm, equal to the CPU's bit for bit, and at 16384^2:
+   the host hashing's seconds, cold and warm ms, peak memory, min 0, max
+   at most zfactor, the water share; ``terrain_pipeline`` on that
+   terrain (one B1 and one B2 launch); ``perlin`` at 4096^2 (equal to
+   the CPU's) and 16384^2, in [0, 1]; ``a_star_search`` on the 4096^2
+   terrain with water barred and both ends snapped, on the native route,
+   equal to the CPU's; ``polygonize`` of the 1024^2 terrain classified by
+   the kilometre, equal to the CPU's; ``diagnose`` on a raster on the
+   card, the CPU's report; one JSON line ``{"a9_a12_paths": {...}}``.
 
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
 of the bytes over 3.35 TB/s and the float operations, counted from the
-sources, over 67 TFLOP/s; for the screen, the work its culled route does
+sources, over 67 TFLOP/s, X2's float64 ones over 34; for the screen, the work its culled route does
 on this run's data, with the plan's whole pair count beside it as
 ``plan_bound_ms``) and the same bound at the stream roof measured in
 phase 18 (``measured_roof_bound_ms``, and its share of ``ms``), and
@@ -1241,8 +1258,8 @@ def reset_launches():
     from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
-    from xrspatial_torch.kernels import cuda_xdraw
-    cuda_xdraw.XDRAW_LAUNCHES = 0
+    from xrspatial_torch.kernels import cuda_bump, cuda_xdraw
+    cuda_xdraw.XDRAW_LAUNCHES = cuda_bump.BUMP_LAUNCHES = 0
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
     cuda_surface.STAGED_TMA_LAUNCHES = cuda_surface.STAGED_ASYNC_LAUNCHES = 0
     cuda_surface.SIMPLE_LAUNCHES = 0
@@ -1279,7 +1296,7 @@ def read_launches():
     from xrspatial_torch.kernels import cuda_jfa, cuda_pipeline, cuda_screen
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
-    from xrspatial_torch.kernels import cuda_xdraw
+    from xrspatial_torch.kernels import cuda_bump, cuda_xdraw
     return {"surface_kernel": cuda_surface.LAUNCHES,
             "focal_kernel": cuda_window.LAUNCHES,
             "focal_halo_kernel": cuda_window.HALO_LAUNCHES,
@@ -1307,7 +1324,8 @@ def read_launches():
             "stencil_ring_tma": cuda_stencil_probe.RING_TMA_LAUNCHES,
             "stencil_ring_async": cuda_stencil_probe.RING_ASYNC_LAUNCHES,
             "jfa_group": cuda_jfa_group.LAUNCHES,
-            "xdraw_scan": cuda_xdraw.XDRAW_LAUNCHES}
+            "xdraw_scan": cuda_xdraw.XDRAW_LAUNCHES,
+            "bump_scan": cuda_bump.BUMP_LAUNCHES}
 
 
 def only(launches, name, n=1):
@@ -3851,10 +3869,391 @@ def xdraw_path(dev, card):
     return t["x1_launches"], t["x1_ms"], t["twin_ms"], work
 
 
+# -- phase 26: A9 (synthesis, with the bump kernel X2) and A12 (host modules) -
+
+TERRAIN_N = 4096        # the JAX bench's generate_terrain leg (bench.py:382-391)
+BUMP_N = 4096           # X2 timed on a BUMP_N^2 map at bump()'s default count
+BUMP_SEED = 26
+BUMP_SPREADS = (0, 1, 3)
+BUMP_TWIN_BUMPS = 2 ** 18   # the bumps the twin walks, and X2 beside it
+POLY_N = 1024           # polygonize's classified terrain
+POLY_CLASS_M = 1000.0   # its classes: floor(elevation / 1000 m)
+# float64 operations of X2 (bump.cu): the centre's sum a bump, then a
+# product and a sum a ring cell inside the raster
+X2_OPS_CENTRE, X2_OPS_RING_CELL = 1, 2
+
+
+def bump_case(spread, seed):
+    """(shape, (N, 2) int32 locations (x, y), (N,) float64 heights): 600
+    bumps on 23x17 with duplicates forced, a bump on every corner and
+    edge, non-integer and negative heights."""
+    rng = np.random.default_rng(seed)
+    h, w = 17, 23
+    locs = np.stack([rng.integers(0, w, 600), rng.integers(0, h, 600)], 1)
+    locs[:10] = [[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1], [5, 0],
+                 [0, 7], [w - 1, 9], [11, h - 1], [5, 0], [5, 0]]
+    heights = rng.random(600) * 7.3 - 1.1
+    return (h, w), locs.astype(np.int32), heights
+
+
+def check_bump(dev):
+    """X2 against its twin on the card, bit for bit, at every spread."""
+    import torch
+    from xrspatial_torch.kernels import cuda_bump
+    from xrspatial_torch.kernels.bump import bump_scan_twin
+    for spread in BUMP_SPREADS:
+        shape, locs, heights = bump_case(spread, seed=100 + spread)
+        args = (torch.from_numpy(locs).to(dev),
+                torch.from_numpy(heights).to(dev), spread)
+        before = cuda_bump.BUMP_LAUNCHES
+        got = cuda_bump.bump_scan_cuda(
+            torch.zeros(shape, dtype=torch.float64, device=dev), *args)
+        torch.cuda.synchronize()
+        if cuda_bump.BUMP_LAUNCHES != before + 1:
+            raise SmokeFailure("bump_scan_cuda did not count its launch")
+        ref = bump_scan_twin(torch.zeros(shape, dtype=torch.float64,
+                                         device=dev), *args)
+        if not same_bits(got, ref):
+            raise SmokeFailure(f"X2 at spread {spread} differs from its "
+                               f"twin")
+    print(f"  X2 equal to its twin bit for bit at spreads {BUMP_SPREADS} "
+          f"(600 bumps on 23x17: duplicates, every edge and corner, "
+          f"non-integer heights)")
+
+
+def bump_inputs(n, dev):
+    """bump(n, n)'s locations and heights at BUMP_SEED, as bump() draws
+    them: (N, 2) int32 and (N,) float64 on `dev`."""
+    import torch
+    count = n * n // 10
+    np.random.seed(BUMP_SEED)
+    locs = np.empty((count, 2), dtype=np.uint16)
+    locs[:, 0] = np.random.choice(range(n), count)
+    locs[:, 1] = np.random.choice(range(n), count)
+    return (torch.from_numpy(locs.astype(np.int32)).to(dev),
+            torch.ones(count, dtype=torch.float64, device=dev))
+
+
+def x2_ring_cells(locs, n, spread):
+    """The ring cells inside the n x n map over all bumps: the sums and
+    products X2 does beyond the centres."""
+    import torch
+    from xrspatial_torch.kernels.bump import ring_offsets
+    oy, ox, _ = ring_offsets(spread)
+    x, y = locs[:, 0].long(), locs[:, 1].long()
+    total = 0
+    for dy, dx in zip(oy.tolist(), ox.tolist()):
+        total += int((((y + dy) >= 0) & ((y + dy) < n)
+                      & ((x + dx) >= 0) & ((x + dx) < n)).sum())
+    return total
+
+
+def bump_path(dev, card):
+    """The bump map: X2 against its twin, then bump() at BUMP_N^2 and the
+    default count, spread 1.  Returns (X2 launches in that call, X2 ms and
+    twin ms on the first BUMP_TWIN_BUMPS bumps, (bytes, float64
+    operations) of the function on them, X2 ms on all the bumps)."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch.kernels import bump as kb
+    from xrspatial_torch.kernels import cuda_bump
+    check_bump(dev)
+    twin = kb.bump_scan_twin
+
+    def refuse(*a):
+        raise SmokeFailure("bump() called the twin on the card")
+
+    kb.bump_scan_twin = refuse
+    try:
+        reset_launches()
+        np.random.seed(BUMP_SEED)
+        t0 = time.perf_counter()
+        out = xt.bump(BUMP_N, BUMP_N)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launched = {k: v for k, v in read_launches().items() if v}
+    finally:
+        kb.bump_scan_twin = twin
+    count = BUMP_N * BUMP_N // 10
+    m = out.data
+    if launched != {"bump_scan": 1} or m.dtype != torch.float64 \
+            or m.device.type != "cuda" or tuple(m.shape) != (BUMP_N, BUMP_N):
+        raise SmokeFailure(f"bump at {BUMP_N}^2: launches {launched}, "
+                           f"{m.dtype} {tuple(m.shape)} on {m.device}")
+    locs, heights = bump_inputs(BUMP_N, dev)
+    print(f"  bump({BUMP_N}, {BUMP_N}): {count} bumps, spread 1, one X2 "
+          f"launch, no twin call, float64 on the card; the call "
+          f"{call_s * 1e3:.1f} ms (host clock, the RNG draws included)")
+    scratch = torch.zeros_like(m)
+    x2_ms, x2_first = x2_timed(scratch, locs, heights)
+    if not same_bits(scratch, m):
+        raise SmokeFailure("X2 on bump()'s inputs differs from bump()")
+    print(f"  X2 on bump()'s inputs: {x2_ms:.3f} ms ({x2_ms * 1e3 / count:.3f} "
+          f"us a bump; the first launch {x2_first:.3f}), equal to bump()'s "
+          f"map, {card}")
+
+    # the twin walks a prefix of the same bumps (at ~35 us a bump on the
+    # card, all of them would take a minute); X2 on the same prefix
+    p_locs, p_heights = locs[:BUMP_TWIN_BUMPS], heights[:BUMP_TWIN_BUMPS]
+    pre_ms, _ = x2_timed(scratch, p_locs, p_heights)
+    ring = x2_ring_cells(p_locs, BUMP_N, 1)
+    ref = torch.zeros_like(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin(ref, p_locs, p_heights, 1)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    if not same_bits(ref, scratch):
+        raise SmokeFailure(f"X2 at {BUMP_N}^2 differs from its twin")
+    n = len(p_locs)
+    print(f"  X2 equal to its twin bit for bit at {BUMP_N}^2 on the first "
+          f"{n} bumps ({ring} ring cells inside the map): X2 "
+          f"{pre_ms:.3f} ms ({pre_ms * 1e3 / n:.3f} us a bump), the twin "
+          f"{twin_ms:.1f} ms on the card ({twin_ms * 1e3 / n:.2f} us a "
+          f"bump, host clock), {card}")
+    del out, m, scratch, ref
+    torch.cuda.empty_cache()
+    # the function's bytes on the prefix: the locations (int32 pairs) and
+    # heights read once, the map written once; its operations, float64
+    work = (n * (8 + 8) + BUMP_N * BUMP_N * 8,
+            X2_OPS_CENTRE * n + X2_OPS_RING_CELL * ring)
+    return launched["bump_scan"], pre_ms, twin_ms, work, x2_ms
+
+
+def x2_timed(out, locs, heights):
+    """(warm ms, first ms) of X2 adding `locs`/`heights` (spread 1) to
+    `out` zeroed before each launch, from CUDA events; `out` holds the
+    result."""
+    import torch
+    from xrspatial_torch.kernels import cuda_bump
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(2):
+        out.zero_()
+        start.record()
+        cuda_bump.bump_scan_cuda(out, locs, heights, 1)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times[1], times[0]
+
+
+def synthesis_path(dev, card):
+    """generate_terrain at TERRAIN_N^2 and N^2, terrain_pipeline on the
+    latter, perlin at TERRAIN_N^2 and N^2.  Returns the TERRAIN_N^2
+    terrain (a DataArray on the card)."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch import terrain as tt
+    from xrspatial_torch.kernels import cuda_surface, cuda_window
+    rows = {}
+    blank = xt.DataArray(torch.zeros((TERRAIN_N, TERRAIN_N), device=dev),
+                         dims=("y", "x"))
+    tt._transport.cache_clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    terrain = xt.generate_terrain(blank)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    _, warm_ms, peak = timed_run(lambda: xt.generate_terrain(blank), 3)
+    t0 = time.perf_counter()
+    ref = xt.generate_terrain(xt.DataArray(
+        torch.zeros((TERRAIN_N, TERRAIN_N)), dims=("y", "x"))).data
+    cpu_s = time.perf_counter() - t0
+    if terrain.data.device.type != "cuda" or not same_bits(
+            terrain.data.cpu(), ref):
+        raise SmokeFailure(f"generate_terrain at {TERRAIN_N}^2: the card "
+                           f"differs from the CPU")
+    rows["generate_terrain_4096"] = {"cold_ms": cold_ms, "warm_ms": warm_ms,
+                                     "peak_gib": peak, "cpu_s": cpu_s}
+    print(f"  generate_terrain at {TERRAIN_N}^2 (the JAX bench's leg): cold "
+          f"{cold_ms:.1f} ms (host clock: hashing, upload, 16 octaves), "
+          f"warm {warm_ms:.3f} ms (CUDA events, peak {peak:.2f} GiB); equal "
+          f"to the CPU's bit for bit (the CPU call {cpu_s:.1f} s), {card}")
+    del ref
+
+    # N^2: the cold call, its host hashing timed inside it
+    hashing = []
+    hash_tables = tt.terrain_tables
+
+    def timed_tables(*args):
+        t0 = time.perf_counter()
+        out = hash_tables(*args)
+        hashing.append((time.perf_counter() - t0, out[0].nbytes / 2**20))
+        return out
+
+    big = xt.DataArray(torch.zeros((N, N), device=dev), dims=("y", "x"))
+    tt.terrain_tables = timed_tables
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dem = xt.generate_terrain(big)
+        torch.cuda.synchronize()
+        big_cold_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tt.terrain_tables = hash_tables
+    (hash_s, table_mb), = hashing
+    _, big_ms, big_peak = timed_run(lambda: xt.generate_terrain(big), 2)
+    d = dem.data
+    zmin, zmax = float(d.min()), float(d.max())
+    water = float((d == 0).double().mean())
+    if d.dtype != torch.float32 or zmin != 0.0 or not 0 < zmax <= 4000.0 \
+            or not bool(torch.isfinite(d).all()) or not 0 < water < 1:
+        raise SmokeFailure(f"generate_terrain at {N}^2: {d.dtype}, min "
+                           f"{zmin}, max {zmax}, water share {water}")
+    rows["generate_terrain_16384"] = {
+        "hash_s": hash_s, "table_mib": table_mb, "cold_ms": big_cold_ms,
+        "warm_ms": big_ms, "peak_gib": big_peak, "water_share": water,
+        "max_m": zmax}
+    print(f"  generate_terrain at {N}^2: host hashing {hash_s:.2f} s "
+          f"({table_mb:.0f} MiB of tables), cold {big_cold_ms:.1f} ms, warm "
+          f"{big_ms:.3f} ms (peak {big_peak:.2f} GiB); min 0, max "
+          f"{zmax:.1f} <= 4000, water {water:.4f} of the cells, {card}")
+
+    # the synthesised DEM through B1 and B2
+    reset_launches()
+    with fused_pipeline(False):
+        ds = xt.terrain_pipeline(dem, surface=PIPELINE_SURFACE,
+                                 stats_funcs=PIPELINE_STATS)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in read_launches().items() if v}
+    if launched != {"surface_kernel": 1, "focal_kernel": 1}:
+        raise SmokeFailure(f"terrain_pipeline on the terrain: {launched}")
+    slope = ds["terrain-slope"].data
+    inner = slope[1:-1, 1:-1]
+    if not (bool((inner >= 0).all()) and bool((inner < 90).all())
+            and bool(torch.isfinite(ds["focal_stats"].data).all())):
+        raise SmokeFailure("terrain_pipeline on the terrain: out of range")
+    print(f"  terrain_pipeline on the {N}^2 terrain: one B1 and one B2 "
+          f"launch, slope in [0, 90), focal stats finite")
+    del ds, slope, inner, dem, d
+    tt._transport.cache_clear()
+    torch.cuda.empty_cache()
+
+    # perlin
+    for n in (TERRAIN_N, N):
+        agg = xt.DataArray(torch.zeros((n, n), device=dev), dims=("y", "x"))
+        out, ms, peak = timed_run(lambda: xt.perlin(agg), 3)
+        p = out.data
+        if float(p.min()) != 0.0 or float(p.max()) != 1.0 \
+                or p.dtype != torch.float32:
+            raise SmokeFailure(f"perlin at {n}^2 outside [0, 1]")
+        note = ""
+        if n == TERRAIN_N:
+            cpu = xt.perlin(xt.DataArray(torch.zeros((n, n)),
+                                         dims=("y", "x"))).data
+            if not same_bits(p.cpu(), cpu):
+                raise SmokeFailure(f"perlin at {n}^2: the card differs "
+                                   f"from the CPU")
+            note = "; equal to the CPU's bit for bit"
+        rows[f"perlin_{n}"] = {"ms": ms, "peak_gib": peak}
+        print(f"  perlin at {n}^2: {ms:.3f} ms (peak {peak:.2f} GiB), min 0, "
+              f"max 1{note}, {card}")
+        del out, p
+    torch.cuda.empty_cache()
+    return terrain, rows
+
+
+def host_modules_path(terrain, card):
+    """A12 on the card's rasters: a_star_search on the TERRAIN_N^2 terrain
+    (water the barrier), polygonize of a classified POLY_N^2 terrain,
+    diagnose; each against the same call on the CPU."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch import pathfinding
+    from xrspatial_torch.experimental import polygonize
+    rows = {}
+    xs, ys = terrain["x"].values, terrain["y"].values
+    # from the middle of the west edge to the south-east corner (y
+    # ascends), both snapped onto land
+    kw = dict(start=(ys[TERRAIN_N // 2], xs[0]), goal=(ys[-1], xs[-1]),
+              barriers=[0], snap_start=True, snap_goal=True)
+    before = pathfinding.NATIVE_CALLS
+    t0 = time.perf_counter()
+    path = xt.a_star_search(terrain, **kw)
+    torch.cuda.synchronize()
+    astar_s = time.perf_counter() - t0
+    cpu_terrain = xt.DataArray(terrain.data.cpu(), dims=terrain.dims,
+                               coords=terrain.coords, attrs=terrain.attrs)
+    ref = xt.a_star_search(cpu_terrain, **kw)
+    if pathfinding.NATIVE_CALLS != before + 2:
+        raise SmokeFailure("a_star_search did not run the native route")
+    got = path.data
+    cells = int(torch.isfinite(got).sum())
+    if got.device.type != "cuda" or got.dtype != torch.float64 \
+            or not same_bits(got.cpu(), ref.data) or cells < TERRAIN_N // 2:
+        raise SmokeFailure(f"a_star_search: {cells} path cells on "
+                           f"{got.device}, or unlike the CPU's")
+    cost = float(got[torch.isfinite(got)].max())
+    rows["a_star_search"] = {"s": astar_s, "path_cells": cells,
+                             "cost": cost}
+    print(f"  a_star_search on the {TERRAIN_N}^2 terrain (water barred, "
+          f"ends snapped): native route, {cells} path cells, cost "
+          f"{cost:.3f}, {astar_s:.2f} s (host clock, the copy to the host "
+          f"included); equal to the CPU's")
+    del path, got, ref, cpu_terrain
+
+    small = xt.generate_terrain(xt.DataArray(
+        torch.zeros((POLY_N, POLY_N), device=terrain.data.device),
+        dims=("y", "x")))
+    classes = torch.floor(small.data / POLY_CLASS_M)
+    t0 = time.perf_counter()
+    col, polys = polygonize(xt.DataArray(classes))
+    poly_s = time.perf_counter() - t0
+    col_ref, polys_ref = polygonize(xt.DataArray(classes.cpu()))
+    same = col == col_ref and len(polys) == len(polys_ref) and all(
+        len(a) == len(b) and all(np.array_equal(r, s) for r, s in zip(a, b))
+        for a, b in zip(polys, polys_ref))
+    if not same or not col:
+        raise SmokeFailure("polygonize: the card's raster gives other "
+                           "polygons than the CPU's")
+    rings = sum(len(p) for p in polys)
+    rows["polygonize"] = {"s": poly_s, "polygons": len(col), "rings": rings}
+    print(f"  polygonize of the classified {POLY_N}^2 terrain: {len(col)} "
+          f"polygons, {rings} rings, {poly_s:.2f} s (host); equal to the "
+          f"CPU's")
+
+    geo = {"y": np.linspace(45.0, 44.0, POLY_N),
+           "x": np.linspace(7.0, 8.0, POLY_N)}
+    dem = xt.DataArray(small.data, dims=("y", "x"), coords=geo)
+    report = xt.diagnose(dem)
+    ref = xt.diagnose(xt.DataArray(small.data.cpu(), dims=("y", "x"),
+                                   coords=geo))
+    if str(report) != str(ref) or not report.has_warnings:
+        raise SmokeFailure(f"diagnose on the card: {report}")
+    print(f"  diagnose on the card's raster (degrees over metres): "
+          f"{report.issues[0].code}, the CPU's report")
+    return rows
+
+
+def a9_a12_paths(dev, card):
+    """Phase 26: A9 and A12.  Returns bump_path's first four values."""
+    import torch
+    t_phase = time.perf_counter()
+    print(f"== A9/A12: X2 (csrc/bump.cu) against its twin, bump at "
+          f"{BUMP_N}^2, generate_terrain, perlin, a_star_search, polygonize, "
+          f"diagnose on {card}")
+    x2 = bump_path(dev, card)
+    terrain, rows = synthesis_path(dev, card)
+    rows.update(host_modules_path(terrain, card))
+    del terrain
+    torch.cuda.empty_cache()
+    count = BUMP_N * BUMP_N // 10
+    rows["x2"] = {"bumps": count, "ms": x2[4],
+                  "prefix_bumps": min(BUMP_TWIN_BUMPS, count),
+                  "prefix_ms": x2[1],
+                  "prefix_twin_ms": x2[2]}
+    print(f"  phase 26: {time.perf_counter() - t_phase:.1f} s, {card}")
+    print(json.dumps({"a9_a12_paths": rows}))
+    return x2[:4]
+
+
 # -- the least time of each kernel ------------------------------------------
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM float32 outside the tensor cores
+F64_FLOP_S = 34e12         # H100 SXM float64 outside the tensor cores
 # float operations per cell, counted from the CUDA sources: the main
 # path's slope + hillshade (surface_cell.cuh: 2 x 7 for the Sobel sums, 10
 # for slope, 17 for hillshade); all four products add 9 for aspect and 13
@@ -3885,12 +4284,12 @@ SEP_STAGED_OPS = 20
 GROUP_OPS_PER_ROUND = 8 * 8
 
 
-def bound(nbytes, ops, bytes_s=HBM_BYTES_S):
+def bound(nbytes, ops, bytes_s=HBM_BYTES_S, flop_s=F32_FLOP_S):
     """(least ms, "bytes" or "operations") for work of `nbytes` bytes and
-    `ops` float32 operations on an H100 SXM moving `bytes_s` bytes a
-    second."""
+    `ops` operations on an H100 SXM moving `bytes_s` bytes and doing
+    `flop_s` operations (float32 unless given) a second."""
     t_bytes = nbytes / bytes_s * 1e3
-    t_ops = ops / F32_FLOP_S * 1e3
+    t_ops = ops / flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3951,9 +4350,15 @@ def kernel_work(n_offsets_main, n_offsets_annulus, screen_counts):
 
 def kernel_bounds(work, roof_bytes_s):
     """Each kernel's bound at the nominal rate and at the measured stream
-    roof: {name: ((ms, by), (ms, by))}."""
-    return {k: (bound(b, ops), bound(b, ops, roof_bytes_s))
-            for k, (b, ops) in work.items()}
+    roof: {name: ((ms, by), (ms, by))}.  A work entry is (bytes,
+    operations), or (bytes, operations, operations a second) where they
+    are not float32."""
+    out = {}
+    for k, (b, ops, *rate) in work.items():
+        flop_s = rate[0] if rate else F32_FLOP_S
+        out[k] = (bound(b, ops, flop_s=flop_s),
+                  bound(b, ops, roof_bytes_s, flop_s))
+    return out
 
 
 def jfa_design():
@@ -4224,10 +4629,17 @@ def main() -> int:
     ms["xdraw_scan"] = (x1_ms, x1_twin_ms)
     max_err["xdraw_scan"] = 0.0            # equal to the twin bit for bit
 
+    # -- A9 and A12: synthesis (X2), the host modules ---------------------------
+    launches["bump_scan"], x2_ms, x2_twin_ms, x2_work = a9_a12_paths(dev,
+                                                                     card)
+    ms["bump_scan"] = (x2_ms, x2_twin_ms)
+    max_err["bump_scan"] = 0.0             # equal to the twin bit for bit
+
     work = kernel_work(
         len(offsets), len(kernel_offsets(halo_footprints()["annulus_40_38"])),
         screen_counts)
     work["xdraw_scan"] = x1_work
+    work["bump_scan"] = (*x2_work, F64_FLOP_S)
     roof = probes["roof_gb_s"] * 1e9
     bounds = kernel_bounds(work, roof)
     print(f"== bounds: nominal {HBM_BYTES_S / 1e12:.2f} TB/s, measured stream "
@@ -4288,7 +4700,11 @@ def main() -> int:
         # no Pallas kernel: the JAX package's XLA scan
         "xdraw_scan": (
         "xrspatial_torch/csrc/xdraw.cu",
-        "xrspatial_tpu/kernels/viewshed.py:771")}
+        "xrspatial_tpu/kernels/viewshed.py:771"),
+        # no Pallas kernel: the JAX package's lax.scan over the bumps
+        "bump_scan": (
+        "xrspatial_torch/csrc/bump.cu",
+        "xrspatial_tpu/bump.py:25")}
     # the design each redesigned kernel's timed launch ran
     halo = halo_plan(N, N, kernel_offsets(halo_footprints()["annulus_40_38"]),
                      0)
@@ -4343,7 +4759,14 @@ def main() -> int:
                       "x N/1024 lanes, the carry double-buffered in shared "
                       "memory, one __syncthreads a step, the next line "
                       "prefetched; the cone's lanes only; ms with the "
-                      "wrapper's transpose of the slope field"}
+                      "wrapper's transpose of the slope field",
+        "bump_scan": "one block walks the bumps in order: thread 0 adds the "
+                     "centre and shares it, a barrier, one thread a ring "
+                     "offset (a warp at spread 1), a barrier; the next "
+                     "bump's location read ahead; float64, every product "
+                     "and sum rounded apart; ms, plain_ms and the bound "
+                     "on the first 262,144 of bump(4096, 4096)'s "
+                     "1,677,721 bumps"}
     # the first ports, kept by name, timed in turns with the redesigns
     first_port_ms.update(jfa_round=jfa_timing["simple_ms"],
                          jfa_group=group_times["double"],

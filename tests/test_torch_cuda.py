@@ -65,6 +65,12 @@ viewpoint at every corner, one launch a call; ``viewshed`` with
 ``exact=False`` launches it once and never its twin.  The zonal columns on
 the card equal the CPU's (mean and sum rtol 1e-6, var and std 1e-5: the
 card adds in another order), crosstab, regions, trim and crop exactly.
+The bump kernel X2 equals its twin bit for bit at spreads 0, 1 and 3
+(duplicate locations, every edge and corner, non-integer heights), one
+launch a call, and ``bump`` launches it once and never its twin;
+``perlin``, ``generate_terrain`` and ``make_terrain`` on the card equal
+the CPU's bit for bit; ``a_star_search`` (native route), ``polygonize``
+and ``diagnose`` on a raster on the card give the CPU raster's results.
 """
 
 import numpy as np
@@ -2036,3 +2042,167 @@ def test_zonal_on_the_card_matches_the_cpu(cuda):
         out = fn(card)
         assert out.data.device.type == "cuda"
         np.testing.assert_array_equal(out.values, fn(cpu).values)
+
+
+# -- A9 and A12 (X2): the bump kernel, synthesis and the host modules on the card
+
+def bump_case(spread, seed):
+    """(shape, (N, 2) int32 locations (x, y), (N,) float64 heights): 600
+    bumps on 23x17, duplicates forced, a bump on every corner and edge,
+    non-integer and negative heights."""
+    rng = np.random.default_rng(seed)
+    h, w = 17, 23
+    locs = np.stack([rng.integers(0, w, 600), rng.integers(0, h, 600)], 1)
+    locs[:10] = [[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1], [5, 0],
+                 [0, 7], [w - 1, 9], [11, h - 1], [5, 0], [5, 0]]
+    heights = rng.random(600) * 7.3 - 1.1
+    return (h, w), locs.astype(np.int32), heights
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spread", [0, 1, 3])
+def test_bump_kernel_equals_its_twin(cuda, spread):
+    """X2 against its twin on the card, bit for bit; one launch."""
+    from xrspatial_torch.kernels import cuda_bump
+    from xrspatial_torch.kernels.bump import bump_scan_twin
+    shape, locs, heights = bump_case(spread, seed=spread)
+    args = (torch.from_numpy(locs).to(cuda),
+            torch.from_numpy(heights).to(cuda), spread)
+    before = cuda_bump.BUMP_LAUNCHES
+    got = cuda_bump.bump_scan_cuda(
+        torch.zeros(shape, dtype=torch.float64, device=cuda), *args)
+    torch.cuda.synchronize()
+    assert cuda_bump.BUMP_LAUNCHES == before + 1
+    ref = bump_scan_twin(torch.zeros(shape, dtype=torch.float64,
+                                     device=cuda), *args)
+    assert torch.equal(got.view(torch.int64), ref.view(torch.int64))
+    cpu = bump_scan_twin(torch.zeros(shape, dtype=torch.float64),
+                         *(a.cpu() for a in args[:2]), spread)
+    assert torch.equal(got.cpu().view(torch.int64), cpu.view(torch.int64))
+
+
+@pytest.mark.gpu
+def test_bump_path_goes_through_the_kernel(cuda):
+    """bump() with the card as the default device: one X2 launch, no twin
+    call, float64 on the card, the CPU's map bit for bit."""
+    from xrspatial_torch.kernels import bump as kb
+    from xrspatial_torch.kernels import cuda_bump
+    twin = kb.bump_scan_twin
+    calls = []
+    kb.bump_scan_twin = lambda *a: calls.append(a) or twin(*a)
+    saved = xt.default_device()
+    try:
+        xt.set_default_device(cuda)
+        np.random.seed(3)
+        before = cuda_bump.BUMP_LAUNCHES
+        got = xt.bump(64, 48, spread=2)
+        assert cuda_bump.BUMP_LAUNCHES == before + 1 and not calls
+    finally:
+        kb.bump_scan_twin = twin
+        xt.set_default_device(saved)
+    assert got.data.device.type == "cuda" and got.data.dtype == torch.float64
+    xt.set_default_device("cpu")
+    try:
+        np.random.seed(3)
+        ref = xt.bump(64, 48, spread=2)
+    finally:
+        xt.set_default_device(saved)
+    assert torch.equal(got.data.cpu().view(torch.int64),
+                       ref.data.view(torch.int64))
+
+
+@pytest.mark.gpu
+def test_bump_wrapper_refuses_what_it_cannot_take(cuda):
+    from xrspatial_torch.kernels import cuda_bump
+    before = cuda_bump.BUMP_LAUNCHES
+    out = torch.zeros((5, 6), dtype=torch.float64, device=cuda)
+    locs = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    z = torch.ones(1, dtype=torch.float64, device=cuda)
+    for bad, match in ((out.float(), "float64"), (out.t(), "contiguous"),
+                       (out[None], "2-D")):
+        with pytest.raises(ValueError, match=match):
+            cuda_bump.bump_scan_cuda(bad, locs, z, 1)
+    for bad_locs in (torch.tensor([[6, 0]], device=cuda),
+                     torch.tensor([[0, 5]], device=cuda),
+                     torch.tensor([[-1, 0]], device=cuda)):
+        with pytest.raises(ValueError, match="outside"):
+            cuda_bump.bump_scan_cuda(out, bad_locs, z, 1)
+    with pytest.raises(ValueError, match="heights"):
+        cuda_bump.bump_scan_cuda(out, locs, torch.ones(2, device=cuda), 1)
+    assert cuda_bump.BUMP_LAUNCHES == before
+
+
+def test_bump_wrapper_refuses_cpu_tensors():
+    """Without a card too: a CPU tensor never reaches the launch."""
+    from xrspatial_torch.kernels import cuda_bump
+    before = cuda_bump.BUMP_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_bump.bump_scan_cuda(torch.zeros((4, 5), dtype=torch.float64),
+                                 torch.zeros((1, 2), dtype=torch.int32),
+                                 torch.ones(1, dtype=torch.float64), 1)
+    assert cuda_bump.BUMP_LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_synthesis_on_the_card_matches_the_cpu(cuda):
+    """perlin, generate_terrain and make_terrain on the card equal the
+    CPU's bit for bit (float32 and float64 ops, each rounded once, and the
+    multiply-adds exact in float64 before one rounding); outputs on the
+    card."""
+    from xrspatial_torch import datasets
+    saved = xt.default_device()
+    outs = {}
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            xt.set_default_device(dev)
+            blank = xt.DataArray(np.zeros((97, 131), np.float32),
+                                 dims=("y", "x"))
+            outs[dev.type] = (
+                xt.perlin(blank, freq=(4, 3), seed=11).data,
+                xt.generate_terrain(blank, x_range=(-20e6, 20e6),
+                                    y_range=(-20e6, 20e6)).data,
+                datasets.make_terrain(shape=(50, 70), octaves=5,
+                                      persistence=0.37).data)
+    finally:
+        xt.set_default_device(saved)
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu().view(torch.int32),
+                           ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_host_modules_take_card_rasters(cuda):
+    """a_star_search, polygonize and diagnose on a raster on the card give
+    the CPU raster's results; the path lands on the card."""
+    from xrspatial_torch import pathfinding
+    from xrspatial_torch.experimental import polygonize
+    rng = np.random.default_rng(8)
+    data = np.floor(rng.random((40, 50)) * 3).astype(np.float32)
+    coords = {"y": np.arange(40.0)[::-1].copy(), "x": np.arange(50.0)}
+
+    def agg(dev):
+        return xt.DataArray(torch.from_numpy(data).to(dev), dims=("y", "x"),
+                            coords=coords, attrs={"res": (1.0, 1.0)})
+
+    before = pathfinding.NATIVE_CALLS
+    kw = dict(start=(39.0, 0.0), goal=(0.0, 49.0), barriers=[0],
+              snap_start=True, snap_goal=True)
+    got = xt.a_star_search(agg(cuda), **kw)
+    ref = xt.a_star_search(agg("cpu"), **kw)
+    assert got.data.device.type == "cuda"
+    assert pathfinding.NATIVE_CALLS == before + 2
+    np.testing.assert_array_equal(got.values, ref.values)
+    c_got, p_got = polygonize(agg(cuda))
+    c_ref, p_ref = polygonize(agg("cpu"))
+    assert c_got == c_ref and len(p_got) == len(p_ref)
+    for a, b in zip(p_got, p_ref):
+        assert len(a) == len(b)
+        for ra, rb in zip(a, b):
+            np.testing.assert_array_equal(ra, rb)
+    geo = {"y": np.linspace(45.0, 44.9, 40), "x": np.linspace(7.0, 7.1, 50)}
+    dem = xt.DataArray(torch.from_numpy(data * 300).to(cuda),
+                       dims=("y", "x"), coords=geo)
+    assert str(xt.diagnose(dem)) == str(xt.diagnose(
+        xt.DataArray(data * 300, dims=("y", "x"), coords=geo)))
+    assert xt.diagnose(dem).has_warnings

@@ -8,22 +8,28 @@ raster given as a numpy array goes to the card, unless
 ``set_default_device("cpu")`` was called.  The package imports torch and
 never jax.
 
-Only what is ported is exported; ROADMAP.md lists the rest in order.
+Every public name of ``xrspatial_tpu`` is exported, with its signature;
+the mesh branches of the JAX package are not ported yet (ROADMAP A13).
 """
 
 from .analytics import summarize_terrain, terrain_pipeline
 from .aspect import aspect
+from .bump import bump
 from .classify import (binary, box_plot, equal_interval, head_tail_breaks,
                        maximum_breaks, natural_breaks, percentiles, quantile,
                        reclassify, std_mean)
 from .curvature import curvature
+from .diagnostics import diagnose
 from .focal import focal_stats, mean
 from .hillshade import hillshade
 from .multispectral import arvi, evi, nbr, ndvi, savi, sipi
+from .pathfinding import a_star_search
+from .perlin import perlin
 from .proximity import (DISTANCE_METRICS, allocation, direction,
                         euclidean_distance, great_circle_distance,
                         manhattan_distance, proximity)
 from .slope import slope
+from .terrain import generate_terrain
 from .utils import default_device, set_default_device
 from .viewshed import viewshed
 from .xrlib import DataArray, Dataset, concat
@@ -41,7 +47,20 @@ __all__ = ["DataArray", "Dataset", "concat", "slope", "aspect", "curvature",
            "maximum_breaks", "natural_breaks", "percentiles", "quantile",
            "reclassify", "std_mean", "arvi", "evi", "nbr", "ndvi", "savi",
            "sipi", "zonal_stats", "zonal_crosstab", "zonal_apply", "crop",
-           "regions", "suggest_zonal_canvas", "trim", "set_default_device",
-           "default_device"]
+           "regions", "suggest_zonal_canvas", "trim", "bump", "perlin",
+           "generate_terrain", "a_star_search", "diagnose",
+           "set_default_device", "default_device"]
 
 __version__ = "0.1.0"
+
+
+def test():
+    """Run the port's test suite (``tests/test_torch_*.py``)."""
+    import glob
+    import os
+
+    import pytest
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pytest.main(sorted(glob.glob(os.path.join(root, "tests",
+                                              "test_torch_*.py"))))

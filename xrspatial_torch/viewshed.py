@@ -52,8 +52,9 @@ def viewshed(raster: DataArray,
     ----------
     raster : DataArray
         2D elevation raster with 'x' and 'y' coordinates; its payload may
-        be a tensor on the card or on the CPU, or a numpy array (taken as
-        a CPU tensor).
+        be a tensor on the card or on the CPU, or a numpy array, which
+        goes to the default device (``default_device()``, the card unless
+        ``set_default_device`` says otherwise).
     x, y : observer location in coordinate space (snapped to the nearest
         cell).
     observer_elev : float

@@ -210,24 +210,31 @@ Phases, each fatal on failure:
    every cell, its propagation steps printed, and once at 16384^2;
    ``zonal_apply`` (a host function), ``trim`` and ``crop`` at 16384^2;
    each path's ms and peak allocated memory;
-25. A11, XDraw: the scan kernel X1 (``csrc/xdraw.cu``) against its twin
-   bit for bit at 17x1, 1x23, 300x70, 70x300 and 263x516 with NaN cells,
-   the viewpoint at every corner and inside, and at 4096^2 and 16384^2 at
-   the JAX bench's viewpoint; ``viewshed`` at 4096^2 (x = y = 100,
-   observer 100, ``bench.py:343-344``) and at 16384^2: one X1 launch each,
-   no twin call, no other kernel, float32 on the card; at 4096^2 equal to
-   the CPU's visibility at every cell; agreement with ``exact=True`` at
-   1024^2 at least 0.985; warm ms of the call, of X1 alone and of the twin;
-26. A9 and A12: the bump kernel X2 (``csrc/bump.cu``) against its twin bit
-   for bit at spreads 0, 1 and 3 (600 bumps on 23x17: duplicate
-   locations, every edge and corner, non-integer heights); ``bump`` at
-   4096^2 and its default count (1,677,721 bumps, spread 1): one X2
-   launch, no twin call, float64 on the card, X2 on the same inputs equal
-   to it, X2's ms (CUDA events); on the first 262,144 of those bumps X2
-   equal to the twin bit for bit, both timed (the twin by host clock: ~35
-   us a bump); ``generate_terrain`` at 4096^2 (the JAX bench's
-   leg), cold and warm, equal to the CPU's bit for bit, and at 16384^2:
-   the host hashing's seconds, cold and warm ms, peak memory, min 0, max
+25. A11, XDraw: the scan kernel X1 (``csrc/xdraw.cu``) on its banded
+   route against its twin and its first port by name, bit for bit, at
+   17x1, 1x23, 300x70, 70x300 and 263x516 with NaN cells, the viewpoint at
+   every corner and inside, and at 4096^2 and 16384^2 at the JAX bench's
+   viewpoint; ``viewshed`` at 4096^2 (x = y = 100, observer 100,
+   ``bench.py:343-344``) and at 16384^2: one X1 launch each on the banded
+   route, no twin call, no other kernel, float32 on the card; at 4096^2
+   equal to the CPU's visibility at every cell; agreement with
+   ``exact=True`` at 1024^2 at least 0.985; warm ms of the call, X1 and
+   its first port in turns, the twin; the banded kernel on one lane (a
+   1 x N row), whose ms a step times the longest walk is X1's chain
+   bound;
+26. A9 and A12: the bump kernel X2 (``csrc/bump.cu``) on its rounds route
+   against its twin bit for bit at spreads 0, 1 and 3 (600 bumps on
+   23x17: duplicate locations, every edge and corner, non-integer
+   heights), its rounds and walk printed; ``bump`` at 4096^2 and its
+   default count (1,677,721 bumps, spread 1): one X2 launch, no twin
+   call, float64 on the card, the rounds' and the walk's bumps adding up
+   to every bump; X2 on those bumps at spreads 1 and 3 equal to its first
+   port by name, both timed in turns (CUDA events); on the first 262,144
+   of those bumps X2 equal to the twin bit for bit, X2 and its first port
+   in turns, the twin by host clock (~30 us a bump); X2 alone at 16384^2
+   on bump()'s 26,843,545 bumps, its rounds and walk printed;
+   ``generate_terrain`` at 4096^2 (the JAX bench's leg), cold and warm,
+   equal to the CPU's bit for bit, and at 16384^2: the host hashing's seconds, cold and warm ms, peak memory, min 0, max
    at most zfactor, the water share; ``terrain_pipeline`` on that
    terrain (one B1 and one B2 launch); ``perlin`` at 4096^2 (equal to
    the CPU's) and 16384^2, in [0, 1]; ``a_star_search`` on the 4096^2
@@ -249,10 +256,12 @@ stream kernels' bulk rings, the jump-flood round's per-stride routes, the
 group's window, B0's route and tile, B8d's staged separable form, B8e's
 and B8f's interior walk) and, for the redesigned kernels that keep their
 first port by name (surface, focal, pipeline, screen, jump-flood round and
-group, the stacked surface kernel B0, the stencil probes B8c-f), that
-port's time in turns
-(``first_port_ms``), each entry with the card's name and power limit
-(``card``); the last line is ``{"ok": true, "device": {...}}``.  Without
+group, the stacked surface kernel B0, the stencil probes B8c-f, X1 and
+X2), that port's time in turns
+(``first_port_ms``), X1's chain bound (``chain_bound_ms``), X2 on all of
+``bump(4096, 4096)``'s bumps (``all_bumps_ms``,
+``all_bumps_first_port_ms``), each entry with the card's name and power
+limit (``card``); the last line is ``{"ok": true, "device": {...}}``.  Without
 a CUDA device the script exits 1 before printing any result.
 """
 
@@ -1260,6 +1269,7 @@ def reset_launches():
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
     from xrspatial_torch.kernels import cuda_bump, cuda_xdraw
     cuda_xdraw.XDRAW_LAUNCHES = cuda_bump.BUMP_LAUNCHES = 0
+    cuda_xdraw.XDRAW_SIMPLE_LAUNCHES = cuda_bump.BUMP_SIMPLE_LAUNCHES = 0
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
     cuda_surface.STAGED_TMA_LAUNCHES = cuda_surface.STAGED_ASYNC_LAUNCHES = 0
     cuda_surface.SIMPLE_LAUNCHES = 0
@@ -1325,7 +1335,9 @@ def read_launches():
             "stencil_ring_async": cuda_stencil_probe.RING_ASYNC_LAUNCHES,
             "jfa_group": cuda_jfa_group.LAUNCHES,
             "xdraw_scan": cuda_xdraw.XDRAW_LAUNCHES,
-            "bump_scan": cuda_bump.BUMP_LAUNCHES}
+            "xdraw_simple": cuda_xdraw.XDRAW_SIMPLE_LAUNCHES,
+            "bump_scan": cuda_bump.BUMP_LAUNCHES,
+            "bump_simple": cuda_bump.BUMP_SIMPLE_LAUNCHES}
 
 
 def only(launches, name, n=1):
@@ -3476,6 +3488,9 @@ XDRAW_ANGLE_RTOL = 1e-6
 # float operations per cone cell of the scan (xdraw.cu: the minor offset
 # and its abs, the division, 1 - wsec, two products, the sum, the max)
 XDRAW_OPS = 8
+# X1's bands and chunks timed beside the plan's
+XDRAW_SWEEP = ((32, 16), (32, 32), (64, 16), (64, 32), (128, 32), (256, 32),
+               (512, 16))
 
 
 def timed_run(fn, reps):
@@ -3748,14 +3763,14 @@ def xdraw_cone_reads(h, w, vp_row, vp_col):
 
 def xdraw_path(dev, card):
     """Phase 25: A11, the XDraw viewshed and its scan kernel X1.  Returns
-    (X1 launches in the N^2 call, X1 ms with the wrapper's transpose, twin
-    ms, (bytes, operations) of the function)."""
+    (X1 launches in the N^2 call, X1 ms, twin ms, (bytes, operations) of
+    the function, the first port's ms in turns, X1's chain bound ms)."""
     import torch
     import xrspatial_torch as xt
     from xrspatial_torch.kernels import cuda_xdraw, viewshed as kv
     t_phase = time.perf_counter()
-    print(f"== A11 XDraw: X1 (csrc/xdraw.cu) against its twin, then "
-          f"viewshed at {XDRAW_N}^2 and {N}^2 on {card}")
+    print(f"== A11 XDraw: X1 (csrc/xdraw.cu, banded) against its twin and "
+          f"its first port, then viewshed at {XDRAW_N}^2 and {N}^2 on {card}")
     for shape in XDRAW_SHAPES:
         h, w = shape
         host = test_raster(shape, seed=h * w)
@@ -3764,15 +3779,22 @@ def xdraw_path(dev, card):
             slope = kv._xdraw_fields(torch.from_numpy(host).to(dev), *vp,
                                      2.0, 0.0, 1.0, -1.0)[3]
             before = cuda_xdraw.XDRAW_LAUNCHES
+            simple = cuda_xdraw.XDRAW_SIMPLE_LAUNCHES
             got = cuda_xdraw.xdraw_scan_cuda(slope, *vp)
-            if cuda_xdraw.XDRAW_LAUNCHES != before + 1:
-                raise SmokeFailure("xdraw_scan_cuda did not count its launch")
+            if cuda_xdraw.XDRAW_LAUNCHES != before + 1 \
+                    or cuda_xdraw.XDRAW_SIMPLE_LAUNCHES != simple:
+                raise SmokeFailure("xdraw_scan_cuda did not count its "
+                                   "banded launch")
             if not same_bits(got, kv.xdraw_scan_twin(slope, *vp)):
                 raise SmokeFailure(f"X1 {shape} vp {vp}: differs from its "
                                    f"twin")
+            if not same_bits(got, cuda_xdraw.xdraw_scan_cuda(
+                    slope, *vp, route="simple")):
+                raise SmokeFailure(f"X1 {shape} vp {vp}: differs from its "
+                                   f"first port")
     torch.cuda.synchronize()
-    print(f"  X1 equal to its twin bit for bit at {list(XDRAW_SHAPES)}, "
-          f"the viewpoint at every corner and inside")
+    print(f"  X1 equal to its twin and its first port bit for bit at "
+          f"{list(XDRAW_SHAPES)}, the viewpoint at every corner and inside")
 
     x, y, oe = XDRAW_VIEW
     twin = kv.xdraw_scan_twin
@@ -3780,6 +3802,8 @@ def xdraw_path(dev, card):
     for n in (XDRAW_N, N):
         agg = bump_raster(n, dev)
         vp = (n - 1 - int(y), int(x))
+        plan = kv.xdraw_plan(n, n, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
         slope = kv._xdraw_fields(agg.data, *vp, oe, 0.0, 1.0, -1.0)[3]
         got = cuda_xdraw.xdraw_scan_cuda(slope, *vp)
         t0 = time.perf_counter()
@@ -3788,9 +3812,16 @@ def xdraw_path(dev, card):
         twin_ms = (time.perf_counter() - t0) * 1e3
         if not same_bits(got, ref):
             raise SmokeFailure(f"X1 at {n}^2 differs from its twin")
-        print(f"  X1 equal to its twin bit for bit at {n}^2 (viewpoint "
-              f"{vp}); the twin {twin_ms:.1f} ms (one call, host clock)")
-        del got, ref
+        del ref
+        if not same_bits(got, cuda_xdraw.xdraw_scan_cuda(slope, *vp,
+                                                         route="simple")):
+            raise SmokeFailure(f"X1 at {n}^2 differs from its first port")
+        print(f"  X1 equal to its twin and its first port bit for bit at "
+              f"{n}^2 (viewpoint {vp}; bands of {plan.band} lanes, chunks "
+              f"of {plan.chunk} steps, {plan.blocks} blocks of "
+              f"{plan.threads} threads); the twin {twin_ms:.1f} ms (one "
+              f"call, host clock)")
+        del got
 
         def refuse(*a):
             raise SmokeFailure("the XDraw path called the twin on the card")
@@ -3798,7 +3829,6 @@ def xdraw_path(dev, card):
         kv.xdraw_scan_twin = refuse
         try:
             reset_launches()
-            cuda_xdraw.XDRAW_LAUNCHES = 0
             out = xt.viewshed(agg, x=x, y=y, observer_elev=oe)
             torch.cuda.synchronize()
             launched = {k: v for k, v in read_launches().items()
@@ -3817,8 +3847,9 @@ def xdraw_path(dev, card):
             raise SmokeFailure(f"viewshed at {n}^2: values out of range")
         share = float((vis > -1).double().mean())
         print(f"  viewshed at {n}^2 (x={x}, y={y}, observer_elev={oe}): one "
-              f"X1 launch, no twin call, no other kernel; float32 on the "
-              f"card, {share:.4f} of the cells visible")
+              f"X1 launch on the banded route, no twin call, no other "
+              f"kernel; float32 on the card, {share:.4f} of the cells "
+              f"visible")
         if n == XDRAW_N:
             cpu = xt.DataArray(agg.data.cpu(), dims=("y", "x"),
                                coords=agg.coords)
@@ -3835,15 +3866,63 @@ def xdraw_path(dev, card):
         del out, vis
         t_call = timed_run(lambda: xt.viewshed(agg, x=x, y=y,
                                                observer_elev=oe), 3)
-        t_x1 = timed_run(lambda: cuda_xdraw.xdraw_scan_cuda(slope, *vp), 5)
-        timings[n] = {"viewshed_ms": t_call[1], "x1_ms": t_x1[1],
+        # the banded kernel and the first port in turns: new, old, old, new
+        legs = {"banded": [], "simple": []}
+        for route in ("banded", "simple", "simple", "banded"):
+            legs[route].append(timed_run(
+                lambda: cuda_xdraw.xdraw_scan_cuda(slope, *vp, route=route),
+                5)[1])
+        x1_ms, first_ms = (sum(v) / len(v) for v in legs.values())
+        # the plan's band and chunk beside others, in turns
+        sweep = {}
+        ref = cuda_xdraw.xdraw_scan_cuda(slope, *vp)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fits = [(b, c) for b, c in XDRAW_SWEEP
+                if (p := kv.xdraw_plan(n, n, band=b, chunk=c)).blocks
+                <= sms * p.per_sm]
+        for band, chunk in fits + fits[::-1]:
+            got, ms_, _ = timed_run(
+                lambda: cuda_xdraw.xdraw_scan_cuda(
+                    slope, *vp, band=band, chunk=chunk), 3)
+            if not same_bits(got, ref):
+                raise SmokeFailure(f"X1 at {n}^2 in bands of {band} and "
+                                   f"chunks of {chunk}: differs from "
+                                   f"the plan's")
+            sweep.setdefault(f"{band}x{chunk}", []).append(ms_)
+            del got
+        del ref
+        print(f"  X1 at {n}^2 by band x chunk, in turns: " + "; ".join(
+            f"{k} {', '.join(f'{v:.3f}' for v in vs)} ms"
+            for k, vs in sweep.items()) + f", {card}")
+        # the chain alone: the banded kernel on one lane, row 0 of the
+        # raster seen from its first cell, n - 1 dependent steps
+        row = kv._xdraw_fields(agg.data[:1].contiguous(), 0, 0, oe, 0.0,
+                               1.0, -1.0)[3]
+        lane_ms = timed_run(lambda: cuda_xdraw.xdraw_scan_cuda(row, 0, 0),
+                            5)[1]
+        step_us = lane_ms * 1e3 / (n - 1)
+        # the longest half-plane's walk
+        steps = max(n - 1 - vp[1], vp[1], n - 1 - vp[0], vp[0])
+        timings[n] = {"viewshed_ms": t_call[1], "x1_ms": x1_ms,
+                      "x1_legs_ms": legs["banded"],
+                      "first_port_ms": first_ms,
+                      "first_port_legs_ms": legs["simple"],
                       "x1_launches": x1, "twin_ms": twin_ms,
-                      "peak_gib": t_call[2],
-                      "cone_reads": xdraw_cone_reads(n, n, *vp), "vp": vp}
+                      "peak_gib": t_call[2], "one_lane_ms": lane_ms,
+                      "step_us": step_us, "chain_steps": steps,
+                      "chain_bound_ms": steps * step_us / 1e3,
+                      "cone_reads": xdraw_cone_reads(n, n, *vp), "vp": vp,
+                      "plan": plan._asdict(), "sweep_ms": sweep}
         print(f"  at {n}^2: viewshed warm {t_call[1]:.3f} ms (peak "
-              f"{t_call[2]:.2f} GiB), X1 alone (its transpose included) "
-              f"{t_x1[1]:.3f} ms, the twin {twin_ms:.1f} ms, {card}")
-        del agg, slope, t_call, t_x1
+              f"{t_call[2]:.2f} GiB); X1 banded {x1_ms:.3f} ms "
+              f"({', '.join(f'{v:.3f}' for v in legs['banded'])}), its first "
+              f"port (with its transpose) {first_ms:.3f} ms "
+              f"({', '.join(f'{v:.3f}' for v in legs['simple'])}) in turns; "
+              f"one lane of {n - 1} steps {lane_ms:.3f} ms ({step_us:.4f} us "
+              f"a step), so {steps} steps take at least "
+              f"{steps * step_us / 1e3:.3f} ms; the twin {twin_ms:.1f} ms, "
+              f"{card}")
+        del agg, slope, row, t_call
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
@@ -3861,12 +3940,11 @@ def xdraw_path(dev, card):
     print(f"  phase 25: {time.perf_counter() - t_phase:.1f} s, {card}")
     print(json.dumps({"a11_xdraw": {str(k): v for k, v in timings.items()}}))
     # the function's bytes: each cone cell of the slope field read once,
-    # the field written once.  The wrapper's transpose for the east and
-    # west half-planes is a layout choice, so it is in X1's ms and not in
-    # its bound
+    # the field written once
     t = timings[N]
     work = (4 * (t["cone_reads"] + N * N), XDRAW_OPS * t["cone_reads"])
-    return t["x1_launches"], t["x1_ms"], t["twin_ms"], work
+    return (t["x1_launches"], t["x1_ms"], t["twin_ms"], work,
+            t["first_port_ms"], t["chain_bound_ms"])
 
 
 # -- phase 26: A9 (synthesis, with the bump kernel X2) and A12 (host modules) -
@@ -3876,6 +3954,8 @@ BUMP_N = 4096           # X2 timed on a BUMP_N^2 map at bump()'s default count
 BUMP_SEED = 26
 BUMP_SPREADS = (0, 1, 3)
 BUMP_TWIN_BUMPS = 2 ** 18   # the bumps the twin walks, and X2 beside it
+BUMP_FIRST_PORT_SPREADS = (1, 3)    # X2 against its first port on all bumps
+BUMP_BIG_N = 16384          # X2 alone at bump()'s default count
 POLY_N = 1024           # polygonize's classified terrain
 POLY_CLASS_M = 1000.0   # its classes: floor(elevation / 1000 m)
 # float64 operations of X2 (bump.cu): the centre's sum a bump, then a
@@ -3896,6 +3976,21 @@ def bump_case(spread, seed):
     return (h, w), locs.astype(np.int32), heights
 
 
+def bump_counts():
+    """X2's counters: (rounds, bumps done in them, bumps walked after them,
+    first-port launches)."""
+    from xrspatial_torch.kernels import cuda_bump
+    return (cuda_bump.BUMP_ROUNDS, cuda_bump.BUMP_ROUND_BUMPS,
+            cuda_bump.BUMP_TAIL_BUMPS, cuda_bump.BUMP_SIMPLE_LAUNCHES)
+
+
+def counted(fn):
+    """fn()'s result and the change of X2's counters over it."""
+    before = bump_counts()
+    out = fn()
+    return out, tuple(a - b for a, b in zip(bump_counts(), before))
+
+
 def check_bump(dev):
     """X2 against its twin on the card, bit for bit, at every spread."""
     import torch
@@ -3906,19 +4001,23 @@ def check_bump(dev):
         args = (torch.from_numpy(locs).to(dev),
                 torch.from_numpy(heights).to(dev), spread)
         before = cuda_bump.BUMP_LAUNCHES
-        got = cuda_bump.bump_scan_cuda(
-            torch.zeros(shape, dtype=torch.float64, device=dev), *args)
+        got, (rounds, done, tail, simple) = counted(
+            lambda: cuda_bump.bump_scan_cuda(
+                torch.zeros(shape, dtype=torch.float64, device=dev), *args))
         torch.cuda.synchronize()
-        if cuda_bump.BUMP_LAUNCHES != before + 1:
-            raise SmokeFailure("bump_scan_cuda did not count its launch")
+        if cuda_bump.BUMP_LAUNCHES != before + 1 or simple \
+                or done + tail != len(locs):
+            raise SmokeFailure("bump_scan_cuda did not count its launch, "
+                               "its rounds and its walk")
         ref = bump_scan_twin(torch.zeros(shape, dtype=torch.float64,
                                          device=dev), *args)
         if not same_bits(got, ref):
             raise SmokeFailure(f"X2 at spread {spread} differs from its "
                                f"twin")
-    print(f"  X2 equal to its twin bit for bit at spreads {BUMP_SPREADS} "
-          f"(600 bumps on 23x17: duplicates, every edge and corner, "
-          f"non-integer heights)")
+        print(f"  X2 equal to its twin bit for bit at spread {spread} (600 "
+              f"bumps on 23x17: duplicates, every edge and corner, "
+              f"non-integer heights): {rounds} rounds took {done} bumps, "
+              f"the walk {tail}")
 
 
 def bump_inputs(n, dev):
@@ -3937,7 +4036,6 @@ def bump_inputs(n, dev):
 def x2_ring_cells(locs, n, spread):
     """The ring cells inside the n x n map over all bumps: the sums and
     products X2 does beyond the centres."""
-    import torch
     from xrspatial_torch.kernels.bump import ring_offsets
     oy, ox, _ = ring_offsets(spread)
     x, y = locs[:, 0].long(), locs[:, 1].long()
@@ -3950,9 +4048,11 @@ def x2_ring_cells(locs, n, spread):
 
 def bump_path(dev, card):
     """The bump map: X2 against its twin, then bump() at BUMP_N^2 and the
-    default count, spread 1.  Returns (X2 launches in that call, X2 ms and
-    twin ms on the first BUMP_TWIN_BUMPS bumps, (bytes, float64
-    operations) of the function on them, X2 ms on all the bumps)."""
+    default count, spread 1; X2 against its first port by name on all
+    those bumps at spreads 1 and 3, both timed in turns; X2 and its first
+    port on the first BUMP_TWIN_BUMPS bumps beside the twin; X2 on
+    bump(BUMP_BIG_N, BUMP_BIG_N)'s bumps.  Returns a dict of the kernels
+    line's numbers and phase 26's X2 rows."""
     import torch
     import xrspatial_torch as xt
     from xrspatial_torch.kernels import bump as kb
@@ -3968,7 +4068,8 @@ def bump_path(dev, card):
         reset_launches()
         np.random.seed(BUMP_SEED)
         t0 = time.perf_counter()
-        out = xt.bump(BUMP_N, BUMP_N)
+        out, (rounds, done, tail, simple) = counted(
+            lambda: xt.bump(BUMP_N, BUMP_N))
         torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
         launched = {k: v for k, v in read_launches().items() if v}
@@ -3976,26 +4077,64 @@ def bump_path(dev, card):
         kb.bump_scan_twin = twin
     count = BUMP_N * BUMP_N // 10
     m = out.data
-    if launched != {"bump_scan": 1} or m.dtype != torch.float64 \
-            or m.device.type != "cuda" or tuple(m.shape) != (BUMP_N, BUMP_N):
+    if launched != {"bump_scan": 1} or simple or done + tail != count \
+            or m.dtype != torch.float64 or m.device.type != "cuda" \
+            or tuple(m.shape) != (BUMP_N, BUMP_N):
         raise SmokeFailure(f"bump at {BUMP_N}^2: launches {launched}, "
-                           f"{m.dtype} {tuple(m.shape)} on {m.device}")
+                           f"{simple} on the first port, {done} + {tail} "
+                           f"bumps, {m.dtype} {tuple(m.shape)} on "
+                           f"{m.device}")
     locs, heights = bump_inputs(BUMP_N, dev)
     print(f"  bump({BUMP_N}, {BUMP_N}): {count} bumps, spread 1, one X2 "
-          f"launch, no twin call, float64 on the card; the call "
-          f"{call_s * 1e3:.1f} ms (host clock, the RNG draws included)")
-    scratch = torch.zeros_like(m)
-    x2_ms, x2_first = x2_timed(scratch, locs, heights)
-    if not same_bits(scratch, m):
-        raise SmokeFailure("X2 on bump()'s inputs differs from bump()")
-    print(f"  X2 on bump()'s inputs: {x2_ms:.3f} ms ({x2_ms * 1e3 / count:.3f} "
-          f"us a bump; the first launch {x2_first:.3f}), equal to bump()'s "
-          f"map, {card}")
+          f"launch on the rounds route ({rounds} rounds took {done} bumps, "
+          f"the walk {tail}), no twin call, float64 on the card; the call "
+          f"{call_s * 1e3:.1f} ms (host clock, the RNG draws and the "
+          f"counters' read included)")
+    rows = {"bump_call": {"bumps": count, "rounds": rounds,
+                          "round_bumps": done, "tail_bumps": tail,
+                          "call_ms": call_s * 1e3}}
 
-    # the twin walks a prefix of the same bumps (at ~35 us a bump on the
-    # card, all of them would take a minute); X2 on the same prefix
+    # all the bumps: the rounds against the first port by name, bit for
+    # bit, each spread timed in turns (rounds, first port, first port,
+    # rounds)
+    scratch = torch.zeros_like(m)
+    for spread in BUMP_FIRST_PORT_SPREADS:
+        first = torch.zeros_like(m)
+        cuda_bump.bump_scan_cuda(first, locs, heights, spread,
+                                 route="simple")
+        got, (rounds, done, tail, _) = counted(
+            lambda: cuda_bump.bump_scan_cuda(
+                torch.zeros_like(m), locs, heights, spread))
+        if not same_bits(got, first):
+            raise SmokeFailure(f"X2 at {BUMP_N}^2, spread {spread}: the "
+                               f"rounds differ from the first port")
+        if spread == 1 and not same_bits(got, m):
+            raise SmokeFailure("X2 on bump()'s inputs differs from bump()")
+        del got, first
+        legs, new_ms, old_ms, call_ms = x2_in_turns(scratch, locs, heights,
+                                                    spread)
+        rows[f"all_bumps_spread{spread}"] = {
+            "bumps": count, "rounds": rounds, "round_bumps": done,
+            "tail_bumps": tail, "ms": new_ms, "call_ms": call_ms,
+            "legs_ms": legs["rounds"], "first_port_ms": old_ms,
+            "first_port_legs_ms": legs["simple"]}
+        print(f"  X2 equal to its first port bit for bit on all {count} "
+              f"bumps at spread {spread}: {rounds} rounds took {done} "
+              f"bumps, the walk {tail}; in turns X2 {new_ms:.3f} ms "
+              f"(device ms, call ms: {legs['rounds']}), the first port "
+              f"{old_ms:.3f} ms ({legs['simple']}), {old_ms / new_ms:.0f}x; "
+              f"the call with its check of the locations {call_ms:.3f} ms, "
+              f"{card}")
+
+    # the twin walks a prefix of the same bumps (at ~30 us a bump on the
+    # card, all of them would take a minute); X2 and its first port on the
+    # same prefix
     p_locs, p_heights = locs[:BUMP_TWIN_BUMPS], heights[:BUMP_TWIN_BUMPS]
-    pre_ms, _ = x2_timed(scratch, p_locs, p_heights)
+    got, (rounds, done, tail, _) = counted(
+        lambda: cuda_bump.bump_scan_cuda(torch.zeros_like(m), p_locs,
+                                         p_heights, 1))
+    _, pre_ms, pre_first_ms, pre_call_ms = x2_in_turns(scratch, p_locs,
+                                                       p_heights, 1)
     ring = x2_ring_cells(p_locs, BUMP_N, 1)
     ref = torch.zeros_like(m)
     torch.cuda.synchronize()
@@ -4003,40 +4142,90 @@ def bump_path(dev, card):
     twin(ref, p_locs, p_heights, 1)
     torch.cuda.synchronize()
     twin_ms = (time.perf_counter() - t0) * 1e3
-    if not same_bits(ref, scratch):
+    if not same_bits(ref, got):
         raise SmokeFailure(f"X2 at {BUMP_N}^2 differs from its twin")
     n = len(p_locs)
     print(f"  X2 equal to its twin bit for bit at {BUMP_N}^2 on the first "
-          f"{n} bumps ({ring} ring cells inside the map): X2 "
-          f"{pre_ms:.3f} ms ({pre_ms * 1e3 / n:.3f} us a bump), the twin "
-          f"{twin_ms:.1f} ms on the card ({twin_ms * 1e3 / n:.2f} us a "
-          f"bump, host clock), {card}")
-    del out, m, scratch, ref
+          f"{n} bumps ({ring} ring cells inside the map; {rounds} rounds "
+          f"took {done}, the walk {tail}): X2 {pre_ms:.3f} ms (the call "
+          f"{pre_call_ms:.3f}), its first port {pre_first_ms:.3f} ms in "
+          f"turns, the twin {twin_ms:.1f} ms "
+          f"on the card ({twin_ms * 1e3 / n:.2f} us a bump, host clock), "
+          f"{card}")
+    rows["prefix"] = {"bumps": n, "rounds": rounds, "round_bumps": done,
+                      "tail_bumps": tail, "ms": pre_ms,
+                      "call_ms": pre_call_ms, "first_port_ms": pre_first_ms,
+                      "twin_ms": twin_ms}
+    del out, m, scratch, ref, got, locs, heights
+    torch.cuda.empty_cache()
+
+    # BUMP_BIG_N^2 at bump()'s default count: the rounds route only (the
+    # first port would walk for ~24 s)
+    big_locs, big_heights = bump_inputs(BUMP_BIG_N, dev)
+    big = torch.zeros((BUMP_BIG_N, BUMP_BIG_N), dtype=torch.float64,
+                      device=dev)
+    _, (rounds, done, tail, _) = counted(
+        lambda: cuda_bump.bump_scan_cuda(big, big_locs, big_heights, 1))
+    big_ms = [x2_timed(big, big_locs, big_heights, 1, "rounds")
+              for _ in range(2)]           # (device ms, call ms) each
+    if done + tail != len(big_locs) or not bool(torch.isfinite(big).all()) \
+            or float(big.sum()) <= 0.0:
+        raise SmokeFailure(f"X2 at {BUMP_BIG_N}^2: {done} + {tail} bumps "
+                           f"of {len(big_locs)}, or a map that is not "
+                           f"finite and positive")
+    rows[f"bump_{BUMP_BIG_N}"] = {"bumps": len(big_locs), "rounds": rounds,
+                                  "round_bumps": done, "tail_bumps": tail,
+                                  "ms": big_ms}
+    print(f"  X2 at {BUMP_BIG_N}^2 on bump()'s {len(big_locs)} bumps, "
+          f"spread 1: {rounds} rounds took {done} bumps, the walk {tail}; "
+          f"(device ms, call ms) {big_ms}, {card}")
+    del big, big_locs, big_heights
     torch.cuda.empty_cache()
     # the function's bytes on the prefix: the locations (int32 pairs) and
     # heights read once, the map written once; its operations, float64
     work = (n * (8 + 8) + BUMP_N * BUMP_N * 8,
             X2_OPS_CENTRE * n + X2_OPS_RING_CELL * ring)
-    return launched["bump_scan"], pre_ms, twin_ms, work, x2_ms
+    return {"launches": launched["bump_scan"], "ms": pre_ms,
+            "twin_ms": twin_ms, "work": work, "first_port_ms": pre_first_ms,
+            "rows": rows}
 
 
-def x2_timed(out, locs, heights):
-    """(warm ms, first ms) of X2 adding `locs`/`heights` (spread 1) to
-    `out` zeroed before each launch, from CUDA events; `out` holds the
-    result."""
+def x2_in_turns(out, locs, heights, spread):
+    """X2 and its first port in turns (rounds, first port, first port,
+    rounds): ({route: [(device ms, call ms)]}, X2's mean device ms, the
+    first port's, X2's mean call ms)."""
+    legs = {"rounds": [], "simple": []}
+    for route in ("rounds", "simple", "simple", "rounds"):
+        legs[route].append(x2_timed(out, locs, heights, spread, route))
+    new_ms, old_ms = (sum(d for d, _ in v) / len(v) for v in legs.values())
+    call_ms = sum(c for _, c in legs["rounds"]) / len(legs["rounds"])
+    return legs, new_ms, old_ms, call_ms
+
+
+def x2_timed(out, locs, heights, spread, route):
+    """One X2 call on `route` adding `locs`/`heights` to `out` zeroed
+    before it: (the kernel's device ms from torch.profiler's CUDA trace,
+    or the call's ms when the trace holds no device time; the call's ms
+    from CUDA events, the wrapper's check of the locations and its read
+    of the rounds' counters, host round trips both, included).  `out`
+    holds the result."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from xrspatial_torch.kernels import cuda_bump
+    name = "bump_rounds_kernel" if route == "rounds" else "bump_scan_kernel"
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(2):
-        out.zero_()
+    out.zero_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
-        cuda_bump.bump_scan_cuda(out, locs, heights, 1)
+        cuda_bump.bump_scan_cuda(out, locs, heights, spread, route=route)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times[1], times[0]
+    call_ms = start.elapsed_time(end)
+    us = sum(getattr(e, "device_time_total", 0) or 0
+             for e in prof.key_averages() if name in e.key)
+    return (us / 1e3 if us else call_ms), call_ms
 
 
 def synthesis_path(dev, card):
@@ -4228,25 +4417,22 @@ def host_modules_path(terrain, card):
 
 
 def a9_a12_paths(dev, card):
-    """Phase 26: A9 and A12.  Returns bump_path's first four values."""
+    """Phase 26: A9 and A12.  Returns bump_path's numbers."""
     import torch
     t_phase = time.perf_counter()
-    print(f"== A9/A12: X2 (csrc/bump.cu) against its twin, bump at "
-          f"{BUMP_N}^2, generate_terrain, perlin, a_star_search, polygonize, "
-          f"diagnose on {card}")
+    print(f"== A9/A12: X2 (csrc/bump.cu, rounds) against its twin and its "
+          f"first port, bump at {BUMP_N}^2 and {BUMP_BIG_N}^2, "
+          f"generate_terrain, perlin, a_star_search, polygonize, diagnose "
+          f"on {card}")
     x2 = bump_path(dev, card)
     terrain, rows = synthesis_path(dev, card)
     rows.update(host_modules_path(terrain, card))
     del terrain
     torch.cuda.empty_cache()
-    count = BUMP_N * BUMP_N // 10
-    rows["x2"] = {"bumps": count, "ms": x2[4],
-                  "prefix_bumps": min(BUMP_TWIN_BUMPS, count),
-                  "prefix_ms": x2[1],
-                  "prefix_twin_ms": x2[2]}
+    rows["x2"] = x2["rows"]
     print(f"  phase 26: {time.perf_counter() - t_phase:.1f} s, {card}")
     print(json.dumps({"a9_a12_paths": rows}))
-    return x2[:4]
+    return x2
 
 
 # -- the least time of each kernel ------------------------------------------
@@ -4625,14 +4811,17 @@ def main() -> int:
 
     # -- A7 and A11: zonal (torch ops), the XDraw viewshed (X1) -----------------
     zonal_path(dev, card)
-    launches["xdraw_scan"], x1_ms, x1_twin_ms, x1_work = xdraw_path(dev, card)
+    (launches["xdraw_scan"], x1_ms, x1_twin_ms, x1_work,
+     first_port_ms["xdraw_scan"], x1_chain_ms) = xdraw_path(dev, card)
     ms["xdraw_scan"] = (x1_ms, x1_twin_ms)
     max_err["xdraw_scan"] = 0.0            # equal to the twin bit for bit
 
     # -- A9 and A12: synthesis (X2), the host modules ---------------------------
-    launches["bump_scan"], x2_ms, x2_twin_ms, x2_work = a9_a12_paths(dev,
-                                                                     card)
-    ms["bump_scan"] = (x2_ms, x2_twin_ms)
+    x2 = a9_a12_paths(dev, card)
+    launches["bump_scan"] = x2["launches"]
+    ms["bump_scan"] = (x2["ms"], x2["twin_ms"])
+    first_port_ms["bump_scan"] = x2["first_port_ms"]
+    x2_work = x2["work"]
     max_err["bump_scan"] = 0.0             # equal to the twin bit for bit
 
     work = kernel_work(
@@ -4755,18 +4944,20 @@ def main() -> int:
                                   f"plane spans)",
         "jfa_round": jfa_design(),
         "jfa_group": group_design(),
-        "xdraw_scan": "one block a half-plane (4 of the SMs), 1024 threads "
-                      "x N/1024 lanes, the carry double-buffered in shared "
-                      "memory, one __syncthreads a step, the next line "
-                      "prefetched; the cone's lanes only; ms with the "
-                      "wrapper's transpose of the slope field",
-        "bump_scan": "one block walks the bumps in order: thread 0 adds the "
-                     "centre and shares it, a barrier, one thread a ring "
-                     "offset (a warp at spread 1), a barrier; the next "
-                     "bump's location read ahead; float64, every product "
-                     "and sum rounded apart; ms, plain_ms and the bound "
-                     "on the first 262,144 of bump(4096, 4096)'s "
-                     "1,677,721 bumps"}
+        "xdraw_scan": "banded: 4 half-planes x bands of lanes, one block a "
+                      "band, one lane a thread, K-step chunks with a K-lane "
+                      "halo toward the viewpoint, carries handed on at "
+                      "chunk ends through per-chunk slots and flags, slope "
+                      "tiles staged by cp.async, coalesced row writes, one "
+                      "cooperative launch (plan in the a11_xdraw line); "
+                      "first_port_ms with its transpose",
+        "bump_scan": "rounds: claim (64-bit atomicMax of round << 32 | "
+                     "~index), test and apply, pack, while a round makes at "
+                     "least 12 bumps ready, then one block walks the rest "
+                     "in order; one cooperative launch; ms, plain_ms, "
+                     "first_port_ms and the bound on the first 262,144 of "
+                     "bump(4096, 4096)'s 1,677,721 bumps (all_bumps_* on "
+                     "all of them)"}
     # the first ports, kept by name, timed in turns with the redesigns
     first_port_ms.update(jfa_round=jfa_timing["simple_ms"],
                          jfa_group=group_times["double"],
@@ -4786,7 +4977,12 @@ def main() -> int:
          **({"first_port_ms": first_port_ms[k]} if k in first_port_ms
             else {}),
          **({"plan_bound_ms": plan_ms, "plan_bound_by": plan_by}
-            if k == "screen_hilo" else {})}
+            if k == "screen_hilo" else {}),
+         **({"chain_bound_ms": x1_chain_ms} if k == "xdraw_scan" else {}),
+         **({"all_bumps_ms": x2["rows"]["all_bumps_spread1"]["ms"],
+             "all_bumps_first_port_ms":
+                 x2["rows"]["all_bumps_spread1"]["first_port_ms"]}
+            if k == "bump_scan" else {})}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

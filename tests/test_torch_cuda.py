@@ -60,18 +60,26 @@ ebbi within 2 ulps (the CPU's float32 sqrt is 1 ulp off in some values)
 and ``true_color`` within 1; the Jenks DP's breaks reach the CPU's
 float64 within-class variance within rtol 1e-5.  The XDraw scan kernel
 X1 equals its twin bit for bit at rows, columns, ragged shapes and one
-side above what a block's shared memory holds (its scratch route), the
-viewpoint at every corner, one launch a call; ``viewshed`` with
-``exact=False`` launches it once and never its twin.  The zonal columns on
+side above what a block's shared memory holds (its first port's scratch
+route), the viewpoint at every corner, one launch a call, on its banded
+route (the plan's bands, and tiny ones: many bands and chunks, a halo
+wider than a band) and its first port by name, each equal to the other;
+``viewshed`` with ``exact=False`` launches the banded route once and never
+its twin.  The zonal columns on
 the card equal the CPU's (mean and sum rtol 1e-6, var and std 1e-5: the
 card adds in another order), crosstab, regions, trim and crop exactly.
 The bump kernel X2 equals its twin bit for bit at spreads 0, 1 and 3
 (duplicate locations, every edge and corner, non-integer heights), one
-launch a call, and ``bump`` launches it once and never its twin;
+launch a call, on its rounds route (the plan's threshold, reaching the
+walk; 0; infinity; a sparse map the rounds finish) and its first port by
+name, whose counters account for every bump, and ``bump`` launches it
+once and never its twin;
 ``perlin``, ``generate_terrain`` and ``make_terrain`` on the card equal
 the CPU's bit for bit; ``a_star_search`` (native route), ``polygonize``
 and ``diagnose`` on a raster on the card give the CPU raster's results.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -1934,13 +1942,43 @@ def test_xdraw_kernel_equals_its_twin(cuda, shape):
     for vp in vps:
         slope = xdraw_slope(shape, vp, cuda, seed=h + w)
         before = cuda_xdraw.XDRAW_LAUNCHES
+        simple = cuda_xdraw.XDRAW_SIMPLE_LAUNCHES
         got = cuda_xdraw.xdraw_scan_cuda(slope, *vp)
         torch.cuda.synchronize()
         assert cuda_xdraw.XDRAW_LAUNCHES == before + 1
+        assert cuda_xdraw.XDRAW_SIMPLE_LAUNCHES == simple
         assert got.device.type == "cuda" and got.dtype == torch.float32
         # the twin on the card: at 30000 steps it is slow on the CPU
         ref = xdraw_scan_twin(slope, *vp)
         assert same_bits(got.cpu(), ref.cpu()), (shape, vp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", XDRAW_SHAPES)
+def test_xdraw_banded_kernel_equals_its_first_port(cuda, shape):
+    """The banded route on its plan and on tiny bands and chunks (8 and 4,
+    4 and 8: a halo wider than a band) against the first port by name,
+    bit for bit, and the tiny ones against the twin."""
+    from xrspatial_torch.kernels import cuda_xdraw
+    from xrspatial_torch.kernels.emulate import same_bits
+    from xrspatial_torch.kernels.viewshed import xdraw_scan_twin
+    h, w = shape
+    vps = ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (h // 3, w // 2))
+    tiny = ((8, 4), (4, 8)) if max(shape) <= 4096 else ()
+    for vp in vps:
+        slope = xdraw_slope(shape, vp, cuda, seed=h * w)
+        before = cuda_xdraw.XDRAW_SIMPLE_LAUNCHES
+        first = cuda_xdraw.xdraw_scan_cuda(slope, *vp, route="simple")
+        assert cuda_xdraw.XDRAW_SIMPLE_LAUNCHES == before + 1
+        assert same_bits(cuda_xdraw.xdraw_scan_cuda(slope, *vp).cpu(),
+                         first.cpu()), (shape, vp)
+        if tiny:
+            ref = xdraw_scan_twin(slope, *vp).cpu()
+        for band, chunk in tiny:
+            got = cuda_xdraw.xdraw_scan_cuda(slope, *vp, band=band,
+                                             chunk=chunk)
+            assert same_bits(got.cpu(), ref), (shape, vp, band, chunk)
+            assert same_bits(got.cpu(), first.cpu())
 
 
 @pytest.mark.gpu
@@ -1961,9 +1999,11 @@ def test_xdraw_path_goes_through_the_kernel(cuda):
     kv.xdraw_scan_twin = lambda *a: calls.append(a) or twin(*a)
     try:
         before = cuda_xdraw.XDRAW_LAUNCHES
+        simple = cuda_xdraw.XDRAW_SIMPLE_LAUNCHES
         got = xt.viewshed(agg(cuda), x=30.0, y=70.0, observer_elev=3.0,
                           exact=False)
         assert cuda_xdraw.XDRAW_LAUNCHES == before + 1 and not calls
+        assert cuda_xdraw.XDRAW_SIMPLE_LAUNCHES == simple
     finally:
         kv.xdraw_scan_twin = twin
     ref = xt.viewshed(agg("cpu"), x=30.0, y=70.0, observer_elev=3.0,
@@ -1984,6 +2024,10 @@ def test_xdraw_wrapper_refuses_what_it_cannot_take(cuda):
             cuda_xdraw.xdraw_scan_cuda(bad, 1, 1)
     with pytest.raises(ValueError, match="outside"):
         cuda_xdraw.xdraw_scan_cuda(x, 8, 0)
+    with pytest.raises(ValueError, match="route"):
+        cuda_xdraw.xdraw_scan_cuda(x, 1, 1, route="ring")
+    with pytest.raises(ValueError, match="banded"):
+        cuda_xdraw.xdraw_scan_cuda(x, 1, 1, route="simple", band=8)
     assert cuda_xdraw.XDRAW_LAUNCHES == before
 
 
@@ -2069,16 +2113,67 @@ def test_bump_kernel_equals_its_twin(cuda, spread):
     args = (torch.from_numpy(locs).to(cuda),
             torch.from_numpy(heights).to(cuda), spread)
     before = cuda_bump.BUMP_LAUNCHES
+    counts = bump_counts()
     got = cuda_bump.bump_scan_cuda(
         torch.zeros(shape, dtype=torch.float64, device=cuda), *args)
     torch.cuda.synchronize()
     assert cuda_bump.BUMP_LAUNCHES == before + 1
+    rounds, done, tail, simple = (a - b for a, b in zip(bump_counts(),
+                                                       counts))
+    # the rounds route, at the plan's threshold: this crowded map reaches
+    # the walk, and the two account for every bump
+    assert simple == 0 and rounds >= 1 and tail > 0 and done + tail == 600
     ref = bump_scan_twin(torch.zeros(shape, dtype=torch.float64,
                                      device=cuda), *args)
     assert torch.equal(got.view(torch.int64), ref.view(torch.int64))
     cpu = bump_scan_twin(torch.zeros(shape, dtype=torch.float64),
                          *(a.cpu() for a in args[:2]), spread)
     assert torch.equal(got.cpu().view(torch.int64), cpu.view(torch.int64))
+
+
+def bump_counts():
+    from xrspatial_torch.kernels import cuda_bump
+    return (cuda_bump.BUMP_ROUNDS, cuda_bump.BUMP_ROUND_BUMPS,
+            cuda_bump.BUMP_TAIL_BUMPS, cuda_bump.BUMP_SIMPLE_LAUNCHES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spread", [0, 1, 3])
+def test_bump_rounds_equal_the_first_port(cuda, spread):
+    """The rounds route at thresholds 0 (rounds only) and infinity (the
+    walk only), and on a sparse 256^2 map its rounds finish, against the
+    first port by name, bit for bit; the counters account for every
+    bump."""
+    from xrspatial_torch.kernels import cuda_bump
+    shape, locs, heights = bump_case(spread, seed=40 + spread)
+    rng = np.random.default_rng(spread)
+    sparse = ((256, 256), np.stack([rng.integers(0, 256, 1000),
+                                    rng.integers(0, 256, 1000)],
+                                   1).astype(np.int32),
+              rng.random(1000) * 3)
+    for (shape, locs, heights), threshold, route in (
+            ((shape, locs, heights), 0, "rounds"),
+            ((shape, locs, heights), math.inf, "walk"),
+            (sparse, None, "rounds")):
+        args = (torch.from_numpy(locs).to(cuda),
+                torch.from_numpy(heights).to(cuda), spread)
+        before = cuda_bump.BUMP_SIMPLE_LAUNCHES
+        first = cuda_bump.bump_scan_cuda(
+            torch.zeros(shape, dtype=torch.float64, device=cuda), *args,
+            route="simple")
+        assert cuda_bump.BUMP_SIMPLE_LAUNCHES == before + 1
+        counts = bump_counts()
+        got = cuda_bump.bump_scan_cuda(
+            torch.zeros(shape, dtype=torch.float64, device=cuda), *args,
+            threshold=threshold)
+        rounds, done, tail, simple = (a - b for a, b in zip(bump_counts(),
+                                                           counts))
+        assert torch.equal(got.view(torch.int64), first.view(torch.int64))
+        assert simple == 0 and done + tail == len(locs)
+        if route == "walk":
+            assert rounds == 0 and tail == len(locs)
+        else:
+            assert rounds >= 1 and tail == 0
 
 
 @pytest.mark.gpu
@@ -2095,8 +2190,12 @@ def test_bump_path_goes_through_the_kernel(cuda):
         xt.set_default_device(cuda)
         np.random.seed(3)
         before = cuda_bump.BUMP_LAUNCHES
+        counts = bump_counts()
         got = xt.bump(64, 48, spread=2)
         assert cuda_bump.BUMP_LAUNCHES == before + 1 and not calls
+        rounds, done, tail, simple = (a - b for a, b in zip(bump_counts(),
+                                                           counts))
+        assert simple == 0 and rounds >= 1 and done + tail == 64 * 48 // 10
     finally:
         kb.bump_scan_twin = twin
         xt.set_default_device(saved)
@@ -2129,6 +2228,12 @@ def test_bump_wrapper_refuses_what_it_cannot_take(cuda):
             cuda_bump.bump_scan_cuda(out, bad_locs, z, 1)
     with pytest.raises(ValueError, match="heights"):
         cuda_bump.bump_scan_cuda(out, locs, torch.ones(2, device=cuda), 1)
+    with pytest.raises(ValueError, match="route"):
+        cuda_bump.bump_scan_cuda(out, locs, z, 1, route="batched")
+    for threshold, route in ((-1, None), (4, "simple")):
+        with pytest.raises(ValueError, match="threshold"):
+            cuda_bump.bump_scan_cuda(out, locs, z, 1, route=route,
+                                     threshold=threshold)
     assert cuda_bump.BUMP_LAUNCHES == before
 
 

@@ -1,5 +1,7 @@
-// xdraw_scan_kernel: the XDraw viewshed's running max slope along each
-// cell's ray, all four half-plane scans in one launch.
+// The XDraw viewshed's running max slope along each cell's ray, all four
+// half-plane scans in one launch: xdraw_banded_kernel, the half-planes
+// cut into bands of lanes across the SMs, and xdraw_scan_kernel, the
+// first port, one block a half-plane.
 //
 // Replaces no Pallas kernel: in the JAX package the scan is a lax.scan of
 // XLA, xrspatial_tpu/kernels/viewshed.py:771 _halfplane_scan4 (and the four
@@ -12,31 +14,45 @@
 // blocking slope interpolated from two cells of the previous line (the
 // primary, one step toward the viewpoint, and the secondary, one more
 // step toward the viewpoint's minor coordinate).  East and west walk the
-// columns (reading the transposed slope, so each step's loads are
-// contiguous), south and north the rows.
+// columns, south and north the rows.  A lane thus reads only itself and
+// its neighbour toward the viewpoint's lane, which reads only itself.
 //
-// Bound on this card: the dependence from one step to the next.  Each
-// block owns one half-plane: 1024 threads, each L lanes of the minor
-// axis, the carry double-buffered in shared memory (2 x max(h, w) floats,
-// 128 KB at 16384; in a global scratch buffer above what a block can
-// take), one __syncthreads() a step, the next step's slopes loaded into
-// registers while this step computes.  Only 4 of the 132 SMs work: a
-// banded form over many blocks is later work.  The steps before the
-// viewpoint (all -inf) are skipped, and so are the lanes outside the
-// ray cone |minor| <= dxf, which are -inf in both buffers from the start
-// (the cone only grows).  The kernel writes only the cells of its own
-// octant into one (H, W) field (kernels/viewshed.py::_xdraw_octant_masks:
-// east and west own |dy| <= |dx|, diagonals included, east the viewpoint
-// too; south and north the rest).
+// Bound on this card: the dependence from one step to the next, a
+// shared-memory round trip and a barrier a step, ~16,300 steps at 16384^2.
+// The first port runs it on 4 SMs, 1024 threads x N/1024 lanes each.  The
+// banded kernel spreads the lanes: 4 half-planes x bands of B lanes, one
+// block a band, one lane a thread, walking K steps a chunk (the plan,
+// kernels/viewshed.py::xdraw_plan).  A band away from the viewpoint's lane
+// also recomputes the K lanes on its side toward the viewpoint (a halo cut
+// at the viewpoint's lane): the values that enter its own lanes within K
+// steps come from no further, so its own lanes stay exact while the
+// halo's inner edge decays.  At the end of a chunk each band writes its
+// lanes' carry to a global slot of that chunk (every chunk keeps its own,
+// so no producer waits for a consumer), fences and raises its progress
+// flag; at the start of a chunk a band waits for the flags of the bands
+// that own its halo and reads their carries from L2.  Bands only wait on
+// bands nearer the viewpoint, and the cone reaches a band B lanes out B
+// steps later, so the one-chunk lag hides behind it; the launch is
+// cooperative so that every band that waits is resident.  Each chunk's
+// K x (B + K) slope tile is staged in shared memory by cp.async while the
+// chunk before it runs, straight from `slope` (no transpose), and the
+// chunk's results, written over the tile, leave as coalesced rows.  Only
+// the cone |minor| <= dxf is read, computed and written, and a band
+// starts at the chunk where its first lane enters the cone.  Each cell is
+// written by its own octant's scan (kernels/viewshed.py::
+// _xdraw_octant_masks: east and west own |dy| <= |dx|, diagonals
+// included, east the viewpoint too; south and north the rest).
 //
 // Bits: every product, sum, difference and the division is rounded apart
 // (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn), so nvcc contracts nothing
-// into an FMA and the kernel equals its torch twin bit for bit; max
+// into an FMA and both kernels equal their torch twin bit for bit; max
 // propagates NaN, as torch.maximum does.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -173,6 +189,233 @@ int launch(const float* slope, const float* slope_t, float* out, int h,
   return (int)cudaGetLastError();
 }
 
+
+// -- the banded kernel --------------------------------------------------------
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// One half-plane's geometry: steps along the major axis, lanes along the
+// minor one, the viewpoint's step offset vpm (dxf = k - vpm) and lane.
+struct HalfPlane {
+  bool x_major, reverse;
+  int steps, lanes, last, vp_lane, vpm_i, k0, n_chunks;
+  float vpm, vp_minor;
+};
+
+__device__ HalfPlane half_plane(int hp, int h, int w, int vp_row,
+                                int vp_col, int chunk) {
+  HalfPlane g;
+  g.x_major = hp < 2;
+  g.reverse = hp & 1;
+  g.steps = g.x_major ? w : h;
+  g.lanes = g.x_major ? h : w;
+  g.last = g.steps - 1;
+  const int vp_major = g.x_major ? vp_col : vp_row;
+  g.vp_lane = g.x_major ? vp_row : vp_col;
+  g.vpm_i = g.reverse ? g.last - vp_major : vp_major;
+  g.vpm = g.reverse ? __fsub_rn((float)g.last, (float)vp_major)
+                    : (float)vp_major;
+  g.vp_minor = (float)g.vp_lane;
+  g.k0 = g.vpm_i + 1;                         // dxf = 1
+  g.n_chunks = g.steps > g.k0 ? (g.steps - g.k0 + chunk - 1) / chunk : 0;
+  return g;
+}
+
+// The first chunk band `o` walks: the one holding the step where its lane
+// nearest the viewpoint's enters the cone |lane - vp_lane| <= k - vpm.
+// Before it every lane of the band is -inf; n_chunks if it never enters.
+__device__ __forceinline__ int first_chunk(const HalfPlane& g, int o,
+                                           int band, int chunk) {
+  const int b0 = o * band;
+  const int b1 = min(b0 + band, g.lanes);
+  const int near = b0 > g.vp_lane ? b0 - g.vp_lane
+                                  : (b1 <= g.vp_lane ? g.vp_lane - (b1 - 1)
+                                                     : 0);
+  const int k = g.vpm_i + max(near, 1);
+  return k < g.steps ? (k - g.k0) / chunk : g.n_chunks;
+}
+
+// Copies or writes the cone's cells of chunk c (steps s .. s + ns) over
+// lanes [lo, hi) of the window [wlo, ...) between `tile` ([ns][wmax], lane
+// p at column p) and the raster `ras`, coalesced along the raster's rows;
+// with `own_strict` (south and north) a write skips the cells on the
+// diagonals, which east and west own.
+template <bool kLoad>
+__device__ __forceinline__ void move_tile(const HalfPlane& g, float* tile,
+                                          const float* src, float* dst,
+                                          int w, int s, int ns, int lo,
+                                          int hi, int wlo, int wmax) {
+  const int span = hi - lo;
+  const int total = ns * span;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    int kk, lane;
+    if (g.x_major) {                 // a raster row holds one lane's steps
+      kk = e % ns;
+      lane = lo + e / ns;
+    } else {                         // a raster row holds one step's lanes
+      kk = e / span;
+      lane = lo + e % span;
+    }
+    const int k = s + kk;
+    const int dx = k - g.vpm_i;
+    const int ady = abs(lane - g.vp_lane);
+    if (ady > dx || (!kLoad && !g.x_major && ady == dx)) continue;
+    const int line = g.reverse ? g.last - k : k;
+    const size_t at = g.x_major ? (size_t)lane * w + line
+                                : (size_t)line * w + lane;
+    float* cell = tile + kk * wmax + (lane - wlo);
+    if (kLoad)
+      xrt::cp_async_4(xrt::smem_addr(cell), src + at);
+    else
+      dst[at] = *cell;
+  }
+}
+
+// Block: half-plane hp (0 east, 1 west, 2 south, 3 north), band b of its
+// lanes [b * band, (b + 1) * band).  Shared memory: the carry, double-
+// buffered, lane p of the window at [p + 1] with -inf at both ends, then
+// two K x (band + K) tiles.  carry holds 4 x n_slots x n floats, the
+// carry of lane L after chunk c - 1 at [(hp * n_slots + c) * n + L];
+// progress one int a block, 0 before the launch, raised to c once that
+// slot is written.
+__global__ void __launch_bounds__(kMaxThreads)
+    xdraw_banded_kernel(const float* __restrict__ slope,
+                        float* __restrict__ out, int h, int w, int vp_row,
+                        int vp_col, int band, int chunk, int n_slots,
+                        float* __restrict__ carry, int* __restrict__ progress) {
+  extern __shared__ float smem[];
+  const float neginf = -INFINITY;
+  const int nbx = (h + band - 1) / band;       // bands of east and west
+  const int nby = (w + band - 1) / band;       // of south and north
+  const int bases[5] = {0, nbx, 2 * nbx, 2 * nbx + nby, 2 * nbx + 2 * nby};
+  int hp = 0;
+  while ((int)blockIdx.x >= bases[hp + 1]) ++hp;
+  const int base = bases[hp];
+  const int b = blockIdx.x - base;
+  const HalfPlane g = half_plane(hp, h, w, vp_row, vp_col, chunk);
+  const int n = h > w ? h : w;
+  const int vpb = g.vp_lane / band;
+  const int b0 = b * band;
+  const int b1 = min(b0 + band, g.lanes);
+  int wlo = b0, whi = b1;                       // the window: band + halo
+  if (b > vpb) wlo = max(b0 - chunk, g.vp_lane);
+  if (b < vpb) whi = min(b1 + chunk, g.vp_lane + 1);
+  const int win = whi - wlo;
+  const int hlo = b > vpb ? wlo : b1;           // the halo [hlo, hhi)
+  const int hhi = b > vpb ? b0 : whi;
+  const int wmax = band + chunk;
+  float* cur = smem;
+  float* nxt = smem + (wmax + 2);
+  float* const tiles = smem + 2 * (wmax + 2);
+  float* const slots = carry + (size_t)hp * n_slots * n;
+
+  for (int p = threadIdx.x; p < wmax + 2; p += blockDim.x)
+    cur[p] = nxt[p] = neginf;
+  if (hp == 0 && b == vpb && threadIdx.x == 0)
+    out[(size_t)vp_row * w + vp_col] = neginf;  // the viewpoint: east's
+  const int c_first = first_chunk(g, b, band, chunk);
+  if (c_first >= g.n_chunks) return;            // never in the cone
+  __syncthreads();
+
+  move_tile<true>(g, tiles + (c_first & 1) * chunk * wmax, slope, nullptr,
+                  w, g.k0 + c_first * chunk,
+                  min(chunk, g.steps - g.k0 - c_first * chunk), wlo, whi,
+                  wlo, wmax);
+  xrt::cp_async_commit();
+  for (int c = c_first; c < g.n_chunks; ++c) {
+    const int s = g.k0 + c * chunk;
+    const int ns = min(chunk, g.steps - s);
+    float* const tile = tiles + (c & 1) * chunk * wmax;
+    if (c + 1 < g.n_chunks)                     // the next chunk's slopes
+      move_tile<true>(g, tiles + ((c + 1) & 1) * chunk * wmax, slope,
+                      nullptr, w, s + chunk,
+                      min(chunk, g.steps - s - chunk), wlo, whi, wlo, wmax);
+    xrt::cp_async_commit();
+
+    // the halo, exact at the chunk's start: from the bands that own it,
+    // once they have written this chunk's slot (-inf if they had not
+    // started, as their lanes then still are)
+    if (hlo < hhi) {
+      if (threadIdx.x == 0) {
+        for (int o = hlo / band; o <= (hhi - 1) / band; ++o) {
+          if (c - 1 < first_chunk(g, o, band, chunk)) continue;
+          while (ld_acquire(progress + base + o) < c) __nanosleep(20);
+        }
+      }
+      __syncthreads();
+      for (int L = hlo + threadIdx.x; L < hhi; L += blockDim.x)
+        cur[L - wlo + 1] =
+            c - 1 < first_chunk(g, L / band, band, chunk)
+                ? neginf
+                : __ldcg(slots + (size_t)c * n + L);
+    }
+    xrt::cp_async_wait(1);
+    __syncthreads();
+
+    for (int kk = 0; kk < ns; ++kk) {
+      const float dxf = __fsub_rn((float)(s + kk), g.vpm);   // >= 1
+      const float wden = fmaxf(dxf, 1.0f);
+      float* const row = tile + kk * wmax;
+      for (int p = threadIdx.x; p < win; p += blockDim.x) {
+        const float minor = __fsub_rn((float)(wlo + p), g.vp_minor);
+        const float ady = fabsf(minor);
+        if (!(ady <= dxf)) continue;    // outside the cone: -inf, unwritten
+        const float prim = cur[p + 1];
+        float sec = prim;
+        if (minor > 0.0f) sec = cur[p];
+        if (minor < 0.0f) sec = cur[p + 2];
+        const float wsec = ady > 0.0f ? __fdiv_rn(ady, wden) : 0.0f;
+        const float interp =
+            isfinite(prim) && isfinite(sec)
+                ? __fadd_rn(__fmul_rn(prim, __fsub_rn(1.0f, wsec)),
+                            __fmul_rn(sec, wsec))
+                : nan_max(prim, sec);
+        const float blocked = dxf == 1.0f ? neginf : interp;
+        const float m = nan_max(blocked, row[p]);
+        nxt[p + 1] = m;
+        row[p] = m;
+      }
+      __syncthreads();
+      float* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+
+    // publish this band's lanes after the chunk, then raise its flag
+    for (int L = b0 + threadIdx.x; L < b1; L += blockDim.x)
+      slots[(size_t)(c + 1) * n + L] = cur[L - wlo + 1];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(progress + base + b, c + 1);
+    move_tile<false>(g, tile, nullptr, out, w, s, ns, b0, b1, wlo, wmax);
+    __syncthreads();                            // the tile is reloaded next
+  }
+}
+
+// The banded kernel's blocks for an h x w raster in bands of `band` lanes.
+int banded_blocks(int h, int w, int band) {
+  return 2 * ((h + band - 1) / band) + 2 * ((w + band - 1) / band);
+}
+
+// Dynamic shared memory of the banded kernel: the carry's two windows
+// and two tiles.
+int banded_smem(int band, int chunk) {
+  const int wmax = band + chunk;
+  return (int)sizeof(float) * (2 * (wmax + 2) + 2 * chunk * wmax);
+}
+
 }  // namespace
 
 extern "C" {
@@ -218,6 +461,49 @@ int xdraw_scan_launch(const float* slope, const float* slope_t, float* out,
     return launch<kMaxLanes>(slope, slope_t, out, h, w, vp_row, vp_col,
                              scratch, threads, s);
   return (int)cudaErrorInvalidValue;
+}
+
+
+// out (h, w) = the running max slope of slope (h, w) for the viewpoint
+// (vp_row, vp_col), by the banded kernel in bands of `band` lanes and
+// chunks of `chunk` steps, on `stream`: 4 half-planes x their bands
+// blocks of min(1024, band + chunk rounded up to 32) threads, launched
+// cooperatively.  carry: 4 * n_slots * max(h, w) floats, n_slots =
+// ceil((max(h, w) - 1) / chunk) + 1; progress: one int a block, zeroed.
+// Returns the launch's CUDA error code, cudaErrorInvalidValue for
+// arguments it does not take, cudaErrorCooperativeLaunchTooLarge if the
+// blocks cannot all be resident.
+int xdraw_banded_launch(const float* slope, float* out, int h, int w,
+                        int vp_row, int vp_col, int band, int chunk,
+                        int n_slots, float* carry, int* progress,
+                        void* stream) {
+  if (h <= 0 || w <= 0 || vp_row < 0 || vp_row >= h || vp_col < 0 ||
+      vp_col >= w || band < 1 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n = h > w ? h : w;
+  if (n_slots != (n - 1 + chunk - 1) / chunk + 1)
+    return (int)cudaErrorInvalidValue;
+  const int wmax = band + chunk;
+  const int threads = wmax < kMaxThreads ? (wmax + 31) / 32 * 32
+                                         : kMaxThreads;
+  const int smem = banded_smem(band, chunk);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      xdraw_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(xdraw_banded_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             100);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = banded_blocks(h, w, band);
+  void* args[] = {&slope, &out, &h, &w, &vp_row, &vp_col, &band, &chunk,
+                  &n_slots, &carry, &progress};
+  err = cudaLaunchCooperativeKernel((const void*)xdraw_banded_kernel,
+                                    dim3(blocks), dim3(threads), args,
+                                    (size_t)smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -190,8 +190,16 @@ def library() -> ctypes.CDLL:
     lib.xdraw_scratch_bytes.restype = i64
     lib.xdraw_scan_launch.argtypes = [p, p, p, i32, i32, i32, i32, p, p]
     lib.xdraw_scan_launch.restype = i32
+    lib.xdraw_banded_launch.argtypes = [p, p, i32, i32, i32, i32, i32, i32,
+                                        i32, p, p, p]
+    lib.xdraw_banded_launch.restype = i32
     lib.bump_scan_launch.argtypes = [p, p, p, i64, i32, i32, i32, p, p]
     lib.bump_scan_launch.restype = i32
+    lib.bump_rounds_grid.argtypes = [i32]
+    lib.bump_rounds_grid.restype = i32
+    lib.bump_rounds_launch.argtypes = [p, p, p, p, p, p, p, p, i32, i32, i32,
+                                       i32, p, i32, i32, p]
+    lib.bump_rounds_launch.restype = i32
     lib.xrt_error_string.argtypes = [i32]
     lib.xrt_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,15 +14,26 @@ order).
 
 ``bump_scan`` sends a tensor on the card to the CUDA kernel
 (``cuda_bump.bump_scan_cuda``, ``csrc/bump.cu``) and one on the CPU to
-``bump_scan_twin``, a per-bump loop of torch ops.
+``bump_scan_twin``, a per-bump loop of torch ops.  On the card the bumps
+run in rounds of bumps whose footprints do not overlap, then a walk of
+the rest in order; ``rounds_threshold`` is the plan that ends the rounds.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-__all__ = ["ring_offsets", "ring_table", "bump_scan_twin", "bump_scan"]
+__all__ = ["ring_offsets", "ring_table", "rounds_threshold",
+           "bump_scan_twin", "bump_scan"]
+
+# The rounds' plan, from the H100 (PERF.md): the first port's walk takes
+# about 0.89 us a bump, and a round costs about 10 us at its smallest
+# (three grid-wide barriers and three passes over a short list)
+WALK_US_PER_BUMP = 0.89
+ROUND_US = 10.0
 
 
 def ring_offsets(spread: int):
@@ -47,6 +58,12 @@ def ring_table(spread: int) -> np.ndarray:
     oy slowest: the kernel's table (it tests the ring itself)."""
     _, _, d2 = _square(spread)
     return d2 / (spread * spread)
+
+
+def rounds_threshold() -> int:
+    """The fewest bumps a round must make ready for the next round to
+    run: below it, walking the rest one by one costs less than a round."""
+    return math.ceil(ROUND_US / WALK_US_PER_BUMP)
 
 
 def bump_scan_twin(out: torch.Tensor, locs: torch.Tensor,

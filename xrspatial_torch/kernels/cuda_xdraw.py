@@ -1,19 +1,29 @@
-"""Wrapper of the XDraw scan kernel (``csrc/xdraw.cu``).
+"""Wrapper of the XDraw scan kernel X1 (``csrc/xdraw.cu``).
 
-``xdraw_scan_cuda`` runs ``xdraw_scan_kernel``: the four half-plane scans
-of the XDraw viewshed in one launch, the running max slope of every cell
-written into one (H, W) float32 field, each cell by the scan of its own
-octant.  It replaces no Pallas kernel: the JAX package runs the scan as a
+``xdraw_scan_cuda`` runs the four half-plane scans of the XDraw viewshed
+in one launch, the running max slope of every cell written into one
+(H, W) float32 field, each cell by the scan of its own octant.  It
+replaces no Pallas kernel: the JAX package runs the scan as a
 ``lax.scan`` of XLA (``xrspatial_tpu/kernels/viewshed.py::
 _halfplane_scan4``).  Its plain version is ``kernels/viewshed.py::
-xdraw_scan_twin``, which it equals bit for bit.
+xdraw_scan_twin``, which both routes equal bit for bit:
 
-The wrapper takes a contiguous float32 slope field on the card, makes its
-transpose (one torch copy: the east and west scans then read contiguous
-lines), allocates the output and, above what a block's shared memory
-holds (more than 29,056 cells a side), the carry's scratch; it launches on
-PyTorch's current stream and raises if the launch fails.  It never falls
-back to the twin.
+- "banded" (the default): ``xdraw_banded_kernel``, the half-planes cut
+  into bands of lanes, one block a band, on the plan
+  ``viewshed.xdraw_plan`` names (or a `band` and `chunk` given), one
+  cooperative launch;
+- "simple": the first port, ``xdraw_scan_kernel``, one block a
+  half-plane, by name.
+
+The wrapper takes a contiguous float32 slope field on the card and
+allocates the output: for the banded route the chunks' carry slots and
+the bands' progress flags (zeroed), for the first port the slope's
+transpose (its east and west scans read contiguous lines) and, above
+what a block's shared memory holds (more than 29,056 cells a side), the
+carry's scratch.  It launches on PyTorch's current stream and raises if
+the launch fails (the banded launch is cooperative, so it fails if its
+blocks cannot all be resident at once); it never falls back from one
+route to the other, or to the twin.
 """
 
 from __future__ import annotations
@@ -21,20 +31,33 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .viewshed import xdraw_plan
 
-__all__ = ["xdraw_scan_cuda", "XDRAW_LAUNCHES", "MAX_EDGE"]
+__all__ = ["xdraw_scan_cuda", "ROUTES", "XDRAW_LAUNCHES",
+           "XDRAW_SIMPLE_LAUNCHES", "MAX_EDGE"]
 
-# launches in this process, for checks that a path ran on the kernel
+ROUTES = ("banded", "simple")
+
+# launches in this process, for checks that a path ran on the kernel: on
+# every route, and the first port's among them
 XDRAW_LAUNCHES = 0
-# the longest raster side the kernel takes (1024 threads x 64 lanes)
+XDRAW_SIMPLE_LAUNCHES = 0
+# the longest raster side the kernels take (the first port's 1024
+# threads x 64 lanes)
 MAX_EDGE = 65536
 
 
-def xdraw_scan_cuda(slope: torch.Tensor, vp_row: int,
-                    vp_col: int) -> torch.Tensor:
+def xdraw_scan_cuda(slope: torch.Tensor, vp_row: int, vp_col: int,
+                    route=None, band=None, chunk=None) -> torch.Tensor:
     """The XDraw running max slope of `slope` (H, W) seen from (vp_row,
-    vp_col): a new (H, W) float32 tensor on the card."""
-    global XDRAW_LAUNCHES
+    vp_col): a new (H, W) float32 tensor on the card.  `route` None or
+    "banded" takes the redesigned kernel (`band` and `chunk` override its
+    plan), "simple" the first port."""
+    global XDRAW_LAUNCHES, XDRAW_SIMPLE_LAUNCHES
+    route = route or "banded"
+    if route not in ROUTES:
+        raise ValueError(f"xdraw_scan_cuda: route {route!r} is not one of "
+                         f"{ROUTES}")
     if slope.device.type != "cuda":
         raise ValueError(f"xdraw_scan_cuda takes a CUDA tensor, got one on "
                          f"{slope.device}")
@@ -50,17 +73,37 @@ def xdraw_scan_cuda(slope: torch.Tensor, vp_row: int,
     if not (0 <= vp_row < h and 0 <= vp_col < w):
         raise ValueError(f"xdraw_scan_cuda: viewpoint ({vp_row}, {vp_col}) "
                          f"outside the {h}x{w} raster")
+    if route == "simple" and (band is not None or chunk is not None):
+        raise ValueError("xdraw_scan_cuda: band and chunk belong to the "
+                         "banded route")
     lib = _cuda.library()
-    slope_t = slope.t().contiguous()
+    dev = slope.device
     out = torch.empty_like(slope)
+    if route == "banded":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = xdraw_plan(h, w, sms, band, chunk)
+        carry = torch.empty(4 * plan.slots * max(h, w), dtype=torch.float32,
+                            device=dev)
+        progress = torch.zeros(plan.blocks, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.xdraw_banded_launch(
+                slope.data_ptr(), out.data_ptr(), h, w, vp_row, vp_col,
+                plan.band, plan.chunk, plan.slots, carry.data_ptr(),
+                progress.data_ptr(), _cuda.stream_of(dev))
+        _cuda.check(err, "xdraw_banded_kernel")
+        XDRAW_LAUNCHES += 1
+        return out
+
+    slope_t = slope.t().contiguous()
     nbytes = lib.xdraw_scratch_bytes(h, w)
-    scratch = (torch.empty(nbytes // 4, dtype=torch.float32,
-                           device=slope.device) if nbytes else None)
-    with torch.cuda.device(slope.device):
+    scratch = (torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+               if nbytes else None)
+    with torch.cuda.device(dev):
         err = lib.xdraw_scan_launch(
             slope.data_ptr(), slope_t.data_ptr(), out.data_ptr(), h, w,
             vp_row, vp_col, scratch.data_ptr() if nbytes else None,
-            _cuda.stream_of(slope.device))
+            _cuda.stream_of(dev))
     _cuda.check(err, "xdraw_scan_kernel")
     XDRAW_LAUNCHES += 1
+    XDRAW_SIMPLE_LAUNCHES += 1
     return out

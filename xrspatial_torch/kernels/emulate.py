@@ -29,7 +29,13 @@ loop order, to the kernels' plain versions bit for bit:
 - ``emulate_xdraw``: ``csrc/xdraw.cu::xdraw_scan_kernel`` (X1: a block a
   half-plane from the step after the viewpoint, the lanes of the ray
   cone, each cell written by its own octant's scan), against
-  ``viewshed.xdraw_scan_twin``.
+  ``viewshed.xdraw_scan_twin``;
+- ``emulate_xdraw_banded``: its redesign, ``xdraw_banded_kernel`` (X1:
+  bands of lanes, K-step chunks, the one-sided halo recomputed, carries
+  exchanged only at chunk ends), against the same twin;
+- ``emulate_bump_rounds``: ``csrc/bump.cu::bump_rounds_kernel`` (X2: the
+  claim, test and apply rounds on a retagged owner map, then the walk of
+  the rest in order), against ``bump.bump_scan_twin``.
 
 Also the proximity family's test cases (``layout``, ``axes``) and
 tolerances, which several test files share.  Nothing in the package
@@ -44,16 +50,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import bump as TB
 from . import focal_halo as fh
 from . import screen as TS
 from . import surface as TSU
+from . import viewshed as TV
 
 __all__ = ["emulate_staged", "ring_schedule", "emulate_surface_staged",
            "emulate_pipeline", "emulate_stacked", "emulate_separable_staged",
            "emulate_interior_staged", "emulate_edge_bands",
            "halo_case", "same_bits", "SCREEN_R",
            "SCREEN_WARP", "SCREEN_BLOCK", "group_segments", "blocks_of",
-           "emulate_culled", "TOL", "GC_RTOL", "layout", "axes"]
+           "emulate_culled", "TOL", "GC_RTOL", "layout", "axes",
+           "emulate_xdraw_banded", "emulate_bump_rounds"]
 
 
 # -- the staged focal template ------------------------------------------------
@@ -735,3 +744,155 @@ def emulate_xdraw(slope, vp_row, vp_col):
                 out[line] = torch.where(own, m, out[line])
             cur = nxt
     return out
+
+
+def emulate_xdraw_banded(slope, vp_row, vp_col, band=None, chunk=None):
+    """``xdraw_banded_kernel``'s algorithm, all bands of a half-plane at
+    once: band b owns lanes [b B, (b + 1) B) and, away from the
+    viewpoint's lane, recomputes K halo lanes on its side toward it (cut
+    at that lane); it walks chunks of K steps from the one where its
+    nearest lane enters the cone, and at each chunk's start takes its
+    halo from the slot the owning bands wrote at their last chunk's end
+    (-inf from a band that had not started).  A slot no band wrote is
+    NaN, which the tests would see.  The interpolation is
+    ``viewshed._xdraw_interp``, looked up at each call.  `band` and
+    `chunk` default to ``viewshed.xdraw_plan``'s."""
+    h, w = slope.shape
+    if band is None or chunk is None:
+        plan = TV.xdraw_plan(h, w, band=band, chunk=chunk)
+        band, chunk = plan.band, plan.chunk
+    f32 = torch.float32
+    neginf = float("-inf")
+    out = torch.full((h, w), float("nan"), dtype=f32)
+    out[vp_row, vp_col] = neginf
+    flat = out.view(-1)
+    for hp in range(4):
+        x_major, reverse = hp < 2, hp % 2 == 1
+        steps, lanes = (w, h) if x_major else (h, w)
+        last = steps - 1
+        vp_major = vp_col if x_major else vp_row
+        vp_lane = vp_row if x_major else vp_col
+        vpm_i = last - vp_major if reverse else vp_major
+        vpm = (torch.tensor(last, dtype=f32) - torch.tensor(vp_major,
+                                                            dtype=f32)
+               if reverse else torch.tensor(vp_major, dtype=f32))
+        k0 = vpm_i + 1
+        n_chunks = -(-(steps - k0) // chunk) if steps > k0 else 0
+        src = slope.t() if x_major else slope          # [line, lane]
+        nb, vpb, wmax = -(-lanes // band), vp_lane // band, band + chunk
+
+        def first_chunk(o):
+            b0, b1 = o * band, min(o * band + band, lanes)
+            near = (b0 - vp_lane if b0 > vp_lane
+                    else vp_lane - (b1 - 1) if b1 <= vp_lane else 0)
+            k = vpm_i + max(near, 1)
+            return (k - k0) // chunk if k < steps else n_chunks
+
+        firsts = torch.tensor([first_chunk(o) for o in range(nb)])
+        b0 = torch.arange(nb) * band
+        b1 = torch.clamp(b0 + band, max=lanes)
+        wlo = torch.where(torch.arange(nb) > vpb,
+                          torch.clamp(b0 - chunk, min=vp_lane), b0)
+        whi = torch.where(torch.arange(nb) < vpb,
+                          torch.clamp(b1 + chunk, max=vp_lane + 1), b1)
+        hlo = torch.where(torch.arange(nb) > vpb, wlo, b1)
+        hhi = torch.where(torch.arange(nb) > vpb, b0, whi)
+        lane = wlo[:, None] + torch.arange(wmax)[None, :]    # (nb, wmax)
+        valid = lane < whi[:, None]
+        lane_c = torch.clamp(lane, max=lanes - 1)
+        own = valid & (lane >= b0[:, None]) & (lane < b1[:, None])
+        halo = valid & (lane >= hlo[:, None]) & (lane < hhi[:, None])
+        minor = lane.to(f32) - torch.tensor(vp_lane, dtype=f32)
+        ady = minor.abs()
+        cur = torch.full((nb, wmax + 2), neginf, dtype=f32)
+        slots = {}
+        for c in range(n_chunks):
+            active = (c >= firsts)[:, None]
+            if c > 0:
+                started = c - 1 >= firsts[lane_c // band]
+                taken = torch.where(started, slots[c][lane_c], neginf)
+                cur[:, 1:-1] = torch.where(halo & active, taken, cur[:, 1:-1])
+            s = k0 + c * chunk
+            for k in range(s, min(s + chunk, steps)):
+                dxf = torch.tensor(k, dtype=f32) - vpm
+                line = last - k if reverse else k
+                prim, left, right = cur[:, 1:-1], cur[:, :-2], cur[:, 2:]
+                sec = torch.where(minor > 0, left,
+                                  torch.where(minor < 0, right, prim))
+                wsec = torch.where(ady > 0, ady / torch.clamp(dxf, min=1.0),
+                                   0.0)
+                interp = torch.where(
+                    torch.isfinite(prim) & torch.isfinite(sec),
+                    TV._xdraw_interp(prim, sec, wsec),
+                    torch.maximum(prim, sec))
+                blocked = torch.full_like(interp, neginf) if dxf == 1.0 \
+                    else interp
+                m = torch.maximum(blocked, src[line][lane_c])
+                cone = valid & active & (ady <= dxf)
+                write = own & cone & (x_major | (ady < dxf))
+                at = lane * w + line if x_major else line * w + lane
+                flat[at[write]] = m[write]
+                cur = torch.cat([cur[:, :1], torch.where(cone, m, prim),
+                                 cur[:, -1:]], 1)
+            slot = torch.full((lanes,), float("nan"), dtype=f32)
+            done = own & active
+            slot[lane[done]] = cur[:, 1:-1][done]
+            slots[c + 1] = slot
+    return out
+
+
+# -- the bump rounds (X2) ------------------------------------------------------
+
+def emulate_bump_rounds(out, locs, heights, spread, threshold=None):
+    """``bump_rounds_kernel``'s algorithm on `out` (H, W) float64, in
+    place; returns (rounds, bumps done in them, bumps the walk took).
+
+    A round runs while bumps remain and the last round (at first: every
+    bump) made at least `threshold` ready (default the plan's): each
+    remaining bump claims its footprint in a 64-bit owner map with the
+    max of (round << 32) | ~index; a bump whose key survives on every
+    footprint cell is ready and applied (its height to the centre, then
+    centre * k to the ring: ``index_add_`` over pairwise distinct
+    cells); the others stay, in order.  The rest goes to the twin's walk
+    in order."""
+    if threshold is None:
+        threshold = TB.rounds_threshold()
+    h, w = out.shape
+    n = locs.shape[0]
+    xs = locs[:, 0].long()
+    ys = locs[:, 1].long()
+    if spread > 0:
+        oy, ox, k = TB.ring_offsets(spread)
+    else:
+        oy, ox, k = np.zeros(1, np.int64), np.zeros(1, np.int64), None
+    ny = ys[:, None] + torch.from_numpy(oy)[None, :]
+    nx = xs[:, None] + torch.from_numpy(ox)[None, :]
+    inside = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
+    cells = torch.where(inside, ny * w + nx, h * w)       # spare cell h * w
+    buf = torch.zeros(h * w + 1, dtype=torch.float64)
+    buf[:h * w] = out.reshape(-1)
+    owner = torch.zeros(h * w + 1, dtype=torch.int64)
+    remaining = torch.arange(n)
+    ready_count, rounds, round_bumps = n, 0, 0
+    while remaining.numel() and ready_count >= threshold:
+        rounds += 1
+        key = (rounds << 32) | (0xFFFFFFFF - remaining)
+        fp = cells[remaining]
+        owner.scatter_reduce_(0, fp.reshape(-1),
+                              key[:, None].expand_as(fp).reshape(-1),
+                              "amax")
+        ready = ((owner[fp] == key[:, None]) | ~inside[remaining]).all(1)
+        done = remaining[ready]
+        centre = ys[done] * w + xs[done]
+        buf.index_add_(0, centre, heights[done].double())
+        if spread > 0:
+            cv = buf[centre]
+            buf.index_add_(0, cells[done].reshape(-1),
+                           (cv[:, None] * torch.from_numpy(k)[None, :])
+                           .reshape(-1))
+        ready_count = int(ready.sum())
+        round_bumps += ready_count
+        remaining = remaining[~ready]
+    out.copy_(buf[:h * w].view(h, w))
+    TB.bump_scan_twin(out, locs[remaining], heights[remaining], spread)
+    return rounds, round_bumps, int(remaining.numel())

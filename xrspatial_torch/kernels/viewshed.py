@@ -19,21 +19,24 @@ Three parts:
   angle epilogue;
 - the XDraw approximation (``viewshed_grid_los``), float32: the slope
   fields and the epilogue as torch ops, the four half-plane scans in one
-  launch of ``csrc/xdraw.cu`` on the card and in the twin
-  ``xdraw_scan_twin`` on the CPU.  Its mesh forms are not ported (ROADMAP
-  A13).
+  launch of ``csrc/xdraw.cu`` on the card (bands of lanes across the SMs,
+  planned by ``xdraw_plan``) and in the twin ``xdraw_scan_twin`` on the
+  CPU.  Its mesh forms are not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
 
 from math import pi as PI
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .staged import SMEM_PER_BLOCK, SMEM_PER_SM
+
 __all__ = ["viewshed_grid", "viewshed_grid_los", "xdraw_scan_twin",
-           "xdraw_max_slope", "cell_attrs_host", "cell_attrs_subset",
-           "INVISIBLE"]
+           "xdraw_max_slope", "xdraw_plan", "XDrawPlan", "cell_attrs_host",
+           "cell_attrs_subset", "INVISIBLE"]
 
 INVISIBLE = -1
 
@@ -701,6 +704,63 @@ def xdraw_scan_twin(slope, vp_row: int, vp_col: int) -> torch.Tensor:
                                                dx_vec[None, :])
     return torch.where(east, m_e, torch.where(west, m_w,
                        torch.where(south, m_s, m_n)))
+
+
+# the banded XDraw kernel's plan: the chunks and bands it tries, in that
+# order, and what bounds the blocks an SM holds (its registers at most
+# 64 a thread, __launch_bounds__(1024))
+XDRAW_CHUNKS = (32, 16, 8, 4)
+XDRAW_BANDS = tuple(2 ** i for i in range(5, 17))
+XDRAW_MAX_THREADS = 1024
+XDRAW_REGISTERS = 64
+SM_THREADS, SM_REGISTERS, SM_BLOCKS = 2048, 65536, 32
+
+
+class XDrawPlan(NamedTuple):
+    band: int           # lanes a block owns
+    chunk: int          # steps between carry exchanges; the halo's lanes
+    threads: int        # a block's, one lane of band + chunk each
+    shared_bytes: int   # the carry's two windows and two slope tiles
+    blocks: int         # 4 half-planes x their bands
+    slots: int          # chunk boundaries kept a half-plane
+    per_sm: int         # blocks an SM holds at once
+
+
+def xdraw_plan(h: int, w: int, sms: int = 132, band: int | None = None,
+               chunk: int | None = None) -> XDrawPlan:
+    """How ``csrc/xdraw.cu::xdraw_banded_kernel`` runs an (h, w) raster on
+    `sms` SMs: the longest chunk of ``XDRAW_CHUNKS`` and, for it, the
+    smallest band of ``XDRAW_BANDS`` whose blocks can all be resident at
+    once (the launch is cooperative).  Smaller bands fill the SMs with
+    more, shorter blocks: on the H100 bands of 64 took 9.8 ms at 16384^2
+    against 11.4 for 256 and 14.4 for 512, chunks of 16 lost 5-11%
+    (PERF.md).  A given `band` or `chunk` is taken as it is; a
+    launch whose blocks cannot all be resident then fails."""
+    def plan(b, c):
+        wmax = b + c
+        threads = min(XDRAW_MAX_THREADS, -(-wmax // 32) * 32)
+        shared = 4 * (2 * (wmax + 2) + 2 * c * wmax)
+        per_sm = min(SM_BLOCKS, SM_THREADS // threads,
+                     SM_REGISTERS // (threads * XDRAW_REGISTERS),
+                     SMEM_PER_SM // (shared + 1024))
+        return XDrawPlan(b, c, threads, shared,
+                         2 * -(-h // b) + 2 * -(-w // b),
+                         -(-(max(h, w) - 1) // c) + 1, per_sm)
+
+    if band is not None and chunk is not None:
+        p = plan(band, chunk)
+        if band < 1 or chunk < 1 or p.shared_bytes > SMEM_PER_BLOCK:
+            raise ValueError(f"xdraw_plan: band {band} and chunk {chunk} "
+                             f"need {p.shared_bytes} bytes of shared memory "
+                             f"(a block has {SMEM_PER_BLOCK}), or are < 1")
+        return p
+    for c in ((chunk,) if chunk is not None else XDRAW_CHUNKS):
+        for b in ((band,) if band is not None else XDRAW_BANDS):
+            p = plan(b, c)
+            if p.shared_bytes <= SMEM_PER_BLOCK and p.blocks <= sms * p.per_sm:
+                return p
+    raise ValueError(f"xdraw_plan: no band and chunk fit a {h}x{w} raster "
+                     f"on {sms} SMs")
 
 
 def _xdraw_octant_masks(dy, dx):

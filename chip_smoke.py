@@ -241,7 +241,25 @@ Phases, each fatal on failure:
    terrain with water barred and both ends snapped, on the native route,
    equal to the CPU's; ``polygonize`` of the 1024^2 terrain classified by
    the kilometre, equal to the CPU's; ``diagnose`` on a raster on the
-   card, the CPU's report; one JSON line ``{"a9_a12_paths": {...}}``.
+   card, the CPU's report; one JSON line ``{"a9_a12_paths": {...}}``;
+27. A13, the mesh branches on meshes of one card (``make_raster_mesh(2,
+   2, devices=[cuda:0] * 4)``; the times measure the halo machinery's
+   overhead beside the unsharded call, not scaling): ``terrain_pipeline``
+   at 16384^2 (4 B1 and 4 B2 launches, each on TMA: every extended block's
+   rows are padded to 16 bytes), ``proximity`` of ``dem > 900`` at
+   16384^2 and 4096^2 (B6 once a block for every stride up to 256, with
+   the block's origin, on the route ``round_plan`` names for the extended
+   block; the larger strides as torch ops), MANHATTAN ``allocation`` at
+   4096^2 (the scan transform, no kernel), ``focal_stats`` on the annulus
+   (one B5 launch a block, TMA), ``quantile(k=5)`` at 16384^2 (no kernel),
+   ``terrain_pipeline`` at 16383x16384 (y held whole by distribute, cut
+   into tiles of 8192 and 8191 rows) and on a 1x4 mesh; each result split
+   over the mesh on the card and equal to the unsharded call bit for bit,
+   its warm ms (CUDA events) and peak allocated memory beside the
+   unsharded call's; where more than one card is visible, the same
+   paths on a mesh of every card (their halo strips peer copies, timed
+   by the host clock between synchronisations of every card); one JSON
+   line ``{"a13_mesh_paths": {...}}``.
 
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -272,6 +290,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -4435,6 +4454,340 @@ def a9_a12_paths(dev, card):
     return x2
 
 
+# -- phase 27: A13, the mesh on one card -------------------------------------
+
+MESH_N = N                  # the mesh's main raster edge
+MESH_PROX_NS = (N, 4096)    # proximity's edges on the 2 x 2 mesh
+# the uneven case: 16383 rows do not divide 2, so distribute holds y whole
+# on every block and the stencils cut it into tiles of 8192 and 8191 rows
+# (a 16383^2 raster would divide neither axis: every block would hold all
+# of it and the one-device path would run, as in the JAX package)
+MESH_UNEVEN = (N - 1, N)
+MESH_QUANTILE_K = 5
+MESH_REPS = 3
+
+
+def mesh_blocks_equal(out, ref):
+    """Each block of the mesh result `out` equals its window of the
+    unsharded `ref`, bit for bit."""
+    for i, row in enumerate(out.blocks):
+        for j, blk in enumerate(row):
+            (y0, y1), (x0, x1) = out.extent(0, i), out.extent(1, j)
+            if not same_bits(blk.to(ref.device), ref[..., y0:y1, x0:x1]):
+                return False
+    return True
+
+
+def mesh_timed(fn, mesh):
+    """(warm ms, peak allocated GiB) of `fn` on `mesh`: CUDA events on one
+    card; on several cards the host clock between synchronisations of
+    every card (an event times one card's stream) and the largest peak
+    of any card."""
+    import torch
+    cards = sorted({d.index or 0 for row in mesh.devices for d in row})
+    if len(cards) == 1:
+        _, ms, gib = timed_run(fn, MESH_REPS)
+        return ms, gib
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+    fn()
+    sync()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    for _ in range(MESH_REPS):
+        fn()
+    sync()
+    return ((time.perf_counter() - t0) * 1e3 / MESH_REPS,
+            max(torch.cuda.max_memory_allocated(c) for c in cards) / 2**30)
+
+
+def mesh_name(mesh):
+    cards = len({d for row in mesh.devices for d in row})
+    return (f"{mesh.shape['y']}x{mesh.shape['x']} mesh of "
+            f"{'one card' if cards == 1 else f'{cards} cards'}")
+
+
+def mesh_checked(label, out, ref, mesh):
+    """Raise unless `out` is a ShardedRaster on `mesh` with every block on
+    the card, equal to `ref` bit for bit."""
+    from xrspatial_torch.parallel import get_raster_mesh
+    if get_raster_mesh(out) is not mesh:
+        raise SmokeFailure(f"mesh {label}: the result is {type(out)}, not "
+                           f"split over the mesh")
+    if any(b.device.type != "cuda" for row in out.blocks for b in row):
+        raise SmokeFailure(f"mesh {label}: a block is off the card")
+    if tuple(out.shape) != tuple(ref.shape) or not mesh_blocks_equal(out,
+                                                                     ref):
+        raise SmokeFailure(f"mesh {label}: differs from the unsharded call")
+
+
+def mesh_dem(shape, dev, mesh):
+    """The gaussian bump of `shape` as a DataArray on the card and as one
+    split over `mesh` (the same numbers)."""
+    from xrspatial_torch import DataArray
+    from xrspatial_torch.parallel import distribute
+    dem = gaussian_bump(*shape, dev)
+    coords = {"y": np.arange(shape[0], dtype=float)[::-1].copy(),
+              "x": np.arange(shape[1], dtype=float)}
+
+    def agg(payload):
+        return DataArray(payload, dims=("y", "x"), coords=coords,
+                         name="dem", attrs={"res": (1.0, 1.0)})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # a replicated axis
+        split = distribute(dem, mesh)
+    return agg(dem), agg(split)
+
+
+def mesh_pipeline(label, shape, mesh, dev, card, rows):
+    """terrain_pipeline on `mesh` against the unsharded call: one surface
+    and one focal launch a block, each on its staged TMA route."""
+    import torch
+    from xrspatial_torch import terrain_pipeline
+    from xrspatial_torch.kernels.surface import surface_plan
+    whole, split = mesh_dem(shape, dev, mesh)
+
+    def call(a):
+        with fused_pipeline(False):
+            return terrain_pipeline(a, surface=PIPELINE_SURFACE,
+                                    stats_funcs=PIPELINE_STATS)
+    ref, one_ms, one_gib = timed_run(lambda: call(whole), MESH_REPS)
+    reset_launches()
+    first = call(split)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    surf, focal = surface_route_launches(), tiled_route_launches()
+    blocks = mesh.size
+    want = {k: blocks if k in ("surface_kernel", "focal_kernel") else 0
+            for k in launches}
+    on_tma = {"tma": blocks, "async": 0, "simple": 0}
+    if launches != want or surf != on_tma or focal != on_tma:
+        raise SmokeFailure(f"mesh {label}: expected {blocks} surface and "
+                           f"{blocks} focal launches, each on TMA, got "
+                           f"{launches}, surface {surf}, focal {focal}")
+    for p in PIPELINE_SURFACE:
+        mesh_checked(f"{label} {p}", first[f"dem-{p}"].data,
+                     ref[f"dem-{p}"].data, mesh)
+    mesh_checked(f"{label} focal_stats", first["focal_stats"].data,
+                 ref["focal_stats"].data, mesh)
+    ext = [b.shape for row in first["focal_stats"].data.blocks for b in row]
+    del first, ref
+    torch.cuda.empty_cache()
+    ms, gib = mesh_timed(lambda: call(split), mesh)
+    tiles = sorted({tuple(t[-2:]) for t in ext})
+    # the extended blocks' routes, as surface_plan names them
+    routes = sorted({surface_plan(t[0] + 2, -(-(t[1] + 2) // 4) * 4, 0).route
+                     for t in tiles})
+    print(f"  {label}: terrain_pipeline on a {mesh_name(mesh)}: "
+          f"{ms:.3f} ms warm, peak "
+          f"{gib:.2f} GiB; unsharded {one_ms:.3f} ms, peak {one_gib:.2f} GiB; "
+          f"tiles {tiles}, B1/B2 on {routes}, equal bit for bit; {card}")
+    rows[label] = {"op": "terrain_pipeline", "shape": list(shape),
+                   "mesh": mesh_name(mesh), "ms": ms,
+                   "unsharded_ms": one_ms, "peak_gib": gib,
+                   "unsharded_peak_gib": one_gib,
+                   "launches": {k: v for k, v in launches.items() if v},
+                   "card": card}
+    del whole, split
+    torch.cuda.empty_cache()
+
+
+def mesh_jfa_want(shape, mesh):
+    """B6's launches by route on `mesh`: one a block for each stride up to
+    256, on the route round_plan names for the extended block."""
+    from xrspatial_torch.kernels.jfa import _stride_schedule
+    from xrspatial_torch.kernels.jfa_plan import round_plan
+    from xrspatial_torch.parallel.halo import tile_size
+    from xrspatial_torch.parallel.jfa_sharded import SMALL_STRIDE_MAX
+    ty = tile_size(shape[0], mesh.shape["y"])
+    tx = tile_size(shape[1], mesh.shape["x"])
+    want = {"staged": 0, "vector": 0, "simple": 0}
+    small = [int(k) for k in _stride_schedule(max(shape))
+             if k <= SMALL_STRIDE_MAX]
+    for k in small:
+        plan = round_plan(ty + 2 * k, -(-(tx + 2 * k) // 4) * 4, k, "packed",
+                          False)
+        want[plan.route] += mesh.size
+    return want, len(_stride_schedule(max(shape))) - len(small)
+
+
+def mesh_proximity(n, mesh, dev, card, rows):
+    """proximity on the mesh against the unsharded call."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch.kernels import cuda_jfa
+    whole, split = mesh_dem((n, n), dev, mesh)
+    whole.data = (whole.data > 900).to(torch.float32)
+    split.data = split.data.map_blocks(lambda b: (b > 900).to(torch.float32))
+    ref, one_ms, one_gib = timed_run(lambda: xt.proximity(whole), MESH_REPS)
+    reset_launches()
+    first = xt.proximity(split)
+    torch.cuda.synchronize()
+    launches, by_route = read_launches(), jfa_route_launches()
+    want, torch_rounds = mesh_jfa_want((n, n), mesh)
+    if launches != {k: cuda_jfa.LAUNCHES if k == "jfa_round" else 0
+                    for k in launches} or by_route != want:
+        raise SmokeFailure(f"mesh proximity {n}: launches {launches}, by "
+                           f"route {by_route}, expected {want}")
+    mesh_checked(f"proximity {n}", first.data, ref.data, mesh)
+    del first, ref
+    torch.cuda.empty_cache()
+    ms, gib = mesh_timed(lambda: xt.proximity(split), mesh)
+    print(f"  proximity {n}^2 on a {mesh_name(mesh)}: {ms:.3f} ms warm, peak "
+          f"{gib:.2f} GiB; unsharded {one_ms:.3f} ms, peak {one_gib:.2f} "
+          f"GiB; B6 launches by route {by_route} (4 a stride <= 256, each "
+          f"with its block's origin) and {torch_rounds} torch-op rounds "
+          f"above 256, equal bit for bit; {card}")
+    rows[f"proximity_{n}"] = {
+        "op": "proximity", "shape": [n, n], "mesh": mesh_name(mesh), "ms": ms,
+        "unsharded_ms": one_ms, "peak_gib": gib, "unsharded_peak_gib":
+            one_gib, "jfa_round_by_route": by_route,
+        "torch_op_rounds": torch_rounds, "card": card}
+    del whole, split
+    torch.cuda.empty_cache()
+
+
+def mesh_manhattan(n, mesh, dev, card, rows):
+    """MANHATTAN allocation on the mesh: the scan transform, its scans
+    carried from tile to tile (torch ops, no kernel)."""
+    import torch
+    import xrspatial_torch as xt
+    whole, split = mesh_dem((n, n), dev, mesh)
+    whole.data = torch.where(whole.data > 900, whole.data, 0.0)
+    split.data = split.data.map_blocks(
+        lambda b: torch.where(b > 900, b, 0.0))
+
+    def call(a):
+        return xt.allocation(a, distance_metric="MANHATTAN")
+    ref, one_ms, one_gib = timed_run(lambda: call(whole), MESH_REPS)
+    reset_launches()
+    first = call(split)
+    torch.cuda.synchronize()
+    if any(read_launches().values()):
+        raise SmokeFailure(f"mesh MANHATTAN launched a kernel: "
+                           f"{read_launches()}")
+    mesh_checked(f"MANHATTAN allocation {n}", first.data, ref.data, mesh)
+    del first, ref
+    torch.cuda.empty_cache()
+    ms, gib = mesh_timed(lambda: call(split), mesh)
+    print(f"  MANHATTAN allocation {n}^2 on a {mesh_name(mesh)}: {ms:.3f} ms "
+          f"warm, "
+          f"peak {gib:.2f} GiB; unsharded {one_ms:.3f} ms, peak "
+          f"{one_gib:.2f} GiB; the scans carried across tiles, equal bit "
+          f"for bit; {card}")
+    rows[f"manhattan_{n}"] = {
+        "op": "allocation MANHATTAN", "shape": [n, n], "mesh": mesh_name(mesh),
+        "ms": ms, "unsharded_ms": one_ms, "peak_gib": gib,
+        "unsharded_peak_gib": one_gib, "card": card}
+    del whole, split
+    torch.cuda.empty_cache()
+
+
+def mesh_annulus(mesh, dev, card, rows):
+    """focal_stats over the 512-offset annulus: one halo launch a block."""
+    import torch
+    from xrspatial_torch.focal import focal_stats
+    whole, split = mesh_dem((MESH_N, MESH_N), dev, mesh)
+    kern = halo_footprints()["annulus_40_38"]
+    ref, one_ms, one_gib = timed_run(
+        lambda: focal_stats(whole, kern, stats_funcs=list(PIPELINE_STATS)),
+        MESH_REPS)
+    reset_launches()
+    first = focal_stats(split, kern, stats_funcs=list(PIPELINE_STATS))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: mesh.size if k in ("focal_halo_kernel", "focal_halo_tma")
+            else 0 for k in launches}
+    if launches != want:
+        raise SmokeFailure(f"mesh annulus: expected {mesh.size} halo "
+                           f"launches on TMA, got {launches}")
+    mesh_checked("annulus focal_stats", first.data, ref.data, mesh)
+    del first, ref
+    torch.cuda.empty_cache()
+    ms, gib = mesh_timed(
+        lambda: focal_stats(split, kern, stats_funcs=list(PIPELINE_STATS)),
+        mesh)
+    print(f"  annulus focal_stats {MESH_N}^2 on a {mesh_name(mesh)}: "
+          f"{ms:.3f} ms "
+          f"warm, peak {gib:.2f} GiB; unsharded {one_ms:.3f} ms, peak "
+          f"{one_gib:.2f} GiB; one B5 launch a block on TMA, equal bit for "
+          f"bit; {card}")
+    rows["annulus"] = {"op": "focal_stats annulus 40/38", "shape":
+                       [MESH_N, MESH_N], "mesh": mesh_name(mesh), "ms": ms,
+                       "unsharded_ms": one_ms, "peak_gib": gib,
+                       "unsharded_peak_gib": one_gib, "card": card}
+    del whole, split
+    torch.cuda.empty_cache()
+
+
+def mesh_quantile(mesh, dev, card, rows):
+    """quantile on the mesh: per-block sorts, counts summed, no gather."""
+    import torch
+    import xrspatial_torch as xt
+    whole, split = mesh_dem((MESH_N, MESH_N), dev, mesh)
+    ref, one_ms, one_gib = timed_run(
+        lambda: xt.quantile(whole, k=MESH_QUANTILE_K), MESH_REPS)
+    reset_launches()
+    first = xt.quantile(split, k=MESH_QUANTILE_K)
+    torch.cuda.synchronize()
+    if any(read_launches().values()):
+        raise SmokeFailure(f"mesh quantile launched a kernel: "
+                           f"{read_launches()}")
+    mesh_checked("quantile", first.data, ref.data, mesh)
+    del first, ref
+    torch.cuda.empty_cache()
+    ms, gib = mesh_timed(lambda: xt.quantile(split, k=MESH_QUANTILE_K), mesh)
+    print(f"  quantile(k={MESH_QUANTILE_K}) {MESH_N}^2 on a "
+          f"{mesh_name(mesh)}: "
+          f"{ms:.3f} ms warm, peak {gib:.2f} GiB; unsharded {one_ms:.3f} ms, "
+          f"peak {one_gib:.2f} GiB; equal bit for bit; {card}")
+    rows["quantile"] = {"op": f"quantile k={MESH_QUANTILE_K}", "shape":
+                        [MESH_N, MESH_N], "mesh": mesh_name(mesh), "ms": ms,
+                        "unsharded_ms": one_ms, "peak_gib": gib,
+                        "unsharded_peak_gib": one_gib, "card": card}
+    del whole, split
+    torch.cuda.empty_cache()
+
+
+def mesh_paths(dev, card):
+    """Phase 27: A13, the mesh branches on a mesh of one card."""
+    import torch
+    from xrspatial_torch.parallel import make_raster_mesh
+    t_phase = time.perf_counter()
+    print(f"== A13: the mesh branches on 2x2 and 1x4 meshes of one card "
+          f"({card}); the times measure the halo machinery's overhead "
+          f"beside the unsharded call, not scaling")
+    rows = {}
+    mesh = make_raster_mesh(2, 2, devices=[dev] * 4)
+    mesh_pipeline("pipeline_2x2", (MESH_N, MESH_N), mesh, dev, card, rows)
+    for n in MESH_PROX_NS:
+        mesh_proximity(n, mesh, dev, card, rows)
+    mesh_manhattan(MESH_PROX_NS[-1], mesh, dev, card, rows)
+    mesh_annulus(mesh, dev, card, rows)
+    mesh_quantile(mesh, dev, card, rows)
+    mesh_pipeline("pipeline_uneven_2x2", MESH_UNEVEN, mesh, dev, card, rows)
+    mesh_pipeline("pipeline_1x4", (MESH_N, MESH_N),
+                  make_raster_mesh(1, 4, devices=[dev] * 4), dev, card, rows)
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        # every visible card, square-ish: the halo strips are peer copies
+        many, sub = make_raster_mesh(), {}
+        mesh_pipeline("pipeline", (MESH_N, MESH_N), many, dev, card, sub)
+        mesh_proximity(MESH_PROX_NS[-1], many, dev, card, sub)
+        mesh_manhattan(MESH_PROX_NS[-1], many, dev, card, sub)
+        mesh_annulus(many, dev, card, sub)
+        mesh_quantile(many, dev, card, sub)
+        rows["distinct_cards"] = sub
+    else:
+        print("  the mesh of distinct cards was not run: one card visible")
+        rows["distinct_cards"] = "not run: one card visible"
+    print(f"  phase 27: {time.perf_counter() - t_phase:.1f} s, {card}")
+    print(json.dumps({"a13_mesh_paths": rows}))
+
+
 # -- the least time of each kernel ------------------------------------------
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
@@ -4561,7 +4914,10 @@ def jfa_design():
         else:
             parts.append((name, [int(k)]))
     return "per-stride plan: " + "; ".join(
-        f"{name} at k={','.join(map(str, ks))}" for name, ks in parts)
+        f"{name} at k={','.join(map(str, ks))}" for name, ks in parts) + (
+        "; on a mesh (phase 27) one launch a block for each stride up to "
+        "256, on the block extended by a k-wide halo, the block's origin "
+        "passed so that the packed keys see global indices")
 
 
 def group_design():
@@ -4823,6 +5179,9 @@ def main() -> int:
     first_port_ms["bump_scan"] = x2["first_port_ms"]
     x2_work = x2["work"]
     max_err["bump_scan"] = 0.0             # equal to the twin bit for bit
+
+    # -- A13: the mesh branches on one card -------------------------------------
+    mesh_paths(dev, card)
 
     work = kernel_work(
         len(offsets), len(kernel_offsets(halo_footprints()["annulus_40_38"])),

@@ -536,7 +536,7 @@ def test_jfa_round_launcher_refuses_an_unsafe_plan(cuda):
             {"staged": 0, "vector": 1}.get(a["route"], 7),
             {"tma": 0, "async": 1}.get(a["stage"], 0), a["tile"][0],
             a["pad"], a["pitch"], a["rows"], a["shared_bytes"],
-            int(a["phased"]), a["grid"], _cuda.stream_of(cuda))
+            int(a["phased"]), a["grid"], 0, 0, _cuda.stream_of(cuda))
 
     staged = jfa_plan.round_plan(h, w, 2, "packed", False, route="staged")
     vector = jfa_plan.round_plan(h, w, 8, "packed", False, route="vector")
@@ -2311,3 +2311,90 @@ def test_host_modules_take_card_rasters(cuda):
     assert str(xt.diagnose(dem)) == str(xt.diagnose(
         xt.DataArray(data * 300, dims=("y", "x"), coords=geo)))
     assert xt.diagnose(dem).has_warnings
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", [0, 2], ids=["euclidean", "manhattan"])
+@pytest.mark.parametrize("with_val", [False, True], ids=["state", "valued"])
+@pytest.mark.parametrize("route", [None, "simple", "staged", "vector"])
+def test_jfa_packed_routes_take_a_block_origin(cuda, route, with_val,
+                                               metric):
+    """Every packed route, told a block's origin in the whole raster,
+    equals the twin told the same origin, bit for bit: the keys see
+    global indices (the mesh's extended blocks; targets lie beyond the
+    block on every side)."""
+    rng = np.random.default_rng(23)
+    h, w = 72, 256
+    origin = (100, 36)
+    tiy = rng.integers(0, 400, (h, w)).astype(np.int32)
+    tix = rng.integers(0, 600, (h, w)).astype(np.int32)
+    state_np = np.where(rng.random((h, w)) < 0.05, (tiy << 15) | tix, -1)
+    state = torch.from_numpy(state_np.astype(np.int32)).to(cuda)
+    val = torch.from_numpy(rng.random((h, w)).astype(np.float32)).to(cuda) \
+        if with_val else None
+    steps = (3.0, 2.0)
+    for k in (1, 2, 4, 8, 16, 32):
+        if route == "vector" and k % 4:
+            continue
+        before = round_counts()
+        got = cuda_jfa.round_packed_cuda(state, val, k, metric, steps,
+                                         emit_best=True, route=route,
+                                         origin=origin)
+        torch.cuda.synchronize()
+        ref = jfa_rounds.round_packed(state.cpu(), None if val is None
+                                      else val.cpu(), k, metric, steps,
+                                      origin)
+        for g, r in zip(got, ref):
+            assert (g is None) == (r is None)
+            if g is not None:
+                assert torch.equal(g.cpu(), r), (route, k)
+        planned = jfa_plan.round_plan(h, w, k, "packed", with_val,
+                                      route=route).route \
+            if route != "simple" else "simple"
+        after = round_counts()
+        idx = ("staged", "vector", "simple").index(planned)
+        assert after[idx] == before[idx] + 1
+        # origin 0 keeps the unsharded bits
+        plain = cuda_jfa.round_packed_cuda(state, val, k, metric, steps,
+                                           emit_best=True, route=route)
+        ref0 = jfa_rounds.round_packed(state.cpu(), None if val is None
+                                       else val.cpu(), k, metric, steps)
+        assert torch.equal(plain[0].cpu(), ref0[0])
+
+
+@pytest.mark.gpu
+def test_mesh_on_one_card_equals_the_unsharded_call(cuda):
+    """A 2 x 2 mesh of one card: slope and focal_stats (the tiled kernel
+    on the plus, the halo kernel on the annulus) equal the unsharded
+    calls bit for bit, stay on the card, and launch one kernel a block on
+    TMA: each extended block's row pitch is a multiple of 16 bytes."""
+    from xrspatial_torch.parallel import (distribute, get_raster_mesh,
+                                          make_raster_mesh)
+    mesh = make_raster_mesh(2, 2, devices=[cuda] * 4)
+    rng = np.random.default_rng(24)
+    data = (rng.random((258, 302)) * 100).astype(np.float32)
+    data[40, 77] = np.nan
+
+    def agg(payload):
+        return xt.DataArray(payload, dims=("y", "x"),
+                            attrs={"res": (1.0, 2.0)})
+
+    whole = torch.from_numpy(data).to(cuda)
+    split = distribute(whole, mesh)
+    before = cuda_surface.STAGED_TMA_LAUNCHES
+    out = xt.slope(agg(split)).data
+    assert get_raster_mesh(out) is mesh
+    assert cuda_surface.STAGED_TMA_LAUNCHES == before + 4
+    assert all(b.device.type == "cuda" for r in out.blocks for b in r)
+    ref = xt.slope(agg(whole)).data
+    assert torch.equal(out.gather().view(torch.int32),
+                       ref.view(torch.int32))
+    for kern, counter in ((circle_kernel(1, 1, 1.5), "TMA_LAUNCHES"),
+                          (annulus_kernel(1, 1, 40, 38),
+                           "HALO_TMA_LAUNCHES")):
+        before = getattr(cuda_window, counter)
+        out = focal.focal_stats(agg(split), kern).data
+        assert getattr(cuda_window, counter) == before + 4
+        ref = focal.focal_stats(agg(whole), kern).data
+        assert torch.equal(out.gather().view(torch.int32),
+                           ref.view(torch.int32))

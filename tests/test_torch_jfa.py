@@ -261,8 +261,27 @@ def test_twins_match_brute_force(seed, kind, metric):
                for i in range(0, 37, 3) for j in range(0, 45, 4))
 
 
-def test_mesh_branch_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tjfa.jump_flood(torch.ones((4, 4), dtype=torch.bool),
-                        torch.arange(4.0), torch.arange(4.0), 0,
-                        mesh=object())
+@pytest.mark.parametrize("metric,kind", [(0, "affine_desc"),
+                                         (0, "nonaffine"),
+                                         (1, "lonlat")],
+                         ids=["packed", "coordinates", "great_circle"])
+def test_mesh_branch_is_not_ported_yet(metric, kind):
+    """Once a NotImplementedError (ROADMAP A13): the mesh branch now gives
+    the unsharded transform, on a mesh of 2 x 2 CPU blocks, the mask given
+    as a plain tensor (placed on the mesh by the call), packed and
+    coordinate states bit for bit."""
+    from xrspatial_torch.parallel import get_raster_mesh, make_raster_mesh
+    h, w = 37, 45
+    data = layout((h, w), 0.03, 12)
+    ys, xs = (np.ascontiguousarray(a, dtype=np.float32)
+              for a in axes(kind, h, w, seed=12))
+    mask = torch.from_numpy(data != 0)
+    vals = torch.from_numpy(data)
+    mesh = make_raster_mesh(2, 2, devices=[torch.device("cpu")] * 4)
+    ref = tjfa.jump_flood(mask, torch.from_numpy(xs), torch.from_numpy(ys),
+                          metric, values=vals)
+    with pytest.warns(UserWarning, match="REPLICATED"):
+        got = tjfa.jump_flood(mask, xs, ys, metric, values=vals, mesh=mesh)
+    for g, r in zip(got, ref):
+        assert get_raster_mesh(g) is mesh
+        np.testing.assert_array_equal(g.gather().numpy(), r.numpy())

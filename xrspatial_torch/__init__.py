@@ -8,8 +8,12 @@ raster given as a numpy array goes to the card, unless
 ``set_default_device("cpu")`` was called.  The package imports torch and
 never jax.
 
-Every public name of ``xrspatial_tpu`` is exported, with its signature;
-the mesh branches of the JAX package are not ported yet (ROADMAP A13).
+Every public name of ``xrspatial_tpu`` is exported, with its signature.
+A raster placed on a device mesh by ``xrspatial_torch.parallel.
+distribute`` takes the mesh branches of the JAX package's hand-distributed
+ops (the surface and focal ops, ``convolution_2d``, ``terrain_pipeline``,
+the proximity family, the percentile classifiers); any other op refuses
+it (ROADMAP A13b).
 """
 
 from .analytics import summarize_terrain, terrain_pipeline

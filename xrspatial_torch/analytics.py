@@ -8,8 +8,14 @@ the tiled focal kernel takes, exactly one launch of the surface kernel and
 one of the focal kernel.  With ``XRSPATIAL_FUSED_PIPELINE=1``, the JAX
 package's opt-in, and a footprint its gate accepts (``pipeline_supported``)
 it runs the fused branch instead: one launch of the pipeline kernel on the
-card, the same twins on the CPU.  The mesh-sharded branch waits for
-ROADMAP A13.
+card, the same twins on the CPU.  On a raster split over a mesh the
+fused branch is not taken, as in the JAX package: the surface products
+come from one pass on each halo-extended block (one surface kernel launch
+a block on the card), then ``focal_stats`` takes its own mesh branch, and
+every result is split over the same mesh.  (The JAX package's mesh branch
+runs one pass a product, through ``run_surface_op``, whose curvature takes
+``cellsize_x`` alone; one pass for all keeps this branch equal to the
+unsharded call.)  ``summarize_terrain`` takes the same surface pass.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ from .focal import _STAT_NAMES, focal_stats, stats_dataarray
 from .kernels.pipeline import pipeline_kernels, pipeline_supported
 from .kernels.surface import PRODUCTS, surface_kernels
 from .kernels.window import kernel_offsets
-from .utils import get_dataarray_resolution, to_torch, wrap_like
+from .parallel.halo import get_raster_mesh
+from .utils import get_dataarray_resolution, raster_payload, wrap_like
 from .xrlib import DataArray, Dataset
 
 __all__ = ["summarize_terrain", "terrain_pipeline"]
@@ -49,8 +56,9 @@ def summarize_terrain(terrain: DataArray) -> Dataset:
         raise NameError('Requires DataArray.name property to be set')
 
     cellsize_x, cellsize_y = get_dataarray_resolution(terrain)
-    outs = surface_kernels(to_torch(terrain), ("slope", "aspect", "curvature"),
-                           cellsize_x, cellsize_y)
+    outs = surface_kernels(raster_payload(terrain),
+                           ("slope", "aspect", "curvature"), cellsize_x,
+                           cellsize_y)
 
     ds = terrain.to_dataset()
     for p in ("slope", "curvature", "aspect"):
@@ -87,12 +95,12 @@ def terrain_pipeline(agg: DataArray,
         kernel = circle_kernel(1, 1, 1.5)
     kernel = custom_kernel(np.asarray(kernel))
     cellsize_x, cellsize_y = get_dataarray_resolution(agg)
-    data = to_torch(agg)
+    data = raster_payload(agg)
     name = agg.name or "terrain"
     ds = agg.to_dataset(name=name)
 
     offsets = kernel_offsets(kernel)
-    if _use_fused_pipeline(offsets):
+    if get_raster_mesh(data) is None and _use_fused_pipeline(offsets):
         outs = pipeline_kernels(data, offsets, tuple(stats_funcs),
                                 tuple(surface), cellsize_x, cellsize_y,
                                 azimuth, angle_altitude)

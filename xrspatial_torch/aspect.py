@@ -12,7 +12,8 @@ import torch
 from .dataset_support import supports_dataset
 from .kernels.geodesic import WGS84_A2, WGS84_B2, geodesic_aspect
 from .kernels.surface import run_surface_op
-from .utils import Z_UNITS, _extract_latlon_coords, to_torch, wrap_like
+from .utils import (Z_UNITS, _extract_latlon_coords, raster_payload,
+                    to_torch, wrap_like)
 from .xrlib import DataArray
 
 __all__ = ["aspect"]
@@ -40,7 +41,7 @@ def aspect(agg: DataArray,
         raise ValueError(
             f"method must be 'planar' or 'geodesic', got {method!r}")
     if method == 'planar':
-        out = run_surface_op("aspect", to_torch(agg))
+        out = run_surface_op("aspect", raster_payload(agg))
     else:
         if z_unit not in Z_UNITS:
             raise ValueError(

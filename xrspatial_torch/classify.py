@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 from .dataset_support import supports_dataset
-from .kernels.selection import nanpercentile
-from .utils import to_torch, wrap_like
+from .kernels.selection import nanpercentile, nanpercentile_sharded
+from .parallel.halo import get_raster_mesh, tiles
+from .utils import blockwise, raster_payload, to_torch, wrap_like
 from .xr_compat import _to_numpy, nanmax, nanmin, nanvar
 
 __all__ = ["binary", "reclassify", "quantile", "natural_breaks",
@@ -99,9 +100,24 @@ def reclassify(agg, bins, new_values, name: Optional[str] = 'reclassify'):
 # ---------------------------------------------------------------------------
 
 def _nanpercentile(data: torch.Tensor, p) -> np.ndarray:
-    """The percentiles `p` of the finite cells, read to the host."""
-    return _to_numpy(nanpercentile(_finite_or_nan(data).reshape(-1),
-                                   np.asarray(p, dtype=np.float32)))
+    """The percentiles `p` of the finite cells, read to the host; on a
+    mesh from per-block sorts and summed counts, no block gathered."""
+    p = np.asarray(p, dtype=np.float32)
+    if get_raster_mesh(data) is not None:
+        return _to_numpy(nanpercentile_sharded(
+            [_finite_or_nan(b).reshape(-1) for row in tiles(data).blocks
+             for b in row], p))
+    return _to_numpy(nanpercentile(_finite_or_nan(data).reshape(-1), p))
+
+
+def _nanmax_finite(data) -> float:
+    """The largest finite cell (NaN if none); on a mesh the largest of the
+    blocks'."""
+    if get_raster_mesh(data) is not None:
+        return float(np.nanmax([float(nanmax(_finite_or_nan(b)))
+                                for row in tiles(data).blocks
+                                for b in row if b.numel()]))
+    return float(nanmax(_finite_or_nan(data)))
 
 
 def _quantile_bins(data, k: int) -> np.ndarray:
@@ -115,13 +131,13 @@ def _quantile_bins(data, k: int) -> np.ndarray:
 @supports_dataset
 def quantile(agg, k: int = 4, name: Optional[str] = 'quantile'):
     """Classify into `k` quantile classes (equal counts per class)."""
-    data = to_torch(agg)
+    data = raster_payload(agg)
     q = _quantile_bins(data, k)
     if q.shape[0] < k:
         print("Quantile Warning: Not enough unique values "
               "for k classes (using {} bins)".format(q.shape[0]))
         k = q.shape[0]
-    out = _bin(data, q, np.arange(k))
+    out = blockwise(lambda b: _bin(b, q, np.arange(k)), data)
     return wrap_like(agg, out, name)
 
 
@@ -134,9 +150,9 @@ def percentiles(agg, pct: Optional[List] = None,
     for p in pct:
         if not 0 < p <= 100:
             raise ValueError("percentiles must be in (0, 100]")
-    data = to_torch(agg)
+    data = raster_payload(agg)
     q = np.unique(_nanpercentile(data, np.asarray(pct, dtype=float)))
-    out = _bin(data, q, np.arange(len(q)))
+    out = blockwise(lambda b: _bin(b, q, np.arange(len(q))), data)
     return wrap_like(agg, out, name)
 
 
@@ -177,19 +193,19 @@ def std_mean(agg, name: Optional[str] = 'std_mean'):
 @supports_dataset
 def box_plot(agg, hinge: float = 1.5, name: Optional[str] = 'box_plot'):
     """Classify by box-plot fences: q1-h*iqr, q1, q2, q3, q3+h*iqr, max."""
-    data = to_torch(agg)
+    data = raster_payload(agg)
     q1, q2, q3 = (float(v) for v in _nanpercentile(data, [25.0, 50.0, 75.0]))
     if not np.isfinite([q1, q2, q3]).all():
         # all-NaN input: the fences are undefined; all-NaN output
-        return wrap_like(agg, _nan_raster(data), name)
-    max_v = float(nanmax(_finite_or_nan(data)))
+        return wrap_like(agg, blockwise(_nan_raster, data), name)
+    max_v = _nanmax_finite(data)
     iqr = q3 - q1
     raw = [q1 - hinge * iqr, q1, q2, q3, q3 + hinge * iqr, max_v]
     bins = np.sort(np.unique(raw))
     bins = bins[bins <= max_v]
     if bins[-1] < max_v:
         bins = np.append(bins, max_v)
-    out = _bin(data, bins, np.arange(len(bins)))
+    out = blockwise(lambda b: _bin(b, bins, np.arange(len(bins))), data)
     return wrap_like(agg, out, name)
 
 

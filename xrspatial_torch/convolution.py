@@ -5,7 +5,7 @@ cellsize-in-meters and the circle/annulus/custom kernel builders are host
 code and return the same numpy arrays as the JAX package.  The direct
 convolution (``convolve_2d``, ``convolution_2d``) is a cuDNN / CPU
 cross-correlation in full float32 (``kernels/window.py::convolve2d``), as
-the JAX package leaves it to XLA.
+the JAX package leaves it to XLA; on a mesh, per halo-extended block.
 """
 
 from __future__ import annotations
@@ -14,8 +14,9 @@ import re
 
 import numpy as np
 
+from .kernels.dispatch import run_stencil
 from .kernels.window import convolve2d
-from .utils import get_dataarray_resolution, to_torch, wrap_like
+from .utils import get_dataarray_resolution, raster_payload, wrap_like
 
 __all__ = [
     "convolve_2d", "convolution_2d", "circle_kernel", "annulus_kernel",
@@ -123,9 +124,13 @@ def convolve_2d(data, kernel):
     """Raw array-in/array-out 2D convolution (NaN ring of kernel radius).
 
     `data` is a tensor (any device) or an array; the result is a float32
-    tensor on `data`'s device.
+    tensor on `data`'s device.  A raster split over a mesh runs on each
+    tile extended by the kernel's halo (``kernels/dispatch.py::
+    run_stencil``) and gives one split over the same mesh.
     """
-    return convolve2d(to_torch(data), np.asarray(kernel))
+    kernel = np.asarray(kernel)
+    radius = ((kernel.shape[0] - 1) // 2, (kernel.shape[1] - 1) // 2)
+    return run_stencil(convolve2d, radius, raster_payload(data), kernel)
 
 
 def convolution_2d(agg, kernel, name='convolution_2d'):
@@ -140,5 +145,5 @@ def convolution_2d(agg, kernel, name='convolution_2d'):
         matching the reference kernels).
     """
     kernel = custom_kernel(np.asarray(kernel))
-    out = convolve_2d(to_torch(agg), kernel)
+    out = convolve_2d(raster_payload(agg), kernel)
     return wrap_like(agg, out, name)

@@ -91,16 +91,19 @@ __global__ void jfa_round_packed_kernel(
     const int* __restrict__ s_in, const float* __restrict__ v_in,
     int* __restrict__ s_out, float* __restrict__ v_out,
     float* __restrict__ best_out, long long h, long long w, long long k,
-    float step_y, float step_x) {
+    float step_y, float step_x, int row0, int col0) {
   const long long col = (long long)blockIdx.x * kBlockX + threadIdx.x;
   if (col >= w) return;
   const long long row_step = (long long)gridDim.y * kBlockY;
   for (long long row = (long long)blockIdx.y * kBlockY + threadIdx.y;
        row < h; row += row_step) {
     const long long i = row * w + col;
+    // the cell's own indices in the whole raster: the block's origin plus
+    // its place in the block (the origin is 0 outside a mesh)
+    const int iy = (int)row + row0, ix = (int)col + col0;
     int s = s_in[i];
     float v = WITH_VAL ? v_in[i] : 0.0f;
-    float best = key_packed<METRIC>((int)row, (int)col, s, step_y, step_x);
+    float best = key_packed<METRIC>(iy, ix, s, step_y, step_x);
 #pragma unroll
     for (int sy = -1; sy <= 1; ++sy) {
       const long long r = row + sy * k;
@@ -112,8 +115,7 @@ __global__ void jfa_round_packed_kernel(
         if (c < 0 || c >= w) continue;
         const long long j = r * w + c;
         const int cand = s_in[j];
-        const float nd =
-            key_packed<METRIC>((int)row, (int)col, cand, step_y, step_x);
+        const float nd = key_packed<METRIC>(iy, ix, cand, step_y, step_x);
         if (nd < best) {
           best = nd;
           s = cand;
@@ -180,15 +182,17 @@ dim3 grid_for(long long h, long long w) {
 template <int METRIC>
 void launch_packed(const int* s_in, const float* v_in, int* s_out,
                    float* v_out, float* best_out, long long h, long long w,
-                   long long k, float step_y, float step_x,
-                   cudaStream_t stream) {
+                   long long k, float step_y, float step_x, int row0,
+                   int col0, cudaStream_t stream) {
   const dim3 block(kBlockX, kBlockY), grid = grid_for(h, w);
   if (v_in != nullptr) {
     jfa_round_packed_kernel<METRIC, true><<<grid, block, 0, stream>>>(
-        s_in, v_in, s_out, v_out, best_out, h, w, k, step_y, step_x);
+        s_in, v_in, s_out, v_out, best_out, h, w, k, step_y, step_x, row0,
+        col0);
   } else {
     jfa_round_packed_kernel<METRIC, false><<<grid, block, 0, stream>>>(
-        s_in, v_in, s_out, v_out, best_out, h, w, k, step_y, step_x);
+        s_in, v_in, s_out, v_out, best_out, h, w, k, step_y, step_x, row0,
+        col0);
   }
 }
 
@@ -233,6 +237,7 @@ struct RoundArgs {
   const float* ys;
   int h, w, k;
   float step_y, step_x;
+  int row0, col0;  // packed: the block's origin in the whole raster
   int stage, th, pad, pitch, rows, tiles_x, plane_words;  // staged
   int per_row, phased;                                   // vector
 };
@@ -301,8 +306,11 @@ __device__ __forceinline__ void store_cells(const RoundArgs& a, int row,
 // The staged route.  KS: the stride when it is 1 or 2 (a row's 12 loaded
 // words cover columns wx - 4 .. wx + 7), or 0 for a multiple of 4 (the
 // three groups at wx - k, wx, wx + k); either way candidate (sx, cell j)
-// of a row is word 4 + j + sx * D of it.
-template <int FORM, int METRIC, bool WITH_VAL, int KS>
+// of a row is word 4 + j + sx * D of it.  ORIGIN: the packed state of a
+// mesh block, whose cells lie at (row0 + row, col0 + col) in the whole
+// raster; a separate instantiation, since the two adds a cell cost the
+// whole raster's rounds ~3% on this issue-bound kernel.
+template <int FORM, int METRIC, bool WITH_VAL, bool ORIGIN, int KS>
 __global__ void __launch_bounds__(kThreads)
     jfa_staged_kernel(const __grid_constant__ xrt::WindowMaps maps,
                       const RoundArgs a) {
@@ -353,7 +361,8 @@ __global__ void __launch_bounds__(kThreads)
     load_row(0, vc);
 #pragma unroll
     for (int j = 0; j < kCells; ++j) {
-      p[j] = cell_pos(row, col + j, px[j], py);
+      p[j] = cell_pos(ORIGIN ? row + a.row0 : row,
+                      ORIGIN ? col + j + a.col0 : col + j, px[j], py);
       s0[j] = vc[0][4 + j];
       s1[j] = S == 2 ? vc[S - 1][4 + j] : 0;
       best[j] = xrt::key_of<FORM, METRIC>(p[j], s0[j], s1[j], a.step_y,
@@ -407,7 +416,7 @@ __device__ __forceinline__ int slot_row(int t, int h, int k, bool phased) {
   return p + j * k;
 }
 
-template <int FORM, int METRIC, bool WITH_VAL>
+template <int FORM, int METRIC, bool WITH_VAL, bool ORIGIN>
 __global__ void __launch_bounds__(kThreads)
     jfa_vector_kernel(const RoundArgs a) {
   constexpr int S = StateForm<FORM>::kPlanes;
@@ -448,7 +457,8 @@ __global__ void __launch_bounds__(kThreads)
   put4(s1, g[4][S - 1]);
 #pragma unroll
   for (int j = 0; j < kCells; ++j) {
-    p[j] = cell_pos(row, col + j, px[j], py);
+    p[j] = cell_pos(ORIGIN ? row + a.row0 : row,
+                    ORIGIN ? col + j + a.col0 : col + j, px[j], py);
     if (S == 1) s1[j] = 0;
     best[j] = xrt::key_of<FORM, METRIC>(p[j], s0[j], s1[j], a.step_y,
                                         a.step_x);
@@ -480,22 +490,36 @@ __global__ void __launch_bounds__(kThreads)
   store_cells<S, WITH_VAL>(a, row, col, true, s0, s1, val, best);
 }
 
-template <int FORM, int METRIC, bool WITH_VAL>
-int launch_routed(const RoundArgs& a, const xrt::WindowMaps& maps, int route,
-                  int smem, long long grid, cudaStream_t stream) {
+template <int FORM, int METRIC, bool WITH_VAL, bool ORIGIN>
+int launch_routed_at(const RoundArgs& a, const xrt::WindowMaps& maps,
+                     int route, int smem, long long grid,
+                     cudaStream_t stream) {
   if (route == kRouteVector) {
-    jfa_vector_kernel<FORM, METRIC, WITH_VAL>
+    jfa_vector_kernel<FORM, METRIC, WITH_VAL, ORIGIN>
         <<<(unsigned)grid, kThreads, 0, stream>>>(a);
     return (int)cudaGetLastError();
   }
-  auto kernel = a.k == 1   ? jfa_staged_kernel<FORM, METRIC, WITH_VAL, 1>
-                : a.k == 2 ? jfa_staged_kernel<FORM, METRIC, WITH_VAL, 2>
-                           : jfa_staged_kernel<FORM, METRIC, WITH_VAL, 0>;
+  auto kernel =
+      a.k == 1   ? jfa_staged_kernel<FORM, METRIC, WITH_VAL, ORIGIN, 1>
+      : a.k == 2 ? jfa_staged_kernel<FORM, METRIC, WITH_VAL, ORIGIN, 2>
+                 : jfa_staged_kernel<FORM, METRIC, WITH_VAL, ORIGIN, 0>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(maps, a);
   return (int)cudaGetLastError();
+}
+
+// The origin's instantiation only for a packed state with an origin; the
+// coordinate state has none.
+template <int FORM, int METRIC, bool WITH_VAL>
+int launch_routed(const RoundArgs& a, const xrt::WindowMaps& maps, int route,
+                  int smem, long long grid, cudaStream_t stream) {
+  if (FORM == kPacked && (a.row0 != 0 || a.col0 != 0))
+    return launch_routed_at<FORM, METRIC, WITH_VAL, FORM == kPacked>(
+        a, maps, route, smem, grid, stream);
+  return launch_routed_at<FORM, METRIC, WITH_VAL, false>(a, maps, route,
+                                                         smem, grid, stream);
 }
 
 template <int FORM, int METRIC>
@@ -517,20 +541,22 @@ extern "C" {
 // -1 for no target) and an optional float32 value channel (v_in and v_out
 // both null without one).  metric: 0 euclidean, 2 manhattan.  best_out,
 // when not null, receives each cell's float32 key after the round.
+// (row0, col0): the block's origin, the indices in the whole raster of
+// its cell (0, 0) (a block of a mesh; 0, 0 for a whole raster).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for an unknown metric.
 int jfa_round_packed(const int* s_in, const float* v_in, int* s_out,
                      float* v_out, float* best_out, long long h, long long w,
                      long long k, float step_y, float step_x, int metric,
-                     void* stream) {
+                     int row0, int col0, void* stream) {
   if (h <= 0 || w <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (metric == kEuclidean) {
     launch_packed<kEuclidean>(s_in, v_in, s_out, v_out, best_out, h, w, k,
-                              step_y, step_x, st);
+                              step_y, step_x, row0, col0, st);
   } else if (metric == kManhattan) {
     launch_packed<kManhattan>(s_in, v_in, s_out, v_out, best_out, h, w, k,
-                              step_y, step_x, st);
+                              step_y, step_x, row0, col0, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -573,7 +599,9 @@ int jfa_round_coords(const float* tx_in, const float* ty_in,
 // best, when not null, receives each cell's key.  stage 0 TMA or 1
 // cp.async; th, pad, pitch, rows: the staged tile's rows and its window;
 // smem: shared bytes; phased: the vector route's k-phase row order; grid:
-// blocks.  The plan's choices are round_plan's; this checks what keeps the
+// blocks; (row0, col0): the packed state's block origin, as for
+// jfa_round_packed (0 for the coordinate state).  The plan's choices are
+// round_plan's; this checks what keeps the
 // launch safe: the route's rules (vector: w and k multiples of 4, h*w <
 // 2^31; staged: k 1, 2 or a multiple of 4, TMA only where w % 4 == 0 and
 // every plane is 16-byte aligned), a window that covers the tile and its
@@ -587,7 +615,8 @@ int jfa_round_routed(int form, const void* const* in, void* const* out,
                      long long h, long long w, long long k, float step_y,
                      float step_x, int metric, int with_val, int route,
                      int stage, int th, int pad, int pitch, int rows,
-                     int smem, int phased, long long grid, void* stream) {
+                     int smem, int phased, long long grid, int row0,
+                     int col0, void* stream) {
   if (h <= 0 || w <= 0) return 0;
   const int S = form == kPacked ? 1 : 2;
   const int planes = S + (with_val ? 1 : 0);
@@ -599,7 +628,8 @@ int jfa_round_routed(int form, const void* const* in, void* const* out,
   for (int q = 0; q < planes; ++q)
     aligned = aligned && xrt::aligned16(in[q]) && xrt::aligned16(out[q]);
   if (!metric_ok || k < 1 || h > (1LL << 30) || w > (1LL << 30) ||
-      (form == kCoords && (xs == nullptr || ys == nullptr)))
+      (form == kCoords && (xs == nullptr || ys == nullptr ||
+                           row0 != 0 || col0 != 0)))
     return (int)cudaErrorInvalidValue;
   RoundArgs a{};
   for (int q = 0; q < planes; ++q) {
@@ -614,6 +644,8 @@ int jfa_round_routed(int form, const void* const* in, void* const* out,
   a.k = (int)k;
   a.step_y = step_y;
   a.step_x = step_x;
+  a.row0 = row0;
+  a.col0 = col0;
   xrt::WindowMaps maps{};
   if (route == kRouteVector) {
     a.per_row = (int)((w / kCells + kThreads - 1) / kThreads);

@@ -11,7 +11,7 @@ from typing import Optional
 
 from .dataset_support import supports_dataset
 from .kernels.surface import run_surface_op
-from .utils import get_dataarray_resolution, to_torch, wrap_like
+from .utils import get_dataarray_resolution, raster_payload, wrap_like
 from .xrlib import DataArray
 
 __all__ = ["curvature"]
@@ -27,5 +27,6 @@ def curvature(agg: DataArray,
     """
     cellsize_x, cellsize_y = get_dataarray_resolution(agg)
     cellsize = (cellsize_x + cellsize_y) / 2
-    out = run_surface_op("curvature", to_torch(agg), cellsize, cellsize)
+    out = run_surface_op("curvature", raster_payload(agg), cellsize,
+                         cellsize)
     return wrap_like(agg, out, name)

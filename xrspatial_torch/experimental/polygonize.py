@@ -19,6 +19,7 @@ from typing import List, Optional, Union
 
 import numpy as np
 
+from ..utils import refuse_mesh
 from ..xr_compat import _to_numpy
 from ..xrlib import DataArray
 
@@ -158,6 +159,7 @@ def polygonize(
     if raster.ndim != 2 or raster.shape[0] < 1 or raster.shape[1] < 1:
         raise ValueError(
             "Raster array must be 2D with a shape of at least (1, 1)")
+    refuse_mesh(raster, *(() if mask is None else (mask,)))
     if mask is not None:
         if raster.shape != mask.shape:
             raise ValueError(

@@ -10,11 +10,23 @@ footprint's radii fit it, and the halo kernel otherwise, at every raster
 size.  ``mean``, the convolution of ``hotspots`` and the z-score classes
 are torch ops on any device, as they are XLA in the JAX package;
 ``apply`` with an arbitrary Python callable is a host round trip.
+
+A raster split over a mesh (``parallel.ShardedRaster``) takes the JAX
+package's mesh branches: every window op runs on each tile extended by
+the footprint's halo (``kernels/dispatch.py::run_stencil``), each block
+on the route the footprint chooses (``_route``), so every block runs the
+route the unsharded raster would; ``hotspots`` takes its global mean and
+std in float64 from per-block sums.  The results are split over the same
+mesh and equal the unsharded ones bit for bit, except the conv path
+(another convolution algorithm may serve a block's shape, and its
+centring mean is the extended block's) and ``hotspots``' moments, whose
+summation order differs.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import torch
@@ -24,7 +36,9 @@ from .dataset_support import supports_dataset
 from .kernels.window import (UNROLL_MAX_OFFSETS, focal_mean_pass,
                              hotspots_classify, kernel_offsets,
                              tiled_radius_supported, window_stats)
-from .utils import to_torch, wrap_like
+from .kernels.dispatch import run_stencil
+from .parallel.halo import get_raster_mesh, tiles
+from .utils import blockwise, raster_payload, wrap_like
 from .xrlib import DataArray
 
 __all__ = ["mean", "apply", "focal_stats", "hotspots"]
@@ -58,11 +72,13 @@ def mean(agg, passes: int = 1, excludes=[np.nan], name: str = 'mean'):
     3x3 neighborhood.  Computed in float64 and written back in the INPUT
     dtype, so integer rasters get truncated means.
     """
-    data = to_torch(agg, dtype=None)
-    out = data.to(torch.float64)
+    data = raster_payload(agg, dtype=None)
+    out = blockwise(lambda b: b.to(torch.float64), data)
     for _ in range(passes):
-        out = focal_mean_pass(out, excludes)
-    return wrap_like(agg, out.to(data.dtype), name)
+        # on a mesh, clipped windows at the tile edges come from the NaN
+        # halo (nanmean ignores it either way)
+        out = run_stencil(focal_mean_pass, 1, out, excludes)
+    return wrap_like(agg, blockwise(lambda b: b.to(data.dtype), out), name)
 
 
 def _route(offsets) -> str:
@@ -80,8 +96,12 @@ def _window_stats(data: torch.Tensor, kernel: np.ndarray,
                   stats: tuple) -> torch.Tensor:
     """(S, H, W) statistics over the kernel footprint, stacked in `stats`
     order: the torch ops for a CPU tensor or a conv-path footprint, a CUDA
-    kernel otherwise."""
+    kernel otherwise; on a mesh, this on each halo-extended block."""
     offsets = kernel_offsets(kernel)
+    if get_raster_mesh(data) is not None:
+        ry = max((abs(dy) for dy, _ in offsets), default=0)
+        rx = max((abs(dx) for _, dx in offsets), default=0)
+        return run_stencil(_window_stats, (ry, rx), data, kernel, stats)
     route = _route(offsets)
     if data.device.type == "cpu" or route == "conv":
         outs = window_stats(data, offsets, stats)
@@ -108,14 +128,22 @@ def apply(raster, kernel, func=_calc_mean, name: str = 'focal_apply'):
         raise ValueError("`raster` must be 2D")
     kernel = custom_kernel(np.asarray(kernel))
 
-    data = to_torch(raster)
+    data = raster_payload(raster)
     stat = getattr(func, "_stat", None)
     if stat in _STAT_NAMES:
-        out = _window_stats(data, kernel, (stat,))[0]
+        out = blockwise(lambda b: b[0], _window_stats(data, kernel, (stat,)))
     else:
-        out = torch.from_numpy(_apply_host(data.cpu().numpy(), kernel,
-                                           func)).to(data.device)
+        out = run_stencil(_apply_block, (kernel.shape[0] // 2,
+                                         kernel.shape[1] // 2), data, kernel,
+                          func)
     return wrap_like(raster, out, name)
+
+
+def _apply_block(data: torch.Tensor, kernel, func) -> torch.Tensor:
+    """``_apply_host`` on a raster (or one halo-extended block), back on
+    its device."""
+    return torch.from_numpy(_apply_host(data.cpu().numpy(), kernel,
+                                        func)).to(data.device)
 
 
 def _apply_host(data: np.ndarray, kernel: np.ndarray, func) -> np.ndarray:
@@ -179,7 +207,7 @@ def focal_stats(agg, kernel,
         if s not in _STAT_NAMES:
             raise ValueError(f"unknown stat {s!r}; supported: {_STAT_NAMES}")
 
-    stacked = _window_stats(to_torch(agg), kernel, tuple(stats_funcs))
+    stacked = _window_stats(raster_payload(agg), kernel, tuple(stats_funcs))
     return stats_dataarray(agg, stacked, stats_funcs, "focal_apply")
 
 
@@ -194,27 +222,46 @@ def hotspots(raster, kernel) -> DataArray:
         raise TypeError("`raster` must be instance of DataArray")
     if raster.ndim != 2:
         raise ValueError("`raster` must be 2D")
-    dtype = to_torch(raster, dtype=None).dtype
+    dtype = raster_payload(raster, dtype=None).dtype
     if dtype == torch.bool or dtype.is_complex:
         raise ValueError("data type must be integer or float")
 
     kernel = custom_kernel(np.asarray(kernel))
-    data = to_torch(raster)
+    data = raster_payload(raster)
 
-    global_mean = torch.nanmean(data)
-    # jnp.nanstd: the root of the mean squared deviation of the non-NaN
-    # cells (torch has no nanstd)
-    dev = data - global_mean
-    global_std = torch.sqrt(torch.nanmean(dev * dev))
+    if get_raster_mesh(data) is not None:
+        global_mean, global_std = _sharded_moments(data)
+    else:
+        global_mean = torch.nanmean(data)
+        # jnp.nanstd: the root of the mean squared deviation of the
+        # non-NaN cells (torch has no nanstd)
+        dev = data - global_mean
+        global_std = torch.sqrt(torch.nanmean(dev * dev))
     if float(global_std) == 0:
         raise ZeroDivisionError(
             "Standard deviation of the input raster values is 0.")
 
     conv = convolve_2d(data, kernel / kernel.sum())
-    out = hotspots_classify((conv - global_mean) / global_std)
+    out = blockwise(lambda c: hotspots_classify(
+        (c - global_mean.to(c.device)) / global_std.to(c.device)), conv)
 
     attrs = copy.deepcopy(dict(raster.attrs))
     attrs['unit'] = '%'
     result = wrap_like(raster, out, None)
     result.attrs = attrs
     return result
+
+
+def _sharded_moments(data):
+    """The mean and population std of the non-NaN cells of a
+    mesh raster, taken in float64 from per-block sums (each cell counted
+    once), as float32 0-d tensors on the host."""
+    t = tiles(data)
+    blocks = [b.to(torch.float64) for row in t.blocks for b in row]
+    count = sum(int((~torch.isnan(b)).sum()) for b in blocks)
+    total = sum(float(torch.nansum(b)) for b in blocks)
+    mean = total / count if count else math.nan
+    sq = sum(float(torch.nansum((b - mean) ** 2)) for b in blocks)
+    std = math.sqrt(sq / count) if count else math.nan
+    return (torch.tensor(mean, dtype=torch.float32),
+            torch.tensor(std, dtype=torch.float32))

@@ -13,7 +13,8 @@ from typing import Optional
 from .dataset_support import supports_dataset
 from .kernels.shadows import hillshade_shadows
 from .kernels.surface import run_surface_op
-from .utils import get_dataarray_resolution, to_torch, wrap_like
+from .utils import (get_dataarray_resolution, raster_payload, to_torch,
+                    wrap_like)
 from .xrlib import DataArray
 
 __all__ = ["hillshade"]
@@ -40,12 +41,11 @@ def hillshade(agg: DataArray,
         Also compute cast shadows by ray-marching each cell toward the sun:
         Lambert shading, halved in shadow.
     """
-    data = to_torch(agg)
     if shadows:
         cellsize_x, cellsize_y = get_dataarray_resolution(agg)
-        out = hillshade_shadows(data, azimuth, angle_altitude, cellsize_x,
-                                abs(cellsize_y))
+        out = hillshade_shadows(to_torch(agg), azimuth, angle_altitude,
+                                cellsize_x, abs(cellsize_y))
     else:
-        out = run_surface_op("hillshade", data, azimuth=azimuth,
-                             angle_altitude=angle_altitude)
+        out = run_surface_op("hillshade", raster_payload(agg),
+                             azimuth=azimuth, angle_altitude=angle_altitude)
     return wrap_like(agg, out, name)

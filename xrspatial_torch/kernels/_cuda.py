@@ -141,7 +141,7 @@ def library() -> ctypes.CDLL:
                                     i64, i64, p]
     lib.pipeline_launch.restype = i32
     lib.jfa_round_packed.argtypes = [p, p, p, p, p, i64, i64, i64, f32, f32,
-                                     i32, p]
+                                     i32, i32, i32, p]
     lib.jfa_round_packed.restype = i32
     lib.jfa_round_coords.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64,
                                      i32, p]
@@ -149,7 +149,8 @@ def library() -> ctypes.CDLL:
     pp = ctypes.POINTER(p)
     lib.jfa_round_routed.argtypes = [i32, pp, pp, p, p, p, i64, i64, i64,
                                      f32, f32, i32, i32, i32, i32, i32, i32,
-                                     i32, i32, i32, i32, i64, p]
+                                     i32, i32, i32, i32, i64, i32, i32,
+                                     p]
     lib.jfa_round_routed.restype = i32
     tier_args = [i32, i32, ctypes.POINTER(p), ctypes.POINTER(p),
                  ctypes.POINTER(i32), ctypes.POINTER(i32),

@@ -72,7 +72,8 @@ def _plan(form, ins, outs, best, k, route, phased):
                       phased)
 
 
-def _launch_routed(form, plan, ins, outs, best, xs, ys, k, metric, steps):
+def _launch_routed(form, plan, ins, outs, best, xs, ys, k, metric, steps,
+                   origin=(0, 0)):
     """One round of `plan` (staged or vector) through jfa_round_routed."""
     h, w = ins[0].shape
     arr = ctypes.c_void_p * 3
@@ -86,7 +87,8 @@ def _launch_routed(form, plan, ins, outs, best, xs, ys, k, metric, steps):
             float(steps[1]), int(metric), int(len(ins) > state_planes(form)),
             _ROUTE_CODES[plan.route], _STAGE_CODES[plan.stage], plan.tile[0],
             plan.pad, plan.pitch, plan.rows, plan.shared_bytes,
-            int(plan.phased), plan.grid, _cuda.stream_of(ins[0].device))
+            int(plan.phased), plan.grid, int(origin[0]), int(origin[1]),
+            _cuda.stream_of(ins[0].device))
     if err < 0:
         raise RuntimeError(f"jfa_round ({plan.route}): cuTensorMapEncodeTiled "
                            f"failed with CUresult {-err} for a {h}x{w} plane, "
@@ -95,10 +97,13 @@ def _launch_routed(form, plan, ins, outs, best, xs, ys, k, metric, steps):
 
 
 def round_packed_cuda(state, value, k: int, metric: int, steps,
-                      emit_best=False, route=None, phased=None):
+                      emit_best=False, route=None, phased=None,
+                      origin=(0, 0)):
     """One round over the packed int32 state on the card, on the route
     ``round_plan`` names (or `route` by name; `phased` forces the vector
-    route's row order).
+    route's row order).  `origin` is the (row, column) in the whole raster
+    of the state's cell (0, 0): a block of a mesh, extended by its halo,
+    has its own (``parallel/jfa_sharded.py``); every route takes it.
 
     Returns ``(state, value, best)`` like ``jfa_rounds.round_packed``;
     `value` is None when none was given, `best` (float32) only with
@@ -126,11 +131,12 @@ def round_packed_cuda(state, value, k: int, metric: int, steps,
             err = _cuda.library().jfa_round_packed(
                 state.data_ptr(), _ptr(value), s_out.data_ptr(), _ptr(v_out),
                 _ptr(best), h, w, int(k), float(steps[0]), float(steps[1]),
-                int(metric), _cuda.stream_of(state.device))
+                int(metric), int(origin[0]), int(origin[1]),
+                _cuda.stream_of(state.device))
         _cuda.check(err, "jfa_round_packed")
     else:
         _launch_routed("packed", plan, ins, outs, best, None, None, k,
-                       metric, steps)
+                       metric, steps, origin)
     _count(plan.route)
     return s_out, v_out, best
 

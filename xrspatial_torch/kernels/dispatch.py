@@ -1,0 +1,50 @@
+"""Payload-driven stencil dispatch: one device, or the mesh with halos.
+
+Counterpart of ``xrspatial_tpu/kernels/dispatch.py``.  A raster split
+over a mesh (``parallel.distribute``) runs the kernel on each tile
+extended by its halo (``parallel/halo.py::stencil_shard_map``); anything
+else goes straight to the kernel.  A raster that does not divide the
+mesh is NaN-padded to the mesh's tile grid and cropped back (the padding
+is the extended blocks' fill), so the result equals the unsharded run.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Callable
+
+import torch
+
+from ..parallel.halo import HaloSpec, get_raster_mesh, stencil_shard_map
+
+__all__ = ["run_stencil"]
+
+
+def run_stencil(kernel: Callable, radius, data, *args):
+    """Run a radius-r local kernel, over the mesh iff `data` is split
+    over one.
+
+    `kernel(data, *args)` must compute a full-size output whose outer
+    radius-r ring may be garbage or NaN (it is rebuilt from halos on the
+    mesh and kept as the NaN border on one device).  On the mesh a
+    payload that is not floating point is cast to float32 first (NaN
+    fill needs a float), and the result is a ``ShardedRaster`` over the
+    same mesh.
+    """
+    mesh = get_raster_mesh(data)
+    if mesh is None:
+        return kernel(data, *args)
+    halo = HaloSpec.square(radius) if isinstance(radius, int) \
+        else HaloSpec(*radius)
+    # halos wider than a tile gather from several tiles (halo_extend);
+    # warn only when the halo covers the whole raster: each extended
+    # block then holds about all of it (still correct)
+    if halo.ry >= data.shape[-2] // 2 or halo.rx >= data.shape[-1] // 2:
+        warnings.warn(
+            f"run_stencil: halo radius ({halo.ry}, {halo.rx}) covers the "
+            f"whole raster {data.shape[-2:]}; every shard's extended "
+            "block is raster-sized, so distribution saves compute but "
+            "not memory.", UserWarning, stacklevel=3)
+    if not data.dtype.is_floating_point:
+        data = data.map_blocks(lambda b: b.to(torch.float32))
+    return stencil_shard_map(kernel, mesh, halo)(data, *args)

@@ -14,7 +14,12 @@ twins (``jfa_rounds.py``); both take the packed int32 state when
 ``packed_state_plan`` proves it bit-equal to the coordinate state, and the
 coordinate state otherwise.  The JAX package's TPU size gates and its T=256
 pad-and-relay tiling have no counterpart: the kernel reads its neighbours
-with bounds checks at every size.  The mesh branch waits for ROADMAP A13.
+with bounds checks at every size.
+
+On a mesh (`target_mask` a ``ShardedRaster``) the rounds run per block
+behind halo exchanges (``parallel/jfa_sharded.py``), the round kernel
+taking each block's origin, and MANHATTAN's scans carry across the
+blocks.
 """
 
 from __future__ import annotations
@@ -238,13 +243,15 @@ def _manhattan_flipped(target_mask, xs, ys, values, need_coords, flip_x):
     return dist, tx, ty, tval
 
 
-def _round_packed(state, value, k, metric, steps, emit_best):
+def _round_packed(state, value, k, metric, steps, emit_best,
+                  origin=(0, 0)):
     if state.device.type == "cpu":
-        s, v, best = jfa_rounds.round_packed(state, value, k, metric, steps)
+        s, v, best = jfa_rounds.round_packed(state, value, k, metric, steps,
+                                             origin)
         return s, v, best if emit_best else None
     from .cuda_jfa import round_packed_cuda
     return round_packed_cuda(state, value, k, metric, steps,
-                             emit_best=emit_best)
+                             emit_best=emit_best, origin=origin)
 
 
 def _round_coords(tx, ty, value, xs, ys, k, metric):
@@ -310,11 +317,17 @@ def jump_flood(target_mask, xs, ys, metric: int, values=None,
     path skip its coordinate payload.  `manhattan_plan` / `packed_plan`
     are ``manhattan_scan_plan`` / ``packed_state_plan`` results, or "auto"
     to decide here.
+
+    With a `mesh` (a ``parallel.RasterMesh``; `target_mask` and `values`
+    are placed on it unless they are ``ShardedRaster`` s already) the
+    rounds run per block (``parallel/jfa_sharded.py``) and the four
+    results are ``ShardedRaster`` s over the mesh, equal to the unsharded
+    ones.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "jump_flood over a device mesh is not ported to xrspatial_torch "
-            "yet (ROADMAP A13)")
+        return _jump_flood_mesh(target_mask, xs, ys, metric, values,
+                                need_coords, manhattan_plan, packed_plan,
+                                mesh)
     h, w = target_mask.shape
     dev = target_mask.device
     xs = torch.as_tensor(xs, device=dev).to(torch.float32)
@@ -336,3 +349,33 @@ def jump_flood(target_mask, xs, ys, metric: int, values=None,
     if pplan is not None:
         return _jfa_packed(target_mask, values, strides, metric, pplan)
     return _jfa_coords(target_mask, values, xs, ys, strides, metric)
+
+
+def _host_axis(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.ascontiguousarray(v, dtype=np.float32)
+
+
+def _jump_flood_mesh(target_mask, xs, ys, metric, values, need_coords,
+                     manhattan_plan, packed_plan, mesh):
+    """``jump_flood``'s mesh branch."""
+    from ..parallel.halo import ShardedRaster, distribute
+    from ..parallel.jfa_sharded import jump_flood_sharded
+    if not isinstance(target_mask, ShardedRaster):
+        target_mask = distribute(target_mask, mesh)
+    if values is not None and not isinstance(values, ShardedRaster):
+        values = distribute(values, mesh)
+    h, w = target_mask.shape
+    xs_np, ys_np = _host_axis(xs), _host_axis(ys)
+    mplan = None
+    if metric == MANHATTAN:
+        mplan = manhattan_plan
+        if mplan == "auto":
+            mplan = manhattan_scan_plan(xs_np, ys_np)
+    pplan = packed_plan
+    if pplan == "auto":
+        pplan = packed_state_plan(xs_np, ys_np, metric)
+    return jump_flood_sharded(target_mask, values, xs_np, ys_np, metric,
+                              _stride_schedule(max(h, w)), pplan, mplan,
+                              need_coords)

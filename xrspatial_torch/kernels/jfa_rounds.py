@@ -103,16 +103,20 @@ def shifted(a: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     return out
 
 
-def round_packed(state, value, k: int, metric: int, steps):
+def round_packed(state, value, k: int, metric: int, steps, origin=(0, 0)):
     """One round over the packed state.
 
     `state` is (h, w) int32, `value` (h, w) float32 or None, `steps`
-    (step_y, step_x).  Returns ``(state, value, best)``: the new state and
-    value and the float32 key of each cell's new target.
+    (step_y, step_x), `origin` the (row, column) in the whole raster of
+    the state's cell (0, 0) (a block of a mesh has its own).  Returns
+    ``(state, value, best)``: the new state and value and the float32 key
+    of each cell's new target.
     """
     h, w = state.shape
-    iy = torch.arange(h, dtype=torch.int32, device=state.device)[:, None]
-    ix = torch.arange(w, dtype=torch.int32, device=state.device)[None, :]
+    iy = origin[0] + torch.arange(h, dtype=torch.int32,
+                                  device=state.device)[:, None]
+    ix = origin[1] + torch.arange(w, dtype=torch.int32,
+                                  device=state.device)[None, :]
     best = key_packed(iy, ix, state, metric, steps)
     s_out, v_out = state, value
     for sy, sx in CANDIDATES:

@@ -6,7 +6,10 @@ are the torch twins, the plain versions of the CUDA kernel in
 epilogues, in the same float32 operation order as the JAX package.
 
 Dispatch (``surface_kernels``, ``run_surface_op``, ``surface_stacked``): a
-tensor on the CPU goes to the twins, a tensor on the card to a CUDA kernel
+raster split over a mesh goes through ``dispatch.run_stencil``, each
+halo-extended block back through this dispatch (``surface_stacked`` has
+no mesh form); a tensor on the CPU goes to the twins, a tensor on the
+card to a CUDA kernel
 (B1, ``surface_staged_kernel``, on the route ``surface_plan`` names, or B0
 for the stacked output, on the route ``stacked_plan`` names), at every
 size.  The twins, and the first ports ``surface_kernel`` (B1) and
@@ -319,13 +322,34 @@ def surface_multi_stacked(data, cellsize_x, cellsize_y, azimuth,
 # dispatch: CPU tensor -> twins, CUDA tensor -> kernel
 # ---------------------------------------------------------------------------
 
+def _mesh_route(data) -> bool:
+    from ..parallel.halo import get_raster_mesh
+    return get_raster_mesh(data) is not None
+
+
+def _surface_block(block, which, cellsize_x, cellsize_y, azimuth,
+                   angle_altitude):
+    """The products of `which` on one halo-extended block, as a tuple."""
+    outs = surface_kernels(block, which, cellsize_x, cellsize_y, azimuth,
+                           angle_altitude)
+    return tuple(outs[p] for p in which)
+
+
 def surface_kernels(data, which, cellsize_x=1.0, cellsize_y=1.0,
                     azimuth=225.0, angle_altitude=25.0):
     """The requested surface products as a dict of (H, W) tensors.
 
     Curvature uses the mean of the two cell sizes, as ``surface_multi``
-    does.
+    does.  A raster split over a mesh (``parallel.ShardedRaster``) runs
+    one pass for all products on each tile extended by a 1-cell halo
+    (``dispatch.run_stencil``): one kernel launch a block on the card;
+    the products are ``ShardedRaster`` s over the same mesh.
     """
+    if _mesh_route(data):
+        from .dispatch import run_stencil
+        outs = run_stencil(_surface_block, 1, data, tuple(which),
+                           cellsize_x, cellsize_y, azimuth, angle_altitude)
+        return dict(zip(which, outs))
     if data.device.type == "cpu":
         return surface_multi(data, cellsize_x, cellsize_y, azimuth,
                              angle_altitude, tuple(which))
@@ -340,10 +364,16 @@ def run_surface_op(name, data, cellsize_x=1.0, cellsize_y=1.0,
     """Single-product dispatch shared by slope/aspect/curvature/hillshade.
 
     Curvature uses ``cellsize_x`` alone, as the JAX package's
-    ``curvature_jit`` does.
+    ``curvature_jit`` does.  A raster split over a mesh runs on each tile
+    extended by a 1-cell halo (``dispatch.run_stencil``), each block on
+    this path: the result is a ``ShardedRaster`` over the same mesh.
     """
     if name not in PRODUCTS:
         raise ValueError(f"unknown surface op {name!r}")
+    if _mesh_route(data):
+        from .dispatch import run_stencil
+        return run_stencil(_surface_op_block, 1, data, name, cellsize_x,
+                           cellsize_y, azimuth, angle_altitude)
     if data.device.type == "cpu":
         if name == "slope":
             return slope(data, cellsize_x, cellsize_y)
@@ -356,6 +386,12 @@ def run_surface_op(name, data, cellsize_x=1.0, cellsize_y=1.0,
         cellsize_y = cellsize_x
     return surface_kernels(data, (name,), cellsize_x, cellsize_y, azimuth,
                            angle_altitude)[name]
+
+
+def _surface_op_block(block, name, cellsize_x, cellsize_y, azimuth,
+                      angle_altitude):
+    return run_surface_op(name, block, cellsize_x, cellsize_y, azimuth,
+                          angle_altitude)
 
 
 def surface_stacked(data, cellsize_x=1.0, cellsize_y=1.0, azimuth=225.0,

@@ -21,7 +21,8 @@ Three parts:
   fields and the epilogue as torch ops, the four half-plane scans in one
   launch of ``csrc/xdraw.cu`` on the card (bands of lanes across the SMs,
   planned by ``xdraw_plan``) and in the twin ``xdraw_scan_twin`` on the
-  CPU.  Its mesh forms are not ported (ROADMAP A13).
+  CPU.  Its mesh form, the JAX package's banded distributed scan, is
+  not ported yet (ROADMAP A13b).
 """
 
 from __future__ import annotations

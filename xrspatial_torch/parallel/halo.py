@@ -1,0 +1,512 @@
+"""Halo-exchange engine: a raster in blocks over a 2D grid of devices.
+
+Counterpart of ``xrspatial_tpu/parallel/halo.py``.  The JAX package shards
+a raster over a ``Mesh(('y', 'x'))`` and runs each stencil under
+``shard_map``, its halos sent by ``ppermute``.  Here one process drives
+the mesh, as one JAX controller does:
+
+- ``RasterMesh`` is a 2D grid of ``torch.device`` s; a device may appear
+  more than once, which is how a mesh of several blocks is built on one
+  CPU or one card (the JAX tests' forced host devices);
+- ``ShardedRaster`` is the one global raster: its shape and dtype, its
+  mesh and a grid of per-device blocks;
+- a halo strip is a copy between two blocks' devices
+  (``Tensor.copy_(..., non_blocking=True)``), made outside any kernel:
+  a copy within one device when the blocks share it, a peer copy between
+  cards otherwise.  ``copy_`` across cards orders itself after the work
+  queued on the source's current stream and before the work queued next
+  on the destination's, so a strip is read only after the kernel that
+  wrote it, with no ``synchronize``.
+
+``torch.distributed`` is not used: it runs one process per rank, which
+would change the contract that one call takes one global raster and
+returns one, and NCCL refuses two ranks on one card.
+
+The layout.  Along a mesh axis of m devices a raster of n cells is either
+split into tiles of ``t = ceil(n / m)`` cells, tile i holding the cells
+``[i*t, min((i+1)*t, n))`` (the last tiles may be shorter, or empty), or
+replicated: every block along that axis holds all n.  ``distribute``
+splits an axis that divides its mesh axis and replicates one that does
+not, with the JAX package's warning; the stencil outputs are split on
+both axes.
+
+The exchange (``halo_extend``) is the JAX package's two-phase one: each
+block is first extended in x from its row of blocks, then the extended
+rows in y from its column of blocks, which carries the corners with no
+diagonal copy.  A halo wider than a tile gathers from as many tiles as
+it covers (the multi-hop gather), and the cells beyond the raster take
+``fill`` (NaN, the reference's ``boundary=np.nan``; the jump flood's
+packed state passes -1).  Every extended block has the full tile's
+shape, so a short last tile is padded with ``fill`` as the JAX dispatch
+pads the raster to the mesh's tile grid, and each extended row is
+rounded up to 16 bytes with more fill: the staged CUDA kernels take TMA
+only on 16-byte rows, and those columns feed only the ring that is
+cropped.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = [
+    "HaloSpec", "RasterMesh", "ShardedRaster", "RasterSharding",
+    "make_raster_mesh", "raster_sharding", "distribute", "halo_extend",
+    "stencil_shard_map", "get_raster_mesh", "tiles", "tile_size",
+    "tile_extent", "shifted_blocks", "zip_blocks", "ROW_ALIGN_BYTES",
+]
+
+# an extended block's rows are rounded up to this many bytes (TMA's rule)
+ROW_ALIGN_BYTES = 16
+
+
+@dataclass(frozen=True)
+class HaloSpec:
+    """Halo radius per spatial axis (rows, cols)."""
+    ry: int
+    rx: int
+
+    @classmethod
+    def square(cls, r: int) -> "HaloSpec":
+        return cls(r, r)
+
+
+class RasterMesh:
+    """A 2D ('y', 'x') grid of torch devices."""
+
+    axis_names = ("y", "x")
+
+    def __init__(self, devices):
+        grid = tuple(tuple(torch.device(d) for d in row) for row in devices)
+        if not grid or not grid[0] or any(len(r) != len(grid[0])
+                                          for r in grid):
+            raise ValueError("a raster mesh needs a non-empty rectangular "
+                             "grid of devices")
+        self.devices = grid
+
+    @property
+    def shape(self) -> dict:
+        return {"y": len(self.devices), "x": len(self.devices[0])}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+    def device(self, i: int, j: int) -> torch.device:
+        return self.devices[i][j]
+
+    def __repr__(self) -> str:
+        return (f"RasterMesh({self.shape['y']}x{self.shape['x']}, "
+                f"{[str(d) for row in self.devices for d in row]})")
+
+
+class RasterSharding(NamedTuple):
+    """The block layout of a raster over a mesh: the counterpart of a
+    ``NamedSharding``; `spec` names the mesh axis each dim is split over
+    (None: not split, held whole by every block)."""
+    mesh: RasterMesh
+    spec: tuple
+
+
+def make_raster_mesh(n_y: Optional[int] = None, n_x: Optional[int] = None,
+                     devices: Optional[Sequence] = None) -> RasterMesh:
+    """A 2D ('y', 'x') mesh over `devices`, by default every visible card.
+
+    With neither `n_y` nor `n_x` the factorisation is the square-ish one
+    of the JAX package.  Without a card the default raises: a mesh on the
+    CPU is asked for by name, ``devices=[torch.device("cpu")] * n``.
+    """
+    if devices is None:
+        if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+            raise RuntimeError(
+                "make_raster_mesh: no CUDA device is visible; pass "
+                "devices=[torch.device('cpu')] * n for a mesh on the CPU")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    if n_y is None and n_x is None:
+        n_y = int(np.floor(np.sqrt(n)))
+        while n % n_y:
+            n_y -= 1
+        n_x = n // n_y
+    elif n_y is None:
+        n_y = n // n_x
+    elif n_x is None:
+        n_x = n // n_y
+    if n_y * n_x > n or n_y < 1 or n_x < 1:
+        raise ValueError(f"mesh {n_y}x{n_x} needs more than {n} devices")
+    return RasterMesh([devices[i * n_x:(i + 1) * n_x] for i in range(n_y)])
+
+
+def raster_sharding(mesh: RasterMesh, ndim: int = 2) -> RasterSharding:
+    """The layout placing the trailing (y, x) dims over the mesh."""
+    return RasterSharding(mesh, (None,) * (ndim - 2) + ("y", "x"))
+
+
+def tile_size(n: int, m: int) -> int:
+    """Cells of a tile when n cells are split over m blocks."""
+    return -(-n // m)
+
+
+def tile_extent(n: int, m: int, i: int) -> tuple:
+    """(start, stop) of tile i of n cells split over m blocks."""
+    t = tile_size(n, m)
+    return min(i * t, n), min((i + 1) * t, n)
+
+
+class ShardedRaster:
+    """One global raster held as a grid of blocks over a ``RasterMesh``.
+
+    ``blocks[i][j]`` lies on ``mesh.device(i, j)``; `split` says per
+    spatial axis (y, x) whether the blocks split it into tiles or each
+    holds it whole.  Leading dims (a stats axis) are held whole by every
+    block.  Built by ``distribute`` and by the ops' mesh branches.
+    """
+
+    __slots__ = ("blocks", "shape", "mesh", "split")
+
+    def __init__(self, blocks, shape, mesh: RasterMesh, split):
+        self.blocks = tuple(tuple(row) for row in blocks)
+        self.shape = tuple(int(s) for s in shape)
+        self.mesh = mesh
+        self.split = (bool(split[0]), bool(split[1]))
+        ny, nx = mesh.shape["y"], mesh.shape["x"]
+        if len(self.blocks) != ny or any(len(r) != nx for r in self.blocks):
+            raise ValueError(f"a {ny}x{nx} mesh needs {ny}x{nx} blocks")
+        for i in range(ny):
+            for j in range(nx):
+                b = self.blocks[i][j]
+                want = self.shape[:-2] + (self.extent(0, i)[1]
+                                          - self.extent(0, i)[0],
+                                          self.extent(1, j)[1]
+                                          - self.extent(1, j)[0])
+                if tuple(b.shape) != want or b.device != mesh.device(i, j):
+                    raise ValueError(
+                        f"block ({i}, {j}) is {tuple(b.shape)} on "
+                        f"{b.device}; the layout needs {want} on "
+                        f"{mesh.device(i, j)}")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0][0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def extent(self, axis: int, i: int) -> tuple:
+        """(start, stop) of the cells block index i holds along spatial
+        `axis` (0: y, 1: x)."""
+        n = self.shape[-2 + axis]
+        if not self.split[axis]:
+            return 0, n
+        return tile_extent(n, (self.mesh.shape["y"], self.mesh.shape["x"])
+                           [axis], i)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole raster as one tensor on `device` (the first block's
+        device by default): an explicit copy of every block."""
+        dev = self.blocks[0][0].device if device is None \
+            else torch.device(device)
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        ny, nx = len(self.blocks), len(self.blocks[0])
+        for i in range(ny if self.split[0] else 1):
+            for j in range(nx if self.split[1] else 1):
+                y0, y1 = self.extent(0, i)
+                x0, x1 = self.extent(1, j)
+                out[..., y0:y1, x0:x1].copy_(self.blocks[i][j])
+        return out
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.gather("cpu").numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def copy(self) -> "ShardedRaster":
+        """A deep copy, block for block."""
+        return self.map_blocks(torch.clone)
+
+    def map_blocks(self, fn: Callable) -> "ShardedRaster":
+        """A raster of the same layout holding ``fn(block)`` for each block
+        (`fn` keeps the two spatial dims; it may change the dtype and the
+        leading dims)."""
+        blocks = [[fn(b) for b in row] for row in self.blocks]
+        lead = tuple(blocks[0][0].shape[:-2])
+        return ShardedRaster(blocks, lead + self.shape[-2:], self.mesh,
+                             self.split)
+
+    def __repr__(self) -> str:
+        return (f"ShardedRaster(shape={self.shape}, dtype={self.dtype}, "
+                f"split={self.split}, mesh={self.mesh!r})")
+
+
+def zip_blocks(fn: Callable, *rasters: ShardedRaster) -> ShardedRaster:
+    """A raster holding ``fn(i, j, *blocks)`` for the blocks (i, j) of
+    `rasters`, which share one layout; the result takes the first's."""
+    x = rasters[0]
+    for r in rasters[1:]:
+        if r.mesh is not x.mesh or r.split != x.split \
+                or r.shape[-2:] != x.shape[-2:]:
+            raise ValueError("zip_blocks takes rasters of one layout")
+    blocks = [[fn(i, j, *(r.blocks[i][j] for r in rasters))
+               for j in range(len(row))] for i, row in enumerate(x.blocks)]
+    return ShardedRaster(blocks, tuple(blocks[0][0].shape[:-2])
+                         + x.shape[-2:], x.mesh, x.split)
+
+
+def _copy_to(t: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous copy of `t` on `device`."""
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+def distribute(data, mesh: RasterMesh) -> ShardedRaster:
+    """Place an array (a tensor, a numpy array or a DataArray payload) on
+    the mesh, its trailing (y, x) dims in blocks.
+
+    A dim that divides its mesh axis is split into equal tiles; one that
+    does not is held whole by every block along that axis (replicated),
+    with a warning, as in the JAX package.
+    """
+    if isinstance(data, ShardedRaster):
+        data = data.gather()
+    if not isinstance(data, torch.Tensor):
+        data = torch.from_numpy(np.require(np.asarray(data),
+                                           requirements="W"))
+    shape = tuple(data.shape)
+    split = (shape[-2] % mesh.shape["y"] == 0,
+             shape[-1] % mesh.shape["x"] == 0)
+    for ax, s, size in (("y", split[0], shape[-2]),
+                        ("x", split[1], shape[-1])):
+        if not s and mesh.shape[ax] > 1:
+            warnings.warn(
+                f"distribute: dim of size {size} does not divide the mesh "
+                f"'{ax}' axis ({mesh.shape[ax]} devices); that dim is "
+                "REPLICATED, not sharded. Pad the raster to a multiple of "
+                "the mesh shape to distribute it.",
+                UserWarning, stacklevel=2)
+    ny, nx = mesh.shape["y"], mesh.shape["x"]
+    ys = [tile_extent(shape[-2], ny, i) if split[0] else (0, shape[-2])
+          for i in range(ny)]
+    xs = [tile_extent(shape[-1], nx, j) if split[1] else (0, shape[-1])
+          for j in range(nx)]
+    blocks = [[_copy_to(data[..., ys[i][0]:ys[i][1], xs[j][0]:xs[j][1]],
+                        mesh.device(i, j)) for j in range(nx)]
+              for i in range(ny)]
+    return ShardedRaster(blocks, shape, mesh, split)
+
+
+def get_raster_mesh(arr) -> Optional[RasterMesh]:
+    """The mesh `arr` is split over, or None: for anything but a
+    ``ShardedRaster``, for a mesh of one device and for a raster that no
+    block splits (each block holds all of it).  Ops call this to choose
+    between the single-device path and the mesh branch."""
+    if not isinstance(arr, ShardedRaster):
+        return None
+    if arr.mesh.size <= 1 or not any(arr.split):
+        return None
+    return arr.mesh
+
+
+def tiles(x: ShardedRaster) -> ShardedRaster:
+    """`x` split on both axes: a replicated axis is cut into tiles where
+    each block already holds it (no copy between devices)."""
+    if all(x.split):
+        return x
+    ny, nx = x.mesh.shape["y"], x.mesh.shape["x"]
+    h, w = x.shape[-2:]
+    blocks = []
+    for i in range(ny):
+        row = []
+        for j in range(nx):
+            b = x.blocks[i][j]
+            if not x.split[0]:
+                y0, y1 = tile_extent(h, ny, i)
+                b = b[..., y0:y1, :]
+            if not x.split[1]:
+                x0, x1 = tile_extent(w, nx, j)
+                b = b[..., x0:x1]
+            row.append(b.contiguous())
+        blocks.append(row)
+    return ShardedRaster(blocks, x.shape, x.mesh, (True, True))
+
+
+def _sources(n: int, m: int, g0: int, g1: int):
+    """The tiles holding cells [g0, g1) of n split over m, clipped to
+    [0, n): (tile, local start, local stop, offset from g0) each."""
+    t = tile_size(n, m)
+    out = []
+    a = max(g0, 0)
+    b = min(g1, n)
+    while a < b:
+        i = a // t
+        stop = min(b, (i + 1) * t)
+        out.append((i, a - i * t, stop - i * t, a - g0))
+        a = stop
+    return out
+
+
+def _empty_filled_outside(shape, dtype, device, rows, cols, fill):
+    """An uninitialised tensor of `shape` with `fill` everywhere outside
+    the window ``[rows[0], rows[1]) x [cols[0], cols[1])`` of its last two
+    dims, which the caller then writes: the fill touches only the strips
+    around it."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    h, w = shape[-2:]
+    r0, r1 = min(max(rows[0], 0), h), min(max(rows[1], 0), h)
+    c0, c1 = min(max(cols[0], 0), w), min(max(cols[1], 0), w)
+    if r1 <= r0 or c1 <= c0:
+        return out.fill_(fill)
+    out[..., :r0, :].fill_(fill)
+    out[..., r1:, :].fill_(fill)
+    out[..., r0:r1, :c0].fill_(fill)
+    out[..., r0:r1, c1:].fill_(fill)
+    return out
+
+
+def _row_pitch(width: int, dtype: torch.dtype) -> int:
+    item = torch.empty((), dtype=dtype).element_size()
+    per = max(1, ROW_ALIGN_BYTES // item)
+    return -(-width // per) * per
+
+
+def halo_extend(x: ShardedRaster, halo: HaloSpec, fill=math.nan) -> list:
+    """Each tile of `x` with radius-(ry, rx) halos from its neighbours.
+
+    Returns a grid (lists of lists) of tensors, block (i, j) on its
+    device, of shape ``(..., t_y + 2*ry, p)``: tile (i, j) at rows
+    ``[ry, ry + t_y)`` and columns ``[rx, rx + t_x)`` where ``t_y``,
+    ``t_x`` are the full tile sizes, ``p`` the width ``t_x + 2*rx``
+    rounded up to ``ROW_ALIGN_BYTES``.  Cells beyond the raster (the
+    outer halo, a short tile's padding, the extra columns) are `fill`.
+    Two phases: x from the row of tiles, then y from the x-extended
+    column of tiles; a halo wider than a tile takes every tile it
+    covers.
+    """
+    x = tiles(x)
+    ry, rx = halo.ry, halo.rx
+    mesh = x.mesh
+    ny, nx = mesh.shape["y"], mesh.shape["x"]
+    h, w = x.shape[-2:]
+    ty, tx = tile_size(h, ny), tile_size(w, nx)
+    lead = x.shape[:-2]
+    pitch = _row_pitch(tx + 2 * rx, x.dtype)
+    # the cells the exchange writes: the raster's cells within the halo
+    # (not the row pitch's extra columns)
+    ext = [[_empty_filled_outside(
+        lead + (ty + 2 * ry, pitch), x.dtype, mesh.device(i, j),
+        (ry - i * ty, h - i * ty + ry),
+        (rx - j * tx, min(w - j * tx + rx, tx + 2 * rx)), fill)
+        for j in range(nx)] for i in range(ny)]
+    # phase 1: each tile's own rows, extended in x
+    for i in range(ny):
+        rows = x.blocks[i][0].shape[-2]
+        for j in range(nx):
+            dst = ext[i][j][..., ry:ry + rows, :]
+            for src, a, b, off in _sources(w, nx, j * tx - rx,
+                                           j * tx + tx + rx):
+                dst[..., off:off + b - a].copy_(
+                    x.blocks[i][src][..., a:b], non_blocking=True)
+    # phase 2: the halo rows, from the x-extended tiles above and below
+    if ry > 0:
+        for i in range(ny):
+            for j in range(nx):
+                for g0, d0 in ((i * ty - ry, 0), (i * ty + ty, ry + ty)):
+                    for src, a, b, off in _sources(h, ny, g0, g0 + ry):
+                        ext[i][j][..., d0 + off:d0 + off + b - a, :].copy_(
+                            ext[src][j][..., ry + a:ry + b, :],
+                            non_blocking=True)
+    return ext
+
+
+def shifted_blocks(x: ShardedRaster, dy: int, dx: int, fill) -> list:
+    """For each block of `x` (split on both axes), the tensor of its own
+    shape holding ``x[oy + a + dy, ox + b + dx]`` at (a, b), `fill` beyond
+    the raster: a window assembled on the block's device from the tiles
+    it overlaps (at most 2 x 2 of them)."""
+    if not all(x.split):
+        raise ValueError("shifted_blocks takes a raster split on both axes")
+    mesh = x.mesh
+    ny, nx = mesh.shape["y"], mesh.shape["x"]
+    h, w = x.shape[-2:]
+    out = []
+    for i in range(ny):
+        row = []
+        oy = x.extent(0, i)[0]
+        for j in range(nx):
+            blk = x.blocks[i][j]
+            hl, wl = blk.shape[-2:]
+            ox = x.extent(1, j)[0]
+            win = _empty_filled_outside(blk.shape, blk.dtype, blk.device,
+                                        (-oy - dy, h - oy - dy),
+                                        (-ox - dx, w - ox - dx), fill)
+            for si, a, b, offy in _sources(h, ny, oy + dy, oy + dy + hl):
+                for sj, c, d, offx in _sources(w, nx, ox + dx,
+                                               ox + dx + wl):
+                    win[..., offy:offy + b - a, offx:offx + d - c].copy_(
+                        x.blocks[si][sj][..., a:b, c:d], non_blocking=True)
+            row.append(win)
+        out.append(row)
+    return out
+
+
+def stencil_shard_map(kernel: Callable, mesh: RasterMesh, halo: HaloSpec,
+                      out_leading_dims: Optional[int] = None) -> Callable:
+    """Distribute a radius-(ry, rx) local kernel over the mesh.
+
+    Returns ``run(data, *args)`` for a ``ShardedRaster`` `data` on `mesh`:
+    each tile is extended by ``halo_extend`` (NaN beyond the raster),
+    ``kernel(extended, *args)`` computes a full-size output whose ring of
+    width (ry, rx) is edge garbage, and the tile's own cells are cropped
+    from it (a view: no copy).  The kernel may return extra leading dims
+    (a stats axis); with `out_leading_dims` given their number is
+    checked.  A kernel may also return a tuple of such outputs (several
+    products of one pass); the result is then a tuple.  Each result is
+    split over the same mesh on both axes.
+    """
+    ry, rx = halo.ry, halo.rx
+
+    def crop(out, hl, wl):
+        if out_leading_dims is not None and out.ndim != 2 + out_leading_dims:
+            raise ValueError(f"stencil_shard_map: the kernel gave "
+                             f"{out.ndim} dims, expected "
+                             f"{2 + out_leading_dims}")
+        return out[..., ry:ry + hl, rx:rx + wl]
+
+    def run(data: ShardedRaster, *args):
+        if data.mesh is not mesh:
+            raise ValueError("stencil_shard_map: the raster lies on another "
+                             "mesh")
+        t = tiles(data)
+        ext = halo_extend(t, halo)
+        outs = []
+        for i, row in enumerate(ext):
+            orow = []
+            for j in range(len(row)):
+                hl, wl = t.blocks[i][j].shape[-2:]
+                # each extended block is released once its kernel ran
+                e, row[j] = row[j], None
+                out = kernel(e, *args)
+                del e
+                orow.append(tuple(crop(o, hl, wl) for o in out)
+                            if isinstance(out, (tuple, list))
+                            else crop(out, hl, wl))
+            outs.append(orow)
+
+        def raster(grid):
+            lead = tuple(grid[0][0].shape[:-2])
+            return ShardedRaster(grid, lead + data.shape[-2:], mesh,
+                                 (True, True))
+
+        if isinstance(outs[0][0], tuple):
+            return tuple(raster([[o[q] for o in row] for row in outs])
+                         for q in range(len(outs[0][0])))
+        return raster(outs)
+
+    return run

@@ -12,8 +12,9 @@ tie-breaking.
 
 The output is NaN except along the found path, where cells carry the
 accumulated distance from the start, float64 on the surface's device (a
-numpy surface: the default device).  The JAX package's warning for a
-mesh-sharded surface comes with the mesh branches (ROADMAP A13).
+numpy surface: the default device; a surface split over a mesh: its
+first block's device).  A surface split over a mesh is gathered to the
+host with the JAX package's warning.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .parallel.halo import get_raster_mesh
 from .utils import get_dataarray_resolution, raster_device, wrap_like
 from .xr_compat import _to_numpy
 from .xrlib import DataArray
@@ -197,6 +199,13 @@ def a_star_search(surface: DataArray,
         raise ValueError("goal location outside the surface graph.")
 
     device = raster_device(surface)
+    if get_raster_mesh(surface.data) is not None:
+        # a sequential frontier expansion; the reference has no dask path
+        # for pathfinding either
+        warnings.warn(
+            "a_star_search: input is mesh-sharded but the search runs on "
+            "the HOST over a gathered copy (correct, not distributed).",
+            UserWarning, stacklevel=2)
     data = _to_numpy(surface.data)
     blocked = _not_crossable_mask(data, barriers)
 

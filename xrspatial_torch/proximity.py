@@ -6,7 +6,9 @@ distance (proximity), the target's raster value (allocation) and the
 compass bearing to it (direction) follow.  MANHATTAN on monotone axes takes
 the exact separable scan transform instead.  ``max_distance`` masks the
 result.  A raster on the card runs its rounds on the CUDA round kernel, a
-raster on the CPU on the torch twins.
+raster on the CPU on the torch twins; a raster split over a mesh runs
+them per block behind halo exchanges (``parallel/jfa_sharded.py``) and
+gives one split over the same mesh, equal to the unsharded result.
 
 Ties: where several targets are exactly equidistant, the transform's
 candidate order picks one; it is the JAX package's order, so allocation
@@ -25,7 +27,8 @@ import torch
 from .dataset_support import supports_dataset
 from .kernels.jfa import (EUCLIDEAN, GREAT_CIRCLE, MANHATTAN, jump_flood,
                           manhattan_scan_plan, packed_state_plan)
-from .utils import to_torch, wrap_like
+from .parallel.halo import get_raster_mesh, zip_blocks
+from .utils import raster_payload, wrap_like
 from .xrlib import DataArray
 
 __all__ = ["proximity", "allocation", "direction", "euclidean_distance",
@@ -124,21 +127,45 @@ def _process(raster, x, y, target_values, max_distance, distance_metric,
             raise ValueError(
                 "Invalid y-coordinate for great circle distance. "
                 "Must be in the range [-90, 90]")
-    img = to_torch(raster, dtype=None)
-    dev = img.device
+    img = raster_payload(raster, dtype=None)
+    mesh = get_raster_mesh(img)
 
     targets = tuple(float(v) for v in np.asarray(target_values).ravel())
     mplan = manhattan_scan_plan(xs_np, ys_np) if metric == MANHATTAN \
         else None
     pplan = packed_state_plan(xs_np, ys_np, metric)
+    px_np = _coords_of(raster, x, np.float64)
+    py_np = _coords_of(raster, y, np.float64)
+    bound = float(np.float32(max_distance))
+    if mesh is not None:
+        # the jump flood per block behind halos; the epilogue per block
+        mask = img.map_blocks(lambda b: _target_mask(b, targets))
+        res = jump_flood(mask, xs_np, ys_np, metric,
+                         values=img if mode == ALLOCATION else None,
+                         need_coords=(mode == DIRECTION),
+                         manhattan_plan=mplan, packed_plan=pplan, mesh=mesh)
+        rasters = [r for r in res if r is not None]
+
+        def block(i, j, dist, t_x, t_y, *t_val):
+            (y0, y1), (x0, x1) = res[0].extent(0, i), res[0].extent(1, j)
+            return _epilogue(mode, dist, t_x, t_y, *(t_val or (None,)),
+                             px_np[x0:x1], py_np[y0:y1], bound)
+
+        return zip_blocks(block, *rasters)
+    dev = img.device
     mask = _target_mask(img, targets)
     dist, t_x, t_y, t_val = jump_flood(
         mask, torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev),
         metric, values=img if mode == ALLOCATION else None,
         need_coords=(mode == DIRECTION), manhattan_plan=mplan,
         packed_plan=pplan)
-    # the bound in float32, as the distances are
-    reachable = torch.isfinite(t_x) & (dist <= float(np.float32(max_distance)))
+    return _epilogue(mode, dist, t_x, t_y, t_val, px_np, py_np, bound)
+
+
+def _epilogue(mode, dist, t_x, t_y, t_val, px_np, py_np, bound):
+    """The result of `mode` from the jump flood's planes; `bound` is
+    max_distance in float32, as the distances are."""
+    reachable = torch.isfinite(t_x) & (dist <= bound)
     if mode == PROXIMITY:
         return torch.where(reachable, dist, math.nan)
     if mode == ALLOCATION:
@@ -149,8 +176,9 @@ def _process(raster, x, y, target_values, max_distance, distance_metric,
     # matches only in float64.  The carried float32 target coordinates are
     # exact coordinate values, so == against the cells' own coordinates
     # still holds at the target itself.
-    px = torch.from_numpy(_coords_of(raster, x, np.float64)).to(dev)[None, :]
-    py = torch.from_numpy(_coords_of(raster, y, np.float64)).to(dev)[:, None]
+    dev = dist.device
+    px = torch.from_numpy(np.ascontiguousarray(px_np)).to(dev)[None, :]
+    py = torch.from_numpy(np.ascontiguousarray(py_np)).to(dev)[:, None]
     return torch.where(reachable,
                        _compass_direction(px, t_x.to(torch.float64), py,
                                           t_y.to(torch.float64)),

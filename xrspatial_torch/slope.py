@@ -14,7 +14,8 @@ from .dataset_support import supports_dataset
 from .kernels.geodesic import WGS84_A2, WGS84_B2, geodesic_slope
 from .kernels.surface import run_surface_op
 from .utils import (Z_UNITS, _extract_latlon_coords,
-                    get_dataarray_resolution, to_torch, wrap_like)
+                    get_dataarray_resolution, raster_payload, to_torch,
+                    wrap_like)
 from .xrlib import DataArray
 
 __all__ = ["slope"]
@@ -51,7 +52,8 @@ def slope(agg: DataArray,
             f"method must be 'planar' or 'geodesic', got {method!r}")
     if method == 'planar':
         cellsize_x, cellsize_y = get_dataarray_resolution(agg)
-        out = run_surface_op("slope", to_torch(agg), cellsize_x, cellsize_y)
+        out = run_surface_op("slope", raster_payload(agg), cellsize_x,
+                             cellsize_y)
     else:
         if z_unit not in Z_UNITS:
             raise ValueError(

@@ -16,7 +16,10 @@ for a torch payload: no cupy and no dask.  float64 is native in torch, so
 
 A numpy payload goes to the default device, which is the card (``cuda``)
 unless ``set_default_device`` says otherwise; a tensor payload stays on
-its own device.
+its own device.  A raster split over a device mesh (a
+``parallel.ShardedRaster``) is taken as it is by the ops with a mesh
+branch (``raster_payload``); ``to_torch`` refuses it, so an op with no
+mesh form raises (ROADMAP A13b) instead of gathering the raster.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .parallel.halo import ShardedRaster, get_raster_mesh
 from .xr_compat import _to_numpy
 from .xrlib import DataArray
 
@@ -53,6 +57,9 @@ __all__ = [
     "get_dataarray_resolution",
     "validate_arrays",
     "to_torch",
+    "raster_payload",
+    "blockwise",
+    "refuse_mesh",
     "wrap_like",
     "dataarray_from",
     "set_default_device",
@@ -143,11 +150,13 @@ def validate_arrays(*arrays):
 
 
 def raster_device(agg) -> torch.device:
-    """The device a raster's results go to: its tensor's, or for a numpy
-    payload the default device."""
+    """The device a raster's results go to: its tensor's (a mesh raster's
+    first block's), or for a numpy payload the default device."""
     data = agg.data if isinstance(agg, DataArray) else agg
     if isinstance(data, torch.Tensor):
         return data.device
+    if isinstance(data, ShardedRaster):
+        return data.blocks[0][0].device
     return _payload_device(None)
 
 
@@ -158,9 +167,16 @@ def to_torch(agg, dtype: Optional[torch.dtype] = torch.float32,
     A tensor stays on its own device unless `device` is given; a numpy
     payload goes to `device`, or to the default device
     (``default_device()``).  No copy is made when the payload already has
-    the requested dtype and device.
+    the requested dtype and device.  A ``ShardedRaster`` that no block
+    splits (a one-device mesh, or a raster every block holds whole) gives
+    its first block; one split over a mesh raises ``NotImplementedError``:
+    the op has no mesh form yet (ROADMAP A13b), and the raster is not
+    gathered behind the caller's back.
     """
     data = agg.data if isinstance(agg, DataArray) else agg
+    if isinstance(data, ShardedRaster):
+        refuse_mesh(data)
+        data = data.blocks[0][0]
     if not isinstance(data, torch.Tensor):
         device = _payload_device(device)
         # torch.from_numpy needs a writeable array (read-only views of
@@ -168,6 +184,38 @@ def to_torch(agg, dtype: Optional[torch.dtype] = torch.float32,
         data = torch.from_numpy(np.require(np.asarray(data),
                                            requirements="W"))
     return data.to(device=device, dtype=dtype)
+
+
+def blockwise(fn, data):
+    """``fn(data)``, or for a raster split over a mesh the raster of the
+    same layout holding ``fn`` of each block."""
+    if get_raster_mesh(data) is not None:
+        return data.map_blocks(fn)
+    return fn(data)
+
+
+def refuse_mesh(*aggs) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP A13b) if any payload is split
+    over a mesh: for the host functions, which would otherwise gather it."""
+    for agg in aggs:
+        data = agg.data if isinstance(agg, DataArray) else agg
+        if get_raster_mesh(data) is not None:
+            raise NotImplementedError(
+                "this op has no mesh form in xrspatial_torch yet (ROADMAP "
+                "A13b): its raster is split over a device mesh; gather it "
+                "with .data.gather() to run it on one device")
+
+
+def raster_payload(agg, dtype: Optional[torch.dtype] = torch.float32):
+    """The payload of an op that has a mesh branch: a raster split over a
+    mesh as a ``ShardedRaster`` of `dtype` (None: as it is), anything else
+    as ``to_torch`` gives it."""
+    data = agg.data if isinstance(agg, DataArray) else agg
+    if get_raster_mesh(data) is None:
+        return to_torch(agg, dtype)
+    if dtype is None or data.dtype == dtype:
+        return data
+    return data.map_blocks(lambda b: b.to(dtype))
 
 
 def wrap_like(agg, out, name: Optional[str] = None) -> DataArray:

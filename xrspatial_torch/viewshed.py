@@ -14,18 +14,24 @@ float64 on the raster's device.
 Larger rasters, and ``exact=False``, take the XDraw octant-scan
 approximation (``kernels/viewshed.py::viewshed_grid_los``, float32): its
 four half-plane scans run in one launch of the CUDA kernel
-``csrc/xdraw.cu`` on the card, in the torch twin on the CPU.  The JAX
-package's mesh branches are not ported (ROADMAP A13).
+``csrc/xdraw.cu`` on the card, in the torch twin on the CPU.
+
+On a raster split over a mesh the exact predicate runs on one device,
+with the JAX package's warning (the raster is gathered to its first
+block's device); the XDraw approximation has no mesh form yet (the JAX
+package's banded distributed scan, ROADMAP A13b) and raises.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Union
 
 import numpy as np
 
 from .kernels.viewshed import viewshed_grid_los
 from .kernels.viewshed_exact import viewshed_grid_exact
+from .parallel.halo import get_raster_mesh
 from .utils import to_torch, wrap_like
 from .xrlib import DataArray
 
@@ -85,10 +91,25 @@ def viewshed(raster: DataArray,
 
     use_exact = (height * width <= _EXACT_MAX_CELLS
                  if exact is None else bool(exact))
+    mesh = get_raster_mesh(raster.data)
+    if mesh is not None and not use_exact:
+        raise NotImplementedError(
+            "viewshed's XDraw approximation has no mesh form in "
+            "xrspatial_torch yet (ROADMAP A13b): the raster is split over "
+            "a device mesh")
     if use_exact:
-        out = viewshed_grid_exact(to_torch(raster, dtype=None), y_view,
-                                  x_view, observer_elev, target_elev, ew_res,
-                                  ns_res)
+        if mesh is not None:
+            # the exact bucket evaluation is host-orchestrated (no
+            # distributed formulation)
+            warnings.warn(
+                "viewshed(exact): input is mesh-sharded but the exact "
+                "predicate runs on ONE device (correct, not distributed).",
+                UserWarning, stacklevel=2)
+            elev = raster.data.gather()
+        else:
+            elev = to_torch(raster, dtype=None)
+        out = viewshed_grid_exact(elev, y_view, x_view, observer_elev,
+                                  target_elev, ew_res, ns_res)
     else:
         out = viewshed_grid_los(to_torch(raster), y_view, x_view,
                                 observer_elev, target_elev, ew_res, ns_res)

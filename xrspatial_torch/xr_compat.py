@@ -15,6 +15,11 @@ the tensor before it writes, so no other DataArray sharing it (a shallow
 copy, a view) sees the write, as no jax array can be written in place.
 One deliberate difference: a DataArray hashes by identity, although
 ``==`` compares elementwise (the JAX shim makes it unhashable).
+
+The payload may also be a ``parallel.ShardedRaster``, a raster in blocks
+over a device mesh, as a JAX shim's may be a sharded ``jax.Array``: the
+ops with a mesh branch take it as it is, ``.values`` gathers it to the
+host, as ``np.asarray`` gathers a sharded array.
 """
 
 from __future__ import annotations
@@ -26,11 +31,13 @@ from typing import Any, Hashable, Iterator, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .parallel.halo import ShardedRaster
+
 __all__ = ["DataArray", "Dataset", "concat"]
 
 
 def _is_array(obj) -> bool:
-    return isinstance(obj, (np.ndarray, torch.Tensor))
+    return isinstance(obj, (np.ndarray, torch.Tensor, ShardedRaster))
 
 
 def _asarray(obj):
@@ -43,7 +50,8 @@ def _asarray(obj):
 
 
 def _to_numpy(obj) -> np.ndarray:
-    """Explicit host copy of a payload."""
+    """Explicit host copy of a payload (a ``ShardedRaster`` is gathered,
+    as ``np.asarray`` gathers a sharded ``jax.Array``)."""
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     return np.asarray(obj)
@@ -681,7 +689,11 @@ class DataArray:
 
     def __repr__(self) -> str:
         shape = ", ".join(f"{d}: {s}" for d, s in zip(self._dims, self.shape))
-        device = getattr(self._data, "device", "host")
+        if isinstance(self._data, ShardedRaster):
+            mesh = self._data.mesh.shape
+            device = f"a {mesh['y']}x{mesh['x']} mesh"
+        else:
+            device = getattr(self._data, "device", "host")
         return (f"<torch.DataArray {self.name!r} ({shape}) {self.dtype} "
                 f"on {device}>")
 

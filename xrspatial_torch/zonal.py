@@ -44,7 +44,7 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .utils import default_device, to_torch, validate_arrays
+from .utils import default_device, refuse_mesh, to_torch, validate_arrays
 from .xrlib import DataArray, Dataset
 
 __all__ = ["stats", "crosstab", "apply", "regions", "trim", "crop",
@@ -268,6 +268,7 @@ def stats_columns(
     """The work of ``stats`` for one DataArray of values: the DataFrame's
     columns as ``{"zone": ..., stat: ...}`` of numpy arrays, or, for
     ``return_type='xarray.DataArray'``, the (stats, y, x) DataArray."""
+    refuse_mesh(zones, values)
     validate_arrays(zones, values)
     for arr, label in ((zones, "zones"), (values, "values")):
         dt = _np_dtype(arr.data)
@@ -411,6 +412,7 @@ def crosstab_columns(
 ) -> dict:
     """The work of ``crosstab``: the DataFrame's columns as ``{"zone":
     ..., category: ...}`` of numpy arrays."""
+    refuse_mesh(zones, values)
     agg_2d = ("count", "percentage")
     agg_3d = ("min", "max", "mean", "sum", "std", "var", "count")
     if values.ndim == 2:
@@ -533,6 +535,7 @@ def apply(zones: DataArray, values: DataArray, func: Callable,
         raise TypeError("zones must be instance of DataArray")
     if not isinstance(values, DataArray):
         raise TypeError("values must be instance of DataArray")
+    refuse_mesh(zones, values)
     if zones.ndim != 2:
         raise ValueError("zones must be 2D")
     if values.ndim not in (2, 3):

@@ -259,7 +259,29 @@ Phases, each fatal on failure:
    unsharded call's; where more than one card is visible, the same
    paths on a mesh of every card (their halo strips peer copies, timed
    by the host clock between synchronisations of every card); one JSON
-   line ``{"a13_mesh_paths": {...}}``.
+   line ``{"a13_mesh_paths": {...}}``;
+28. A13b on meshes of one card: X1's strip route (``xdraw_banded_kernel``
+   on a strip, one cooperative launch a strip a window of L steps) against the strip
+   twin on the card at 4096^2, bit for bit, on a 2x2 mesh whose strips are
+   narrower than L, the viewpoint on strips' edge lanes; ``viewshed(exact=False)`` at 16384^2 at the JAX bench's
+   viewpoint on 2x2 and 1x4 meshes, equal to the unsharded call bit for
+   bit, only strip launches inside the call (``cuda_xdraw.
+   XDRAW_STRIP_LAUNCHES``, no single-card X1), warm ms and peak memory
+   beside the unsharded call's; the strip route at every L of
+   ``XDRAW_STRIP_STEPS``, in turns; then every op the JAX package leaves
+   to GSPMD on the 2x2 mesh against the unsharded call, no kernel
+   launched: the indices, ``true_color``, the local tools, the
+   classifiers, ``zonal_stats`` (zones ``floor(dem / 100)``),
+   ``zonal_crosstab``, ``trim``, ``crop`` and ``hillshade(shadows=True)``
+   at 16384^2, ``regions`` and ``natural_breaks`` at 4096^2, the host
+   functions (which warn and gather) ``maximum_breaks`` and
+   ``zonal_apply`` at 4096^2,
+   ``polygonize`` at 512^2, ``combine`` at 1024^2, geodesic slope on a
+   3600^2 tile; bit for bit but ``zonal_stats``' sums (rtol 1e-12) and
+   the breaks of ``std_mean`` and ``head_tail_breaks`` (rtol 1e-6, classes
+   equal off them); where more than one card is visible, the viewshed
+   and the ops on a mesh of every card; one JSON line
+   ``{"a13b_mesh_paths": {...}}``.
 
 The line before the last is a JSON object describing each kernel, with the
 least time the card could take for the same work (``bound_ms``: the larger
@@ -1289,6 +1311,7 @@ def reset_launches():
     from xrspatial_torch.kernels import cuda_bump, cuda_xdraw
     cuda_xdraw.XDRAW_LAUNCHES = cuda_bump.BUMP_LAUNCHES = 0
     cuda_xdraw.XDRAW_SIMPLE_LAUNCHES = cuda_bump.BUMP_SIMPLE_LAUNCHES = 0
+    cuda_xdraw.XDRAW_STRIP_LAUNCHES = 0
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
     cuda_surface.STAGED_TMA_LAUNCHES = cuda_surface.STAGED_ASYNC_LAUNCHES = 0
     cuda_surface.SIMPLE_LAUNCHES = 0
@@ -1355,6 +1378,7 @@ def read_launches():
             "jfa_group": cuda_jfa_group.LAUNCHES,
             "xdraw_scan": cuda_xdraw.XDRAW_LAUNCHES,
             "xdraw_simple": cuda_xdraw.XDRAW_SIMPLE_LAUNCHES,
+            "xdraw_strip": cuda_xdraw.XDRAW_STRIP_LAUNCHES,
             "bump_scan": cuda_bump.BUMP_LAUNCHES,
             "bump_simple": cuda_bump.BUMP_SIMPLE_LAUNCHES}
 
@@ -4473,7 +4497,8 @@ def mesh_blocks_equal(out, ref):
     for i, row in enumerate(out.blocks):
         for j, blk in enumerate(row):
             (y0, y1), (x0, x1) = out.extent(0, i), out.extent(1, j)
-            if not same_bits(blk.to(ref.device), ref[..., y0:y1, x0:x1]):
+            if not same_bits(blk.to(ref.device), ref[out.index_of(
+                    slice(y0, y1), slice(x0, x1))]):
                 return False
     return True
 
@@ -4786,6 +4811,453 @@ def mesh_paths(dev, card):
         rows["distinct_cards"] = "not run: one card visible"
     print(f"  phase 27: {time.perf_counter() - t_phase:.1f} s, {card}")
     print(json.dumps({"a13_mesh_paths": rows}))
+
+
+# -- phase 28: A13b, the XDraw viewshed on a mesh and the GSPMD ops --------
+
+A13B_N = N                  # the mesh viewshed's and the ops' raster edge
+STRIP_N = 4096              # the strip route against its twin on the card
+# (mesh, viewpoint, step window L): on a 2x2 mesh, strips of 1024 lanes
+# narrower than L, the viewpoint on the first lane of the second row strip
+# and of the third column strip (the twin takes ~14 s a case on the card)
+STRIP_CASES = (((2, 2), (1024, 2048), 2048),)
+XDRAW_STRIP_STEPS = (64, 256, 1024, 4096)   # the step windows L swept
+A13B_HOST_N = 4096          # the host functions' edge (maximum_breaks,
+#                             zonal_apply) and natural_breaks', as phase
+#                             23's
+A13B_GEO_N = 3600           # one SRTM tile less a row and a column, so
+#                             that 2x2 splits it; the unsharded geodesic
+#                             fit at 16384^2 would need ~300 GB
+A13B_REGIONS_N = 4096       # regions' rings cross every block
+A13B_POLY_N = 512           # polygonize and combine run in host numpy:
+A13B_COMBINE_N = 1024       # ~5 s a call at 1024^2 and 2048^2
+A13B_REPS = 2
+A13B_BREAK_RTOL = 1e-6
+A13B_SUM_RTOL = 1e-12
+
+
+def strip_halo_reads(h, w, vp, parts, steps):
+    """Slope cells the strip route reads beyond the cone's: each strip's
+    halo lanes' cone cells, once a strip (the halo is recomputed, not
+    exchanged)."""
+    from xrspatial_torch.kernels.viewshed import strip_halos
+    total = 0
+    for n, vp_lane, major, vp_major in ((h, vp[0], w, vp[1]),
+                                        (w, vp[1], h, vp[0])):
+        s = -(-n // parts)
+        for p, (lo, hi) in enumerate(strip_halos(n, parts, vp_lane, steps)):
+            lanes = list(range(p * s - lo, p * s)) + list(
+                range(p * s + s, p * s + s + hi))
+            for lane in lanes:
+                d = max(abs(lane - vp_lane), 1)
+                # forward and reverse: steps with k - vpm >= d
+                total += max(0, major - 1 - vp_major - d + 1)
+                total += max(0, vp_major - d + 1)
+    return total
+
+
+def check_strip_route(dev, card):
+    """The strip route (kernel) against the strip twin, both on the card,
+    at STRIP_N^2: a 2x2 mesh whose strips are narrower than L, the
+    viewpoint on strips' edge lanes.  Returns (twin ms, kernel ms) of the
+    first case, each one call."""
+    import torch
+    from xrspatial_torch.kernels import cuda_xdraw, viewshed as kv
+    from xrspatial_torch.parallel import distribute, make_raster_mesh
+    n = STRIP_N
+    dem = gaussian_bump(n, n, dev)
+    times = None
+    for (ny, nx), vp, steps in STRIP_CASES:
+        mesh = make_raster_mesh(ny, nx, devices=[dev] * (ny * nx))
+        slope = kv._xdraw_fields(dem, *vp, XDRAW_VIEW[2], 0.0, 1.0, -1.0)[3]
+        split = distribute(slope, mesh)
+        reset_launches()
+        got, k_ms, _ = timed_run(
+            lambda: kv.xdraw_mesh_max_slope(split, *vp, steps=steps), 0)
+        launched = {k: v for k, v in read_launches().items() if v}
+        plan = kv.xdraw_strip_plan(n, n, *vp, mesh.size, steps=steps)
+        if set(launched) != {"xdraw_strip"}:
+            raise SmokeFailure(f"strip route at {n}^2: launches {launched}")
+        real = kv._strip_on_card
+        kv._strip_on_card = lambda t: False      # the twin, on the card
+        try:
+            ref, t_ms, _ = timed_run(
+                lambda: kv.xdraw_mesh_max_slope(split, *vp, steps=steps), 0)
+        finally:
+            kv._strip_on_card = real
+        if cuda_xdraw.XDRAW_STRIP_LAUNCHES != launched["xdraw_strip"] \
+                or not mesh_blocks_equal(got, ref.gather()):
+            raise SmokeFailure(f"strip route at {n}^2 on {ny}x{nx}, vp {vp},"
+                               f" L {plan.steps}: differs from its twin")
+        if not same_bits(got.gather(), cuda_xdraw.xdraw_scan_cuda(slope,
+                                                                   *vp)):
+            raise SmokeFailure(f"strip route at {n}^2 on {ny}x{nx}: differs "
+                               f"from the unsharded X1")
+        s = -(-n // mesh.size)
+        print(f"  strip route at {n}^2 on a {ny}x{nx} mesh of one card, "
+              f"viewpoint {vp}, L {plan.steps} (strips of {s} lanes), bands "
+              f"of {plan.band}, chunks of {plan.chunk}: "
+              f"{launched['xdraw_strip']} launches, equal to the strip twin "
+              f"and to the unsharded X1 bit for bit; kernel {k_ms:.3f} ms, "
+              f"twin {t_ms:.1f} ms (one call each), {card}")
+        if times is None:
+            times = (t_ms, k_ms)
+        del got, ref, split, slope
+    del dem
+    torch.cuda.empty_cache()
+    return times
+
+
+def mesh_viewshed(n, mesh, dev, card, rows, ref=None):
+    """viewshed(exact=False) at n^2 on `mesh` against the unsharded call,
+    bit for bit; only strip launches inside the mesh call.  Returns (the
+    unsharded result, the mesh call's strip launches)."""
+    import torch
+    import xrspatial_torch as xt
+    x, y, oe = XDRAW_VIEW
+    whole, split = mesh_dem((n, n), dev, mesh)
+    kw = dict(x=x, y=y, observer_elev=oe, exact=False)
+    one_ms = one_gib = None
+    if ref is None:
+        ref, one_ms, one_gib = timed_run(lambda: xt.viewshed(whole, **kw).data,
+                                         A13B_REPS)
+    reset_launches()
+    out = xt.viewshed(split, **kw)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in read_launches().items() if v}
+    if set(launched) != {"xdraw_strip"}:
+        raise SmokeFailure(f"mesh viewshed at {n}^2: launches {launched} (no "
+                           f"X1 single-card launch allowed)")
+    mesh_checked(f"viewshed {n}", out.data, ref, mesh)
+    del out
+    torch.cuda.empty_cache()
+    ms, gib = mesh_timed(lambda: xt.viewshed(split, **kw), mesh)
+    label = f"viewshed_{mesh.shape['y']}x{mesh.shape['x']}"
+    print(f"  viewshed(exact=False) {n}^2 on a {mesh_name(mesh)}: {ms:.3f} ms "
+          f"warm, peak {gib:.2f} GiB"
+          + (f"; unsharded {one_ms:.3f} ms, peak {one_gib:.2f} GiB"
+             if one_ms is not None else "")
+          + f"; {launched['xdraw_strip']} strip launches, 0 X1, equal bit "
+          f"for bit; {card}")
+    rows[label] = {"op": "viewshed exact=False", "shape": [n, n],
+                   "mesh": mesh_name(mesh), "ms": ms, "peak_gib": gib,
+                   "unsharded_ms": one_ms, "unsharded_peak_gib": one_gib,
+                   "strip_launches": launched["xdraw_strip"],
+                   "x1_launches": 0, "card": card}
+    del split, whole
+    torch.cuda.empty_cache()
+    return ref, launched["xdraw_strip"]
+
+
+def strip_sweep(n, mesh, dev, card):
+    """xdraw_mesh_max_slope at n^2 on `mesh` for each step window of
+    XDRAW_STRIP_STEPS, in turns (forward, then backward), each equal to
+    the plan's bit for bit.  Returns ({L: [ms, ms]}, the plan's L ms,
+    (bytes, operations) of the function, the halo lanes' cone reads at
+    the plan's L)."""
+    import torch
+    from xrspatial_torch.kernels import viewshed as kv
+    from xrspatial_torch.parallel import distribute
+    vp = (n - 1 - int(XDRAW_VIEW[1]), int(XDRAW_VIEW[0]))
+    slope = kv._xdraw_fields(gaussian_bump(n, n, dev), *vp, XDRAW_VIEW[2],
+                             0.0, 1.0, -1.0)[3]
+    split = distribute(slope, mesh)
+    del slope
+    ref = kv.xdraw_mesh_max_slope(split, *vp)
+    plan = kv.xdraw_strip_plan(n, n, *vp, mesh.size)
+    sweep = {}
+    order = sorted(set(XDRAW_STRIP_STEPS) | {plan.steps})
+    for steps in order + order[::-1]:
+        got, ms, _ = timed_run(
+            lambda: kv.xdraw_mesh_max_slope(split, *vp, steps=steps), 1)
+        if not all(same_bits(a, b) for ra, rb in zip(got.blocks, ref.blocks)
+                   for a, b in zip(ra, rb)):
+            raise SmokeFailure(f"strip route at L {steps}: differs from the "
+                               f"plan's L")
+        sweep.setdefault(steps, []).append(ms)
+        del got
+    print(f"  strip route at {n}^2 on a {mesh_name(mesh)} by step window L "
+          f"(windows x strips launches), in turns: " + "; ".join(
+              f"L {k} ({-(-n // k) * mesh.size}) "
+              + ", ".join(f"{v:.3f}" for v in vs) + " ms"
+              for k, vs in sweep.items())
+          + f"; the plan takes L {plan.steps}, bands of {plan.band}, chunks "
+          f"of {plan.chunk}; {card}")
+    # the bound counts what the function needs, X1's: each cone cell read
+    # once, the field written once; the halo lanes' reads are the design's
+    # overhead, reported beside it
+    cone = xdraw_cone_reads(n, n, *vp)
+    halo = strip_halo_reads(n, n, vp, mesh.size, plan.steps)
+    work = (4 * (cone + n * n), XDRAW_OPS * cone)
+    del split, ref
+    torch.cuda.empty_cache()
+    return sweep, sum(sweep[plan.steps]) / len(sweep[plan.steps]), work, \
+        halo
+
+
+def a13b_ops(n, mesh, dev, card, rows):
+    """Every op the JAX package leaves to GSPMD, on `mesh` against the
+    unsharded call: elementwise, extremes, counts, labels and stencils bit
+    for bit; zonal_stats' float sums within rtol 1e-12; std_mean's and
+    head_tail_breaks' breaks within rtol 1e-6 (classes equal off them);
+    no kernel launched; results on the mesh (trim and crop: a window on
+    the first block's card; the host functions warn)."""
+    import torch
+    import xrspatial_torch as xt
+    from xrspatial_torch import classify, local, multispectral
+    from xrspatial_torch.experimental.polygonize import polygonize
+    from xrspatial_torch.parallel import distribute
+    g = torch.Generator(device=dev).manual_seed(28)
+
+    def pair(t, coords=None):
+        """(unsharded, split) DataArrays of tensor `t`."""
+        h, w = t.shape[-2:]
+        coords = coords or {"y": np.arange(h, dtype=float)[::-1].copy(),
+                            "x": np.arange(w, dtype=float)}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            s = distribute(t, mesh)
+        return (xt.DataArray(t, dims=("y", "x"), coords=coords),
+                xt.DataArray(s, dims=("y", "x"), coords=coords))
+
+    cards = sorted({d.index or 0 for row in mesh.devices for d in row})
+
+    def synced(out):
+        """`out` once every card of the mesh finished (an event times one
+        card's stream)."""
+        for c in cards:
+            torch.cuda.synchronize(c)
+        return out
+
+    def leg(label, call, args_whole, args_split, check, edge, host=False):
+        ref, one_ms, one_gib = timed_run(lambda: call(*args_whole), 0)
+        reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", UserWarning)
+            got, ms, gib = timed_run(lambda: synced(call(*args_split)), 0)
+        launched = {k: v for k, v in read_launches().items() if v}
+        if launched:
+            raise SmokeFailure(f"{label} on the mesh launched {launched}")
+        gathers = any("HOST" in str(w.message) for w in caught)
+        if gathers != host:
+            raise SmokeFailure(f"{label} on the mesh: gathered to the host "
+                               f"{gathers}, expected {host}")
+        note = check(got, ref)
+        print(f"  {label} {edge}^2 on a {mesh_name(mesh)}: {ms:.1f} ms, peak "
+              f"{gib:.2f} GiB; unsharded {one_ms:.1f} ms, peak "
+              f"{one_gib:.2f} GiB; {note}; {card}")
+        rows[label] = {"op": label, "shape": [edge, edge],
+                       "mesh": mesh_name(mesh), "ms": ms, "peak_gib": gib,
+                       "unsharded_ms": one_ms, "unsharded_peak_gib": one_gib,
+                       "check": note, "card": card}
+        del got, ref
+        torch.cuda.empty_cache()
+
+    def same(got, ref):
+        data = got.data if isinstance(got, xt.DataArray) else got
+        r = ref.data if isinstance(ref, xt.DataArray) else ref
+        if isinstance(data, torch.Tensor):
+            if not same_bits(data, r):
+                raise SmokeFailure("differs from the unsharded call")
+            return "one tensor, equal bit for bit"
+        mesh_checked("op", data, r, mesh)
+        return "equal bit for bit"
+
+    def frame(got, ref):
+        for col in ref.columns:
+            a, b = got[col].to_numpy(float), ref[col].to_numpy(float)
+            tol = A13B_SUM_RTOL if col in ("sum", "mean", "var", "std") \
+                else 0.0
+            if not np.allclose(a, b, rtol=tol, atol=0.0, equal_nan=True):
+                raise SmokeFailure(f"column {col} differs")
+        return "counts, min, max, majority equal, sums within rtol 1e-12"
+
+    dem = gaussian_bump(n, n, dev)
+    band2 = torch.rand((n, n), generator=g, device=dev) * 4000.0
+    whole, split = pair(dem)
+    b_whole, b_split = pair(band2)
+    leg("ndvi", xt.ndvi, (whole, b_whole), (split, b_split), same, n)
+    rgb = [pair(dem), pair(band2), pair(dem.flip(0))]
+    leg("true_color", lambda *a: multispectral.true_color(*a).data,
+        [p[0] for p in rgb], [p[1] for p in rgb],
+        lambda got, ref: (mesh_checked("true_color", got, ref, mesh)
+                          or "equal bit for bit, (y, x, band) blocks"), n)
+    del rgb
+    ds_whole = xt.Dataset({"a": whole, "b": b_whole,
+                           "c": pair(dem.t().contiguous())[0],
+                           "ref": pair(torch.floor(band2 / 1000.0))[0]})
+    ds_split = xt.Dataset({"a": split, "b": b_split,
+                           "c": pair(dem.t().contiguous())[1],
+                           "ref": pair(torch.floor(band2 / 1000.0))[1]})
+    for label, call in (
+            ("cell_stats median", lambda d: local.cell_stats(
+                d, ["a", "b", "c"], func="median")),
+            ("cell_stats std", lambda d: local.cell_stats(
+                d, ["a", "b", "c"], func="std")),
+            ("lesser_frequency", lambda d: local.lesser_frequency(d, "ref")),
+            ("highest_position", lambda d: local.highest_position(
+                d, ["a", "b", "c"])),
+            ("popularity", lambda d: local.popularity(d, "ref")),
+            ("rank", lambda d: local.rank(d, "ref"))):
+        leg(label, call, (ds_whole,), (ds_split,), same, n)
+    del ds_whole, ds_split
+    for label, call in (
+            ("binary", lambda a: xt.binary(a, [100.0, 500.0])),
+            ("reclassify", lambda a: xt.reclassify(a, [200.0, 600.0, 1e4],
+                                                   [1.0, 2.0, 3.0])),
+            ("equal_interval", lambda a: xt.equal_interval(a)),
+            ("std_mean", xt.std_mean),
+            ("head_tail_breaks", xt.head_tail_breaks)):
+        check = same
+        if label in ("std_mean", "head_tail_breaks"):
+            def check(got, ref, call=call):
+                return breaks_check(got, ref, call, whole, split, mesh)
+        leg(label, call, (whole,), (split,), check, n)
+    zones_t = torch.floor(dem / 100.0).to(torch.int32)
+    z_whole, z_split = pair(zones_t)
+    stats = ["mean", "max", "min", "sum", "std", "var", "count", "majority"]
+    leg("zonal_stats", lambda z, v: xt.zonal_stats(z, v, stats_funcs=stats),
+        (z_whole, whole), (z_split, split), frame, n)
+    cats_whole, cats_split = pair(torch.floor(band2 / 500.0))
+    leg("zonal_crosstab", xt.zonal_crosstab, (z_whole, cats_whole),
+        (z_split, cats_split),
+        lambda got, ref: frame(got, ref) and "counts equal", n)
+    del cats_whole, cats_split
+    leg("trim", lambda a: xt.trim(a, values=(0.0,)),
+        (pair(torch.where(dem > 900, dem, 0.0))[0],),
+        (pair(torch.where(dem > 900, dem, 0.0))[1],), same, n)
+    leg("crop", lambda z, v: xt.crop(z, v, [9]), (z_whole, whole),
+        (z_split, split), same, n)
+    leg("hillshade shadows", lambda a: xt.hillshade(
+        a, azimuth=SHADOW_SUN[0], angle_altitude=SHADOW_SUN[1],
+        shadows=True), (whole,), (split,), same, n)
+    del whole, split, b_whole, b_split, z_whole, z_split, zones_t, band2, dem
+    torch.cuda.empty_cache()
+
+    # the ones that do not fit 16384^2 or that run on the host
+    r = A13B_REGIONS_N
+    z_whole, z_split = pair(torch.floor(gaussian_bump(r, r, dev) / 100.0))
+    leg("regions", xt.regions, (z_whole,), (z_split,), same, r)
+    hn = A13B_HOST_N
+    h_whole, h_split = pair(torch.round(gaussian_bump(hn, hn, dev)))
+    leg("maximum_breaks", xt.maximum_breaks, (h_whole,), (h_split,), same, hn,
+        host=True)
+    # the fixed-seed shuffle of every cell's index takes ~25 s on the host
+    # at 16384^2, in both calls alike
+    leg("natural_breaks", xt.natural_breaks, (h_whole,), (h_split,), same,
+        hn)
+    hz_whole, hz_split = pair(torch.floor(h_whole.data / 100.0).to(
+        torch.int32))
+
+    def applied(z, v):
+        xt.zonal_apply(z, v, lambda a: a * 2.0)
+        return v.data
+    leg("zonal_apply", applied, (hz_whole, pair(h_whole.data.clone())[0]),
+        (hz_split, pair(h_whole.data.clone())[1]), same, hn, host=True)
+    pn = A13B_POLY_N
+    p_whole, p_split = pair(torch.floor(gaussian_bump(pn, pn, dev)
+                                        / POLY_CLASS_M))
+
+    def poly_check(got, ref):
+        if got[0] != ref[0] or len(got[1]) != len(ref[1]) or any(
+                not np.array_equal(a, b) for pa, pb in zip(got[1], ref[1])
+                for a, b in zip(pa, pb)):
+            raise SmokeFailure("polygonize differs from the unsharded call")
+        return f"{len(ref[0])} polygons equal"
+    leg("polygonize", polygonize, (p_whole,), (p_split,), poly_check, pn,
+        host=True)
+    cn = A13B_COMBINE_N
+    c = gaussian_bump(cn, cn, dev)
+    cw = xt.Dataset({"a": pair(torch.floor(c / 200.0))[0],
+                     "b": pair(torch.floor(c.t() / 300.0))[0]})
+    cs = xt.Dataset({"a": pair(torch.floor(c / 200.0))[1],
+                     "b": pair(torch.floor(c.t() / 300.0))[1]})
+    leg("combine", lambda d: local.combine(d).data, (cw,), (cs,),
+        lambda got, ref: same(got, ref) and "ids equal", cn, host=True)
+    gn = A13B_GEO_N
+    lat = GEO_LAT + 1.0 - np.arange(gn) / 3600.0
+    lon = GEO_LON + np.arange(gn) / 3600.0
+    g_whole, g_split = pair(gaussian_bump(gn, gn, dev),
+                            {"y": lat, "x": lon})
+    leg("geodesic slope", lambda a: xt.slope(a, method="geodesic"),
+        (g_whole,), (g_split,), same, gn)
+    del g_whole, g_split
+    torch.cuda.empty_cache()
+
+
+def breaks_check(got, ref, call, whole, split, mesh):
+    """std_mean / head_tail_breaks: the breaks within rtol 1e-6 of the
+    unsharded call's, the classes equal at every cell farther than that
+    from a break."""
+    import torch
+    from xrspatial_torch import classify
+    seen = []
+    real = classify._bin
+
+    def spy(data, bins, new_values):
+        seen.append(np.asarray(bins, dtype=np.float64))
+        return real(data, bins, new_values)
+    classify._bin = spy
+    try:
+        call(whole)
+        call(split)
+    finally:
+        classify._bin = real
+    ref_bins, bins = seen[0], seen[1]
+    if ref_bins.shape != bins.shape or not np.allclose(
+            bins, ref_bins, rtol=A13B_BREAK_RTOL, atol=0.0):
+        raise SmokeFailure(f"breaks {bins} differ from {ref_bins}")
+    data = whole.data
+    near = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
+    for b in ref_bins:
+        near |= (data - b).abs() <= A13B_BREAK_RTOL * abs(b)
+    far = ~near
+    g = got.data.gather(data.device)
+    r = ref.data
+    if not same_bits(torch.where(far, g, 0.0), torch.where(far, r, 0.0)):
+        raise SmokeFailure("classes differ away from the breaks")
+    return (f"breaks within rtol {A13B_BREAK_RTOL} (largest "
+            f"{float(np.max(np.abs(bins - ref_bins) / np.abs(ref_bins))):.2e})"
+            f", classes equal off {int(near.sum())} near-break cells")
+
+
+def a13b_paths(dev, card):
+    """Phase 28: A13b on the card.  Returns the strip route's kernels-line
+    numbers: (launches in the 2x2 mesh viewshed, plan-L ms at A13B_N^2,
+    twin ms at STRIP_N^2, (bytes, ops) at A13B_N^2, kernel ms at
+    STRIP_N^2, the halo lanes' cone reads at A13B_N^2)."""
+    import torch
+    from xrspatial_torch.parallel import make_raster_mesh
+    t_phase = time.perf_counter()
+    print(f"== A13b: X1's strip route, the XDraw viewshed on 2x2 and 1x4 "
+          f"meshes of one card, the GSPMD ops, {card}")
+    twin_ms, strip_kernel_ms = check_strip_route(dev, card)
+    rows = {}
+    two = make_raster_mesh(2, 2, devices=[dev] * 4)
+    ref, launches = mesh_viewshed(A13B_N, two, dev, card, rows)
+    mesh_viewshed(A13B_N, make_raster_mesh(1, 4, devices=[dev] * 4), dev,
+                  card, rows, ref)
+    sweep, strip_ms, work, halo = strip_sweep(A13B_N, two, dev, card)
+    rows["strip_sweep_ms"] = {str(k): v for k, v in sweep.items()}
+    rows["strip_halo_reads"] = halo
+    a13b_ops(A13B_N, two, dev, card, rows)
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        many, sub = make_raster_mesh(), {}
+        ref_many, _ = mesh_viewshed(A13B_N, many, dev, card, sub, ref)
+        del ref_many
+        a13b_ops(A13B_N, many, dev, card, sub)
+        sub["peak_gib_by_card"] = [torch.cuda.max_memory_allocated(c) / 2**30
+                                   for c in range(cards)]
+        rows["distinct_cards"] = sub
+    else:
+        print("  the mesh of distinct cards was not run: one card visible")
+        rows["distinct_cards"] = "not run: one card visible"
+    del ref
+    torch.cuda.empty_cache()
+    print(f"  phase 28: {time.perf_counter() - t_phase:.1f} s, {card}")
+    print(json.dumps({"a13b_mesh_paths": rows}))
+    return launches, strip_ms, twin_ms, work, strip_kernel_ms, halo
 
 
 # -- the least time of each kernel ------------------------------------------
@@ -5183,11 +5655,18 @@ def main() -> int:
     # -- A13: the mesh branches on one card -------------------------------------
     mesh_paths(dev, card)
 
+    # -- A13b: X1's strip route, the XDraw viewshed and the ops on a mesh -------
+    (launches["xdraw_strip"], strip_ms, strip_twin_ms, strip_work,
+     strip_4096_ms, strip_halo) = a13b_paths(dev, card)
+    ms["xdraw_strip"] = (strip_ms, strip_twin_ms)
+    max_err["xdraw_strip"] = 0.0           # equal to the twin bit for bit
+
     work = kernel_work(
         len(offsets), len(kernel_offsets(halo_footprints()["annulus_40_38"])),
         screen_counts)
     work["xdraw_scan"] = x1_work
     work["bump_scan"] = (*x2_work, F64_FLOP_S)
+    work["xdraw_strip"] = strip_work
     roof = probes["roof_gb_s"] * 1e9
     bounds = kernel_bounds(work, roof)
     print(f"== bounds: nominal {HBM_BYTES_S / 1e12:.2f} TB/s, measured stream "
@@ -5252,7 +5731,12 @@ def main() -> int:
         # no Pallas kernel: the JAX package's lax.scan over the bumps
         "bump_scan": (
         "xrspatial_torch/csrc/bump.cu",
-        "xrspatial_tpu/bump.py:25")}
+        "xrspatial_tpu/bump.py:25"),
+        # no Pallas kernel: the scan of the JAX package's banded
+        # distributed XDraw, a lax.scan inside shard_map
+        "xdraw_strip": (
+        "xrspatial_torch/csrc/xdraw.cu",
+        "xrspatial_tpu/kernels/viewshed.py:998")}
     # the design each redesigned kernel's timed launch ran
     halo = halo_plan(N, N, kernel_offsets(halo_footprints()["annulus_40_38"]),
                      0)
@@ -5310,6 +5794,20 @@ def main() -> int:
                       "tiles staged by cp.async, coalesced row writes, one "
                       "cooperative launch (plan in the a11_xdraw line); "
                       "first_port_ms with its transpose",
+        "xdraw_strip": "X1's strip route on a 2x2 mesh of one card: "
+                       "strips of lanes over the flattened mesh (east and "
+                       "west on rows, south and north on columns), one "
+                       "cooperative launch a strip a window of L steps "
+                       "(the banded kernel's bands, chunks and slots from a "
+                       "carry-in row), L halo lanes toward the viewpoint, "
+                       "halo carries copied between windows; ms at "
+                       f"{A13B_N}^2 (layouts and exchanges included), "
+                       f"plain_ms the strip twin on the card at {STRIP_N}^2 "
+                       f"(one call; the kernel {strip_4096_ms:.3f} ms "
+                       "there), the bound X1's (each cone cell read once, "
+                       "the field written once), halo_reads the halo "
+                       "lanes' redundant cone reads, the design's "
+                       "overhead, outside the bound",
         "bump_scan": "rounds: claim (64-bit atomicMax of round << 32 | "
                      "~index), test and apply, pack, while a round makes at "
                      "least 12 bumps ready, then one block walks the rest "
@@ -5338,6 +5836,7 @@ def main() -> int:
          **({"plan_bound_ms": plan_ms, "plan_bound_by": plan_by}
             if k == "screen_hilo" else {}),
          **({"chain_bound_ms": x1_chain_ms} if k == "xdraw_scan" else {}),
+         **({"halo_reads": strip_halo} if k == "xdraw_strip" else {}),
          **({"all_bumps_ms": x2["rows"]["all_bumps_spread1"]["ms"],
              "all_bumps_first_port_ms":
                  x2["rows"]["all_bumps_spread1"]["first_port_ms"]}

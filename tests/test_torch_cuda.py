@@ -1981,6 +1981,49 @@ def test_xdraw_banded_kernel_equals_its_first_port(cuda, shape):
             assert same_bits(got.cpu(), first.cpu())
 
 
+# (shape, viewpoint, mesh, step window L, band, chunk): strips narrower
+# than L, a viewpoint on a strip's edge lane, at a corner, inside; the
+# plan's band and chunk (None) and tiny ones
+XDRAW_STRIP_CASES = (
+    ((300, 70), (149, 35), (2, 2), 64, None, None),
+    ((263, 516), (0, 0), (1, 4), 16, 8, 4),
+    ((263, 516), (65, 258), (2, 2), 1000, None, None),
+    ((70, 300), (69, 299), (4, 1), 7, 4, 8),
+    ((517, 263), (130, 1), (2, 2), 100, 32, 16),
+    ((1024, 1024), (256, 700), (1, 4), 256, None, None),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(XDRAW_STRIP_CASES)))
+def test_xdraw_strip_route_equals_its_twin(cuda, case):
+    """X1's strip route on a mesh of one card, driven window by window by
+    ``xdraw_mesh_max_slope``, against the same call on the strip twin
+    (the raster's blocks on the CPU) and against the unsharded banded
+    kernel, bit for bit, NaN where NaN; every window one strip launch,
+    no launch of the single-card route."""
+    from xrspatial_torch.kernels import cuda_xdraw, viewshed as kv
+    from xrspatial_torch.kernels.emulate import same_bits
+    from xrspatial_torch.parallel import distribute, make_raster_mesh
+    shape, vp, (ny, nx), steps, band, chunk = XDRAW_STRIP_CASES[case]
+    slope = xdraw_slope(shape, vp, cuda, seed=shape[0] + case)
+    on_card = make_raster_mesh(ny, nx, devices=[cuda] * (ny * nx))
+    on_cpu = make_raster_mesh(ny, nx, devices=["cpu"] * (ny * nx))
+    kw = dict(steps=steps, band=band, chunk=chunk)
+    before = cuda_xdraw.XDRAW_LAUNCHES
+    strips = cuda_xdraw.XDRAW_STRIP_LAUNCHES
+    got = kv.xdraw_mesh_max_slope(distribute(slope, on_card), *vp, **kw)
+    torch.cuda.synchronize()
+    assert cuda_xdraw.XDRAW_LAUNCHES == before
+    assert cuda_xdraw.XDRAW_STRIP_LAUNCHES > strips
+    assert all(b.device.type == "cuda" for row in got.blocks for b in row)
+    twin = kv.xdraw_mesh_max_slope(distribute(slope.cpu(), on_cpu), *vp,
+                                   **kw)
+    assert same_bits(got.gather("cpu"), twin.gather()), case
+    assert same_bits(got.gather("cpu"),
+                     cuda_xdraw.xdraw_scan_cuda(slope, *vp).cpu()), case
+
+
 @pytest.mark.gpu
 def test_xdraw_path_goes_through_the_kernel(cuda):
     """viewshed with exact=False on the card: one X1 launch, no twin call,

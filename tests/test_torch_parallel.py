@@ -629,9 +629,14 @@ def test_exact_viewshed_warns_and_runs_on_one_device():
 
 
 def test_xdraw_viewshed_on_a_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        xt.viewshed(sharded(elevation((16, 16), 22), cpu_mesh(2, 2)),
-                    x=8.0, y=16.0, exact=False)
+    """The XDraw viewshed on a mesh (its strip route; the name is kept
+    from when it raised): the result split over the same mesh, equal to
+    the unsharded call bit for bit."""
+    m = cpu_mesh(2, 2)
+    data = elevation((16, 16), 22)
+    out = xt.viewshed(sharded(data, m), x=8.0, y=16.0, exact=False)
+    ref = xt.viewshed(raster(data), x=8.0, y=16.0, exact=False)
+    assert_same(gathered(out, m), ref.data)
 
 
 def test_a_star_warns_and_runs_on_the_host():
@@ -643,27 +648,62 @@ def test_a_star_warns_and_runs_on_the_host():
     assert_same(out.data, xt.a_star_search(raster(data), start, goal).data)
 
 
-@pytest.mark.parametrize("call", [
-    lambda a: xt.ndvi(a, a),
-    lambda a: xt.equal_interval(a),
-    lambda a: xt.natural_breaks(a),
-    lambda a: xt.regions(a),
-    lambda a: xt.zonal_stats(a, a),
-    lambda a: xt.zonal_crosstab(a, a),
-    lambda a: xt.trim(a),
-    lambda a: xt.crop(a, a, [1]),
-    lambda a: xt.zonal_apply(a, a, lambda v: v),
-    lambda a: xt.hillshade(a, shadows=True),
-    lambda a: xt.slope(a, method="geodesic"),
-    lambda a: importlib.import_module(
-        "xrspatial_torch.experimental.polygonize").polygonize(a),
-], ids=["ndvi", "equal_interval", "natural_breaks", "regions",
-        "zonal_stats", "zonal_crosstab", "trim", "crop", "zonal_apply", "hillshade_shadows", "geodesic_slope",
-        "polygonize"])
-def test_other_ops_refuse_a_mesh_raster(call):
-    agg = sharded(elevation((8, 8), 23, nan_cell=False), cpu_mesh(2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        call(agg)
+def zonal_apply_result(a, z):
+    xt.zonal_apply(z, a, lambda v: v + 1.0)
+    return a
+
+
+def polygonize_result(a, z):
+    values, polys = importlib.import_module(
+        "xrspatial_torch.experimental.polygonize").polygonize(z)
+    return values, [[r.tolist() for r in p] for p in polys]
+
+
+# (call, what it returns on the mesh, the warning it gives there)
+OTHER_OPS = {
+    "ndvi": (lambda a, z: xt.ndvi(a, a), "mesh", None),
+    "equal_interval": (lambda a, z: xt.equal_interval(a), "mesh", None),
+    "natural_breaks": (lambda a, z: xt.natural_breaks(a), "mesh", None),
+    "regions": (lambda a, z: xt.regions(z), "mesh", None),
+    "zonal_stats": (lambda a, z: xt.zonal_stats(z, a), "frame", None),
+    "zonal_crosstab": (lambda a, z: xt.zonal_crosstab(z, z), "frame", None),
+    "trim": (lambda a, z: xt.trim(a), "window", None),
+    "crop": (lambda a, z: xt.crop(z, a, [1]), "window", None),
+    "zonal_apply": (zonal_apply_result, "mesh", "zonal_apply"),
+    "hillshade_shadows": (lambda a, z: xt.hillshade(a, shadows=True),
+                          "mesh", "covers the whole raster"),
+    "geodesic_slope": (lambda a, z: xt.slope(a, method="geodesic"), "mesh",
+                       None),
+    "polygonize": (polygonize_result, "host", "polygonize"),
+}
+
+
+@pytest.mark.parametrize("name", list(OTHER_OPS))
+def test_other_ops_refuse_a_mesh_raster(name):
+    """The ops that refused a mesh raster before their mesh forms (the
+    name is kept): each on a 2x2 mesh equals the unsharded call, its
+    result split over the same mesh (trim and crop: the window as one
+    tensor; the frames and polygons on the host); the host functions and
+    a halo that covers the raster warn."""
+    call, kind, warns = OTHER_OPS[name]
+    data = elevation((8, 8), 23, nan_cell=False)
+    zones = np.floor(data / 25).astype(np.int64)
+    m = cpu_mesh(2, 2)
+    ref = call(raster(data), raster(zones))
+    ctx = pytest.warns(UserWarning, match=warns) if warns else \
+        warnings.catch_warnings()
+    with ctx:
+        out = call(sharded(data, m), sharded(zones, m))
+    if kind == "mesh":
+        assert_same(gathered(out, m), ref.data)
+    elif kind == "window":
+        assert isinstance(out.data, torch.Tensor)
+        assert_same(out.data, ref.data)
+    elif kind == "frame":
+        importlib.import_module("pandas").testing.assert_frame_equal(out,
+                                                                     ref)
+    else:
+        assert out == ref
 
 
 def test_a_raster_no_block_splits_takes_the_one_device_path():

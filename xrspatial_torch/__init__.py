@@ -10,10 +10,11 @@ never jax.
 
 Every public name of ``xrspatial_tpu`` is exported, with its signature.
 A raster placed on a device mesh by ``xrspatial_torch.parallel.
-distribute`` takes the mesh branches of the JAX package's hand-distributed
-ops (the surface and focal ops, ``convolution_2d``, ``terrain_pipeline``,
-the proximity family, the percentile classifiers); any other op refuses
-it (ROADMAP A13b).
+distribute`` runs on the mesh in every op: the stencils with halos, the
+proximity family per block, the XDraw viewshed on strips of lanes (X1's
+strip route), the cell-by-cell ops per block, the reductions and labels
+from per-block parts; the functions that compute in host numpy gather it
+with a warning, as ``np.asarray`` gathers in the JAX package.
 """
 
 from .analytics import summarize_terrain, terrain_pipeline

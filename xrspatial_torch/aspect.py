@@ -10,10 +10,11 @@ from __future__ import annotations
 import torch
 
 from .dataset_support import supports_dataset
-from .kernels.geodesic import WGS84_A2, WGS84_B2, geodesic_aspect
+from .kernels.geodesic import WGS84_A2, WGS84_B2, geodesic_mesh, geodesic_aspect
 from .kernels.surface import run_surface_op
-from .utils import (Z_UNITS, _extract_latlon_coords, raster_payload,
-                    to_torch, wrap_like)
+from .parallel.halo import ShardedRaster
+from .utils import (Z_UNITS, _extract_latlon_coords, latlon_coords,
+                    raster_payload, wrap_like)
 from .xrlib import DataArray
 
 __all__ = ["aspect"]
@@ -47,8 +48,12 @@ def aspect(agg: DataArray,
             raise ValueError(
                 f"z_unit must be one of "
                 f"{sorted(Z_UNITS)}, got {z_unit!r}")
+        elev = raster_payload(agg, torch.float64)
+        if isinstance(elev, ShardedRaster):
+            out = geodesic_mesh(geodesic_aspect, elev, *latlon_coords(agg),
+                                WGS84_A2, WGS84_B2, Z_UNITS[z_unit])
+            return wrap_like(agg, out, name)
         lat_2d, lon_2d = _extract_latlon_coords(agg)
-        elev = to_torch(agg, torch.float64)
         out = geodesic_aspect(elev, torch.from_numpy(lat_2d),
                               torch.from_numpy(lon_2d), WGS84_A2, WGS84_B2,
                               Z_UNITS[z_unit])

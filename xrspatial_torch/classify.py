@@ -27,7 +27,8 @@ import torch
 from .dataset_support import supports_dataset
 from .kernels.selection import nanpercentile, nanpercentile_sharded
 from .parallel.halo import get_raster_mesh, tiles
-from .utils import blockwise, raster_payload, to_torch, wrap_like
+from .utils import (blockwise, host_copy, per_block, raster_payload,
+                    wrap_like)
 from .xr_compat import _to_numpy, nanmax, nanmin, nanvar
 
 __all__ = ["binary", "reclassify", "quantile", "natural_breaks",
@@ -76,13 +77,14 @@ def _nan_raster(data: torch.Tensor) -> torch.Tensor:
 @supports_dataset
 def binary(agg, values, name='binary'):
     """1 where the cell value is in `values`, 0 otherwise; NaN/inf -> NaN."""
-    data = to_torch(agg)
-    member = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
-    for v in np.asarray(values, dtype=np.float32).ravel():
-        member = member | (data == float(v))
-    out = torch.where(torch.isfinite(data), member.to(torch.float32),
-                      math.nan)
-    return wrap_like(agg, out, name)
+    def classes(data):
+        member = torch.zeros(data.shape, dtype=torch.bool,
+                             device=data.device)
+        for v in np.asarray(values, dtype=np.float32).ravel():
+            member = member | (data == float(v))
+        return torch.where(torch.isfinite(data), member.to(torch.float32),
+                           math.nan)
+    return wrap_like(agg, per_block(classes, agg), name)
 
 
 @supports_dataset
@@ -91,7 +93,7 @@ def reclassify(agg, bins, new_values, name: Optional[str] = 'reclassify'):
     if len(bins) != len(new_values):
         raise ValueError(
             'bins and new_values mismatch. Should have same length.')
-    out = _bin(to_torch(agg), bins, new_values)
+    out = per_block(lambda data: _bin(data, bins, new_values), agg)
     return wrap_like(agg, out, name)
 
 
@@ -110,14 +112,41 @@ def _nanpercentile(data: torch.Tensor, p) -> np.ndarray:
     return _to_numpy(nanpercentile(_finite_or_nan(data).reshape(-1), p))
 
 
+def _blocks(data) -> list:
+    """The non-empty blocks of a raster split over a mesh, or [data]."""
+    if get_raster_mesh(data) is None:
+        return [data]
+    return [b for row in tiles(data).blocks for b in row if b.numel()]
+
+
 def _nanmax_finite(data) -> float:
     """The largest finite cell (NaN if none); on a mesh the largest of the
     blocks'."""
-    if get_raster_mesh(data) is not None:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # all NaN
         return float(np.nanmax([float(nanmax(_finite_or_nan(b)))
-                                for row in tiles(data).blocks
-                                for b in row if b.numel()]))
-    return float(nanmax(_finite_or_nan(data)))
+                                for b in _blocks(data)]))
+
+
+def _nanmin_finite(data) -> float:
+    """The least finite cell (NaN if none), as ``_nanmax_finite``."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        return float(np.nanmin([float(nanmin(_finite_or_nan(b)))
+                                for b in _blocks(data)]))
+
+
+def _mesh_moments(data, mask=None):
+    """(count, float64 sum) of the finite cells of a raster split over a
+    mesh (those where `mask`, a raster of its tiles, is set), from each
+    block's float64 partial sums."""
+    cnt, total = 0, 0.0
+    for k, b in enumerate(_blocks(data)):
+        b = _finite_or_nan(b)
+        keep = ~torch.isnan(b) if mask is None else mask[k]
+        cnt += int(keep.sum())
+        total += float(torch.where(keep, b.double(), 0.0).sum())
+    return cnt, total
 
 
 def _quantile_bins(data, k: int) -> np.ndarray:
@@ -159,10 +188,10 @@ def percentiles(agg, pct: Optional[List] = None,
 @supports_dataset
 def equal_interval(agg, k: int = 5,
                    name: Optional[str] = 'equal_interval'):
-    """Classify into `k` classes of equal value-range width."""
-    data = to_torch(agg)
-    clean = _finite_or_nan(data)
-    min_data, max_data = float(nanmin(clean)), float(nanmax(clean))
+    """Classify into `k` classes of equal value-range width (on a mesh
+    from the blocks' minima and maxima)."""
+    data = raster_payload(agg)
+    min_data, max_data = _nanmin_finite(data), _nanmax_finite(data)
     width = (max_data - min_data) / k
     if width == 0 or not np.isfinite(width):
         # constant raster: one class
@@ -172,21 +201,30 @@ def equal_interval(agg, k: int = 5,
         if cuts.shape[0] > k:
             cuts = cuts[0:k]
         cuts[-1] = max_data
-    out = _bin(data, cuts, np.arange(cuts.shape[0]))
+    out = blockwise(lambda b: _bin(b, cuts, np.arange(cuts.shape[0])), data)
     return wrap_like(agg, out, name)
 
 
 @supports_dataset
 def std_mean(agg, name: Optional[str] = 'std_mean'):
     """Classify by standard deviations from the mean
-    (breaks at mean ± 1σ, ± 2σ, max)."""
-    data = to_torch(agg)
-    clean = _finite_or_nan(data)
-    m = float(torch.nanmean(clean))
-    s = float(torch.sqrt(nanvar(clean)))
-    mx = float(nanmax(clean))
+    (breaks at mean ± 1σ, ± 2σ, max).  On a mesh the mean and the
+    variance come from the blocks' float64 partial sums (two passes)."""
+    data = raster_payload(agg)
+    if get_raster_mesh(data) is None:
+        clean = _finite_or_nan(data)
+        m = float(torch.nanmean(clean))
+        s = float(torch.sqrt(nanvar(clean)))
+    else:
+        n, total = _mesh_moments(data)
+        m = total / n if n else math.nan
+        dev2 = sum(float(torch.where(torch.isnan(c), 0.0,
+                                     (c.double() - m) ** 2).sum())
+                   for c in map(_finite_or_nan, _blocks(data)))
+        s = math.sqrt(dev2 / n) if n else math.nan
+    mx = _nanmax_finite(data)
     bins = np.sort(np.unique([m - 2 * s, m - s, m + s, m + 2 * s, mx]))
-    out = _bin(data, bins, np.arange(len(bins)))
+    out = blockwise(lambda b: _bin(b, bins, np.arange(len(bins))), data)
     return wrap_like(agg, out, name)
 
 
@@ -216,8 +254,12 @@ def box_plot(agg, hinge: float = 1.5, name: Optional[str] = 'box_plot'):
 @supports_dataset
 def head_tail_breaks(agg, name: Optional[str] = 'head_tail_breaks'):
     """Head/Tail Breaks: iteratively split at the mean while the head
-    holds <= 40% of the data (heavy-tailed distributions)."""
-    data = _finite_or_nan(to_torch(agg))
+    holds <= 40% of the data (heavy-tailed distributions).  On a mesh each
+    mean comes from the blocks' float64 partial sums."""
+    raw = raster_payload(agg)
+    if get_raster_mesh(raw) is not None:
+        return wrap_like(agg, _head_tail_mesh(raw), name)
+    data = _finite_or_nan(raw)
     mask = torch.isfinite(data)
     bins = []
     total = int(mask.sum())
@@ -239,20 +281,44 @@ def head_tail_breaks(agg, name: Optional[str] = 'head_tail_breaks'):
     return wrap_like(agg, out, name)
 
 
+def _head_tail_mesh(raw):
+    blocks = [_finite_or_nan(b) for b in _blocks(raw)]
+    masks = [torch.isfinite(b) for b in blocks]
+    bins = []
+    total = sum(int(m.sum()) for m in masks)
+    while total > 1:
+        cnt, ssum = _mesh_moments(raw, masks)
+        mean_f = ssum / max(cnt, 1)
+        bins.append(mean_f)
+        new = [m & (b > mean_f) for m, b in zip(masks, blocks)]
+        head = sum(int(m.sum()) for m in new)
+        if head == 0 or head / total > 0.40:
+            break
+        masks, total = new, head
+    if not bins:
+        cnt, ssum = _mesh_moments(raw)
+        bins = [ssum / cnt if cnt else math.nan]
+    bins.append(_nanmax_finite(raw))
+    return blockwise(lambda b: _bin(_finite_or_nan(b), np.array(bins),
+                                    np.arange(len(bins))), raw)
+
+
 # ---------------------------------------------------------------------------
 # maximum breaks
 # ---------------------------------------------------------------------------
 
 @supports_dataset
 def maximum_breaks(agg, k: int = 5, name: Optional[str] = 'maximum_breaks'):
-    """Break at the k-1 largest gaps between sorted unique values."""
-    data = to_torch(agg)
-    values = _to_numpy(data).ravel()
+    """Break at the k-1 largest gaps between sorted unique values (found
+    on the host: a raster split over a mesh is gathered, with a warning;
+    the classes are binned on its blocks)."""
+    data = raster_payload(agg)
+    values = host_copy(data, "maximum_breaks").ravel()
     values = values[np.isfinite(values)]
     uv = np.unique(values)
     if uv.size == 0:
         # all-NaN input: all-NaN output
-        return wrap_like(agg, _nan_raster(data), name)
+        return wrap_like(agg, blockwise(_nan_raster, data), name)
     if len(uv) < k:
         bins = uv
     else:
@@ -262,7 +328,7 @@ def maximum_breaks(agg, k: int = 5, name: Optional[str] = 'maximum_breaks'):
         top.sort()
         bins = np.array([(uv[i] + uv[i + 1]) / 2.0 for i in top])
         bins = np.append(bins, float(uv[-1]))
-    out = _bin(data, bins, np.arange(len(bins)))
+    out = blockwise(lambda b: _bin(b, bins, np.arange(len(bins))), data)
     return wrap_like(agg, out, name)
 
 
@@ -329,19 +395,44 @@ def _run_jenks(sample_data: np.ndarray, n_classes: int,
     return kclass
 
 
-def _natural_break_bins(values: np.ndarray, num_sample: Optional[int],
-                        k: int, max_data: float, device):
-    num_data = values.size
-    if num_sample is not None and num_sample < num_data:
-        # fixed-seed linspace+shuffle sampling, the reference's
-        generator = np.random.RandomState(1234567890)
-        idx = np.linspace(0, num_data, num_data, endpoint=False,
-                          dtype=np.uint32)
-        generator.shuffle(idx)
-        sample_data = values[idx[:num_sample]]
-    else:
-        sample_data = values
+def _sample_index(num_data: int, num_sample: Optional[int]):
+    """The flat indices of the cells natural_breaks fits on (None: all):
+    the reference's fixed-seed linspace + shuffle sampling."""
+    if num_sample is None or num_sample >= num_data:
+        return None
+    generator = np.random.RandomState(1234567890)
+    idx = np.linspace(0, num_data, num_data, endpoint=False,
+                      dtype=np.uint32)
+    generator.shuffle(idx)
+    return idx[:num_sample]
 
+
+def _mesh_sample(data, idx) -> np.ndarray:
+    """The cells at flat indices `idx` (None: every cell) of a raster split
+    over a mesh, read from their blocks (no block gathered but for the
+    cells it holds), as float32 in `idx`'s order."""
+    data = tiles(data)
+    h, w = data.shape
+    if idx is None:
+        return np.concatenate([_to_numpy(b.to(torch.float32)).ravel()
+                               for b in _blocks(data)])
+    rows, cols = idx.astype(np.int64) // w, idx.astype(np.int64) % w
+    out = np.empty(idx.shape[0], dtype=np.float32)
+    for i, row in enumerate(data.blocks):
+        y0, y1 = data.extent(0, i)
+        for j, b in enumerate(row):
+            x0, x1 = data.extent(1, j)
+            at = np.nonzero((rows >= y0) & (rows < y1) & (cols >= x0)
+                            & (cols < x1))[0]
+            if at.size:
+                flat = torch.from_numpy((rows[at] - y0) * (x1 - x0)
+                                        + cols[at] - x0).to(b.device)
+                out[at] = _to_numpy(b.reshape(-1)[flat].to(torch.float32))
+    return out
+
+
+def _natural_break_bins(sample_data: np.ndarray, k: int, max_data: float,
+                        device):
     sample_data = np.asarray(sample_data)
     sample_data = sample_data[np.isfinite(sample_data)]
     uv = np.unique(sample_data)
@@ -371,15 +462,21 @@ def natural_breaks(agg, num_sample: Optional[int] = 20000,
 
     Fits on a fixed-seed sample of `num_sample` points (the DP is
     O(n^2 k)); the sample is drawn on the host, the DP runs on the
-    raster's device.
+    raster's device (on a mesh: only the sampled cells are read from
+    their blocks, the DP runs on the first block's device).
     """
-    data = to_torch(agg)
-    values = _to_numpy(data).ravel()
-    if not np.isfinite(values).any():
+    data = raster_payload(agg)
+    max_data = _nanmax_finite(data)
+    if not np.isfinite(max_data):
         # no finite values to fit on: every cell is NaN
-        return wrap_like(agg, _nan_raster(data), name)
-    max_data = float(nanmax(_finite_or_nan(data)))
-    bins, uvk = _natural_break_bins(values, num_sample, k, max_data,
-                                    data.device)
-    out = _bin(data, bins, np.arange(uvk))
+        return wrap_like(agg, blockwise(_nan_raster, data), name)
+    idx = _sample_index(int(np.prod(data.shape)), num_sample)
+    if get_raster_mesh(data) is None:
+        values = _to_numpy(data).ravel()
+        sample = values if idx is None else values[idx]
+    else:
+        sample = _mesh_sample(data, idx)
+    bins, uvk = _natural_break_bins(sample, k, max_data,
+                                    _blocks(data)[0].device)
+    out = blockwise(lambda b: _bin(b, bins, np.arange(uvk)), data)
     return wrap_like(agg, out, name)

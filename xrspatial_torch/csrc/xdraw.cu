@@ -1,7 +1,8 @@
 // The XDraw viewshed's running max slope along each cell's ray, all four
 // half-plane scans in one launch: xdraw_banded_kernel, the half-planes
-// cut into bands of lanes across the SMs, and xdraw_scan_kernel, the
-// first port, one block a half-plane.
+// cut into bands of lanes across the SMs (on one card the whole raster in
+// one launch, on a mesh a strip of lanes and a window of steps a launch),
+// and xdraw_scan_kernel, the first port, one block a half-plane.
 //
 // Replaces no Pallas kernel: in the JAX package the scan is a lax.scan of
 // XLA, xrspatial_tpu/kernels/viewshed.py:771 _halfplane_scan4 (and the four
@@ -210,12 +211,12 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 // minor one, the viewpoint's step offset vpm (dxf = k - vpm) and lane.
 struct HalfPlane {
   bool x_major, reverse;
-  int steps, lanes, last, vp_lane, vpm_i, k0, n_chunks;
+  int steps, lanes, last, vp_lane, vpm_i, k0;
   float vpm, vp_minor;
 };
 
 __device__ HalfPlane half_plane(int hp, int h, int w, int vp_row,
-                                int vp_col, int chunk) {
+                                int vp_col) {
   HalfPlane g;
   g.x_major = hp < 2;
   g.reverse = hp & 1;
@@ -229,137 +230,210 @@ __device__ HalfPlane half_plane(int hp, int h, int w, int vp_row,
                     : (float)vp_major;
   g.vp_minor = (float)g.vp_lane;
   g.k0 = g.vpm_i + 1;                         // dxf = 1
-  g.n_chunks = g.steps > g.k0 ? (g.steps - g.k0 + chunk - 1) / chunk : 0;
   return g;
-}
-
-// The first chunk band `o` walks: the one holding the step where its lane
-// nearest the viewpoint's enters the cone |lane - vp_lane| <= k - vpm.
-// Before it every lane of the band is -inf; n_chunks if it never enters.
-__device__ __forceinline__ int first_chunk(const HalfPlane& g, int o,
-                                           int band, int chunk) {
-  const int b0 = o * band;
-  const int b1 = min(b0 + band, g.lanes);
-  const int near = b0 > g.vp_lane ? b0 - g.vp_lane
-                                  : (b1 <= g.vp_lane ? g.vp_lane - (b1 - 1)
-                                                     : 0);
-  const int k = g.vpm_i + max(near, 1);
-  return k < g.steps ? (k - g.k0) / chunk : g.n_chunks;
 }
 
 // Copies or writes the cone's cells of chunk c (steps s .. s + ns) over
 // lanes [lo, hi) of the window [wlo, ...) between `tile` ([ns][wmax], lane
-// p at column p) and the raster `ras`, coalesced along the raster's rows;
-// with `own_strict` (south and north) a write skips the cells on the
-// diagonals, which east and west own.
+// p at column p) and the raster (`src` or `dst`), coalesced along the
+// raster's rows; a write from south and north skips the cells on the
+// diagonals, which east and west own.  The raster holds lane L, line t at
+// (L - buf_lo) * pitch + t (east and west) or t * pitch + (L - buf_lo)
+// (south and north): the whole raster (buf_lo 0, pitch w) or a strip.
 template <bool kLoad>
 __device__ __forceinline__ void move_tile(const HalfPlane& g, float* tile,
                                           const float* src, float* dst,
-                                          int w, int s, int ns, int lo,
-                                          int hi, int wlo, int wmax) {
-  const int span = hi - lo;
-  const int total = ns * span;
+                                          int pitch, int buf_lo, int s,
+                                          int ns, int lo, int hi, int wlo,
+                                          int wmax) {
+  // element e = q * inner + r, r the index along the raster's rows (a
+  // lane's steps for east and west, a step's lanes for south and north);
+  // q and r advance by the block's width, no division in the loop
+  const int inner = g.x_major ? ns : hi - lo;
+  const int total = ns * (hi - lo);
+  if (total <= 0) return;
+  const int dq = blockDim.x / inner, dr = blockDim.x % inner;
+  int q = threadIdx.x / inner, r = threadIdx.x % inner;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    int kk, lane;
-    if (g.x_major) {                 // a raster row holds one lane's steps
-      kk = e % ns;
-      lane = lo + e / ns;
-    } else {                         // a raster row holds one step's lanes
-      kk = e / span;
-      lane = lo + e % span;
-    }
+    const int kk = g.x_major ? r : q;
+    const int lane = lo + (g.x_major ? q : r);
     const int k = s + kk;
     const int dx = k - g.vpm_i;
     const int ady = abs(lane - g.vp_lane);
-    if (ady > dx || (!kLoad && !g.x_major && ady == dx)) continue;
-    const int line = g.reverse ? g.last - k : k;
-    const size_t at = g.x_major ? (size_t)lane * w + line
-                                : (size_t)line * w + lane;
-    float* cell = tile + kk * wmax + (lane - wlo);
-    if (kLoad)
-      xrt::cp_async_4(xrt::smem_addr(cell), src + at);
-    else
-      dst[at] = *cell;
+    if (ady <= dx && (kLoad || g.x_major || ady != dx)) {
+      const int line = g.reverse ? g.last - k : k;
+      const size_t at = g.x_major ? (size_t)(lane - buf_lo) * pitch + line
+                                  : (size_t)line * pitch + (lane - buf_lo);
+      float* cell = tile + kk * wmax + (lane - wlo);
+      if (kLoad)
+        xrt::cp_async_4(xrt::smem_addr(cell), src + at);
+      else
+        dst[at] = *cell;
+    }
+    r += dr;
+    q += dq;
+    if (r >= inner) {
+      r -= inner;
+      ++q;
+    }
   }
 }
 
-// Block: half-plane hp (0 east, 1 west, 2 south, 3 north), band b of its
-// lanes [b * band, (b + 1) * band).  Shared memory: the carry, double-
-// buffered, lane p of the window at [p + 1] with -inf at both ends, then
-// two K x (band + K) tiles.  carry holds 4 x n_slots x n floats, the
-// carry of lane L after chunk c - 1 at [(hp * n_slots + c) * n + L];
-// progress one int a block, 0 before the launch, raised to c once that
-// slot is written.
+// -- the banded kernel: bands of lanes over a window of lanes and steps ------
+//
+// Block: half-plane hp (0 east, 1 west, 2 south, 3 north), band b of the
+// window's lanes [buf_lo + b * band, buf_lo + (b + 1) * band).  Shared
+// memory: the carry, double-buffered, lane p of the band's window at
+// [p + 1] with -inf at both ends, then two K x (band + K) tiles.  The
+// slots hold n_slots x (the window's lanes) floats a half-plane, the carry
+// of lane L after chunk c - 1 at [c * lanes + L - buf_lo]; progress one int
+// a block, raised to pbase + c once that slot is written.
+//
+// One launch runs the steps [s0, s0 + steps) of the lanes [buf_lo,
+// lane_hi) of the four half-planes, starting from a carry-in row of those
+// lanes (-inf where none is given) and writing a carry-out row (where one
+// is given).  On one card (xdraw_banded_launch) the window is the whole
+// raster and all its steps.  On a mesh (kernels/viewshed.py::
+// xdraw_mesh_max_slope) the four half-plane scans run on strips of lanes,
+// one strip a device: east and west on a strip of rows, south and north on
+// a strip of columns, each extended by L halo lanes toward the viewpoint's
+// lane (cut at it), one launch a window of L steps (xdraw_strip_launch).
+// The argument of the bands' K-lane halo holds at the strip's scale: with L
+// halo lanes the owned lanes are exact after L steps, and the host copies
+// the owned carries at each strip's edge into the halo of the strip beside
+// it between two launches.
+
+// One orientation of a strip: its slope lanes and scan field (lane L, line
+// t at (L - buf_lo) * pitch + t for a strip of rows, t * pitch + (L -
+// buf_lo) for one of columns), the carries before and after the window
+// (two rows of buf_lanes floats: forward, reverse; lane L at L - buf_lo;
+// null: -inf before, none kept after) and the window's lanes [buf_lo,
+// lane_hi).
+struct StripSide {
+  const float* src;
+  float* out;
+  const float* carry_in;
+  float* carry_out;
+  long long pitch;
+  int buf_lo, lane_hi, buf_lanes;
+};
+
+struct StripArgs {
+  StripSide side[2];          // 0: rows (east, west), 1: columns (south, north)
+  float* slots;               // the four half-planes' chunk-end slots
+  int* progress;              // one int a block, raised to pbase + c + 1
+  int h, w, vp_row, vp_col, band, chunk, s0, steps, n_slots, pbase;
+  int bases[5];               // the first block of each half-plane
+};
+
+// The chunk of the window [s_lo, s_hi) in which band [b0, b1)'s lane
+// nearest the viewpoint's enters the cone (0 if it entered before the
+// window); n_chunks if it does not enter within it.  Before it every lane
+// of the band is -inf, or its carry-in.
+__device__ __forceinline__ int first_chunk(const HalfPlane& g, int b0,
+                                           int b1, int s_lo, int s_hi,
+                                           int chunk, int n_chunks) {
+  const int near = b0 > g.vp_lane ? b0 - g.vp_lane
+                                  : (b1 <= g.vp_lane ? g.vp_lane - (b1 - 1)
+                                                     : 0);
+  const int k = g.vpm_i + max(near, 1);
+  if (k >= s_hi) return n_chunks;
+  return k < s_lo ? 0 : (k - s_lo) / chunk;
+}
+
 __global__ void __launch_bounds__(kMaxThreads)
-    xdraw_banded_kernel(const float* __restrict__ slope,
-                        float* __restrict__ out, int h, int w, int vp_row,
-                        int vp_col, int band, int chunk, int n_slots,
-                        float* __restrict__ carry, int* __restrict__ progress) {
+    xdraw_banded_kernel(const StripArgs a) {
   extern __shared__ float smem[];
   const float neginf = -INFINITY;
-  const int nbx = (h + band - 1) / band;       // bands of east and west
-  const int nby = (w + band - 1) / band;       // of south and north
-  const int bases[5] = {0, nbx, 2 * nbx, 2 * nbx + nby, 2 * nbx + 2 * nby};
   int hp = 0;
-  while ((int)blockIdx.x >= bases[hp + 1]) ++hp;
-  const int base = bases[hp];
+  while ((int)blockIdx.x >= a.bases[hp + 1]) ++hp;
+  const int base = a.bases[hp];
   const int b = blockIdx.x - base;
-  const HalfPlane g = half_plane(hp, h, w, vp_row, vp_col, chunk);
-  const int n = h > w ? h : w;
-  const int vpb = g.vp_lane / band;
-  const int b0 = b * band;
-  const int b1 = min(b0 + band, g.lanes);
+  const StripSide& sd = a.side[hp >> 1];
+  const int band = a.band, chunk = a.chunk;
+  const HalfPlane g = half_plane(hp, a.h, a.w, a.vp_row, a.vp_col);
+  const int lo = sd.buf_lo, hi = sd.lane_hi, win_all = hi - lo;
+  const int nb = (win_all + band - 1) / band;
+  const int vpb = g.vp_lane < lo ? -1
+                  : (g.vp_lane >= hi ? nb : (g.vp_lane - lo) / band);
+  const int b0 = lo + b * band;
+  const int b1 = min(b0 + band, hi);
   int wlo = b0, whi = b1;                       // the window: band + halo
-  if (b > vpb) wlo = max(b0 - chunk, g.vp_lane);
-  if (b < vpb) whi = min(b1 + chunk, g.vp_lane + 1);
+  if (b > vpb) wlo = max(b0 - chunk, max(g.vp_lane, lo));
+  if (b < vpb) whi = min(b1 + chunk, min(g.vp_lane + 1, hi));
   const int win = whi - wlo;
   const int hlo = b > vpb ? wlo : b1;           // the halo [hlo, hhi)
   const int hhi = b > vpb ? b0 : whi;
   const int wmax = band + chunk;
+  // this launch's steps
+  const int s_lo = max(a.s0, g.k0);
+  const int s_hi = min(a.s0 + a.steps, g.steps);
+  const int n_chunks = s_hi > s_lo ? (s_hi - s_lo + chunk - 1) / chunk : 0;
   float* cur = smem;
   float* nxt = smem + (wmax + 2);
   float* const tiles = smem + 2 * (wmax + 2);
-  float* const slots = carry + (size_t)hp * n_slots * n;
+  // the slots of half-plane hp: east's, west's, south's, north's in turn
+  size_t slot_base = 0;
+  for (int q = 0; q < hp; ++q) {
+    const StripSide& o = a.side[q >> 1];
+    slot_base += (size_t)a.n_slots * (o.lane_hi - o.buf_lo);
+  }
+  float* const slots = a.slots + slot_base;
+  const float* const c_in =
+      sd.carry_in ? sd.carry_in + (size_t)(hp & 1) * sd.buf_lanes : nullptr;
+  float* const c_out =
+      sd.carry_out ? sd.carry_out + (size_t)(hp & 1) * sd.buf_lanes : nullptr;
 
   for (int p = threadIdx.x; p < wmax + 2; p += blockDim.x)
     cur[p] = nxt[p] = neginf;
-  if (hp == 0 && b == vpb && threadIdx.x == 0)
-    out[(size_t)vp_row * w + vp_col] = neginf;  // the viewpoint: east's
-  const int c_first = first_chunk(g, b, band, chunk);
-  if (c_first >= g.n_chunks) return;            // never in the cone
+  if (hp == 0 && b == vpb && threadIdx.x == 0 && a.s0 <= g.vpm_i &&
+      g.vpm_i < a.s0 + a.steps)                 // the viewpoint: east's
+    sd.out[(size_t)(a.vp_row - lo) * sd.pitch + a.vp_col] = neginf;
+  const int c_first =
+      first_chunk(g, b0, b1, s_lo, s_hi, chunk, n_chunks);
+  if (c_first >= n_chunks) return;              // not in the cone yet
   __syncthreads();
+  if (c_first == 0 && c_in)                     // the window from the carry
+    for (int p = threadIdx.x; p < win; p += blockDim.x)
+      cur[p + 1] = c_in[wlo + p - lo];
 
-  move_tile<true>(g, tiles + (c_first & 1) * chunk * wmax, slope, nullptr,
-                  w, g.k0 + c_first * chunk,
-                  min(chunk, g.steps - g.k0 - c_first * chunk), wlo, whi,
-                  wlo, wmax);
+  move_tile<true>(g, tiles + (c_first & 1) * chunk * wmax, sd.src, nullptr,
+                  (int)sd.pitch, lo, s_lo + c_first * chunk,
+                  min(chunk, s_hi - s_lo - c_first * chunk), wlo, whi, wlo,
+                  wmax);
   xrt::cp_async_commit();
-  for (int c = c_first; c < g.n_chunks; ++c) {
-    const int s = g.k0 + c * chunk;
-    const int ns = min(chunk, g.steps - s);
+  for (int c = c_first; c < n_chunks; ++c) {
+    const int s = s_lo + c * chunk;
+    const int ns = min(chunk, s_hi - s);
     float* const tile = tiles + (c & 1) * chunk * wmax;
-    if (c + 1 < g.n_chunks)                     // the next chunk's slopes
-      move_tile<true>(g, tiles + ((c + 1) & 1) * chunk * wmax, slope,
-                      nullptr, w, s + chunk,
-                      min(chunk, g.steps - s - chunk), wlo, whi, wlo, wmax);
+    if (c + 1 < n_chunks)                       // the next chunk's slopes
+      move_tile<true>(g, tiles + ((c + 1) & 1) * chunk * wmax, sd.src,
+                      nullptr, (int)sd.pitch, lo, s + chunk,
+                      min(chunk, s_hi - s - chunk), wlo, whi, wlo, wmax);
     xrt::cp_async_commit();
 
-    // the halo, exact at the chunk's start: from the bands that own it,
-    // once they have written this chunk's slot (-inf if they had not
-    // started, as their lanes then still are)
-    if (hlo < hhi) {
+    // the halo at the chunk's start: from the carry-in at the window's
+    // first chunk, else from the slots of the bands that own it
+    if (hlo < hhi && c > 0) {
       if (threadIdx.x == 0) {
-        for (int o = hlo / band; o <= (hhi - 1) / band; ++o) {
-          if (c - 1 < first_chunk(g, o, band, chunk)) continue;
-          while (ld_acquire(progress + base + o) < c) __nanosleep(20);
+        for (int o = (hlo - lo) / band; o <= (hhi - 1 - lo) / band; ++o) {
+          const int o0 = lo + o * band;
+          if (c - 1 < first_chunk(g, o0, min(o0 + band, hi), s_lo,
+                                         s_hi, chunk, n_chunks))
+            continue;
+          while (ld_acquire(a.progress + base + o) < a.pbase + c)
+            __nanosleep(20);
         }
       }
       __syncthreads();
-      for (int L = hlo + threadIdx.x; L < hhi; L += blockDim.x)
+      for (int L = hlo + threadIdx.x; L < hhi; L += blockDim.x) {
+        const int o0 = lo + (L - lo) / band * band;
         cur[L - wlo + 1] =
-            c - 1 < first_chunk(g, L / band, band, chunk)
+            c - 1 < first_chunk(g, o0, min(o0 + band, hi), s_lo, s_hi,
+                                       chunk, n_chunks)
                 ? neginf
-                : __ldcg(slots + (size_t)c * n + L);
+                : __ldcg(slots + (size_t)c * win_all + (L - lo));
+      }
     }
     xrt::cp_async_wait(1);
     __syncthreads();
@@ -395,25 +469,59 @@ __global__ void __launch_bounds__(kMaxThreads)
 
     // publish this band's lanes after the chunk, then raise its flag
     for (int L = b0 + threadIdx.x; L < b1; L += blockDim.x)
-      slots[(size_t)(c + 1) * n + L] = cur[L - wlo + 1];
+      slots[(size_t)(c + 1) * win_all + (L - lo)] = cur[L - wlo + 1];
     __threadfence();
     __syncthreads();
-    if (threadIdx.x == 0) st_release(progress + base + b, c + 1);
-    move_tile<false>(g, tile, nullptr, out, w, s, ns, b0, b1, wlo, wmax);
+    if (threadIdx.x == 0) st_release(a.progress + base + b, a.pbase + c + 1);
+    move_tile<false>(g, tile, nullptr, sd.out, (int)sd.pitch, lo, s, ns,
+                     b0, b1, wlo, wmax);
     __syncthreads();                            // the tile is reloaded next
   }
+  // the carry after the window, for the next launch
+  if (c_out)
+    for (int L = b0 + threadIdx.x; L < b1; L += blockDim.x)
+      c_out[L - lo] = cur[L - wlo + 1];
 }
 
-// The banded kernel's blocks for an h x w raster in bands of `band` lanes.
-int banded_blocks(int h, int w, int band) {
-  return 2 * ((h + band - 1) / band) + 2 * ((w + band - 1) / band);
-}
 
 // Dynamic shared memory of the banded kernel: the carry's two windows
 // and two tiles.
 int banded_smem(int band, int chunk) {
   const int wmax = band + chunk;
   return (int)sizeof(float) * (2 * (wmax + 2) + 2 * chunk * wmax);
+}
+
+// Launches the banded kernel on `a` (its blocks' bases filled in here)
+// cooperatively: 4 half-planes x their bands, blocks of min(1024, band +
+// chunk rounded up to 32) threads.
+int launch_banded(StripArgs& a, cudaStream_t stream) {
+  a.bases[0] = 0;
+  for (int hp = 0; hp < 4; ++hp) {
+    const StripSide& sd = a.side[hp >> 1];
+    a.bases[hp + 1] =
+        a.bases[hp] + (sd.lane_hi - sd.buf_lo + a.band - 1) / a.band;
+  }
+  const int blocks = a.bases[4];
+  if (blocks == 0) return (int)cudaSuccess;
+  const int wmax = a.band + a.chunk;
+  const int threads = wmax < kMaxThreads ? (wmax + 31) / 32 * 32
+                                         : kMaxThreads;
+  const int smem = banded_smem(a.band, a.chunk);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      xdraw_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(xdraw_banded_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             100);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)xdraw_banded_kernel,
+                                    dim3(blocks), dim3(threads), args,
+                                    (size_t)smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -466,13 +574,12 @@ int xdraw_scan_launch(const float* slope, const float* slope_t, float* out,
 
 // out (h, w) = the running max slope of slope (h, w) for the viewpoint
 // (vp_row, vp_col), by the banded kernel in bands of `band` lanes and
-// chunks of `chunk` steps, on `stream`: 4 half-planes x their bands
-// blocks of min(1024, band + chunk rounded up to 32) threads, launched
-// cooperatively.  carry: 4 * n_slots * max(h, w) floats, n_slots =
-// ceil((max(h, w) - 1) / chunk) + 1; progress: one int a block, zeroed.
-// Returns the launch's CUDA error code, cudaErrorInvalidValue for
-// arguments it does not take, cudaErrorCooperativeLaunchTooLarge if the
-// blocks cannot all be resident.
+// chunks of `chunk` steps, on `stream`: the whole raster one window of all
+// its steps, from -inf, launched cooperatively.  carry: 4 * n_slots *
+// max(h, w) floats, n_slots = ceil((max(h, w) - 1) / chunk) + 1; progress:
+// one int a block, zeroed.  Returns the launch's CUDA error code,
+// cudaErrorInvalidValue for arguments it does not take,
+// cudaErrorCooperativeLaunchTooLarge if the blocks cannot all be resident.
 int xdraw_banded_launch(const float* slope, float* out, int h, int w,
                         int vp_row, int vp_col, int band, int chunk,
                         int n_slots, float* carry, int* progress,
@@ -483,27 +590,77 @@ int xdraw_banded_launch(const float* slope, float* out, int h, int w,
   const int n = h > w ? h : w;
   if (n_slots != (n - 1 + chunk - 1) / chunk + 1)
     return (int)cudaErrorInvalidValue;
-  const int wmax = band + chunk;
-  const int threads = wmax < kMaxThreads ? (wmax + 31) / 32 * 32
-                                         : kMaxThreads;
-  const int smem = banded_smem(band, chunk);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      xdraw_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(xdraw_banded_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             100);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = banded_blocks(h, w, band);
-  void* args[] = {&slope, &out, &h, &w, &vp_row, &vp_col, &band, &chunk,
-                  &n_slots, &carry, &progress};
-  err = cudaLaunchCooperativeKernel((const void*)xdraw_banded_kernel,
-                                    dim3(blocks), dim3(threads), args,
-                                    (size_t)smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  StripArgs a;
+  a.side[0] = StripSide{slope, out, nullptr, nullptr, w, 0, h, h};
+  a.side[1] = StripSide{slope, out, nullptr, nullptr, w, 0, w, w};
+  a.slots = carry;
+  a.progress = progress;
+  a.h = h;
+  a.w = w;
+  a.vp_row = vp_row;
+  a.vp_col = vp_col;
+  a.band = band;
+  a.chunk = chunk;
+  a.s0 = 0;
+  a.steps = n;
+  a.n_slots = n_slots;
+  a.pbase = 0;
+  return launch_banded(a, (cudaStream_t)stream);
+}
+
+// One window of the strip route: steps [s0, s0 + steps) of one strip's
+// four half-planes, the rows side (east, west) and the columns side
+// (south, north) each given by its slope, field, carries (two rows of
+// buf_lanes floats, forward then reverse), pitch and lanes [buf_lo,
+// lane_hi) (a side with no lanes launches no block), in bands of `band`
+// lanes and chunks of `chunk` steps, on `stream`, launched cooperatively.
+// slots: n_slots * (lanes of each half-plane, summed) floats, n_slots =
+// ceil(steps / chunk) + 1; progress: one int a block, every value below
+// pbase + 1 (zeroed before the first window; pbase grows by n_slots a
+// window).  Returns the launch's CUDA error code, cudaErrorInvalidValue
+// for arguments it does not take, cudaErrorCooperativeLaunchTooLarge if
+// the blocks cannot all be resident.
+int xdraw_strip_launch(const float* r_src, float* r_out,
+                       const float* r_carry_in, float* r_carry_out,
+                       long long r_pitch, int r_buf_lo, int r_lane_hi,
+                       int r_buf_lanes, const float* c_src, float* c_out,
+                       const float* c_carry_in, float* c_carry_out,
+                       long long c_pitch, int c_buf_lo, int c_lane_hi,
+                       int c_buf_lanes, float* slots, int* progress, int h,
+                       int w, int vp_row, int vp_col, int band, int chunk,
+                       int s0, int steps, int n_slots, int pbase,
+                       void* stream) {
+  if (h <= 0 || w <= 0 || vp_row < 0 || vp_row >= h || vp_col < 0 ||
+      vp_col >= w || band < 1 || chunk < 1 || steps < 1 || s0 < 0 ||
+      n_slots != (steps + chunk - 1) / chunk + 1)
+    return (int)cudaErrorInvalidValue;
+  StripArgs a;
+  a.side[0] = StripSide{r_src, r_out, r_carry_in, r_carry_out, r_pitch,
+                        r_buf_lo, r_lane_hi, r_buf_lanes};
+  a.side[1] = StripSide{c_src, c_out, c_carry_in, c_carry_out, c_pitch,
+                        c_buf_lo, c_lane_hi, c_buf_lanes};
+  for (int q = 0; q < 2; ++q) {
+    const StripSide& sd = a.side[q];
+    const int n = q == 0 ? h : w;
+    if (sd.lane_hi < sd.buf_lo || sd.buf_lo < 0 || sd.lane_hi > n ||
+        sd.lane_hi - sd.buf_lo > sd.buf_lanes ||
+        (sd.lane_hi > sd.buf_lo && (!sd.src || !sd.out || !sd.carry_in ||
+                                    !sd.carry_out)))
+      return (int)cudaErrorInvalidValue;
+  }
+  a.slots = slots;
+  a.progress = progress;
+  a.h = h;
+  a.w = w;
+  a.vp_row = vp_row;
+  a.vp_col = vp_col;
+  a.band = band;
+  a.chunk = chunk;
+  a.s0 = s0;
+  a.steps = steps;
+  a.n_slots = n_slots;
+  a.pbase = pbase;
+  return launch_banded(a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

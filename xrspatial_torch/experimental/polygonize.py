@@ -19,8 +19,7 @@ from typing import List, Optional, Union
 
 import numpy as np
 
-from ..utils import refuse_mesh
-from ..xr_compat import _to_numpy
+from ..utils import host_copy
 from ..xrlib import DataArray
 
 __all__ = ["polygonize"]
@@ -154,18 +153,19 @@ def polygonize(
     Returns ``(column, polygon_points)`` for ``return_type='numpy'``:
     one value and one list of rings ([exterior, *holes]) per region.
     Other return types (geopandas/spatialpandas/awkward) require their
-    optional dependencies.
+    optional dependencies.  The regions are traced on the host: a raster
+    split over a mesh is gathered, with a warning, as ``np.asarray``
+    gathers it in the JAX package.
     """
     if raster.ndim != 2 or raster.shape[0] < 1 or raster.shape[1] < 1:
         raise ValueError(
             "Raster array must be 2D with a shape of at least (1, 1)")
-    refuse_mesh(raster, *(() if mask is None else (mask,)))
     if mask is not None:
         if raster.shape != mask.shape:
             raise ValueError(
                 f"raster and mask must have the same shape: {raster.shape} "
                 f"and {mask.shape}")
-        mask_data = _to_numpy(mask.data).astype(bool)
+        mask_data = host_copy(mask, "polygonize").astype(bool)
     else:
         mask_data = None
     if connectivity not in (4, 8):
@@ -178,7 +178,7 @@ def polygonize(
                 f"Incorrect transform length of {len(transform)} "
                 "instead of 6")
 
-    values = _to_numpy(raster.data)
+    values = host_copy(raster, "polygonize")
     include = np.ones(values.shape, dtype=bool) if mask_data is None \
         else mask_data
     include = include & ~np.isnan(values.astype(np.float64, copy=False)) \

@@ -3,7 +3,7 @@
 Counterpart of ``xrspatial_tpu/hillshade.py``: the np.gradient-based
 formulation in its one-rsqrt form.  ``shadows=True`` is the ray march
 toward the sun of ``kernels/shadows.py`` (torch ops, on the raster's
-device).
+device; on a mesh through ``run_stencil`` with the march's halo).
 """
 
 from __future__ import annotations
@@ -11,10 +11,10 @@ from __future__ import annotations
 from typing import Optional
 
 from .dataset_support import supports_dataset
-from .kernels.shadows import hillshade_shadows
+from .kernels.shadows import hillshade_shadows, hillshade_shadows_mesh
 from .kernels.surface import run_surface_op
-from .utils import (get_dataarray_resolution, raster_payload, to_torch,
-                    wrap_like)
+from .parallel.halo import ShardedRaster
+from .utils import get_dataarray_resolution, raster_payload, wrap_like
 from .xrlib import DataArray
 
 __all__ = ["hillshade"]
@@ -43,8 +43,11 @@ def hillshade(agg: DataArray,
     """
     if shadows:
         cellsize_x, cellsize_y = get_dataarray_resolution(agg)
-        out = hillshade_shadows(to_torch(agg), azimuth, angle_altitude,
-                                cellsize_x, abs(cellsize_y))
+        data = raster_payload(agg)
+        shade = (hillshade_shadows_mesh if isinstance(data, ShardedRaster)
+                 else hillshade_shadows)
+        out = shade(data, azimuth, angle_altitude, cellsize_x,
+                    abs(cellsize_y))
     else:
         out = run_surface_op("hillshade", raster_payload(agg),
                              azimuth=azimuth, angle_altitude=angle_altitude)

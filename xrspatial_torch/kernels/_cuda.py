@@ -194,6 +194,10 @@ def library() -> ctypes.CDLL:
     lib.xdraw_banded_launch.argtypes = [p, p, i32, i32, i32, i32, i32, i32,
                                         i32, p, p, p]
     lib.xdraw_banded_launch.restype = i32
+    side = [p, p, p, p, i64, i32, i32, i32]
+    lib.xdraw_strip_launch.argtypes = side + side + [
+        p, p, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, p]
+    lib.xdraw_strip_launch.restype = i32
     lib.bump_scan_launch.argtypes = [p, p, p, i64, i32, i32, i32, p, p]
     lib.bump_scan_launch.restype = i32
     lib.bump_rounds_grid.argtypes = [i32]

@@ -10,6 +10,7 @@ is the extended blocks' fill), so the result equals the unsharded run.
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Callable
 
@@ -20,7 +21,8 @@ from ..parallel.halo import HaloSpec, get_raster_mesh, stencil_shard_map
 __all__ = ["run_stencil"]
 
 
-def run_stencil(kernel: Callable, radius, data, *args):
+def run_stencil(kernel: Callable, radius, data, *args, fill=math.nan,
+                origin: bool = False):
     """Run a radius-r local kernel, over the mesh iff `data` is split
     over one.
 
@@ -28,12 +30,14 @@ def run_stencil(kernel: Callable, radius, data, *args):
     radius-r ring may be garbage or NaN (it is rebuilt from halos on the
     mesh and kept as the NaN border on one device).  On the mesh a
     payload that is not floating point is cast to float32 first (NaN
-    fill needs a float), and the result is a ``ShardedRaster`` over the
-    same mesh.
+    fill needs a float), the halos beyond the raster hold `fill`, and the
+    result is a ``ShardedRaster`` over the same mesh.  With `origin` the
+    kernel also takes the raster's cell of its input's (0, 0):
+    ``kernel(data, (y0, x0), *args)`` ((0, 0) on one device).
     """
     mesh = get_raster_mesh(data)
     if mesh is None:
-        return kernel(data, *args)
+        return kernel(data, (0, 0), *args) if origin else kernel(data, *args)
     halo = HaloSpec.square(radius) if isinstance(radius, int) \
         else HaloSpec(*radius)
     # halos wider than a tile gather from several tiles (halo_extend);
@@ -47,4 +51,5 @@ def run_stencil(kernel: Callable, radius, data, *args):
             "not memory.", UserWarning, stacklevel=3)
     if not data.dtype.is_floating_point:
         data = data.map_blocks(lambda b: b.to(torch.float32))
-    return stencil_shard_map(kernel, mesh, halo)(data, *args)
+    return stencil_shard_map(kernel, mesh, halo, fill=fill,
+                             origin=origin)(data, *args)

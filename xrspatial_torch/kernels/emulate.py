@@ -30,9 +30,15 @@ loop order, to the kernels' plain versions bit for bit:
   half-plane from the step after the viewpoint, the lanes of the ray
   cone, each cell written by its own octant's scan), against
   ``viewshed.xdraw_scan_twin``;
-- ``emulate_xdraw_banded``: its redesign, ``xdraw_banded_kernel`` (X1:
+- ``emulate_xdraw_strip``: its redesign, ``xdraw_banded_kernel`` (X1:
   bands of lanes, K-step chunks, the one-sided halo recomputed, carries
-  exchanged only at chunk ends), against the same twin;
+  exchanged only at chunk ends; one window of steps on one strip's four
+  half-planes, the bands starting from the carry-in row and writing the
+  carry-out row), with ``cuda_xdraw.xdraw_strip_cuda``'s arguments, so
+  that it can stand in for the launch in
+  ``viewshed.xdraw_mesh_max_slope``; ``emulate_xdraw_banded`` runs it as
+  ``xdraw_banded_launch`` does, the whole raster one strip, against the
+  same twin;
 - ``emulate_bump_rounds``: ``csrc/bump.cu::bump_rounds_kernel`` (X2: the
   claim, test and apply rounds on a retagged owner map, then the walk of
   the rest in order), against ``bump.bump_scan_twin``.
@@ -62,7 +68,8 @@ __all__ = ["emulate_staged", "ring_schedule", "emulate_surface_staged",
            "halo_case", "same_bits", "SCREEN_R",
            "SCREEN_WARP", "SCREEN_BLOCK", "group_segments", "blocks_of",
            "emulate_culled", "TOL", "GC_RTOL", "layout", "axes",
-           "emulate_xdraw_banded", "emulate_bump_rounds"]
+           "emulate_xdraw_banded", "emulate_xdraw_strip",
+           "emulate_bump_rounds"]
 
 
 # -- the staged focal template ------------------------------------------------
@@ -747,26 +754,44 @@ def emulate_xdraw(slope, vp_row, vp_col):
 
 
 def emulate_xdraw_banded(slope, vp_row, vp_col, band=None, chunk=None):
-    """``xdraw_banded_kernel``'s algorithm, all bands of a half-plane at
-    once: band b owns lanes [b B, (b + 1) B) and, away from the
-    viewpoint's lane, recomputes K halo lanes on its side toward it (cut
-    at that lane); it walks chunks of K steps from the one where its
-    nearest lane enters the cone, and at each chunk's start takes its
-    halo from the slot the owning bands wrote at their last chunk's end
-    (-inf from a band that had not started).  A slot no band wrote is
-    NaN, which the tests would see.  The interpolation is
-    ``viewshed._xdraw_interp``, looked up at each call.  `band` and
-    `chunk` default to ``viewshed.xdraw_plan``'s."""
+    """``xdraw_banded_kernel``'s algorithm as ``xdraw_banded_launch`` runs
+    it on one card: the whole raster one window of all its steps from
+    -inf, ``emulate_xdraw_strip`` on a single strip of each orientation.
+    A cell no band writes stays NaN, which the tests would see.  `band`
+    and `chunk` default to ``viewshed.xdraw_plan``'s."""
     h, w = slope.shape
-    if band is None or chunk is None:
-        plan = TV.xdraw_plan(h, w, band=band, chunk=chunk)
-        band, chunk = plan.band, plan.chunk
+    plan = TV.xdraw_plan(h, w, band=band, chunk=chunk)
+    out = torch.full((h, w), float("nan"), dtype=torch.float32)
+
+    def whole(lanes):
+        carry = torch.full((2, lanes), float("-inf"))
+        return TV.StripHalf(slope, out, carry, carry.clone(), 0, lanes)
+    emulate_xdraw_strip(whole(h), whole(w), h, w, vp_row, vp_col, 0,
+                        TV.XDrawStripPlan(max(h, w), *plan), None, None, 0)
+    return out
+
+
+def emulate_xdraw_strip(rows, cols, h, w, vp_row, vp_col, s0, plan, slots,
+                        progress, pbase):
+    """``xdraw_banded_kernel``'s algorithm on CPU tensors, with
+    ``cuda_xdraw.xdraw_strip_cuda``'s arguments (`slots` and `progress`
+    are not used: a dict of slots, NaN where no band wrote, stands for
+    them).  For each half-plane, the bands of its window [buf_lo, lane_hi)
+    in bands of ``plan.band`` lanes walk the window's steps [max(s0, k0),
+    min(s0 + L, steps)) in chunks of ``plan.chunk`` from the chunk where
+    their nearest lane enters the cone; a band that starts at the window's
+    first chunk takes its window's lanes from the carry-in row, a later
+    chunk its halo from the owning bands' slots; the bands write their
+    cone cells (east and west all, south and north off the diagonals),
+    east the viewpoint while its step is in the window, and their lanes
+    after the window into the carry-out row."""
+    band, chunk, steps_win = plan.band, plan.chunk, plan.steps
     f32 = torch.float32
     neginf = float("-inf")
-    out = torch.full((h, w), float("nan"), dtype=f32)
-    out[vp_row, vp_col] = neginf
-    flat = out.view(-1)
     for hp in range(4):
+        half = (rows, rows, cols, cols)[hp]
+        if half is None:
+            continue
         x_major, reverse = hp < 2, hp % 2 == 1
         steps, lanes = (w, h) if x_major else (h, w)
         last = steps - 1
@@ -777,43 +802,60 @@ def emulate_xdraw_banded(slope, vp_row, vp_col, band=None, chunk=None):
                                                             dtype=f32)
                if reverse else torch.tensor(vp_major, dtype=f32))
         k0 = vpm_i + 1
-        n_chunks = -(-(steps - k0) // chunk) if steps > k0 else 0
-        src = slope.t() if x_major else slope          # [line, lane]
-        nb, vpb, wmax = -(-lanes // band), vp_lane // band, band + chunk
+        s_lo, s_hi = max(s0, k0), min(s0 + steps_win, steps)
+        n_chunks = -(-(s_hi - s_lo) // chunk) if s_hi > s_lo else 0
+        lo, hi = half.buf_lo, half.lane_hi
+        nb = -(-(hi - lo) // band)
+        vpb = (-1 if vp_lane < lo else nb if vp_lane >= hi
+               else (vp_lane - lo) // band)
+        # [line, buffer lane] views of the slope and the field
+        src = half.src.t() if x_major else half.src
+        out = half.out.t() if x_major else half.out
+        c_in, c_out = half.carry_in[hp % 2], half.carry_out[hp % 2]
+        if hp == 0 and 0 <= vpb < nb and s0 <= vpm_i < s0 + steps_win:
+            out[vp_col, vp_row - lo] = neginf
+        if nb == 0:
+            continue
 
-        def first_chunk(o):
-            b0, b1 = o * band, min(o * band + band, lanes)
+        def first_chunk(b0, b1):
             near = (b0 - vp_lane if b0 > vp_lane
                     else vp_lane - (b1 - 1) if b1 <= vp_lane else 0)
             k = vpm_i + max(near, 1)
-            return (k - k0) // chunk if k < steps else n_chunks
+            if k >= s_hi:
+                return n_chunks
+            return 0 if k < s_lo else (k - s_lo) // chunk
 
-        firsts = torch.tensor([first_chunk(o) for o in range(nb)])
-        b0 = torch.arange(nb) * band
-        b1 = torch.clamp(b0 + band, max=lanes)
-        wlo = torch.where(torch.arange(nb) > vpb,
-                          torch.clamp(b0 - chunk, min=vp_lane), b0)
-        whi = torch.where(torch.arange(nb) < vpb,
-                          torch.clamp(b1 + chunk, max=vp_lane + 1), b1)
-        hlo = torch.where(torch.arange(nb) > vpb, wlo, b1)
-        hhi = torch.where(torch.arange(nb) > vpb, b0, whi)
-        lane = wlo[:, None] + torch.arange(wmax)[None, :]    # (nb, wmax)
+        o = torch.arange(nb)
+        b0 = lo + o * band
+        b1 = torch.clamp(b0 + band, max=hi)
+        firsts = torch.tensor([first_chunk(int(a), int(b))
+                               for a, b in zip(b0, b1)])
+        wlo = torch.where(o > vpb, torch.clamp(b0 - chunk,
+                                               min=max(vp_lane, lo)), b0)
+        whi = torch.where(o < vpb, torch.clamp(b1 + chunk,
+                                               max=min(vp_lane + 1, hi)), b1)
+        hlo = torch.where(o > vpb, wlo, b1)
+        hhi = torch.where(o > vpb, b0, whi)
+        wmax = band + chunk
+        lane = wlo[:, None] + torch.arange(wmax)[None, :]
         valid = lane < whi[:, None]
-        lane_c = torch.clamp(lane, max=lanes - 1)
+        lane_c = torch.clamp(lane, min=lo, max=hi - 1)
         own = valid & (lane >= b0[:, None]) & (lane < b1[:, None])
         halo = valid & (lane >= hlo[:, None]) & (lane < hhi[:, None])
         minor = lane.to(f32) - torch.tensor(vp_lane, dtype=f32)
         ady = minor.abs()
         cur = torch.full((nb, wmax + 2), neginf, dtype=f32)
-        slots = {}
+        start = (firsts == 0)[:, None] & valid
+        cur[:, 1:-1] = torch.where(start, c_in[lane_c - lo], neginf)
+        slot = {}
         for c in range(n_chunks):
             active = (c >= firsts)[:, None]
             if c > 0:
-                started = c - 1 >= firsts[lane_c // band]
-                taken = torch.where(started, slots[c][lane_c], neginf)
+                started = c - 1 >= firsts[(lane_c - lo) // band]
+                taken = torch.where(started, slot[c][lane_c - lo], neginf)
                 cur[:, 1:-1] = torch.where(halo & active, taken, cur[:, 1:-1])
-            s = k0 + c * chunk
-            for k in range(s, min(s + chunk, steps)):
+            s = s_lo + c * chunk
+            for k in range(s, min(s + chunk, s_hi)):
                 dxf = torch.tensor(k, dtype=f32) - vpm
                 line = last - k if reverse else k
                 prim, left, right = cur[:, 1:-1], cur[:, :-2], cur[:, 2:]
@@ -827,18 +869,18 @@ def emulate_xdraw_banded(slope, vp_row, vp_col, band=None, chunk=None):
                     torch.maximum(prim, sec))
                 blocked = torch.full_like(interp, neginf) if dxf == 1.0 \
                     else interp
-                m = torch.maximum(blocked, src[line][lane_c])
+                m = torch.maximum(blocked, src[line][lane_c - lo])
                 cone = valid & active & (ady <= dxf)
                 write = own & cone & (x_major | (ady < dxf))
-                at = lane * w + line if x_major else line * w + lane
-                flat[at[write]] = m[write]
+                out[line][(lane - lo)[write]] = m[write]
                 cur = torch.cat([cur[:, :1], torch.where(cone, m, prim),
                                  cur[:, -1:]], 1)
-            slot = torch.full((lanes,), float("nan"), dtype=f32)
+            nxt = torch.full((hi - lo,), float("nan"), dtype=f32)
             done = own & active
-            slot[lane[done]] = cur[:, 1:-1][done]
-            slots[c + 1] = slot
-    return out
+            nxt[(lane - lo)[done]] = cur[:, 1:-1][done]
+            slot[c + 1] = nxt
+        done = own & (firsts < n_chunks)[:, None]
+        c_out[(lane - lo)[done]] = cur[:, 1:-1][done]
 
 
 # -- the bump rounds (X2) ------------------------------------------------------

@@ -8,7 +8,8 @@ over those stacks.  Float64 throughout, as in the JAX package: ECEF
 magnitudes (~6.4e6 m) against neighbour deltas (~30 m) make float32
 cancellation catastrophic.  Float64 is native in torch, so nothing is
 scoped.  The operation order is the JAX package's; the 9-term means are
-sums divided by 9, as ``jnp.mean`` computes them.
+sums divided by 9, as ``jnp.mean`` computes them, the 9 terms added in
+order.
 
 Memory: about 15 float64 (9, H, W) stacks live at the peak, 14 GB for one
 3601 x 3601 tile.
@@ -33,7 +34,7 @@ _R_KERNEL = 6370994.884953014
 INV_2R = 1.0 / (2.0 * _R_KERNEL)
 
 __all__ = ["geodesic_fit", "geodesic_slope", "geodesic_aspect",
-           "WGS84_A2", "WGS84_B2", "INV_2R"]
+           "geodesic_mesh", "WGS84_A2", "WGS84_B2", "INV_2R"]
 
 
 def _ecef(lat_rad, lon_rad, h, a2, b2):
@@ -54,8 +55,18 @@ def _shift9(arr):
                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
 
 
+def _sum9(stack):
+    """The sum of the 9 neighbourhood planes, added one after another: the
+    same bits for a block as for the whole raster (a reduction kernel on
+    the card may order its adds by the tensor's shape)."""
+    acc = stack[0]
+    for k in range(1, stack.shape[0]):
+        acc = acc + stack[k]
+    return acc
+
+
 def _mean9(stack):
-    return stack.sum(dim=0) / 9.0
+    return _sum9(stack) / 9.0
 
 
 def geodesic_fit(elev, lat_deg, lon_deg, a2, b2, z_factor):
@@ -97,11 +108,11 @@ def geodesic_fit(elev, lat_deg, lon_deg, a2, b2, z_factor):
     me, mn, mu = _mean9(e9), _mean9(n9), _mean9(u9)
     de, dn, du = e9 - me[None], n9 - mn[None], u9 - mu[None]
     del e9, n9, u9
-    see = torch.sum(de * de, dim=0)
-    snn = torch.sum(dn * dn, dim=0)
-    sen = torch.sum(de * dn, dim=0)
-    seu = torch.sum(de * du, dim=0)
-    snu = torch.sum(dn * du, dim=0)
+    see = _sum9(de * de)
+    snn = _sum9(dn * dn)
+    sen = _sum9(de * dn)
+    seu = _sum9(de * du)
+    snu = _sum9(dn * du)
 
     det = see * snn - sen * sen
     degenerate = torch.abs(det) < 1e-30
@@ -134,3 +145,32 @@ def geodesic_aspect(elev, lat_deg, lon_deg, a2, b2, z_factor):
     angle = torch.where(angle >= 360.0, angle - 360.0, angle)
     out = torch.where(mag < 1e-7, -1.0, angle)
     return _finish(out, valid)
+
+
+def geodesic_mesh(fn, data, lat, lon, a2, b2, z_factor):
+    """`fn` (``geodesic_slope`` or ``geodesic_aspect``) of a raster split
+    over a mesh (a ``ShardedRaster``), as a raster of its tiles: each
+    block's float64 elevation, latitude and longitude stacked as one
+    (3, h, w) block, from the global coordinates (`lat` and `lon` numpy,
+    1-D per row and column or 2-D grids), then ``run_stencil`` with a
+    1-cell halo, so that a block's ring holds its neighbours' real
+    elevations and coordinates.  Beyond the raster the halo is NaN, which
+    only the raster's edge cells read, and they are NaN anyway."""
+    from ..parallel.halo import tiles, zip_blocks
+    from .dispatch import run_stencil
+    x = tiles(data)
+    f64 = torch.float64
+
+    def stack(i, j, b):
+        (y0, y1), (x0, x1) = x.extent(0, i), x.extent(1, j)
+        if lat.ndim == 1:
+            la = torch.from_numpy(lat[y0:y1]).to(b.device, f64)[:, None]
+            lo = torch.from_numpy(lon[x0:x1]).to(b.device, f64)[None, :]
+            la, lo = torch.broadcast_tensors(la, lo)
+        else:
+            la = torch.from_numpy(lat[y0:y1, x0:x1]).to(b.device, f64)
+            lo = torch.from_numpy(lon[y0:y1, x0:x1]).to(b.device, f64)
+        return torch.stack([b.to(f64), la, lo])
+
+    return run_stencil(lambda e: fn(e[0], e[1], e[2], a2, b2, z_factor), 1,
+                       zip_blocks(stack, x))

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["shadow_mask", "hillshade_shadows", "step_offsets"]
+__all__ = ["shadow_mask", "hillshade_shadows", "hillshade_shadows_mesh",
+           "step_offsets", "march_halo", "march_steps", "MARCH_STEPS"]
 
 # the constant XLA makes of `* pi / 180.0` (see the module's docstring)
 _DEG_TO_RAD = np.float32(np.float32(math.pi) * np.float32(1.0 / 180.0))
@@ -72,16 +73,39 @@ def step_offsets(azimuth, altitude, cellsize_x, cellsize_y, n_steps: int):
             oy - oy0, ox - ox0, dz * k)
 
 
+def march_halo(azimuth, altitude, cellsize_x, cellsize_y, n_steps: int):
+    """(rows, columns) the march of `n_steps` steps reads around a cell:
+    ``ceil(n |dr|) + 2`` and ``ceil(n |dc|) + 2``, the per-step offsets of
+    ``step_offsets``; the halo of its mesh form."""
+    f32 = np.float32
+    sx, sy, _ = _sun_dir(azimuth, altitude)
+    csx, csy = abs(f32(cellsize_x)), abs(f32(cellsize_y))
+    step = min(csx, csy)
+    dc, dr = sx * step / csx, -sy * step / csy
+    return (int(math.ceil(n_steps * abs(float(dr)))) + 2,
+            int(math.ceil(n_steps * abs(float(dc)))) + 2)
+
+
 def _shadow_mask_impl(data: torch.Tensor, azimuth, angle_altitude,
                       cellsize_x, cellsize_y, n_steps: int) -> torch.Tensor:
-    h, w = data.shape
-    ry, rx, fy, fx, dzk = step_offsets(azimuth, angle_altitude, cellsize_x,
-                                       cellsize_y, n_steps)
+    pad = n_steps + 1
     # -inf terrain (NaN cells and out of range) never blocks
     terrain = torch.where(torch.isnan(data), -math.inf, data)
-    pad = n_steps + 1
     padded = F.pad(terrain, (pad, pad, pad, pad), value=-math.inf)
     del terrain
+    return _march(padded, data, (pad, pad), azimuth, angle_altitude,
+                  cellsize_x, cellsize_y, n_steps)
+
+
+def _march(padded, data, at, azimuth, angle_altitude, cellsize_x,
+           cellsize_y, n_steps: int) -> torch.Tensor:
+    """The lit mask of the cells `data` (H, W), which lie at `at` (row,
+    column) in the -inf padded terrain `padded`, reaching far enough."""
+    h, w = data.shape
+    pad = n_steps + 1
+    ry, rx, fy, fx, dzk = step_offsets(azimuth, angle_altitude, cellsize_x,
+                                       cellsize_y, n_steps)
+    ry, rx = ry - pad + at[0], rx - pad + at[1]
     z0 = data + 1e-3
     blocked = torch.zeros((h, w), dtype=torch.bool, device=data.device)
     one = np.float32(1)
@@ -99,15 +123,23 @@ def _shadow_mask_impl(data: torch.Tensor, azimuth, angle_altitude,
     return ~blocked
 
 
+# the most steps a march takes
+MARCH_STEPS = 1024
+
+
+def march_steps(h: int, w: int, n_steps: int = MARCH_STEPS) -> int:
+    """The steps an (h, w) raster's march takes: min(n_steps, 1.5 *
+    max(h, w) + 2)."""
+    return min(n_steps, int(1.5 * max(h, w)) + 2)
+
+
 def shadow_mask(data: torch.Tensor, azimuth, angle_altitude, cellsize_x,
-                cellsize_y, n_steps: int = 1024) -> torch.Tensor:
+                cellsize_y, n_steps: int = MARCH_STEPS) -> torch.Tensor:
     """True where a cell sees the sun (not shadowed); (H, W) bool on
-    `data`'s device.  Marches min(n_steps, 1.5 * max(H, W) + 2) steps."""
+    `data`'s device.  Marches ``march_steps(H, W, n_steps)`` steps."""
     data = data.to(torch.float32)
-    h, w = data.shape
-    n = min(n_steps, int(1.5 * max(h, w)) + 2)
     return _shadow_mask_impl(data, azimuth, angle_altitude, cellsize_x,
-                             cellsize_y, n)
+                             cellsize_y, march_steps(*data.shape, n_steps))
 
 
 def hillshade_shadows(data: torch.Tensor, azimuth, angle_altitude,
@@ -122,14 +154,73 @@ def hillshade_shadows(data: torch.Tensor, azimuth, angle_altitude,
     dzdx = (p[1:-1, 2:] - p[1:-1, :-2]) / float(f32(2.0) * f32(csx))
     dzdy_north = (p[:-2, 1:-1] - p[2:, 1:-1]) / float(f32(2.0) * f32(csy))
     del p
+    shade = _lambert(dzdx, dzdy_north, azimuth, angle_altitude)
+    lit = shadow_mask(data, azimuth, angle_altitude, csx, csy)
+    shade = torch.where(lit, shade, shade / 2.0)
+    return torch.clamp(shade, 0.0, 1.0)
+
+
+def _lambert(dzdx, dzdy_north, azimuth, angle_altitude):
+    """Lambert shading (cos(theta) + 1) / 2 from the surface gradient."""
     inv_len = torch.rsqrt(dzdx * dzdx + dzdy_north * dzdy_north + 1.0)
     nx = -dzdx * inv_len
     ny = -dzdy_north * inv_len
     nz = inv_len
     sx, sy, sz = (float(v) for v in _sun_dir(azimuth, angle_altitude))
     cos_theta = nx * sx + ny * sy + nz * sz
-    del nx, ny, nz, dzdx, dzdy_north
-    shade = (cos_theta + 1.0) / 2.0
-    lit = shadow_mask(data, azimuth, angle_altitude, csx, csy)
-    shade = torch.where(lit, shade, shade / 2.0)
-    return torch.clamp(shade, 0.0, 1.0)
+    del nx, ny, nz
+    return (cos_theta + 1.0) / 2.0
+
+
+def _shadows_block(ext, origin, shape, halo, azimuth, angle_altitude, csx,
+                   csy, n_steps):
+    """``hillshade_shadows`` of the cells of the extended block `ext` (the
+    raster's cells from `origin` on, -inf beyond the raster) that lie
+    `halo` (rows, columns) inside its edges: the central differences read
+    the neighbours with the raster's edge replicated, as the unsharded
+    edge pad, and the march reads the halo.  Returns `ext`'s shape, NaN
+    outside those cells."""
+    data = ext.to(torch.float32)
+    he, we = data.shape
+    (y0, x0), (h, w), (hy, hx) = origin, shape, halo
+    dev = data.device
+
+    def near(n0, n1, off, n):
+        """The extended block's indices of the neighbours before and after
+        its cells [n0, n1), the raster's edge replicated."""
+        g = torch.arange(n0, n1, device=dev) + off
+        return (g - 1).clamp(0, n - 1) - off, (g + 1).clamp(0, n - 1) - off
+    up, down = near(hy, he - hy, y0, h)
+    left, right = near(hx, we - hx, x0, w)
+    rows = data[hy:he - hy]
+    f32 = np.float32
+    dzdx = (rows[:, right] - rows[:, left]) / float(f32(2.0) * f32(csx))
+    dzdy_north = (data[up][:, hx:we - hx] - data[down][:, hx:we - hx]) \
+        / float(f32(2.0) * f32(csy))
+    shade = _lambert(dzdx, dzdy_north, azimuth, angle_altitude)
+    del dzdx, dzdy_north
+    terrain = torch.where(torch.isnan(data), -math.inf, data)
+    lit = _march(terrain, data[hy:he - hy, hx:we - hx], (hy, hx), azimuth,
+                 angle_altitude, csx, csy, n_steps)
+    shade = torch.clamp(torch.where(lit, shade, shade / 2.0), 0.0, 1.0)
+    out = torch.full((he, we), math.nan, device=dev)
+    out[hy:he - hy, hx:we - hx] = shade
+    return out
+
+
+def hillshade_shadows_mesh(data, azimuth, angle_altitude, cellsize_x,
+                           cellsize_y):
+    """``hillshade_shadows`` of a raster split over a mesh, as a raster of
+    its tiles: ``run_stencil`` with the march's halo (``march_halo`` of
+    the steps the whole raster marches), -inf beyond the raster as the
+    unsharded pad, each block's origin passed so that the normals
+    replicate the raster's edge only."""
+    from .dispatch import run_stencil
+    f32 = np.float32
+    csx, csy = float(f32(cellsize_x)), float(f32(cellsize_y))
+    h, w = data.shape[-2:]
+    n = march_steps(h, w)
+    halo = march_halo(azimuth, angle_altitude, csx, csy, n)
+    return run_stencil(_shadows_block, halo, data, (h, w), halo, azimuth,
+                       angle_altitude, csx, csy, n, fill=-math.inf,
+                       origin=True)

@@ -21,8 +21,11 @@ Three parts:
   fields and the epilogue as torch ops, the four half-plane scans in one
   launch of ``csrc/xdraw.cu`` on the card (bands of lanes across the SMs,
   planned by ``xdraw_plan``) and in the twin ``xdraw_scan_twin`` on the
-  CPU.  Its mesh form, the JAX package's banded distributed scan, is
-  not ported yet (ROADMAP A13b).
+  CPU; on a mesh (``viewshed_grid_los_mesh``, the JAX package's banded
+  distributed scan) the scans run on strips of lanes over the flattened
+  mesh, a window of L steps a launch of the strip route of
+  ``csrc/xdraw.cu`` on the card (``xdraw_strip_twin`` on the CPU), with
+  the halo carries exchanged between windows.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.halo import _sources
 from .staged import SMEM_PER_BLOCK, SMEM_PER_SM
 
 __all__ = ["viewshed_grid", "viewshed_grid_los", "xdraw_scan_twin",
@@ -613,16 +617,23 @@ def _xdraw_interp(prim, sec, wsec):
 
 
 def _xdraw_fields(data, vp_row, vp_col, observer_elev, target_elev,
-                  ew_res, ns_res):
+                  ew_res, ns_res, origin=(0, 0), vp_elev=None):
     """Per-cell slopes and viewpoint-relative geometry, float32: (dy, dx,
     safe_d, slope_self, slope_tgt, vp_elev).  At the viewpoint slope_self
-    is -inf and slope_tgt +inf."""
+    is -inf and slope_tgt +inf.  `data` may be a block of a larger raster
+    whose cell (0, 0) is the raster's `origin`; `vp_elev` (the viewpoint's
+    elevation plus the observer's, on `data`'s device) is then given, as
+    the block need not hold the viewpoint."""
     h, w = data.shape
     dev = data.device
+    y0, x0 = origin
     vp_r, vp_c = _f32(vp_row, dev), _f32(vp_col, dev)
-    vp_elev = data[vp_row, vp_col] + _f32(observer_elev, dev)
-    dy = torch.arange(h, dtype=torch.float32, device=dev)[:, None] - vp_r
-    dx = torch.arange(w, dtype=torch.float32, device=dev)[None, :] - vp_c
+    if vp_elev is None:
+        vp_elev = data[vp_row - y0, vp_col - x0] + _f32(observer_elev, dev)
+    dy = torch.arange(y0, y0 + h, dtype=torch.float32,
+                      device=dev)[:, None] - vp_r
+    dx = torch.arange(x0, x0 + w, dtype=torch.float32,
+                      device=dev)[None, :] - vp_c
     wx = dx * _f32(ew_res, dev)
     wy = dy * _f32(ns_res, dev)
     dist_w = torch.sqrt(wx * wx + wy * wy)
@@ -733,10 +744,17 @@ def xdraw_plan(h: int, w: int, sms: int = 132, band: int | None = None,
     `sms` SMs: the longest chunk of ``XDRAW_CHUNKS`` and, for it, the
     smallest band of ``XDRAW_BANDS`` whose blocks can all be resident at
     once (the launch is cooperative).  Smaller bands fill the SMs with
-    more, shorter blocks: on the H100 bands of 64 took 9.8 ms at 16384^2
-    against 11.4 for 256 and 14.4 for 512, chunks of 16 lost 5-11%
-    (PERF.md).  A given `band` or `chunk` is taken as it is; a
-    launch whose blocks cannot all be resident then fails."""
+    more, shorter blocks (the card's sweep of bands and chunks: PERF.md).
+    A given `band` or `chunk` is taken as it is; a launch whose blocks
+    cannot all be resident then fails."""
+    return _band_plan((h, h, w, w), lambda c: -(-(max(h, w) - 1) // c) + 1,
+                      sms, band, chunk, f"a {h}x{w} raster")
+
+
+def _band_plan(lanes, slots_of, sms, band, chunk, what) -> XDrawPlan:
+    """The band and chunk of a banded launch whose four half-planes have
+    `lanes` lanes each (see ``xdraw_plan``); `slots_of(chunk)` is the
+    chunk-end slots a half-plane keeps."""
     def plan(b, c):
         wmax = b + c
         threads = min(XDRAW_MAX_THREADS, -(-wmax // 32) * 32)
@@ -745,8 +763,8 @@ def xdraw_plan(h: int, w: int, sms: int = 132, band: int | None = None,
                      SM_REGISTERS // (threads * XDRAW_REGISTERS),
                      SMEM_PER_SM // (shared + 1024))
         return XDrawPlan(b, c, threads, shared,
-                         2 * -(-h // b) + 2 * -(-w // b),
-                         -(-(max(h, w) - 1) // c) + 1, per_sm)
+                         sum(-(-n // b) for n in lanes), slots_of(c),
+                         per_sm)
 
     if band is not None and chunk is not None:
         p = plan(band, chunk)
@@ -760,8 +778,8 @@ def xdraw_plan(h: int, w: int, sms: int = 132, band: int | None = None,
             p = plan(b, c)
             if p.shared_bytes <= SMEM_PER_BLOCK and p.blocks <= sms * p.per_sm:
                 return p
-    raise ValueError(f"xdraw_plan: no band and chunk fit a {h}x{w} raster "
-                     f"on {sms} SMs")
+    raise ValueError(f"xdraw_plan: no band and chunk fit {what} on {sms} "
+                     f"SMs")
 
 
 def _xdraw_octant_masks(dy, dx):
@@ -825,7 +843,15 @@ def _xdraw_inward_max(m, dy, dx):
 def _xdraw_epilogue(m, data, dy, dx, safe_d, slope_tgt, vp_elev,
                     target_elev):
     """Combined max-slope field -> visibility + vertical angles."""
-    visible = _xdraw_inward_max(m, dy, dx) <= slope_tgt
+    return _xdraw_angles(_xdraw_inward_max(m, dy, dx), data, dy, dx, safe_d,
+                         slope_tgt, vp_elev, target_elev)
+
+
+def _xdraw_angles(inward_max, data, dy, dx, safe_d, slope_tgt, vp_elev,
+                  target_elev):
+    """The inward max slope of each cell -> visibility + vertical angles,
+    cell by cell."""
+    visible = inward_max <= slope_tgt
     diff = vp_elev - (data + _f32(target_elev, data.device))
     vert = torch.where(
         diff == 0.0, 90.0,
@@ -852,3 +878,351 @@ def viewshed_grid_los(data, vp_row: int, vp_col: int, observer_elev: float,
     m = xdraw_max_slope(slope_self, vp_row, vp_col)
     return _xdraw_epilogue(m, data, dy, dx, safe_d, slope_tgt, vp_elev,
                            target_elev)
+
+
+# ---------------------------------------------------------------------------
+# XDraw on a mesh: the half-plane scans on strips of lanes
+# ---------------------------------------------------------------------------
+#
+# The JAX package's banded distributed scan (``_xdraw_banded_pass``) splits
+# each half-plane's lanes (its minor axis) over the flattened mesh and
+# refreshes a K-lane halo on both sides every K steps.  A lane's secondary
+# neighbour is always the lane one nearer the viewpoint's, so one side is
+# enough: a strip of lanes extended by L lanes toward the viewpoint's lane
+# (cut at it) runs L steps exactly, its halo decaying from the far edge one
+# lane a step.  Between two windows of L steps the owned carries at the
+# edge of each strip are copied into the halo of the strip beside it.  East
+# and west run on strips of rows, south and north on strips of columns,
+# each strip on its own device; the fields return to the input's blocks and
+# each cell takes its own octant's scan.
+
+# the step window the plan takes: the fastest of L = 64, 256, 1024 and
+# 4096 at 16384^2 on a 2x2 mesh of four NVIDIA H100 80GB HBM3 at 700.00 W,
+# within 1.2% of the fastest on one such card (PERF.md)
+XDRAW_STRIP_DEFAULT = 1024
+
+
+class XDrawStripPlan(NamedTuple):
+    steps: int          # L: steps a launch walks, lanes of a strip's halo
+    band: int
+    chunk: int
+    threads: int
+    shared_bytes: int
+    blocks: int         # of the widest strip's launch: 4 half-planes
+    slots: int          # chunk-end slots a half-plane keeps a launch
+    per_sm: int
+
+
+def strip_halos(n: int, parts: int, vp_lane: int, steps: int) -> list:
+    """(lo, hi) halo lanes of each of the `parts` strips of `n` lanes:
+    `steps` lanes on the side toward `vp_lane`, cut at it; none for the
+    strip that holds it or for a strip beyond the raster."""
+    s = -(-n // parts)
+    out = []
+    for p in range(parts):
+        a, b = p * s, min((p + 1) * s, n)
+        if a >= b or a <= vp_lane < b:
+            out.append((0, 0))
+        elif a > vp_lane:
+            out.append((min(steps, a - vp_lane), 0))
+        else:
+            out.append((0, min(steps, vp_lane - (b - 1))))
+    return out
+
+
+def xdraw_strip_plan(h: int, w: int, vp_row: int, vp_col: int, parts: int,
+                     sms: int = 132, steps: int | None = None,
+                     band: int | None = None,
+                     chunk: int | None = None) -> XDrawStripPlan:
+    """How the strip route runs an (h, w) raster on `parts` strips: the
+    step window L (`steps`, by default ``XDRAW_STRIP_DEFAULT``), and the
+    band and chunk of ``xdraw_banded_kernel`` for the widest strip (owned
+    lanes plus halo) by ``xdraw_plan``'s rule.  A pass makes
+    ``parts * ceil(max(h, w) / L)`` launches and as many exchanges; the
+    halo adds up to L lanes a strip."""
+    steps = XDRAW_STRIP_DEFAULT if steps is None else int(steps)
+    if steps < 1:
+        raise ValueError(f"xdraw_strip_plan: steps {steps} < 1")
+
+    def widest(n, vp):
+        s = -(-n // parts)
+        return max(min((p + 1) * s, n) - p * s + lo + hi for p, (lo, hi)
+                   in enumerate(strip_halos(n, parts, vp, steps)))
+    wr, wc = widest(h, vp_row), widest(w, vp_col)
+    p = _band_plan((wr, wr, wc, wc), lambda c: -(-steps // c) + 1, sms,
+                   band, chunk, f"strips of {wr} and {wc} lanes")
+    return XDrawStripPlan(steps, *p)
+
+
+def xdraw_strip_twin(slope, carry, s0: int, steps: int, lane_lo: int,
+                     n_lanes: int, vp_lane: int, vp_major: int):
+    """One strip's forward and reverse half-plane scans over the window of
+    steps ``[s0, s0 + steps)``: the plain version of the strip route of
+    ``csrc/xdraw.cu``, and of one device's part of the JAX package's
+    ``_xdraw_banded_pass``.
+
+    `slope` is (R, S) float32, lane r the plane's lane ``lane_lo + r``,
+    column t its major index t; `carry` (2, R) holds the forward and
+    reverse scans' lanes before step s0 (the reverse scan's step k is
+    major index S - 1 - k).  Lanes at or beyond `n_lanes` are padding:
+    their minor offset is 3 max(n_lanes, S), so they never enter the
+    cone.  Returns ((2, R, n) the lanes after each of the window's n
+    steps, (2, R) the carry after the last).  Every product and sum is
+    rounded apart, as in ``xdraw_scan_twin``.
+    """
+    r, s = slope.shape
+    dev = slope.device
+    neginf = float("-inf")
+    n = max(0, min(steps, s - s0))
+    g = torch.arange(lane_lo, lane_lo + r, device=dev)
+    minor = torch.where(g < n_lanes,
+                        g.to(torch.float32) - _f32(vp_lane, dev),
+                        float(3 * max(n_lanes, s)))
+    ady = torch.abs(minor)[None]
+    sy = torch.sign(minor)[None]
+    use_sec = ady > 0
+    vpm = torch.stack([_f32(vp_major, dev),
+                       _f32(s - 1, dev) - _f32(vp_major, dev)])[:, None]
+    edge = torch.full((2, 1), neginf, device=dev)
+    m = carry
+    lines = torch.empty((2, r, n), dtype=torch.float32, device=dev)
+    for i in range(n):
+        k = s0 + i
+        s_k = torch.stack([slope[:, k], slope[:, s - 1 - k]])
+        dxf = _f32(k, dev) - vpm
+        mask = (ady <= dxf) & (dxf > 0)
+        up = torch.cat([edge, m[:, :-1]], 1)
+        down = torch.cat([m[:, 1:], edge], 1)
+        sec = torch.where(sy > 0, up, torch.where(sy < 0, down, m))
+        wsec = torch.where(use_sec, ady / torch.clamp(dxf, min=1.0), 0.0)
+        both = torch.isfinite(m) & torch.isfinite(sec)
+        interp = torch.where(both, _xdraw_interp(m, sec, wsec),
+                             torch.maximum(m, sec))
+        blocked = torch.where(dxf == 1.0, neginf, interp)
+        m = torch.where(mask, torch.maximum(blocked, s_k), neginf)
+        lines[:, :, i] = m
+    return lines, m
+
+
+class StripHalf(NamedTuple):
+    """One orientation of a strip's launch: its slope lanes and scan field
+    (a (R, w) strip of rows or an (h, R) strip of columns), the carries
+    before and after the window ((2, R), forward then reverse), the
+    plane's lane of buffer lane 0 and the end of the window's lanes."""
+    src: torch.Tensor
+    out: torch.Tensor
+    carry_in: torch.Tensor
+    carry_out: torch.Tensor
+    buf_lo: int
+    lane_hi: int
+
+
+class _StripScan:
+    """One orientation of the strip route: `strips` lane-major (R_p, S)
+    views of `parts` strips of an (n_lanes, S) plane with `halos`, their
+    ping-pong carries and the exchange of halo carries between windows."""
+
+    def __init__(self, strips, halos, n_lanes, vp_lane, vp_major):
+        self.strips, self.halos = strips, halos
+        self.n_lanes, self.vp_lane, self.vp_major = n_lanes, vp_lane, vp_major
+        self.s = -(-n_lanes // len(strips))
+        self.buf_lo = [p * self.s - lo for p, (lo, _) in enumerate(halos)]
+        self.lane_hi = [min((p + 1) * self.s, n_lanes) + hi
+                        for p, (_, hi) in enumerate(halos)]
+        self.carry = [[torch.full((2, t.shape[0]), float("-inf"),
+                                  device=t.device) for t in strips]
+                      for _ in range(2)]
+
+    def empty(self, p) -> bool:
+        return p * self.s >= self.n_lanes
+
+    def carries(self, p, r):
+        """Strip p's carries before and after window r."""
+        return self.carry[r % 2][p], self.carry[(r + 1) % 2][p]
+
+    def exchange(self, r):
+        """After window r: each strip's halo carries from the owned lanes
+        of the strips that own them, one copy a piece."""
+        cur = self.carry[(r + 1) % 2]
+        parts = len(self.strips)
+        for p, (lo, hi) in enumerate(self.halos):
+            a = p * self.s
+            for g0, g1 in ((a - lo, a), (a + self.s, a + self.s + hi)):
+                for q, la, lb, off in _sources(self.n_lanes, parts, g0,
+                                               g1):
+                    src = self.halos[q][0] + la
+                    dst = g0 - self.buf_lo[p] + off
+                    cur[p][:, dst:dst + lb - la].copy_(
+                        cur[q][:, src:src + lb - la], non_blocking=True)
+
+    def twin(self, p, r, steps, fwd, rev):
+        """Window r of strip p by the twin, written into its (R, S)
+        forward and reverse fields."""
+        c_in, c_out = self.carries(p, r)
+        s = self.strips[p].shape[1]
+        s0 = r * steps
+        lines, c = xdraw_strip_twin(self.strips[p], c_in, s0, steps,
+                                    self.buf_lo[p], self.n_lanes,
+                                    self.vp_lane, self.vp_major)
+        n = lines.shape[-1]
+        if n:
+            fwd[:, s0:s0 + n] = lines[0]
+            rev[:, s - s0 - n:s - s0] = lines[1].flip(-1)
+        c_out.copy_(c)
+
+
+def _strip_on_card(t) -> bool:
+    """Whether a strip runs on the strip route's kernel (on the card) or
+    on the twin (on the CPU)."""
+    return t.device.type == "cuda"
+
+
+def _first_window(h, w, vp_row, vp_col, steps):
+    """The first window with a step of any half-plane in the cone, the
+    east scan's viewpoint step (dxf = 0) included."""
+    return min(vp_col, w - 1 - vp_col, vp_row, h - 1 - vp_row) // steps
+
+
+def strip_scans(slope, vp_row: int, vp_col: int, steps: int | None = None,
+                band: int | None = None, chunk: int | None = None):
+    """The four half-plane scans of a raster split over a mesh (a
+    ``ShardedRaster``) on strips over the flattened mesh, east and west on
+    strips of rows, south and north on strips of columns: each window of
+    each strip one launch of the strip route of ``csrc/xdraw.cu`` on the
+    card (the twin on the CPU), the halo carries exchanged between
+    windows.  Returns (the raster of tiles, the rows' and the columns'
+    halos, and each strip's fields: on the card its (R, w) rows field,
+    east and west in one, and its (h, R) columns field, south and north in
+    one; on the CPU its east, west, south and north fields, the rows'
+    (R, w), the columns' (R, h))."""
+    from ..parallel.halo import flat_devices, tiles, to_strips
+    slope = tiles(slope)
+    h, w = slope.shape
+    parts = slope.mesh.size
+    dev0 = flat_devices(slope.mesh)[0]
+    sms = (torch.cuda.get_device_properties(dev0).multi_processor_count
+           if dev0.type == "cuda" else 132)
+    plan = xdraw_strip_plan(h, w, vp_row, vp_col, parts, sms, steps, band,
+                            chunk)
+    n_steps = plan.steps
+    halos_r = strip_halos(h, parts, vp_row, n_steps)
+    halos_c = strip_halos(w, parts, vp_col, n_steps)
+    rows = to_strips(slope, 0, halos_r, float("-inf"))
+    cols = to_strips(slope, 1, halos_c, float("-inf"))
+    scan_r = _StripScan(rows, halos_r, h, vp_row, vp_col)
+    scan_c = _StripScan([t.t() for t in cols], halos_c, w, vp_col, vp_row)
+    on_card = [_strip_on_card(t) for t in rows]
+    if any(on_card):
+        from .cuda_xdraw import xdraw_strip_cuda, strip_scratch
+    fields = []
+    for p in range(parts):
+        if on_card[p]:
+            fields.append((torch.empty_like(rows[p]),
+                           torch.empty_like(cols[p]),
+                           *strip_scratch(rows[p], cols[p], plan)))
+        else:
+            fields.append(tuple(torch.full(t.shape, float("-inf"),
+                                           device=t.device)
+                                for t in (rows[p], rows[p], cols[p].t(),
+                                          cols[p].t())))
+    for r in range(_first_window(h, w, vp_row, vp_col, n_steps),
+                   -(-max(h, w) // n_steps)):
+        for p in range(parts):
+            if scan_r.empty(p) and scan_c.empty(p):
+                continue
+            if on_card[p]:
+                out_r, out_c, slots, progress = fields[p]
+                halves = [None if sc.empty(p) else StripHalf(
+                    src, out, *sc.carries(p, r), sc.buf_lo[p],
+                    sc.lane_hi[p]) for sc, src, out in (
+                        (scan_r, rows[p], out_r), (scan_c, cols[p], out_c))]
+                xdraw_strip_cuda(*halves, h, w, vp_row, vp_col,
+                                 r * n_steps, plan, slots, progress,
+                                 r * plan.slots)
+            else:
+                scan_r.twin(p, r, n_steps, *fields[p][:2])
+                scan_c.twin(p, r, n_steps, *fields[p][2:])
+        scan_r.exchange(r)
+        scan_c.exchange(r)
+    return slope, halos_r, halos_c, [f[:2] if card else f
+                                     for f, card in zip(fields, on_card)]
+
+
+def xdraw_mesh_max_slope(slope, vp_row: int, vp_col: int,
+                         steps: int | None = None, band: int | None = None,
+                         chunk: int | None = None):
+    """The XDraw running max slope of a raster split over a mesh (a
+    ``ShardedRaster``), as a raster of its tiles: the scans of
+    ``strip_scans``, then each cell takes its own octant's scan.  Equal to
+    ``xdraw_max_slope`` of the gathered raster bit for bit."""
+    from ..parallel.halo import from_strips, zip_blocks
+    slope, halos_r, halos_c, fields = strip_scans(slope, vp_row, vp_col,
+                                                  steps, band, chunk)
+    h, w = slope.shape
+
+    def merged(f):
+        if len(f) == 2:
+            return f
+        e, wst, s, n = f
+        cx = torch.arange(w, device=e.device) > vp_col
+        cy = torch.arange(h, device=s.device) > vp_row
+        return torch.where(cx, e, wst), torch.where(cy, s, n).t()
+    both = [merged(f) for f in fields]
+    m_r = from_strips([b[0] for b in both], slope, 0,
+                      [lo for lo, _ in halos_r])
+    m_c = from_strips([b[1] for b in both], slope, 1,
+                      [lo for lo, _ in halos_c])
+
+    def pick(i, j, a, b):
+        (y0, y1), (x0, x1) = slope.extent(0, i), slope.extent(1, j)
+        ady = (torch.arange(y0, y1, device=a.device) - vp_row).abs()
+        adx = (torch.arange(x0, x1, device=a.device) - vp_col).abs()
+        return torch.where(adx[None, :] >= ady[:, None], a, b)
+    return zip_blocks(pick, m_r, m_c)
+
+
+def viewshed_grid_los_mesh(data, vp_row: int, vp_col: int,
+                           observer_elev: float, target_elev: float,
+                           ew_res: float, ns_res: float):
+    """XDraw viewshed of a raster split over a mesh (a ``ShardedRaster``),
+    as a raster of its tiles on the same mesh: the fields per block at the
+    block's global origin, the scans by ``xdraw_mesh_max_slope``, the
+    epilogue per block on a 1-cell halo of the combined field (-inf beyond
+    the raster, as the unsharded shifts fill).  Equal to
+    ``viewshed_grid_los`` of the gathered raster cell for cell."""
+    from ..parallel.halo import HaloSpec, halo_extend, tiles, zip_blocks
+    data = tiles(data.map_blocks(lambda b: b.to(torch.float32)))
+    i = next(i for i in range(data.mesh.shape["y"])
+             if data.extent(0, i)[0] <= vp_row < data.extent(0, i)[1])
+    j = next(j for j in range(data.mesh.shape["x"])
+             if data.extent(1, j)[0] <= vp_col < data.extent(1, j)[1])
+    blk = data.blocks[i][j]
+    vp_elev = (blk[vp_row - data.extent(0, i)[0], vp_col - data.extent(1, j)[0]]
+               + _f32(observer_elev, blk.device))
+
+    def origin(i, j):
+        return data.extent(0, i)[0], data.extent(1, j)[0]
+
+    def fields(i, j, b):
+        return _xdraw_fields(b, vp_row, vp_col, observer_elev, target_elev,
+                             ew_res, ns_res, origin(i, j),
+                             vp_elev.to(b.device))
+    slope = zip_blocks(lambda i, j, b: fields(i, j, b)[3], data)
+    m = xdraw_mesh_max_slope(slope, vp_row, vp_col)
+    del slope
+    ext = halo_extend(m, HaloSpec(1, 1), fill=float("-inf"))
+
+    def epilogue(i, j, b):
+        hb, wb = b.shape
+        y0, x0 = origin(i, j)
+        dy, dx, safe_d, _, slope_tgt, vpe = fields(i, j, b)
+        e = ext[i][j][:hb + 2, :wb + 2]
+        ey = torch.arange(y0 - 1, y0 + hb + 1, dtype=torch.float32,
+                          device=b.device)[:, None] - _f32(vp_row, b.device)
+        ex = torch.arange(x0 - 1, x0 + wb + 1, dtype=torch.float32,
+                          device=b.device)[None, :] - _f32(vp_col, b.device)
+        ey, ex = torch.broadcast_tensors(ey, ex)
+        inward = _xdraw_inward_max(e, ey, ex)[1:-1, 1:-1]
+        return _xdraw_angles(inward, b, dy, dx, safe_d, slope_tgt, vpe,
+                             target_elev)
+    return zip_blocks(epilogue, data)

@@ -23,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .utils import to_torch
-from .xr_compat import _to_numpy
+from .utils import host_copy, payload_mesh, per_block, raster_device, \
+    to_torch
 from .xrlib import DataArray, Dataset
 
 __all__ = ["cell_stats", "combine", "lesser_frequency", "equal_frequency",
@@ -64,8 +64,19 @@ def _validate(raster, data_vars, ref_var=None):
     return data_vars
 
 
-def _stack(raster, data_vars):
-    return torch.stack([to_torch(raster[v]) for v in data_vars], dim=0)
+def _per_cell(raster, data_vars, body, ref_var=None):
+    """``body(cube)`` of the (V, H, W) stack of `data_vars`, or ``body(cube,
+    ref)`` with the `ref_var` raster: on one device, or on each block
+    where the variables are split over a mesh (every variable on that
+    mesh; a raster of the tiles)."""
+    names = list(data_vars) + ([ref_var] if ref_var is not None else [])
+
+    def cell(*bs):
+        cube = torch.stack(bs[:len(data_vars)], dim=0)
+        if ref_var is None:
+            return body(cube)
+        return body(cube, bs[-1].to(cube.device))
+    return per_block(cell, *(raster[v] for v in names))
 
 
 def _nan_any(cube):
@@ -81,12 +92,22 @@ def _median(cube):
     return torch.where(_nan_any(cube), torch.nan, mid)
 
 
+def _sum0(cube):
+    """The sum along axis 0, the variables added one after another: the
+    same bits for a block as for the whole raster (a reduction kernel on
+    the card may order its adds by the tensor's shape)."""
+    acc = cube[0]
+    for k in range(1, cube.shape[0]):
+        acc = acc + cube[k]
+    return acc
+
+
 def _std(cube):
     """jnp.std along axis 0 (ddof 0): the root of the mean squared
     deviation from the mean."""
     v = cube.shape[0]
-    d = cube - cube.sum(dim=0) / v
-    return torch.sqrt((d * d).sum(dim=0) / v)
+    d = cube - _sum0(cube) / v
+    return torch.sqrt(_sum0(d * d) / v)
 
 
 def cell_stats(raster: Dataset, data_vars=None, func: str = 'sum'):
@@ -101,15 +122,14 @@ def cell_stats(raster: Dataset, data_vars=None, func: str = 'sum'):
             f'{func} is not supported. '
             f"The supported types are '{list(_FUNCS)}'.")
     data_vars = _validate(raster, data_vars)
-    cube = _stack(raster, data_vars)
-    out = {
+    out = _per_cell(raster, data_vars, {
         'max': lambda c: torch.amax(c, dim=0),
-        'mean': lambda c: c.sum(dim=0) / c.shape[0],
+        'mean': lambda c: _sum0(c) / c.shape[0],
         'median': _median,
         'min': lambda c: torch.amin(c, dim=0),
         'std': _std,
-        'sum': lambda c: c.sum(dim=0),
-    }[func](cube)
+        'sum': _sum0,
+    }[func])
     return DataArray(out)
 
 
@@ -118,12 +138,15 @@ def combine(raster: Dataset, data_vars=None):
 
     Ids are 1..n in first-occurrence scan order; any-NaN cells are NaN.
     The id -> combination mapping is stored in ``attrs['key']``.  The ids
-    are found on the host with ``np.unique``, as in the JAX package; the
-    float64 result goes to the first variable's device.
+    are found on the host with ``np.unique``, as in the JAX package (a
+    Dataset split over a mesh is gathered to the host, with a warning);
+    the float64 result goes to the first variable's device (its first
+    block's).
     """
     data_vars = _validate(raster, data_vars)
-    first = raster[data_vars[0]].data
-    cube = np.stack([_to_numpy(raster[v].data) for v in data_vars], axis=0)
+    mesh = payload_mesh(*(raster[v] for v in data_vars))
+    cube = np.stack([host_copy(raster[v], "combine") for v in data_vars],
+                    axis=0)
     v, h, w = cube.shape
     rows = cube.reshape(v, -1).T  # (H*W, V)
     nan_mask = np.isnan(rows).any(axis=1)
@@ -139,7 +162,9 @@ def combine(raster: Dataset, data_vars=None):
         out[~nan_mask] = order[inverse.ravel()] + 1
         for i, row in enumerate(clean[np.sort(first_idx)]):
             unique_values[i + 1] = tuple(row.tolist())
-    device = first.device if isinstance(first, torch.Tensor) else None
+    first = raster[data_vars[0]].data
+    device = (raster_device(first) if mesh is not None
+              or isinstance(first, torch.Tensor) else None)
     final = DataArray(to_torch(out.reshape(h, w), dtype=torch.float64,
                                device=device))
     final.attrs['key'] = unique_values
@@ -148,10 +173,11 @@ def combine(raster: Dataset, data_vars=None):
 
 def _frequency(raster, ref_var, data_vars, op):
     data_vars = _validate(raster, data_vars, ref_var)
-    cube = _stack(raster, data_vars)
-    ref = to_torch(raster[ref_var], device=cube.device)
-    count = op(ref[None], cube).sum(dim=0).to(cube.dtype)
-    return DataArray(torch.where(_nan_any(cube), torch.nan, count))
+
+    def body(cube, ref):
+        count = op(ref[None], cube).sum(dim=0).to(cube.dtype)
+        return torch.where(_nan_any(cube), torch.nan, count)
+    return DataArray(_per_cell(raster, data_vars, body, ref_var))
 
 
 def lesser_frequency(raster: Dataset, ref_var: str, data_vars=None):
@@ -171,9 +197,11 @@ def greater_frequency(raster: Dataset, ref_var: str, data_vars=None):
 
 def _position(raster, data_vars, arg_fn):
     data_vars = _validate(raster, data_vars)
-    cube = _stack(raster, data_vars)
-    pos = (arg_fn(cube, dim=0) + 1).to(cube.dtype)
-    return DataArray(torch.where(_nan_any(cube), torch.nan, pos))
+
+    def body(cube):
+        pos = (arg_fn(cube, dim=0) + 1).to(cube.dtype)
+        return torch.where(_nan_any(cube), torch.nan, pos)
+    return DataArray(_per_cell(raster, data_vars, body))
 
 
 def lowest_position(raster: Dataset, data_vars=None):
@@ -186,11 +214,11 @@ def highest_position(raster: Dataset, data_vars=None):
     return _position(raster, data_vars, torch.argmax)
 
 
-def _reference_index(raster, ref_var, device):
+def _reference_index(ref):
     """``ref.astype(int32) - 1`` as XLA computes it on the float32
     reference: NaN converts to 0, values beyond int32 saturate, and
     INT32_MIN - 1 wraps to INT32_MAX; held in int64."""
-    ref = to_torch(raster[ref_var], device=device).double()
+    ref = ref.double()
     idx = torch.nan_to_num(ref, nan=0.0).clamp(_INT32_MIN, _INT32_MAX)
     idx = idx.to(torch.int64) - 1
     return torch.where(idx < _INT32_MIN, _INT32_MAX, idx)
@@ -200,9 +228,12 @@ def popularity(raster: Dataset, ref_var: str, data_vars=None):
     """Value selected from each cell's sorted unique values by the
     reference index; NaN when all values are distinct."""
     data_vars = _validate(raster, data_vars, ref_var)
-    cube = _stack(raster, data_vars)
+    return DataArray(_per_cell(raster, data_vars, _popularity, ref_var))
+
+
+def _popularity(cube, ref):
     v = cube.shape[0]
-    ref_idx = _reference_index(raster, ref_var, cube.device)
+    ref_idx = _reference_index(ref)
 
     s = torch.sort(cube, dim=0).values
     is_new = torch.cat([torch.ones_like(s[:1], dtype=torch.bool),
@@ -213,25 +244,26 @@ def popularity(raster: Dataset, ref_var: str, data_vars=None):
     # negative reference indices wrap (python list indexing)
     eff_idx = torch.where(ref_idx < 0, n_unique + ref_idx, ref_idx)
     pick = is_new & (distinct_rank == eff_idx[None])
-    picked = torch.where(pick, s, 0.0).sum(dim=0)
+    picked = _sum0(torch.where(pick, s, 0.0))
 
     out = torch.where(n_unique == 1, s[0], picked)
     out = torch.where((ref_idx >= n_unique) & (n_unique != 1), torch.nan,
                       out)
-    out = torch.where(_nan_any(cube) | (n_unique >= v), torch.nan, out)
-    return DataArray(out)
+    return torch.where(_nan_any(cube) | (n_unique >= v), torch.nan, out)
 
 
 def rank(raster: Dataset, ref_var: str, data_vars=None):
     """Per-cell value at the reference's rank in ascending sorted order."""
     data_vars = _validate(raster, data_vars, ref_var)
-    cube = _stack(raster, data_vars)
+    return DataArray(_per_cell(raster, data_vars, _rank, ref_var))
+
+
+def _rank(cube, ref):
     v = cube.shape[0]
-    ref_idx = _reference_index(raster, ref_var, cube.device)
+    ref_idx = _reference_index(ref)
     s = torch.sort(cube, dim=0).values
     # negative ranks wrap, like python list indexing
     eff_idx = torch.where(ref_idx < 0, v + ref_idx, ref_idx)
     gathered = torch.gather(s, 0, eff_idx.clamp(0, v - 1)[None])[0]
-    out = torch.where(_nan_any(cube) | (ref_idx >= v) | (eff_idx < 0),
-                      torch.nan, gathered)
-    return DataArray(out)
+    return torch.where(_nan_any(cube) | (ref_idx >= v) | (eff_idx < 0),
+                       torch.nan, gathered)

@@ -18,7 +18,9 @@ import numpy as np
 import torch
 
 from .dataset_support import supports_dataset_bands
-from .utils import to_torch, validate_arrays, wrap_like
+from .parallel.halo import ShardedRaster, zip_blocks
+from .utils import (mesh_shards, payload_mesh, per_block, to_torch,
+                    validate_arrays, wrap_like)
 from .xr_compat import nanmax, nanmin
 from .xrlib import DataArray
 
@@ -46,9 +48,11 @@ def arvi(nir_agg, red_agg, blue_agg, name='arvi') -> DataArray:
     """Atmospherically Resistant Vegetation Index:
     ``(nir - 2*red + blue) / (nir + 2*red + blue)``."""
     validate_arrays(red_agg, nir_agg, blue_agg)
-    nir, red, blue = (to_torch(a) for a in (nir_agg, red_agg, blue_agg))
-    red2 = 2.0 * red
-    out = _guard(nir + red2 + blue, nir - red2 + blue)
+
+    def index(nir, red, blue):
+        red2 = 2.0 * red
+        return _guard(nir + red2 + blue, nir - red2 + blue)
+    out = per_block(index, nir_agg, red_agg, blue_agg)
     return wrap_like(nir_agg, out, name)
 
 
@@ -66,9 +70,11 @@ def evi(nir_agg, red_agg, blue_agg, c1=6.0, c2=7.5, soil_factor=1.0,
     if gain < 0:
         raise ValueError("gain must be greater than 0")
     validate_arrays(nir_agg, red_agg, blue_agg)
-    nir, red, blue = (to_torch(a) for a in (nir_agg, red_agg, blue_agg))
-    den = nir + _f32(c1) * red - _f32(c2) * blue + _f32(soil_factor)
-    out = _f32(gain) * _guard(den, nir - red)
+
+    def index(nir, red, blue):
+        den = nir + _f32(c1) * red - _f32(c2) * blue + _f32(soil_factor)
+        return _f32(gain) * _guard(den, nir - red)
+    out = per_block(index, nir_agg, red_agg, blue_agg)
     return wrap_like(nir_agg, out, name)
 
 
@@ -76,10 +82,12 @@ def evi(nir_agg, red_agg, blue_agg, c1=6.0, c2=7.5, soil_factor=1.0,
 def gci(nir_agg, green_agg, name='gci') -> DataArray:
     """Green Chlorophyll Index: ``nir / green - 1``."""
     validate_arrays(nir_agg, green_agg)
-    green = to_torch(green_agg)
-    zero = green == 0.0
-    out = torch.where(zero, math.nan,
-                      to_torch(nir_agg) / torch.where(zero, 1.0, green) - 1.0)
+
+    def index(nir, green):
+        zero = green == 0.0
+        return torch.where(zero, math.nan,
+                           nir / torch.where(zero, 1.0, green) - 1.0)
+    out = per_block(index, nir_agg, green_agg)
     return wrap_like(nir_agg, out, name)
 
 
@@ -87,7 +95,7 @@ def gci(nir_agg, green_agg, name='gci') -> DataArray:
 def nbr(nir_agg, swir2_agg, name='nbr') -> DataArray:
     """Normalized Burn Ratio: ``(nir - swir2) / (nir + swir2)``."""
     validate_arrays(nir_agg, swir2_agg)
-    out = _normalized_ratio(to_torch(nir_agg), to_torch(swir2_agg))
+    out = per_block(_normalized_ratio, nir_agg, swir2_agg)
     return wrap_like(nir_agg, out, name)
 
 
@@ -95,7 +103,7 @@ def nbr(nir_agg, swir2_agg, name='nbr') -> DataArray:
 def nbr2(swir1_agg, swir2_agg, name='nbr2') -> DataArray:
     """Normalized Burn Ratio 2: ``(swir1 - swir2) / (swir1 + swir2)``."""
     validate_arrays(swir1_agg, swir2_agg)
-    out = _normalized_ratio(to_torch(swir1_agg), to_torch(swir2_agg))
+    out = per_block(_normalized_ratio, swir1_agg, swir2_agg)
     return wrap_like(swir1_agg, out, name)
 
 
@@ -104,7 +112,7 @@ def ndvi(nir_agg, red_agg, name='ndvi') -> DataArray:
     """Normalized Difference Vegetation Index:
     ``(nir - red) / (nir + red)``."""
     validate_arrays(nir_agg, red_agg)
-    out = _normalized_ratio(to_torch(nir_agg), to_torch(red_agg))
+    out = per_block(_normalized_ratio, nir_agg, red_agg)
     return wrap_like(nir_agg, out, name)
 
 
@@ -113,7 +121,7 @@ def ndmi(nir_agg, swir1_agg, name='ndmi') -> DataArray:
     """Normalized Difference Moisture Index:
     ``(nir - swir1) / (nir + swir1)``."""
     validate_arrays(nir_agg, swir1_agg)
-    out = _normalized_ratio(to_torch(nir_agg), to_torch(swir1_agg))
+    out = per_block(_normalized_ratio, nir_agg, swir1_agg)
     return wrap_like(nir_agg, out, name)
 
 
@@ -124,10 +132,12 @@ def savi(nir_agg, red_agg, soil_factor=1.0, name='savi') -> DataArray:
     validate_arrays(red_agg, nir_agg)
     if not -1.0 <= soil_factor <= 1.0:
         raise ValueError("soil factor must be between [-1.0, 1.0]")
-    nir, red = to_torch(nir_agg), to_torch(red_agg)
     sf = np.float32(soil_factor)
-    den = (nir + red + float(sf)) * float(np.float32(1.0) + sf)
-    out = _guard(den, nir - red)
+
+    def index(nir, red):
+        den = (nir + red + float(sf)) * float(np.float32(1.0) + sf)
+        return _guard(den, nir - red)
+    out = per_block(index, nir_agg, red_agg)
     return wrap_like(nir_agg, out, name)
 
 
@@ -136,8 +146,8 @@ def sipi(nir_agg, red_agg, blue_agg, name='sipi') -> DataArray:
     """Structure Insensitive Pigment Index:
     ``(nir - blue) / (nir - red)``."""
     validate_arrays(red_agg, nir_agg, blue_agg)
-    nir, red, blue = (to_torch(a) for a in (nir_agg, red_agg, blue_agg))
-    out = _guard(nir - red, nir - blue)
+    out = per_block(lambda nir, red, blue: _guard(nir - red, nir - blue),
+                    nir_agg, red_agg, blue_agg)
     return wrap_like(nir_agg, out, name)
 
 
@@ -146,15 +156,16 @@ def ebbi(red_agg, swir_agg, tir_agg, name='ebbi') -> DataArray:
     """Enhanced Built-Up and Bareness Index:
     ``(swir - red) / (10 * sqrt(swir + tir))``."""
     validate_arrays(red_agg, swir_agg, tir_agg)
-    red, swir, tir = (to_torch(a) for a in (red_agg, swir_agg, tir_agg))
-    out = _guard(10.0 * torch.sqrt(swir + tir), swir - red)
+    out = per_block(lambda red, swir, tir: _guard(
+        10.0 * torch.sqrt(swir + tir), swir - red), red_agg, swir_agg, tir_agg)
     return wrap_like(red_agg, out, name)
 
 
-def _normalize_sigmoid(data, pixel_max, c, th):
+def _normalize_sigmoid(data, pixel_max, c, th, extremes=None):
     """Global min-max normalisation, then sigmoid contrast enhancement; a
-    band whose values are all equal is all NaN."""
-    min_val, max_val = nanmin(data), nanmax(data)
+    band whose values are all equal is all NaN.  `extremes` (min, max)
+    are the band's when `data` is one block of it."""
+    min_val, max_val = extremes or (nanmin(data), nanmax(data))
     rng = max_val - min_val
     flat = rng == 0.0
     norm = (data - min_val) / torch.where(flat, 1.0, rng)
@@ -174,18 +185,43 @@ def true_color(r, g, b, nodata=1, c=10.0, th=0.125,
     """RGBA true-color composite with sigmoid contrast enhancement.
 
     ``normalized = 1 / (1 + exp(c * (th - normalized)))``; output is a
-    (y, x, band) uint8 DataArray; alpha = 0 on nodata/NaN cells.
+    (y, x, band) uint8 DataArray; alpha = 0 on nodata/NaN cells.  Bands
+    split over a mesh give a (y, x, band) raster of the same blocks, each
+    band normalised by its min and max over the blocks.
     """
-    red = to_torch(r)
-    channels = [_saturate_uint8(_normalize_sigmoid(
-        band, 255.0, _f32(c), _f32(th)))
-        for band in (red, to_torch(g), to_torch(b))]
-    alpha = torch.where(torch.isnan(red) | (red <= _f32(nodata)), 0, 255)
-    out = torch.stack(channels + [alpha.to(torch.uint8)], dim=-1)
+    def composite(red, green, blue, extremes=(None, None, None)):
+        channels = [_saturate_uint8(_normalize_sigmoid(
+            band, 255.0, _f32(c), _f32(th), ext))
+            for band, ext in zip((red, green, blue), extremes)]
+        alpha = torch.where(torch.isnan(red) | (red <= _f32(nodata)), 0,
+                            255)
+        return torch.stack(channels + [alpha.to(torch.uint8)], dim=-1)
 
     coords = {'band': [0, 1, 2, 3]}
     for d in ('y', 'x'):
         if d in r.coords:
             coords[d] = r[d]
-    return DataArray(out, name=name, dims=['y', 'x', 'band'],
-                     coords=coords, attrs=dict(r.attrs))
+    mesh = payload_mesh(r, g, b)
+    if mesh is None:
+        out = composite(to_torch(r), to_torch(g), to_torch(b))
+    else:
+        bands = mesh_shards(mesh, r, g, b)
+        extremes = [_extremes(x) for x in bands]
+        out = zip_blocks(
+            lambda i, j, *bs: composite(*bs, [tuple(
+                t.to(bs[0].device) for t in e) for e in extremes]),
+            *bands, trail=1)
+    return DataArray(out, name=name, dims=['y', 'x', 'band'], coords=coords,
+                     attrs=dict(r.attrs))
+
+
+def _extremes(x: ShardedRaster):
+    """(nanmin, nanmax) of a raster split over a mesh: the least and the
+    greatest of its blocks' (NaN where every cell is NaN), on its first
+    block's device."""
+    dev = x.blocks[0][0].device
+    parts = [(nanmin(b), nanmax(b)) for row in x.blocks for b in row
+             if b.numel()]
+    lo = torch.stack([p[0].to(dev) for p in parts])
+    hi = torch.stack([p[1].to(dev) for p in parts])
+    return nanmin(lo), nanmax(hi)

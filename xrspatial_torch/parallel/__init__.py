@@ -7,8 +7,11 @@ the payload, as the JAX package's follows the sharding: every op that
 has a mesh branch takes it for a raster split over a mesh (stencils
 through ``kernels/dispatch.py::run_stencil`` with halos from
 ``halo_extend``, the jump flood per block in ``jfa_sharded.py``, the
-percentiles from per-block counts), and any other op refuses a split
-raster (``utils.to_torch``, ROADMAP A13b) instead of gathering it.
+percentiles from per-block counts, the XDraw viewshed on strips of
+lanes by ``to_strips``/``from_strips``, the cell-by-cell ops per block,
+the zonal reductions from per-block parts, ``regions`` from per-block
+labels joined across the seams), and the host functions gather with a
+warning; no device op gathers a split raster.
 """
 
 from .halo import (HaloSpec, distribute, get_raster_mesh,  # noqa: F401

@@ -59,6 +59,7 @@ __all__ = [
     "make_raster_mesh", "raster_sharding", "distribute", "halo_extend",
     "stencil_shard_map", "get_raster_mesh", "tiles", "tile_size",
     "tile_extent", "shifted_blocks", "zip_blocks", "ROW_ALIGN_BYTES",
+    "flat_devices", "to_strips", "from_strips",
 ]
 
 # an extended block's rows are rounded up to this many bytes (TMA's rule)
@@ -166,26 +167,27 @@ class ShardedRaster:
     ``blocks[i][j]`` lies on ``mesh.device(i, j)``; `split` says per
     spatial axis (y, x) whether the blocks split it into tiles or each
     holds it whole.  Leading dims (a stats axis) are held whole by every
-    block.  Built by ``distribute`` and by the ops' mesh branches.
+    block, and so are the `trail` dims after the spatial ones (0 but for
+    a composite's trailing band).  Built by ``distribute`` and by the
+    ops' mesh branches.
     """
 
-    __slots__ = ("blocks", "shape", "mesh", "split")
+    __slots__ = ("blocks", "shape", "mesh", "split", "trail")
 
-    def __init__(self, blocks, shape, mesh: RasterMesh, split):
+    def __init__(self, blocks, shape, mesh: RasterMesh, split, trail=0):
         self.blocks = tuple(tuple(row) for row in blocks)
         self.shape = tuple(int(s) for s in shape)
         self.mesh = mesh
         self.split = (bool(split[0]), bool(split[1]))
+        self.trail = int(trail)
         ny, nx = mesh.shape["y"], mesh.shape["x"]
         if len(self.blocks) != ny or any(len(r) != nx for r in self.blocks):
             raise ValueError(f"a {ny}x{nx} mesh needs {ny}x{nx} blocks")
         for i in range(ny):
             for j in range(nx):
                 b = self.blocks[i][j]
-                want = self.shape[:-2] + (self.extent(0, i)[1]
-                                          - self.extent(0, i)[0],
-                                          self.extent(1, j)[1]
-                                          - self.extent(1, j)[0])
+                (y0, y1), (x0, x1) = self.extent(0, i), self.extent(1, j)
+                want = self._shape_of(y1 - y0, x1 - x0)
                 if tuple(b.shape) != want or b.device != mesh.device(i, j):
                     raise ValueError(
                         f"block ({i}, {j}) is {tuple(b.shape)} on "
@@ -200,10 +202,26 @@ class ShardedRaster:
     def ndim(self) -> int:
         return len(self.shape)
 
+    @property
+    def spatial(self) -> tuple:
+        """The (y, x) extent of the whole raster."""
+        a = self.ndim - 2 - self.trail
+        return self.shape[a:a + 2]
+
+    def _shape_of(self, h: int, w: int) -> tuple:
+        """The shape with the spatial dims (h, w)."""
+        a = self.ndim - 2 - self.trail
+        return self.shape[:a] + (h, w) + self.shape[a + 2:]
+
+    def index_of(self, rows: slice, cols: slice) -> tuple:
+        """The index of the spatial window (rows, cols), every other dim
+        whole."""
+        return (Ellipsis, rows, cols) + (slice(None),) * self.trail
+
     def extent(self, axis: int, i: int) -> tuple:
         """(start, stop) of the cells block index i holds along spatial
         `axis` (0: y, 1: x)."""
-        n = self.shape[-2 + axis]
+        n = self.spatial[axis]
         if not self.split[axis]:
             return 0, n
         return tile_extent(n, (self.mesh.shape["y"], self.mesh.shape["x"])
@@ -220,7 +238,37 @@ class ShardedRaster:
             for j in range(nx if self.split[1] else 1):
                 y0, y1 = self.extent(0, i)
                 x0, x1 = self.extent(1, j)
-                out[..., y0:y1, x0:x1].copy_(self.blocks[i][j])
+                out[self.index_of(slice(y0, y1), slice(x0, x1))].copy_(
+                    self.blocks[i][j])
+        return out
+
+    def __getitem__(self, key) -> torch.Tensor:
+        """A window of the raster, ``x[rows, cols]`` with two slices of
+        step 1 over the spatial dims, as one tensor on the first block's
+        device: a copy of the pieces of the blocks it overlaps (the whole
+        raster for ``x[:, :]``, as ``gather``)."""
+        if not (isinstance(key, tuple) and len(key) == 2
+                and all(isinstance(k, slice) and k.step in (None, 1)
+                        for k in key)):
+            raise TypeError("a ShardedRaster takes a window of two slices "
+                            "of step 1")
+        h, w = self.spatial
+        (r0, r1, _), (c0, c1, _) = key[0].indices(h), key[1].indices(w)
+        r1, c1 = max(r1, r0), max(c1, c0)
+        out = torch.empty(self._shape_of(r1 - r0, c1 - c0),
+                          dtype=self.dtype, device=self.blocks[0][0].device)
+        ny, nx = len(self.blocks), len(self.blocks[0])
+        for i in range(ny if self.split[0] else 1):
+            y0, y1 = self.extent(0, i)
+            a, b = max(y0, r0), min(y1, r1)
+            for j in range(nx if self.split[1] else 1):
+                x0, x1 = self.extent(1, j)
+                c, d = max(x0, c0), min(x1, c1)
+                if a < b and c < d:
+                    out[self.index_of(slice(a - r0, b - r0),
+                                      slice(c - c0, d - c0))].copy_(
+                        self.blocks[i][j][self.index_of(
+                            slice(a - y0, b - y0), slice(c - x0, d - x0))])
         return out
 
     def __array__(self, dtype=None, copy=None):
@@ -233,30 +281,38 @@ class ShardedRaster:
 
     def map_blocks(self, fn: Callable) -> "ShardedRaster":
         """A raster of the same layout holding ``fn(block)`` for each block
-        (`fn` keeps the two spatial dims; it may change the dtype and the
-        leading dims)."""
+        (`fn` keeps the spatial dims and the trailing ones; it may change
+        the dtype and the leading dims)."""
         blocks = [[fn(b) for b in row] for row in self.blocks]
-        lead = tuple(blocks[0][0].shape[:-2])
-        return ShardedRaster(blocks, lead + self.shape[-2:], self.mesh,
-                             self.split)
+        return _grid_of(blocks, self, self.trail)
 
     def __repr__(self) -> str:
         return (f"ShardedRaster(shape={self.shape}, dtype={self.dtype}, "
                 f"split={self.split}, mesh={self.mesh!r})")
 
 
-def zip_blocks(fn: Callable, *rasters: ShardedRaster) -> ShardedRaster:
+def _grid_of(blocks, x: ShardedRaster, trail: int) -> ShardedRaster:
+    """The raster of `blocks` in `x`'s layout, `trail` dims after the
+    spatial ones."""
+    b = blocks[0][0].shape
+    a = len(b) - 2 - trail
+    return ShardedRaster(blocks, tuple(b[:a]) + x.spatial + tuple(b[a + 2:]),
+                         x.mesh, x.split, trail)
+
+
+def zip_blocks(fn: Callable, *rasters: ShardedRaster,
+               trail: int = 0) -> ShardedRaster:
     """A raster holding ``fn(i, j, *blocks)`` for the blocks (i, j) of
-    `rasters`, which share one layout; the result takes the first's."""
+    `rasters`, which share one layout; the result takes the first's, with
+    `trail` dims of `fn`'s blocks after the spatial ones."""
     x = rasters[0]
     for r in rasters[1:]:
         if r.mesh is not x.mesh or r.split != x.split \
-                or r.shape[-2:] != x.shape[-2:]:
+                or r.spatial != x.spatial:
             raise ValueError("zip_blocks takes rasters of one layout")
     blocks = [[fn(i, j, *(r.blocks[i][j] for r in rasters))
                for j in range(len(row))] for i, row in enumerate(x.blocks)]
-    return ShardedRaster(blocks, tuple(blocks[0][0].shape[:-2])
-                         + x.shape[-2:], x.mesh, x.split)
+    return _grid_of(blocks, x, trail)
 
 
 def _copy_to(t: torch.Tensor, device) -> torch.Tensor:
@@ -456,8 +512,91 @@ def shifted_blocks(x: ShardedRaster, dy: int, dx: int, fill) -> list:
     return out
 
 
+def flat_devices(mesh: RasterMesh) -> list:
+    """The mesh's devices in row-major order: strip p of ``to_strips`` lies
+    on device p (the JAX package's ``mesh.devices.reshape(-1)``)."""
+    return [d for row in mesh.devices for d in row]
+
+
+def to_strips(x: ShardedRaster, axis: int, halos, fill) -> list:
+    """`x` cut into P = mesh size strips across spatial `axis` (0: strips
+    of rows, 1: strips of columns) over the flattened mesh.
+
+    Strip p lies on ``flat_devices(mesh)[p]`` and owns the lanes (rows or
+    columns) ``[p * S, (p + 1) * S)``, S = ceil(n / P), extended by
+    ``halos[p] = (lo, hi)`` lanes below and above: a tensor of ``(S + lo
+    + hi, w)`` for axis 0, ``(h, S + lo + hi)`` for axis 1 (the JAX
+    package's ``P("d", None)`` layout with its halos).  Lanes beyond the
+    raster hold `fill`, so a raster that does not divide pads its last
+    strip.  One copy a piece of a block, device to device.
+    """
+    x = tiles(x)
+    mesh = x.mesh
+    ny, nx = mesh.shape["y"], mesh.shape["x"]
+    h, w = x.shape[-2:]
+    lead = x.shape[:-2]
+    n = (h, w)[axis]
+    s = tile_size(n, mesh.size)
+    out = []
+    for p, dev in enumerate(flat_devices(mesh)):
+        lo, hi = halos[p]
+        g0, g1 = p * s - lo, (p + 1) * s + hi
+        if axis == 0:
+            buf = _empty_filled_outside(lead + (g1 - g0, w), x.dtype, dev,
+                                        (-g0, n - g0), (0, w), fill)
+            for i, a, b, off in _sources(h, ny, g0, g1):
+                for j in range(nx):
+                    x0, x1 = x.extent(1, j)
+                    buf[..., off:off + b - a, x0:x1].copy_(
+                        x.blocks[i][j][..., a:b, :], non_blocking=True)
+        else:
+            buf = _empty_filled_outside(lead + (h, g1 - g0), x.dtype, dev,
+                                        (0, h), (-g0, n - g0), fill)
+            for j, a, b, off in _sources(w, nx, g0, g1):
+                for i in range(ny):
+                    y0, y1 = x.extent(0, i)
+                    buf[..., y0:y1, off:off + b - a].copy_(
+                        x.blocks[i][j][..., :, a:b], non_blocking=True)
+        out.append(buf)
+    return out
+
+
+def from_strips(strips, like: ShardedRaster, axis: int, offsets
+                ) -> ShardedRaster:
+    """The inverse of ``to_strips``: a raster of `like`'s tiles, each block
+    assembled on its device from the strips' owned lanes (strip p's first
+    owned lane at index ``offsets[p]`` of its `axis`), one copy a piece."""
+    like = tiles(like)
+    mesh = like.mesh
+    h, w = like.shape[-2:]
+    n = (h, w)[axis]
+    lead = tuple(strips[0].shape[:-2])
+    blocks = []
+    for i in range(mesh.shape["y"]):
+        row = []
+        for j in range(mesh.shape["x"]):
+            (y0, y1), (x0, x1) = like.extent(0, i), like.extent(1, j)
+            blk = torch.empty(lead + (y1 - y0, x1 - x0),
+                              dtype=strips[0].dtype,
+                              device=mesh.device(i, j))
+            a0, a1 = (y0, y1) if axis == 0 else (x0, x1)
+            for p, a, b, off in _sources(n, mesh.size, a0, a1):
+                src = strips[p]
+                a, b = a + offsets[p], b + offsets[p]
+                if axis == 0:
+                    blk[..., off:off + b - a, :].copy_(
+                        src[..., a:b, x0:x1], non_blocking=True)
+                else:
+                    blk[..., :, off:off + b - a].copy_(
+                        src[..., y0:y1, a:b], non_blocking=True)
+            row.append(blk)
+        blocks.append(row)
+    return ShardedRaster(blocks, lead + (h, w), mesh, (True, True))
+
+
 def stencil_shard_map(kernel: Callable, mesh: RasterMesh, halo: HaloSpec,
-                      out_leading_dims: Optional[int] = None) -> Callable:
+                      out_leading_dims: Optional[int] = None,
+                      fill=math.nan, origin: bool = False) -> Callable:
     """Distribute a radius-(ry, rx) local kernel over the mesh.
 
     Returns ``run(data, *args)`` for a ``ShardedRaster`` `data` on `mesh`:
@@ -468,7 +607,10 @@ def stencil_shard_map(kernel: Callable, mesh: RasterMesh, halo: HaloSpec,
     (a stats axis); with `out_leading_dims` given their number is
     checked.  A kernel may also return a tuple of such outputs (several
     products of one pass); the result is then a tuple.  Each result is
-    split over the same mesh on both axes.
+    split over the same mesh on both axes.  `fill` is the extended blocks'
+    value beyond the raster; with `origin` the kernel is called as
+    ``kernel(extended, (y0, x0), *args)``, (y0, x0) the raster's cell of
+    the extended block's (0, 0) (negative in the outer halo).
     """
     ry, rx = halo.ry, halo.rx
 
@@ -484,7 +626,7 @@ def stencil_shard_map(kernel: Callable, mesh: RasterMesh, halo: HaloSpec,
             raise ValueError("stencil_shard_map: the raster lies on another "
                              "mesh")
         t = tiles(data)
-        ext = halo_extend(t, halo)
+        ext = halo_extend(t, halo, fill)
         outs = []
         for i, row in enumerate(ext):
             orow = []
@@ -492,7 +634,9 @@ def stencil_shard_map(kernel: Callable, mesh: RasterMesh, halo: HaloSpec,
                 hl, wl = t.blocks[i][j].shape[-2:]
                 # each extended block is released once its kernel ran
                 e, row[j] = row[j], None
-                out = kernel(e, *args)
+                out = (kernel(e, (t.extent(0, i)[0] - ry,
+                                  t.extent(1, j)[0] - rx), *args)
+                       if origin else kernel(e, *args))
                 del e
                 orow.append(tuple(crop(o, hl, wl) for o in out)
                             if isinstance(out, (tuple, list))

@@ -11,10 +11,11 @@ from __future__ import annotations
 import torch
 
 from .dataset_support import supports_dataset
-from .kernels.geodesic import WGS84_A2, WGS84_B2, geodesic_slope
+from .kernels.geodesic import WGS84_A2, WGS84_B2, geodesic_mesh, geodesic_slope
 from .kernels.surface import run_surface_op
+from .parallel.halo import ShardedRaster
 from .utils import (Z_UNITS, _extract_latlon_coords,
-                    get_dataarray_resolution, raster_payload, to_torch,
+                    get_dataarray_resolution, latlon_coords, raster_payload,
                     wrap_like)
 from .xrlib import DataArray
 
@@ -59,8 +60,12 @@ def slope(agg: DataArray,
             raise ValueError(
                 f"z_unit must be one of "
                 f"{sorted(Z_UNITS)}, got {z_unit!r}")
+        elev = raster_payload(agg, torch.float64)
+        if isinstance(elev, ShardedRaster):
+            out = geodesic_mesh(geodesic_slope, elev, *latlon_coords(agg),
+                                WGS84_A2, WGS84_B2, Z_UNITS[z_unit])
+            return wrap_like(agg, out, name)
         lat_2d, lon_2d = _extract_latlon_coords(agg)
-        elev = to_torch(agg, torch.float64)
         out = geodesic_slope(elev, torch.from_numpy(lat_2d),
                              torch.from_numpy(lon_2d), WGS84_A2, WGS84_B2,
                              Z_UNITS[z_unit])

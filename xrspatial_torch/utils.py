@@ -18,8 +18,9 @@ A numpy payload goes to the default device, which is the card (``cuda``)
 unless ``set_default_device`` says otherwise; a tensor payload stays on
 its own device.  A raster split over a device mesh (a
 ``parallel.ShardedRaster``) is taken as it is by the ops with a mesh
-branch (``raster_payload``); ``to_torch`` refuses it, so an op with no
-mesh form raises (ROADMAP A13b) instead of gathering the raster.
+branch (``raster_payload``, ``per_block``, ``mesh_shards``); the host
+functions gather it with a warning (``host_copy``); ``to_torch`` refuses
+it, so no op gathers a split raster behind the caller's back.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .parallel.halo import ShardedRaster, get_raster_mesh
+from .parallel.halo import (ShardedRaster, distribute, get_raster_mesh,
+                            tiles, zip_blocks)
 from .xr_compat import _to_numpy
 from .xrlib import DataArray
 
@@ -59,7 +61,8 @@ __all__ = [
     "to_torch",
     "raster_payload",
     "blockwise",
-    "refuse_mesh",
+    "payload_mesh", "host_copy", "mesh_shards", "per_block",
+    "latlon_coords",
     "wrap_like",
     "dataarray_from",
     "set_default_device",
@@ -169,13 +172,18 @@ def to_torch(agg, dtype: Optional[torch.dtype] = torch.float32,
     (``default_device()``).  No copy is made when the payload already has
     the requested dtype and device.  A ``ShardedRaster`` that no block
     splits (a one-device mesh, or a raster every block holds whole) gives
-    its first block; one split over a mesh raises ``NotImplementedError``:
-    the op has no mesh form yet (ROADMAP A13b), and the raster is not
-    gathered behind the caller's back.
+    its first block; one split over a mesh is refused with a
+    ``ValueError``: every op takes such a raster through its mesh branch
+    (``raster_payload``, ``per_block``, ``host_copy``), and none gathers
+    it behind the caller's back.
     """
     data = agg.data if isinstance(agg, DataArray) else agg
     if isinstance(data, ShardedRaster):
-        refuse_mesh(data)
+        if get_raster_mesh(data) is not None:
+            raise ValueError(
+                "to_torch: the raster is split over a device mesh; its "
+                "blocks are reached through the op's mesh branch, or "
+                "gathered with .data.gather()")
         data = data.blocks[0][0]
     if not isinstance(data, torch.Tensor):
         device = _payload_device(device)
@@ -194,16 +202,64 @@ def blockwise(fn, data):
     return fn(data)
 
 
-def refuse_mesh(*aggs) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP A13b) if any payload is split
-    over a mesh: for the host functions, which would otherwise gather it."""
+def payload_mesh(*aggs):
+    """The mesh the first payload split over one lies on, or None."""
     for agg in aggs:
         data = agg.data if isinstance(agg, DataArray) else agg
-        if get_raster_mesh(data) is not None:
-            raise NotImplementedError(
-                "this op has no mesh form in xrspatial_torch yet (ROADMAP "
-                "A13b): its raster is split over a device mesh; gather it "
-                "with .data.gather() to run it on one device")
+        mesh = get_raster_mesh(data)
+        if mesh is not None:
+            return mesh
+    return None
+
+
+def host_copy(agg, what: str) -> np.ndarray:
+    """A DataArray's payload as a numpy array on the host, for the
+    functions that compute in numpy.  A raster split over a mesh is
+    gathered with a ``UserWarning`` naming `what`, as ``np.asarray``
+    gathers a sharded array in the JAX package."""
+    data = agg.data if isinstance(agg, DataArray) else agg
+    if get_raster_mesh(data) is not None:
+        warnings.warn(
+            f"{what}: input is mesh-sharded but the function runs on the "
+            "HOST over a gathered copy (correct, not distributed).",
+            UserWarning, stacklevel=3)
+    return _to_numpy(data)
+
+
+def mesh_shards(mesh, *aggs, dtype: Optional[torch.dtype] = torch.float32):
+    """The payloads of `aggs` as rasters of tiles on `mesh`, each block of
+    `dtype` (None: as it is): a raster split over `mesh` as it is, a
+    tensor or numpy payload placed on it by ``distribute`` (a copy, no
+    gather).  A raster split over another mesh is refused."""
+    out = []
+    for agg in aggs:
+        data = agg.data if isinstance(agg, DataArray) else agg
+        m = get_raster_mesh(data)
+        if m is None:
+            if isinstance(data, ShardedRaster):
+                data = data.blocks[0][0]
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                data = distribute(data, mesh)
+        elif m is not mesh:
+            raise ValueError("the rasters lie on different device meshes")
+        data = tiles(data)
+        if dtype is not None and data.dtype != dtype:
+            data = data.map_blocks(lambda b: b.to(dtype))
+        out.append(data)
+    return out
+
+
+def per_block(fn, *aggs, dtype: Optional[torch.dtype] = torch.float32):
+    """``fn(*tensors)`` of a cell-by-cell op: on one device of the payloads
+    as ``to_torch`` gives them; where any payload is split over a mesh, of
+    each block of them all (see ``mesh_shards``), a raster of the tiles
+    on that mesh."""
+    mesh = payload_mesh(*aggs)
+    if mesh is None:
+        return fn(*(to_torch(a, dtype) for a in aggs))
+    return zip_blocks(lambda i, j, *bs: fn(*bs),
+                      *mesh_shards(mesh, *aggs, dtype=dtype))
 
 
 def raster_payload(agg, dtype: Optional[torch.dtype] = torch.float32):
@@ -291,6 +347,18 @@ def _validate_geographic_range(lat_2d, lon_2d):
 
 def _extract_latlon_coords(agg):
     """2-D float64 (lat, lon) numpy grids from 1-D or 2-D coordinates."""
+    lat_vals, lon_vals = latlon_coords(agg)
+    h, w = agg.shape[-2], agg.shape[-1]
+    if lat_vals.ndim == 1:
+        return (np.broadcast_to(lat_vals[:, None], (h, w)).copy(),
+                np.broadcast_to(lon_vals[None, :], (h, w)).copy())
+    return lat_vals, lon_vals
+
+
+def latlon_coords(agg):
+    """The float64 (lat, lon) coordinates as numpy arrays, both 1-D (the
+    rows' latitudes and the columns' longitudes) or both 2-D grids,
+    checked to lie within the geographic range."""
     if agg.ndim < 2:
         raise ValueError(
             f"geodesic method requires a 2-D DataArray, got {agg.ndim}-D")
@@ -299,18 +367,12 @@ def _extract_latlon_coords(agg):
                           dtype=np.float64)
     lon_vals = np.asarray(_find_coord(agg, dim_x, _LON_NAMES, "longitude").data,
                           dtype=np.float64)
-    h, w = agg.shape[-2], agg.shape[-1]
-    if lat_vals.ndim == 1 and lon_vals.ndim == 1:
-        lat_2d = np.broadcast_to(lat_vals[:, None], (h, w)).copy()
-        lon_2d = np.broadcast_to(lon_vals[None, :], (h, w)).copy()
-    elif lat_vals.ndim == 2 and lon_vals.ndim == 2:
-        lat_2d, lon_2d = lat_vals, lon_vals
-    else:
+    if not (lat_vals.ndim == lon_vals.ndim and lat_vals.ndim in (1, 2)):
         raise ValueError(
             f"lat/lon coordinates must be both 1-D or both 2-D, "
             f"got lat={lat_vals.ndim}-D and lon={lon_vals.ndim}-D")
-    _validate_geographic_range(lat_2d, lon_2d)
-    return lat_2d, lon_2d
+    _validate_geographic_range(lat_vals, lon_vals)
+    return lat_vals, lon_vals
 
 
 # -- unit heuristics ----------------------------------------------------------

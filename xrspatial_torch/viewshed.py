@@ -18,8 +18,12 @@ four half-plane scans run in one launch of the CUDA kernel
 
 On a raster split over a mesh the exact predicate runs on one device,
 with the JAX package's warning (the raster is gathered to its first
-block's device); the XDraw approximation has no mesh form yet (the JAX
-package's banded distributed scan, ROADMAP A13b) and raises.
+block's device).  The XDraw approximation runs on the mesh
+(``kernels/viewshed.py::viewshed_grid_los_mesh``, the JAX package's
+banded distributed scan): the half-plane scans on strips of lanes over
+the flattened mesh, each window of steps one launch of the strip route
+of ``csrc/xdraw.cu`` a strip on the card (the strip twin on the CPU),
+and the result stays split over the input's mesh.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Union
 
 import numpy as np
 
-from .kernels.viewshed import viewshed_grid_los
+from .kernels.viewshed import viewshed_grid_los, viewshed_grid_los_mesh
 from .kernels.viewshed_exact import viewshed_grid_exact
 from .parallel.halo import get_raster_mesh
 from .utils import to_torch, wrap_like
@@ -92,11 +96,6 @@ def viewshed(raster: DataArray,
     use_exact = (height * width <= _EXACT_MAX_CELLS
                  if exact is None else bool(exact))
     mesh = get_raster_mesh(raster.data)
-    if mesh is not None and not use_exact:
-        raise NotImplementedError(
-            "viewshed's XDraw approximation has no mesh form in "
-            "xrspatial_torch yet (ROADMAP A13b): the raster is split over "
-            "a device mesh")
     if use_exact:
         if mesh is not None:
             # the exact bucket evaluation is host-orchestrated (no
@@ -110,6 +109,10 @@ def viewshed(raster: DataArray,
             elev = to_torch(raster, dtype=None)
         out = viewshed_grid_exact(elev, y_view, x_view, observer_elev,
                                   target_elev, ew_res, ns_res)
+    elif mesh is not None:
+        out = viewshed_grid_los_mesh(raster.data, y_view, x_view,
+                                     observer_elev, target_elev, ew_res,
+                                     ns_res)
     else:
         out = viewshed_grid_los(to_torch(raster), y_view, x_view,
                                 observer_elev, target_elev, ew_res, ns_res)

@@ -44,7 +44,10 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .utils import default_device, refuse_mesh, to_torch, validate_arrays
+from .parallel.halo import (HaloSpec, ShardedRaster, distribute,
+                            halo_extend, tiles, zip_blocks)
+from .utils import (host_copy, mesh_shards, payload_mesh,
+                    raster_device, raster_payload, to_torch, validate_arrays)
 from .xrlib import DataArray, Dataset
 
 __all__ = ["stats", "crosstab", "apply", "regions", "trim", "crop",
@@ -66,7 +69,7 @@ _REGION_CHECK_EVERY = 8
 
 def _np_dtype(data) -> np.dtype:
     """The numpy dtype of a tensor or array payload."""
-    if isinstance(data, torch.Tensor):
+    if isinstance(data, (torch.Tensor, ShardedRaster)):
         return torch.empty(0, dtype=data.dtype).numpy().dtype
     return np.dtype(data.dtype)
 
@@ -148,21 +151,79 @@ def _segment_extremes(v, s, nb):
     return out
 
 
-def _segment_stats(values_flat, seg, nseg, nodata_values):
-    """(sum, count, centred sum of squares, min, max) of each segment, each
-    float32 (nseg,) on the device; NaN and nodata cells excluded."""
+def _segment_moments(values_flat, seg, nseg, nodata_values):
+    """(float64 values, segment of each cell (nseg: excluded), float64
+    count and sum, float32 min and max) of each segment and the overflow
+    bin; NaN and nodata cells excluded."""
     v, valid = _valid_f32(values_flat, nodata_values)
     s = torch.where(valid, seg, nseg)
     nb = nseg + 1
     cnt = torch.bincount(s, minlength=nb).to(torch.float64)
     v64 = torch.where(valid, v.to(torch.float64), 0.0)
     ssum = torch.bincount(s, weights=v64, minlength=nb)
-    d = v64 - (ssum / cnt.clamp(min=1.0))[s]   # 0 in the overflow bin
-    css = torch.bincount(s, weights=d * d, minlength=nb)
-    smin, smax = _segment_extremes(v, s, nb)
+    return (v64, s, cnt, ssum, *_segment_extremes(v, s, nb))
+
+
+def _centred_squares(v64, s, mean):
+    """Each segment's sum of squared deviations from its `mean`, float64
+    (0 in the overflow bin, whose cells are 0)."""
+    d = v64 - mean[s]
+    return torch.bincount(s, weights=d * d, minlength=mean.numel())
+
+
+def _stats_f32(ssum, cnt, css, smin, smax, nseg):
     return tuple(t[:nseg] for t in (ssum.to(torch.float32),
                                     cnt.to(torch.float32),
                                     css.to(torch.float32), smin, smax))
+
+
+def _segment_stats(values_flat, seg, nseg, nodata_values):
+    """(sum, count, centred sum of squares, min, max) of each segment, each
+    float32 (nseg,) on the device; NaN and nodata cells excluded."""
+    v64, s, cnt, ssum, smin, smax = _segment_moments(values_flat, seg, nseg,
+                                                     nodata_values)
+    css = _centred_squares(v64, s, ssum / cnt.clamp(min=1.0))
+    return _stats_f32(ssum, cnt, css, smin, smax, nseg)
+
+
+# -- the same statistics of rasters split over a mesh -------------------------
+
+def _flat_blocks(x: ShardedRaster):
+    return [b for row in x.blocks for b in row]
+
+
+def _mesh_unique(parts, dev):
+    """The sorted unique values of the 1-D tensors `parts` (on any devices)
+    on `dev`: the union of each part's own."""
+    return torch.unique(torch.cat([torch.unique(p).to(dev) for p in parts]))
+
+
+def _mesh_zone_segments(zs: ShardedRaster):
+    """(sorted unique finite zones on the first block's device, the
+    segment of every cell of each block): ``_zone_segments`` of the whole
+    raster, block by block."""
+    blocks = [b.reshape(-1) for b in _flat_blocks(zs)]
+    dev = blocks[0].device
+    unique = _mesh_unique([b if _is_int(b) else b[torch.isfinite(b)]
+                           for b in blocks], dev)
+    return unique, [_segment_ids(b, unique.to(b.device)) for b in blocks]
+
+
+def _mesh_segment_stats(vblocks, segs, nseg, nodata_values):
+    """``_segment_stats`` of values in blocks (flat, each with its
+    segments): counts, sums, minima and maxima summed and combined over
+    the blocks in float64, then the centred squares from the combined
+    means, on the first block's device."""
+    dev = vblocks[0].device
+    parts = [_segment_moments(v, s, nseg, nodata_values)
+             for v, s in zip(vblocks, segs)]
+    cnt, ssum = (sum(p[k].to(dev) for p in parts) for k in (2, 3))
+    smin = torch.stack([p[4].to(dev) for p in parts]).amin(dim=0)
+    smax = torch.stack([p[5].to(dev) for p in parts]).amax(dim=0)
+    mean = ssum / cnt.clamp(min=1.0)
+    css = sum(_centred_squares(p[0], p[1], mean.to(p[0].device)).to(dev)
+              for p in parts)
+    return _stats_f32(ssum, cnt, css, smin, smax, nseg)
 
 
 def _host_stats(raw) -> tuple:
@@ -195,28 +256,45 @@ def _majority(seg, values_flat, nseg, nodata) -> np.ndarray:
     """Most frequent value of each segment, compared in float64; the
     smallest of those with the highest count; NaN where a segment has no
     valid value."""
+    s, v, counts = _value_runs(seg, values_flat, nseg, nodata)
+    return _majority_of_runs(s, v, counts, nseg)
+
+
+def _value_runs(seg, values_flat, nseg, nodata, counts=None):
+    """The (segment, value) pairs of the valid cells, sorted by segment
+    then value, each once, with its count (float64 values compared; with
+    `counts`, the cells are already pairs of that many)."""
     v = values_flat.to(torch.float64)
     valid = (seg < nseg) & torch.isfinite(v)
     if nodata is not None:
         valid &= v != nodata
-    out = torch.full((nseg,), float("nan"), dtype=torch.float64,
-                     device=v.device)
     s, v = seg[valid], v[valid]
-    if v.numel():
-        # sorted by zone, then by value within a zone (stable sorts)
-        order = torch.sort(v, stable=True).indices
-        s, v = s[order], v[order]
-        order = torch.sort(s, stable=True).indices
-        s, v = s[order], v[order]
-        new = torch.ones_like(s, dtype=torch.bool)
-        new[1:] = (s[1:] != s[:-1]) | (v[1:] != v[:-1])
-        counts = torch.bincount(torch.cumsum(new, 0) - 1)
-        starts = torch.nonzero(new).flatten()
-        run_s, run_v = s[starts], v[starts]
+    c = counts[valid] if counts is not None else torch.ones_like(s)
+    # sorted by zone, then by value within a zone (stable sorts)
+    order = torch.sort(v, stable=True).indices
+    s, v, c = s[order], v[order], c[order]
+    order = torch.sort(s, stable=True).indices
+    s, v, c = s[order], v[order], c[order]
+    new = torch.ones_like(s, dtype=torch.bool)
+    new[1:] = (s[1:] != s[:-1]) | (v[1:] != v[:-1])
+    group = torch.cumsum(new, 0) - 1
+    total = torch.zeros(int(new.sum()), dtype=c.dtype, device=c.device)
+    total.index_add_(0, group, c)
+    starts = torch.nonzero(new).flatten()
+    return s[starts], v[starts], total
+
+
+def _majority_of_runs(run_s, run_v, counts, nseg) -> np.ndarray:
+    """The majority of each segment from its (value, count) runs sorted by
+    segment then value: the smallest value of the highest count."""
+    out = torch.full((nseg,), float("nan"), dtype=torch.float64,
+                     device=run_v.device)
+    if run_v.numel():
+        v = run_v
         best = torch.zeros(nseg, dtype=counts.dtype, device=v.device)
         best.scatter_reduce_(0, run_s, counts, "amax", include_self=True)
         top = counts == best[run_s]
-        runs = starts.numel()
+        runs = run_v.numel()
         first = torch.full((nseg,), runs, dtype=torch.long, device=v.device)
         first.scatter_reduce_(0, run_s[top],
                               torch.arange(runs, device=v.device)[top],
@@ -224,6 +302,15 @@ def _majority(seg, values_flat, nseg, nodata) -> np.ndarray:
         has = first < runs
         out[has] = run_v[first[has]]
     return out.cpu().numpy()
+
+
+def _mesh_majority(vblocks, segs, nseg, nodata) -> np.ndarray:
+    """``_majority`` of values in blocks: each block's (segment, value)
+    runs and counts, merged on the first block's device."""
+    dev = vblocks[0].device
+    runs = [_value_runs(s, v, nseg, nodata) for v, s in zip(vblocks, segs)]
+    s, v, c = (torch.cat([r[k].to(dev) for r in runs]) for k in range(3))
+    return _majority_of_runs(*_value_runs(s, v, nseg, None, counts=c), nseg)
 
 
 def _stats_host_custom(zones_np, values_np, unique_zones, zone_ids,
@@ -267,8 +354,10 @@ def stats_columns(
 ):
     """The work of ``stats`` for one DataArray of values: the DataFrame's
     columns as ``{"zone": ..., stat: ...}`` of numpy arrays, or, for
-    ``return_type='xarray.DataArray'``, the (stats, y, x) DataArray."""
-    refuse_mesh(zones, values)
+    ``return_type='xarray.DataArray'``, the (stats, y, x) DataArray.  With
+    zones or values split over a mesh each block is reduced on its device
+    and the sums combined (see ``_mesh_segment_stats``); custom callables
+    gather the rasters to the host, with a warning."""
     validate_arrays(zones, values)
     for arr, label in ((zones, "zones"), (values, "values")):
         dt = _np_dtype(arr.data)
@@ -290,25 +379,35 @@ def stats_columns(
     else:
         raise ValueError("stats_funcs must be a list or dict")
 
-    z = to_torch(zones, dtype=None)
-    v = to_torch(values, dtype=None, device=z.device).reshape(-1)
-    unique_t, seg = _zone_segments(z)
+    mesh = payload_mesh(zones, values)
+    if mesh is None:
+        z = to_torch(zones, dtype=None)
+        v = to_torch(values, dtype=None, device=z.device).reshape(-1)
+        unique_t, seg = _zone_segments(z)
+    else:
+        zs, vs = mesh_shards(mesh, zones, values, dtype=None)
+        unique_t, segs = _mesh_zone_segments(zs)
+        vblocks = [b.reshape(-1) for b in _flat_blocks(vs)]
     unique_zones = unique_t.cpu().numpy()
     nseg = len(unique_zones)
     derived = _derived_stats(*_host_stats(
-        _segment_stats(v, seg, nseg, nodata_values)))
+        _segment_stats(v, seg, nseg, nodata_values) if mesh is None
+        else _mesh_segment_stats(vblocks, segs, nseg, nodata_values)))
     sel_zones = _selected(unique_zones, zone_ids)
 
     per_zone: Dict[str, np.ndarray] = {}
     if custom_funcs:   # the host escape hatch
-        zones_np, values_np = z.cpu().numpy(), v.cpu().numpy()
+        zones_np = host_copy(zones, "zonal_stats with custom stats_funcs")
+        values_np = host_copy(values, "zonal_stats with custom stats_funcs")
     for s in stat_names:
         if custom_funcs:
             per_zone[s] = _stats_host_custom(
                 zones_np, values_np, unique_zones, set(sel_zones.tolist()),
                 custom_funcs[s], nodata_values)
         elif s == "majority":
-            per_zone[s] = _majority(seg, v, nseg, nodata_values)
+            per_zone[s] = (_majority(seg, v, nseg, nodata_values)
+                           if mesh is None else
+                           _mesh_majority(vblocks, segs, nseg, nodata_values))
         else:
             per_zone[s] = derived[s]
 
@@ -318,9 +417,15 @@ def stats_columns(
         # the overflow segment (no zone, or not selected) reads NaN
         tables = np.stack([np.append(np.where(sel_mask, per_zone[s], np.nan),
                                      np.nan) for s in stat_names])
-        tables = torch.as_tensor(tables, dtype=torch.float32,
-                                 device=z.device)
-        out = tables[:, seg].reshape((len(stat_names),) + values.shape)
+        tables = torch.as_tensor(tables, dtype=torch.float32)
+        if mesh is None:
+            out = tables.to(z.device)[:, seg].reshape(
+                (len(stat_names),) + values.shape)
+        else:
+            nx = mesh.shape["x"]
+            out = zip_blocks(lambda i, j, b: tables.to(b.device)[
+                :, segs[i * nx + j]].reshape((len(stat_names),) + b.shape),
+                zs)
         result = DataArray(
             out, dims=('stats',) + tuple(values.dims), attrs=values.attrs)
         for cname, cval in values.coords.items():
@@ -411,8 +516,9 @@ def crosstab_columns(
     nodata_values: Optional[Union[int, float]] = None,
 ) -> dict:
     """The work of ``crosstab``: the DataFrame's columns as ``{"zone":
-    ..., category: ...}`` of numpy arrays."""
-    refuse_mesh(zones, values)
+    ..., category: ...}`` of numpy arrays.  With zones or values split
+    over a mesh each block is counted on its device and the int64 counts
+    summed (3D values: the statistics of ``stats``' mesh path)."""
     agg_2d = ("count", "percentage")
     agg_3d = ("min", "max", "mean", "sum", "std", "var", "count")
     if values.ndim == 2:
@@ -429,8 +535,14 @@ def crosstab_columns(
     else:
         raise ValueError("`values` must be 2D or 3D")
 
-    z = to_torch(zones, dtype=None)
-    unique_t, seg = _zone_segments(z)
+    mesh = payload_mesh(zones, values)
+    if mesh is None:
+        z = to_torch(zones, dtype=None)
+        unique_t, seg = _zone_segments(z)
+        segs = [seg]
+    else:
+        unique_t, segs = _mesh_zone_segments(
+            mesh_shards(mesh, zones, dtype=None)[0])
     unique_zones = unique_t.cpu().numpy()
     sel_mask = np.isin(unique_zones, _selected(unique_zones, zone_ids))
     nz = len(unique_zones)
@@ -446,8 +558,14 @@ def crosstab_columns(
             raise ValueError("Invalid `layer`")
         # the categorical dim first
         axes = (layer,) + tuple(i for i in range(values.ndim) if i != layer)
-        cube = to_torch(values, dtype=None, device=z.device).permute(axes)
-        if tuple(zones.shape) != tuple(cube.shape[1:]):
+        if mesh is None:
+            cubes = [to_torch(values, dtype=None,
+                              device=z.device).permute(axes)]
+        elif layer == 0:     # a mesh raster holds its spatial dims last
+            cubes = _flat_blocks(mesh_shards(mesh, values, dtype=None)[0])
+        else:
+            raise ValueError("values split over a mesh take `layer` 0")
+        if tuple(zones.shape) != tuple(values.shape[i] for i in axes[1:]):
             raise ValueError("Incompatible shapes")
         if cat_ids is None:
             cats = layer_labels
@@ -455,8 +573,12 @@ def crosstab_columns(
             cats = np.array([c for c in cat_ids if c in layer_labels])
         for c in cats:
             li = int(np.nonzero(layer_labels == c)[0][0])
-            col = _derived_stats(*_host_stats(_segment_stats(
-                cube[li].reshape(-1), seg, nz, nodata_values)))[agg]
+            col = _derived_stats(*_host_stats(
+                _segment_stats(cubes[0][li].reshape(-1), seg, nz,
+                               nodata_values) if mesh is None
+                else _mesh_segment_stats(
+                    [cube[li].reshape(-1) for cube in cubes], segs, nz,
+                    nodata_values)))[agg]
             if agg == "count":
                 # empty zones count as 0 in crosstab (reference
                 # _stats_count on an empty selection)
@@ -464,12 +586,18 @@ def crosstab_columns(
             out[c] = col[sel_mask]
         return out
 
-    v = to_torch(values, dtype=None, device=z.device).reshape(-1)
-    keep = torch.ones_like(v, dtype=torch.bool) if _is_int(v) \
-        else torch.isfinite(v)
-    if nodata_values is not None:
-        keep &= _differs(v, nodata_values)
-    unique_t = torch.unique(v[keep])
+    vs = ([to_torch(values, dtype=None, device=z.device).reshape(-1)]
+          if mesh is None else
+          [b.reshape(-1) for b in _flat_blocks(mesh_shards(
+              mesh, values, dtype=None)[0])])
+
+    def kept(v):
+        keep = torch.ones_like(v, dtype=torch.bool) if _is_int(v) \
+            else torch.isfinite(v)
+        if nodata_values is not None:
+            keep &= _differs(v, nodata_values)
+        return v[keep]
+    unique_t = _mesh_unique([kept(v) for v in vs], vs[0].device)
     unique_cats = unique_t.cpu().numpy()
     if cat_ids is None:
         cats = unique_cats
@@ -477,12 +605,17 @@ def crosstab_columns(
         # exact per-category counts (PARITY.md #6), as the JAX package
         cats = np.array([c for c in cat_ids if c in unique_cats])
     nc = len(unique_cats)
-    idx, hit, valid = _category_index(v, unique_t, nodata_values)
-    in_zone = seg < nz
-    combined = torch.where(hit & in_zone, seg * nc + idx, nz * nc)
-    counts = torch.bincount(combined, minlength=nz * nc + 1)[:-1]
-    totals = torch.bincount(torch.where(valid & in_zone, seg, nz),
-                            minlength=nz + 1)[:-1]
+    counts = totals = 0
+    for v, seg in zip(vs, segs):
+        idx, hit, valid = _category_index(v, unique_t.to(v.device),
+                                          nodata_values)
+        in_zone = seg < nz
+        combined = torch.where(hit & in_zone, seg * nc + idx, nz * nc)
+        counts = counts + torch.bincount(
+            combined, minlength=nz * nc + 1)[:-1].to(vs[0].device)
+        totals = totals + torch.bincount(
+            torch.where(valid & in_zone, seg, nz),
+            minlength=nz + 1)[:-1].to(vs[0].device)
     # exact int64 counts, reported in the JAX package's float32
     counts = counts.reshape(nz, nc).cpu().numpy().astype(np.float32)
     totals = totals.cpu().numpy().astype(np.float32)
@@ -529,13 +662,14 @@ def apply(zones: DataArray, values: DataArray, func: Callable,
     `func` receives the values as a numpy array (elementwise through
     ``np.vectorize`` if it does not keep the shape); the result replaces
     ``values.data`` as a tensor on the values' device (the default device
-    for numpy values), in numpy's result dtype.
+    for numpy values), in numpy's result dtype.  Rasters split over a mesh
+    are gathered to the host, with a warning, as ``np.asarray`` gathers in
+    the JAX package; values split over a mesh are placed back on it.
     """
     if not isinstance(zones, DataArray):
         raise TypeError("zones must be instance of DataArray")
     if not isinstance(values, DataArray):
         raise TypeError("values must be instance of DataArray")
-    refuse_mesh(zones, values)
     if zones.ndim != 2:
         raise ValueError("zones must be 2D")
     if values.ndim not in (2, 3):
@@ -548,22 +682,23 @@ def apply(zones: DataArray, values: DataArray, func: Callable,
     if not (np.issubdtype(vdt, np.integer) or np.issubdtype(vdt, np.floating)):
         raise ValueError("`values` must be an array of integers or float")
 
-    device = values.data.device if isinstance(values.data, torch.Tensor) \
-        else default_device()
-    zones_np = zones.values
+    mesh = payload_mesh(values)
+    device = raster_device(values)
+    zones_np = host_copy(zones, "zonal_apply")
     in_zone = zones_np != nodata
     if values.ndim == 3:
         in_zone = np.repeat(in_zone[:, :, np.newaxis], values.shape[-1],
                             axis=-1)
-    vals = values.values
+    vals = host_copy(values, "zonal_apply")
     try:
         transformed = np.asarray(func(vals))
         if transformed.shape != vals.shape:
             raise ValueError
     except Exception:
         transformed = np.vectorize(func)(vals)
-    values.data = torch.from_numpy(
-        np.ascontiguousarray(np.where(in_zone, transformed, vals))).to(device)
+    out = torch.from_numpy(
+        np.ascontiguousarray(np.where(in_zone, transformed, vals)))
+    values.data = out.to(device) if mesh is None else distribute(out, mesh)
 
 
 def _label_propagate(data: torch.Tensor, n8: bool):
@@ -589,11 +724,33 @@ def _label_propagate(data: torch.Tensor, n8: bool):
     labels = torch.arange(h * w, dtype=torch.int32,
                           device=data.device).view(h, w)
     labels = torch.where(nan, big, labels)
+    links = _links(data, n8)
+
+    steps = 0
+    while True:
+        new = labels.clone()
+        for here, there, conn in links:
+            cell = new[here]
+            torch.minimum(cell, torch.where(conn, labels[there], big),
+                          out=cell)
+        steps += 1
+        if steps % _REGION_CHECK_EVERY == 0 and torch.equal(new, labels):
+            return labels, steps
+        jumped = new.view(-1)[new.clamp(max=h * w - 1)]
+        labels = torch.where(nan, big, torch.minimum(new, jumped))
+
+
+def _links(data: torch.Tensor, n8: bool, interior=None):
+    """The connections of ``_label_propagate``: (cells, their neighbours,
+    connected) for each neighbour offset, the neighbours inside `data`;
+    with `interior` (a bool mask), only those cells take labels."""
+    h, w = data.shape
+    nan = torch.isnan(data)
     if n8:
         offsets = [(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1),
                    (1, -1), (1, 0), (1, 1)]
-    else:
-        offsets = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    else:   # each offset's reverse at the mirrored place, as for 8
+        offsets = [(-1, 0), (0, -1), (0, 1), (1, 0)]
 
     def window(dy, dx):
         """(cells whose neighbour (dy, dx) is inside, those neighbours)."""
@@ -610,9 +767,27 @@ def _label_propagate(data: torch.Tensor, n8: bool):
         here, there = window(dy, dx)
         nb = data[there]
         conn = (torch.abs(nb - data[here]) <= tol[here]) & ~torch.isnan(nb)
-        links.append((here, there, conn & ~nan[here]))
-    del tol
+        conn &= ~nan[here]
+        if interior is not None:
+            conn &= interior[here]
+        links.append((here, there, conn))
+    return links
 
+
+def _label_block(data, labels, n8, y0, x0, w, big):
+    """One block's part of the mesh's min-label propagation: `data` and
+    `labels` are the block extended by a 1-cell ring (the neighbours'
+    cells and current labels; NaN and `big` beyond the raster), (y0, x0)
+    the raster's cell of their (0, 0), labels global flat indices of a
+    raster `w` wide.  The block's cells take the minimum over their
+    connections and jump through the label of the cell their label names
+    where that cell lies in the extended block, until a step changes
+    nothing; the ring stays as given.  Returns the labels."""
+    he, we = data.shape
+    interior = torch.zeros((he, we), dtype=torch.bool, device=data.device)
+    interior[1:-1, 1:-1] = True
+    links = _links(data, n8, interior)
+    fixed = ~interior | torch.isnan(data)
     steps = 0
     while True:
         new = labels.clone()
@@ -622,9 +797,144 @@ def _label_propagate(data: torch.Tensor, n8: bool):
                           out=cell)
         steps += 1
         if steps % _REGION_CHECK_EVERY == 0 and torch.equal(new, labels):
-            return labels, steps
-        jumped = new.view(-1)[new.clamp(max=h * w - 1)]
-        labels = torch.where(nan, big, torch.minimum(new, jumped))
+            return labels
+        g = new.long()
+        gy, gx = g // w - y0, g % w - x0
+        inside = (g < big) & (gy >= 0) & (gy < he) & (gx >= 0) & (gx < we)
+        jumped = torch.where(inside, new[gy.clamp(0, he - 1),
+                                         gx.clamp(0, we - 1)], new)
+        labels = torch.where(fixed, labels, torch.minimum(new, jumped))
+
+
+def _one_way(data: torch.Tensor, n8: bool) -> bool:
+    """Whether a connection of `data` holds one way only: cell c takes
+    neighbour b's label where ``|b - c| <= 1e-8 + 1e-5 |c|``, so a pair
+    near the bound may connect in one direction (``_links`` lists each
+    offset's reverse at the mirrored place, its pairs in the same
+    order)."""
+    links = _links(data, n8)
+    k = len(links)
+    return any(not torch.equal(links[d][2], links[k - 1 - d][2])
+               for d in range(k // 2))
+
+
+def _propagated_labels(x, ext, n8, big):
+    """Each cell's least reachable flat index by min-label propagation on
+    each block with a 1-cell ring of its neighbours' cells and labels,
+    the rings exchanged until no block changes."""
+    h, w = x.shape
+
+    def start(i, j, b):
+        (y0, y1), (x0, x1) = x.extent(0, i), x.extent(1, j)
+        idx = (torch.arange(y0, y1, device=b.device)[:, None] * w
+               + torch.arange(x0, x1, device=b.device)[None, :])
+        return torch.where(torch.isnan(b), big, idx).to(torch.int32)
+    labels = zip_blocks(start, x)
+    while True:
+        ring = halo_extend(labels, HaloSpec(1, 1), fill=big)
+        changed = False
+        blocks = []
+        for i, row in enumerate(labels.blocks):
+            brow = []
+            for j, b in enumerate(row):
+                hb, wb = b.shape
+                (y0, _), (x0, _) = x.extent(0, i), x.extent(1, j)
+                out = _label_block(ext[i][j][:hb + 2, :wb + 2],
+                                   ring[i][j][:hb + 2, :wb + 2].clone(), n8,
+                                   y0 - 1, x0 - 1, w, big)[1:-1, 1:-1]
+                changed |= not torch.equal(out, b)
+                brow.append(out.contiguous())
+            blocks.append(brow)
+        labels = ShardedRaster(blocks, x.shape, x.mesh, (True, True))
+        if not changed:
+            return labels
+
+
+def _merged_labels(x, ext, n8, big):
+    """The same labels where every connection holds both ways, so that
+    they are the least flat index of each connected component: each
+    block's own components (``_label_propagate``, in global indices),
+    then the components that meet across a seam joined (a min-label
+    propagation with a pointer jump on the graph of the seam pairs' block
+    labels, on the first block's device), each block relabelled."""
+    h, w = x.shape
+
+    def own(i, j, b):
+        hb, wb = b.shape
+        (y0, _), (x0, _) = x.extent(0, i), x.extent(1, j)
+        lab = _label_propagate(b, n8)[0].long()
+        g = (y0 + lab // wb) * w + x0 + lab % wb
+        return torch.where(lab == hb * wb + 1, big, g)
+    labels = zip_blocks(own, x)
+    ring = halo_extend(labels, HaloSpec(1, 1), fill=big)
+    dev = labels.blocks[0][0].device
+    a_parts, b_parts = [], []
+    for i, row in enumerate(labels.blocks):
+        for j, blk in enumerate(row):
+            hb, wb = blk.shape
+            data = ext[i][j][:hb + 2, :wb + 2]
+            lab = ring[i][j][:hb + 2, :wb + 2]
+            inner = torch.zeros(data.shape, dtype=torch.bool,
+                                device=data.device)
+            inner[1:-1, 1:-1] = True
+            for here, there, conn in _links(data, n8, inner):
+                seam = conn & ~inner[there]
+                a_parts.append(lab[here][seam].to(dev))
+                b_parts.append(lab[there][seam].to(dev))
+    a, b = torch.cat(a_parts), torch.cat(b_parts)
+    nodes = torch.unique(torch.cat([a, b]))
+    ai, bi = torch.searchsorted(nodes, a), torch.searchsorted(nodes, b)
+    root = nodes.clone()
+    while True:
+        new = root.clone()
+        new.scatter_reduce_(0, ai, root[bi], "amin")
+        new.scatter_reduce_(0, bi, root[ai], "amin")
+        new = torch.minimum(new, new[torch.searchsorted(nodes, new)])
+        if torch.equal(new, root):
+            break
+        root = new
+
+    def joined(i, j, lab):
+        if not nodes.numel():
+            return lab
+        n, r = nodes.to(lab.device), root.to(lab.device)
+        pos = torch.searchsorted(n, lab).clamp(max=n.numel() - 1)
+        return torch.where(n[pos] == lab, r[pos], lab)
+    return zip_blocks(joined, labels)
+
+
+def _regions_mesh(x: ShardedRaster, n8: bool) -> ShardedRaster:
+    """``regions``' labels of a raster split over a mesh, as a raster of
+    its tiles: each cell's least reachable flat index, by the union of
+    the blocks' components across the seams where every connection holds
+    both ways (``_merged_labels``), else by rounds of per-block
+    propagation (``_propagated_labels``: one-way pairs near the
+    tolerance make reachability directed, and a union would join what
+    the unsharded propagation keeps apart); then the labels numbered
+    1..n in the order of the sorted unique labels over the blocks, which
+    is the scan order of the regions' first cells (a region's label is
+    its first cell's index)."""
+    x = tiles(x)
+    h, w = x.shape
+    big = h * w + 1
+    ext = halo_extend(x, HaloSpec(1, 1))
+    crops = [ext[i][j][:b.shape[0] + 2, :b.shape[1] + 2]
+             for i, row in enumerate(x.blocks) for j, b in enumerate(row)]
+    one_way = any(_one_way(c, n8) for c in crops)
+    del crops
+    labels = (_propagated_labels if one_way else _merged_labels)(
+        x, ext, n8, big)
+    flat = [b for row in labels.blocks for b in row]
+    dev = flat[0].device
+    uniq = torch.unique(torch.cat([torch.unique(b[b != big]).to(dev)
+                                   for b in flat]))
+    out_dt = torch.float32 if uniq.numel() < 2 ** 24 else torch.float64
+
+    def number(i, j, b):
+        u = uniq.to(b.device)
+        rank = torch.searchsorted(u, b.reshape(-1)).reshape(b.shape) + 1
+        return torch.where(b == big, float("nan"), rank.to(out_dt))
+    return zip_blocks(number, labels)
 
 
 def regions(raster: DataArray, neighborhood: int = 4,
@@ -637,7 +947,13 @@ def regions(raster: DataArray, neighborhood: int = 4,
     """
     if neighborhood not in (4, 8):
         raise ValueError("`neighborhood` must be 4 or 8")
-    data = to_torch(raster, dtype=torch.float32)
+    data = raster_payload(raster, torch.float32)
+    if isinstance(data, ShardedRaster):
+        result = DataArray(_regions_mesh(data, neighborhood == 8), name=name,
+                           dims=raster.dims, attrs=dict(raster.attrs))
+        for cname, cval in raster.coords.items():
+            result.coords[cname] = cval
+        return result
     labels, _ = _label_propagate(data, neighborhood == 8)
     flat = labels.reshape(-1)
     finite = flat != flat.numel() + 1
@@ -670,18 +986,42 @@ def _edge_extent(keep: torch.Tensor):
     return torch.stack([rows[0], rows[-1], cols[0], cols[-1]]).tolist()
 
 
+def _extent_of(agg, keep_fn):
+    """``_edge_extent(keep_fn(data))`` of a DataArray's payload; for one
+    split over a mesh from each block's own, in global indices."""
+    data = raster_payload(agg, None)
+    if not isinstance(data, ShardedRaster):
+        return _edge_extent(keep_fn(data))
+    data = tiles(data)
+    found = []
+    for i, row in enumerate(data.blocks):
+        for j, b in enumerate(row):
+            e = _edge_extent(keep_fn(b)) if b.numel() else None
+            if e is not None:
+                y0, x0 = data.extent(0, i)[0], data.extent(1, j)[0]
+                found.append((e[0] + y0, e[1] + y0, e[2] + x0, e[3] + x0))
+    if not found:
+        return None
+    return [min(f[0] for f in found), max(f[1] for f in found),
+            min(f[2] for f in found), max(f[3] for f in found)]
+
+
 def trim(raster: DataArray, values=(np.nan,), name: str = "trim"):
     """Drop edge rows/cols that contain only the given values.
 
     Matches the reference's strict-equality semantics (zonal.py:1652-1733):
     NaN entries never compare equal, so NaN is only trimmed via actual
-    value matches.
+    value matches.  On a raster split over a mesh each block finds its
+    own bounds; the kept window is returned as one tensor on the first
+    block's device, as the JAX package returns it unsharded.
     """
-    data = to_torch(raster, dtype=None)
-    nodata = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
-    for v in values:
-        nodata |= data == v
-    extent = _edge_extent(~nodata)
+    def keep(data):
+        nodata = torch.zeros(data.shape, dtype=torch.bool,
+                             device=data.device)
+        for v in values:
+            nodata |= data == v
+        return ~nodata
+    extent = _extent_of(raster, keep)
     if extent is None:
         arr = raster[0:0, 0:0]
     else:
@@ -694,12 +1034,14 @@ def trim(raster: DataArray, values=(np.nan,), name: str = "trim"):
 def crop(zones: DataArray, values: DataArray, zones_ids,
          name: str = "crop"):
     """Crop `values` to the bounding box of cells whose zone is in
-    `zones_ids` (reference zonal.py:1846-1940)."""
-    data = to_torch(zones, dtype=None)
-    keep = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
-    for v in zones_ids:
-        keep |= data == v
-    extent = _edge_extent(keep)
+    `zones_ids` (reference zonal.py:1846-1940); on a mesh as ``trim``."""
+    def keep(data):
+        inside = torch.zeros(data.shape, dtype=torch.bool,
+                             device=data.device)
+        for v in zones_ids:
+            inside |= data == v
+        return inside
+    extent = _extent_of(zones, keep)
     if extent is None:
         arr = values[0:0, 0:0]
     else:

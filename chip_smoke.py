@@ -1967,7 +1967,6 @@ def viewshed_timing(dev, card, out):
     """Phase 15: the exact viewshed's warm wall time and phases, the screen
     kernel against its twin at the main path's plan, and every re-evaluation
     route forced through the module's thresholds."""
-    import io
     import torch
     import xrspatial_torch as xt
     from xrspatial_torch.kernels import cuda_screen, screen
@@ -1990,13 +1989,16 @@ def viewshed_timing(dev, card, out):
     print(f"  viewshed warm (host clock around a synchronised call, 3 calls): "
           f"mean {sum(walls) / 3:.3f} ms, each "
           f"{', '.join(f'{w:.3f}' for w in walls)} ms, {card}")
-    err = io.StringIO()
-    with env_set(XRSPATIAL_VS_TIMING="1"), contextlib.redirect_stderr(err):
+    from torch.profiler import ProfilerActivity, profile
+    from xrspatial_torch import tracing
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         call()
-    print("  phases (XRSPATIAL_VS_TIMING=1, the device synchronised at each "
-          "mark):")
-    for line in err.getvalue().splitlines():
-        print("   ", line.removeprefix("# vs_exact "))
+    print("  phases (host ms of each viewshed_exact span, one call under "
+          "torch.profiler):")
+    for s in sorted(tracing.spans(), key=lambda s: s.t0):
+        if s.name.startswith("viewshed_exact."):
+            print(f"    {s.name}: {(s.t1 - s.t0) * 1e3:.3f} ms")
     vr, vc = VS_N - 1 - y, x
     data = agg.data.to(torch.float64).cpu().numpy()
     args = ve.screen_inputs(data, vr, vc, oe, 0.0, 1.0, -1.0, level=1,

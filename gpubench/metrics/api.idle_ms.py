@@ -1,0 +1,8 @@
+"""api.idle_ms: the cards' idle time (the mean over the cards) while the
+host's innermost port span is an ``api.*`` span, ms a traced job."""
+
+from gpubench import portspans
+
+
+def read(ctx):
+    return portspans.idle_ms(ctx, "api.")

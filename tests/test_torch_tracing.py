@@ -1,0 +1,246 @@
+"""The port's spans and counters (``xrspatial_torch.tracing``) on the CPU.
+
+Off (no ``torch.profiler`` session) nothing is recorded and ``span``
+returns the shared no-op context; under a CPU profiler ``terrain_pipeline``
+on one raster and on a 2x2 mesh records its span tree, whose names also
+appear in the profiler's Chrome trace; the halo counters equal a count
+made from the shapes; the ring stays bounded; the library's set-up span
+is recorded without a profiler; the exact viewshed's phases are spans.
+"""
+
+import json
+import math
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import xrspatial_torch as xt
+from xrspatial_torch import tracing
+from xrspatial_torch.kernels import _cuda
+from xrspatial_torch.parallel import distribute, make_raster_mesh
+from xrspatial_torch.parallel.halo import ROW_ALIGN_BYTES
+
+CPU = torch.device("cpu")
+SHAPE = (64, 128)           # a 2x2 mesh's tiles: 32 x 64
+
+
+@pytest.fixture(autouse=True)
+def fresh():
+    """Each test starts with an empty ring and no counters."""
+    tracing.clear()
+    yield
+    tracing.clear()
+
+
+def dem(shape=SHAPE, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(shape, generator=g, dtype=torch.float32) * 100
+
+
+def raster(data, mesh=False):
+    if mesh:
+        data = distribute(data, make_raster_mesh(2, 2, devices=[CPU] * 4))
+    return xt.DataArray(data, dims=("y", "x"), name="dem",
+                        attrs={"res": (10.0, 10.0)})
+
+
+def traced(fn, *args, **kw):
+    """``fn(*args, **kw)`` under a CPU profiler; (result, profiler)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn(*args, **kw)
+    return out, prof
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["one", "mesh2x2"])
+def test_without_a_profiler_nothing_is_recorded(mesh):
+    assert not tracing.on()
+    assert tracing.span("api.args") is tracing.OFF
+    assert tracing.span("dispatch.surface") is tracing.OFF
+    with tracing.span("api.args") as s:
+        assert s is tracing.OFF
+    tracing.count("mesh.halo_ops", 5)
+    xt.terrain_pipeline(raster(dem(), mesh))
+    assert tracing.spans() == []
+    assert tracing.counters() == {}
+
+
+def _tree(spans):
+    by_index = {s.index: s for s in spans}
+    children = {}
+    for s in spans:
+        children.setdefault(s.parent, []).append(s)
+    return by_index, children
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["one", "mesh2x2"])
+def test_the_span_tree_under_the_profiler(mesh, tmp_path):
+    data = raster(dem(), mesh)
+
+    def two_calls():
+        xt.terrain_pipeline(data)
+        xt.terrain_pipeline(data)
+
+    _, prof = traced(two_calls)
+    spans = tracing.spans()
+    names = {s.name for s in spans}
+    want = {"api.terrain_pipeline", "api.args", "api.dataset",
+            "dispatch.surface", "api.focal_stats", "dispatch.focal"}
+    assert names == (want | {"mesh.halo_extend"} if mesh else want)
+
+    by_index, children = _tree(spans)
+    roots = children[-1]
+    # one request an outermost call, shared by every span inside it
+    assert [r.name for r in roots] == ["api.terrain_pipeline"] * 2
+    assert len({r.request for r in roots}) == 2
+    for s in spans:
+        if s.parent == -1:
+            continue
+        p = by_index[s.parent]
+        assert s.request == p.request
+        # inside its parent in time
+        assert p.t0 <= s.t0 <= s.t1 <= p.t1
+    for r in roots:
+        kids = [c.name for c in sorted(children[r.index], key=lambda c: c.t0)]
+        assert kids == ["api.args", "api.dataset", "dispatch.surface",
+                        "api.dataset", "api.focal_stats", "api.dataset"]
+        focal = next(c for c in children[r.index]
+                     if c.name == "api.focal_stats")
+        assert [c.name for c in sorted(children[focal.index],
+                                       key=lambda c: c.t0)] == [
+            "api.args", "api.args", "dispatch.focal", "api.dataset"]
+        for d in (c for c in spans if c.request == r.request
+                  and c.name.startswith("dispatch.")
+                  and by_index.get(c.parent, r).name.startswith("api.")):
+            inner = sorted(children.get(d.index, []), key=lambda c: c.t0)
+            if not mesh:
+                assert inner == []
+                continue
+            # the exchange, then one dispatch of the route a block
+            assert inner[0].name == "mesh.halo_extend"
+            kinds = [c.name for c in inner[1:]]
+            blocks = [k for k in kinds if k == d.name]
+            assert len(blocks) == 4 and set(kinds) <= {d.name, "api.args"}
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    exported = {e["name"] for e in events if e.get("ph") == "X"}
+    assert {tracing.PREFIX + n for n in names} <= exported
+
+
+def halo_count(h, w, r, item=4):
+    """(ops, bytes) of one halo exchange of radius r on a 2x2 mesh whose
+    tiles divide the raster evenly, each tile wider and taller than r.
+
+    Every block's extended block is (ty + 2r) x pitch, pitch the width
+    tx + 2r rounded up to 16 bytes; the window the raster fills is
+    (ty + r) x (tx + r) (the outer halo lies beyond the raster on two
+    sides).  The exchange writes the fills outside the window, the
+    tile's own ty x tx cells, a ty x r column from the neighbour in x and
+    r full rows of pitch from the neighbour in y.  Ops: 2 copies in x
+    and 1 in y a block, and the fills: the row band and the outer column
+    band of each block, and the right band past the pitch where it has
+    columns (the blocks at the left edge write one fewer)."""
+    ty, tx = h // 2, w // 2
+    per = ROW_ALIGN_BYTES // item
+    pitch = math.ceil((tx + 2 * r) / per) * per
+    fills = (ty + 2 * r) * pitch - (ty + r) * (tx + r)
+    cells = fills + ty * tx + ty * r + r * pitch
+    fill_ops = 4 * 2 + 2 * (pitch > tx + 2 * r)
+    return fill_ops + 4 * 3, 4 * cells * item
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (96, 72)])
+def test_halo_counters_equal_the_count_from_the_shapes(shape):
+    data = raster(dem(shape), mesh=True)
+    ops, nbytes = halo_count(*shape, r=1)
+    traced(xt.terrain_pipeline, data)
+    # two exchanges of radius 1: the surface pass and the focal pass
+    assert tracing.counters() == {"mesh.halo_ops": 2 * ops,
+                                  "mesh.halo_bytes": 2 * nbytes}
+    tracing.clear()
+    traced(xt.focal_stats, data, np.ones((5, 5)), ["mean"])
+    ops, nbytes = halo_count(*shape, r=2)
+    assert tracing.counters() == {"mesh.halo_ops": ops,
+                                  "mesh.halo_bytes": nbytes}
+    exchanges = [s for s in tracing.spans() if s.name == "mesh.halo_extend"]
+    assert len(exchanges) == 1
+
+
+def test_the_halo_count_at_the_mosaics_size():
+    # the 65536^2 mosaic on 2x2 cards, radius 1: 22 ops and 16.003 GiB
+    # an exchange, 4 GiB of each a tile's own cells
+    ops, nbytes = halo_count(65536, 65536, r=1)
+    assert ops == 22
+    assert nbytes == 4 * 4 * 1_073_938_443
+    assert 16 * 2 ** 30 < nbytes < 16.01 * 2 ** 30
+
+
+def test_counters_count_only_under_the_profiler():
+    tracing.count("x", 3)
+    assert tracing.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tracing.on()
+        tracing.count("x", 3)
+        tracing.count("x")
+    tracing.count("x", 5)
+    assert tracing.counters() == {"x": 4}
+
+
+def test_the_ring_stays_bounded():
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(tracing.RING + 10):
+            with tracing.span("t"):
+                pass
+    spans = tracing.spans()
+    assert len(spans) == tracing.RING
+    idx = [s.index for s in spans]
+    # the newest kept, in the order they ended
+    assert idx == list(range(idx[0], idx[0] + tracing.RING))
+    assert len({s.request for s in spans}) == tracing.RING
+
+
+def test_the_library_set_up_is_recorded_without_a_profiler(monkeypatch,
+                                                            tmp_path):
+    lib = tmp_path / "lib.so"
+
+    def fake_build(out):
+        out.touch()
+        return out, "built"
+
+    monkeypatch.setattr(_cuda, "_library_path", lambda: lib)
+    monkeypatch.setattr(_cuda, "_build", fake_build)
+    # stale: the build is a span inside the set-up
+    assert _cuda.build() == (lib, "built")
+    assert [s.name for s in tracing.spans()] == ["setup.build"]
+    tracing.clear()
+    monkeypatch.setattr(_cuda, "_load", lambda: "lib")
+    assert _cuda.library.__wrapped__() == "lib"
+    (s,) = tracing.spans()
+    assert (s.name, s.parent) == ("setup.library", -1) and s.t1 >= s.t0
+    tracing.clear()
+    # current: hashed and loaded, nothing built
+    assert _cuda.build() == (lib, "")
+    assert tracing.spans() == []
+
+
+def test_the_exact_viewshed_phases_are_spans(capsys):
+    data = xt.DataArray(dem((40, 36), seed=3), dims=("y", "x"),
+                        coords={"y": np.arange(40.0), "x": np.arange(36.0)},
+                        attrs={"res": (1.0, 1.0)})
+    want = xt.viewshed(data, x=10, y=12, observer_elev=5)
+    got, _ = traced(xt.viewshed, data, x=10, y=12, observer_elev=5)
+    assert torch.equal(got.data, want.data)
+    assert capsys.readouterr().err == ""
+    spans = tracing.spans()
+    by_index, children = _tree(spans)
+    (root,) = children[-1]
+    assert root.name == "viewshed_exact.grid"
+    phases = [c.name for c in sorted(children[root.index],
+                                     key=lambda c: c.t0)]
+    assert phases[:3] == ["viewshed_exact.cache", "viewshed_exact.plan",
+                          "viewshed_exact.screen"]
+    assert phases[-1] == "viewshed_exact.epilogue"
+    assert all(s.name.startswith("viewshed_exact.") for s in spans)

@@ -30,6 +30,7 @@ from .kernels.pipeline import pipeline_kernels, pipeline_supported
 from .kernels.surface import PRODUCTS, surface_kernels
 from .kernels.window import kernel_offsets
 from .parallel.halo import get_raster_mesh
+from .tracing import span
 from .utils import get_dataarray_resolution, raster_payload, wrap_like
 from .xrlib import DataArray, Dataset
 
@@ -82,38 +83,47 @@ def terrain_pipeline(agg: DataArray,
     stack (same layout as ``focal.focal_stats``).  Both branches, split
     and fused (see the module's docstring), give this layout.
     """
-    if agg.ndim != 2:
-        raise ValueError("`agg` must be 2D")
-    for s in stats_funcs:
-        if s not in _STAT_NAMES:
-            raise ValueError(f"unknown stat {s!r}; supported: {_STAT_NAMES}")
-    for p in surface:
-        if p not in PRODUCTS:
-            raise ValueError(f"unknown surface product {p!r}; "
-                             f"supported: {PRODUCTS}")
-    if kernel is None:
-        kernel = circle_kernel(1, 1, 1.5)
-    kernel = custom_kernel(np.asarray(kernel))
-    cellsize_x, cellsize_y = get_dataarray_resolution(agg)
-    data = raster_payload(agg)
-    name = agg.name or "terrain"
-    ds = agg.to_dataset(name=name)
+    with span("api.terrain_pipeline"):
+        with span("api.args"):
+            if agg.ndim != 2:
+                raise ValueError("`agg` must be 2D")
+            for s in stats_funcs:
+                if s not in _STAT_NAMES:
+                    raise ValueError(f"unknown stat {s!r}; supported: "
+                                     f"{_STAT_NAMES}")
+            for p in surface:
+                if p not in PRODUCTS:
+                    raise ValueError(f"unknown surface product {p!r}; "
+                                     f"supported: {PRODUCTS}")
+            if kernel is None:
+                kernel = circle_kernel(1, 1, 1.5)
+            kernel = custom_kernel(np.asarray(kernel))
+            cellsize_x, cellsize_y = get_dataarray_resolution(agg)
+            data = raster_payload(agg)
+            name = agg.name or "terrain"
+            offsets = kernel_offsets(kernel)
+        with span("api.dataset"):
+            ds = agg.to_dataset(name=name)
 
-    offsets = kernel_offsets(kernel)
-    if get_raster_mesh(data) is None and _use_fused_pipeline(offsets):
-        outs = pipeline_kernels(data, offsets, tuple(stats_funcs),
-                                tuple(surface), cellsize_x, cellsize_y,
-                                azimuth, angle_altitude)
-        for p, out in zip(surface, outs):
-            ds[f'{name}-{p}'] = wrap_like(agg, out, f'{name}-{p}')
-        ds["focal_stats"] = stats_dataarray(agg, outs[-1], stats_funcs,
-                                            "focal_stats")
+        if get_raster_mesh(data) is None and _use_fused_pipeline(offsets):
+            outs = pipeline_kernels(data, offsets, tuple(stats_funcs),
+                                    tuple(surface), cellsize_x, cellsize_y,
+                                    azimuth, angle_altitude)
+            with span("api.dataset"):
+                for p, out in zip(surface, outs):
+                    ds[f'{name}-{p}'] = wrap_like(agg, out, f'{name}-{p}')
+                ds["focal_stats"] = stats_dataarray(agg, outs[-1],
+                                                    stats_funcs,
+                                                    "focal_stats")
+            return ds
+
+        surf_outs = surface_kernels(data, tuple(surface), cellsize_x,
+                                    cellsize_y, azimuth, angle_altitude)
+        with span("api.dataset"):
+            for p in surface:
+                ds[f'{name}-{p}'] = wrap_like(agg, surf_outs[p],
+                                              f'{name}-{p}')
+        stats = focal_stats(agg, kernel, stats_funcs=list(stats_funcs))
+        with span("api.dataset"):
+            ds["focal_stats"] = stats.rename("focal_stats")
         return ds
-
-    surf_outs = surface_kernels(data, tuple(surface), cellsize_x,
-                                cellsize_y, azimuth, angle_altitude)
-    for p in surface:
-        ds[f'{name}-{p}'] = wrap_like(agg, surf_outs[p], f'{name}-{p}')
-    ds["focal_stats"] = focal_stats(
-        agg, kernel, stats_funcs=list(stats_funcs)).rename("focal_stats")
-    return ds

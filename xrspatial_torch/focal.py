@@ -38,6 +38,7 @@ from .kernels.window import (UNROLL_MAX_OFFSETS, focal_mean_pass,
                              tiled_radius_supported, window_stats)
 from .kernels.dispatch import run_stencil
 from .parallel.halo import get_raster_mesh, tiles
+from .tracing import span
 from .utils import blockwise, raster_payload, wrap_like
 from .xrlib import DataArray
 
@@ -97,19 +98,22 @@ def _window_stats(data: torch.Tensor, kernel: np.ndarray,
     """(S, H, W) statistics over the kernel footprint, stacked in `stats`
     order: the torch ops for a CPU tensor or a conv-path footprint, a CUDA
     kernel otherwise; on a mesh, this on each halo-extended block."""
-    offsets = kernel_offsets(kernel)
-    if get_raster_mesh(data) is not None:
-        ry = max((abs(dy) for dy, _ in offsets), default=0)
-        rx = max((abs(dx) for _, dx in offsets), default=0)
-        return run_stencil(_window_stats, (ry, rx), data, kernel, stats)
-    route = _route(offsets)
-    if data.device.type == "cpu" or route == "conv":
-        outs = window_stats(data, offsets, stats)
-        return torch.stack([outs[s] for s in stats])
-    from .kernels.cuda_window import focal_stats_cuda, focal_stats_halo_cuda
-    if route == "tiled":
-        return focal_stats_cuda(data, offsets, stats)
-    return focal_stats_halo_cuda(data, offsets, stats)
+    with span("api.args"):
+        offsets = kernel_offsets(kernel)
+    with span("dispatch.focal"):
+        if get_raster_mesh(data) is not None:
+            ry = max((abs(dy) for dy, _ in offsets), default=0)
+            rx = max((abs(dx) for _, dx in offsets), default=0)
+            return run_stencil(_window_stats, (ry, rx), data, kernel, stats)
+        route = _route(offsets)
+        if data.device.type == "cpu" or route == "conv":
+            outs = window_stats(data, offsets, stats)
+            return torch.stack([outs[s] for s in stats])
+        from .kernels.cuda_window import (focal_stats_cuda,
+                                          focal_stats_halo_cuda)
+        if route == "tiled":
+            return focal_stats_cuda(data, offsets, stats)
+        return focal_stats_halo_cuda(data, offsets, stats)
 
 
 def apply(raster, kernel, func=_calc_mean, name: str = 'focal_apply'):
@@ -198,17 +202,21 @@ def focal_stats(agg, kernel,
     cells take the convolution path, whose std/var use a centred sum of
     squares around the raster's global mean, as in the JAX package.
     """
-    if not isinstance(agg, DataArray):
-        raise TypeError("`agg` must be instance of DataArray")
-    if agg.ndim != 2:
-        raise ValueError("`agg` must be 2D")
-    kernel = custom_kernel(np.asarray(kernel))
-    for s in stats_funcs:
-        if s not in _STAT_NAMES:
-            raise ValueError(f"unknown stat {s!r}; supported: {_STAT_NAMES}")
-
-    stacked = _window_stats(raster_payload(agg), kernel, tuple(stats_funcs))
-    return stats_dataarray(agg, stacked, stats_funcs, "focal_apply")
+    with span("api.focal_stats"):
+        with span("api.args"):
+            if not isinstance(agg, DataArray):
+                raise TypeError("`agg` must be instance of DataArray")
+            if agg.ndim != 2:
+                raise ValueError("`agg` must be 2D")
+            kernel = custom_kernel(np.asarray(kernel))
+            for s in stats_funcs:
+                if s not in _STAT_NAMES:
+                    raise ValueError(f"unknown stat {s!r}; supported: "
+                                     f"{_STAT_NAMES}")
+            data = raster_payload(agg)
+        stacked = _window_stats(data, kernel, tuple(stats_funcs))
+        with span("api.dataset"):
+            return stats_dataarray(agg, stacked, stats_funcs, "focal_apply")
 
 
 def hotspots(raster, kernel) -> DataArray:

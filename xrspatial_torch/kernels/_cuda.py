@@ -11,6 +11,10 @@ hash of the flags and of every source and header (``csrc/*.cu``,
 ``csrc/*.cuh``), so an edited source or header is rebuilt and a current
 library is reused.  Several processes may build at once (pytest-xdist
 workers): each writes temporary files and renames the library into place.
+The first ``library()`` of a process is the span ``setup.library`` (the
+hash, the build when stale, the load), recorded whether or not a profiler
+runs, and a build inside it the span ``setup.build``
+(``xrspatial_torch.tracing``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from ..tracing import span
 
 __all__ = ["build", "library", "check", "stream_of"]
 
@@ -65,6 +71,11 @@ def build() -> tuple:
     out = _library_path()
     if out.exists():
         return out, ""
+    with span("setup.build", always=True):
+        return _build(out)
+
+
+def _build(out: Path) -> tuple:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
@@ -97,6 +108,11 @@ def build() -> tuple:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
+    with span("setup.library", always=True):
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,

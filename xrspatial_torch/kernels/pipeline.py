@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..tracing import span
 from .focal_halo import HaloPlan, halo_plan
 from .surface import surface_multi
 from .window import window_stats
@@ -69,7 +70,8 @@ def pipeline_kernels(data: torch.Tensor, offsets, stats, which,
     of the CUDA kernel otherwise."""
     args = (data, offsets, stats, which, cellsize_x, cellsize_y, azimuth,
             angle_altitude)
-    if data.device.type == "cpu":
-        return pipeline_multi(*args)
-    from .cuda_pipeline import pipeline_cuda
-    return pipeline_cuda(*args)
+    with span("dispatch.pipeline"):
+        if data.device.type == "cpu":
+            return pipeline_multi(*args)
+        from .cuda_pipeline import pipeline_cuda
+        return pipeline_cuda(*args)

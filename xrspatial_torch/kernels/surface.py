@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..tracing import span
 from .staged import SMEM_PER_SM, StagedPlan, staged_plan
 
 DEG = 57.29578  # the reference's degree conversion constant
@@ -345,18 +346,20 @@ def surface_kernels(data, which, cellsize_x=1.0, cellsize_y=1.0,
     (``dispatch.run_stencil``): one kernel launch a block on the card;
     the products are ``ShardedRaster`` s over the same mesh.
     """
-    if _mesh_route(data):
-        from .dispatch import run_stencil
-        outs = run_stencil(_surface_block, 1, data, tuple(which),
-                           cellsize_x, cellsize_y, azimuth, angle_altitude)
+    with span("dispatch.surface"):
+        if _mesh_route(data):
+            from .dispatch import run_stencil
+            outs = run_stencil(_surface_block, 1, data, tuple(which),
+                               cellsize_x, cellsize_y, azimuth,
+                               angle_altitude)
+            return dict(zip(which, outs))
+        if data.device.type == "cpu":
+            return surface_multi(data, cellsize_x, cellsize_y, azimuth,
+                                 angle_altitude, tuple(which))
+        from .cuda_surface import surface_cuda
+        outs = surface_cuda(data, tuple(which), cellsize_x, cellsize_y,
+                            azimuth, angle_altitude)
         return dict(zip(which, outs))
-    if data.device.type == "cpu":
-        return surface_multi(data, cellsize_x, cellsize_y, azimuth,
-                             angle_altitude, tuple(which))
-    from .cuda_surface import surface_cuda
-    outs = surface_cuda(data, tuple(which), cellsize_x, cellsize_y,
-                        azimuth, angle_altitude)
-    return dict(zip(which, outs))
 
 
 def run_surface_op(name, data, cellsize_x=1.0, cellsize_y=1.0,

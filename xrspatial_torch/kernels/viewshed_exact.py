@@ -34,13 +34,12 @@ classification) is torch ops on the raster's device.
 from __future__ import annotations
 
 import os
-import sys
-import time
 from math import asin
 
 import numpy as np
 import torch
 
+from ..tracing import span
 from . import screen as _screen
 from .viewshed import (PI, _calculate_angle, _corner_diffs_np,
                        _corner_offsets, _interp_blocked_max, _np_rects,
@@ -230,39 +229,43 @@ def viewshed_grid_exact(data, vp_row: int, vp_col: int,
     result is float64 on its device.  The host planning reads one float64
     copy of the raster; ``XRSPATIAL_VS_NO_SCREEN=1`` runs the float64
     bucket evaluation for every target, ``XRSPATIAL_VS_EXACT_CHUNK`` sets
-    the bucket size and ``XRSPATIAL_VS_TIMING=1`` prints phase times.
+    the bucket size.  Under ``torch.profiler`` the call is the span
+    ``viewshed_exact.grid`` and each phase a ``viewshed_exact.<phase>``
+    span inside it (``xrspatial_torch.tracing``), each phase's device
+    work beneath it on the profiler's timeline.
     """
     chunk = int(os.environ.get("XRSPATIAL_VS_EXACT_CHUNK", chunk))
     data = torch.as_tensor(data)
     device = data.device
-    mark = _phase_timer(device)
-    # the one host copy: float64, as the planning needs it
-    data_np = data.detach().to("cpu", torch.float64).numpy()
-    h, w = data_np.shape
-    n = h * w
-    vp_elev = data_np[vp_row, vp_col] + observer_elev
+    with span("viewshed_exact.grid"):
+        # the one host copy: float64, as the planning needs it
+        data_np = data.detach().to("cpu", torch.float64).numpy()
+        h, w = data_np.shape
+        n = h * w
+        vp_elev = data_np[vp_row, vp_col] + observer_elev
 
-    if os.environ.get("XRSPATIAL_VS_NO_SCREEN") == "1":
-        at = cell_attrs_host(data_np, vp_row, vp_col, observer_elev,
-                             target_elev, ew_res, ns_res)
-        mark("attrs")
-        tperm, glob_idx, tiers, A, C = _bucket_plan(at, vp_row, vp_col,
-                                                    chunk)
-        vis_np = _run_buckets_f64(at, tperm, glob_idx, tiers, A, C, device)
-        visible = np.empty(n, dtype=bool)
-        # clamped-overlap duplicates write equal values
-        visible[tperm] = vis_np
-        mark("f64 buckets")
-    else:
-        visible = _screened_visibility(data_np, vp_row, vp_col,
-                                       observer_elev, target_elev,
-                                       ew_res, ns_res, chunk, mark, device)
+        if os.environ.get("XRSPATIAL_VS_NO_SCREEN") == "1":
+            with span("viewshed_exact.attrs"):
+                at = cell_attrs_host(data_np, vp_row, vp_col, observer_elev,
+                                     target_elev, ew_res, ns_res)
+            with span("viewshed_exact.f64_buckets"):
+                tperm, glob_idx, tiers, A, C = _bucket_plan(at, vp_row,
+                                                            vp_col, chunk)
+                vis_np = _run_buckets_f64(at, tperm, glob_idx, tiers, A, C,
+                                          device)
+                visible = np.empty(n, dtype=bool)
+                # clamped-overlap duplicates write equal values
+                visible[tperm] = vis_np
+        else:
+            visible = _screened_visibility(data_np, vp_row, vp_col,
+                                           observer_elev, target_elev,
+                                           ew_res, ns_res, chunk, device)
 
-    visible_dev = torch.from_numpy(visible.reshape(h, w)).to(device)
-    out = _visibility_epilogue(data.to(torch.float64), visible_dev, vp_elev,
-                               vp_row, vp_col, target_elev, ew_res, ns_res)
-    mark("epilogue")
-    return out
+        with span("viewshed_exact.epilogue"):
+            visible_dev = torch.from_numpy(visible.reshape(h, w)).to(device)
+            return _visibility_epilogue(data.to(torch.float64), visible_dev,
+                                        vp_elev, vp_row, vp_col, target_elev,
+                                        ew_res, ns_res)
 
 
 def _pad_tab(tab, L):
@@ -315,7 +318,7 @@ def _build_tables(at, glob_idx, tiers, make_table, device):
 
 
 def _run_buckets_f64_gathered(attrs_of, tperm, glob_idx, tiers, A, C,
-                              device, mark=lambda label: None):
+                              device):
     """Float64 bucket evaluation for a SMALL target subset: gather on the
     host ONLY the (A, E) candidate slices each bucket reads, flatten them
     to (A*E,) blocks, and evaluate them with stride-E window starts.
@@ -333,34 +336,33 @@ def _run_buckets_f64_gathered(attrs_of, tperm, glob_idx, tiers, A, C,
         tab["idx"] = np.where(inb, flat, -1).astype(np.int64)
         return tab
 
-    gpad = _round_up(glob_idx.size, 1024)
-    gext = np.pad(glob_idx, (0, gpad - glob_idx.size))
-    host_tabs.append(_host_tab(
-        gext, np.arange(gpad) < glob_idx.size))
-    Es = []
-    for tidx, los, E in tiers:
-        # same clamp semantics as _build_tables: slices stay in-bounds
-        # of the padded table; pad rows are invalid (filtered by the
-        # predicate), clamp-overlap extras fail the cover test
-        los = np.minimum(np.maximum(los, 0), max(tidx.size - E, 0))
-        pos = los[:, None] + np.arange(E)[None, :]
-        flat = tidx[np.minimum(pos, tidx.size - 1)].ravel()
-        inb = (pos < tidx.size).ravel()
-        host_tabs.append(_host_tab(flat, inb))
-        Es.append(E)
-    mark("reeval/host-gather")
+    with span("viewshed_exact.gather"):
+        gpad = _round_up(glob_idx.size, 1024)
+        gext = np.pad(glob_idx, (0, gpad - glob_idx.size))
+        host_tabs.append(_host_tab(
+            gext, np.arange(gpad) < glob_idx.size))
+        Es = []
+        for tidx, los, E in tiers:
+            # same clamp semantics as _build_tables: slices stay in-bounds
+            # of the padded table; pad rows are invalid (filtered by the
+            # predicate), clamp-overlap extras fail the cover test
+            los = np.minimum(np.maximum(los, 0), max(tidx.size - E, 0))
+            pos = los[:, None] + np.arange(E)[None, :]
+            flat = tidx[np.minimum(pos, tidx.size - 1)].ravel()
+            inb = (pos < tidx.size).ravel()
+            host_tabs.append(_host_tab(flat, inb))
+            Es.append(E)
 
-    dev_tabs = _upload(host_tabs, device)
-    mark("reeval/upload")
+    with span("viewshed_exact.upload"):
+        dev_tabs = _upload(host_tabs, device)
 
-    ta = attrs_of(tperm)
-    tgt = _targets(ta["a1"], ta["key"], ta["grad_t"], tperm, device)
-    tier_tabs = [(tab, E) for tab, E in zip(dev_tabs[1:], Es)]
-    tier_los = [(np.arange(A, dtype=np.int64) * E).astype(np.int32)
-                for E in Es]
-    out = _eval_buckets(tgt, dev_tabs[0], tier_tabs, tier_los, A, C)
-    mark("reeval/eval+fetch")
-    return out
+    with span("viewshed_exact.eval"):
+        ta = attrs_of(tperm)
+        tgt = _targets(ta["a1"], ta["key"], ta["grad_t"], tperm, device)
+        tier_tabs = [(tab, E) for tab, E in zip(dev_tabs[1:], Es)]
+        tier_los = [(np.arange(A, dtype=np.int64) * E).astype(np.int32)
+                    for E in Es]
+        return _eval_buckets(tgt, dev_tabs[0], tier_tabs, tier_los, A, C)
 
 
 def _targets(a1, key, grad_t, tperm, device):
@@ -423,29 +425,6 @@ def _eval_buckets(tgt, glob, tier_tabs, tier_los, A, C):
     return vis.cpu().numpy().ravel()
 
 
-def _phase_timer(device):
-    """Env-gated phase timing (XRSPATIAL_VS_TIMING=1): prints the wall
-    time of each exact-viewshed phase to stderr.  With the data on the
-    card it synchronises the device before it reads the clock, so each
-    phase's device work is charged to that phase."""
-    if os.environ.get("XRSPATIAL_VS_TIMING") != "1":
-        return lambda label: None
-    if torch.device(device).type == "cuda":
-        def sync():
-            torch.cuda.synchronize(device)
-    else:
-        def sync():
-            pass
-    sync()
-    state = {"t": time.perf_counter()}
-
-    def mark(label):
-        sync()
-        now = time.perf_counter()
-        print(f"# vs_exact {label}: {now - state['t']:.3f}s",
-              file=sys.stderr, flush=True)
-        state["t"] = now
-    return mark
 
 
 # ---------------------------------------------------------------------------
@@ -964,7 +943,7 @@ def screen_inputs(data, vp_row, vp_col, observer_elev, target_elev, ew_res,
 
 
 def _screened_visibility(data_np, vp_row, vp_col, observer_elev,
-                         target_elev, ew_res, ns_res, chunk, mark, device):
+                         target_elev, ew_res, ns_res, chunk, device):
     """Interval-screened exact visibility.  The float32 level-1 screen
     computes per target a SOUND [blocked_lo, blocked_hi] interval for the
     max blocker gradient; targets whose interval straddles their own
@@ -983,16 +962,15 @@ def _screened_visibility(data_np, vp_row, vp_col, observer_elev,
     h, w = data_np.shape
     n = h * w
     LAST_CALL.clear()
-    sc = _screen_cache(data_np, vp_row, vp_col, observer_elev, target_elev,
-                       ew_res, ns_res)
-    mark("cache")
-    args, (tperm, glob_idx, tiers, A, C) = _level1(sc, vp_row, vp_col,
-                                                   ew_res, ns_res, chunk,
-                                                   device)
-    mark("plan+tables+expand")
-    vis, amb = _screen_classify(*args)
-    del args
-    mark("screen+fetch")
+    with span("viewshed_exact.cache"):
+        sc = _screen_cache(data_np, vp_row, vp_col, observer_elev,
+                           target_elev, ew_res, ns_res)
+    with span("viewshed_exact.plan"):
+        args, (tperm, glob_idx, tiers, A, C) = _level1(
+            sc, vp_row, vp_col, ew_res, ns_res, chunk, device)
+    with span("viewshed_exact.screen"):
+        vis, amb = _screen_classify(*args)
+        del args
 
     visible = np.empty(n, dtype=bool)
     visible[tperm] = vis
@@ -1001,62 +979,59 @@ def _screened_visibility(data_np, vp_row, vp_col, observer_elev,
                      route="none")
     if not amb_idx.size:
         return visible
-    if amb_idx.size > max(_VALVE_FRAC * n, _VALVE_MIN_AMB):
-        # safety valve: run full f64 over the same (extended) candidate
-        # tables; duplicates evaluate identically
-        at = cell_attrs_host(data_np, vp_row, vp_col, observer_elev,
-                             target_elev, ew_res, ns_res)
-        visible[tperm] = _run_buckets_f64(at, tperm, glob_idx, tiers, A, C,
-                                          device)
-        LAST_CALL["route"] = "valve"
-        mark("reeval/full-valve")
-        return visible
-    at32 = {"a1": sc["a1"]}
-    if amb_idx.size <= _L2_MIN_AMB:
-        # small ambiguous sets skip the level-2 re-screen when the
-        # gathered oracle's data volume is small
-        L = 1 << (max(int(amb_idx.size), 128) - 1).bit_length()
-        sub = np.pad(amb_idx, (0, L - amb_idx.size), mode="edge")
-        tperm_a, glob_a, tiers_a, A_a, C_a = _bucket_plan(
-            at32, vp_row, vp_col, min(chunk, 128), targets=sub,
-            cache=_plan_cache(sc))
-        gath_elems = sum(A_a * E for _, _, E in tiers_a)
-        if gath_elems <= _DIRECT_MAX_ELEMS:
-            mark(f"reeval/plan-direct amb={amb_idx.size} A={A_a} "
-                 f"sumE={sum(E for _, _, E in tiers_a)}")
-            attrs_of = cell_attrs_subset_fn(data_np, vp_row, vp_col,
-                                            observer_elev, target_elev,
-                                            ew_res, ns_res)
-            visible[tperm_a] = _run_buckets_f64_gathered(
-                attrs_of, tperm_a, glob_a, tiers_a, A_a, C_a, device,
-                mark=mark)
-            LAST_CALL["route"] = "gathered"
-            mark("reeval")
+    with span("viewshed_exact.reeval"):
+        if amb_idx.size > max(_VALVE_FRAC * n, _VALVE_MIN_AMB):
+            # safety valve: run full f64 over the same (extended) candidate
+            # tables; duplicates evaluate identically
+            with span("viewshed_exact.f64"):
+                at = cell_attrs_host(data_np, vp_row, vp_col, observer_elev,
+                                     target_elev, ew_res, ns_res)
+                visible[tperm] = _run_buckets_f64(at, tperm, glob_idx,
+                                                  tiers, A, C, device)
+            LAST_CALL["route"] = "valve"
             return visible
-        mark(f"reeval/plan-direct-skip amb={amb_idx.size} "
-             f"gath_elems={gath_elems}")
-    # level 2: re-screen the ambiguous subset in device float64
-    plans, E_all = _level2_plans(sc, amb_idx, vp_row, vp_col, chunk)
-    mark(f"reeval/plan amb={amb_idx.size} slabs={len(plans)} E={E_all} "
-         f"A={[p[3] for p in plans]}")
-    amb2_parts = []
-    for args in _level2_tables(sc, plans, E_all, vp_row, vp_col, ew_res,
-                               ns_res, device):
-        vis2, amb2 = _screen_classify(*args)
-        tperm_s = args[2]
-        visible[tperm_s] = vis2
-        amb2_parts.append(tperm_s[amb2])
-    mark("reeval/screen2")
-    amb2_idx = np.unique(np.concatenate(amb2_parts))
-    LAST_CALL.update(route="l2", slabs=len(plans), amb2=int(amb2_idx.size))
-    if amb2_idx.size:
-        L2 = 1 << (max(int(amb2_idx.size), 128) - 1).bit_length()
-        sub2 = np.pad(amb2_idx, (0, L2 - amb2_idx.size), mode="edge")
-        tperm_b, glob_b, tiers_b, A_b, C_b = _bucket_plan(
-            at32, vp_row, vp_col, min(chunk, 128), targets=sub2,
-            cache=_plan_cache(sc))
-        mark(f"reeval/plan2 amb2={amb2_idx.size} A={A_b} "
-             f"sumE={sum(E for _, _, E in tiers_b)}")
+        at32 = {"a1": sc["a1"]}
+        if amb_idx.size <= _L2_MIN_AMB:
+            # small ambiguous sets skip the level-2 re-screen when the
+            # gathered oracle's data volume is small
+            with span("viewshed_exact.reeval_plan"):
+                L = 1 << (max(int(amb_idx.size), 128) - 1).bit_length()
+                sub = np.pad(amb_idx, (0, L - amb_idx.size), mode="edge")
+                tperm_a, glob_a, tiers_a, A_a, C_a = _bucket_plan(
+                    at32, vp_row, vp_col, min(chunk, 128), targets=sub,
+                    cache=_plan_cache(sc))
+                gath_elems = sum(A_a * E for _, _, E in tiers_a)
+            if gath_elems <= _DIRECT_MAX_ELEMS:
+                with span("viewshed_exact.f64"):
+                    attrs_of = cell_attrs_subset_fn(
+                        data_np, vp_row, vp_col, observer_elev, target_elev,
+                        ew_res, ns_res)
+                    visible[tperm_a] = _run_buckets_f64_gathered(
+                        attrs_of, tperm_a, glob_a, tiers_a, A_a, C_a, device)
+                LAST_CALL["route"] = "gathered"
+                return visible
+        # level 2: re-screen the ambiguous subset in device float64
+        with span("viewshed_exact.reeval_plan"):
+            plans, E_all = _level2_plans(sc, amb_idx, vp_row, vp_col, chunk)
+        with span("viewshed_exact.screen2"):
+            amb2_parts = []
+            for args in _level2_tables(sc, plans, E_all, vp_row, vp_col,
+                                       ew_res, ns_res, device):
+                vis2, amb2 = _screen_classify(*args)
+                tperm_s = args[2]
+                visible[tperm_s] = vis2
+                amb2_parts.append(tperm_s[amb2])
+        amb2_idx = np.unique(np.concatenate(amb2_parts))
+        LAST_CALL.update(route="l2", slabs=len(plans),
+                         amb2=int(amb2_idx.size))
+        if not amb2_idx.size:
+            return visible
+        with span("viewshed_exact.reeval_plan"):
+            L2 = 1 << (max(int(amb2_idx.size), 128) - 1).bit_length()
+            sub2 = np.pad(amb2_idx, (0, L2 - amb2_idx.size), mode="edge")
+            tperm_b, glob_b, tiers_b, A_b, C_b = _bucket_plan(
+                at32, vp_row, vp_col, min(chunk, 128), targets=sub2,
+                cache=_plan_cache(sc))
         # route by data volume: the gathered path moves A*sum(E) elements,
         # the table path the full padded tiers (~n) and needs the full f64
         # planes; both evaluate identical candidate supersets with the
@@ -1064,18 +1039,18 @@ def _screened_visibility(data_np, vp_row, vp_col, observer_elev,
         gath_elems = sum(A_b * E for _, _, E in tiers_b)
         tab_elems = sum(max(E, _round_up(tidx.size, 16384))
                         for tidx, _, E in tiers_b)
-        if gath_elems < tab_elems:
-            attrs_of = cell_attrs_subset_fn(data_np, vp_row, vp_col,
-                                            observer_elev, target_elev,
-                                            ew_res, ns_res)
-            visible[tperm_b] = _run_buckets_f64_gathered(
-                attrs_of, tperm_b, glob_b, tiers_b, A_b, C_b, device)
-            LAST_CALL["route"] = "l2+gathered"
-        else:
-            at = cell_attrs_host(data_np, vp_row, vp_col, observer_elev,
-                                 target_elev, ew_res, ns_res)
-            visible[tperm_b] = _run_buckets_f64(at, tperm_b, glob_b,
-                                                tiers_b, A_b, C_b, device)
-            LAST_CALL["route"] = "l2+tables"
-    mark("reeval")
+        with span("viewshed_exact.f64"):
+            if gath_elems < tab_elems:
+                attrs_of = cell_attrs_subset_fn(data_np, vp_row, vp_col,
+                                                observer_elev, target_elev,
+                                                ew_res, ns_res)
+                visible[tperm_b] = _run_buckets_f64_gathered(
+                    attrs_of, tperm_b, glob_b, tiers_b, A_b, C_b, device)
+                LAST_CALL["route"] = "l2+gathered"
+            else:
+                at = cell_attrs_host(data_np, vp_row, vp_col, observer_elev,
+                                     target_elev, ew_res, ns_res)
+                visible[tperm_b] = _run_buckets_f64(at, tperm_b, glob_b,
+                                                    tiers_b, A_b, C_b, device)
+                LAST_CALL["route"] = "l2+tables"
     return visible

@@ -54,6 +54,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
+
 __all__ = [
     "HaloSpec", "RasterMesh", "ShardedRaster", "RasterSharding",
     "make_raster_mesh", "raster_sharding", "distribute", "halo_extend",
@@ -408,6 +410,28 @@ def _sources(n: int, m: int, g0: int, g1: int):
     return out
 
 
+def _written(t: torch.Tensor) -> None:
+    """Count one fill or copy of an exchange that wrote `t`, and its bytes
+    (``mesh.halo_ops``, ``mesh.halo_bytes``); an empty write issues
+    nothing and counts nothing.  Called only while tracing is on."""
+    if t.numel():
+        tracing.count("mesh.halo_ops")
+        tracing.count("mesh.halo_bytes", t.numel() * t.element_size())
+
+
+def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, queued (no host wait), counted."""
+    dst.copy_(src, non_blocking=True)
+    if tracing.on():
+        _written(dst)
+
+
+def _fill(t: torch.Tensor, fill) -> None:
+    t.fill_(fill)
+    if tracing.on():
+        _written(t)
+
+
 def _empty_filled_outside(shape, dtype, device, rows, cols, fill):
     """An uninitialised tensor of `shape` with `fill` everywhere outside
     the window ``[rows[0], rows[1]) x [cols[0], cols[1])`` of its last two
@@ -418,11 +442,12 @@ def _empty_filled_outside(shape, dtype, device, rows, cols, fill):
     r0, r1 = min(max(rows[0], 0), h), min(max(rows[1], 0), h)
     c0, c1 = min(max(cols[0], 0), w), min(max(cols[1], 0), w)
     if r1 <= r0 or c1 <= c0:
-        return out.fill_(fill)
-    out[..., :r0, :].fill_(fill)
-    out[..., r1:, :].fill_(fill)
-    out[..., r0:r1, :c0].fill_(fill)
-    out[..., r0:r1, c1:].fill_(fill)
+        _fill(out, fill)
+        return out
+    _fill(out[..., :r0, :], fill)
+    _fill(out[..., r1:, :], fill)
+    _fill(out[..., r0:r1, :c0], fill)
+    _fill(out[..., r0:r1, c1:], fill)
     return out
 
 
@@ -445,40 +470,42 @@ def halo_extend(x: ShardedRaster, halo: HaloSpec, fill=math.nan) -> list:
     column of tiles; a halo wider than a tile takes every tile it
     covers.
     """
-    x = tiles(x)
-    ry, rx = halo.ry, halo.rx
-    mesh = x.mesh
-    ny, nx = mesh.shape["y"], mesh.shape["x"]
-    h, w = x.shape[-2:]
-    ty, tx = tile_size(h, ny), tile_size(w, nx)
-    lead = x.shape[:-2]
-    pitch = _row_pitch(tx + 2 * rx, x.dtype)
-    # the cells the exchange writes: the raster's cells within the halo
-    # (not the row pitch's extra columns)
-    ext = [[_empty_filled_outside(
-        lead + (ty + 2 * ry, pitch), x.dtype, mesh.device(i, j),
-        (ry - i * ty, h - i * ty + ry),
-        (rx - j * tx, min(w - j * tx + rx, tx + 2 * rx)), fill)
-        for j in range(nx)] for i in range(ny)]
-    # phase 1: each tile's own rows, extended in x
-    for i in range(ny):
-        rows = x.blocks[i][0].shape[-2]
-        for j in range(nx):
-            dst = ext[i][j][..., ry:ry + rows, :]
-            for src, a, b, off in _sources(w, nx, j * tx - rx,
-                                           j * tx + tx + rx):
-                dst[..., off:off + b - a].copy_(
-                    x.blocks[i][src][..., a:b], non_blocking=True)
-    # phase 2: the halo rows, from the x-extended tiles above and below
-    if ry > 0:
+    with tracing.span("mesh.halo_extend"):
+        x = tiles(x)
+        ry, rx = halo.ry, halo.rx
+        mesh = x.mesh
+        ny, nx = mesh.shape["y"], mesh.shape["x"]
+        h, w = x.shape[-2:]
+        ty, tx = tile_size(h, ny), tile_size(w, nx)
+        lead = x.shape[:-2]
+        pitch = _row_pitch(tx + 2 * rx, x.dtype)
+        # the cells the exchange writes: the raster's cells within the
+        # halo (not the row pitch's extra columns)
+        ext = [[_empty_filled_outside(
+            lead + (ty + 2 * ry, pitch), x.dtype, mesh.device(i, j),
+            (ry - i * ty, h - i * ty + ry),
+            (rx - j * tx, min(w - j * tx + rx, tx + 2 * rx)), fill)
+            for j in range(nx)] for i in range(ny)]
+        # phase 1: each tile's own rows, extended in x
         for i in range(ny):
+            rows = x.blocks[i][0].shape[-2]
             for j in range(nx):
-                for g0, d0 in ((i * ty - ry, 0), (i * ty + ty, ry + ty)):
-                    for src, a, b, off in _sources(h, ny, g0, g0 + ry):
-                        ext[i][j][..., d0 + off:d0 + off + b - a, :].copy_(
-                            ext[src][j][..., ry + a:ry + b, :],
-                            non_blocking=True)
-    return ext
+                dst = ext[i][j][..., ry:ry + rows, :]
+                for src, a, b, off in _sources(w, nx, j * tx - rx,
+                                               j * tx + tx + rx):
+                    _copy(dst[..., off:off + b - a],
+                          x.blocks[i][src][..., a:b])
+        # phase 2: the halo rows, from the x-extended tiles above and
+        # below
+        if ry > 0:
+            for i in range(ny):
+                for j in range(nx):
+                    for g0, d0 in ((i * ty - ry, 0), (i * ty + ty, ry + ty)):
+                        for src, a, b, off in _sources(h, ny, g0, g0 + ry):
+                            d = d0 + off
+                            _copy(ext[i][j][..., d:d + b - a, :],
+                                  ext[src][j][..., ry + a:ry + b, :])
+        return ext
 
 
 def shifted_blocks(x: ShardedRaster, dy: int, dx: int, fill) -> list:
@@ -505,8 +532,8 @@ def shifted_blocks(x: ShardedRaster, dy: int, dx: int, fill) -> list:
             for si, a, b, offy in _sources(h, ny, oy + dy, oy + dy + hl):
                 for sj, c, d, offx in _sources(w, nx, ox + dx,
                                                ox + dx + wl):
-                    win[..., offy:offy + b - a, offx:offx + d - c].copy_(
-                        x.blocks[si][sj][..., a:b, c:d], non_blocking=True)
+                    _copy(win[..., offy:offy + b - a, offx:offx + d - c],
+                          x.blocks[si][sj][..., a:b, c:d])
             row.append(win)
         out.append(row)
     return out
@@ -547,16 +574,16 @@ def to_strips(x: ShardedRaster, axis: int, halos, fill) -> list:
             for i, a, b, off in _sources(h, ny, g0, g1):
                 for j in range(nx):
                     x0, x1 = x.extent(1, j)
-                    buf[..., off:off + b - a, x0:x1].copy_(
-                        x.blocks[i][j][..., a:b, :], non_blocking=True)
+                    _copy(buf[..., off:off + b - a, x0:x1],
+                          x.blocks[i][j][..., a:b, :])
         else:
             buf = _empty_filled_outside(lead + (h, g1 - g0), x.dtype, dev,
                                         (0, h), (-g0, n - g0), fill)
             for j, a, b, off in _sources(w, nx, g0, g1):
                 for i in range(ny):
                     y0, y1 = x.extent(0, i)
-                    buf[..., y0:y1, off:off + b - a].copy_(
-                        x.blocks[i][j][..., :, a:b], non_blocking=True)
+                    _copy(buf[..., y0:y1, off:off + b - a],
+                          x.blocks[i][j][..., :, a:b])
         out.append(buf)
     return out
 
@@ -584,11 +611,9 @@ def from_strips(strips, like: ShardedRaster, axis: int, offsets
                 src = strips[p]
                 a, b = a + offsets[p], b + offsets[p]
                 if axis == 0:
-                    blk[..., off:off + b - a, :].copy_(
-                        src[..., a:b, x0:x1], non_blocking=True)
+                    _copy(blk[..., off:off + b - a, :], src[..., a:b, x0:x1])
                 else:
-                    blk[..., :, off:off + b - a].copy_(
-                        src[..., y0:y1, a:b], non_blocking=True)
+                    _copy(blk[..., :, off:off + b - a], src[..., y0:y1, a:b])
             row.append(blk)
         blocks.append(row)
     return ShardedRaster(blocks, lead + (h, w), mesh, (True, True))

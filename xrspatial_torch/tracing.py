@@ -1,0 +1,158 @@
+"""Spans and counters inside the port, recorded under ``torch.profiler``.
+
+The port's one home for tracing.  ``span(name)`` marks a stretch of host
+work, ``count(name, n)`` adds to a counter.  Both do work only while a
+``torch.profiler`` session records on this process: the gate is the
+profiler's own enabled flag, and the port has no switch of its own.  Off,
+``span`` returns one shared no-op context (``OFF``) and ``count`` returns
+at once: one flag check a site.
+
+On, a span enters ``torch.profiler.record_function("xrspatial.<name>")``,
+so it lies on the profiler's timeline, on the device trace's clock, under
+whatever span the caller opened; and it appends a ``Span`` to a bounded
+ring (the last ``RING`` spans): its start and end on the host clock
+(``time.perf_counter``), the index of the enclosing span and its request,
+the sequence number of the outermost span it lies in, shared by every
+span inside that one.  The one exception to the gate is the kernel
+library's set-up (``setup.library``, ``setup.build`` inside it when the
+library was stale), once a process: recorded whatever the flag says.
+
+The spans, at the boundaries of the port's layers:
+
+- ``api.<op>``: a public op (``terrain_pipeline``, ``focal_stats``);
+  ``api.args``: its argument checks, footprint, resolution and payload;
+  ``api.dataset``: the DataArrays and the Dataset of its result;
+- ``dispatch.surface``, ``dispatch.focal``: from the route choice to the
+  last launch's return (plans, outputs, the launch; on a mesh the loop
+  over blocks, each block's own dispatch span inside);
+- ``mesh.halo_extend``: issuing one halo exchange's fills and copies;
+- ``viewshed_exact.<phase>``: the exact viewshed's phases;
+- ``setup.library``, ``setup.build``: the library's hash, build and load.
+
+The counters: ``mesh.halo_ops`` (the fills and copies a halo exchange or
+a strip layout issues) and ``mesh.halo_bytes`` (the bytes they write).
+
+Read with ``spans()`` and ``counters()``; ``clear()`` empties both.  The
+profiler's Chrome trace (``export_chrome_trace``) is the export.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from collections import deque
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["Span", "span", "count", "on", "spans", "counters", "clear",
+           "OFF", "PREFIX", "RING"]
+
+PREFIX = "xrspatial."
+RING = 1 << 15          # spans kept, the newest
+
+# True while a torch.profiler session records on this process
+on = torch._C._autograd._profiler_enabled
+
+
+class Span(NamedTuple):
+    index: int          # the span's sequence number in this process
+    name: str
+    t0: float           # host clock (time.perf_counter), s
+    t1: float
+    parent: int         # the enclosing span's index; -1 at a root
+    request: int        # the sequence number of the root span
+
+
+class _Off:
+    """The shared context of every span while the profiler is off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+OFF = _Off()
+
+_ring: deque = deque(maxlen=RING)
+_counters: dict = {}
+_lock = threading.Lock()
+_open = threading.local()       # this thread's open spans, innermost last
+_indices = itertools.count()
+_requests = itertools.count()
+
+
+class _On:
+    __slots__ = ("name", "index", "parent", "request", "t0", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = _stack()
+        self.index = next(_indices)
+        if stack:
+            self.parent, self.request = stack[-1].index, stack[-1].request
+        else:
+            self.parent, self.request = -1, next(_requests)
+        stack.append(self)
+        self.rf = None
+        if on():
+            self.rf = torch.profiler.record_function(PREFIX + self.name)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        _stack().pop()
+        _ring.append(Span(self.index, self.name, self.t0, t1, self.parent,
+                          self.request))
+        return False
+
+
+def _stack() -> list:
+    try:
+        return _open.stack
+    except AttributeError:
+        _open.stack = []
+        return _open.stack
+
+
+def span(name: str, always: bool = False):
+    """A context marking the host work inside it as span `name`; while the
+    profiler is off (and not `always`) the shared no-op ``OFF``."""
+    if always or on():
+        return _On(name)
+    return OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to counter `name` while the profiler records."""
+    if on():
+        with _lock:
+            _counters[name] = _counters.get(name, 0) + n
+
+
+def spans() -> list:
+    """The recorded spans still in the ring, in the order they ended."""
+    return list(_ring)
+
+
+def counters() -> dict:
+    """Every counter's total since the last ``clear``."""
+    with _lock:
+        return dict(_counters)
+
+
+def clear() -> None:
+    """Empty the ring and the counters."""
+    _ring.clear()
+    with _lock:
+        _counters.clear()

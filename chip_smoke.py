@@ -245,13 +245,15 @@ Phases, each fatal on failure:
 27. A13, the mesh branches on meshes of one card (``make_raster_mesh(2,
    2, devices=[cuda:0] * 4)``; the times measure the halo machinery's
    overhead beside the unsharded call, not scaling): ``terrain_pipeline``
-   at 16384^2 (4 B1 and 4 B2 launches, each on TMA: every extended block's
-   rows are padded to 16 bytes), ``proximity`` of ``dem > 900`` at
+   at 16384^2 in place (12 B1 and 12 B2 launches: each tile on the route
+   its plan names, each block's two bands on TMA, their rows padded to 16
+   bytes), ``proximity`` of ``dem > 900`` at
    16384^2 and 4096^2 (B6 once a block for every stride up to 256, with
    the block's origin, on the route ``round_plan`` names for the extended
    block; the larger strides as torch ops), MANHATTAN ``allocation`` at
    4096^2 (the scan transform, no kernel), ``focal_stats`` on the annulus
-   (one B5 launch a block, TMA), ``quantile(k=5)`` at 16384^2 (no kernel),
+   (in place: three B5 launches a block, TMA), ``quantile(k=5)`` at
+   16384^2 (no kernel),
    ``terrain_pipeline`` at 16383x16384 (y held whole by distribute, cut
    into tiles of 8192 and 8191 rows) and on a 1x4 mesh; each result split
    over the mesh on the card and equal to the unsharded call bit for bit,
@@ -4569,12 +4571,31 @@ def mesh_dem(shape, dev, mesh):
     return agg(dem), agg(split)
 
 
+def mesh_routes(split, mesh):
+    """B1's (and B2's) launches by route for one radius-1 stencil on the
+    mesh raster `split`: in place, each tile on the route its plan names
+    and its two bands on TMA (their rows padded to 16 bytes); else one
+    launch a block on TMA, on the extended blocks."""
+    from xrspatial_torch.kernels.surface import surface_plan
+    from xrspatial_torch.parallel.halo import HaloSpec, inplace_fits, tiles
+    t = tiles(split)
+    want = {"tma": 0, "async": 0, "simple": 0}
+    if not inplace_fits(t, HaloSpec(1, 1)):
+        want["tma"] = mesh.size
+        return want
+    for row in t.blocks:
+        for b in row:
+            want[surface_plan(*b.shape, b.data_ptr()).route] += 1
+            want["tma"] += 2
+    return want
+
+
 def mesh_pipeline(label, shape, mesh, dev, card, rows):
-    """terrain_pipeline on `mesh` against the unsharded call: one surface
-    and one focal launch a block, each on its staged TMA route."""
+    """terrain_pipeline on `mesh` against the unsharded call: in place,
+    a surface and a focal launch on each tile and on each of its two
+    bands, each on its staged route (``mesh_routes``)."""
     import torch
     from xrspatial_torch import terrain_pipeline
-    from xrspatial_torch.kernels.surface import surface_plan
     whole, split = mesh_dem(shape, dev, mesh)
 
     def call(a):
@@ -4582,32 +4603,31 @@ def mesh_pipeline(label, shape, mesh, dev, card, rows):
             return terrain_pipeline(a, surface=PIPELINE_SURFACE,
                                     stats_funcs=PIPELINE_STATS)
     ref, one_ms, one_gib = timed_run(lambda: call(whole), MESH_REPS)
+    routes = mesh_routes(split.data, mesh)
+    n = sum(routes.values())
     reset_launches()
     first = call(split)
     torch.cuda.synchronize()
     launches = read_launches()
     surf, focal = surface_route_launches(), tiled_route_launches()
-    blocks = mesh.size
-    want = {k: blocks if k in ("surface_kernel", "focal_kernel") else 0
+    want = {k: n if k in ("surface_kernel", "focal_kernel") else 0
             for k in launches}
-    on_tma = {"tma": blocks, "async": 0, "simple": 0}
-    if launches != want or surf != on_tma or focal != on_tma:
-        raise SmokeFailure(f"mesh {label}: expected {blocks} surface and "
-                           f"{blocks} focal launches, each on TMA, got "
+    if launches != want or surf != routes or focal != routes:
+        raise SmokeFailure(f"mesh {label}: expected {n} surface and {n} "
+                           f"focal launches, by route {routes}, got "
                            f"{launches}, surface {surf}, focal {focal}")
     for p in PIPELINE_SURFACE:
         mesh_checked(f"{label} {p}", first[f"dem-{p}"].data,
                      ref[f"dem-{p}"].data, mesh)
     mesh_checked(f"{label} focal_stats", first["focal_stats"].data,
                  ref["focal_stats"].data, mesh)
-    ext = [b.shape for row in first["focal_stats"].data.blocks for b in row]
+    shapes = [b.shape for row in first["focal_stats"].data.blocks
+              for b in row]
     del first, ref
     torch.cuda.empty_cache()
     ms, gib = mesh_timed(lambda: call(split), mesh)
-    tiles = sorted({tuple(t[-2:]) for t in ext})
-    # the extended blocks' routes, as surface_plan names them
-    routes = sorted({surface_plan(t[0] + 2, -(-(t[1] + 2) // 4) * 4, 0).route
-                     for t in tiles})
+    tiles = sorted({tuple(t[-2:]) for t in shapes})
+    routes = {k: v for k, v in routes.items() if v}
     print(f"  {label}: terrain_pipeline on a {mesh_name(mesh)}: "
           f"{ms:.3f} ms warm, peak "
           f"{gib:.2f} GiB; unsharded {one_ms:.3f} ms, peak {one_gib:.2f} GiB; "
@@ -4714,23 +4734,28 @@ def mesh_manhattan(n, mesh, dev, card, rows):
 
 
 def mesh_annulus(mesh, dev, card, rows):
-    """focal_stats over the 512-offset annulus: one halo launch a block."""
+    """focal_stats over the 512-offset annulus: one halo launch a block,
+    and one on each of its two bands where the tiles hold the radius 40
+    four times over (in place)."""
     import torch
     from xrspatial_torch.focal import focal_stats
+    from xrspatial_torch.parallel.halo import HaloSpec, inplace_fits, tiles
     whole, split = mesh_dem((MESH_N, MESH_N), dev, mesh)
     kern = halo_footprints()["annulus_40_38"]
     ref, one_ms, one_gib = timed_run(
         lambda: focal_stats(whole, kern, stats_funcs=list(PIPELINE_STATS)),
         MESH_REPS)
+    n = mesh.size * (3 if inplace_fits(tiles(split.data), HaloSpec(40, 40))
+                     else 1)
     reset_launches()
     first = focal_stats(split, kern, stats_funcs=list(PIPELINE_STATS))
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {k: mesh.size if k in ("focal_halo_kernel", "focal_halo_tma")
+    want = {k: n if k in ("focal_halo_kernel", "focal_halo_tma")
             else 0 for k in launches}
     if launches != want:
-        raise SmokeFailure(f"mesh annulus: expected {mesh.size} halo "
-                           f"launches on TMA, got {launches}")
+        raise SmokeFailure(f"mesh annulus: expected {n} halo launches on "
+                           f"TMA, got {launches}")
     mesh_checked("annulus focal_stats", first.data, ref.data, mesh)
     del first, ref
     torch.cuda.empty_cache()
@@ -4740,8 +4765,8 @@ def mesh_annulus(mesh, dev, card, rows):
     print(f"  annulus focal_stats {MESH_N}^2 on a {mesh_name(mesh)}: "
           f"{ms:.3f} ms "
           f"warm, peak {gib:.2f} GiB; unsharded {one_ms:.3f} ms, peak "
-          f"{one_gib:.2f} GiB; one B5 launch a block on TMA, equal bit for "
-          f"bit; {card}")
+          f"{one_gib:.2f} GiB; {n} B5 launches on TMA, equal bit for bit; "
+          f"{card}")
     rows["annulus"] = {"op": "focal_stats annulus 40/38", "shape":
                        [MESH_N, MESH_N], "mesh": mesh_name(mesh), "ms": ms,
                        "unsharded_ms": one_ms, "peak_gib": gib,

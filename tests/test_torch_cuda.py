@@ -2405,12 +2405,21 @@ def test_jfa_packed_routes_take_a_block_origin(cuda, route, with_val,
         assert torch.equal(plain[0].cpu(), ref0[0])
 
 
+def launches_by_route(module, prefix=""):
+    """(TMA, cp.async) launch counts of a staged kernel's wrapper."""
+    return (getattr(module, f"{prefix}TMA_LAUNCHES"),
+            getattr(module, f"{prefix}ASYNC_LAUNCHES"))
+
+
 @pytest.mark.gpu
 def test_mesh_on_one_card_equals_the_unsharded_call(cuda):
     """A 2 x 2 mesh of one card: slope and focal_stats (the tiled kernel
     on the plus, the halo kernel on the annulus) equal the unsharded
-    calls bit for bit, stay on the card, and launch one kernel a block on
-    TMA: each extended block's row pitch is a multiple of 16 bytes."""
+    calls bit for bit and stay on the card.  Radius 1 runs in place: one
+    launch a 129 x 151 tile, on cp.async (151 columns are not 16-byte
+    rows), and two a block on the bands, on TMA (their rows are padded to
+    16 bytes).  The annulus's radius 40 is deeper than a quarter tile: one
+    launch a block on TMA, on the extended blocks."""
     from xrspatial_torch.parallel import (distribute, get_raster_mesh,
                                           make_raster_mesh)
     mesh = make_raster_mesh(2, 2, devices=[cuda] * 4)
@@ -2424,20 +2433,80 @@ def test_mesh_on_one_card_equals_the_unsharded_call(cuda):
 
     whole = torch.from_numpy(data).to(cuda)
     split = distribute(whole, mesh)
-    before = cuda_surface.STAGED_TMA_LAUNCHES
+    tma, cp = launches_by_route(cuda_surface, "STAGED_")
     out = xt.slope(agg(split)).data
     assert get_raster_mesh(out) is mesh
-    assert cuda_surface.STAGED_TMA_LAUNCHES == before + 4
+    assert launches_by_route(cuda_surface, "STAGED_") == (tma + 8, cp + 4)
     assert all(b.device.type == "cuda" for r in out.blocks for b in r)
     ref = xt.slope(agg(whole)).data
     assert torch.equal(out.gather().view(torch.int32),
                        ref.view(torch.int32))
-    for kern, counter in ((circle_kernel(1, 1, 1.5), "TMA_LAUNCHES"),
-                          (annulus_kernel(1, 1, 40, 38),
-                           "HALO_TMA_LAUNCHES")):
-        before = getattr(cuda_window, counter)
+    for kern, prefix, want in ((circle_kernel(1, 1, 1.5), "", (8, 4)),
+                               (annulus_kernel(1, 1, 40, 38), "HALO_",
+                                (4, 0))):
+        tma, cp = launches_by_route(cuda_window, prefix)
         out = focal.focal_stats(agg(split), kern).data
-        assert getattr(cuda_window, counter) == before + 4
+        assert launches_by_route(cuda_window, prefix) == (tma + want[0],
+                                                          cp + want[1])
         ref = focal.focal_stats(agg(whole), kern).data
         assert torch.equal(out.gather().view(torch.int32),
                            ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4096, 4096), (4096, 4094)])
+def test_terrain_pipeline_in_place_on_a_mesh_of_one_card(cuda, shape):
+    """terrain_pipeline on a 2 x 2 mesh of one card runs every block in
+    place (``mesh.inplace_share`` 1.0): B1 and B2 on each tile as it lies
+    and on its two bands, each launch on its plan's route (tiles of 2047
+    columns on cp.async), and every plane equal to the unsharded call's
+    bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xrspatial_torch import tracing
+    from xrspatial_torch.parallel import (distribute, get_raster_mesh,
+                                          make_raster_mesh)
+    from xrspatial_torch.kernels.focal_halo import halo_plan as focal_plan
+    from xrspatial_torch.kernels.surface import surface_plan
+    mesh = make_raster_mesh(2, 2, devices=[cuda] * 4)
+    rng = np.random.default_rng(25)
+    data = (rng.random(shape) * 100).astype(np.float32)
+    data[1000, 2047] = np.nan
+    data[2048, 999] = np.nan
+    surface = ("slope", "hillshade", "curvature")
+
+    def call(payload):
+        return xt.terrain_pipeline(
+            xt.DataArray(payload, dims=("y", "x"), name="dem",
+                         attrs={"res": (10.0, 10.0)}), surface=surface)
+
+    whole = torch.from_numpy(data).to(cuda)
+    split = distribute(whole, mesh)
+    # the tile route each launch plans: four tiles, eight bands of TMA rows
+    tile = split.blocks[0][0]
+    offsets = kernel_offsets(circle_kernel(1, 1, 1.5))
+    tiles_tma = 4 * (surface_plan(*tile.shape, tile.data_ptr()).route
+                     == "tma")
+    assert tiles_tma == 4 * (focal_plan(*tile.shape, offsets,
+                                        tile.data_ptr()).route == "tma")
+    assert tiles_tma == (4 if shape[1] % 8 == 0 else 0)
+    want = (8 + tiles_tma, 4 - tiles_tma)
+    b1 = launches_by_route(cuda_surface, "STAGED_")
+    b2 = launches_by_route(cuda_window)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = call(split)
+    counters = tracing.counters()
+    tracing.clear()
+    torch.cuda.synchronize()
+    assert counters["mesh.inplace_blocks"] == 8
+    assert counters.get("mesh.extended_blocks", 0) == 0
+    assert launches_by_route(cuda_surface, "STAGED_") == (
+        b1[0] + want[0], b1[1] + want[1])
+    assert launches_by_route(cuda_window) == (b2[0] + want[0],
+                                              b2[1] + want[1])
+    ref = call(whole)
+    for p in [f"dem-{q}" for q in surface] + ["focal_stats"]:
+        assert get_raster_mesh(out[p].data) is mesh
+        assert torch.equal(out[p].data.gather().view(torch.int32),
+                           ref[p].data.view(torch.int32)), p

@@ -37,8 +37,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch.profiler import ProfilerActivity, profile
+
 import xrspatial_torch as xt
 from xrspatial_torch import focal as tfocal
+from xrspatial_torch import tracing
 from xrspatial_torch.convolution import (annulus_kernel, circle_kernel,
                                          convolution_2d)
 from xrspatial_torch.kernels import jfa as tjfa
@@ -316,6 +319,101 @@ def test_halo_wider_than_a_shard(shape, meshshape, kshape):
         out = convolution_2d(sharded(data, m), kernel)
     np.testing.assert_allclose(gathered(out, m).numpy(), ref.numpy(),
                                rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+def routes(fn, *args, **kw):
+    """``fn(*args, **kw)`` under a CPU profiler (the counters count only
+    there): (result, blocks in place, blocks extended)."""
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn(*args, **kw)
+    c = tracing.counters()
+    tracing.clear()
+    return (out, c.get("mesh.inplace_blocks", 0),
+            c.get("mesh.extended_blocks", 0))
+
+
+@pytest.mark.parametrize("op", ["terrain_pipeline", "focal_3x3",
+                                "focal_5x5"])
+def test_the_in_place_route_takes_every_block(op):
+    """On the 2x2 mesh each tile (20 x 24) holds a halo of 1 or 2 four
+    times over: every block of every stencil runs in place, and the
+    results equal the unsharded call as the op's own test holds them."""
+    m = cpu_mesh(2, 2)
+    data = elevation((40, 48), 17)
+    if op == "terrain_pipeline":
+        surface = ("slope", "hillshade", "curvature")
+        ref = xt.terrain_pipeline(raster(data), surface=surface)
+        out, inplace, extended = routes(xt.terrain_pipeline,
+                                        sharded(data, m), surface=surface)
+        assert (inplace, extended) == (2 * 4, 0)     # surface, focal
+        for p in surface:
+            (assert_same if p == "curvature" else assert_ulp)(
+                gathered(out[f"dem-{p}"], m), ref[f"dem-{p}"].data)
+        assert_same(gathered(out["focal_stats"], m),
+                    ref["focal_stats"].data)
+        return
+    kernel = np.ones((3, 3) if op == "focal_3x3" else (5, 5))
+    ref = tfocal.focal_stats(raster(data), kernel).data
+    out, inplace, extended = routes(tfocal.focal_stats, sharded(data, m),
+                                    kernel)
+    assert (inplace, extended) == (4, 0)
+    assert_same(gathered(out, m), ref)
+
+
+@pytest.mark.parametrize("case", ["wide_4x2", "wide_8x1", "conv"])
+def test_the_extended_route_takes_what_does_not_fit(case):
+    """A halo deeper than a quarter tile (``test_halo_wider_than_a_shard``'s
+    cases) and the focal conv path, whose sums centre on their input's
+    mean, take the extended blocks on every block, at those tests'
+    tolerance; the conv footprint's halo, 16, fits the 64-cell tiles four
+    times, so only the kernel's kind sends it there."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        if case == "conv":
+            m = cpu_mesh(2, 2)
+            data = elevation((128, 128), 8)
+            kernel = np.ones((33, 33))          # 1089 offsets
+            ref = tfocal.focal_stats(raster(data), kernel).data
+            out, inplace, extended = routes(tfocal.focal_stats,
+                                            sharded(data, m), kernel)
+        else:
+            shape, meshshape, kshape = {
+                "wide_4x2": ((16, 16), (4, 2), (11, 11)),
+                "wide_8x1": ((42, 9), (8, 1), (27, 3))}[case]
+            m = cpu_mesh(*meshshape)
+            data = (np.random.default_rng(9).random(shape) * 10).astype(
+                np.float32)
+            kernel = np.ones(kshape)
+            ref = convolution_2d(raster(data), kernel).data
+            out, inplace, extended = routes(convolution_2d,
+                                            sharded(data, m), kernel)
+    assert (inplace, extended) == (0, m.size)
+    np.testing.assert_allclose(gathered(out, m).numpy(), ref.numpy(),
+                               rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+def test_the_in_place_route_rebuilds_the_ring_from_its_bands(monkeypatch):
+    """With every band all fill the tiles' rings come out NaN and every
+    other cell right: the ring is the bands' work, the rest the tiles'."""
+    m = cpu_mesh(2, 2)
+    data = elevation((40, 48), 18, nan_cell=False)
+    ref = mean3x3(torch.from_numpy(data))
+
+    def empty(x, halo, fill):
+        return [[tuple(None if b is None else torch.full_like(b, fill)
+                       for b in pair) for pair in row]
+                for row in bands(x, halo, fill)]
+    bands = thalo._bands
+    monkeypatch.setattr(thalo, "_bands", empty)
+    got = run_stencil(mean3x3, 1, distribute(data, m)).gather()
+    ring = torch.zeros(40, 48, dtype=torch.bool)
+    for y0 in (0, 20):
+        for x0 in (0, 24):
+            ring[y0:y0 + 20, x0:x0 + 24] = True
+            ring[y0 + 2:y0 + 18, x0 + 1:x0 + 23] = False
+    assert torch.isnan(got[ring]).all()
+    assert_same(got[~ring], ref[~ring])
 
 
 def test_run_stencil_unsharded_goes_straight_to_the_kernel():

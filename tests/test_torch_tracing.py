@@ -3,9 +3,10 @@
 Off (no ``torch.profiler`` session) nothing is recorded and ``span``
 returns the shared no-op context; under a CPU profiler ``terrain_pipeline``
 on one raster and on a 2x2 mesh records its span tree, whose names also
-appear in the profiler's Chrome trace; the halo counters equal a count
-made from the shapes; the ring stays bounded; the library's set-up span
-is recorded without a profiler; the exact viewshed's phases are spans.
+appear in the profiler's Chrome trace; the halo counters of both mesh
+routes equal a count made from the shapes, and the route counters count
+every block; the ring stays bounded; the library's set-up span is
+recorded without a profiler; the exact viewshed's phases are spans.
 """
 
 import json
@@ -19,8 +20,9 @@ from torch.profiler import ProfilerActivity, profile
 import xrspatial_torch as xt
 from xrspatial_torch import tracing
 from xrspatial_torch.kernels import _cuda
+from xrspatial_torch.kernels.dispatch import run_stencil
 from xrspatial_torch.parallel import distribute, make_raster_mesh
-from xrspatial_torch.parallel.halo import ROW_ALIGN_BYTES
+from xrspatial_torch.parallel.halo import BAND_SLACK, ROW_ALIGN_BYTES
 
 CPU = torch.device("cpu")
 SHAPE = (64, 128)           # a 2x2 mesh's tiles: 32 x 64
@@ -117,11 +119,14 @@ def test_the_span_tree_under_the_profiler(mesh, tmp_path):
             if not mesh:
                 assert inner == []
                 continue
-            # the exchange, then one dispatch of the route a block
-            assert inner[0].name == "mesh.halo_extend"
-            kinds = [c.name for c in inner[1:]]
-            blocks = [k for k in kinds if k == d.name]
-            assert len(blocks) == 4 and set(kinds) <= {d.name, "api.args"}
+            # in place: one dispatch a tile, then the strips of every
+            # block's bands, then one dispatch a band (two a block)
+            kinds = [c.name for c in inner]
+            assert kinds.count("mesh.halo_extend") == 1
+            k = kinds.index("mesh.halo_extend")
+            assert kinds[:k].count(d.name) == 4
+            assert kinds[k + 1:].count(d.name) == 8
+            assert set(kinds) <= {d.name, "api.args", "mesh.halo_extend"}
 
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
@@ -130,8 +135,35 @@ def test_the_span_tree_under_the_profiler(mesh, tmp_path):
     assert {tracing.PREFIX + n for n in names} <= exported
 
 
+def pitch(width, item=4):
+    """`width` rounded up to ``ROW_ALIGN_BYTES``."""
+    per = ROW_ALIGN_BYTES // item
+    return math.ceil(width / per) * per
+
+
 def halo_count(h, w, r, item=4):
-    """(ops, bytes) of one halo exchange of radius r on a 2x2 mesh whose
+    """(ops, bytes) of the strips of one in-place stencil of radius r on a
+    2x2 mesh whose tiles divide the raster evenly, each at least 4r deep.
+
+    Each block builds a row band of 8r rows (two parts of 4r: r halo rows
+    and 3r of the tile's edge rows) and a column band of ty rows (two
+    parts of 3r columns), each BAND_SLACK columns wider than its parts and
+    rounded up to 16 bytes: every cell of both is written once, by a copy
+    or a fill, in two phases.  Each block of a 2x2 mesh lies at a corner
+    of the raster.  Ops a block: in x, the row band's rows of the tile's
+    own row of tiles one op a tile (its own, its neighbour's, fill on the
+    raster's edge), the column band's own columns one copy and its halo
+    columns one op a side, and one fill of each band's slack (8); in y,
+    the row band's halo rows one op a side (a copy of the rows the band
+    of the block above or below holds, fill on the raster's edge) (2)."""
+    ty, tx = h // 2, w // 2
+    cells = 8 * r * pitch(tx + 2 * r + BAND_SLACK, item) \
+        + ty * pitch(6 * r + BAND_SLACK, item)
+    return 4 * 10, 4 * cells * item
+
+
+def extended_count(h, w, r, item=4):
+    """(ops, bytes) of one ``halo_extend`` of radius r on a 2x2 mesh whose
     tiles divide the raster evenly, each tile wider and taller than r.
 
     Every block's extended block is (ty + 2r) x pitch, pitch the width
@@ -144,11 +176,10 @@ def halo_count(h, w, r, item=4):
     band of each block, and the right band past the pitch where it has
     columns (the blocks at the left edge write one fewer)."""
     ty, tx = h // 2, w // 2
-    per = ROW_ALIGN_BYTES // item
-    pitch = math.ceil((tx + 2 * r) / per) * per
-    fills = (ty + 2 * r) * pitch - (ty + r) * (tx + r)
-    cells = fills + ty * tx + ty * r + r * pitch
-    fill_ops = 4 * 2 + 2 * (pitch > tx + 2 * r)
+    p = pitch(tx + 2 * r, item)
+    fills = (ty + 2 * r) * p - (ty + r) * (tx + r)
+    cells = fills + ty * tx + ty * r + r * p
+    fill_ops = 4 * 2 + 2 * (p > tx + 2 * r)
     return fill_ops + 4 * 3, 4 * cells * item
 
 
@@ -157,22 +188,44 @@ def test_halo_counters_equal_the_count_from_the_shapes(shape):
     data = raster(dem(shape), mesh=True)
     ops, nbytes = halo_count(*shape, r=1)
     traced(xt.terrain_pipeline, data)
-    # two exchanges of radius 1: the surface pass and the focal pass
+    # two stencils of radius 1, each in place on the four blocks: the
+    # surface pass and the focal pass
     assert tracing.counters() == {"mesh.halo_ops": 2 * ops,
-                                  "mesh.halo_bytes": 2 * nbytes}
+                                  "mesh.halo_bytes": 2 * nbytes,
+                                  "mesh.inplace_blocks": 8}
     tracing.clear()
     traced(xt.focal_stats, data, np.ones((5, 5)), ["mean"])
     ops, nbytes = halo_count(*shape, r=2)
     assert tracing.counters() == {"mesh.halo_ops": ops,
-                                  "mesh.halo_bytes": nbytes}
+                                  "mesh.halo_bytes": nbytes,
+                                  "mesh.inplace_blocks": 4}
     exchanges = [s for s in tracing.spans() if s.name == "mesh.halo_extend"]
     assert len(exchanges) == 1
 
 
+@pytest.mark.parametrize("shape", [SHAPE, (96, 72)])
+@pytest.mark.parametrize("r", [1, 2])
+def test_the_extended_route_counts_the_whole_tiles(shape, r):
+    """A kernel that is not window-local takes the extended blocks: the
+    count of ``halo_extend`` from the shapes, every block counted on
+    ``mesh.extended_blocks``."""
+    data = distribute(dem(shape), make_raster_mesh(2, 2, devices=[CPU] * 4))
+    traced(run_stencil, lambda b: b * 2.0, r, data, window_local=False)
+    ops, nbytes = extended_count(*shape, r=r)
+    assert tracing.counters() == {"mesh.halo_ops": ops,
+                                  "mesh.halo_bytes": nbytes,
+                                  "mesh.extended_blocks": 4}
+
+
 def test_the_halo_count_at_the_mosaics_size():
-    # the 65536^2 mosaic on 2x2 cards, radius 1: 22 ops and 16.003 GiB
-    # an exchange, 4 GiB of each a tile's own cells
+    # the 65536^2 mosaic on 2x2 cards, radius 1: 40 ops and 25,170,432
+    # bytes (0.0234 GiB) a stencil, against 22 ops and 16.003 GiB (4 GiB
+    # of each a tile's own cells) for the extended blocks
     ops, nbytes = halo_count(65536, 65536, r=1)
+    assert ops == 40
+    assert nbytes == 4 * 4 * (8 * 32804 + 32768 * 40) == 25_170_432
+    assert nbytes < 0.025 * 2 ** 30
+    ops, nbytes = extended_count(65536, 65536, r=1)
     assert ops == 22
     assert nbytes == 4 * 4 * 1_073_938_443
     assert 16 * 2 ** 30 < nbytes < 16.01 * 2 ** 30

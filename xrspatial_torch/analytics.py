@@ -10,8 +10,10 @@ package's opt-in, and a footprint its gate accepts (``pipeline_supported``)
 it runs the fused branch instead: one launch of the pipeline kernel on the
 card, the same twins on the CPU.  On a raster split over a mesh the
 fused branch is not taken, as in the JAX package: the surface products
-come from one pass on each halo-extended block (one surface kernel launch
-a block on the card), then ``focal_stats`` takes its own mesh branch, and
+come from one pass over the tiles (``run_stencil``: on the card, one
+surface kernel launch on each tile in place and one on each of its two
+bands, or one on each extended block), then ``focal_stats`` takes its own
+mesh branch, and
 every result is split over the same mesh.  (The JAX package's mesh branch
 runs one pass a product, through ``run_surface_op``, whose curvature takes
 ``cellsize_x`` alone; one pass for all keeps this branch equal to the

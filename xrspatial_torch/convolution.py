@@ -5,7 +5,8 @@ cellsize-in-meters and the circle/annulus/custom kernel builders are host
 code and return the same numpy arrays as the JAX package.  The direct
 convolution (``convolve_2d``, ``convolution_2d``) is a cuDNN / CPU
 cross-correlation in full float32 (``kernels/window.py::convolve2d``), as
-the JAX package leaves it to XLA; on a mesh, per halo-extended block.
+the JAX package leaves it to XLA; on a mesh, over the tiles
+(``run_stencil``).
 """
 
 from __future__ import annotations
@@ -125,8 +126,9 @@ def convolve_2d(data, kernel):
 
     `data` is a tensor (any device) or an array; the result is a float32
     tensor on `data`'s device.  A raster split over a mesh runs on each
-    tile extended by the kernel's halo (``kernels/dispatch.py::
-    run_stencil``) and gives one split over the same mesh.
+    tile with the kernel's halo (``kernels/dispatch.py::run_stencil``: in
+    place with the tile's ring from bands, or on the extended block) and
+    gives one split over the same mesh.
     """
     kernel = np.asarray(kernel)
     radius = ((kernel.shape[0] - 1) // 2, (kernel.shape[1] - 1) // 2)

@@ -12,15 +12,17 @@ are torch ops on any device, as they are XLA in the JAX package;
 ``apply`` with an arbitrary Python callable is a host round trip.
 
 A raster split over a mesh (``parallel.ShardedRaster``) takes the JAX
-package's mesh branches: every window op runs on each tile extended by
-the footprint's halo (``kernels/dispatch.py::run_stencil``), each block
-on the route the footprint chooses (``_route``), so every block runs the
-route the unsharded raster would; ``hotspots`` takes its global mean and
-std in float64 from per-block sums.  The results are split over the same
-mesh and equal the unsharded ones bit for bit, except the conv path
-(another convolution algorithm may serve a block's shape, and its
-centring mean is the extended block's) and ``hotspots``' moments, whose
-summation order differs.
+package's mesh branches: every window op runs on each tile with the
+footprint's halo (``kernels/dispatch.py::run_stencil``: in place with the
+tile's ring from bands of halo strips, or on the extended block), each
+launch on the route the footprint chooses (``_route``), so every cell
+takes the route the unsharded raster would; ``hotspots`` takes its
+global mean and std in float64 from per-block sums.  The results are
+split over the same mesh and equal the unsharded ones bit for bit,
+except the conv path (another convolution algorithm may serve a block's
+shape, and its centring mean is the extended block's: it always takes
+the extended blocks) and ``hotspots``' moments, whose summation order
+differs.
 """
 
 from __future__ import annotations
@@ -97,14 +99,17 @@ def _window_stats(data: torch.Tensor, kernel: np.ndarray,
                   stats: tuple) -> torch.Tensor:
     """(S, H, W) statistics over the kernel footprint, stacked in `stats`
     order: the torch ops for a CPU tensor or a conv-path footprint, a CUDA
-    kernel otherwise; on a mesh, this on each halo-extended block."""
+    kernel otherwise; on a mesh, this over the tiles (``run_stencil``)."""
     with span("api.args"):
         offsets = kernel_offsets(kernel)
     with span("dispatch.focal"):
         if get_raster_mesh(data) is not None:
             ry = max((abs(dy) for dy, _ in offsets), default=0)
             rx = max((abs(dx) for _, dx in offsets), default=0)
-            return run_stencil(_window_stats, (ry, rx), data, kernel, stats)
+            # the conv path centres its sums on its input's mean: it
+            # takes the extended blocks
+            return run_stencil(_window_stats, (ry, rx), data, kernel, stats,
+                               window_local=_route(offsets) != "conv")
         route = _route(offsets)
         if data.device.type == "cpu" or route == "conv":
             outs = window_stats(data, offsets, stats)
@@ -144,8 +149,8 @@ def apply(raster, kernel, func=_calc_mean, name: str = 'focal_apply'):
 
 
 def _apply_block(data: torch.Tensor, kernel, func) -> torch.Tensor:
-    """``_apply_host`` on a raster (or one halo-extended block), back on
-    its device."""
+    """``_apply_host`` on a raster (or one tile, band or extended block),
+    back on its device."""
     return torch.from_numpy(_apply_host(data.cpu().numpy(), kernel,
                                         func)).to(data.device)
 

@@ -22,6 +22,8 @@ and raises if the launch fails.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _cuda
@@ -46,7 +48,15 @@ STACKED_SIMPLE_LAUNCHES = 0  # ... the first port, surface_stacked_kernel
 
 def _scalars(cellsize_x, cellsize_y, azimuth, angle_altitude) -> tuple:
     """csx, csy and the sun's four scalars in float32, on the host (no
-    device sync)."""
+    device sync), computed once for each set of arguments: a mesh's
+    stencil launches B1 on every tile and band."""
+    return _scalars_of(float(cellsize_x), float(cellsize_y), float(azimuth),
+                       float(angle_altitude))
+
+
+@functools.lru_cache(maxsize=64)
+def _scalars_of(cellsize_x: float, cellsize_y: float, azimuth: float,
+                angle_altitude: float) -> tuple:
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
     sun = [float(s) for s in sun_scalars(f32(azimuth), f32(angle_altitude))]
     return (float(f32(cellsize_x)), float(f32(cellsize_y)), *sun)

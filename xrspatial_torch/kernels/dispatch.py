@@ -1,11 +1,11 @@
 """Payload-driven stencil dispatch: one device, or the mesh with halos.
 
 Counterpart of ``xrspatial_tpu/kernels/dispatch.py``.  A raster split
-over a mesh (``parallel.distribute``) runs the kernel on each tile
-extended by its halo (``parallel/halo.py::stencil_shard_map``); anything
-else goes straight to the kernel.  A raster that does not divide the
-mesh is NaN-padded to the mesh's tile grid and cropped back (the padding
-is the extended blocks' fill), so the result equals the unsharded run.
+over a mesh (``parallel.distribute``) runs the kernel over its tiles
+(``parallel/halo.py::stencil_shard_map``): on each tile in place, its
+edge ring rebuilt from two small bands a block, or on each tile extended
+by its halo; anything else goes straight to the kernel.  Either way the
+result equals the unsharded run.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ __all__ = ["run_stencil"]
 
 
 def run_stencil(kernel: Callable, radius, data, *args, fill=math.nan,
-                origin: bool = False):
+                origin: bool = False, window_local: bool = True):
     """Run a radius-r local kernel, over the mesh iff `data` is split
     over one.
 
@@ -34,6 +34,15 @@ def run_stencil(kernel: Callable, radius, data, *args, fill=math.nan,
     result is a ``ShardedRaster`` over the same mesh.  With `origin` the
     kernel also takes the raster's cell of its input's (0, 0):
     ``kernel(data, (y0, x0), *args)`` ((0, 0) on one device).
+
+    The mesh takes one of ``stencil_shard_map``'s two routes by the
+    shapes: in place (the kernel on each tile as it lies, then on two
+    bands a block that rebuild the tile's edge ring) where every tile is
+    at least four halos deep on each axis and the kernel is
+    `window_local` and takes no origin; each tile copied into its
+    extended block otherwise.  A caller whose kernel reads more than a
+    cell's window (the focal conv path centres its sums on its input's
+    mean) passes ``window_local=False``.
     """
     mesh = get_raster_mesh(data)
     if mesh is None:
@@ -51,5 +60,5 @@ def run_stencil(kernel: Callable, radius, data, *args, fill=math.nan,
             "not memory.", UserWarning, stacklevel=3)
     if not data.dtype.is_floating_point:
         data = data.map_blocks(lambda b: b.to(torch.float32))
-    return stencil_shard_map(kernel, mesh, halo, fill=fill,
-                             origin=origin)(data, *args)
+    return stencil_shard_map(kernel, mesh, halo, fill=fill, origin=origin,
+                             window_local=window_local)(data, *args)

@@ -7,7 +7,7 @@ epilogues, in the same float32 operation order as the JAX package.
 
 Dispatch (``surface_kernels``, ``run_surface_op``, ``surface_stacked``): a
 raster split over a mesh goes through ``dispatch.run_stencil``, each
-halo-extended block back through this dispatch (``surface_stacked`` has
+tile and band (or extended block) back through this dispatch (``surface_stacked`` has
 no mesh form); a tensor on the CPU goes to the twins, a tensor on the
 card to a CUDA kernel
 (B1, ``surface_staged_kernel``, on the route ``surface_plan`` names, or B0
@@ -330,7 +330,8 @@ def _mesh_route(data) -> bool:
 
 def _surface_block(block, which, cellsize_x, cellsize_y, azimuth,
                    angle_altitude):
-    """The products of `which` on one halo-extended block, as a tuple."""
+    """The products of `which` on one tile, band or extended block, as a
+    tuple."""
     outs = surface_kernels(block, which, cellsize_x, cellsize_y, azimuth,
                            angle_altitude)
     return tuple(outs[p] for p in which)
@@ -342,9 +343,10 @@ def surface_kernels(data, which, cellsize_x=1.0, cellsize_y=1.0,
 
     Curvature uses the mean of the two cell sizes, as ``surface_multi``
     does.  A raster split over a mesh (``parallel.ShardedRaster``) runs
-    one pass for all products on each tile extended by a 1-cell halo
-    (``dispatch.run_stencil``): one kernel launch a block on the card;
-    the products are ``ShardedRaster`` s over the same mesh.
+    one pass for all products over the tiles with a 1-cell halo
+    (``dispatch.run_stencil``): on the card one kernel launch on each tile
+    and on each of its two bands (or on each extended block); the
+    products are ``ShardedRaster`` s over the same mesh.
     """
     with span("dispatch.surface"):
         if _mesh_route(data):
@@ -367,9 +369,10 @@ def run_surface_op(name, data, cellsize_x=1.0, cellsize_y=1.0,
     """Single-product dispatch shared by slope/aspect/curvature/hillshade.
 
     Curvature uses ``cellsize_x`` alone, as the JAX package's
-    ``curvature_jit`` does.  A raster split over a mesh runs on each tile
-    extended by a 1-cell halo (``dispatch.run_stencil``), each block on
-    this path: the result is a ``ShardedRaster`` over the same mesh.
+    ``curvature_jit`` does.  A raster split over a mesh runs over the
+    tiles with a 1-cell halo (``dispatch.run_stencil``), each tile and
+    band on this path: the result is a ``ShardedRaster`` over the same
+    mesh.
     """
     if name not in PRODUCTS:
         raise ValueError(f"unknown surface op {name!r}")

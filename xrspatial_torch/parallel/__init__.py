@@ -5,8 +5,9 @@ Counterpart of ``xrspatial_tpu/parallel``.  A raster placed on a
 raster in per-device blocks, driven by one process.  Dispatch follows
 the payload, as the JAX package's follows the sharding: every op that
 has a mesh branch takes it for a raster split over a mesh (stencils
-through ``kernels/dispatch.py::run_stencil`` with halos from
-``halo_extend``, the jump flood per block in ``jfa_sharded.py``, the
+through ``kernels/dispatch.py::run_stencil``, on each tile in place with
+its ring from bands of halo strips or on ``halo_extend``'s extended
+blocks, the jump flood per block in ``jfa_sharded.py``, the
 percentiles from per-block counts, the XDraw viewshed on strips of
 lanes by ``to_strips``/``from_strips``, the cell-by-cell ops per block,
 the zonal reductions from per-block parts, ``regions`` from per-block

@@ -42,6 +42,19 @@ pads the raster to the mesh's tile grid, and each extended row is
 rounded up to 16 bytes with more fill: the staged CUDA kernels take TMA
 only on 16-byte rows, and those columns feed only the ring that is
 cropped.
+
+A stencil (``stencil_shard_map``) takes one of two routes, chosen from
+the shapes it is given.  In place, where every tile holds its halo four
+times over (``inplace_fits``) and the kernel is window-local: the kernel
+runs on each tile as it lies, which gets every cell at least the radius
+from the tile's edge right, and then on two small bands a block
+(``_bands``: the tile's edge strips with the halo strips around them,
+gathered from the neighbouring tiles, `fill` beyond the raster), whose
+outputs rebuild the tile's edge ring; no tile is copied.  Extended,
+otherwise (a halo wider than a quarter tile, a kernel whose output
+depends on more than its window, or one that takes its block's
+origin): each tile is copied into its ``halo_extend`` block and the
+kernel's output cropped.
 """
 
 from __future__ import annotations
@@ -61,11 +74,17 @@ __all__ = [
     "make_raster_mesh", "raster_sharding", "distribute", "halo_extend",
     "stencil_shard_map", "get_raster_mesh", "tiles", "tile_size",
     "tile_extent", "shifted_blocks", "zip_blocks", "ROW_ALIGN_BYTES",
-    "flat_devices", "to_strips", "from_strips",
+    "flat_devices", "to_strips", "from_strips", "inplace_fits",
+    "BAND_SLACK",
 ]
 
 # an extended block's rows are rounded up to this many bytes (TMA's rule)
 ROW_ALIGN_BYTES = 16
+# columns of fill a band carries past its cells: a CPU vector loop ends
+# each pass on a scalar path (the last elements short of two 16-lane
+# float32 vectors), whose atan2 may round otherwise, so a band's kept
+# cells stay clear of every pass's end, as a whole raster's cells do
+BAND_SLACK = 32
 
 
 @dataclass(frozen=True)
@@ -619,40 +638,212 @@ def from_strips(strips, like: ShardedRaster, axis: int, offsets
     return ShardedRaster(blocks, lead + (h, w), mesh, (True, True))
 
 
+def inplace_fits(x: ShardedRaster, halo: HaloSpec) -> bool:
+    """Whether a stencil of radius (ry, rx) on `x` may run in place: every
+    tile its stencils cut ``x`` into (``tiles``) has at least 4 * ry rows
+    and 4 * rx columns, and a cell.  Each band then takes its halo strips
+    from the next tiles alone and its edge strips from its own tile, and
+    no cell it keeps reads past its own part."""
+    ny, nx = x.mesh.shape["y"], x.mesh.shape["x"]
+    h, w = x.spatial
+    return (all(b - a >= max(4 * halo.ry, 1)
+                for a, b in (tile_extent(h, ny, i) for i in range(ny)))
+            and all(b - a >= max(4 * halo.rx, 1)
+                    for a, b in (tile_extent(w, nx, j) for j in range(nx))))
+
+
+def _put(dst: torch.Tensor, src, fill) -> None:
+    """Copy `src` into `dst`, or `fill` it where there is no source (beyond
+    the raster)."""
+    if src is None:
+        _fill(dst, fill)
+    else:
+        _copy(dst, src)
+
+
+def _pair(t: torch.Tensor, dim: int, a: int, b: int, n: int) -> torch.Tensor:
+    """The view of `t` holding its slices ``[a, a + n)`` and ``[b, b + n)``
+    along `dim` (-2 or -1) as a new dim of 2 before it: a tile's two edge
+    strips, a band's two parts or a ring's two edges, in one copy."""
+    d = t.dim() + dim
+    s = t.stride()
+    return t.as_strided(t.shape[:d] + (2, n) + t.shape[d + 1:],
+                        s[:d] + ((b - a) * s[d],) + s[d:],
+                        t.storage_offset() + a * s[d])
+
+
+def _bands(x: ShardedRaster, halo: HaloSpec, fill) -> list:
+    """Every block's two bands on its device, a grid of (rows, cols), None
+    where the radius across them is 0; `fill` beyond the raster.  The
+    tiles must be ``inplace_fits``: every strip then comes from a tile
+    next to the block's own.
+
+    rows: ``(..., 8 ry, p)``, two parts of 4 ry rows stacked, each ``tx +
+    2 rx`` columns from the tile's first column less rx: the raster's rows
+    from ry above the tile to 3 ry inside it, and from 3 ry inside its
+    bottom to ry below it.  Each part's middle 2 ry rows are kept: the
+    tile's outer 2 ry rows, corners included.  The tile's own pass keeps
+    only the rows past them, which holds a whole raster's bits on the CPU
+    too, where torch ends a flat pass (the tile's last inner row) on a
+    scalar path.  cols: ``(..., ty, q)``, two parts of 3 rx columns side by
+    side over the tile's rows: the columns from rx left of the tile to 2
+    rx inside it, and from 2 rx inside its right edge to rx past it; each
+    part's middle rx columns are kept.  Past those columns each band holds
+    ``BAND_SLACK`` columns of fill, its width then rounded up to
+    ``ROW_ALIGN_BYTES`` (TMA's rule).
+
+    Every cell is written once, in ``halo_extend``'s two phases, so that
+    no strip comes from a diagonal neighbour: first each band's rows of
+    its own row of tiles, one op a tile in x (both parts at once: the
+    tile's, its neighbours' rx columns, fill beyond the raster), and the
+    column band (the tile's columns, one op a side); then the halo rows
+    of each row band, one copy each from the row bands of the blocks
+    above and below, which hold those rows already extended in x."""
+    ry, rx = halo.ry, halo.rx
+    grid = [[_bands_x(x, i, j, halo, fill) for j in range(len(row))]
+            for i, row in enumerate(x.blocks)]
+    if ry:
+        for i, row in enumerate(grid):
+            for j, (rows, _) in enumerate(row):
+                wr = x.blocks[i][j].shape[-1] + 2 * rx
+                # rows [6 ry, 7 ry) of the band above are the last ry of
+                # its tile; rows [ry, 2 ry) of the band below its first
+                for di, r0, a in ((-1, 0, 6 * ry), (1, 7 * ry, ry)):
+                    dst = rows[..., r0:r0 + ry, :wr]
+                    if 0 <= i + di < len(grid):
+                        _copy(dst, grid[i + di][j][0][..., a:a + ry, :wr])
+                    else:
+                        _fill(dst, fill)
+    return grid
+
+
+def _bands_x(x: ShardedRaster, i: int, j: int, halo: HaloSpec,
+             fill) -> tuple:
+    """Block (i, j)'s bands with every cell but the row band's halo rows
+    written (``_bands``' first phase)."""
+    ry, rx = halo.ry, halo.rx
+    own = x.blocks[i][j]
+    lead, dev = tuple(own.shape[:-2]), x.mesh.device(i, j)
+    hl, wl = own.shape[-2:]
+    nx = len(x.blocks[i])
+    # the rx columns next to the tile, None beyond the raster
+    left = x.blocks[i][j - 1][..., -rx:] if rx and j > 0 else None
+    right = x.blocks[i][j + 1][..., :rx] if rx and j + 1 < nx else None
+    rows = cols = None
+    if ry:
+        wr = wl + 2 * rx
+        rows = torch.empty(lead + (8 * ry,
+                                   _row_pitch(wr + BAND_SLACK, x.dtype)),
+                           dtype=x.dtype, device=dev)
+        # the tile's first and last 3 ry rows, both parts in one op
+        mid = _pair(rows, -2, ry, 4 * ry, 3 * ry)
+        _copy(mid[..., rx:rx + wl], _pair(own, -2, 0, hl - 3 * ry, 3 * ry))
+        if rx:
+            for c0, src in ((0, left), (rx + wl, right)):
+                _put(mid[..., c0:c0 + rx], None if src is None else
+                     _pair(src, -2, 0, hl - 3 * ry, 3 * ry), fill)
+        _fill(rows[..., wr:], fill)
+    if rx:
+        cols = torch.empty(lead + (hl,
+                                   _row_pitch(6 * rx + BAND_SLACK, x.dtype)),
+                           dtype=x.dtype, device=dev)
+        _copy(_pair(cols, -1, rx, 3 * rx, 2 * rx),
+              _pair(own, -1, 0, wl - 2 * rx, 2 * rx))
+        _put(cols[..., :rx], left, fill)
+        _put(cols[..., 5 * rx:6 * rx], right, fill)
+        _fill(cols[..., 6 * rx:], fill)
+    return rows, cols
+
+
+def _mend(out: torch.Tensor, rows_out, cols_out, halo: HaloSpec) -> None:
+    """Write the edge ring of a tile's output `out` from its bands'
+    outputs: the top and bottom 2 ry rows from the kept rows of the row
+    band's parts, the left and right rx columns between them from the kept
+    columns of the column band's parts; one copy each."""
+    ry, rx = halo.ry, halo.rx
+    hl, wl = out.shape[-2:]
+    if rows_out is not None:
+        _pair(out, -2, 0, hl - 2 * ry, 2 * ry).copy_(
+            _pair(rows_out, -2, ry, 5 * ry, 2 * ry)[..., rx:rx + wl])
+    if cols_out is not None:
+        _pair(out[..., 2 * ry:hl - 2 * ry, :], -1, 0, wl - rx, rx).copy_(
+            _pair(cols_out[..., 2 * ry:hl - 2 * ry, :], -1, rx, 4 * rx, rx))
+
+
 def stencil_shard_map(kernel: Callable, mesh: RasterMesh, halo: HaloSpec,
                       out_leading_dims: Optional[int] = None,
-                      fill=math.nan, origin: bool = False) -> Callable:
+                      fill=math.nan, origin: bool = False,
+                      window_local: bool = True) -> Callable:
     """Distribute a radius-(ry, rx) local kernel over the mesh.
 
-    Returns ``run(data, *args)`` for a ``ShardedRaster`` `data` on `mesh`:
-    each tile is extended by ``halo_extend`` (NaN beyond the raster),
-    ``kernel(extended, *args)`` computes a full-size output whose ring of
-    width (ry, rx) is edge garbage, and the tile's own cells are cropped
-    from it (a view: no copy).  The kernel may return extra leading dims
-    (a stats axis); with `out_leading_dims` given their number is
-    checked.  A kernel may also return a tuple of such outputs (several
-    products of one pass); the result is then a tuple.  Each result is
-    split over the same mesh on both axes.  `fill` is the extended blocks'
-    value beyond the raster; with `origin` the kernel is called as
-    ``kernel(extended, (y0, x0), *args)``, (y0, x0) the raster's cell of
-    the extended block's (0, 0) (negative in the outer halo).
+    Returns ``run(data, *args)`` for a ``ShardedRaster`` `data` on `mesh`.
+    The kernel computes a full-size output of its input whose ring of
+    width (ry, rx) is edge garbage; it may return extra leading dims (a
+    stats axis), their number checked when `out_leading_dims` is given,
+    or a tuple of such outputs (several products of one pass), and the
+    result is then a tuple.  Each result is split over the same mesh on
+    both axes.  `fill` is the value beyond the raster.
+
+    Two routes, one result:
+
+    - in place, where ``inplace_fits`` (each tile at least four halos
+      deep) and the kernel is `window_local` (a cell's output reads its
+      radius-(ry, rx) window and nothing else) and takes no `origin`:
+      ``kernel(tile, *args)`` on every block first, so that each device
+      has its interior queued before any strip is gathered; then every
+      block's bands (``_bands``, span ``mesh.halo_extend``); then the
+      kernel on each band and the ring of each output rebuilt from the
+      bands' (``_mend``).  The outputs are the tile-shaped tensors the
+      kernel returned.
+    - extended, otherwise: each tile is extended by ``halo_extend`` and
+      ``kernel(extended, *args)`` (``kernel(extended, (y0, x0), *args)``
+      with `origin`, (y0, x0) the raster's cell of the extended block's
+      (0, 0), negative in the outer halo); the tile's own cells are
+      cropped from its output (a view: no copy).
+
+    The counters ``mesh.inplace_blocks`` and ``mesh.extended_blocks`` add
+    the blocks of each call to the route it took.
     """
     ry, rx = halo.ry, halo.rx
 
-    def crop(out, hl, wl):
-        if out_leading_dims is not None and out.ndim != 2 + out_leading_dims:
-            raise ValueError(f"stencil_shard_map: the kernel gave "
-                             f"{out.ndim} dims, expected "
-                             f"{2 + out_leading_dims}")
-        return out[..., ry:ry + hl, rx:rx + wl]
+    def outputs(out, many: bool) -> tuple:
+        """The kernel's output(s) as a tuple, their dims checked."""
+        outs = tuple(out) if many else (out,)
+        for o in outs:
+            if out_leading_dims is not None \
+                    and o.ndim != 2 + out_leading_dims:
+                raise ValueError(f"stencil_shard_map: the kernel gave "
+                                 f"{o.ndim} dims, expected "
+                                 f"{2 + out_leading_dims}")
+        return outs
 
-    def run(data: ShardedRaster, *args):
-        if data.mesh is not mesh:
-            raise ValueError("stencil_shard_map: the raster lies on another "
-                             "mesh")
-        t = tiles(data)
+    def in_place(t: ShardedRaster, args) -> tuple:
+        raw = [[kernel(b, *args) for b in row] for row in t.blocks]
+        many = isinstance(raw[0][0], (tuple, list))
+        grid = [[outputs(o, many) for o in row] for row in raw]
+        for brow, row in zip(t.blocks, grid):
+            for b, outs in zip(brow, row):
+                if any(o.shape[-2:] != b.shape[-2:] for o in outs):
+                    raise ValueError(
+                        f"stencil_shard_map: the kernel gave "
+                        f"{[tuple(o.shape) for o in outs]} for a tile of "
+                        f"{tuple(b.shape[-2:])}")
+        with tracing.span("mesh.halo_extend"):
+            bands = _bands(t, halo, fill)
+        for i, row in enumerate(grid):
+            for j, outs in enumerate(row):
+                rows_out, cols_out = (
+                    None if b is None else outputs(kernel(b, *args), many)
+                    for b in bands[i][j])
+                bands[i][j] = None
+                for q, o in enumerate(outs):
+                    _mend(o, None if rows_out is None else rows_out[q],
+                          None if cols_out is None else cols_out[q], halo)
+        return grid, many
+
+    def extended(t: ShardedRaster, args) -> tuple:
         ext = halo_extend(t, halo, fill)
-        outs = []
+        grid, many = [], None
         for i, row in enumerate(ext):
             orow = []
             for j in range(len(row)):
@@ -663,19 +854,29 @@ def stencil_shard_map(kernel: Callable, mesh: RasterMesh, halo: HaloSpec,
                                   t.extent(1, j)[0] - rx), *args)
                        if origin else kernel(e, *args))
                 del e
-                orow.append(tuple(crop(o, hl, wl) for o in out)
-                            if isinstance(out, (tuple, list))
-                            else crop(out, hl, wl))
-            outs.append(orow)
+                if many is None:
+                    many = isinstance(out, (tuple, list))
+                orow.append(tuple(o[..., ry:ry + hl, rx:rx + wl]
+                                  for o in outputs(out, many)))
+            grid.append(orow)
+        return grid, many
 
-        def raster(grid):
-            lead = tuple(grid[0][0].shape[:-2])
-            return ShardedRaster(grid, lead + data.shape[-2:], mesh,
-                                 (True, True))
-
-        if isinstance(outs[0][0], tuple):
-            return tuple(raster([[o[q] for o in row] for row in outs])
-                         for q in range(len(outs[0][0])))
-        return raster(outs)
+    def run(data: ShardedRaster, *args):
+        if data.mesh is not mesh:
+            raise ValueError("stencil_shard_map: the raster lies on another "
+                             "mesh")
+        t = tiles(data)
+        if window_local and not origin and inplace_fits(t, halo):
+            tracing.count("mesh.inplace_blocks", mesh.size)
+            grid, many = in_place(t, args)
+        else:
+            tracing.count("mesh.extended_blocks", mesh.size)
+            grid, many = extended(t, args)
+        results = tuple(
+            ShardedRaster([[outs[q] for outs in row] for row in grid],
+                          tuple(grid[0][0][q].shape[:-2]) + data.shape[-2:],
+                          mesh, (True, True))
+            for q in range(len(grid[0][0])))
+        return results if many else results[0]
 
     return run

@@ -25,12 +25,16 @@ The spans, at the boundaries of the port's layers:
 - ``dispatch.surface``, ``dispatch.focal``: from the route choice to the
   last launch's return (plans, outputs, the launch; on a mesh the loop
   over blocks, each block's own dispatch span inside);
-- ``mesh.halo_extend``: issuing one halo exchange's fills and copies;
+- ``mesh.halo_extend``: issuing one halo exchange's fills and copies
+  (an in-place stencil's: its bands' strips);
 - ``viewshed_exact.<phase>``: the exact viewshed's phases;
 - ``setup.library``, ``setup.build``: the library's hash, build and load.
 
-The counters: ``mesh.halo_ops`` (the fills and copies a halo exchange or
-a strip layout issues) and ``mesh.halo_bytes`` (the bytes they write).
+The counters: ``mesh.halo_ops`` (the fills and copies a halo exchange, an
+in-place stencil's bands or a strip layout issues), ``mesh.halo_bytes``
+(the bytes they write), and ``mesh.inplace_blocks`` and
+``mesh.extended_blocks`` (the blocks of each mesh stencil, by the route it
+took).
 
 Read with ``spans()`` and ``counters()``; ``clear()`` empties both.  The
 profiler's Chrome trace (``export_chrome_trace``) is the export.

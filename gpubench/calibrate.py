@@ -8,9 +8,11 @@ In one process, at the cell's own size and on its cards: for each of
 DEM, its outputs compared as a run compares them), and for each of
 ``--control-seeds`` the control's: the plain reference computed in
 bfloat16, the precision below the configuration's float32, compared with
-the float64 reference in the same way.  The lower reading of a number is
-the largest over the program's seeds, the upper the smallest over the
-control's; both are printed.  Benchmark runs never run this.
+the float64 reference in the same way, on the job that the program's
+first job on that seed is (every step's args drawn from the seed in step
+order).  The lower reading of a number is the largest over the program's
+seeds, the upper the smallest over the control's; both are printed.
+Benchmark runs never run this.
 """
 
 from __future__ import annotations
@@ -43,10 +45,7 @@ def readings(workload: str, seeds, control_seeds, *, root=None,
         devices = cuda_devices(int(cell["chips"]))
     port = importlib.import_module(PORT)
     cards = Cards(devices)
-    step = traffic["steps"][-1]
-    reference = bench.reference(step["op"].rpartition(".")[2])
     check = bench.check(traffic.get("check", "stencil"))
-    cellsize = tuple(config["cellsize_m"])
     out = {"program": {}, "control": {}}
     for seed in seeds:
         blocks = demlib.make_blocks(config, seed, devices)
@@ -55,9 +54,9 @@ def readings(workload: str, seeds, control_seeds, *, root=None,
         drawn = jobs.draw()
         result = jobs.run(jobs.prepare(drawn))
         cards.sync()
-        ref_args = joblib.reference_args(drawn[-1], bench)
-        planes = planes_of(result, dem.data)
-        per_plane = check.gaps(config, blocks, reference, ref_args, cellsize,
+        job = joblib.reference_job(traffic, drawn, bench)
+        planes = planes_of(result, dem.data, job[-1].name)
+        per_plane = check.gaps(config, blocks, job,
                                check.program(planes, config))
         out["program"][seed] = check.numbers(per_plane)
         del result, planes, jobs, dem, blocks
@@ -65,12 +64,10 @@ def readings(workload: str, seeds, control_seeds, *, root=None,
               flush=True)
     for seed in control_seeds:
         blocks = demlib.make_blocks(config, seed, devices)
-        ref_args = joblib.reference_args(
-            joblib.draw(step.get("args", {}), random.Random(seed)), bench)
-        per_plane = check.gaps(
-            config, blocks, reference, ref_args, cellsize,
-            check.control(reference, ref_args, cellsize, config,
-                          CONTROL_DTYPE))
+        job = joblib.reference_job(
+            traffic, joblib.draw_job(traffic, random.Random(seed)), bench)
+        per_plane = check.gaps(config, blocks, job,
+                               check.control(job, config, CONTROL_DTYPE))
         out["control"][seed] = check.numbers(per_plane)
         del blocks
         print(json.dumps({"seed": seed, "control": out["control"][seed]}),

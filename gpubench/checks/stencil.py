@@ -1,5 +1,6 @@
 """The check of a local (stencil) op: every cell of every output plane
 against the op's plain reference, block by block and in bands of rows.
+It judges the job's last step alone (a job of one step).
 
 For each block of the raster's grid, on that block's device, the DEM's
 window of a band of rows with the reference's halo is put together from
@@ -38,8 +39,39 @@ def dem_window(blocks, config, rows, cols, device) -> torch.Tensor:
     return out
 
 
-def gaps(config, blocks, reference, args, cellsize, judged) -> dict:
-    """Per plane ``(widest gap, largest |reference|, NaN mismatches)``.
+def planes(job) -> list:
+    """The planes compared: the last step's reference's."""
+    return job[-1].reference.planes(job[-1].args)
+
+
+def fold(acc, r, g, zero) -> None:
+    """Fold a reference tile `r` and a judged tile `g` (float64, one
+    device) into `acc`, ``[widest gap, largest |reference|, NaN
+    mismatches]`` of a plane."""
+    nr, ng = torch.isnan(r), torch.isnan(g)
+    both = ~(nr | ng)
+    gap = torch.where(both, (g - r).abs(), zero).max()
+    mag = torch.where(nr, zero, r.abs()).max()
+    acc[0] = torch.maximum(acc[0], gap)
+    acc[1] = torch.maximum(acc[1], mag)
+    acc[2] = acc[2] + (nr != ng).sum()
+
+
+def merge(acc) -> dict:
+    """Per plane ``(gap, mag, bad)`` as numbers, over the devices of `acc`
+    (``{device: {plane: fold's list}}``)."""
+    out = {}
+    for per_dev in acc.values():
+        for p, (gap, mag, bad) in per_dev.items():
+            g0, m0, b0 = out.get(p, (0.0, 0.0, 0))
+            out[p] = (max(g0, gap.item()), max(m0, mag.item()),
+                      b0 + int(bad.item()))
+    return out
+
+
+def gaps(config, blocks, job, judged) -> dict:
+    """Per plane ``(widest gap, largest |reference|, NaN mismatches)`` of
+    the last step of `job` (``jobs.Step``s).
 
     ``judged(i, j, rows, cols, win)`` gives the judged planes of the cells
     rows [rows) x cols [cols) of block (i, j), as a dict of tensors on the
@@ -47,6 +79,8 @@ def gaps(config, blocks, reference, args, cellsize, judged) -> dict:
     computes from it).
     """
     ny, nx = config["shape"]
+    reference, args = job[-1].reference, job[-1].args
+    cellsize = tuple(config["cellsize_m"])
     ry, rx = reference.halo(args)
     names = reference.planes(args)
     acc = {}
@@ -65,23 +99,10 @@ def gaps(config, blocks, reference, args, cellsize, judged) -> dict:
                 ref = reference.run(win, (r0, x0), (ny, nx), args, cellsize)
                 got = judged(i, j, (r0, r1), (x0, x1), win)
                 for p in names:
-                    r = ref[p]
-                    g = got[p].to(device=dev, dtype=torch.float64)
-                    nr, ng = torch.isnan(r), torch.isnan(g)
-                    both = ~(nr | ng)
-                    gap = torch.where(both, (g - r).abs(), zero).max()
-                    mag = torch.where(nr, zero, r.abs()).max()
-                    a[p][0] = torch.maximum(a[p][0], gap)
-                    a[p][1] = torch.maximum(a[p][1], mag)
-                    a[p][2] = a[p][2] + (nr != ng).sum()
+                    fold(a[p], ref[p],
+                         got[p].to(device=dev, dtype=torch.float64), zero)
                 del win, ref, got
-    out = {}
-    for per_dev in acc.values():
-        for p, (gap, mag, bad) in per_dev.items():
-            g0, m0, b0 = out.get(p, (0.0, 0.0, 0))
-            out[p] = (max(g0, gap.item()), max(m0, mag.item()),
-                      b0 + int(bad.item()))
-    return out
+    return merge(acc)
 
 
 def numbers(per_plane: dict) -> dict:
@@ -106,9 +127,11 @@ def program(planes: dict, config):
     return judged
 
 
-def control(reference, args, cellsize, config, dtype):
+def control(job, config, dtype):
     """`judged` for the control: the reference itself in `dtype`."""
     ny, nx = config["shape"]
+    reference, args = job[-1].reference, job[-1].args
+    cellsize = tuple(config["cellsize_m"])
 
     def judged(i, j, rows, cols, win):
         return reference.run(win, (rows[0], cols[0]), (ny, nx), args,

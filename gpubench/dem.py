@@ -15,10 +15,17 @@ generator on the block's device seeded with ``block_seed(seed, i, j)``.
 So no block passes through another device or the host, and the whole
 raster is the same whichever device makes which block.  One card holds
 block (0, 0) of a 1x1 grid.
+
+A configuration whose ``"coords"`` is ``"cell_centres"`` gives its raster
+coordinates in metres, north up as a 3DEP GeoTIFF lies: x eastward from
+the west edge, ``(j + 0.5) cellsize_x``, and y southward from the north
+edge, ``(ny - i - 0.5) cellsize_y`` (``coords``).  Without the key the
+raster has none.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK64 = (1 << 64) - 1
@@ -58,6 +65,21 @@ def block_extents(config, i: int, j: int) -> tuple:
     """((y0, y1), (x0, x1)) of block (i, j) of the configuration's raster."""
     (ny, nx), (my, mx) = config["shape"], grid(config)
     return tile_extent(ny, my, i), tile_extent(nx, mx, j)
+
+
+def coords(config):
+    """``(y, x)``, the whole raster's cell-centre coordinates as float64
+    numpy arrays in metres, where the configuration's ``"coords"`` says
+    ``"cell_centres"``; None where it has no ``"coords"``."""
+    kind = config.get("coords")
+    if kind is None:
+        return None
+    if kind != "cell_centres":
+        raise ValueError(f"coords {kind!r}: only 'cell_centres' is known")
+    (ny, nx), (csx, csy) = config["shape"], config["cellsize_m"]
+    x = (np.arange(nx, dtype=np.float64) + 0.5) * float(csx)
+    y = (ny - np.arange(ny, dtype=np.float64) - 0.5) * float(csy)
+    return y, x
 
 
 def hill(config, rows, cols, device) -> torch.Tensor:

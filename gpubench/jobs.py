@@ -17,7 +17,10 @@ the port's module ``a``) with the raster named by ``input`` first and
 - ``{"$uniform": [lo, hi]}``: a float in [lo, hi), drawn for each job
   from the run's seed (an observer's place, say).
 
-The job's result is the last step's.
+The job's result is the last step's.  Every job draws its steps' args
+in step order from one ``random.Random(seed)`` (``draw_job``), so a
+check that draws with the same seed draws what the program's first job
+did.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import importlib
 import json
 import random
+from dataclasses import dataclass
 
 
 def port_function(port: str, name: str):
@@ -65,6 +69,12 @@ def draw(value, rng: random.Random):
     return value
 
 
+def draw_job(traffic: dict, rng: random.Random) -> list:
+    """Each step's arguments for one job, its draws made from `rng` in
+    step order."""
+    return [draw(s.get("args", {}), rng) for s in traffic["steps"]]
+
+
 class Jobs:
     """The jobs of a traffic mix, as calls into the port `port`."""
 
@@ -72,6 +82,7 @@ class Jobs:
                  port: str = "xrspatial_torch"):
         self.inputs = dict(inputs)
         self.rng = random.Random(int(seed))
+        self.traffic = traffic
         self.steps = [(port_function(port, s["op"]), s.get("input"),
                        s.get("args", {}), s.get("name", "out"))
                       for s in traffic["steps"]]
@@ -89,7 +100,7 @@ class Jobs:
 
     def draw(self) -> list:
         """Each step's arguments for the next job, its draws made."""
-        return [draw(args, self.rng) for _, _, args, _ in self.steps]
+        return draw_job(self.traffic, self.rng)
 
     def prepare(self, drawn: list) -> list:
         """`drawn` with each ``$call`` made."""
@@ -110,3 +121,24 @@ def reference_args(args, bench):
     ``reference/<fn>.py``."""
     return resolve(args, lambda name, a: bench.reference(
         name.rpartition(".")[2]).run(*a))
+
+
+@dataclass
+class Step:
+    """One step of a judged job as the reference sees it."""
+    op: str             # the port's function's own name ("a.b" -> "b")
+    input: object       # the name of the raster it takes, or None
+    name: str           # the name its result takes
+    args: dict          # its drawn arguments, each $call the reference's
+    reference: object   # the module reference/<op>.py
+
+
+def reference_job(traffic: dict, drawn: list, bench) -> list:
+    """The job whose steps' arguments are `drawn` (from ``draw_job``), as
+    ``Step``s for a check."""
+    out = []
+    for s, args in zip(traffic["steps"], drawn):
+        op = s["op"].rpartition(".")[2]
+        out.append(Step(op, s.get("input"), s.get("name", "out"),
+                        reference_args(args, bench), bench.reference(op)))
+    return out

@@ -15,7 +15,8 @@ and the port (``xrspatial_torch``).  The run
    of jobs after the first third of the window, and the window ends with
    that stretch);
 3. compares the last job's outputs, every cell, with the plain reference
-   (``checks/<check>.py``), against ``limits/<workload>.json``;
+   (``checks/<check>.py``, which gets every step of that job with its
+   drawn args), against ``limits/<workload>.json``;
 4. prints the numbers compared beside their limits as its last lines on
    standard error, and one JSON line on standard output: ``correct``,
    ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics,
@@ -135,7 +136,11 @@ def cuda_devices(n: int) -> list:
 
 def dem_input(port, config, blocks, devices):
     """The DEM as the port's DataArray: one tensor, or the blocks as a
-    ``ShardedRaster`` over the port's mesh of the cell's devices."""
+    ``ShardedRaster`` over the port's mesh of the cell's devices; with the
+    whole raster's coordinates where the configuration states them
+    (``dem.coords``)."""
+    from . import dem as demlib
+    yx = demlib.coords(config)
     if config.get("mesh"):
         par = importlib.import_module(PORT + ".parallel")
         my, mx = config["mesh"]
@@ -145,14 +150,17 @@ def dem_input(port, config, blocks, devices):
     else:
         payload = blocks[0][0]
     return port.DataArray(payload, dims=("y", "x"), name="dem",
+                          coords=None if yx is None else
+                          {"y": yx[0], "x": yx[1]},
                           attrs={"res": tuple(config["cellsize_m"])})
 
 
-def planes_of(result, skip) -> dict:
+def planes_of(result, skip, name) -> dict:
     """The output planes of a job's result (a Dataset or a DataArray),
     each as a grid of blocks: a variable whose payload is `skip` (the
     input) is left out, a stacked variable gives one plane per label of
-    its first dim, and a ``<input>-`` prefix is dropped from names."""
+    its first dim, and a ``<input>-`` prefix is dropped from names.  An
+    unnamed DataArray's plane takes `name`, its step's."""
     arrays = ([result[k] for k in result.data_vars]
               if hasattr(result, "data_vars") else [result])
     out = {}
@@ -160,12 +168,13 @@ def planes_of(result, skip) -> dict:
         if a.data is skip:
             continue
         grid = a.data.blocks if hasattr(a.data, "blocks") else [[a.data]]
-        name = str(a.name).split("-", 1)[-1]
         if len(a.dims) == 3:
             for k, label in enumerate(a.coords[a.dims[0]].data):
                 out[str(label)] = [[b[k] for b in row] for row in grid]
-        else:
+        elif a.name is None:
             out[name] = grid
+        else:
+            out[str(a.name).split("-", 1)[-1]] = grid
     return out
 
 
@@ -278,10 +287,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
 
     # the work a job does, from the reference's view of its arguments
     shape = tuple(config["shape"])
-    ref_steps = [joblib.reference_args(a, bench) for a in last_drawn]
+    job = joblib.reference_job(traffic, last_drawn, bench)
     work_bytes = work_ops = 0
-    for step, args in zip(traffic["steps"], ref_steps):
-        b, o = bench.work(step["op"].rpartition(".")[2]).work(shape, args)
+    for step in job:
+        b, o = bench.work(step.op).work(shape, step.args)
         work_bytes, work_ops = work_bytes + b, work_ops + o
     ctx = Context(
         setup_s=setup_s, jobs=records, window_s=t_end - t0,
@@ -299,15 +308,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     # plane it lacks leaves its numbers out, which reads as not correct
     numbers = {}
     if last is not None:
-        op = traffic["steps"][-1]["op"].rpartition(".")[2]
-        reference = bench.reference(op)
-        ref_args = ref_steps[-1]
-        planes = planes_of(last, dem.data)
-        if set(reference.planes(ref_args)) <= set(planes):
-            check = bench.check(traffic.get("check", "stencil"))
+        check = bench.check(traffic.get("check", "stencil"))
+        planes = planes_of(last, dem.data, job[-1].name)
+        if set(check.planes(job)) <= set(planes):
             numbers = check.numbers(check.gaps(
-                config, blocks, reference, ref_args,
-                tuple(config["cellsize_m"]), check.program(planes, config)))
+                config, blocks, job, check.program(planes, config)))
         del planes
     del last, jobs, dem
     correct, checks = judge(numbers, limits)

@@ -4,15 +4,28 @@ Everything that belongs to one configuration, traffic mix, per-layer
 metric or op sits in a file of its own under the benchmark's folder:
 
 - ``configs/<config>.json`` (the path ``BENCHMARK.json`` gives), the
-  deployment's sizes;
+  deployment's sizes (with ``"coords": "cell_centres"``, its raster's
+  coordinates: ``dem.coords``);
 - ``traffic/<traffic>.json``, the job mix the generator reads;
 - ``metrics/<metric>.py``, the reader of one per-layer metric;
 - ``work/<op>.py``, the bytes and operations of one op's job;
 - ``reference/<op>.py``, the plain reference of one op (or of a helper
-  the traffic calls by name);
+  the traffic calls by name, ``run(*args)``), in the form its check
+  reads: for ``stencil``, ``planes(args)``, ``halo(args)`` and
+  ``run(win, origin, shape, args, cellsize, dtype)`` on a band of rows
+  with its halo; for ``chain``, ``planes(args)`` and ``run(raster,
+  coords, args, dtype)`` over the whole raster, returning ``{plane:
+  tensor}``;
 - ``checks/<check>.py``, a way of comparing a job's outputs with the
-  reference, which the traffic names;
+  reference, which the traffic names: ``stencil`` (one local op, in
+  bands) or ``chain`` (every step of a global job in turn, whole);
 - ``limits/<workload>.json``, the limits of a cell's correctness check.
+
+A check module has ``planes(job)``, ``gaps(config, blocks, job,
+judged)``, ``numbers(per_plane)``, ``program(planes, config)`` and
+``control(job, config, dtype)``; ``job`` is the judged job's steps
+(``jobs.Step``: op, input, name, args as the reference sees them, and
+the reference module).
 
 A new cell is new files and one new entry; no file here changes.
 """

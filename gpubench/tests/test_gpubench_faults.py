@@ -47,18 +47,26 @@ def unchanged(surface_kernels):
     return wrapped
 
 
-def no_exchange(halo_extend):
-    def wrapped(x, spec, fill=float("nan")):
-        ext = halo_extend(x, spec, fill)
-        ty, tx = halo.tile_size(x.shape[-2], len(ext)), \
-            halo.tile_size(x.shape[-1], len(ext[0]))
-        for row in ext:
-            for e in row:
-                e[..., :spec.ry, :] = fill
-                e[..., spec.ry + ty:, :] = fill
-                e[..., :, :spec.rx] = fill
-                e[..., :, spec.rx + tx:] = fill
-        return ext
+def no_exchange(bands):
+    """The in-place route's bands with every cell that comes from another
+    block left as fill: the row band's halo rows (its first and last ry)
+    and its halo columns (rx each side of the tile's), the column band's
+    halo columns (its first rx and [5 rx, 6 rx))."""
+    def wrapped(x, spec, fill):
+        grid = bands(x, spec, fill)
+        ry, rx = spec.ry, spec.rx
+        for i, row in enumerate(grid):
+            for j, (rows, cols) in enumerate(row):
+                wl = x.blocks[i][j].shape[-1]
+                if rows is not None:
+                    rows[..., :ry, :] = fill
+                    rows[..., 7 * ry:, :] = fill
+                    rows[..., :, :rx] = fill
+                    rows[..., :, rx + wl:2 * rx + wl] = fill
+                if cols is not None:
+                    cols[..., :rx] = fill
+                    cols[..., 5 * rx:6 * rx] = fill
+        return grid
     return wrapped
 
 
@@ -74,7 +82,7 @@ def test_a_broken_job_is_not_correct(bench_root, monkeypatch, cell, devices,
 
 
 def test_a_mesh_without_its_exchange_is_not_correct(bench_root, monkeypatch):
-    monkeypatch.setattr(halo, "halo_extend", no_exchange(halo.halo_extend))
+    monkeypatch.setattr(halo, "_bands", no_exchange(halo._bands))
     r = run.run("tinymesh-terrain", 9, 0.2, False, root=bench_root,
                 devices=[CPU] * 4)
     assert r["correct"] is False

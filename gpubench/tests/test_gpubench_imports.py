@@ -39,6 +39,7 @@ for op in ("terrain_pipeline", "circle_kernel"):
     b.reference(op)
 b.work("terrain_pipeline")
 b.check("stencil")
+b.check("chain")
 print(json.dumps(sorted(sys.modules)))
 """
 

@@ -1,8 +1,8 @@
 """The readers of the port's spans and counters (``portspans``): on a
 made-up trace and a made-up port whose clock lies a known offset from the
 trace's; silent where the port has no tracing module; and on a CPU run of
-a 2x2 mesh, every new metric reported, the halo counters at the count
-from the shapes."""
+a 2x2 mesh, every new metric reported, the halo counters of the in-place
+route at the count from the shapes."""
 
 import json
 import types
@@ -10,6 +10,7 @@ import types
 import pytest
 from conftest import CPU, REPO
 
+import xrspatial_torch.parallel.halo as halo
 from gpubench import portspans, run
 from gpubench import trace as tr
 from gpubench.run import Context, Job
@@ -162,11 +163,17 @@ def test_a_run_reports_every_new_metric(bench_root):
     assert r["correct"], r["checks"]
     got = {k: v["value"] for k, v in r["metrics"].items()}
     assert set(NEW) - {"setup.library_s"} <= set(got)
-    # a (96, 130) raster on 2x2: tiles 48 x 65, radius 1, rows of 68
-    # floats; two exchanges a job of 10 fills and 12 copies
-    ty, tx, pitch = 48, 65, 68
-    cells = (ty + 2) * pitch - (ty + 1) * (tx + 1) + ty * tx + ty + pitch
-    assert got["mesh.halo_ops"] == 44
+    # a (96, 130) raster on 2x2: tiles 48 x 65, radius 1, each stencil in
+    # place; two a job, each block's bands written by 10 fills and copies:
+    # a row band of 8 r rows of tx + 2 r + BAND_SLACK floats and a column
+    # band of ty rows of 6 r + BAND_SLACK, rows rounded up to 16 bytes
+    def pitch(width):
+        per = halo.ROW_ALIGN_BYTES // 4
+        return -(-width // per) * per
+    ty, tx, r = 48, 65, 1
+    cells = 8 * r * pitch(tx + 2 * r + halo.BAND_SLACK) \
+        + ty * pitch(6 * r + halo.BAND_SLACK)
+    assert got["mesh.halo_ops"] == 2 * 4 * 10
     assert got["mesh.halo_gib"] * 2 ** 30 == pytest.approx(2 * 4 * cells * 4)
     for k in NEW:
         assert k not in got or got[k] >= 0

@@ -297,3 +297,96 @@ def test_the_exact_viewshed_phases_are_spans(capsys):
                           "viewshed_exact.screen"]
     assert phases[-1] == "viewshed_exact.epilogue"
     assert all(s.name.startswith("viewshed_exact.") for s in spans)
+
+
+def geo_dem(shape=(48, 56), seed=4):
+    h, w = shape
+    return xt.DataArray(dem(shape, seed), dims=("y", "x"), name="dem",
+                        coords={"y": (h - np.arange(h) - 0.5) * 10.0,
+                                "x": (np.arange(w) + 0.5) * 10.0},
+                        attrs={"res": (10.0, 10.0)})
+
+
+def sites_job(data):
+    """The sites job: XDraw's viewshed from a 100 m mast, its hidden
+    cells, their distance to the nearest seen cell."""
+    vis = xt.viewshed(data, x=210.0, y=300.0, observer_elev=100.0,
+                      exact=False)
+    hidden = xt.classify.binary(vis, values=[-1])
+    depth = xt.proximity(hidden, target_values=[0],
+                         distance_metric="EUCLIDEAN")
+    return vis, hidden, depth
+
+
+SITES_SPANS = {
+    "api.viewshed": ["api.args", "torchops.viewshed_fields",
+                     "dispatch.xdraw", "torchops.viewshed_epilogue",
+                     "api.dataset"],
+    "api.binary": ["api.args", "torchops.binary", "api.dataset"],
+    "api.proximity": ["api.args", "torchops.proximity_mask",
+                      "torchops.proximity_mask", "dispatch.jfa",
+                      "torchops.proximity_epilogue",
+                      "torchops.proximity_epilogue", "api.dataset"]}
+
+
+def test_the_sites_spans_nest_as_named(tmp_path):
+    _, prof = traced(sites_job, geo_dem())
+    spans = tracing.spans()
+    by_index, children = _tree(spans)
+    roots = sorted(children[-1], key=lambda s: s.t0)
+    assert [r.name for r in roots] == list(SITES_SPANS)
+    for r in roots:
+        kids = sorted(children[r.index], key=lambda c: c.t0)
+        assert [c.name for c in kids] == SITES_SPANS[r.name]
+        for c in kids:
+            assert r.t0 <= c.t0 <= c.t1 <= r.t1 and c.request == r.request
+            # the passes and the dispatches hold no span of their own
+            assert children.get(c.index, []) == []
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    exported = {e["name"] for e in events if e.get("ph") == "X"}
+    assert {tracing.PREFIX + s.name for s in spans} <= exported
+
+
+def test_without_a_profiler_the_sites_job_records_nothing():
+    sites_job(geo_dem())
+    assert tracing.spans() == []
+    assert tracing.counters() == {}
+
+
+# where the host waits on the card: XDraw's fields copy the viewpoint's
+# row and column, the observer's height, the two spacings, the distance's
+# floor and the target's height to the card (``_f32``) and read the
+# floor back (``.item()``); its epilogue copies the target's height
+# again; proximity copies its two coordinate axes.  The CPU's twin of
+# X1 stands in for the kernel and waits for nothing.
+SYNCS = {"viewshed": 7 + 1 + 1, "binary": 0, "proximity": 2}
+
+
+def test_host_syncs_count_the_paths_transfer_sites():
+    data = geo_dem()
+    vis, hidden, _ = sites_job(data)
+    calls = {
+        "viewshed": lambda: xt.viewshed(data, x=210.0, y=300.0,
+                                        observer_elev=100.0, exact=False),
+        "binary": lambda: xt.classify.binary(vis, values=[-1]),
+        "proximity": lambda: xt.proximity(hidden, target_values=[0])}
+    for op, call in calls.items():
+        tracing.clear()
+        traced(call)
+        assert tracing.counters().get("host.syncs", 0) == SYNCS[op], op
+    tracing.clear()
+    traced(sites_job, data)
+    assert tracing.counters() == {"host.syncs": sum(SYNCS.values())} == \
+        {"host.syncs": 11}
+
+
+def test_the_sites_outputs_are_the_same_bits_under_the_profiler():
+    data = geo_dem(seed=9)
+    plain = sites_job(data)
+    under, _ = traced(sites_job, data)
+    for a, b in zip(plain, under):
+        assert torch.equal(torch.isnan(a.data), torch.isnan(b.data))
+        assert torch.equal(a.data.nan_to_num(-7.0), b.data.nan_to_num(-7.0))
+        assert a.data.dtype == b.data.dtype == torch.float32

@@ -27,6 +27,7 @@ import torch
 from .dataset_support import supports_dataset
 from .kernels.selection import nanpercentile, nanpercentile_sharded
 from .parallel.halo import get_raster_mesh, tiles
+from .tracing import span
 from .utils import (blockwise, host_copy, per_block, raster_payload,
                     wrap_like)
 from .xr_compat import _to_numpy, nanmax, nanmin, nanvar
@@ -77,14 +78,22 @@ def _nan_raster(data: torch.Tensor) -> torch.Tensor:
 @supports_dataset
 def binary(agg, values, name='binary'):
     """1 where the cell value is in `values`, 0 otherwise; NaN/inf -> NaN."""
-    def classes(data):
-        member = torch.zeros(data.shape, dtype=torch.bool,
-                             device=data.device)
-        for v in np.asarray(values, dtype=np.float32).ravel():
-            member = member | (data == float(v))
-        return torch.where(torch.isfinite(data), member.to(torch.float32),
-                           math.nan)
-    return wrap_like(agg, per_block(classes, agg), name)
+    with span("api.binary"):
+        with span("api.args"):
+            vals = [float(v) for v in
+                    np.asarray(values, dtype=np.float32).ravel()]
+
+        def classes(data):
+            with span("torchops.binary"):
+                member = torch.zeros(data.shape, dtype=torch.bool,
+                                     device=data.device)
+                for v in vals:
+                    member = member | (data == v)
+                return torch.where(torch.isfinite(data),
+                                   member.to(torch.float32), math.nan)
+        out = per_block(classes, agg)
+        with span("api.dataset"):
+            return wrap_like(agg, out, name)
 
 
 @supports_dataset

@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from ..tracing import count, span
 from . import jfa_rounds
 from .jfa_rounds import (EUCLIDEAN, GREAT_CIRCLE, MANHATTAN, PACK_BITS,
                          PACK_MASK, coords_key, metric_key)
@@ -268,24 +269,27 @@ def _jfa_packed(target_mask, values, strides, metric, plan):
     steps, (y0, x0) = plan
     h, w = target_mask.shape
     dev = target_mask.device
-    iy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
-    ix = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
-    state = torch.where(target_mask, (iy << PACK_BITS) | ix, -1)
-    value = None
-    if values is not None:
-        value = torch.where(target_mask, values.to(torch.float32), 0.0)
+    with span("torchops.proximity_mask"):
+        iy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+        ix = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+        state = torch.where(target_mask, (iy << PACK_BITS) | ix, -1)
+        value = None
+        if values is not None:
+            value = torch.where(target_mask, values.to(torch.float32), 0.0)
     best = None
-    for n, k in enumerate(strides):
-        state, value, best = _round_packed(
-            state, value, int(k), metric, steps,
-            emit_best=n == len(strides) - 1)
-    valid = state >= 0
-    tiy = (state >> PACK_BITS).to(torch.float32)
-    tix = (state & PACK_MASK).to(torch.float32)
-    # bitwise-verified reconstruction (packed_state_plan, condition 2)
-    t_x = torch.where(valid, x0 + tix * steps[1], math.inf)
-    t_y = torch.where(valid, y0 + tiy * steps[0], math.inf)
-    return _metric_finalize(best, metric), t_x, t_y, value
+    with span("dispatch.jfa"):
+        for n, k in enumerate(strides):
+            state, value, best = _round_packed(
+                state, value, int(k), metric, steps,
+                emit_best=n == len(strides) - 1)
+    with span("torchops.proximity_epilogue"):
+        valid = state >= 0
+        tiy = (state >> PACK_BITS).to(torch.float32)
+        tix = (state & PACK_MASK).to(torch.float32)
+        # bitwise-verified reconstruction (packed_state_plan, condition 2)
+        t_x = torch.where(valid, x0 + tix * steps[1], math.inf)
+        t_y = torch.where(valid, y0 + tiy * steps[0], math.inf)
+        return _metric_finalize(best, metric), t_x, t_y, value
 
 
 def _jfa_coords(target_mask, values, xs, ys, strides, metric):
@@ -293,15 +297,19 @@ def _jfa_coords(target_mask, values, xs, ys, strides, metric):
     ``jump_flood`` result."""
     px = xs[None, :]
     py = ys[:, None]
-    tx = torch.where(target_mask, px, math.inf)
-    ty = torch.where(target_mask, py, math.inf)
-    value = None
-    if values is not None:
-        value = torch.where(target_mask, values.to(torch.float32), 0.0)
-    for k in strides:
-        tx, ty, value = _round_coords(tx, ty, value, xs, ys, int(k), metric)
-    best = coords_key(px, py, tx, ty, metric)
-    return _metric_finalize(best, metric), tx, ty, value
+    with span("torchops.proximity_mask"):
+        tx = torch.where(target_mask, px, math.inf)
+        ty = torch.where(target_mask, py, math.inf)
+        value = None
+        if values is not None:
+            value = torch.where(target_mask, values.to(torch.float32), 0.0)
+    with span("dispatch.jfa"):
+        for k in strides:
+            tx, ty, value = _round_coords(tx, ty, value, xs, ys, int(k),
+                                          metric)
+    with span("torchops.proximity_epilogue"):
+        best = coords_key(px, py, tx, ty, metric)
+        return _metric_finalize(best, metric), tx, ty, value
 
 
 def jump_flood(target_mask, xs, ys, metric: int, values=None,
@@ -336,6 +344,7 @@ def jump_flood(target_mask, xs, ys, metric: int, values=None,
     if metric == MANHATTAN:
         plan = manhattan_plan
         if plan == "auto":
+            count("host.syncs", 2)      # two reads back to the host
             plan = manhattan_scan_plan(xs.cpu().numpy(), ys.cpu().numpy())
         if plan is not None:
             return _manhattan_flipped(target_mask, xs, ys, values,
@@ -344,6 +353,7 @@ def jump_flood(target_mask, xs, ys, metric: int, values=None,
     strides = _stride_schedule(max(h, w))
     pplan = packed_plan
     if pplan == "auto":
+        count("host.syncs", 2)          # two reads back to the host
         pplan = packed_state_plan(xs.cpu().numpy(), ys.cpu().numpy(),
                                   metric)
     if pplan is not None:
@@ -353,6 +363,7 @@ def jump_flood(target_mask, xs, ys, metric: int, values=None,
 
 def _host_axis(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
+        count("host.syncs")             # a read back to the host
         v = v.detach().cpu().numpy()
     return np.ascontiguousarray(v, dtype=np.float32)
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..parallel.halo import _sources
+from ..tracing import count, span
 from .staged import SMEM_PER_BLOCK, SMEM_PER_SM
 
 __all__ = ["viewshed_grid", "viewshed_grid_los", "xdraw_scan_twin",
@@ -596,8 +597,16 @@ def viewshed_grid(data, vp_row: int, vp_col: int, observer_elev: float,
 # ---------------------------------------------------------------------------
 
 
-def _f32(x, device):
+def _scalar32(x, device):
     return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _f32(x, device):
+    """`x` as a float32 scalar on `device`: on the card a blocking copy
+    from the host, counted on ``host.syncs`` (the twins, which stand in
+    for a kernel on the CPU, take ``_scalar32``)."""
+    count("host.syncs")
+    return _scalar32(x, device)
 
 
 def _shift(arr, dy, dx, fill):
@@ -624,27 +633,32 @@ def _xdraw_fields(data, vp_row, vp_col, observer_elev, target_elev,
     whose cell (0, 0) is the raster's `origin`; `vp_elev` (the viewpoint's
     elevation plus the observer's, on `data`'s device) is then given, as
     the block need not hold the viewpoint."""
-    h, w = data.shape
-    dev = data.device
-    y0, x0 = origin
-    vp_r, vp_c = _f32(vp_row, dev), _f32(vp_col, dev)
-    if vp_elev is None:
-        vp_elev = data[vp_row - y0, vp_col - x0] + _f32(observer_elev, dev)
-    dy = torch.arange(y0, y0 + h, dtype=torch.float32,
-                      device=dev)[:, None] - vp_r
-    dx = torch.arange(x0, x0 + w, dtype=torch.float32,
-                      device=dev)[None, :] - vp_c
-    wx = dx * _f32(ew_res, dev)
-    wy = dy * _f32(ns_res, dev)
-    dist_w = torch.sqrt(wx * wx + wy * wy)
-    safe_d = torch.clamp(dist_w, min=_f32(1e-12, dev).item())
-    slope_self = torch.where(dist_w > 0, (data - vp_elev) / safe_d,
-                             float("-inf"))
-    slope_tgt = torch.where(
-        dist_w > 0, (data + _f32(target_elev, dev) - vp_elev) / safe_d,
-        float("inf"))
-    dy, dx = torch.broadcast_tensors(dy, dx)
-    return dy, dx, safe_d, slope_self, slope_tgt, vp_elev
+    with span("torchops.viewshed_fields"):
+        h, w = data.shape
+        dev = data.device
+        y0, x0 = origin
+        vp_r, vp_c = _f32(vp_row, dev), _f32(vp_col, dev)
+        if vp_elev is None:
+            vp_elev = (data[vp_row - y0, vp_col - x0]
+                       + _f32(observer_elev, dev))
+        dy = torch.arange(y0, y0 + h, dtype=torch.float32,
+                          device=dev)[:, None] - vp_r
+        dx = torch.arange(x0, x0 + w, dtype=torch.float32,
+                          device=dev)[None, :] - vp_c
+        wx = dx * _f32(ew_res, dev)
+        wy = dy * _f32(ns_res, dev)
+        dist_w = torch.sqrt(wx * wx + wy * wy)
+        tiny = _f32(1e-12, dev)
+        count("host.syncs")         # .item(): a read back to the host
+        safe_d = torch.clamp(dist_w, min=tiny.item())
+        slope_self = torch.where(dist_w > 0, (data - vp_elev) / safe_d,
+                                 float("-inf"))
+        slope_tgt = torch.where(
+            dist_w > 0,
+            (data + _f32(target_elev, dev) - vp_elev) / safe_d,
+            float("inf"))
+        dy, dx = torch.broadcast_tensors(dy, dx)
+        return dy, dx, safe_d, slope_self, slope_tgt, vp_elev
 
 
 def xdraw_scan_twin(slope, vp_row: int, vp_col: int) -> torch.Tensor:
@@ -671,14 +685,15 @@ def xdraw_scan_twin(slope, vp_row: int, vp_col: int) -> torch.Tensor:
         return torch.nn.functional.pad(v, (0, n - v.shape[0]),
                                        value=float(3 * n))
 
-    dy_vec = torch.arange(h, dtype=torch.float32, device=dev) - _f32(
+    f32 = _scalar32
+    dy_vec = torch.arange(h, dtype=torch.float32, device=dev) - f32(
         vp_row, dev)
-    dx_vec = torch.arange(w, dtype=torch.float32, device=dev) - _f32(
+    dx_vec = torch.arange(w, dtype=torch.float32, device=dev) - f32(
         vp_col, dev)
     minor = torch.stack([pad1(dy_vec), pad1(dy_vec), pad1(dx_vec),
                          pad1(dx_vec)])                         # (4, N)
-    vpm = torch.stack([_f32(vp_col, dev), _f32(w - 1, dev) - _f32(vp_col, dev),
-                       _f32(vp_row, dev), _f32(h - 1, dev) - _f32(vp_row, dev)])
+    vpm = torch.stack([f32(vp_col, dev), f32(w - 1, dev) - f32(vp_col, dev),
+                       f32(vp_row, dev), f32(h - 1, dev) - f32(vp_row, dev)])
     ady = torch.abs(minor)
     sy = torch.sign(minor)
     use_sec = ady > 0
@@ -693,7 +708,7 @@ def xdraw_scan_twin(slope, vp_row: int, vp_col: int) -> torch.Tensor:
         if k < h:
             s_k[2, :w] = slope[k]
             s_k[3, :w] = slope[h - 1 - k]
-        dxf = (_f32(k, dev) - vpm)[:, None]
+        dxf = (f32(k, dev) - vpm)[:, None]
         mask = (ady <= dxf) & (dxf > 0)
         prim = m
         up = torch.cat([edge, m[:, :-1]], 1)
@@ -794,10 +809,11 @@ def _xdraw_octant_masks(dy, dx):
 def xdraw_max_slope(slope, vp_row: int, vp_col: int) -> torch.Tensor:
     """The XDraw running max slope: the CUDA kernel for a tensor on the
     card (its wrapper raises on one elsewhere), the twin on the CPU."""
-    if slope.device.type == "cpu":
-        return xdraw_scan_twin(slope, vp_row, vp_col)
-    from .cuda_xdraw import xdraw_scan_cuda
-    return xdraw_scan_cuda(slope, vp_row, vp_col)
+    with span("dispatch.xdraw"):
+        if slope.device.type == "cpu":
+            return xdraw_scan_twin(slope, vp_row, vp_col)
+        from .cuda_xdraw import xdraw_scan_cuda
+        return xdraw_scan_cuda(slope, vp_row, vp_col)
 
 
 def _xdraw_inward_max(m, dy, dx):
@@ -843,8 +859,9 @@ def _xdraw_inward_max(m, dy, dx):
 def _xdraw_epilogue(m, data, dy, dx, safe_d, slope_tgt, vp_elev,
                     target_elev):
     """Combined max-slope field -> visibility + vertical angles."""
-    return _xdraw_angles(_xdraw_inward_max(m, dy, dx), data, dy, dx, safe_d,
-                         slope_tgt, vp_elev, target_elev)
+    with span("torchops.viewshed_epilogue"):
+        return _xdraw_angles(_xdraw_inward_max(m, dy, dx), data, dy, dx,
+                             safe_d, slope_tgt, vp_elev, target_elev)
 
 
 def _xdraw_angles(inward_max, data, dy, dx, safe_d, slope_tgt, vp_elev,
@@ -972,24 +989,25 @@ def xdraw_strip_twin(slope, carry, s0: int, steps: int, lane_lo: int,
     """
     r, s = slope.shape
     dev = slope.device
+    f32 = _scalar32
     neginf = float("-inf")
     n = max(0, min(steps, s - s0))
     g = torch.arange(lane_lo, lane_lo + r, device=dev)
     minor = torch.where(g < n_lanes,
-                        g.to(torch.float32) - _f32(vp_lane, dev),
+                        g.to(torch.float32) - f32(vp_lane, dev),
                         float(3 * max(n_lanes, s)))
     ady = torch.abs(minor)[None]
     sy = torch.sign(minor)[None]
     use_sec = ady > 0
-    vpm = torch.stack([_f32(vp_major, dev),
-                       _f32(s - 1, dev) - _f32(vp_major, dev)])[:, None]
+    vpm = torch.stack([f32(vp_major, dev),
+                       f32(s - 1, dev) - f32(vp_major, dev)])[:, None]
     edge = torch.full((2, 1), neginf, device=dev)
     m = carry
     lines = torch.empty((2, r, n), dtype=torch.float32, device=dev)
     for i in range(n):
         k = s0 + i
         s_k = torch.stack([slope[:, k], slope[:, s - 1 - k]])
-        dxf = _f32(k, dev) - vpm
+        dxf = f32(k, dev) - vpm
         mask = (ady <= dxf) & (dxf > 0)
         up = torch.cat([edge, m[:, :-1]], 1)
         down = torch.cat([m[:, 1:], edge], 1)

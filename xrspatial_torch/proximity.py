@@ -28,6 +28,7 @@ from .dataset_support import supports_dataset
 from .kernels.jfa import (EUCLIDEAN, GREAT_CIRCLE, MANHATTAN, jump_flood,
                           manhattan_scan_plan, packed_state_plan)
 from .parallel.halo import get_raster_mesh, zip_blocks
+from .tracing import count, span
 from .utils import raster_payload, wrap_like
 from .xrlib import DataArray
 
@@ -81,12 +82,13 @@ def great_circle_distance(x1: float, x2: float, y1: float, y2: float,
 def _target_mask(img, target_values):
     """Target cells: any non-zero finite cell when `target_values` is
     empty, else the cells equal to one of them."""
-    if len(target_values) == 0:
-        return (img != 0) & torch.isfinite(img)
-    mask = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
-    for v in target_values:
-        mask = mask | (img == v)
-    return mask
+    with span("torchops.proximity_mask"):
+        if len(target_values) == 0:
+            return (img != 0) & torch.isfinite(img)
+        mask = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
+        for v in target_values:
+            mask = mask | (img == v)
+        return mask
 
 
 def _compass_direction(px, tx, py, ty):
@@ -107,36 +109,42 @@ def _coords_of(raster, dim, dtype):
 
 def _process(raster, x, y, target_values, max_distance, distance_metric,
              mode):
-    if tuple(raster.dims) != (y, x):
-        raise ValueError(
-            "raster.coords should be named as coordinates:"
-            "({0}, {1})".format(y, x))
-
-    metric = DISTANCE_METRICS.get(distance_metric, EUCLIDEAN)
-    if max_distance is None:
-        max_distance = np.inf
-
-    xs_np = _coords_of(raster, x, np.float32)
-    ys_np = _coords_of(raster, y, np.float32)
-    if metric == GREAT_CIRCLE:
-        if xs_np.size and (xs_np.min() < -180 or xs_np.max() > 180):
+    with span("api.args"):
+        if tuple(raster.dims) != (y, x):
             raise ValueError(
-                "Invalid x-coordinate for great circle distance. "
-                "Must be in the range [-180, 180]")
-        if ys_np.size and (ys_np.min() < -90 or ys_np.max() > 90):
-            raise ValueError(
-                "Invalid y-coordinate for great circle distance. "
-                "Must be in the range [-90, 90]")
-    img = raster_payload(raster, dtype=None)
-    mesh = get_raster_mesh(img)
+                "raster.coords should be named as coordinates:"
+                "({0}, {1})".format(y, x))
 
-    targets = tuple(float(v) for v in np.asarray(target_values).ravel())
-    mplan = manhattan_scan_plan(xs_np, ys_np) if metric == MANHATTAN \
-        else None
-    pplan = packed_state_plan(xs_np, ys_np, metric)
-    px_np = _coords_of(raster, x, np.float64)
-    py_np = _coords_of(raster, y, np.float64)
-    bound = float(np.float32(max_distance))
+        metric = DISTANCE_METRICS.get(distance_metric, EUCLIDEAN)
+        if max_distance is None:
+            max_distance = np.inf
+
+        xs_np = _coords_of(raster, x, np.float32)
+        ys_np = _coords_of(raster, y, np.float32)
+        if metric == GREAT_CIRCLE:
+            if xs_np.size and (xs_np.min() < -180 or xs_np.max() > 180):
+                raise ValueError(
+                    "Invalid x-coordinate for great circle distance. "
+                    "Must be in the range [-180, 180]")
+            if ys_np.size and (ys_np.min() < -90 or ys_np.max() > 90):
+                raise ValueError(
+                    "Invalid y-coordinate for great circle distance. "
+                    "Must be in the range [-90, 90]")
+        img = raster_payload(raster, dtype=None)
+        mesh = get_raster_mesh(img)
+
+        targets = tuple(float(v) for v in np.asarray(target_values).ravel())
+        mplan = manhattan_scan_plan(xs_np, ys_np) if metric == MANHATTAN \
+            else None
+        pplan = packed_state_plan(xs_np, ys_np, metric)
+        px_np = _coords_of(raster, x, np.float64)
+        py_np = _coords_of(raster, y, np.float64)
+        bound = float(np.float32(max_distance))
+        if mesh is None:
+            dev = img.device
+            count("host.syncs", 2)      # two blocking copies to the card
+            xs = torch.from_numpy(xs_np).to(dev)
+            ys = torch.from_numpy(ys_np).to(dev)
     if mesh is not None:
         # the jump flood per block behind halos; the epilogue per block
         mask = img.map_blocks(lambda b: _target_mask(b, targets))
@@ -152,11 +160,9 @@ def _process(raster, x, y, target_values, max_distance, distance_metric,
                              px_np[x0:x1], py_np[y0:y1], bound)
 
         return zip_blocks(block, *rasters)
-    dev = img.device
     mask = _target_mask(img, targets)
     dist, t_x, t_y, t_val = jump_flood(
-        mask, torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev),
-        metric, values=img if mode == ALLOCATION else None,
+        mask, xs, ys, metric, values=img if mode == ALLOCATION else None,
         need_coords=(mode == DIRECTION), manhattan_plan=mplan,
         packed_plan=pplan)
     return _epilogue(mode, dist, t_x, t_y, t_val, px_np, py_np, bound)
@@ -165,24 +171,26 @@ def _process(raster, x, y, target_values, max_distance, distance_metric,
 def _epilogue(mode, dist, t_x, t_y, t_val, px_np, py_np, bound):
     """The result of `mode` from the jump flood's planes; `bound` is
     max_distance in float32, as the distances are."""
-    reachable = torch.isfinite(t_x) & (dist <= bound)
-    if mode == PROXIMITY:
-        return torch.where(reachable, dist, math.nan)
-    if mode == ALLOCATION:
-        return torch.where(reachable, t_val, math.nan)
+    with span("torchops.proximity_epilogue"):
+        reachable = torch.isfinite(t_x) & (dist <= bound)
+        if mode == PROXIMITY:
+            return torch.where(reachable, dist, math.nan)
+        if mode == ALLOCATION:
+            return torch.where(reachable, t_val, math.nan)
 
-    # float64 epilogue: the reference computes bearings in float64 with an
-    # imprecise degree constant (57.29578), and the branch at exact north
-    # matches only in float64.  The carried float32 target coordinates are
-    # exact coordinate values, so == against the cells' own coordinates
-    # still holds at the target itself.
-    dev = dist.device
-    px = torch.from_numpy(np.ascontiguousarray(px_np)).to(dev)[None, :]
-    py = torch.from_numpy(np.ascontiguousarray(py_np)).to(dev)[:, None]
-    return torch.where(reachable,
-                       _compass_direction(px, t_x.to(torch.float64), py,
-                                          t_y.to(torch.float64)),
-                       math.nan)
+        # float64 epilogue: the reference computes bearings in float64 with an
+        # imprecise degree constant (57.29578), and the branch at exact north
+        # matches only in float64.  The carried float32 target coordinates are
+        # exact coordinate values, so == against the cells' own coordinates
+        # still holds at the target itself.
+        dev = dist.device
+        count("host.syncs", 2)      # two blocking copies to the card
+        px = torch.from_numpy(np.ascontiguousarray(px_np)).to(dev)[None, :]
+        py = torch.from_numpy(np.ascontiguousarray(py_np)).to(dev)[:, None]
+        return torch.where(reachable,
+                           _compass_direction(px, t_x.to(torch.float64), py,
+                                              t_y.to(torch.float64)),
+                           math.nan)
 
 
 @supports_dataset
@@ -196,9 +204,11 @@ def proximity(raster: DataArray, x: str = "x", y: str = "y",
     coordinate space with the chosen metric (EUCLIDEAN, GREAT_CIRCLE,
     MANHATTAN); pixels farther than `max_distance` are NaN.
     """
-    out = _process(raster, x, y, target_values, max_distance,
-                   distance_metric, PROXIMITY)
-    return wrap_like(raster, out, None)
+    with span("api.proximity"):
+        out = _process(raster, x, y, target_values, max_distance,
+                       distance_metric, PROXIMITY)
+        with span("api.dataset"):
+            return wrap_like(raster, out, None)
 
 
 @supports_dataset
@@ -206,9 +216,11 @@ def allocation(raster: DataArray, x: str = "x", y: str = "y",
                target_values: list = [], max_distance: float = np.inf,
                distance_metric: str = "EUCLIDEAN") -> DataArray:
     """Raster value of each pixel's nearest target."""
-    out = _process(raster, x, y, target_values, max_distance,
-                   distance_metric, ALLOCATION)
-    return wrap_like(raster, out, None)
+    with span("api.allocation"):
+        out = _process(raster, x, y, target_values, max_distance,
+                       distance_metric, ALLOCATION)
+        with span("api.dataset"):
+            return wrap_like(raster, out, None)
 
 
 @supports_dataset
@@ -217,6 +229,8 @@ def direction(raster: DataArray, x: str = "x", y: str = "y",
               distance_metric: str = "EUCLIDEAN") -> DataArray:
     """Compass direction (90=E, 180=S, 270=W, 360=N, 0=self) from each
     pixel to its nearest target."""
-    out = _process(raster, x, y, target_values, max_distance,
-                   distance_metric, DIRECTION)
-    return wrap_like(raster, out, None)
+    with span("api.direction"):
+        out = _process(raster, x, y, target_values, max_distance,
+                       distance_metric, DIRECTION)
+        with span("api.dataset"):
+            return wrap_like(raster, out, None)

@@ -19,22 +19,39 @@ library was stale), once a process: recorded whatever the flag says.
 
 The spans, at the boundaries of the port's layers:
 
-- ``api.<op>``: a public op (``terrain_pipeline``, ``focal_stats``);
-  ``api.args``: its argument checks, footprint, resolution and payload;
-  ``api.dataset``: the DataArrays and the Dataset of its result;
+- ``api.<op>``: a public op (``terrain_pipeline``, ``focal_stats``,
+  ``viewshed`` on its XDraw routes, ``binary``, ``proximity``,
+  ``allocation``, ``direction``); ``api.args``: its argument checks,
+  footprint, resolution, coordinate reads, the viewpoint's snapping and
+  the payload; ``api.dataset``: the DataArrays and the Dataset of its
+  result;
+- ``torchops.<pass>``: the host issuing an op's passes of torch ops
+  (no kernel of the port's own): ``viewshed_fields`` and
+  ``viewshed_epilogue`` (XDraw's slope fields, and its inward max,
+  visibility and angles), ``binary`` (the classes), ``proximity_mask``
+  (the target mask and the rounds' seed state) and
+  ``proximity_epilogue`` (the state's decode, the distance and the
+  result's mask);
 - ``dispatch.surface``, ``dispatch.focal``: from the route choice to the
   last launch's return (plans, outputs, the launch; on a mesh the loop
   over blocks, each block's own dispatch span inside);
+  ``dispatch.xdraw``: XDraw's plan and the launch of its scans (the twin
+  on the CPU); ``dispatch.jfa``: the jump flood's loop of rounds;
 - ``mesh.halo_extend``: issuing one halo exchange's fills and copies
   (an in-place stencil's: its bands' strips);
-- ``viewshed_exact.<phase>``: the exact viewshed's phases;
+- ``viewshed_exact.<phase>``: the exact viewshed's phases (the exact
+  route's roots: no ``api.viewshed`` around them);
 - ``setup.library``, ``setup.build``: the library's hash, build and load.
 
 The counters: ``mesh.halo_ops`` (the fills and copies a halo exchange, an
 in-place stencil's bands or a strip layout issues), ``mesh.halo_bytes``
-(the bytes they write), and ``mesh.inplace_blocks`` and
+(the bytes they write), ``mesh.inplace_blocks`` and
 ``mesh.extended_blocks`` (the blocks of each mesh stencil, by the route it
-took).
+took), and ``host.syncs``: one for each call at which the host waits on
+the card on the paths of XDraw's viewshed and of the proximity family (a
+blocking copy from the host, ``kernels/viewshed.py::_f32`` and ``.to``
+of a host array; a read back, ``.item()`` and ``.cpu()``), counted on any
+device, so a run on the CPU counts what one on the card waits for.
 
 Read with ``spans()`` and ``counters()``; ``clear()`` empties both.  The
 profiler's Chrome trace (``export_chrome_trace``) is the export.

@@ -36,6 +36,7 @@ import numpy as np
 from .kernels.viewshed import viewshed_grid_los, viewshed_grid_los_mesh
 from .kernels.viewshed_exact import viewshed_grid_exact
 from .parallel.halo import get_raster_mesh
+from .tracing import OFF, span
 from .utils import to_torch, wrap_like
 from .xrlib import DataArray
 
@@ -78,42 +79,51 @@ def viewshed(raster: DataArray,
         (default) takes the exact predicate up to 1024x1024 cells and
         XDraw above.
     """
-    y_coords = np.asarray(raster['y'].data)
-    x_coords = np.asarray(raster['x'].data)
-
-    if not (x_coords.min() <= x <= x_coords.max()):
-        raise ValueError("x argument outside of raster x_range")
-    if not (y_coords.min() <= y <= y_coords.max()):
-        raise ValueError("y argument outside of raster y_range")
-
     height, width = raster.shape
-    y_view = int(np.argmin(np.abs(y_coords - y)))
-    x_view = int(np.argmin(np.abs(x_coords - x)))
-
-    ew_res = (x_coords[-1] - x_coords[0]) / (width - 1)
-    ns_res = (y_coords[-1] - y_coords[0]) / (height - 1)
-
     use_exact = (height * width <= _EXACT_MAX_CELLS
                  if exact is None else bool(exact))
-    mesh = get_raster_mesh(raster.data)
-    if use_exact:
-        if mesh is not None:
-            # the exact bucket evaluation is host-orchestrated (no
-            # distributed formulation)
-            warnings.warn(
-                "viewshed(exact): input is mesh-sharded but the exact "
-                "predicate runs on ONE device (correct, not distributed).",
-                UserWarning, stacklevel=2)
-            elev = raster.data.gather()
+    # the exact predicate keeps its own spans (viewshed_exact.*) as roots
+    with _span(not use_exact, "api.viewshed"):
+        with _span(not use_exact, "api.args"):
+            y_coords = np.asarray(raster['y'].data)
+            x_coords = np.asarray(raster['x'].data)
+
+            if not (x_coords.min() <= x <= x_coords.max()):
+                raise ValueError("x argument outside of raster x_range")
+            if not (y_coords.min() <= y <= y_coords.max()):
+                raise ValueError("y argument outside of raster y_range")
+
+            y_view = int(np.argmin(np.abs(y_coords - y)))
+            x_view = int(np.argmin(np.abs(x_coords - x)))
+
+            ew_res = (x_coords[-1] - x_coords[0]) / (width - 1)
+            ns_res = (y_coords[-1] - y_coords[0]) / (height - 1)
+            mesh = get_raster_mesh(raster.data)
+        if use_exact:
+            if mesh is not None:
+                # the exact bucket evaluation is host-orchestrated (no
+                # distributed formulation)
+                warnings.warn(
+                    "viewshed(exact): input is mesh-sharded but the exact "
+                    "predicate runs on ONE device (correct, not "
+                    "distributed).", UserWarning, stacklevel=2)
+                elev = raster.data.gather()
+            else:
+                elev = to_torch(raster, dtype=None)
+            out = viewshed_grid_exact(elev, y_view, x_view, observer_elev,
+                                      target_elev, ew_res, ns_res)
+        elif mesh is not None:
+            out = viewshed_grid_los_mesh(raster.data, y_view, x_view,
+                                         observer_elev, target_elev, ew_res,
+                                         ns_res)
         else:
-            elev = to_torch(raster, dtype=None)
-        out = viewshed_grid_exact(elev, y_view, x_view, observer_elev,
-                                  target_elev, ew_res, ns_res)
-    elif mesh is not None:
-        out = viewshed_grid_los_mesh(raster.data, y_view, x_view,
-                                     observer_elev, target_elev, ew_res,
-                                     ns_res)
-    else:
-        out = viewshed_grid_los(to_torch(raster), y_view, x_view,
-                                observer_elev, target_elev, ew_res, ns_res)
-    return wrap_like(raster, out, raster.name)
+            out = viewshed_grid_los(to_torch(raster), y_view, x_view,
+                                    observer_elev, target_elev, ew_res,
+                                    ns_res)
+        with _span(not use_exact, "api.dataset"):
+            return wrap_like(raster, out, raster.name)
+
+
+def _span(on: bool, name: str):
+    """Span `name` where `on`, else the no-op context."""
+    return span(name) if on else OFF

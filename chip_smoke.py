@@ -215,13 +215,17 @@ Phases, each fatal on failure:
    17x1, 1x23, 300x70, 70x300 and 263x516 with NaN cells, the viewpoint at
    every corner and inside, and at 4096^2 and 16384^2 at the JAX bench's
    viewpoint; ``viewshed`` at 4096^2 (x = y = 100, observer 100,
-   ``bench.py:343-344``) and at 16384^2: one X1 launch each on the banded
-   route, no twin call, no other kernel, float32 on the card; at 4096^2
-   equal to the CPU's visibility at every cell; agreement with
-   ``exact=True`` at 1024^2 at least 0.985; warm ms of the call, X1 and
-   its first port in turns, the twin; the banded kernel on one lane (a
-   1 x N row), whose ms a step times the longest walk is X1's chain
-   bound;
+   ``bench.py:343-344``) and at 16384^2: one launch each of X1 on the
+   banded route and of the cell kernels X3 (``xdraw_fields_kernel``) and
+   X4 (``xdraw_epilogue_kernel``, ``csrc/xdraw_cells.cu``), no twin call,
+   no other kernel, float32 on the card; at both sizes X3 against
+   ``_xdraw_fields``' slope and X4 against ``_xdraw_epilogue``'s angles,
+   the torch passes on the card, bit for bit; at 4096^2 equal to the
+   CPU's visibility at every cell; agreement with ``exact=True`` at
+   1024^2 at least 0.985; warm ms of the call, X1 and its first port in
+   turns, the twin, X3 and X4 each in turns with its torch passes at
+   16384^2; the banded kernel on one lane (a 1 x N row), whose ms a step
+   times the longest walk is X1's chain bound;
 26. A9 and A12: the bump kernel X2 (``csrc/bump.cu``) on its rounds route
    against its twin bit for bit at spreads 0, 1 and 3 (600 bumps on
    23x17: duplicate locations, every edge and corner, non-integer
@@ -267,8 +271,10 @@ Phases, each fatal on failure:
    twin on the card at 4096^2, bit for bit, on a 2x2 mesh whose strips are
    narrower than L, the viewpoint on strips' edge lanes; ``viewshed(exact=False)`` at 16384^2 at the JAX bench's
    viewpoint on 2x2 and 1x4 meshes, equal to the unsharded call bit for
-   bit, only strip launches inside the call (``cuda_xdraw.
-   XDRAW_STRIP_LAUNCHES``, no single-card X1), warm ms and peak memory
+   bit, only strip launches and one launch each of X3 and X4 a block
+   inside the call (``cuda_xdraw.XDRAW_STRIP_LAUNCHES``, ``cuda_xdraw_cells.
+   FIELDS_LAUNCHES``/``EPILOGUE_LAUNCHES``, no single-card X1), warm ms
+   and peak memory
    beside the unsharded call's; the strip route at every L of
    ``XDRAW_STRIP_STEPS``, in turns; then every op the JAX package leaves
    to GSPMD on the 2x2 mesh against the unsharded call, no kernel
@@ -1311,7 +1317,9 @@ def reset_launches():
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
     from xrspatial_torch.kernels import cuda_bump, cuda_xdraw
+    from xrspatial_torch.kernels import cuda_xdraw_cells
     cuda_xdraw.XDRAW_LAUNCHES = cuda_bump.BUMP_LAUNCHES = 0
+    cuda_xdraw_cells.FIELDS_LAUNCHES = cuda_xdraw_cells.EPILOGUE_LAUNCHES = 0
     cuda_xdraw.XDRAW_SIMPLE_LAUNCHES = cuda_bump.BUMP_SIMPLE_LAUNCHES = 0
     cuda_xdraw.XDRAW_STRIP_LAUNCHES = 0
     cuda_surface.LAUNCHES = cuda_window.LAUNCHES = 0
@@ -1351,6 +1359,7 @@ def read_launches():
     from xrspatial_torch.kernels import cuda_stream, cuda_surface, cuda_window
     from xrspatial_torch.kernels import cuda_jfa_group, cuda_stencil_probe
     from xrspatial_torch.kernels import cuda_bump, cuda_xdraw
+    from xrspatial_torch.kernels import cuda_xdraw_cells
     return {"surface_kernel": cuda_surface.LAUNCHES,
             "focal_kernel": cuda_window.LAUNCHES,
             "focal_halo_kernel": cuda_window.HALO_LAUNCHES,
@@ -1381,6 +1390,8 @@ def read_launches():
             "xdraw_scan": cuda_xdraw.XDRAW_LAUNCHES,
             "xdraw_simple": cuda_xdraw.XDRAW_SIMPLE_LAUNCHES,
             "xdraw_strip": cuda_xdraw.XDRAW_STRIP_LAUNCHES,
+            "xdraw_fields": cuda_xdraw_cells.FIELDS_LAUNCHES,
+            "xdraw_epilogue": cuda_xdraw_cells.EPILOGUE_LAUNCHES,
             "bump_scan": cuda_bump.BUMP_LAUNCHES,
             "bump_simple": cuda_bump.BUMP_SIMPLE_LAUNCHES}
 
@@ -3535,6 +3546,16 @@ XDRAW_ANGLE_RTOL = 1e-6
 # float operations per cone cell of the scan (xdraw.cu: the minor offset
 # and its abs, the division, 1 - wsec, two products, the sum, the max)
 XDRAW_OPS = 8
+# float operations per cell of the cell kernels (xdraw_cells.cu): cell_at's
+# 2 differences, 4 products, sum, square root and floor (9); the fields add
+# the height's difference, the division and the distance's test; the
+# epilogue adds the window's 2 abs, 2 max and min, wsec's division, the
+# interpolation's difference, 2 products and sum, the ring's test, the
+# target's sum, difference, division and test, the visibility test, diff
+# and its test, and on a visible cell a division, atanf (counted as one), 2
+# products and a sum
+XFIELDS_OPS = 12
+XEPILOGUE_OPS = 32
 # X1's bands and chunks timed beside the plan's
 XDRAW_SWEEP = ((32, 16), (32, 32), (64, 16), (64, 32), (128, 32), (256, 32),
                (512, 16))
@@ -3808,10 +3829,47 @@ def xdraw_cone_reads(h, w, vp_row, vp_col):
                + ((dy < 0) & (dx.abs() <= -dy)).sum())
 
 
+def xdraw_cells(data, vp, oe, m, timed):
+    """X3 and X4 (``csrc/xdraw_cells.cu``) on `data` seen from `vp` at
+    observer height `oe` (target 0, cells 1 apart, north up) against their
+    plain versions, the torch passes ``_xdraw_fields`` and
+    ``_xdraw_epilogue`` on the card, bit for bit, the epilogue on X1's
+    field `m`.  With `timed`, each kernel and its torch passes in turns
+    (plain, kernel, kernel, plain): {name: (kernel ms, plain ms)}; else
+    {}."""
+    from xrspatial_torch.kernels import cuda_xdraw_cells as xc
+    from xrspatial_torch.kernels import viewshed as kv
+    n = data.shape[0]
+    geo = (oe, 0.0, 1.0, -1.0)
+    dy, dx, safe, slope, tgt, vpe = kv._xdraw_fields(data, *vp, *geo)
+
+    def fields():
+        return xc.xdraw_fields_cuda(data, *vp, oe, 1.0, -1.0)
+
+    def epilogue():
+        return xc.xdraw_epilogue_cuda(m, data, *vp, *geo)
+
+    def epilogue_plain():
+        return kv._xdraw_epilogue(m, data, dy, dx, safe, tgt, vpe, 0.0)
+
+    if not same_bits(fields(), slope):
+        raise SmokeFailure(f"X3 at {n}^2 differs from _xdraw_fields")
+    del slope
+    if not same_bits(epilogue(), epilogue_plain()):
+        raise SmokeFailure(f"X4 at {n}^2 differs from _xdraw_epilogue")
+    if not timed:
+        return {}
+    return {"xdraw_fields": paired_ms(
+                fields, lambda: kv._xdraw_fields(data, *vp, *geo), 20, 3),
+            "xdraw_epilogue": paired_ms(epilogue, epilogue_plain, 20, 3)}
+
+
 def xdraw_path(dev, card):
-    """Phase 25: A11, the XDraw viewshed and its scan kernel X1.  Returns
-    (X1 launches in the N^2 call, X1 ms, twin ms, (bytes, operations) of
-    the function, the first port's ms in turns, X1's chain bound ms)."""
+    """Phase 25: A11, the XDraw viewshed, its scan kernel X1 and its cell
+    kernels X3 and X4.  Returns (X1 launches in the N^2 call, X1 ms, twin
+    ms, (bytes, operations) of the function, the first port's ms in turns,
+    X1's chain bound ms, {X3's and X4's name: (launches in the N^2 call,
+    (kernel ms, torch passes' ms), (bytes, operations))})."""
     import torch
     import xrspatial_torch as xt
     from xrspatial_torch.kernels import cuda_xdraw, viewshed as kv
@@ -3868,6 +3926,12 @@ def xdraw_path(dev, card):
               f"of {plan.chunk} steps, {plan.blocks} blocks of "
               f"{plan.threads} threads); the twin {twin_ms:.1f} ms (one "
               f"call, host clock)")
+        cells_ms = xdraw_cells(agg.data, vp, oe, got, n == N)
+        print(f"  X3 equal to _xdraw_fields' slope and X4 to "
+              f"_xdraw_epilogue's angles bit for bit at {n}^2" + "".join(
+                  f"; {k} {k_ms:.3f} ms, its torch passes {p_ms:.3f} ms in "
+                  f"turns" for k, (k_ms, p_ms) in cells_ms.items())
+              + f", {card}")
         del got
 
         def refuse(*a):
@@ -3878,25 +3942,26 @@ def xdraw_path(dev, card):
             reset_launches()
             out = xt.viewshed(agg, x=x, y=y, observer_elev=oe)
             torch.cuda.synchronize()
-            launched = {k: v for k, v in read_launches().items()
-                        if v and k != "xdraw_scan"}
+            launched = {k: v for k, v in read_launches().items() if v}
             x1 = cuda_xdraw.XDRAW_LAUNCHES
         finally:
             kv.xdraw_scan_twin = twin
         vis = out.data
-        if x1 != 1 or launched or vis.dtype != torch.float32 \
+        if launched != {"xdraw_scan": 1, "xdraw_fields": 1,
+                        "xdraw_epilogue": 1} or vis.dtype != torch.float32 \
                 or vis.device.type != "cuda" or tuple(vis.shape) != (n, n):
-            raise SmokeFailure(f"viewshed at {n}^2: {x1} X1 launches, others "
-                               f"{launched}, {vis.dtype} {tuple(vis.shape)} "
-                               f"on {vis.device}")
+            raise SmokeFailure(f"viewshed at {n}^2: launches {launched} (one "
+                               f"each of X1, X3 and X4 expected), "
+                               f"{vis.dtype} {tuple(vis.shape)} on "
+                               f"{vis.device}")
         if float(vis[vp]) != 180.0 or not bool(
                 ((vis == -1) | ((vis >= 0) & (vis <= 180))).all()):
             raise SmokeFailure(f"viewshed at {n}^2: values out of range")
         share = float((vis > -1).double().mean())
         print(f"  viewshed at {n}^2 (x={x}, y={y}, observer_elev={oe}): one "
-              f"X1 launch on the banded route, no twin call, no other "
-              f"kernel; float32 on the card, {share:.4f} of the cells "
-              f"visible")
+              f"launch each of X1 on the banded route, X3 and X4, no twin "
+              f"call, no other kernel; float32 on the card, {share:.4f} of "
+              f"the cells visible")
         if n == XDRAW_N:
             cpu = xt.DataArray(agg.data.cpu(), dims=("y", "x"),
                                coords=agg.coords)
@@ -3951,6 +4016,7 @@ def xdraw_path(dev, card):
         # the longest half-plane's walk
         steps = max(n - 1 - vp[1], vp[1], n - 1 - vp[0], vp[0])
         timings[n] = {"viewshed_ms": t_call[1], "x1_ms": x1_ms,
+                      "cells_ms": cells_ms,
                       "x1_legs_ms": legs["banded"],
                       "first_port_ms": first_ms,
                       "first_port_legs_ms": legs["simple"],
@@ -3990,8 +4056,14 @@ def xdraw_path(dev, card):
     # the field written once
     t = timings[N]
     work = (4 * (t["cone_reads"] + N * N), XDRAW_OPS * t["cone_reads"])
+    # X3 reads the DEM and writes the slope; X4 reads the DEM and X1's
+    # field (its neighbours from L1 and L2) and writes the angles
+    cells = {"xdraw_fields": (1, t["cells_ms"]["xdraw_fields"],
+                              (8 * N * N, XFIELDS_OPS * N * N)),
+             "xdraw_epilogue": (1, t["cells_ms"]["xdraw_epilogue"],
+                                (12 * N * N, XEPILOGUE_OPS * N * N))}
     return (t["x1_launches"], t["x1_ms"], t["twin_ms"], work,
-            t["first_port_ms"], t["chain_bound_ms"])
+            t["first_port_ms"], t["chain_bound_ms"], cells)
 
 
 # -- phase 26: A9 (synthesis, with the bump kernel X2) and A12 (host modules) -
@@ -4937,8 +5009,9 @@ def check_strip_route(dev, card):
 
 def mesh_viewshed(n, mesh, dev, card, rows, ref=None):
     """viewshed(exact=False) at n^2 on `mesh` against the unsharded call,
-    bit for bit; only strip launches inside the mesh call.  Returns (the
-    unsharded result, the mesh call's strip launches)."""
+    bit for bit; only strip launches and one launch each of X3 and X4 a
+    block inside the mesh call.  Returns (the unsharded result, the mesh
+    call's strip launches)."""
     import torch
     import xrspatial_torch as xt
     x, y, oe = XDRAW_VIEW
@@ -4952,9 +5025,12 @@ def mesh_viewshed(n, mesh, dev, card, rows, ref=None):
     out = xt.viewshed(split, **kw)
     torch.cuda.synchronize()
     launched = {k: v for k, v in read_launches().items() if v}
-    if set(launched) != {"xdraw_strip"}:
+    if set(launched) != {"xdraw_strip", "xdraw_fields", "xdraw_epilogue"} \
+            or launched["xdraw_fields"] != mesh.size \
+            or launched["xdraw_epilogue"] != mesh.size:
         raise SmokeFailure(f"mesh viewshed at {n}^2: launches {launched} (no "
-                           f"X1 single-card launch allowed)")
+                           f"X1 single-card launch allowed, one X3 and one "
+                           f"X4 a block)")
     mesh_checked(f"viewshed {n}", out.data, ref, mesh)
     del out
     torch.cuda.empty_cache()
@@ -4964,13 +5040,14 @@ def mesh_viewshed(n, mesh, dev, card, rows, ref=None):
           f"warm, peak {gib:.2f} GiB"
           + (f"; unsharded {one_ms:.3f} ms, peak {one_gib:.2f} GiB"
              if one_ms is not None else "")
-          + f"; {launched['xdraw_strip']} strip launches, 0 X1, equal bit "
-          f"for bit; {card}")
+          + f"; {launched['xdraw_strip']} strip launches, 0 X1, "
+          f"{mesh.size} each of X3 and X4, equal bit for bit; {card}")
     rows[label] = {"op": "viewshed exact=False", "shape": [n, n],
                    "mesh": mesh_name(mesh), "ms": ms, "peak_gib": gib,
                    "unsharded_ms": one_ms, "unsharded_peak_gib": one_gib,
                    "strip_launches": launched["xdraw_strip"],
-                   "x1_launches": 0, "card": card}
+                   "x1_launches": 0,
+                   "cell_launches": launched["xdraw_fields"], "card": card}
     del split, whole
     torch.cuda.empty_cache()
     return ref, launched["xdraw_strip"]
@@ -5667,7 +5744,11 @@ def main() -> int:
     # -- A7 and A11: zonal (torch ops), the XDraw viewshed (X1) -----------------
     zonal_path(dev, card)
     (launches["xdraw_scan"], x1_ms, x1_twin_ms, x1_work,
-     first_port_ms["xdraw_scan"], x1_chain_ms) = xdraw_path(dev, card)
+     first_port_ms["xdraw_scan"], x1_chain_ms, x_cells) = xdraw_path(dev,
+                                                                     card)
+    for k, (n_k, ms_k, _) in x_cells.items():
+        launches[k], ms[k] = n_k, ms_k
+        max_err[k] = 0.0                   # equal to the torch passes' bits
     ms["xdraw_scan"] = (x1_ms, x1_twin_ms)
     max_err["xdraw_scan"] = 0.0            # equal to the twin bit for bit
 
@@ -5692,6 +5773,7 @@ def main() -> int:
         len(offsets), len(kernel_offsets(halo_footprints()["annulus_40_38"])),
         screen_counts)
     work["xdraw_scan"] = x1_work
+    work.update((k, w_k) for k, (_, _, w_k) in x_cells.items())
     work["bump_scan"] = (*x2_work, F64_FLOP_S)
     work["xdraw_strip"] = strip_work
     roof = probes["roof_gb_s"] * 1e9
@@ -5755,6 +5837,13 @@ def main() -> int:
         "xdraw_scan": (
         "xrspatial_torch/csrc/xdraw.cu",
         "xrspatial_tpu/kernels/viewshed.py:771"),
+        # no Pallas kernel: XLA's elementwise passes around the scan
+        "xdraw_fields": (
+        "xrspatial_torch/csrc/xdraw_cells.cu",
+        "xrspatial_tpu/kernels/viewshed.py:836"),
+        "xdraw_epilogue": (
+        "xrspatial_torch/csrc/xdraw_cells.cu",
+        "xrspatial_tpu/kernels/viewshed.py:926"),
         # no Pallas kernel: the JAX package's lax.scan over the bumps
         "bump_scan": (
         "xrspatial_torch/csrc/bump.cu",
@@ -5821,6 +5910,16 @@ def main() -> int:
                       "tiles staged by cp.async, coalesced row writes, one "
                       "cooperative launch (plan in the a11_xdraw line); "
                       "first_port_ms with its transpose",
+        "xdraw_fields": "X3: 4 cells of a row a thread, each cell's "
+                        "geometry in registers from its (row, col), 16-byte "
+                        "loads and streaming stores; plain_ms the torch "
+                        "passes of _xdraw_fields, in turns",
+        "xdraw_epilogue": "X4: 4 cells of a row a thread, X1's field read "
+                          "as two 6-cell row windows (own row and one step "
+                          "toward the viewpoint) from L1 and L2, the angle "
+                          "skipped on hidden cells, 16-byte streaming "
+                          "stores; plain_ms the torch passes of "
+                          "_xdraw_epilogue, in turns",
         "xdraw_strip": "X1's strip route on a 2x2 mesh of one card: "
                        "strips of lanes over the flattened mesh (east and "
                        "west on rows, south and north on columns), one "

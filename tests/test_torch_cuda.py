@@ -2083,6 +2083,154 @@ def test_xdraw_wrapper_refuses_cpu_tensors():
     assert cuda_xdraw.XDRAW_LAUNCHES == before
 
 
+# XDraw's fields and epilogue kernels (csrc/xdraw_cells.cu) against the
+# torch-op route on the card: ragged and 16-byte rows, a row and a column
+XDRAW_CELL_SHAPES = ((97, 131), (256, 256), (1000, 777), (4096, 4096),
+                     (1, 3001), (2999, 1))
+# (observer_elev, target_elev, ew_res, ns_res): metres north up, odd
+# spacings, and spacings whose distances fall below the 1e-12 floor
+XDRAW_CELL_GEOMETRY = ((100.0, 0.0, 10.0, -10.0), (3.0, 1.5, 0.37, -1.9),
+                       (5.0, 0.0, 1e-20, -1e-20))
+
+
+def xdraw_cell_dem(shape, vp, dev, seed):
+    """A DEM with a mesa and NaN cells, one of them beside `vp`."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    data = (rng.random(shape) * 50).astype(np.float32)
+    data[h // 3:h // 3 + max(1, h // 10), w // 2:w // 2 + max(1, w // 10)] \
+        += 150.0
+    data[rng.integers(0, h, 5), rng.integers(0, w, 5)] = np.nan
+    r, c = vp
+    if h > 1:
+        data[r + 1 if r + 1 < h else r - 1, c] = np.nan
+    else:
+        data[r, c + 1 if c + 1 < w else c - 1] = np.nan
+    return torch.from_numpy(data).to(dev)
+
+
+def int_bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", XDRAW_CELL_SHAPES)
+def test_xdraw_cell_kernels_equal_the_torch_passes(cuda, shape):
+    """On the card the fields kernel gives ``_xdraw_fields``' slope and
+    the epilogue kernel ``_xdraw_epilogue``'s angles, every 32-bit word
+    equal (NaN payloads included), with the viewpoint at the centre, on
+    an edge and at a corner, under each geometry; one launch each a call,
+    and ``viewshed_grid_los`` on the card is the two kernels around X1."""
+    from xrspatial_torch.kernels import cuda_xdraw, cuda_xdraw_cells as xc
+    from xrspatial_torch.kernels import viewshed as kv
+    h, w = shape
+    seen = 0
+    for k, vp in enumerate(((h // 2, w // 2), (0, w // 3),
+                            (h - 1, w - 1))):
+        data = xdraw_cell_dem(shape, vp, cuda, seed=h + w + k)
+        for oe, te, ew, ns in XDRAW_CELL_GEOMETRY:
+            dy, dx, safe, slope, tgt, vpe = kv._xdraw_fields(
+                data, *vp, oe, te, ew, ns)
+            f0, e0 = xc.FIELDS_LAUNCHES, xc.EPILOGUE_LAUNCHES
+            got = xc.xdraw_fields_cuda(data, *vp, oe, ew, ns)
+            assert xc.FIELDS_LAUNCHES == f0 + 1
+            assert torch.equal(int_bits(got), int_bits(slope)), (shape, vp,
+                                                                 ew)
+            m = cuda_xdraw.xdraw_scan_cuda(slope, *vp)
+            ref = kv._xdraw_epilogue(m, data, dy, dx, safe, tgt, vpe, te)
+            angles = xc.xdraw_epilogue_cuda(m, data, *vp, oe, te, ew, ns)
+            assert xc.EPILOGUE_LAUNCHES == e0 + 1
+            bad = int_bits(angles) != int_bits(ref)
+            assert not bool(bad.any()), (shape, vp, ew, int(bad.sum()),
+                                         angles[bad][:4], ref[bad][:4])
+            whole = kv.viewshed_grid_los(data, *vp, oe, te, ew, ns)
+            assert torch.equal(int_bits(whole), int_bits(ref))
+            seen += int(((ref > -1) & (ref < 180)).sum())
+    assert seen > 0
+
+
+@pytest.mark.gpu
+def test_xdraw_cell_kernels_take_rows_with_a_stride(cuda):
+    """A raster cut out of a wider one (rows not contiguous with each
+    other, not 16-byte aligned) gives the contiguous copy's bits."""
+    from xrspatial_torch.kernels import cuda_xdraw, cuda_xdraw_cells as xc
+    from xrspatial_torch.kernels import viewshed as kv
+    big = xdraw_cell_dem((300, 413), (150, 200), cuda, seed=3)
+    view = big[7:290, 5:401]
+    vp = (140, 190)
+    assert not view.is_contiguous()
+    slope = kv._xdraw_fields(view.contiguous(), *vp, 20.0, 0.0, 2.0,
+                             -2.0)[3]
+    assert torch.equal(int_bits(xc.xdraw_fields_cuda(view, *vp, 20.0, 2.0,
+                                                     -2.0)),
+                       int_bits(slope))
+    m = cuda_xdraw.xdraw_scan_cuda(slope, *vp)
+    assert torch.equal(
+        int_bits(xc.xdraw_epilogue_cuda(m, view, *vp, 20.0, 0.0, 2.0, -2.0)),
+        int_bits(xc.xdraw_epilogue_cuda(m, view.contiguous(), *vp, 20.0,
+                                        0.0, 2.0, -2.0)))
+
+
+@pytest.mark.gpu
+def test_viewshed_on_the_card_takes_the_cell_kernels(cuda):
+    """``viewshed(exact=False)`` on the card: one launch each of the fields
+    and epilogue kernels and of X1, one count on ``xdraw.cells_kernel``,
+    none on ``xdraw.cells_torchops``, no host wait on XDraw's path
+    (``host.syncs``), the ``dispatch.viewshed_*`` spans, and the torch-op
+    route's angles on the card bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xrspatial_torch import tracing
+    from xrspatial_torch.kernels import cuda_xdraw, cuda_xdraw_cells as xc
+    from xrspatial_torch.kernels import viewshed as kv
+    data = xdraw_cell_dem((700, 900), (300, 410), cuda, seed=9)
+    agg = xt.DataArray(data, dims=("y", "x"),
+                       coords={"y": (699 - np.arange(700)) * 10.0,
+                               "x": np.arange(900) * 10.0})
+    before = (xc.FIELDS_LAUNCHES, xc.EPILOGUE_LAUNCHES,
+              cuda_xdraw.XDRAW_LAUNCHES)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = xt.viewshed(agg, x=4100.0, y=3990.0, observer_elev=60.0,
+                          exact=False)
+    counters, names = tracing.counters(), [s.name for s in tracing.spans()]
+    tracing.clear()
+    assert (xc.FIELDS_LAUNCHES, xc.EPILOGUE_LAUNCHES,
+            cuda_xdraw.XDRAW_LAUNCHES) == tuple(b + 1 for b in before)
+    assert counters == {"xdraw.cells_kernel": 1}
+    assert "dispatch.viewshed_fields" in names
+    assert "dispatch.viewshed_epilogue" in names
+    assert not [n for n in names if n.startswith("torchops.")]
+    vp = (300, 410)
+    dy, dx, safe, slope, tgt, vpe = kv._xdraw_fields(data, *vp, 60.0, 0.0,
+                                                      10.0, -10.0)
+    ref = kv._xdraw_epilogue(cuda_xdraw.xdraw_scan_cuda(slope, *vp), data,
+                             dy, dx, safe, tgt, vpe, 0.0)
+    assert got.data.device.type == "cuda"
+    assert torch.equal(int_bits(got.data), int_bits(ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,vp", [((258, 302), (129, 151)),
+                                      ((255, 256), (0, 255)),
+                                      ((301, 97), (300, 0))])
+def test_mesh_viewshed_takes_the_cell_kernels(cuda, shape, vp):
+    """The mesh route on a 2 x 2 mesh of one card: the fields and epilogue
+    kernels once a block (the epilogue on the field's one-cell halo),
+    equal cell for cell to the one-card route on the gathered raster."""
+    from xrspatial_torch.kernels import cuda_xdraw_cells as xc
+    from xrspatial_torch.kernels import viewshed as kv
+    from xrspatial_torch.parallel import distribute, make_raster_mesh
+    mesh = make_raster_mesh(2, 2, devices=[cuda] * 4)
+    data = xdraw_cell_dem(shape, vp, cuda, seed=shape[0])
+    f0, e0 = xc.FIELDS_LAUNCHES, xc.EPILOGUE_LAUNCHES
+    got = kv.viewshed_grid_los_mesh(distribute(data, mesh), *vp, 40.0, 1.0,
+                                    10.0, -10.0)
+    assert (xc.FIELDS_LAUNCHES, xc.EPILOGUE_LAUNCHES) == (f0 + 4, e0 + 4)
+    ref = kv.viewshed_grid_los(data, *vp, 40.0, 1.0, 10.0, -10.0)
+    assert torch.equal(int_bits(got.gather()), int_bits(ref))
+
+
 def zonal_rasters(dev):
     rng = np.random.default_rng(31)
     zones = rng.integers(0, 9, (150, 170)).astype(np.int32)

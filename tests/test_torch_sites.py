@@ -290,3 +290,48 @@ def test_the_control_fails_and_the_program_passes(tiny_root):
         assert run.judge(numbers, lim)[0], (seed, numbers)
     for seed, numbers in r["control"].items():
         assert not run.judge(numbers, lim)[0], (seed, numbers)
+
+
+@pytest.mark.parametrize("counters,want", [
+    ({"xdraw.cells_kernel": 2}, 1.0),
+    ({"xdraw.cells_kernel": 1, "xdraw.cells_torchops": 3}, 0.25),
+    ({"xdraw.cells_torchops": 2, "host.syncs": 22}, 0.0),
+    ({"host.syncs": 22}, None),
+])
+def test_the_kernel_share_reads_the_ports_counters(bench, monkeypatch,
+                                                   counters, want):
+    """``xdraw.kernel_share``: the viewsheds whose fields and epilogue ran
+    as the card's kernels over all counted, silent where the port counts
+    neither (a port without the counters) or where there is no trace."""
+    import types
+
+    from gpubench import portspans
+    fake = types.SimpleNamespace(counters=lambda: counters)
+    monkeypatch.setattr(portspans, "tracing", lambda: fake)
+    ctx = types.SimpleNamespace(trace=types.SimpleNamespace(jobs=2))
+    reader = bench.reader("xdraw.kernel_share")
+    assert reader.read(ctx) == want
+    assert reader.read(types.SimpleNamespace(trace=None)) is None
+    monkeypatch.setattr(portspans, "tracing", lambda: None)
+    assert reader.read(ctx) is None
+
+
+def test_the_sites_viewshed_on_the_cpu_counts_the_torch_passes(bench):
+    """The port's real counters, traced on the CPU: the torch-op route,
+    so the share reads 0."""
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from xrspatial_torch import tracing
+    data = dem_of(geo(bench, (40, 56)), SEED)[0]
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        xt.viewshed(data, x=float(data["x"].data[20]),
+                    y=float(data["y"].data[15]), observer_elev=100.0,
+                    exact=False)
+    ctx = types.SimpleNamespace(trace=types.SimpleNamespace(jobs=1))
+    try:
+        assert bench.reader("xdraw.kernel_share").read(ctx) == 0.0
+    finally:
+        tracing.clear()

@@ -355,12 +355,14 @@ def test_without_a_profiler_the_sites_job_records_nothing():
     assert tracing.counters() == {}
 
 
-# where the host waits on the card: XDraw's fields copy the viewpoint's
-# row and column, the observer's height, the two spacings, the distance's
-# floor and the target's height to the card (``_f32``) and read the
-# floor back (``.item()``); its epilogue copies the target's height
-# again; proximity copies its two coordinate axes.  The CPU's twin of
-# X1 stands in for the kernel and waits for nothing.
+# where the host waits on the card: XDraw's torch-op route (the CPU's)
+# copies the viewpoint's row and column, the observer's height, the two
+# spacings, the distance's floor and the target's height to the card
+# (``_f32``) and reads the floor back (``.item()``) in its fields, and
+# copies the target's height again in its epilogue (the card's kernel
+# route passes them all as arguments); proximity copies its two
+# coordinate axes.  The CPU's twin of X1 stands in for the kernel and
+# waits for nothing.
 SYNCS = {"viewshed": 7 + 1 + 1, "binary": 0, "proximity": 2}
 
 
@@ -378,8 +380,9 @@ def test_host_syncs_count_the_paths_transfer_sites():
         assert tracing.counters().get("host.syncs", 0) == SYNCS[op], op
     tracing.clear()
     traced(sites_job, data)
-    assert tracing.counters() == {"host.syncs": sum(SYNCS.values())} == \
-        {"host.syncs": 11}
+    assert tracing.counters() == {"host.syncs": sum(SYNCS.values()),
+                                  "xdraw.cells_torchops": 1} == \
+        {"host.syncs": 11, "xdraw.cells_torchops": 1}
 
 
 def test_the_sites_outputs_are_the_same_bits_under_the_profiler():

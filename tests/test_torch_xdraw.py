@@ -217,3 +217,45 @@ def test_xdraw_agrees_with_the_exact_predicate():
     both = vis_e & vis_l
     np.testing.assert_allclose(los.numpy()[both], exact.numpy()[both],
                                rtol=1e-4, atol=1e-3)
+
+
+# -- the route on the CPU: the torch passes ----------------------------------
+
+# observer_elev, target_elev, ew_res, ns_res (north up: negative)
+CELL_GEOMETRY = (160.0, 1.5, 10.0, -7.5)
+
+
+def torch_passes(data, vp):
+    """The torch-op route's angles, called pass by pass: the plain
+    versions of the card's kernels around the scans' twin."""
+    oe, te, ew, ns = CELL_GEOMETRY
+    dy, dx, safe, slope, tgt, vpe = TV._xdraw_fields(data, *vp, oe, te, ew,
+                                                      ns)
+    m = TV.xdraw_scan_twin(slope, *vp)
+    return TV._xdraw_epilogue(m, data, dy, dx, safe, tgt, vpe, te)
+
+
+def test_viewshed_on_the_cpu_takes_the_torch_passes():
+    """On a CPU tensor ``viewshed(exact=False)`` runs the torch-op route:
+    one count on ``xdraw.cells_torchops``, none on ``xdraw.cells_kernel``,
+    and the bits of the torch passes called directly."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xrspatial_torch import tracing
+    oe, te, ew, ns = CELL_GEOMETRY
+    h, w = 97, 131
+    data, vp = torch.from_numpy(terrain((h, w), h + w)), (48, 65)
+    data[vp[0] + 1, vp[1]] = np.nan
+    agg = xt.DataArray(data, dims=("y", "x"),
+                       coords={"y": (h - 1 - np.arange(h)) * -ns,
+                               "x": np.arange(w) * ew})
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = xt.viewshed(agg, x=vp[1] * ew, y=(h - 1 - vp[0]) * -ns,
+                          observer_elev=oe, target_elev=te, exact=False)
+    counters = tracing.counters()
+    tracing.clear()
+    assert counters.get("xdraw.cells_torchops") == 1
+    assert "xdraw.cells_kernel" not in counters
+    assert got.data.dtype == torch.float32
+    assert same_bits(got.data, torch_passes(data, vp))

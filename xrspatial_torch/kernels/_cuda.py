@@ -214,6 +214,13 @@ def _load() -> ctypes.CDLL:
     lib.xdraw_strip_launch.argtypes = side + side + [
         p, p, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, p]
     lib.xdraw_strip_launch.restype = i32
+    lib.xdraw_fields_launch.argtypes = [p, i64, p, i32, i32, i32, i32, i32,
+                                        i32, p, f32, f32, f32, f32, p]
+    lib.xdraw_fields_launch.restype = i32
+    lib.xdraw_epilogue_launch.argtypes = [p, i64, i32, i32, i32, p, i64, p,
+                                          i32, i32, i32, i32, i32, i32, p,
+                                          f32, f32, f32, f32, f32, f32, p]
+    lib.xdraw_epilogue_launch.restype = i32
     lib.bump_scan_launch.argtypes = [p, p, p, i64, i32, i32, i32, p, p]
     lib.bump_scan_launch.restype = i32
     lib.bump_rounds_grid.argtypes = [i32]

@@ -17,13 +17,16 @@ Three parts:
   ``_pairwise_visibility`` / ``viewshed_grid`` (O(N^2), the reference the
   bucket path in ``viewshed_exact.py`` is held against) and the vertical-
   angle epilogue;
-- the XDraw approximation (``viewshed_grid_los``), float32: the slope
-  fields and the epilogue as torch ops, the four half-plane scans in one
-  launch of ``csrc/xdraw.cu`` on the card (bands of lanes across the SMs,
-  planned by ``xdraw_plan``) and in the twin ``xdraw_scan_twin`` on the
-  CPU; on a mesh (``viewshed_grid_los_mesh``, the JAX package's banded
-  distributed scan) the scans run on strips of lanes over the flattened
-  mesh, a window of L steps a launch of the strip route of
+- the XDraw approximation (``viewshed_grid_los``), float32: on the card
+  the slope fields and the epilogue one launch each of
+  ``csrc/xdraw_cells.cu`` and the four half-plane scans one launch of
+  ``csrc/xdraw.cu`` (bands of lanes across the SMs, planned by
+  ``xdraw_plan``); on the CPU the fields and the epilogue as torch ops
+  (``_xdraw_fields``, ``_xdraw_epilogue``: the kernels' plain versions)
+  and the scans in the twin ``xdraw_scan_twin``; on a mesh
+  (``viewshed_grid_los_mesh``, the JAX package's banded distributed
+  scan) the scans run on strips of lanes over the flattened mesh, a
+  window of L steps a launch of the strip route of
   ``csrc/xdraw.cu`` on the card (``xdraw_strip_twin`` on the CPU), with
   the halo carries exchanged between windows.
 """
@@ -886,10 +889,27 @@ def _xdraw_angles(inward_max, data, dy, dx, safe_d, slope_tgt, vp_elev,
 def viewshed_grid_los(data, vp_row: int, vp_col: int, observer_elev: float,
                       target_elev: float, ew_res: float, ns_res: float):
     """XDraw viewshed (vertical angles, INVISIBLE=-1, viewpoint=180),
-    float32 on `data`'s device: the four octant scans in one launch of
-    ``xdraw_scan_kernel`` on the card (the twin on the CPU), then the
-    epilogue as torch ops."""
+    float32 on `data`'s device.  On the card: the slope field, the four
+    octant scans (X1) and the epilogue, one launch each
+    (``csrc/xdraw_cells.cu``, ``csrc/xdraw.cu``), the host waiting for
+    nothing; on the CPU the fields and the epilogue as torch ops around
+    the scans' twin.  Counted on ``xdraw.cells_kernel`` or
+    ``xdraw.cells_torchops``."""
     data = torch.as_tensor(data).to(torch.float32)
+    if data.device.type == "cuda":
+        from .cuda_xdraw_cells import xdraw_epilogue_cuda, xdraw_fields_cuda
+        count("xdraw.cells_kernel")
+        data = data.contiguous()
+        with span("dispatch.viewshed_fields"):
+            slope_self = xdraw_fields_cuda(data, vp_row, vp_col,
+                                           observer_elev, ew_res, ns_res)
+        m = xdraw_max_slope(slope_self, vp_row, vp_col)
+        del slope_self
+        with span("dispatch.viewshed_epilogue"):
+            return xdraw_epilogue_cuda(m, data, vp_row, vp_col,
+                                       observer_elev, target_elev, ew_res,
+                                       ns_res)
+    count("xdraw.cells_torchops")
     dy, dx, safe_d, slope_self, slope_tgt, vp_elev = _xdraw_fields(
         data, vp_row, vp_col, observer_elev, target_elev, ew_res, ns_res)
     m = xdraw_max_slope(slope_self, vp_row, vp_col)
@@ -1206,8 +1226,12 @@ def viewshed_grid_los_mesh(data, vp_row: int, vp_col: int,
     as a raster of its tiles on the same mesh: the fields per block at the
     block's global origin, the scans by ``xdraw_mesh_max_slope``, the
     epilogue per block on a 1-cell halo of the combined field (-inf beyond
-    the raster, as the unsharded shifts fill).  Equal to
-    ``viewshed_grid_los`` of the gathered raster cell for cell."""
+    the raster, as the unsharded shifts fill).  Where every block is on a
+    card the fields and the epilogue are ``viewshed_grid_los``'s kernels,
+    one launch each a block (the viewpoint's terrain copied to each card),
+    else its torch passes; one count a block on ``xdraw.cells_kernel`` or
+    ``xdraw.cells_torchops``.  Equal to ``viewshed_grid_los`` of the
+    gathered raster cell for cell."""
     from ..parallel.halo import HaloSpec, halo_extend, tiles, zip_blocks
     data = tiles(data.map_blocks(lambda b: b.to(torch.float32)))
     i = next(i for i in range(data.mesh.shape["y"])
@@ -1215,16 +1239,22 @@ def viewshed_grid_los_mesh(data, vp_row: int, vp_col: int,
     j = next(j for j in range(data.mesh.shape["x"])
              if data.extent(1, j)[0] <= vp_col < data.extent(1, j)[1])
     blk = data.blocks[i][j]
-    vp_elev = (blk[vp_row - data.extent(0, i)[0], vp_col - data.extent(1, j)[0]]
-               + _f32(observer_elev, blk.device))
+    vp_cell = blk[vp_row - data.extent(0, i)[0],
+                  vp_col - data.extent(1, j)[0]]
 
     def origin(i, j):
         return data.extent(0, i)[0], data.extent(1, j)[0]
+
+    if all(b.device.type == "cuda" for row in data.blocks for b in row):
+        return _los_mesh_cuda(data, vp_row, vp_col, observer_elev,
+                              target_elev, ew_res, ns_res, origin, vp_cell)
+    vp_elev = vp_cell + _f32(observer_elev, blk.device)
 
     def fields(i, j, b):
         return _xdraw_fields(b, vp_row, vp_col, observer_elev, target_elev,
                              ew_res, ns_res, origin(i, j),
                              vp_elev.to(b.device))
+    count("xdraw.cells_torchops", data.mesh.size)
     slope = zip_blocks(lambda i, j, b: fields(i, j, b)[3], data)
     m = xdraw_mesh_max_slope(slope, vp_row, vp_col)
     del slope
@@ -1244,3 +1274,28 @@ def viewshed_grid_los_mesh(data, vp_row: int, vp_col: int,
         return _xdraw_angles(inward, b, dy, dx, safe_d, slope_tgt, vpe,
                              target_elev)
     return zip_blocks(epilogue, data)
+
+
+def _los_mesh_cuda(data, vp_row, vp_col, observer_elev, target_elev, ew_res,
+                   ns_res, origin, vp_cell):
+    """``viewshed_grid_los_mesh`` where every block is on a card: each
+    block's fields and epilogue one launch each of the kernels of
+    ``csrc/xdraw_cells.cu`` at the block's origin, the epilogue reading the
+    combined field with its one-cell halo in place."""
+    from ..parallel.halo import HaloSpec, halo_extend, zip_blocks
+    from .cuda_xdraw_cells import xdraw_epilogue_cuda, xdraw_fields_cuda
+    count("xdraw.cells_kernel", data.mesh.size)
+    # the viewpoint's terrain goes to another card by a queued copy
+    with span("dispatch.viewshed_fields"):
+        slope = zip_blocks(lambda i, j, b: xdraw_fields_cuda(
+            b, vp_row, vp_col, observer_elev, ew_res, ns_res, origin(i, j),
+            vp_cell.to(b.device)), data)
+    m = xdraw_mesh_max_slope(slope, vp_row, vp_col)
+    del slope
+    ext = halo_extend(m, HaloSpec(1, 1), fill=float("-inf"))
+    del m
+    with span("dispatch.viewshed_epilogue"):
+        return zip_blocks(lambda i, j, b: xdraw_epilogue_cuda(
+            ext[i][j][:b.shape[0] + 2, :b.shape[1] + 2], b, vp_row, vp_col,
+            observer_elev, target_elev, ew_res, ns_res, origin(i, j),
+            vp_cell.to(b.device), halo=1), data)

@@ -28,7 +28,8 @@ The spans, at the boundaries of the port's layers:
 - ``torchops.<pass>``: the host issuing an op's passes of torch ops
   (no kernel of the port's own): ``viewshed_fields`` and
   ``viewshed_epilogue`` (XDraw's slope fields, and its inward max,
-  visibility and angles), ``binary`` (the classes), ``proximity_mask``
+  visibility and angles, on its torch-op route: a raster off the card),
+  ``binary`` (the classes), ``proximity_mask``
   (the target mask and the rounds' seed state) and
   ``proximity_epilogue`` (the state's decode, the distance and the
   result's mask);
@@ -36,7 +37,10 @@ The spans, at the boundaries of the port's layers:
   last launch's return (plans, outputs, the launch; on a mesh the loop
   over blocks, each block's own dispatch span inside);
   ``dispatch.xdraw``: XDraw's plan and the launch of its scans (the twin
-  on the CPU); ``dispatch.jfa``: the jump flood's loop of rounds;
+  on the CPU); ``dispatch.viewshed_fields`` and
+  ``dispatch.viewshed_epilogue``: the launches of XDraw's fields and
+  epilogue kernels on the card (one a raster, or one a block of a mesh);
+  ``dispatch.jfa``: the jump flood's loop of rounds;
 - ``mesh.halo_extend``: issuing one halo exchange's fills and copies
   (an in-place stencil's: its bands' strips);
 - ``viewshed_exact.<phase>``: the exact viewshed's phases (the exact
@@ -47,11 +51,16 @@ The counters: ``mesh.halo_ops`` (the fills and copies a halo exchange, an
 in-place stencil's bands or a strip layout issues), ``mesh.halo_bytes``
 (the bytes they write), ``mesh.inplace_blocks`` and
 ``mesh.extended_blocks`` (the blocks of each mesh stencil, by the route it
-took), and ``host.syncs``: one for each call at which the host waits on
-the card on the paths of XDraw's viewshed and of the proximity family (a
-blocking copy from the host, ``kernels/viewshed.py::_f32`` and ``.to``
-of a host array; a read back, ``.item()`` and ``.cpu()``), counted on any
-device, so a run on the CPU counts what one on the card waits for.
+took), ``xdraw.cells_kernel`` and ``xdraw.cells_torchops`` (one a
+raster, or a block of a mesh, whose XDraw fields and epilogue ran as the
+card's kernels or as torch ops), and ``host.syncs``: one for each call at
+which the host waits on the card on the paths of XDraw's viewshed and of
+the proximity family (a blocking copy from the host,
+``kernels/viewshed.py::_f32`` and ``.to`` of a host array; a read back,
+``.item()`` and ``.cpu()``), counted on any device, so a run on the CPU
+counts what the same route waits for on the card.  XDraw's kernel route
+on the card passes its scalars as arguments and waits for nothing; its
+torch-op route, which the CPU runs, counts its nine waits.
 
 Read with ``spans()`` and ``counters()``; ``clear()`` empties both.  The
 profiler's Chrome trace (``export_chrome_trace``) is the export.

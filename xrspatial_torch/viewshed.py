@@ -12,9 +12,10 @@ up, 90 = level, 180 = the viewpoint itself), -1 for invisible cells,
 float64 on the raster's device.
 
 Larger rasters, and ``exact=False``, take the XDraw octant-scan
-approximation (``kernels/viewshed.py::viewshed_grid_los``, float32): its
-four half-plane scans run in one launch of the CUDA kernel
-``csrc/xdraw.cu`` on the card, in the torch twin on the CPU.
+approximation (``kernels/viewshed.py::viewshed_grid_los``, float32): on
+the card its slope fields, its four half-plane scans and its epilogue are
+one launch each of the CUDA kernels of ``csrc/xdraw_cells.cu`` and
+``csrc/xdraw.cu``; on the CPU torch ops and the scans' torch twin.
 
 On a raster split over a mesh the exact predicate runs on one device,
 with the JAX package's warning (the raster is gathered to its first
